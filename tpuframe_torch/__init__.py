@@ -1,0 +1,13 @@
+"""tpuframe_torch: the PyTorch and CUDA port of tpuframe, for NVIDIA Hopper.
+
+Module paths mirror the JAX package (``tpuframe/serve/engine.py`` ->
+``tpuframe_torch/serve/engine.py``).  The port imports torch and numpy,
+never JAX or anything of ``tpuframe``.  Entry points run on ``cuda``
+unless the caller passes ``device="cpu"``.
+
+Ported so far: the serve path — ``ServeEngine`` over ``make_predict_fn``
+over ``ResNet``, with the fused normalize kernel (``ops/normalize.py``,
+``csrc/normalize.cu``).
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,290 @@
+"""Stall watchdog: deadline-monitored activities + all-thread stack dumps.
+
+The port's copy of ``tpuframe/track/watchdog.py``, what
+``Telemetry.guard`` needs for the serve path's ``serve/infer`` lease.
+
+- Instrumented code opens a **lease** around each bounded activity
+  (``watchdog.guard("serve/infer")``, or ``Telemetry.guard``).  Long loops
+  can ``beat()`` the lease to push its deadline forward.
+- A daemon thread (started with the first lease) checks deadlines and,
+  when one expires, dumps to stderr and the telemetry JSONL log: the
+  overdue activity, every thread's live span stack, every thread's python
+  stack, and the last telemetry events.
+- If the activity later completes, a ``stall_recovered`` event records the
+  real duration.
+
+Deadlines resolve per activity name: explicit argument > the ``deadlines``
+table > ``default_deadline_s``; unresolved means unmonitored.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import itertools
+import sys
+import threading
+import time
+import traceback
+from collections import deque
+from typing import Any, Iterator, Mapping
+
+__all__ = ["Watchdog", "WatchdogGuard", "format_all_stacks"]
+
+#: cap on the stack text embedded in a JSONL stall record (stderr gets it all)
+_JSONL_STACK_CAP = 20_000
+
+
+def format_all_stacks() -> str:
+    """Every thread's python stack, named — ``faulthandler.dump_traceback``
+    with thread names and no fileno requirement."""
+    try:
+        id2name = {t.ident: t.name for t in threading.enumerate()}
+        buf = io.StringIO()
+        for ident, frame in sorted(sys._current_frames().items()):
+            print(f"--- thread {id2name.get(ident, '?')} ({ident}) ---", file=buf)
+            traceback.print_stack(frame, file=buf)
+        return buf.getvalue()
+    except Exception as e:  # a dump helper must never raise into the loop
+        return f"<stack dump failed: {type(e).__name__}: {e}>"
+
+
+class _Lease:
+    __slots__ = ("token", "name", "deadline_s", "expires_at", "started",
+                 "dumped", "ever_dumped")
+
+    def __init__(self, token: int, name: str, deadline_s: float):
+        self.token = token
+        self.name = name
+        self.deadline_s = deadline_s
+        self.started = time.monotonic()
+        self.expires_at = self.started + deadline_s
+        # ``dumped`` is the re-report arm (beat() resets it); ``ever_dumped``
+        # is sticky so end() knows a stall_recovered record is owed even
+        # after an intervening heartbeat
+        self.dumped = False
+        self.ever_dumped = False
+
+
+class WatchdogGuard:
+    """Context-manager handle from :meth:`Watchdog.guard`; ``beat()`` pushes
+    the deadline forward from *now* (heartbeat for long loops)."""
+
+    __slots__ = ("_wd", "_token")
+
+    def __init__(self, wd: "Watchdog", token: int | None):
+        self._wd = wd
+        self._token = token
+
+    @property
+    def monitored(self) -> bool:
+        return self._token is not None
+
+    def beat(self) -> None:
+        if self._token is not None:
+            self._wd.beat(self._token)
+
+
+class Watchdog:
+    """Daemon-thread deadline monitor over named activity leases.
+
+    Args:
+      default_deadline_s: deadline for activities with no per-name entry
+        (None = such activities are unmonitored).
+      deadlines: per-activity-name deadline table (seconds).
+      poll_interval_s: max sleep between checks; the loop wakes earlier
+        when a lease expires sooner, so sub-second deadlines are detected
+        promptly (the test contract: report within 2x the deadline).
+      sink: where stderr-style reports go (default ``sys.stderr`` read at
+        dump time, so pytest's capture and redirects work).
+      telemetry: the spine whose span stacks / recent events enrich
+        reports and whose JSONL log records them (set automatically by
+        ``Telemetry.attach_watchdog``).
+      max_report_events: how many trailing telemetry events a report embeds.
+    """
+
+    def __init__(
+        self,
+        *,
+        default_deadline_s: float | None = None,
+        deadlines: Mapping[str, float] | None = None,
+        poll_interval_s: float = 0.25,
+        sink: Any = None,
+        telemetry: Any = None,
+        max_report_events: int = 20,
+    ):
+        self.default_deadline_s = default_deadline_s
+        self.deadlines = dict(deadlines or {})
+        self.poll_interval_s = poll_interval_s
+        self.sink = sink
+        self.telemetry = telemetry
+        self.max_report_events = max_report_events
+        #: recent stall reports (dicts), for tests and the doctor
+        self.reports: deque[dict] = deque(maxlen=16)
+        self._leases: dict[int, _Lease] = {}
+        self._tokens = itertools.count(1)
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+        self._closed = False
+
+    # -- lease lifecycle -----------------------------------------------------
+    def resolve_deadline(self, name: str, deadline_s: float | None) -> float | None:
+        if deadline_s is not None:
+            return float(deadline_s)
+        if name in self.deadlines:
+            return float(self.deadlines[name])
+        return self.default_deadline_s
+
+    def begin(self, name: str, deadline_s: float | None = None) -> int | None:
+        """Open a lease; returns a token, or None when unmonitored."""
+        d = self.resolve_deadline(name, deadline_s)
+        if d is None or d <= 0:
+            return None
+        lease = _Lease(next(self._tokens), name, d)
+        with self._lock:
+            if self._closed:  # stopped watchdogs stay stopped
+                return None
+            self._leases[lease.token] = lease
+            self._ensure_thread()
+        return lease.token
+
+    def beat(self, token: int) -> None:
+        """Heartbeat: the activity is alive; re-arm its deadline from now."""
+        now = time.monotonic()
+        with self._lock:
+            lease = self._leases.get(token)
+            if lease is not None:
+                lease.expires_at = now + lease.deadline_s
+                lease.dumped = False  # a recovered-then-stalled lease re-reports
+
+    def end(self, token: int) -> None:
+        with self._lock:
+            lease = self._leases.pop(token, None)
+        if lease is not None and lease.ever_dumped and self.telemetry is not None:
+            self.telemetry.event(
+                lease.name,
+                kind="stall_recovered",
+                total_s=round(time.monotonic() - lease.started, 3),
+                deadline_s=lease.deadline_s,
+            )
+
+    def guard(self, name: str, deadline_s: float | None = None):
+        """``with``-scoped lease (the instrumentation entry point)."""
+
+        @contextlib.contextmanager
+        def cm() -> Iterator[WatchdogGuard]:
+            token = self.begin(name, deadline_s)
+            try:
+                yield WatchdogGuard(self, token)
+            finally:
+                if token is not None:
+                    self.end(token)
+
+        return cm()
+
+    # -- monitor loop --------------------------------------------------------
+    def _ensure_thread(self) -> None:
+        # caller holds self._lock
+        if self._thread is None or not self._thread.is_alive():
+            self._stop.clear()
+            self._thread = threading.Thread(
+                target=self._loop, name="tpuframe-torch-watchdog", daemon=True
+            )
+            self._thread.start()
+
+    def _sleep_s(self) -> float:
+        """Sleep until the nearest live deadline (clamped), so short test
+        deadlines are caught well inside their 2x budget."""
+        now = time.monotonic()
+        with self._lock:
+            pending = [
+                lease.expires_at - now
+                for lease in self._leases.values()
+                if not lease.dumped
+            ]
+        if not pending:
+            return self.poll_interval_s
+        return max(0.02, min(min(pending), self.poll_interval_s))
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self._sleep_s()):
+            now = time.monotonic()
+            expired: list[_Lease] = []
+            with self._lock:
+                for lease in self._leases.values():
+                    if not lease.dumped and now >= lease.expires_at:
+                        lease.dumped = lease.ever_dumped = True
+                        expired.append(lease)
+            for lease in expired:
+                try:
+                    self._dump(lease, now)
+                except Exception:
+                    pass  # the monitor must survive its own report failing
+
+    # -- reporting -----------------------------------------------------------
+    def _dump(self, lease: _Lease, now: float) -> None:
+        overdue = now - lease.started - lease.deadline_s
+        spans: dict[str, list[str]] = {}
+        recent: list[dict] = []
+        if self.telemetry is not None:
+            spans = self.telemetry.active_spans()
+            recent = self.telemetry.recent_events(self.max_report_events)
+        stacks = format_all_stacks()
+
+        header = (
+            f"tpuframe watchdog: STALL {lease.name!r} exceeded its "
+            f"{lease.deadline_s:.2f}s deadline ({overdue:.2f}s overdue)"
+        )
+        lines = [f"==== {header} ====", "-- active telemetry spans --"]
+        if spans:
+            lines += [f"  {t}: {' > '.join(names)}" for t, names in spans.items()]
+        else:
+            lines.append("  (none)")
+        lines.append("-- all-thread python stacks --")
+        lines.append(stacks.rstrip())
+        lines.append(f"-- last {len(recent)} telemetry events --")
+        for ev in recent:
+            lines.append(
+                "  " + " ".join(
+                    f"{k}={ev[k]}" for k in ("ts", "kind", "name", "dur_s")
+                    if k in ev
+                )
+            )
+        lines.append("==== end tpuframe watchdog report ====")
+        text = "\n".join(lines) + "\n"
+
+        sink = self.sink if self.sink is not None else sys.stderr
+        try:
+            sink.write(text)
+            sink.flush()
+        except Exception:
+            pass
+
+        report = {
+            "name": lease.name,
+            "deadline_s": lease.deadline_s,
+            "overdue_s": round(overdue, 3),
+            "spans": spans,
+            "stacks": stacks[:_JSONL_STACK_CAP],
+            "recent": [
+                {k: ev[k] for k in ("kind", "name") if k in ev} for ev in recent
+            ],
+        }
+        self.reports.append(report)
+        if self.telemetry is not None:
+            self.telemetry.event(lease.name, kind="stall", **{
+                k: v for k, v in report.items() if k != "name"
+            })
+
+    def stop(self) -> None:
+        """Terminal: the monitor thread exits and later begin() calls are
+        refused (a swapped-out telemetry instance must not resurrect its
+        old watchdog through a lingering guard site)."""
+        with self._lock:
+            self._closed = True
+        self._stop.set()
+        t = self._thread
+        if t is not None:
+            t.join(timeout=2.0)
+        self._thread = None
