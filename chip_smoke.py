@@ -10,20 +10,33 @@ Phases, each of which fails the script (nonzero exit, no result line):
 1. Device: the card's name and power limit from ``nvidia-smi``; no CUDA,
    no run.
 2. Build: every CUDA kernel of the port, compiled from ``tpuframe_torch/
-   csrc`` with ``nvcc`` for ``sm_90a``.
+   csrc`` with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all
+   started together.
 3. Kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the serve path gives it and at ragged ones, timed with CUDA
-   events (median of 100 launches after warm-up, L2 flushed before each)
-   beside its plain version and one library call of the same function
-   (``torch.addcmul`` into a bf16 ``out=``).
-4. Slice: ResNet50 with 1000 classes under ``bf16_compute`` serves 160
+   the shapes its paths give it and at ragged ones, timed with CUDA events
+   (median of 100 launches after warm-up, L2 flushed before each) beside
+   its plain version and one library call of the same function, in turns:
+   K1 normalize (``torch.addcmul`` into a bf16 ``out=``), K2a cross
+   entropy forward (``F.cross_entropy(reduction="none")``) and K2b its
+   backward (``torch.autograd.grad`` of that loss), the last two at the
+   train path's (128, 1000) f32 and at an HBM-bound (16384, 1000).
+4. Serve: ResNet50 with 1000 classes under ``bf16_compute`` serves 160
    uint8 224x224 images through ``ServeEngine`` (buckets 1/8/32/64) from 4
    client threads, plus one ``POST /predict`` through ``ServingServer``.
    Launch counters are zeroed just before and read just after; every
    kernel of the path must have launched.  Served rows are held against
    direct predicts, against predicts through the plain normalize, and an
    f32 forward on the card against the same forward on the CPU.
-5. Result: a ``kernels`` JSON line, the ``nvidia-smi`` line, then
+5. Train: ``Trainer(...).fit()`` on ResNet50-1K (``norm_dtype=bf16``,
+   ``precision="bf16"``, SGD lr 0.1 momentum 0.9, uint8 images normalized
+   by K1) for 12 batches of 128 plus an eval whose last batch is ragged;
+   counters zeroed just before and read just after, each kernel at its
+   expected count.  Then the train step alone on one device-resident
+   batch (images per second, median of 30 steps, and a ``torch.profiler``
+   table of one step), ten steps on one batch that must lower the loss,
+   kernel against plain cross entropy in f32 train steps, and an f32 train
+   step on the card against the CPU.
+6. Result: a ``kernels`` JSON line, the ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -216,20 +229,141 @@ def kernel_phase(flush):
     }
 
 
-def profile_batch(predict, model, x: torch.Tensor, top: int = 12) -> None:
-    """Where one full bucket's predict spends its time: host wall time of
-    the call, device time summed over its kernels (``torch.profiler``),
-    and the kernels with the most device time."""
-    from torch.profiler import ProfilerActivity, profile
+def cross_entropy_phase(flush) -> list[dict]:
+    """K2a and K2b against their plain versions at the train path's shapes
+    and ragged ones, then timed at (128, 1000) f32 and (16384, 1000) f32
+    beside the plain version and the library call."""
+    import torch.nn.functional as F
 
-    predict(model, x)
+    from tpuframe_torch.ops.cross_entropy import (
+        cross_entropy_bwd,
+        cross_entropy_bwd_reference,
+        cross_entropy_fwd,
+        cross_entropy_reference,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2)
+
+    def inputs(b, k, dtype, label_dtype=torch.int64):
+        logits = torch.from_numpy((rng.standard_normal((b, k)) * 3).astype(np.float32))
+        labels = torch.from_numpy(rng.integers(0, k, (b,))).to(label_dtype)
+        g = torch.from_numpy(rng.uniform(0.5, 2.0, b).astype(np.float32))
+        return logits.to(dtype).to(dev), labels.to(dev), g.to(dev)
+
+    cases = [
+        ("128x1000 f32 int64", 128, 1000, torch.float32, torch.int64, False),
+        ("128x1000 f32 int32", 128, 1000, torch.float32, torch.int32, False),
+        ("130x1000 bf16", 130, 1000, torch.bfloat16, torch.int64, False),
+        ("3x10 f32", 3, 10, torch.float32, torch.int64, False),
+        ("3x10 bf16", 3, 10, torch.bfloat16, torch.int32, False),
+        ("16384x1000 f32", 16384, 1000, torch.float32, torch.int64, False),
+        ("128x1000 f32, stride-0 g", 128, 1000, torch.float32, torch.int64, True),
+        ("128x1000 bf16, stride-0 g", 128, 1000, torch.bfloat16, torch.int64, True),
+    ]
+    err = {"fwd": 0.0, "bwd": 0.0}
+    for name, b, k, dtype, ldt, stride0 in cases:
+        logits, labels, g = inputs(b, k, dtype, ldt)
+        if stride0:
+            g = torch.full((), 1.0 / b, device=dev).expand(b)
+        loss = cross_entropy_fwd(logits, labels)
+        grad = cross_entropy_bwd(logits, labels, g)
+        want_loss = cross_entropy_reference(logits, labels)
+        want_grad = cross_entropy_bwd_reference(logits, labels, g)
+        torch.cuda.synchronize()
+        check(loss.shape == (b,) and loss.dtype == torch.float32, f"K2a {name}: {loss.shape}")
+        check(grad.shape == (b, k) and grad.dtype == dtype, f"K2b {name}: {grad.dtype}")
+        e_loss = float((loss - want_loss).abs().max())
+        e_grad = float((grad.float() - want_grad.float()).abs().max())
+        # losses of O(10): 1e-5 absolute; f32 gradients 1e-6 absolute; bf16
+        # gradients within one bf16 step of the plain value
+        check(e_loss <= 1e-5, f"K2a {name}: max abs diff {e_loss} > 1e-5")
+        if dtype == torch.float32:
+            check(e_grad <= 1e-6, f"K2b {name}: max abs diff {e_grad} > 1e-6")
+            tol = "1e-6"
+        else:
+            ulps = bf16_ulp_distance(grad, want_grad)
+            check(ulps <= 1, f"K2b {name}: {ulps} bf16 ulps apart (tol 1)")
+            tol = f"{ulps} bf16 ulp, tol 1"
+        log(f"  cross entropy {name}: K2a max abs diff {e_loss:.3g} (tol 1e-5), "
+            f"K2b {e_grad:.3g} ({tol})")
+        if name == "128x1000 f32 int64":
+            err = {"fwd": e_loss, "bwd": e_grad}
+
+    def timed(b, k):
+        logits, labels, g = inputs(b, k, torch.float32)
+        x = logits.detach().requires_grad_(True)
+        lib_loss = F.cross_entropy(x, labels, reduction="none")
+        lib_err = (lib_loss.detach() - cross_entropy_reference(logits, labels)).abs().max()
+        check(float(lib_err) <= 1e-5,
+              "F.cross_entropy yardstick disagrees with the plain forward")
+        arms = {
+            "fwd": (functools.partial(cross_entropy_fwd, logits, labels),
+                    functools.partial(cross_entropy_reference, logits, labels),
+                    functools.partial(F.cross_entropy, logits, labels, reduction="none")),
+            "bwd": (functools.partial(cross_entropy_bwd, logits, labels, g),
+                    functools.partial(cross_entropy_bwd_reference, logits, labels, g),
+                    lambda: torch.autograd.grad(lib_loss, x, g, retain_graph=True)),
+        }
+        out = {}
+        for which, (kernel, plain, library) in arms.items():
+            # plain, kernel, library, library, kernel, plain
+            plain_ms = [time_ms(plain, flush)]
+            kernel_ms = [time_ms(kernel, flush)]
+            library_ms = [time_ms(library, flush), time_ms(library, flush)]
+            kernel_ms.append(time_ms(kernel, flush))
+            plain_ms.append(time_ms(plain, flush))
+            # each input read once, each output written once: logits (B*K*4),
+            # int64 labels (B*8), g (B*4); loss (B*4) or gradient (B*K*4)
+            moved = (b * k * 4 + b * 8 + b * 4 if which == "fwd"
+                     else 2 * b * k * 4 + b * 8 + b * 4)
+            out[which] = {"ms": min(kernel_ms), "plain_ms": min(plain_ms),
+                          "library_ms": min(library_ms),
+                          "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bytes_moved": moved}
+        return out
+
+    small, large = timed(128, 1000), timed(16384, 1000)
+    rows = []
+    for which, name, line in (("fwd", "cross_entropy_fwd", 49), ("bwd", "cross_entropy_bwd", 60)):
+        s, l = small[which], large[which]
+        log(f"  {name}: 128x1000 f32 kernel {s['ms'] * 1e3:.2f} us, plain "
+            f"{s['plain_ms'] * 1e3:.2f} us, library {s['library_ms'] * 1e3:.2f} us, bound "
+            f"{s['bound_ms'] * 1e3:.3f} us; 16384x1000 f32 kernel {l['ms'] * 1e3:.2f} us, "
+            f"plain {l['plain_ms'] * 1e3:.2f} us, library {l['library_ms'] * 1e3:.2f} us, "
+            f"bound {l['bound_ms'] * 1e3:.2f} us ({l['bytes_moved'] / 1e6:.2f} MB at 3.35 TB/s)")
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "tpuframe_torch/csrc/cross_entropy.cu",
+            "replaces": f"tpuframe/ops/cross_entropy.py:{line}",
+            "launches": None,  # filled from the main path's run
+            "max_abs_err": err[which],
+            "ms": s["ms"],
+            "plain_ms": s["plain_ms"],
+            "bound_ms": s["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": s["library_ms"],
+            "shape": "128x1000 f32, int64 labels",
+            "bytes_moved": s["bytes_moved"],
+            "large": {"shape": "16384x1000 f32, int64 labels", **l},
+        })
+    return rows
+
+
+def profile(fn, what: str, top: int = 12) -> dict:
+    """Where one call of ``fn`` spends its time: host wall time of the call
+    (after one warm call), device time summed over its kernels
+    (``torch.profiler``), and the kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    predict(model, x)
+    fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        predict(model, x)
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if str(e.device_type).endswith("CUDA")]
@@ -240,11 +374,12 @@ def profile_batch(predict, model, x: torch.Tensor, top: int = 12) -> None:
 
     total_ms = sum(dev_us(e) for e in kernels) / 1e3
     launches = sum(e.count for e in kernels)
-    log(f"  profile, predict of {tuple(x.shape)}: wall {wall_ms:.2f} ms, device "
+    log(f"  profile, {what}: wall {wall_ms:.2f} ms, device "
         f"{total_ms:.2f} ms over {launches} kernel launches "
         f"(device busy {total_ms / wall_ms:.0%} of wall)")
     for e in sorted(kernels, key=dev_us, reverse=True)[:top]:
         log(f"    {dev_us(e) / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:110]}")
+    return {"wall_ms": wall_ms, "device_ms": total_ms, "launches": launches}
 
 
 def slice_phase(card: str):
@@ -353,7 +488,8 @@ def slice_phase(card: str):
         check(v <= BF16_REL_TOL, f"{k} rel err {v} > {BF16_REL_TOL}")
     check(http_err <= BF16_REL_TOL, f"HTTP row rel err {http_err}")
 
-    profile_batch(predict, model, torch.from_numpy(images[:BUCKETS[-1]]).to(dev))
+    xb = torch.from_numpy(images[:BUCKETS[-1]]).to(dev)
+    profile(lambda: predict(model, xb), f"predict of {tuple(xb.shape)}")
 
     # f32 on the card (TF32 off) against the same model on the CPU
     align_model_dtype(model, full_precision())
@@ -383,6 +519,236 @@ def slice_phase(card: str):
         f"({N_CLIENTS} clients, buckets {BUCKETS}) on {card}")
     log("  serve_json " + json.dumps(summary))
     return launches
+
+
+#: the epoch summary keys of the JAX Trainer (health on, with eval)
+SUMMARY_KEYS = {
+    "train_loss", "train_accuracy", "train_samples_per_sec", "health_bad_steps", "grad_norm",
+    "epoch_time_s", "data_wait_s", "dispatch_s", "host_block_s", "assemble_s", "h2d_s",
+    "eval_loss", "eval_accuracy",
+}
+TRAIN_BATCH = 128
+TRAIN_STEPS = 12
+# f32 train steps, kernel against plain cross entropy, convolutions
+# deterministic and TF32 off: the two differ only in the rounding of the
+# cross entropy (~1e-7 relative).  The losses of two steps hold 1e-4
+# relative; the parameters are held after the first step, within 1e-4 of
+# the largest update: a freshly initialized ResNet50 takes updates of O(1)
+# (gradient norm ~7e3 at lr 0.1), so the second step carries those
+# roundings ~1e3-fold into the weights (3e-6 -> 1.3e-3 relative, measured
+# on the CPU with the plain versions), and is only logged
+CE_STEP_LOSS_RTOL = 1e-4
+CE_STEP_PARAM_RTOL = 1e-4
+# f32 train step on the card (TF32 off) against the CPU: the order of the
+# sums differs.  The loss holds 1e-4 relative.  The update (parameters and
+# BN statistics after one SGD step at lr 0.1) is held as a whole,
+# ||card - cpu|| / ||cpu update|| <= 3e-2: this fresh ResNet18 at batch 8
+# in train mode is ill-conditioned.  On the CPU alone, a 1e-6 change of
+# the input, or another thread count, moves the update by 1.2e-3 on this
+# measure and single tensors by ~1 %; the card changes the order of every
+# sum (each op alone agrees with float64 to ~1e-7 on both), and gave 1.0e-2
+CPU_STEP_LOSS_RTOL = 1e-4
+CPU_STEP_UPDATE_RTOL = 3e-2
+
+
+def sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def train_phase(card: str, dev: torch.device = torch.device("cuda"), image_size: int = 224,
+                batch_size: int = TRAIN_BATCH, ce_px: int = 64) -> tuple[dict, dict]:
+    """The train slice through ``Trainer.fit`` (main path, counted), then
+    the step alone, the overfit check and the two f32 parity checks.
+    Returns (launch counts, summary).  The device and sizes are arguments
+    so the phase can be rehearsed small on the CPU."""
+    import math
+
+    from tpuframe_torch.data import DataLoader, SyntheticImageDataset
+    from tpuframe_torch.models import ResNet18, ResNet50
+    from tpuframe_torch.ops.cross_entropy import (
+        cross_entropy_bwd,
+        cross_entropy_fwd,
+        cross_entropy_reference,
+    )
+    from tpuframe_torch.ops.normalize import normalize_images
+    from tpuframe_torch.parallel import full_precision
+    from tpuframe_torch.train import Callback, Trainer, create_train_state, make_optimizer
+    from tpuframe_torch.train.step import make_train_step
+
+    class StepLosses(Callback):
+        def __init__(self):
+            self.losses = []
+
+        def on_batch_end(self, trainer, metrics):
+            self.losses.append(metrics["loss_sum"] / max(metrics["count"], 1.0))
+
+    model = ResNet50(num_classes=1000, norm_dtype=torch.bfloat16, device=dev, seed=0)
+    train = DataLoader(SyntheticImageDataset(n=batch_size * TRAIN_STEPS, image_size=image_size,
+                                             num_classes=1000, seed=1),
+                       batch_size, shuffle=True, seed=0, transfer_dtype="uint8", num_workers=8)
+    eval_images = 2 * batch_size + 44 * batch_size // TRAIN_BATCH  # a ragged last batch
+    evl = DataLoader(SyntheticImageDataset(n=eval_images, image_size=image_size,
+                                           num_classes=1000, seed=2),
+                     batch_size, drop_last=False, transfer_dtype="uint8", num_workers=8)
+    steps = StepLosses()
+    trainer = Trainer(model, train_dataloader=train, eval_dataloader=evl, optimizer="sgd",
+                      lr=0.1, precision="bf16", normalize=(MEAN, STD),
+                      max_duration=f"{TRAIN_STEPS}ba", log_interval=1, callbacks=[steps])
+    trainer.init_state()
+    n_eval = len(evl)
+    # -- the main path: counts zeroed just before, read just after ---------
+    normalize_images.launches = cross_entropy_fwd.launches = cross_entropy_bwd.launches = 0
+    t0 = time.perf_counter()
+    result = trainer.fit()
+    sync(dev)
+    fit_s = time.perf_counter() - t0
+    launches = {"normalize": normalize_images.launches,
+                "cross_entropy_fwd": cross_entropy_fwd.launches,
+                "cross_entropy_bwd": cross_entropy_bwd.launches}
+    expected = {"normalize": TRAIN_STEPS + n_eval, "cross_entropy_fwd": TRAIN_STEPS + n_eval,
+                "cross_entropy_bwd": TRAIN_STEPS}
+    log(f"  fit: {TRAIN_STEPS} steps of {batch_size} + eval of {eval_images} images "
+        f"({n_eval} batches) in {fit_s:.2f} s; launches {launches} (expected {expected})")
+    check(launches == expected, f"train launches {launches} != {expected}")
+    summary = result.history[-1]
+    check(SUMMARY_KEYS <= set(summary), f"epoch summary lacks {SUMMARY_KEYS - set(summary)}")
+    losses = steps.losses
+    check(len(losses) == TRAIN_STEPS and all(math.isfinite(v) for v in losses),
+          f"step losses {losses}")
+    check(abs(losses[0] - math.log(1000)) <= 1.0,
+          f"first-step loss {losses[0]:.4f} not within 1.0 of ln 1000")
+    check(summary["health_bad_steps"] == 0.0, f"{summary['health_bad_steps']} bad steps")
+    log(f"  step losses {[round(v, 4) for v in losses]}")
+    log("  epoch summary " + json.dumps({k: round(v, 6) for k, v in summary.items()}))
+
+    # -- the train step alone on one device-resident batch ------------------
+    rng = np.random.default_rng(3)
+    batch = {"image": torch.from_numpy(rng.integers(
+                 0, 256, (batch_size, image_size, image_size, 3), dtype=np.uint8)).to(dev),
+             "label": torch.from_numpy(rng.integers(0, 1000, batch_size)).to(dev)}
+    state, step = trainer.state, trainer._train_step
+    fixed = []
+    for _ in range(10):  # ten steps on one batch: the overfit check
+        state, m = step(state, batch)
+        fixed.append(m["loss_sum"] / m["count"])
+    fixed = [float(v) for v in torch.stack(fixed).cpu()]
+    log(f"  ten steps on one batch: losses {[round(v, 4) for v in fixed]}")
+    check(all(math.isfinite(v) for v in fixed) and fixed[-1] < fixed[0],
+          f"ten steps on one batch did not lower the loss: {fixed}")
+    for _ in range(3):
+        state, _ = step(state, batch)
+    times = []
+    for _ in range(30):
+        sync(dev)
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        sync(dev)
+        times.append(time.perf_counter() - t0)
+    step_ms = statistics.median(times) * 1e3
+    img_s = batch_size / (step_ms / 1e3)
+    mem_gb = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else 0.0
+    log(f"  train step alone, batch {batch_size}: median {step_ms:.2f} ms over 30 steps "
+        f"(min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}) = {img_s:.1f} img/s; "
+        f"peak memory {mem_gb:.2f} GB on {card}")
+    prof = profile(lambda: step(state, batch), f"train step of {batch_size} (bf16, health on)")
+    del trainer, state, model, batch
+
+    # -- kernel against plain cross entropy: f32 train steps on the card ----
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ce_model = ResNet50(num_classes=1000, device=dev, seed=4)
+        twin = ResNet50(num_classes=1000, device=dev, seed=5)
+        twin.load_state_dict(ce_model.state_dict())
+        rng = np.random.default_rng(5)
+        batches = [{"image": torch.from_numpy(rng.normal(0, 1, (32, ce_px, ce_px, 3)).astype(
+                        np.float32)).to(dev),
+                    "label": torch.from_numpy(rng.integers(0, 1000, 32)).to(dev)}
+                   for _ in range(2)]
+        sgd = make_optimizer("sgd", 0.1)
+        start = [v.clone() for v in ce_model.state_dict().values()]
+        kernel_state = create_train_state(ce_model, sgd)
+        plain_state = create_train_state(twin, sgd)
+        kernel_step = make_train_step(full_precision())
+        plain_step = make_train_step(full_precision(), loss_fn=cross_entropy_reference)
+
+        def param_diff():
+            pairs = [(a, b, s0) for a, b, s0 in zip(ce_model.state_dict().values(),
+                                                    twin.state_dict().values(), start)
+                     if a.is_floating_point()]
+            diff = max(float((a - b).abs().max()) for a, b, _ in pairs)
+            update = max(float((a - s0).abs().max()) for a, _, s0 in pairs)
+            return diff, diff / update
+
+        worst_loss, param = 0.0, []
+        for b in batches:
+            kernel_state, km = kernel_step(kernel_state, b)
+            plain_state, pm = plain_step(plain_state, b)
+            kl, pl = float(km["loss_sum"]), float(pm["loss_sum"])
+            worst_loss = max(worst_loss, abs(kl - pl) / abs(pl))
+            param.append(param_diff())
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    log(f"  f32 steps, kernel vs plain cross entropy (ResNet50-1K, 2 steps of 32 at {ce_px} px): "
+        f"loss rel diff {worst_loss:.3g} (tol {CE_STEP_LOSS_RTOL}); params + BN stats after "
+        f"step 1 max abs diff {param[0][0]:.3g} = {param[0][1]:.3g} of the largest update "
+        f"(tol {CE_STEP_PARAM_RTOL}); after step 2 {param[1][0]:.3g} = {param[1][1]:.3g} "
+        f"(logged only)")
+    check(worst_loss <= CE_STEP_LOSS_RTOL, f"kernel vs plain CE loss rel diff {worst_loss}")
+    check(param[0][1] <= CE_STEP_PARAM_RTOL, f"kernel vs plain CE params diff {param[0]}")
+    del ce_model, twin, kernel_state, plain_state
+
+    # -- an f32 train step on the card against the CPU -----------------------
+    card_model = ResNet18(num_classes=10, num_filters=16, stem="cifar", device=dev, seed=6)
+    cpu_model = ResNet18(num_classes=10, num_filters=16, stem="cifar", device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in card_model.state_dict().items()})
+    start = [v.clone() for v in cpu_model.state_dict().values()]
+    rng = np.random.default_rng(6)
+    b_cpu = {"image": torch.from_numpy(rng.integers(0, 256, (8, 32, 32, 3), dtype=np.uint8)),
+             "label": torch.from_numpy(rng.integers(0, 10, 8))}
+    b_card = {k: v.to(dev) for k, v in b_cpu.items()}
+    to_f32 = functools.partial(normalize_images, mean=MEAN, std=STD, out_dtype=torch.float32)
+    transform = lambda b: {**b, "image": to_f32(b["image"])}  # noqa: E731
+    sgd = make_optimizer("sgd", 0.1)
+    card_state, cm = make_train_step(full_precision(), batch_transform=transform)(
+        create_train_state(card_model, sgd), b_card)
+    cpu_state, pm = make_train_step(full_precision(), batch_transform=transform)(
+        create_train_state(cpu_model, sgd), b_cpu)
+    cpu_loss_err = abs(float(cm["loss_sum"]) - float(pm["loss_sum"])) / abs(float(pm["loss_sum"]))
+    pairs = [(a.cpu(), b, s0) for a, b, s0 in zip(card_model.state_dict().values(),
+                                                  cpu_model.state_dict().values(), start)
+             if a.is_floating_point()]
+    diff_sq = sum(float(((a - b) ** 2).sum()) for a, b, _ in pairs)
+    update_sq = sum(float(((b - s0) ** 2).sum()) for _, b, s0 in pairs)
+    cpu_update_err = math.sqrt(diff_sq / update_sq)
+    cpu_entry_err = max(float((a - b).abs().max()) for a, b, _ in pairs)
+    log(f"  f32 train step, card vs CPU (ResNet18 cifar, 32 px, batch 8): loss rel diff "
+        f"{cpu_loss_err:.3g} (tol {CPU_STEP_LOSS_RTOL}), update rel diff {cpu_update_err:.3g} "
+        f"(tol {CPU_STEP_UPDATE_RTOL}); largest single entry diff {cpu_entry_err:.3g}")
+    check(cpu_loss_err <= CPU_STEP_LOSS_RTOL, f"card vs CPU loss rel diff {cpu_loss_err}")
+    check(cpu_update_err <= CPU_STEP_UPDATE_RTOL, f"card vs CPU update rel diff {cpu_update_err}")
+
+    out = {
+        "img_per_s": img_s,
+        "step_ms": step_ms,
+        "batch": batch_size,
+        "first_loss": losses[0],
+        "last_loss": losses[-1],
+        "fixed_batch_losses": [fixed[0], fixed[-1]],
+        "fit_s": fit_s,
+        "train_samples_per_sec_fit": summary["train_samples_per_sec"],
+        "eval_loss": summary["eval_loss"],
+        "profile": prof,
+        "peak_memory_gb": mem_gb,
+        "kernel_vs_plain_ce": {"loss_rel": worst_loss, "param_step1": param[0],
+                               "param_step2": param[1]},
+        "card_vs_cpu": {"loss_rel": cpu_loss_err, "update_rel": cpu_update_err,
+                        "entry_abs": cpu_entry_err},
+        "card": card,
+    }
+    log("  train_json " + json.dumps(out))
+    return launches, out
 
 
 def main() -> int:
@@ -417,17 +783,26 @@ def main() -> int:
     log("== phase 3: kernels")
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")  # > 50 MB L2
     k1 = kernel_phase(flush)
-    del flush
     log(f"  normalize 64x224x224x3 uint8->bf16: kernel {k1['ms'] * 1e3:.2f} us, "
         f"plain {k1['plain_ms'] * 1e3:.2f} us, torch.addcmul {k1['library_ms'] * 1e3:.2f} us, "
         f"bound {k1['bound_ms'] * 1e3:.2f} us "
         f"({k1['bytes_moved'] / 1e6:.2f} MB at 3.35 TB/s) on {card}")
+    k2a, k2b = cross_entropy_phase(flush)
+    del flush
 
-    log("== phase 4: slice")
-    k1["launches"] = slice_phase(card)
+    log("== phase 4: serve")
+    serve_launches = slice_phase(card)
 
-    log("== phase 5: result")
-    print(json.dumps({"kernels": [k1]}))
+    log("== phase 5: train")
+    train_launches, _ = train_phase(card)
+    k1["launches"] = serve_launches + train_launches["normalize"]
+    k1["launches_serve"] = serve_launches
+    k1["launches_train"] = train_launches["normalize"]
+    k2a["launches"] = train_launches["cross_entropy_fwd"]
+    k2b["launches"] = train_launches["cross_entropy_bwd"]
+
+    log("== phase 6: result")
+    print(json.dumps({"kernels": [k1, k2a, k2b]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

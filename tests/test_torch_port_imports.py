@@ -21,6 +21,7 @@ import torch
 
 import tpuframe_torch
 from tpuframe_torch.core import initialize, resolve_device
+from tpuframe_torch.data import DevicePrefetcher
 from tpuframe_torch.models import ResNet18, ResNet50
 from tpuframe_torch.serve import ServeEngine
 
@@ -79,6 +80,8 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu(no_cuda):
         ResNet50(num_classes=1000)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServeEngine(lambda x: x, item_shape=(2,), dtype="float32")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DevicePrefetcher(iter(()))
     model = ResNet18(num_classes=4, num_filters=4, device="cpu")
     assert model.conv1.weight.device.type == "cpu"
 
@@ -107,5 +110,11 @@ def test_port_modules_mirror_the_jax_package():
     missing = [str(p) for p in ported if not (REPO / "tpuframe" / p).exists()
                and p.parts[-1] != "build.py"]
     assert not missing, f"port modules with no JAX counterpart: {missing}"
+    for module in ("ops/cross_entropy.py", "models/norm.py", "fault/health.py",
+                   "train/state.py", "train/step.py", "train/schedules.py", "train/optim.py",
+                   "train/duration.py", "train/callbacks.py", "train/algorithms.py",
+                   "train/trainer.py", "data/datasets.py", "data/loader.py"):
+        assert (PORT / module).exists() and (REPO / "tpuframe" / module).exists(), module
     assert (PORT / "csrc" / "normalize.cu").exists()
+    assert (PORT / "csrc" / "cross_entropy.cu").exists()
     assert np.all([p.suffix == ".cu" for p in (PORT / "csrc").iterdir()])

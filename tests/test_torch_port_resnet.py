@@ -121,12 +121,20 @@ def test_dtype_flow_inside_the_model():
 
 
 def test_model_is_channels_last_and_eval_only():
+    """A new model is channels_last and starts in eval mode; in train mode
+    its BatchNorm uses batch statistics and moves its running buffers
+    (the steps choose the mode per call: tests/test_torch_port_train.py)."""
     m = ResNet18(num_classes=4, num_filters=4, device="cpu")
     assert m.conv1.weight.is_contiguous(memory_format=torch.channels_last)
     assert not m.training
+    x = torch.from_numpy(np.random.default_rng(0).normal(0, 1, (2, 16, 16, 3)).astype(np.float32))
+    with torch.no_grad():
+        m(x)
+    assert torch.equal(m.bn1.running_mean, torch.zeros(4))
     m.train()
-    with pytest.raises(RuntimeError, match="not ported"):
-        m(torch.zeros(1, 16, 16, 3))
+    with torch.no_grad():
+        m(x)
+    assert not torch.equal(m.bn1.running_mean, torch.zeros(4))
 
 
 def test_from_jax_variables_maps_each_leaf():

@@ -7,7 +7,10 @@ unless the caller passes ``device="cpu"``.
 
 Ported so far: the serve path — ``ServeEngine`` over ``make_predict_fn``
 over ``ResNet``, with the fused normalize kernel (``ops/normalize.py``,
-``csrc/normalize.cu``).
+``csrc/normalize.cu``) — and the one-card train path — ``Trainer.fit``
+over the train and eval steps, training-mode BatchNorm, SGD/Adam/AdamW,
+the schedules, the health sentinel and the ``DataLoader``, with the fused
+cross entropy kernels (``ops/cross_entropy.py``, ``csrc/cross_entropy.cu``).
 """
 
 __version__ = "0.1.0"

@@ -3,7 +3,8 @@
 Port of ``tpuframe/core/runtime.py`` for one process on one device.  Entry
 points run on ``cuda`` unless the caller asks for ``device="cpu"`` (the
 tests do); without CUDA they raise rather than carry on on the CPU.  The
-mesh and the distributed setup come with the training slice.
+mesh and the distributed setup come with the data-parallel part of the
+training slice.
 """
 
 from __future__ import annotations

@@ -1,1 +1,12 @@
-"""Fault plane: the env helpers the serve knobs read."""
+"""Fault plane: the training-health sentinel and the env helpers the serve
+knobs read."""
+
+from tpuframe_torch.fault.health import (
+    Divergence,
+    HealthPolicy,
+    health_verdict,
+    init_health_state,
+    resolve_policy,
+)
+
+__all__ = ["Divergence", "HealthPolicy", "health_verdict", "init_health_state", "resolve_policy"]

@@ -5,6 +5,7 @@ from tpuframe_torch.models.interop import (
     from_jax_variables,
     import_torch_resnet,
 )
+from tpuframe_torch.models.norm import ReplicaGroupedBatchNorm
 from tpuframe_torch.models.resnet import (
     BasicBlock,
     Bottleneck,
@@ -18,6 +19,7 @@ from tpuframe_torch.models.resnet import (
 __all__ = [
     "BasicBlock",
     "Bottleneck",
+    "ReplicaGroupedBatchNorm",
     "ResNet",
     "ResNet18",
     "ResNet34",

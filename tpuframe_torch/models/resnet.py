@@ -1,4 +1,4 @@
-"""ResNet family over NHWC inputs, eval mode, with the JAX package's dtype flow.
+"""ResNet family over NHWC inputs, with the JAX package's dtype flow.
 
 Port of ``tpuframe/models/resnet.py``.  Module names follow torchvision
 (``conv1``, ``layer{i}.{j}``, ``downsample.{0,1}``, ``fc``), so a
@@ -20,8 +20,10 @@ What matches the JAX model exactly:
   ``compute_dtype``.  The head is a mean over H and W, ``fc``, then a cast
   to float32.
 
-BatchNorm here is eval mode only (running statistics); training-mode
-statistics come with the training slice.
+BatchNorm is ``models.norm.ReplicaGroupedBatchNorm``: batch statistics
+in training mode, running statistics in eval mode, flax's conventions for
+both.  A new model starts in eval mode; the port's steps set the mode for
+each call, as the JAX steps pass ``train=``.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpuframe_torch.core.runtime import resolve_device
+from tpuframe_torch.models.norm import ReplicaGroupedBatchNorm
 
 __all__ = [
     "BasicBlock",
@@ -67,27 +70,8 @@ class Conv2d(nn.Conv2d):
                         self.padding)
 
 
-class BatchNorm2d(nn.BatchNorm2d):
-    """Eval-mode BatchNorm: ``(x - mean) * rsqrt(var + 1e-5) * scale + bias``
-    from the running statistics, computed in float32; the output is
-    ``out_dtype`` (float32 when None)."""
-
-    def __init__(self, num_features: int, *, out_dtype: torch.dtype | None = None,
-                 device=None):
-        super().__init__(num_features, eps=1e-5, momentum=0.1, device=device)
-        self.out_dtype = out_dtype
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise RuntimeError(
-                "training-mode BatchNorm is not ported yet; call model.eval()"
-            )
-        y = F.batch_norm(
-            x.to(torch.float32), self.running_mean, self.running_var,
-            self.weight.to(torch.float32), self.bias.to(torch.float32),
-            training=False, momentum=0.0, eps=self.eps,
-        )
-        return y.to(self.out_dtype or torch.float32)
+#: the ResNet's BatchNorm (torchvision's name for it)
+BatchNorm2d = ReplicaGroupedBatchNorm
 
 
 class Linear(nn.Linear):
@@ -154,7 +138,7 @@ class Bottleneck(nn.Module):
 
 
 class ResNet(nn.Module):
-    """Generic 4-stage ResNet over NHWC inputs (eval mode).
+    """Generic 4-stage ResNet over NHWC inputs.
 
     Args:
       stage_sizes: blocks per stage, e.g. (2, 2, 2, 2) for ResNet18.
@@ -166,6 +150,10 @@ class ResNet(nn.Module):
       dtype: compute dtype of convs and ``fc``; parameters and BN
         statistics stay float32.
       norm_dtype: BatchNorm output dtype (None = float32).
+      bn_stats: "sync" (global batch statistics) or "local" (per-group
+        statistics over ``bn_groups`` batch groups, torch-DDP's
+        per-replica BN); on one card the two are the same computation.
+      bn_groups: statistic groups for ``bn_stats="local"`` (0 or 1 = sync).
       in_channels: image channels.
       device: where the parameters live; None means ``cuda``, which raises
         without CUDA.
@@ -181,6 +169,8 @@ class ResNet(nn.Module):
         stem: str = "imagenet",
         dtype: torch.dtype = torch.float32,
         norm_dtype: torch.dtype | None = None,
+        bn_stats: str = "sync",
+        bn_groups: int = 0,
         *,
         in_channels: int = 3,
         device=None,
@@ -194,9 +184,13 @@ class ResNet(nn.Module):
             stem_k, stem_s = 3, 1
         else:
             raise ValueError(f"unknown stem {stem!r}")
+        if bn_stats not in ("sync", "local"):
+            raise ValueError(f"unknown bn_stats {bn_stats!r}; expected 'sync' or 'local'")
         self.compute_dtype = dtype
+        groups = bn_groups if bn_stats == "local" and bn_groups > 1 else 1
         conv = functools.partial(Conv2d, compute_dtype=dtype, device=device)
-        norm = functools.partial(BatchNorm2d, out_dtype=norm_dtype, device=device)
+        norm = functools.partial(ReplicaGroupedBatchNorm, groups=groups, momentum=0.9,
+                                 eps=1e-5, out_dtype=norm_dtype, device=device)
         self.conv1 = conv(in_channels, num_filters, stem_k, stem_s)
         self.bn1 = norm(num_filters)
         width = num_filters

@@ -24,7 +24,7 @@ from pathlib import Path
 __all__ = ["BUILD_DIR", "KERNELS", "NVCC_FLAGS", "build", "find_nvcc", "library_path", "load"]
 
 #: every kernel source of the port, by name (``csrc/<name>.cu``)
-KERNELS = ("normalize",)
+KERNELS = ("cross_entropy", "normalize")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -61,33 +61,49 @@ def library_path(name: str) -> Path:
 
 
 def build(names=KERNELS, timeout_s: float = 600.0) -> dict[str, dict]:
-    """Compile every kernel in ``names`` that is not built yet, one source
-    after another.
+    """Compile every kernel in ``names`` that is not built yet: one ``nvcc``
+    per source, all started together.
 
     Returns ``{name: {"seconds": s, "cached": bool, "log": nvcc output}}``.
-    Raises RuntimeError naming the source that failed, with its log;
-    ``subprocess.TimeoutExpired`` when ``nvcc`` runs past ``timeout_s``.
+    Raises RuntimeError naming the sources that failed, with their logs;
+    ``subprocess.TimeoutExpired`` when an ``nvcc`` runs past ``timeout_s``
+    (every ``nvcc`` still running is killed first).
     """
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     report: dict[str, dict] = {}
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            report[name] = {"seconds": 0.0, "cached": True, "log": ""}
-            continue
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True, timeout=timeout_s)
-        if proc.returncode != 0 or not tmp.exists():
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed to build {name}.cu (exit {proc.returncode}):\n{proc.stdout}")
-        os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
-        report[name] = {"seconds": time.perf_counter() - t0, "cached": False,
-                        "log": proc.stdout}
+    running: dict[str, tuple] = {}
+    failed: list[str] = []
+    t0 = time.perf_counter()
+    try:
+        for name in names:
+            out = library_path(name)
+            if out.exists():
+                report[name] = {"seconds": 0.0, "cached": True, "log": ""}
+                continue
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            running[name] = (proc, tmp, out)
+        for name, (proc, tmp, out) in running.items():
+            left = max(1.0, timeout_s - (time.perf_counter() - t0))
+            log, _ = proc.communicate(timeout=left)
+            if proc.returncode != 0 or not tmp.exists():
+                tmp.unlink(missing_ok=True)
+                failed.append(f"nvcc failed to build {name}.cu (exit {proc.returncode}):\n{log}")
+                continue
+            os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+            report[name] = {"seconds": time.perf_counter() - t0, "cached": False,
+                            "log": log}
+    finally:
+        for proc, tmp, _ in running.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+                tmp.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return report
 
 

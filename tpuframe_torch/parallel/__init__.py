@@ -1,4 +1,4 @@
-"""Mixed-precision policy (the mesh and data parallelism come with training)."""
+"""Mixed-precision policy (the mesh and data parallelism come with the DP slice)."""
 
 from tpuframe_torch.parallel.precision import (
     Policy,

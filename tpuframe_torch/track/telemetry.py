@@ -1,8 +1,9 @@
 """Process-wide telemetry spine: spans, metrics registry, JSONL event log.
 
 The port's copy of the part of ``tpuframe/track/telemetry.py`` that the
-serve path uses, with the same event names, metric names and JSONL schema,
-so the JAX package's ``track analyze`` reads logs from either side:
+serve and train paths use, with the same event names, metric names and
+JSONL schema, so the JAX package's ``track analyze`` reads logs from either
+side:
 
 - :meth:`Telemetry.span` — nestable, thread-safe ``with`` regions on the
   monotonic clock; each feeds a ``span/<name>`` duration histogram and,

@@ -1,5 +1,49 @@
-"""Steps: the inference step (training comes with the training slice)."""
+"""Training: state, steps, optimizers, schedules and the Trainer."""
 
-from tpuframe_torch.train.step import make_predict_fn
+from tpuframe_torch.train.algorithms import (
+    Algorithm,
+    ChannelsLast,
+    CutMix,
+    LabelSmoothing,
+    MixUp,
+)
+from tpuframe_torch.train.callbacks import Callback, EarlyStopping, ProgressLogger
+from tpuframe_torch.train.duration import Duration
+from tpuframe_torch.train.optim import OptimizerSpec, make_optimizer, optimizer_from_config
+from tpuframe_torch.train.state import TrainState, create_train_state
+from tpuframe_torch.train.step import (
+    cross_entropy,
+    make_eval_step,
+    make_grad_accum_step,
+    make_predict_fn,
+    make_train_step,
+    merge_metrics,
+    summarize_metrics,
+)
+from tpuframe_torch.train.trainer import FitResult, Trainer
 
-__all__ = ["make_predict_fn"]
+__all__ = [
+    "Algorithm",
+    "Callback",
+    "ChannelsLast",
+    "CutMix",
+    "Duration",
+    "EarlyStopping",
+    "FitResult",
+    "LabelSmoothing",
+    "MixUp",
+    "OptimizerSpec",
+    "ProgressLogger",
+    "TrainState",
+    "Trainer",
+    "create_train_state",
+    "cross_entropy",
+    "make_eval_step",
+    "make_grad_accum_step",
+    "make_optimizer",
+    "make_predict_fn",
+    "make_train_step",
+    "merge_metrics",
+    "optimizer_from_config",
+    "summarize_metrics",
+]

@@ -1,0 +1,512 @@
+"""High-level Trainer for one card: the port of ``tpuframe/train/trainer.py``.
+
+Same constructor shape and public names as the JAX Trainer (Composer's
+``Trainer(model, optimizers, loaders, max_duration, algorithms,
+loggers).fit()``), over the port's eager steps.  It keeps the JAX Trainer's
+telemetry names — spans ``train/epoch``, ``train/step``, ``train/eval``,
+``train/data_wait`` and ``train/host_block``, the loader's
+``span/data/assemble`` and the prefetcher's ``span/data/h2d`` — and its
+epoch summary keys, so one analyzer reads logs from both sides.  Metrics
+are summed on the device and read by the host once per ``log_interval``
+steps; the health sentinel's verdict once per window.
+
+What this reduced Trainer does not do yet, each raising
+``NotImplementedError`` that names the slice which ports it:
+checkpoints (``checkpointer``, ``checkpoint_interval_batches``), parallel
+plans and DDP (``plan``), the compressed wire (``grad_compression``), EMA
+(``ema_decay``), preemption handling (``preemption=True``), straggler
+detection (``straggler_sync_steps``, ``straggler_factor``) and a custom
+optax ``tx``.  ``precompile`` is accepted and does nothing: eager PyTorch
+has no ahead-of-time compile step (``torch.compile`` comes with the
+compile slice).  The model arrives initialized, on its device (torch
+idiom); ``models.from_jax_variables`` carries JAX weights in.
+"""
+
+from __future__ import annotations
+
+import functools
+import time
+from typing import Any, Callable, Mapping, Sequence
+
+import numpy as np
+import torch
+
+from tpuframe_torch.data.loader import DataLoader, DevicePrefetcher
+from tpuframe_torch.fault import health as _health
+from tpuframe_torch.fault.health import Divergence
+from tpuframe_torch.ops.normalize import normalize_images
+from tpuframe_torch.parallel.precision import Policy, align_model_dtype, get_policy
+from tpuframe_torch.track.telemetry import get_telemetry
+from tpuframe_torch.train.algorithms import Algorithm, apply_algorithms, resolve_algorithms
+from tpuframe_torch.train.callbacks import Callback
+from tpuframe_torch.train.duration import Duration
+from tpuframe_torch.train.optim import make_optimizer
+from tpuframe_torch.train.schedules import Schedule, resolve_schedule
+from tpuframe_torch.train.state import TrainState, create_train_state
+from tpuframe_torch.train.step import (
+    cross_entropy,
+    make_eval_step,
+    make_grad_accum_step,
+    make_predict_fn,
+    make_train_step,
+    merge_metrics,
+    summarize_metrics,
+)
+
+__all__ = ["FitResult", "Trainer"]
+
+
+class FitResult:
+    """Ray-style structured result: metrics, history, checkpoint, error."""
+
+    def __init__(self):
+        self.metrics: dict[str, float] = {}
+        self.history: list[dict[str, float]] = []
+        self.checkpoint: str | None = None
+        self.error: BaseException | None = None
+        self.stopped_reason: str | None = None
+
+    def __repr__(self):
+        return (f"FitResult(metrics={self.metrics}, checkpoint={self.checkpoint!r}, "
+                f"error={self.error!r}, stopped={self.stopped_reason!r})")
+
+
+def _later(arg: str, where: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"Trainer({arg}=...) is not ported yet; it comes with {where} (ROADMAP.md, Queue 1)")
+
+
+class Trainer:
+    """Train a port model on one card with algorithms, callbacks and loggers.
+
+    Args:
+      model: an initialized ``nn.Module`` taking NHWC images (``ResNet``).
+      optimizer / lr: the named optimizer (``"sgd"`` is SGD with momentum
+        0.9, as the JAX Trainer's) and its learning rate: a float, a
+        schedule ``step -> lr`` or a DeepSpeed-shaped scheduler dict.
+      train_dataloader / eval_dataloader: port DataLoaders.
+      max_duration: ``"2ep"`` / ``"500ba"`` / ``"1000sp"`` / int epochs.
+      algorithms / callbacks / loggers: as the JAX Trainer's.
+      precision: policy name or Policy; when given, the model's compute
+        dtype is aligned to it, else the policy follows the model.
+      loss_fn: per-example loss (default: ``train.step.cross_entropy``).
+      seed: seeds the state's generator and the algorithms' draws.
+      num_classes: for label-space algorithms (default: the dataset's).
+      eval_interval / log_interval: epochs between evals (0 = never), steps
+        between host reads of the metrics.
+      report: ``report(epoch_summary, checkpoint)`` after every epoch.
+      grad_accum: microbatches per step (None reads ``TPUFRAME_GRAD_ACCUM``).
+      grad_clip: global-norm clip, optax's formula.
+      normalize: ``(mean, std[, scale])``; uint8 (or 0-255 float) images
+        cross to the card raw and kernel K1 normalizes them into the
+        compute dtype inside the train, eval and predict steps.
+      health: the training-health sentinel: None follows
+        ``TPUFRAME_HEALTH`` (on unless falsy), False disables, a
+        ``HealthPolicy`` sets thresholds.  A bad step applies no update;
+        ``max_bad`` bad steps in a window raise ``Divergence``.
+      precompile: accepted, no effect (see the module docstring).
+    """
+
+    def __init__(
+        self,
+        model: torch.nn.Module,
+        tx: Any = None,
+        train_dataloader: DataLoader | None = None,
+        eval_dataloader: DataLoader | None = None,
+        *,
+        optimizer: str = "adam",
+        lr: float | Mapping[str, Any] | Schedule = 1e-3,
+        max_duration: str | int = "1ep",
+        algorithms: Sequence[Algorithm] = (),
+        callbacks: Sequence[Callback] = (),
+        loggers: Sequence[Any] = (),
+        plan: Any = None,
+        precision: str | Policy | None = None,
+        loss_fn: Callable = cross_entropy,
+        seed: int = 0,
+        num_classes: int | None = None,
+        checkpointer: Any = None,
+        checkpoint_interval_batches: int | None = None,
+        eval_interval: int = 1,
+        log_interval: int = 10,
+        report: Callable[[dict, str | None], None] | None = None,
+        grad_accum: int | None = None,
+        grad_clip: float | None = None,
+        grad_compression: str | None = None,
+        normalize: tuple | None = None,
+        ema_decay: float | None = None,
+        preemption: Any = None,
+        straggler_sync_steps: int | None = None,
+        straggler_factor: float | None = None,
+        precompile: bool | None = None,
+        health: Any = None,
+    ):
+        for arg, value, where in (
+            ("tx", tx, "the LM slice (pass optimizer= and lr=)"),
+            ("checkpointer", checkpointer, "the checkpoint part of the training slice"),
+            ("checkpoint_interval_batches", checkpoint_interval_batches,
+             "the checkpoint part of the training slice"),
+            ("plan", plan, "the data-parallel part of the training slice"),
+            ("grad_compression", grad_compression, "the compressed-wire slice"),
+            ("ema_decay", ema_decay, "the EMA part of the training slice"),
+            ("straggler_sync_steps", straggler_sync_steps, "the platform planes (track)"),
+            ("straggler_factor", straggler_factor, "the platform planes (track)"),
+        ):
+            if value is not None:
+                raise _later(arg, where)
+        if preemption not in (None, False):
+            raise _later("preemption", "the platform planes (fault)")
+        if precision is None:
+            self.policy = Policy(compute_dtype=getattr(model, "compute_dtype", torch.float32))
+            self.model = model
+        else:
+            self.policy = get_policy(precision)
+            self.model = align_model_dtype(model, self.policy)
+        self.device = next(self.model.parameters()).device
+        self.train_dataloader = train_dataloader
+        self.eval_dataloader = eval_dataloader
+        self.max_duration = Duration.parse(max_duration)
+        self.callbacks = list(callbacks)
+        self.loggers = list(loggers)
+        self.loss_fn = loss_fn
+        self.seed = seed
+        self.eval_interval = eval_interval
+        self.log_interval = log_interval
+        self.report = report
+        self.precompile_enabled = bool(precompile)
+        self.health = _health.resolve_policy(health)
+        self._health_flags: list = []
+        self.spec = make_optimizer(optimizer, self._resolve_lr(lr),
+                                   float(grad_clip) if grad_clip else None)
+        if num_classes is None:
+            num_classes = getattr(getattr(train_dataloader, "dataset", None), "num_classes", None)
+        self.num_classes = num_classes
+        self.algorithms = resolve_algorithms(algorithms, num_classes) if algorithms else []
+
+        self.state: TrainState | None = None
+        self.epoch = 0
+        self.batches_seen = 0
+        self.samples_seen = 0
+        self._stop_reason: str | None = None
+        self._train_prefetcher: DevicePrefetcher | None = None
+
+        if grad_accum is None:
+            grad_accum = max(1, _health._env_int("TPUFRAME_GRAD_ACCUM", 1))
+        if grad_accum < 1:
+            raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+        self.grad_accum = grad_accum
+        # the one place the normalize tuple is interpreted: train, eval and
+        # predict read the same transform
+        self.normalize = normalize
+        image_transform = train_transform = eval_transform = None
+        if normalize is not None:
+            mean, std, *rest = normalize
+            self._norm_args = (mean, std, rest[0] if rest else 1.0 / 255.0)
+            image_transform = functools.partial(
+                normalize_images, mean=mean, std=std, scale=self._norm_args[2],
+                out_dtype=self.policy.compute_dtype)
+
+            def train_transform(batch: dict) -> dict:
+                batch["image"] = image_transform(batch["image"])
+                return batch
+
+            eval_transform = train_transform
+        else:
+            self._norm_args = None
+
+        if grad_accum > 1:
+            self._train_step = make_grad_accum_step(
+                grad_accum, self.policy, loss_fn, batch_transform=train_transform,
+                health=self.health)
+        else:
+            self._train_step = make_train_step(
+                self.policy, loss_fn, batch_transform=train_transform, health=self.health)
+        self._eval_step = make_eval_step(self.policy, loss_fn, batch_transform=eval_transform)
+        self._predict = make_predict_fn(self.policy, input_transform=image_transform)
+
+    # -- wiring ------------------------------------------------------------
+    def _resolve_lr(self, lr):
+        """A float, a schedule, or a DeepSpeed-shaped scheduler dict;
+        ``total_num_steps: "auto"`` resolves against ``max_duration``."""
+        return resolve_schedule(
+            lr, total_steps=_planned_total_steps(self.max_duration, self.train_dataloader))
+
+    @property
+    def is_main(self) -> bool:
+        return True  # one process
+
+    def request_stop(self, reason: str) -> None:
+        """Callbacks call this to end fit() after the current epoch."""
+        self._stop_reason = reason
+
+    def _emit(self, hook: str, *args) -> None:
+        for cb in self.callbacks:
+            getattr(cb, hook)(self, *args)
+
+    def _health_step(self, metrics: Mapping[str, Any]) -> None:
+        """Buffer the step's on-device health vector; check per window."""
+        if self.health is None:
+            return
+        stats = metrics.get("health_stats")
+        if stats is None:
+            return
+        self._health_flags.append(stats)
+        if len(self._health_flags) >= self.health.window:
+            self._health_check()
+
+    def _health_check(self) -> None:
+        """Read the window's verdict (one host sync): gauges,
+        ``health/bad_step`` events, and :class:`Divergence` at ``max_bad``."""
+        import math
+
+        if self.health is None or not self._health_flags:
+            return
+        stats = torch.stack(self._health_flags).cpu().numpy()
+        n_bad = int(round(float(stats[:, 0].sum())))
+        window_steps = len(stats)
+        self._health_flags = []
+        tele = get_telemetry()
+        hs = {k: float(v) for k, v in self.state.health.items()}
+        for key, name in (("loss_ewma", "health/loss_ewma"), ("grad_norm", "health/grad_norm")):
+            if math.isfinite(hs.get(key, float("nan"))):
+                tele.registry.gauge(name).set(hs[key])
+        if not n_bad:
+            return
+        tele.registry.counter("health/bad_steps").inc(n_bad)
+        tele.event(
+            "health/bad_step",
+            batch=self.batches_seen,
+            bad_in_window=n_bad,
+            window_steps=window_steps,
+            bad_steps_total=int(hs.get("bad_steps", 0.0)),
+            loss_ewma=hs["loss_ewma"] if math.isfinite(hs["loss_ewma"]) else None,
+            grad_norm=hs["grad_norm"] if math.isfinite(hs["grad_norm"]) else None,
+        )
+        if n_bad >= self.health.max_bad:
+            tele.registry.counter("health/divergences").inc()
+            tele.event("health/divergence", batch=self.batches_seen, bad_in_window=n_bad,
+                       window_steps=window_steps, max_bad=self.health.max_bad)
+            raise Divergence(
+                f"{n_bad} bad step(s) inside a {window_steps}-step health "
+                f"window (max_bad={self.health.max_bad}) at batch "
+                f"{self.batches_seen}: skip-step is no longer converging",
+                step=self.batches_seen, bad_in_window=n_bad, window=window_steps,
+                loss_ewma=hs.get("loss_ewma"), policy=self.health)
+
+    def _log_metrics(self, metrics: Mapping[str, float], step: int) -> None:
+        for lg in self.loggers:
+            lg.log_metrics(dict(metrics), step=step)
+
+    def _log_params(self, params: Mapping[str, Any]) -> None:
+        for lg in self.loggers:
+            if hasattr(lg, "log_params"):
+                lg.log_params(dict(params))
+
+    # -- state -------------------------------------------------------------
+    def init_state(self) -> TrainState:
+        if self.state is None:
+            self.state = create_train_state(self.model, self.spec, seed=self.seed)
+        return self.state
+
+    # -- data --------------------------------------------------------------
+    def _device_batches(self, loader: DataLoader, train: bool):
+        """Host pipeline: algorithms -> dict batches -> prefetched device
+        tensors."""
+        algs = self.algorithms if train else []
+        accum = self.grad_accum if train else 1
+        run_key = (self.seed * 1_000_003 + self.epoch) * 2 + int(train)
+        fallback_pos = iter(range(1, 1 << 62))
+
+        def batch_rng() -> np.random.Generator:
+            """Augmentation rng keyed by (run, batch position), as in JAX."""
+            pos = getattr(loader, "_batches_yielded", None)
+            if pos is None:
+                pos = next(fallback_pos)
+            return np.random.default_rng(run_key * 1_000_003 + pos)
+
+        def split_micro(x: np.ndarray) -> np.ndarray:
+            if x.shape[0] % accum:
+                raise ValueError(
+                    f"batch size {x.shape[0]} not divisible by grad_accum={accum}")
+            return x.reshape((accum, x.shape[0] // accum) + x.shape[1:])
+
+        def host_iter():
+            for batch in loader:
+                images, labels = np.asarray(batch[0]), np.asarray(batch[1])
+                if algs:
+                    images, labels = apply_algorithms(algs, images, labels, batch_rng())
+                out = {"image": images, "label": labels}
+                if len(batch) > 2:
+                    out["weight"] = np.asarray(batch[2], np.float32)
+                if accum > 1:
+                    out = {k: split_micro(v) for k, v in out.items()}
+                yield out
+
+        trackable = hasattr(loader, "state_dict")
+        pf = DevicePrefetcher(
+            host_iter(),
+            depth=max(1, _health._env_int("TPUFRAME_PREFETCH_DEPTH", 2)),
+            device=self.device,
+            track_loader=loader if train and trackable else None,
+            # one dict per loader batch, so the release order stays FIFO
+            recycler=loader if hasattr(loader, "release_oldest") else None,
+        )
+        if train:
+            self._train_prefetcher = pf
+        yield from pf
+
+    # -- loop --------------------------------------------------------------
+    def fit(self) -> FitResult:
+        """Run to ``max_duration``; returns the FitResult."""
+        result = FitResult()
+        self.init_state()
+        self._log_params({
+            "max_duration": str(self.max_duration),
+            "optimizer": type(self.state.optimizer).__name__,
+            "precision": str(self.policy.compute_dtype),
+            "devices": 1,
+            "zero_stage": 0,
+            "algorithms": ",".join(type(a).__name__ for a in self.algorithms),
+        })
+        self._emit("on_fit_start")
+        try:
+            while not self._done() and self._stop_reason is None:
+                with get_telemetry().span("train/epoch", epoch=self.epoch):
+                    epoch_metrics = self._run_epoch()
+                eval_metrics: dict[str, float] = {}
+                if (self.eval_dataloader is not None and self.eval_interval
+                        and (self.epoch + 1) % self.eval_interval == 0):
+                    eval_metrics = self.evaluate()
+                    self._emit("on_eval_end", self.epoch, eval_metrics)
+                epoch_summary = {**epoch_metrics, **eval_metrics}
+                result.history.append(epoch_summary)
+                result.metrics = epoch_summary
+                self._log_metrics(epoch_summary, step=self.epoch)
+                self._emit("on_epoch_end", self.epoch, epoch_summary)
+                if self.report is not None:
+                    self.report(epoch_summary, result.checkpoint)
+                self.epoch += 1
+        except BaseException as e:
+            result.error = e
+            raise
+        finally:
+            result.stopped_reason = self._stop_reason
+            self._emit("on_fit_end")
+            for lg in self.loggers:
+                if hasattr(lg, "finish"):
+                    lg.finish(error=result.error)
+                elif hasattr(lg, "flush"):
+                    lg.flush()
+        return result
+
+    def _done(self) -> bool:
+        return self.max_duration.reached(
+            epoch=self.epoch, batch=self.batches_seen, samples=self.samples_seen)
+
+    def _run_epoch(self) -> dict[str, float]:
+        self._emit("on_epoch_start", self.epoch)
+        self.train_dataloader.set_epoch(self.epoch)
+        acc = None
+        window = None  # device-side metric sums, read once per interval
+        t0 = time.perf_counter()
+        tele = get_telemetry()
+        data_wait = dispatch = host_block = 0.0
+        h_assemble = tele.registry.histogram("span/data/assemble")
+        h_h2d = tele.registry.histogram("span/data/h2d")
+        assemble0, h2d0 = h_assemble.total, h_h2d.total
+        epoch_end = object()
+
+        def drain(window):
+            """Read the device-side window (the only host sync)."""
+            nonlocal host_block
+            with tele.span("train/host_block", emit=False) as sp:
+                out = {k: float(v) for k, v in window.items() if k != "health_stats"}
+                if "health_stats" in window:
+                    out.update(_health.unpack_health_stats(window["health_stats"].cpu()))
+            host_block += sp.elapsed
+            return out
+
+        batches = iter(self._device_batches(self.train_dataloader, train=True))
+        try:
+            while True:
+                with tele.span("train/data_wait", emit=False) as sp:
+                    batch = next(batches, epoch_end)
+                if batch is epoch_end:
+                    break
+                wait_s = sp.elapsed
+                data_wait += wait_s
+                if self._done() or self._stop_reason is not None:
+                    break
+                self._emit("on_step_start")
+                with tele.span("train/step", batch=self.batches_seen,
+                               data_wait_s=round(wait_s, 6)) as sp, tele.guard("train/step"):
+                    self.state, metrics = self._train_step(self.state, batch)
+                dispatch += sp.elapsed
+                self.batches_seen += 1
+                self.samples_seen += self.train_dataloader.global_batch_size
+                self._health_step(metrics)
+                window = metrics if window is None else {k: window[k] + v
+                                                         for k, v in metrics.items()}
+                self._emit("on_step_end")
+                if self.log_interval and self.batches_seen % self.log_interval == 0:
+                    w = drain(window)
+                    acc = merge_metrics(acc, w)
+                    self._emit("on_batch_end", w)
+                    self._log_metrics(summarize_metrics(w, prefix="train_batch_"),
+                                      step=self.batches_seen)
+                    window = None
+        finally:
+            batches.close()  # stops the prefetcher's thread
+        if window is not None:
+            w = drain(window)
+            acc = merge_metrics(acc, w)
+            self._emit("on_batch_end", w)
+        self._health_check()
+        elapsed = time.perf_counter() - t0
+        summary = summarize_metrics(acc or {}, prefix="train_")
+        if acc:
+            summary["train_samples_per_sec"] = acc.get("count", 0.0) / max(elapsed, 1e-9)
+        if self.health is not None and acc:
+            summary["health_bad_steps"] = acc.get("health_bad", 0.0)
+            finite_steps = acc.get("health_steps", 0.0) - acc.get("health_nonfinite", 0.0)
+            if finite_steps > 0:
+                summary["grad_norm"] = acc.get("grad_norm_sum", 0.0) / finite_steps
+        summary["epoch_time_s"] = elapsed
+        summary["data_wait_s"] = data_wait
+        summary["dispatch_s"] = dispatch
+        summary["host_block_s"] = host_block
+        summary["assemble_s"] = h_assemble.total - assemble0
+        summary["h2d_s"] = h_h2d.total - h2d0
+        return summary
+
+    def evaluate(self) -> dict[str, float]:
+        """Mask-correct eval over the eval dataloader."""
+        if self.eval_dataloader is None:
+            raise ValueError("no eval_dataloader")
+        state = self.init_state()
+        self.eval_dataloader.set_epoch(0)
+        acc = None
+        with get_telemetry().span("train/eval", epoch=self.epoch):
+            for batch in self._device_batches(self.eval_dataloader, train=False):
+                acc = merge_metrics(acc, self._eval_step(state, batch))
+        return summarize_metrics(acc or {}, prefix="eval_")
+
+    def predict(self, images: np.ndarray) -> np.ndarray:
+        """Logits for a (N, H, W, C) image batch, in eval mode."""
+        x = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
+        return self._predict(self.init_state().model, x).cpu().numpy()
+
+
+def _planned_total_steps(duration: Duration, dataloader) -> int | None:
+    """Best-effort optimizer-step count for schedule resolution."""
+    if duration.unit == "ba":
+        return duration.value
+    if dataloader is None:
+        return None
+    if duration.unit == "ep":
+        try:
+            return duration.value * len(dataloader)
+        except TypeError:
+            return None
+    gbs = getattr(dataloader, "global_batch_size", None)
+    return max(-(-duration.value // gbs), 1) if gbs else None
