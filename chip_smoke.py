@@ -19,7 +19,13 @@ Phases, each of which fails the script (nonzero exit, no result line):
    K1 normalize (``torch.addcmul`` into a bf16 ``out=``), K2a cross
    entropy forward (``F.cross_entropy(reduction="none")``) and K2b its
    backward (``torch.autograd.grad`` of that loss), the last two at the
-   train path's (128, 1000) f32 and at an HBM-bound (16384, 1000).
+   train path's (128, 1000) f32 and at an HBM-bound (16384, 1000); K3a
+   LayerNorm forward (``F.layer_norm(eps=1e-6)``) and K3b its backward
+   (``torch.autograd.grad`` of it) at the LM path's (16384, 768) bf16 with
+   bf16 scale and bias, checked there, in f32 and at a ragged 1000 x 300;
+   K4 fused AdamW over the 149 parameter tensors of the GPT-2-small LM for
+   one step (``torch.optim.AdamW(fused=True)``, the same update), checked
+   there, at a ragged 257 x 130 leaf and a bf16 leaf.
 4. Serve: ResNet50 with 1000 classes under ``bf16_compute`` serves 160
    uint8 224x224 images through ``ServeEngine`` (buckets 1/8/32/64) from 4
    client threads, plus one ``POST /predict`` through ``ServingServer``.
@@ -36,7 +42,19 @@ Phases, each of which fails the script (nonzero exit, no result line):
    table of one step), ten steps on one batch that must lower the loss,
    kernel against plain cross entropy in f32 train steps, and an f32 train
    step on the card against the CPU.
-6. Result: a ``kernels`` JSON line, the ``nvidia-smi`` line, then
+6. LM train: ``Trainer(TransformerLM(...), tx=fused_adamw(3e-4,
+   weight_decay=1e-4), precision="bf16").fit()`` on the GPT-2-small LM of
+   ``benchmarks/bench_lm.py`` (12 layers, 12 heads x 64, vocab 32768, seq
+   1024, batch 16, random weights from a seed) for 12 batches of example
+   06's next-token data, plus an eval whose last batch is ragged; counters
+   zeroed just before and read just after: K3a 25 per forward, K3b 25 per
+   step, K4 149 per step, K1 and K2 none.  Then the train step alone on one
+   device-resident batch (tokens per second and MFU, median of 30 steps, a
+   ``torch.profiler`` table, and the time of the materialized attention and
+   of the float32 logits and loss at the step's shapes), ten steps on one
+   batch that must lower the loss, kernel against plain LayerNorm and AdamW
+   in f32 steps, and a small f32 LM step on the card against the CPU.
+7. Result: a ``kernels`` JSON line, the ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -58,6 +76,15 @@ import torch
 MEAN = (0.485, 0.456, 0.406)
 STD = (0.229, 0.224, 0.225)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak
+F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
+
+
+def bound(moved: float, flops: float) -> tuple[float, str]:
+    """(least ms the card could take, what bounds it): the larger of the
+    bytes over HBM's rate and the float32 operations over its peak."""
+    by_bytes, by_ops = moved / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 BUCKETS = (1, 8, 32, 64)
 N_REQUESTS = 160
 N_CLIENTS = 4
@@ -86,6 +113,19 @@ def bf16_ulp_distance(a: torch.Tensor, b: torch.Tensor) -> int:
         bits = t.contiguous().view(torch.int16).to(torch.int32)
         return torch.where(bits < 0, -(bits & 0x7FFF), bits)
     return int((ordered(a) - ordered(b)).abs().max().item())
+
+
+def bf16_steps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| in units of one bf16 step at the value (its
+    ulp: 2**-7 of the power of two at or below |want|) plus 1e-6.  At most
+    1 where the two round float32 values a rounding apart, also where a
+    value cancels to near zero (there a bf16 ulp is tiny and the ulp count
+    of :func:`bf16_ulp_distance` is large)."""
+    got, want = got.float(), want.float()
+    _, exp = torch.frexp(want)  # |want| in [2**(exp-1), 2**exp)
+    ulp = torch.where(want == 0, torch.zeros_like(want),
+                      torch.ldexp(torch.ones_like(want), exp - 8))
+    return float(((got - want).abs() / (ulp + 1e-6)).max())
 
 
 def time_ms(fn, flush: torch.Tensor, iters: int = 100, warmup: int = 10) -> float:
@@ -348,6 +388,214 @@ def cross_entropy_phase(flush) -> list[dict]:
             "large": {"shape": "16384x1000 f32, int64 labels", **l},
         })
     return rows
+
+
+def layer_norm_phase(flush) -> list[dict]:
+    """K3a and K3b against their plain versions at the LM path's (16384,
+    768) bf16 with bf16 scale and bias (the bf16 policy casts them), in f32
+    and at a ragged (1000, 300), then timed at the path's shape beside the
+    plain versions and the library calls."""
+    import torch.nn.functional as F
+
+    from tpuframe_torch.ops.layer_norm import (
+        layer_norm_bwd,
+        layer_norm_bwd_reference,
+        layer_norm_fwd,
+        layer_norm_reference,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(4)
+    path = (16384, 768)
+
+    def inputs(rows, d, dtype):
+        x = (rng.standard_normal((rows, d)) * 2 + 0.5).astype(np.float32)
+        scale = rng.uniform(0.5, 1.5, d).astype(np.float32)
+        bias = rng.normal(0, 0.3, d).astype(np.float32)
+        g = rng.standard_normal((rows, d)).astype(np.float32)
+        return tuple(torch.from_numpy(a).to(dtype).to(dev) for a in (x, scale, bias, g))
+
+    cases = [("16384x768 bf16", *path, torch.bfloat16), ("16384x768 f32", *path, torch.float32),
+             ("1000x300 f32", 1000, 300, torch.float32),
+             ("1000x300 bf16", 1000, 300, torch.bfloat16)]
+    err = {}
+    for name, rows, d, dtype in cases:
+        x, scale, bias, g = inputs(rows, d, dtype)
+        y = layer_norm_fwd(x, scale, bias)
+        dx, dscale, dbias = layer_norm_bwd(x, scale, g)
+        want_y = layer_norm_reference(x, scale, bias)
+        want_dx, want_ds, want_db = layer_norm_bwd_reference(x, scale, g)
+        torch.cuda.synchronize()
+        check(y.dtype == dx.dtype == dtype and dscale.dtype == dbias.dtype == dtype
+              and y.shape == dx.shape == x.shape, f"K3 {name}: {y.dtype} {dx.dtype} {dscale.dtype}")
+        e_y = float((y.float() - want_y.float()).abs().max())
+        e_dx = float((dx.float() - want_dx.float()).abs().max())
+        e_ds = float((dscale.float() - want_ds.float()).abs().max())
+        e_db = float((dbias.float() - want_db.float()).abs().max())
+        if dtype == torch.float32:
+            # O(1) values, sums over the row in another order: 1e-5 absolute.
+            # dscale and dbias sum `rows` terms in another order (per lane,
+            # per warp, then the blocks' partials): within 2e-5 of each
+            # column's sum of |terms|
+            xf = x.float()
+            mu = xf.mean(-1, keepdim=True)
+            xhat = (xf - mu) * torch.rsqrt((xf * xf).mean(-1, keepdim=True) - mu * mu + 1e-6)
+            ok_s = bool(((dscale - want_ds).abs() <= 2e-5 * (g * xhat).abs().sum(0) + 1e-6).all())
+            ok_b = bool(((dbias - want_db).abs() <= 2e-5 * g.abs().sum(0) + 1e-6).all())
+            check(e_y <= 1e-5 and e_dx <= 1e-5 and ok_s and ok_b,
+                  f"K3 {name}: y {e_y}, dx {e_dx} (tol 1e-5), dscale {e_ds} ({ok_s}), "
+                  f"dbias {e_db} ({ok_b})")
+            tol = "1e-5; dscale/dbias 2e-5 of the column's sum of |terms|"
+        else:
+            # one bf16 step of the value (y and dx cancel to near zero
+            # where x is near its row's mean: there the kernel's fused
+            # multiply-adds and the plain version's separate roundings
+            # land a few float32 roundings apart)
+            steps = [round(bf16_steps(a, b), 3) for a, b in
+                     ((y, want_y), (dx, want_dx), (dscale, want_ds), (dbias, want_db))]
+            check(max(steps) <= 1, f"K3 {name}: bf16 steps y/dx/dscale/dbias {steps} (tol 1)")
+            tol = f"bf16 steps y/dx/dscale/dbias {steps}, tol 1"
+        log(f"  layer norm {name}: K3a max abs diff {e_y:.3g}, K3b dx {e_dx:.3g}, dscale "
+            f"{e_ds:.3g}, dbias {e_db:.3g} ({tol})")
+        if (rows, d) == path and dtype == torch.bfloat16:
+            err = {"fwd": e_y, "bwd": max(e_dx, e_ds, e_db)}
+        again = layer_norm_bwd(x, scale, g)
+        check(all(torch.equal(a, b) for a, b in zip((dx, dscale, dbias), again)),
+              f"K3b {name}: a rerun gave other bits")
+
+    rows, d = path
+    x, scale, bias, g = inputs(rows, d, torch.bfloat16)
+    xl, sl, bl = (t.detach().requires_grad_(True) for t in (x, scale, bias))
+    lib_y = F.layer_norm(xl, (d,), sl, bl, eps=1e-6)
+    lib_steps = bf16_steps(lib_y.detach(), layer_norm_reference(x, scale, bias))
+    log(f"  F.layer_norm yardstick 16384x768 bf16: within {lib_steps:.3g} bf16 steps of the "
+        "plain version (it takes a two-pass variance)")
+    arms = {
+        "fwd": (functools.partial(layer_norm_fwd, x, scale, bias),
+                functools.partial(layer_norm_reference, x, scale, bias),
+                functools.partial(F.layer_norm, x, (d,), scale, bias, eps=1e-6)),
+        "bwd": (functools.partial(layer_norm_bwd, x, scale, g),
+                functools.partial(layer_norm_bwd_reference, x, scale, g),
+                lambda: torch.autograd.grad(lib_y, (xl, sl, bl), g, retain_graph=True)),
+    }
+    elem = rows * d
+    # each input read once, each output written once (bf16): x and y, plus
+    # scale and bias; x, g and dx, plus scale, dscale and dbias.  About 8
+    # float32 operations an element forward, 16 backward
+    moved = {"fwd": 2 * elem * 2 + 2 * d * 2, "bwd": 3 * elem * 2 + 3 * d * 2}
+    flops = {"fwd": 8 * elem, "bwd": 16 * elem}
+    rows_out = []
+    for which, name, line in (("fwd", "layer_norm_fwd", 51), ("bwd", "layer_norm_bwd", 64)):
+        kernel, plain, library = arms[which]
+        plain_ms = [time_ms(plain, flush)]
+        kernel_ms = [time_ms(kernel, flush)]
+        library_ms = [time_ms(library, flush), time_ms(library, flush)]
+        kernel_ms.append(time_ms(kernel, flush))
+        plain_ms.append(time_ms(plain, flush))
+        bound_ms, bound_by = bound(moved[which], flops[which])
+        r = {"name": name, "route": "cuda", "source": "tpuframe_torch/csrc/layer_norm.cu",
+             "replaces": f"tpuframe/ops/layer_norm.py:{line}", "launches": None,
+             "max_abs_err": err[which], "ms": min(kernel_ms), "plain_ms": min(plain_ms),
+             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": min(library_ms),
+             "shape": "16384x768 bf16, bf16 scale/bias", "bytes_moved": moved[which]}
+        log(f"  {name} 16384x768 bf16: kernel {r['ms'] * 1e3:.2f} us, plain "
+            f"{r['plain_ms'] * 1e3:.2f} us, library {r['library_ms'] * 1e3:.2f} us, bound "
+            f"{bound_ms * 1e3:.2f} us ({moved[which] / 1e6:.2f} MB at 3.35 TB/s)")
+        rows_out.append(r)
+    return rows_out
+
+
+def adamw_phase(flush, shapes) -> dict:
+    """K4 against its plain version over ``shapes`` (the LM's parameter
+    tensors), a ragged 257 x 130 leaf and a bf16 leaf, then one whole
+    optimizer step over ``shapes`` timed beside the plain version and
+    ``torch.optim.AdamW(fused=True)``."""
+    from tpuframe_torch.ops.fused_adamw import fused_adamw_update_, fused_adamw_update_reference
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    hp = dict(lr=3e-4, b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-4)
+
+    def leaf(shape, dtype=torch.float32):
+        p = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        g = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        m = torch.randn(shape, generator=gen, device=dev) * 0.1
+        v = torch.rand(shape, generator=gen, device=dev) * 0.1
+        return p, g, m, v
+
+    count = torch.full((), 7, dtype=torch.int32, device=dev)
+
+    def one(p, g, m, v, **kw):
+        want = fused_adamw_update_reference(p, g, m, v, count, **kw)
+        got = (p.clone(), m.clone(), v.clone())
+        fused_adamw_update_(*got[:1], g, *got[1:], count, **kw)
+        return got, want
+
+    leaves = [leaf(s) for s in shapes]
+    worst = 0.0
+    for p, g, m, v in leaves:
+        got, want = one(p, g, m, v, **hp)
+        worst = max(worst, max(float((a - b).abs().max()) for a, b in zip(got, want)))
+    ragged_got, ragged_want = one(*leaf((257, 130)), lr=1e-2, b1=0.9, b2=0.999, eps=1e-8,
+                                  weight_decay=0.01)
+    bf16_got, bf16_want = one(*leaf((4096, 768), torch.bfloat16), **hp)
+    torch.cuda.synchronize()
+    ragged = max(float((a - b).abs().max()) for a, b in zip(ragged_got, ragged_want))
+    bf16_mv = max(float((a - b).abs().max()) for a, b in zip(bf16_got[1:], bf16_want[1:]))
+    bf16_p = bf16_steps(bf16_got[0], bf16_want[0])
+    # the same float32 expression (the compiler may fuse a multiply-add):
+    # 1e-6 absolute; a bf16 parameter within one bf16 step
+    log(f"  fused AdamW over {len(shapes)} LM tensors: max abs diff {worst:.3g}; 257x130 "
+        f"{ragged:.3g}; bf16 4096x768: m/v {bf16_mv:.3g}, p {bf16_p:.3g} bf16 steps "
+        f"(tol 1e-6, 1 step)")
+    check(max(worst, ragged, bf16_mv) <= 1e-6 and bf16_p <= 1,
+          f"K4: {worst}, {ragged}, {bf16_mv}, {bf16_p} bf16 steps")
+    del ragged_got, ragged_want, bf16_got, bf16_want
+
+    # the library yardstick: torch's fused AdamW over the same tensors.  From
+    # zero moments at step 1 it gives the same update as the plain version
+    params = [torch.nn.Parameter(p.clone()) for p, _, _, _ in leaves]
+    for prm, (_, g, _, _) in zip(params, leaves):
+        prm.grad = g.clone()
+    lib = torch.optim.AdamW(params, lr=hp["lr"], betas=(hp["b1"], hp["b2"]), eps=hp["eps"],
+                            weight_decay=hp["weight_decay"], fused=True)
+    lib.step()
+    one_count = torch.ones((), dtype=torch.int32, device=dev)
+    lib_err = 0.0
+    for prm, (p, g, _, _) in zip(params, leaves):
+        zeros = torch.zeros_like(p)
+        want = fused_adamw_update_reference(p, g, zeros, zeros, one_count, **hp)[0]
+        lib_err = max(lib_err, float((prm.detach() - want).abs().max()))
+    log(f"  torch.optim.AdamW(fused=True) yardstick: first step within {lib_err:.3g} of the "
+        "plain version")
+
+    def kernel():
+        for p, g, m, v in leaves:
+            fused_adamw_update_(p, g, m, v, count, **hp)
+
+    def plain():
+        for p, g, m, v in leaves:
+            fused_adamw_update_reference(p, g, m, v, count, **hp)
+
+    timed = functools.partial(time_ms, flush=flush, iters=20, warmup=3)
+    plain_ms = [timed(plain)]
+    kernel_ms = [timed(kernel)]
+    library_ms = [timed(lib.step), timed(lib.step)]
+    kernel_ms.append(timed(kernel))
+    plain_ms.append(timed(plain))
+    n = sum(p.numel() for p, _, _, _ in leaves)
+    moved = n * 4 * 7  # p, g, m, v read; p, m, v written; float32
+    bound_ms, bound_by = bound(moved, 16 * n)  # about 16 float32 operations an element
+    r = {"name": "fused_adamw", "route": "cuda", "source": "tpuframe_torch/csrc/fused_adamw.cu",
+         "replaces": "tpuframe/ops/fused_adamw.py:55", "launches": None, "max_abs_err": worst,
+         "ms": min(kernel_ms), "plain_ms": min(plain_ms), "bound_ms": bound_ms,
+         "bound_by": bound_by, "library_ms": min(library_ms),
+         "shape": f"one step over {len(shapes)} f32 tensors, {n} parameters",
+         "bytes_moved": moved}
+    log(f"  fused_adamw step over {len(shapes)} tensors ({n / 1e6:.1f} M parameters): kernel "
+        f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, torch AdamW(fused=True) "
+        f"{r['library_ms']:.3f} ms, bound {bound_ms:.3f} ms ({moved / 1e9:.2f} GB at 3.35 TB/s)")
+    return r
 
 
 def profile(fn, what: str, top: int = 12) -> dict:
@@ -751,6 +999,344 @@ def train_phase(card: str, dev: torch.device = torch.device("cuda"), image_size:
     return launches, out
 
 
+#: the GPT-2-small LM of ``benchmarks/bench_lm.py`` ("gpt_small")
+LM = dict(vocab_size=32768, num_layers=12, num_heads=12, head_dim=64, max_len=1024)
+LM_BATCH = 16
+LM_STEPS = 12
+#: kernel against plain LayerNorm and AdamW: two f32 steps of a 2-layer LM
+#: at the path's width, vocabulary and a shorter sequence
+LM_PLAIN = dict(vocab_size=32768, num_layers=2, num_heads=12, head_dim=64, max_len=256)
+#: the f32 LM step on the card against the CPU
+LM_CPU = dict(vocab_size=512, num_layers=2, num_heads=4, head_dim=32, max_len=64)
+# f32 LM steps, kernel against plain LayerNorm and AdamW: the two differ in
+# the rounding of LayerNorm's sums and of the AdamW expression (~1e-7
+# relative).  Losses hold 1e-5 relative.  The parameters are held as a
+# whole, ||kernel - plain|| within 1e-4 of the update's norm after each of
+# two steps.  AdamW runs with eps 1e-3 here: Adam's update is lr * m /
+# (sqrt(v) + eps), and at the default 1e-8 a gradient element that is only
+# rounding noise (a sum that is zero in exact arithmetic, ~1e-9) is scaled
+# up to a step of order lr on either side, which alone moved the update
+# 1.4e-4 of its norm between the two arms on the CPU
+LM_STEP_LOSS_RTOL = 1e-5
+LM_STEP_UPDATE_RTOL = 1e-4
+LM_STEP_ADAMW = dict(eps=1e-3, weight_decay=1e-4)
+# the small f32 LM step, card (TF32 off) against the CPU, with the same
+# AdamW settings: the order of every sum differs; the loss holds 1e-4
+# relative and the update 1e-3 of its norm
+LM_CPU_UPDATE_RTOL = 1e-3
+
+
+class SyntheticTokenDataset:
+    """Example 06's deterministic next-token streams
+    (``examples/06_lm_sequence_parallel.py``): token t+1 = (start + stride *
+    t) mod vocab, keyed by index."""
+
+    def __init__(self, n: int, seq_len: int, vocab: int, seed: int = 0):
+        self.n, self.seq_len, self.vocab, self.seed = n, seq_len, vocab, seed
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i: int):
+        rng = np.random.default_rng(self.seed * 100_003 + i)
+        start = int(rng.integers(0, self.vocab))
+        stride = int(rng.integers(1, 7))
+        toks = (start + stride * np.arange(self.seq_len + 1)) % self.vocab
+        return toks.astype(np.int32)
+
+
+class NextTokenDataset(SyntheticTokenDataset):
+    """(input, label) next-token pairs."""
+
+    def __getitem__(self, i: int):
+        toks = super().__getitem__(i)
+        return toks[:-1], toks[1:]
+
+
+def plain_adamw(lr: float, **hp):
+    """An ``OptimizerSpec`` whose optimizer runs the plain AdamW update in
+    place of K4: the other arm of the kernel-against-plain check."""
+    from tpuframe_torch.ops.fused_adamw import FusedAdamW, fused_adamw_update_reference
+    from tpuframe_torch.train import OptimizerSpec
+
+    class PlainAdamW(FusedAdamW):
+        @torch.no_grad()
+        def step(self, closure=None):
+            for group in self.param_groups:
+                kw = {k: group[k] for k in ("lr", "b1", "b2", "eps", "weight_decay")}
+                for p in group["params"]:
+                    if p.grad is None:
+                        continue
+                    st = self.state[p]
+                    st["count"] += 1
+                    new = fused_adamw_update_reference(p, p.grad, st["mu"], st["nu"],
+                                                       st["count"], **kw)
+                    for t, n in zip((p, st["mu"], st["nu"]), new):
+                        t.copy_(n)
+
+    return OptimizerSpec(lambda params: PlainAdamW(params, lr, **hp), lr)
+
+
+def plain_layer_norm(module, x: torch.Tensor) -> torch.Tensor:
+    """``FusedLayerNorm.forward`` through the plain version (autograd of
+    plain tensor ops) in place of K3a and K3b."""
+    from tpuframe_torch.ops.layer_norm import layer_norm_reference
+
+    return layer_norm_reference(x, module.scale, module.bias, module.epsilon).to(module.dtype)
+
+
+def lm_breakdown(cfg: dict, batch_size: int, dev: torch.device) -> dict:
+    """Device time of two parts of the LM step at its shapes: the
+    materialized attention (``attention_reference`` forward and backward,
+    bf16) of one layer, and the head (``lm_head`` product, f32 logits, the
+    per-position loss, and their backward)."""
+    import torch.nn.functional as F
+
+    from tpuframe_torch.ops.ring_attention import attention_reference
+    from tpuframe_torch.train.step import cross_entropy
+
+    b, l, h, dh, v = (batch_size, cfg["max_len"], cfg["num_heads"], cfg["head_dim"],
+                      cfg["vocab_size"])
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    q, k, vv = (rand(b, l, h, dh).requires_grad_(True) for _ in range(3))
+    g_out = rand(b, l, h, dh)
+    x = rand(b, l, h * dh).requires_grad_(True)
+    w = rand(v, h * dh, scale=(h * dh) ** -0.5).requires_grad_(True)
+    labels = torch.randint(0, v, (b, l), generator=gen, device=dev)
+
+    def attention():
+        torch.autograd.grad(attention_reference(q, k, vv, causal=True), (q, k, vv), g_out)
+
+    def head():
+        logits = F.linear(x, w).float()
+        torch.autograd.grad(cross_entropy(logits, labels).mean(), (x, w))
+
+    no_flush = torch.empty(1, device=dev)
+    attn_ms = time_ms(attention, no_flush, iters=10, warmup=2)
+    head_ms = time_ms(head, no_flush, iters=10, warmup=2)
+    return {"attention_ms_per_layer": attn_ms, "attention_ms": attn_ms * cfg["num_layers"],
+            "head_ms": head_ms}
+
+
+def lm_phase(card: str, dev: torch.device = torch.device("cuda"), cfg: dict = LM,
+             batch_size: int = LM_BATCH, plain_cfg: dict = LM_PLAIN,
+             plain_batch: int = 4) -> tuple[dict, dict]:
+    """The LM train slice through ``Trainer.fit`` (main path, counted), then
+    the step alone, the overfit check and the two f32 parity checks.
+    Returns (launch counts, summary).  The device and sizes are arguments
+    so the phase can be rehearsed small on the CPU."""
+    import math
+
+    from tpuframe_torch.data import DataLoader
+    from tpuframe_torch.models import TransformerLM
+    from tpuframe_torch.ops import (
+        FusedLayerNorm,
+        cross_entropy_bwd,
+        cross_entropy_fwd,
+        fused_adamw,
+        fused_adamw_update_,
+        layer_norm_bwd,
+        layer_norm_fwd,
+        normalize_images,
+    )
+    from tpuframe_torch.parallel import full_precision
+    from tpuframe_torch.train import Callback, Trainer, create_train_state, make_train_step
+
+    class StepLosses(Callback):
+        def __init__(self):
+            self.losses = []
+
+        def on_batch_end(self, trainer, metrics):
+            self.losses.append(metrics["loss_sum"] / max(metrics["count"], 1.0))
+
+    seq, vocab, layers = cfg["max_len"], cfg["vocab_size"], cfg["num_layers"]
+    model = TransformerLM(**cfg, device=dev, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_leaves = len(list(model.parameters()))
+    train = DataLoader(NextTokenDataset(batch_size * LM_STEPS, seq, vocab, seed=1), batch_size,
+                       shuffle=True, seed=0, num_workers=4)
+    eval_n = 2 * batch_size + 5  # a ragged last batch
+    evl = DataLoader(NextTokenDataset(eval_n, seq, vocab, seed=2), batch_size, drop_last=False,
+                     num_workers=4)
+    steps = StepLosses()
+    trainer = Trainer(model, tx=fused_adamw(3e-4, weight_decay=1e-4), train_dataloader=train,
+                      eval_dataloader=evl, precision="bf16", max_duration=f"{LM_STEPS}ba",
+                      log_interval=1, callbacks=[steps])
+    trainer.init_state()
+    n_eval = len(evl)
+    counters = {"layer_norm_fwd": layer_norm_fwd, "layer_norm_bwd": layer_norm_bwd,
+                "fused_adamw": fused_adamw_update_, "normalize": normalize_images,
+                "cross_entropy_fwd": cross_entropy_fwd, "cross_entropy_bwd": cross_entropy_bwd}
+    # -- the main path: counts zeroed just before, read just after ---------
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    result = trainer.fit()
+    sync(dev)
+    fit_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    n_ln = 2 * layers + 1  # ln1 and ln2 of every block, ln_f
+    expected = {"layer_norm_fwd": n_ln * (LM_STEPS + n_eval), "layer_norm_bwd": n_ln * LM_STEPS,
+                "fused_adamw": n_leaves * LM_STEPS, "normalize": 0, "cross_entropy_fwd": 0,
+                "cross_entropy_bwd": 0}
+    log(f"  LM fit: {n_params / 1e6:.1f} M parameters in {n_leaves} tensors, {LM_STEPS} steps "
+        f"of {batch_size}x{seq} tokens + eval of {eval_n} sequences ({n_eval} batches) in "
+        f"{fit_s:.2f} s; launches {launches} (expected {expected})")
+    check(launches == expected, f"LM launches {launches} != {expected}")
+    summary = result.history[-1]
+    check(SUMMARY_KEYS <= set(summary), f"epoch summary lacks {SUMMARY_KEYS - set(summary)}")
+    losses = steps.losses
+    check(len(losses) == LM_STEPS and all(math.isfinite(v) for v in losses),
+          f"step losses {losses}")
+    # the JAX model at init gives ln(vocab) + ~0.5 (logits of unit spread):
+    # 10.84 for vocab 32768 on the CPU at 2 layers, width 768
+    check(abs(losses[0] - math.log(vocab)) <= 1.0,
+          f"first-step loss {losses[0]:.4f} not within 1.0 of ln {vocab} = {math.log(vocab):.4f}")
+    check(summary["health_bad_steps"] == 0.0, f"{summary['health_bad_steps']} bad steps")
+    check(math.isfinite(summary["eval_loss"]), f"eval loss {summary['eval_loss']}")
+    log(f"  step losses {[round(v, 4) for v in losses]}")
+    log("  epoch summary " + json.dumps({k: round(v, 6) for k, v in summary.items()}))
+
+    # -- the train step alone on one device-resident batch ------------------
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, vocab, (batch_size, seq + 1))).to(dev)
+    batch = {"image": toks[:, :-1], "label": toks[:, 1:]}
+    state, step = trainer.state, trainer._train_step
+    fixed = []
+    for _ in range(10):  # ten steps on one batch: the overfit check
+        state, m = step(state, batch)
+        fixed.append(m["loss_sum"] / m["count"])
+    fixed = [float(v) for v in torch.stack(fixed).cpu()]
+    log(f"  ten steps on one batch: losses {[round(v, 4) for v in fixed]}")
+    check(all(math.isfinite(v) for v in fixed) and fixed[-1] < fixed[0],
+          f"ten steps on one batch did not lower the loss: {fixed}")
+    for _ in range(3):
+        state, _ = step(state, batch)
+    times = []
+    for _ in range(30):
+        sync(dev)
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        sync(dev)
+        times.append(time.perf_counter() - t0)
+    step_ms = statistics.median(times) * 1e3
+    tokens = batch_size * seq
+    tok_s = tokens / (step_ms / 1e3)
+    # 6 N T for the parameters' products, plus attention's QK^T and PV,
+    # forward and backward (3 x 4 B H L^2 Dh per layer)
+    model_flops = 6 * n_params * tokens
+    attn_flops = 3 * 4 * batch_size * cfg["num_heads"] * seq * seq * cfg["head_dim"] * layers
+    mfu = (model_flops + attn_flops) / (step_ms / 1e3) / BF16_FLOPS
+    mem_gb = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else 0.0
+    log(f"  LM train step alone, batch {batch_size}x{seq}: median {step_ms:.2f} ms over 30 steps "
+        f"(min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}) = {tok_s:.0f} tokens/s; "
+        f"MFU {mfu:.4f} ({(model_flops + attn_flops) / 1e12:.2f} TFLOP per step at 989 "
+        f"TFLOP/s); peak memory {mem_gb:.2f} GB on {card}")
+    prof = profile(lambda: step(state, batch), f"LM train step of {batch_size}x{seq} "
+                   "(bf16, health on)", top=30)
+    del trainer, state, step, model, batch, toks
+    parts = {}
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        parts = lm_breakdown(cfg, batch_size, dev)
+        log(f"  at the step's shapes: attention forward+backward "
+            f"{parts['attention_ms_per_layer']:.3f} ms a layer, {parts['attention_ms']:.2f} ms "
+            f"for {layers} layers "
+            f"({parts['attention_ms'] / step_ms:.1%} of the step); lm_head + f32 logits + loss "
+            f"and backward {parts['head_ms']:.2f} ms ({parts['head_ms'] / step_ms:.1%})")
+
+    # -- kernel against plain LayerNorm and AdamW: f32 LM steps -------------
+    kernel_model = TransformerLM(**plain_cfg, device=dev, seed=4)
+    plain_model = TransformerLM(**plain_cfg, device=dev, seed=5)
+    plain_model.load_state_dict(kernel_model.state_dict())
+    for m in plain_model.modules():
+        if isinstance(m, FusedLayerNorm):
+            m.forward = functools.partial(plain_layer_norm, m)
+    start = [p.detach().clone() for p in kernel_model.parameters()]
+    kernel_state = create_train_state(kernel_model, fused_adamw(1e-3, **LM_STEP_ADAMW))
+    plain_state = create_train_state(plain_model, plain_adamw(1e-3, **LM_STEP_ADAMW))
+    f32_step = make_train_step(full_precision())
+    prng = np.random.default_rng(5)
+    pv, pl_ = plain_cfg["vocab_size"], plain_cfg["max_len"]
+    worst_loss, update_rel = 0.0, []
+    for _ in range(2):
+        t = torch.from_numpy(prng.integers(0, pv, (plain_batch, pl_ + 1))).to(dev)
+        b = {"image": t[:, :-1], "label": t[:, 1:]}
+        kernel_state, km = f32_step(kernel_state, b)
+        before = {n: fn.launches for n, fn in counters.items()}
+        plain_state, pm = f32_step(plain_state, b)
+        check({n: fn.launches for n, fn in counters.items()} == before,
+              "the plain LM step launched a kernel")
+        kl, pl = float(km["loss_sum"]), float(pm["loss_sum"])
+        worst_loss = max(worst_loss, abs(kl - pl) / abs(pl))
+        with torch.no_grad():
+            diff = math.sqrt(sum(float(((a - b) ** 2).sum()) for a, b in
+                                 zip(kernel_model.parameters(), plain_model.parameters())))
+            upd = math.sqrt(sum(float(((b - s0) ** 2).sum()) for b, s0 in
+                                zip(plain_model.parameters(), start)))
+        update_rel.append(diff / upd)
+    log(f"  f32 LM steps, kernel vs plain LayerNorm and AdamW ({plain_cfg['num_layers']} layers, "
+        f"{plain_batch}x{pl_}): loss rel diff {worst_loss:.3g} (tol {LM_STEP_LOSS_RTOL}); "
+        f"||kernel - plain|| / ||update|| after step 1 {update_rel[0]:.3g}, step 2 "
+        f"{update_rel[1]:.3g} (tol {LM_STEP_UPDATE_RTOL})")
+    check(worst_loss <= LM_STEP_LOSS_RTOL, f"kernel vs plain LM loss rel diff {worst_loss}")
+    check(max(update_rel) <= LM_STEP_UPDATE_RTOL, f"kernel vs plain LM update rel diff {update_rel}")
+    del kernel_model, plain_model, kernel_state, plain_state, start
+
+    # -- a small f32 LM step on the card against the CPU ---------------------
+    card_model = TransformerLM(**LM_CPU, device=dev, seed=6)
+    cpu_model = TransformerLM(**LM_CPU, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in card_model.state_dict().items()})
+    start = [p.detach().clone() for p in cpu_model.parameters()]
+    t = torch.from_numpy(np.random.default_rng(6).integers(0, LM_CPU["vocab_size"],
+                                                           (4, LM_CPU["max_len"] + 1)))
+    b_cpu = {"image": t[:, :-1], "label": t[:, 1:]}
+    b_card = {k: v.to(dev) for k, v in b_cpu.items()}
+    _, cm = f32_step(create_train_state(card_model, fused_adamw(1e-3, **LM_STEP_ADAMW)), b_card)
+    _, pm = f32_step(create_train_state(cpu_model, fused_adamw(1e-3, **LM_STEP_ADAMW)), b_cpu)
+    cpu_loss_err = abs(float(cm["loss_sum"]) - float(pm["loss_sum"])) / abs(float(pm["loss_sum"]))
+    pairs = list(zip((p.detach().cpu() for p in card_model.parameters()),
+                     (p.detach() for p in cpu_model.parameters()), start))
+    cpu_update_err = math.sqrt(sum(float(((a - b) ** 2).sum()) for a, b, _ in pairs)
+                               / sum(float(((b - s0) ** 2).sum()) for _, b, s0 in pairs))
+    cpu_entry_err = max(float((a - b).abs().max()) for a, b, _ in pairs)
+    log(f"  f32 LM step, card vs CPU ({LM_CPU['num_layers']} layers, width "
+        f"{LM_CPU['num_heads'] * LM_CPU['head_dim']}, 4x{LM_CPU['max_len']}): loss rel diff "
+        f"{cpu_loss_err:.3g} (tol {CPU_STEP_LOSS_RTOL}), update rel diff {cpu_update_err:.3g} "
+        f"(tol {LM_CPU_UPDATE_RTOL}); largest single entry diff {cpu_entry_err:.3g}")
+    check(cpu_loss_err <= CPU_STEP_LOSS_RTOL, f"LM card vs CPU loss rel diff {cpu_loss_err}")
+    check(cpu_update_err <= LM_CPU_UPDATE_RTOL, f"LM card vs CPU update rel diff {cpu_update_err}")
+
+    out = {
+        "tokens_per_s": tok_s,
+        "step_ms": step_ms,
+        "batch": batch_size,
+        "seq": seq,
+        "params": n_params,
+        "mfu": mfu,
+        "step_tflop": (model_flops + attn_flops) / 1e12,
+        "first_loss": losses[0],
+        "last_loss": losses[-1],
+        "fixed_batch_losses": [fixed[0], fixed[-1]],
+        "fit_s": fit_s,
+        "train_samples_per_sec_fit": summary["train_samples_per_sec"],
+        "eval_loss": summary["eval_loss"],
+        "profile": prof,
+        "parts": parts,
+        "peak_memory_gb": mem_gb,
+        "kernel_vs_plain": {"loss_rel": worst_loss, "update_rel": update_rel},
+        "card_vs_cpu": {"loss_rel": cpu_loss_err, "update_rel": cpu_update_err,
+                        "entry_abs": cpu_entry_err},
+        "card": card,
+    }
+    log("  lm_json " + json.dumps(out))
+    return launches, out
+
+
 def main() -> int:
     log("== phase 1: device")
     if not torch.cuda.is_available():
@@ -788,21 +1374,36 @@ def main() -> int:
         f"bound {k1['bound_ms'] * 1e3:.2f} us "
         f"({k1['bytes_moved'] / 1e6:.2f} MB at 3.35 TB/s) on {card}")
     k2a, k2b = cross_entropy_phase(flush)
+    k3a, k3b = layer_norm_phase(flush)
+    from tpuframe_torch.models import TransformerLM
+
+    k4 = adamw_phase(flush, [tuple(p.shape) for p in TransformerLM(**LM).parameters()])
     del flush
+    torch.cuda.empty_cache()
 
     log("== phase 4: serve")
     serve_launches = slice_phase(card)
 
     log("== phase 5: train")
     train_launches, _ = train_phase(card)
+    torch.cuda.empty_cache()
+
+    log("== phase 6: LM train")
+    lm_launches, _ = lm_phase(card)
+    # each kernel's launches on the main paths that run it: K1 serve and
+    # train, K2 the ResNet train, K3 and K4 the LM train (where K1 and K2
+    # launched no time)
     k1["launches"] = serve_launches + train_launches["normalize"]
     k1["launches_serve"] = serve_launches
     k1["launches_train"] = train_launches["normalize"]
     k2a["launches"] = train_launches["cross_entropy_fwd"]
     k2b["launches"] = train_launches["cross_entropy_bwd"]
+    k3a["launches"] = lm_launches["layer_norm_fwd"]
+    k3b["launches"] = lm_launches["layer_norm_bwd"]
+    k4["launches"] = lm_launches["fused_adamw"]
 
-    log("== phase 6: result")
-    print(json.dumps({"kernels": [k1, k2a, k2b]}))
+    log("== phase 7: result")
+    print(json.dumps({"kernels": [k1, k2a, k2b, k3a, k3b, k4]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,6 +1,7 @@
 """The port on the card: the CUDA kernels (K1 normalize, K2a/K2b cross
-entropy) against their plain versions, a small serve slice, a small
-``Trainer.fit``, and eval mode for a model left in train mode.
+entropy, K3a/K3b LayerNorm, K4 fused AdamW) against their plain versions, a
+small serve slice, a small ``Trainer.fit``, eval mode for a model left in
+train mode, and the launch counts of one LM train step.
 
 Every test here needs an NVIDIA GPU and ``nvcc`` and skips without them.
 The file imports neither JAX nor the JAX package, so it also runs on a
@@ -18,19 +19,33 @@ import pytest
 import torch
 
 from tpuframe_torch.data import DataLoader, SyntheticImageDataset
-from tpuframe_torch.models import ResNet18
+from tpuframe_torch.models import ResNet18, TransformerLM
 from tpuframe_torch.ops import (
     cross_entropy_bwd,
     cross_entropy_bwd_reference,
     cross_entropy_fwd,
     cross_entropy_reference,
+    fused_adamw,
+    fused_adamw_update_,
+    fused_adamw_update_reference,
     fused_cross_entropy,
+    fused_layer_norm,
+    layer_norm_bwd,
+    layer_norm_bwd_reference,
+    layer_norm_fwd,
+    layer_norm_reference,
     normalize_images,
     normalize_images_reference,
 )
-from tpuframe_torch.parallel import full_precision
+from tpuframe_torch.parallel import bf16_compute, full_precision
 from tpuframe_torch.serve import ServeEngine, ServeKnobs
-from tpuframe_torch.train import Trainer, make_eval_step, make_predict_fn
+from tpuframe_torch.train import (
+    Trainer,
+    create_train_state,
+    make_eval_step,
+    make_predict_fn,
+    make_train_step,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -255,3 +270,204 @@ def test_model_left_in_train_mode_is_served_with_running_statistics(card):
     for k, v in model.state_dict().items():
         torch.testing.assert_close(v, stats[k], atol=0, rtol=0)
     assert model.training
+
+
+# -- K3a / K3b: LayerNorm ----------------------------------------------------
+
+# (name, rows, D, x dtype, scale dtype): the LM path's (16384, 768) bf16 with
+# the policy's bf16 scale, the same in f32, f32 x with a bf16 scale and the
+# reverse, a ragged f32 row the register path takes, a ragged bf16 row (300
+# is no multiple of 8: element path), the widest register row in bf16, and
+# a row too wide for the registers
+LN_CASES = [
+    ("16384x768_bf16", 16384, 768, torch.bfloat16, torch.bfloat16),
+    ("16384x768_f32", 16384, 768, torch.float32, torch.float32),
+    ("64x768_bf16_x_f32_scale", 64, 768, torch.bfloat16, torch.float32),
+    ("64x768_f32_x_bf16_scale", 64, 768, torch.float32, torch.bfloat16),
+    ("1000x300_f32", 1000, 300, torch.float32, torch.float32),
+    ("1000x300_bf16", 1000, 300, torch.bfloat16, torch.bfloat16),
+    ("33x2048_bf16", 33, 2048, torch.bfloat16, torch.bfloat16),
+    ("9x4100_f32", 9, 4100, torch.float32, torch.float32),
+]
+
+
+def _ln_inputs(rows, d, dtype, sdtype, card, seed=0):
+    rng = np.random.default_rng(seed + rows + d)
+    x = torch.from_numpy((rng.standard_normal((rows, d)) * 2 + 0.5).astype(np.float32))
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, d).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(0, 0.3, d).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((rows, d)).astype(np.float32))
+    return (x.to(dtype).to(card), scale.to(sdtype).to(card), bias.to(sdtype).to(card),
+            g.to(dtype).to(card))
+
+
+def _ln_sums_close(got, want, terms):
+    """dscale/dbias: f32 within 2e-5 of the column's sum of |terms| (a
+    float32 sum of 16384 terms in another order: per lane, then per warp,
+    then over the blocks' partials); bf16 within one bf16 step."""
+    if got.dtype == torch.bfloat16:
+        return _close_in_dtype(got, want)
+    return bool(((got - want).abs() <= 2e-5 * terms + 1e-6).all())
+
+
+@pytest.mark.parametrize("case", LN_CASES, ids=[c[0] for c in LN_CASES])
+def test_layer_norm_kernels_match_plain_versions(card, case):
+    _, rows, d, dtype, sdtype = case
+    x, scale, bias, g = _ln_inputs(rows, d, dtype, sdtype, card)
+    f0, b0 = layer_norm_fwd.launches, layer_norm_bwd.launches
+    y = layer_norm_fwd(x, scale, bias)
+    dx, dscale, dbias = layer_norm_bwd(x, scale, g)
+    torch.cuda.synchronize()
+    assert layer_norm_fwd.launches == f0 + 1 and layer_norm_bwd.launches == b0 + 1
+    assert y.dtype == dx.dtype == dtype and dscale.dtype == dbias.dtype == sdtype
+    want_dx, want_ds, want_db = layer_norm_bwd_reference(x, scale, g)
+    # f32: 1e-5 absolute on O(1) values (sums in another order); bf16: one
+    # bf16 step
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, layer_norm_reference(x, scale, bias), atol=1e-5, rtol=0)
+        torch.testing.assert_close(dx, want_dx, atol=1e-5, rtol=0)
+    else:
+        assert _close_in_dtype(y, layer_norm_reference(x, scale, bias))
+        assert _close_in_dtype(dx, want_dx)
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    xhat = (xf - mu) * torch.rsqrt((xf * xf).mean(-1, keepdim=True) - mu * mu + 1e-6)
+    assert _ln_sums_close(dscale, want_ds, (g.float() * xhat).abs().sum(0))
+    assert _ln_sums_close(dbias, want_db, g.float().abs().sum(0))
+    # no float atomics: a rerun gives the same bits
+    again = layer_norm_bwd(x, scale, g)
+    for a, b in zip((dx, dscale, dbias), again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("layout", ["stride_0", "transposed"])
+def test_layer_norm_backward_takes_any_gradient_strides(card, layout):
+    x, scale, bias, g = _ln_inputs(256, 768, torch.bfloat16, torch.bfloat16, card)
+    if layout == "stride_0":  # the backward of y.sum()
+        xr = x.clone().requires_grad_(True)
+        b0 = layer_norm_bwd.launches
+        fused_layer_norm(xr, scale, bias).sum().backward()
+        assert layer_norm_bwd.launches == b0 + 1
+        g = torch.ones((), dtype=x.dtype, device=card).expand(x.shape)
+        got = xr.grad
+    else:
+        g = g.t().contiguous().t()
+        assert not g.is_contiguous()
+        got = layer_norm_bwd(x, scale, g)[0]
+    torch.cuda.synchronize()
+    assert _close_in_dtype(got, layer_norm_bwd_reference(x, scale, g)[0])
+
+
+def test_layer_norm_kernels_refuse_what_they_do_not_take(card):
+    x, scale, bias, g = _ln_inputs(8, 16, torch.float32, torch.float32, card)
+    with pytest.raises(TypeError, match="float32 or bfloat16 x"):
+        layer_norm_fwd(x.half(), scale, bias)
+    with pytest.raises(TypeError, match="of one dtype"):
+        layer_norm_fwd(x, scale, bias.bfloat16())
+    with pytest.raises(ValueError, match="rows, D"):
+        layer_norm_fwd(x, scale[:8], bias[:8])
+    with pytest.raises(ValueError, match="g like x"):
+        layer_norm_bwd(x, scale, g.bfloat16())
+
+
+# -- K4: fused AdamW -----------------------------------------------------------
+
+# (name, shape, param dtype, hyperparameters, offset): the LM's largest
+# leaf (the 32768 x 768 embedding), its smallest (a 768 bias), the ragged
+# 257 x 130 leaf, a bf16 leaf, momentum-free Adam, and a leaf one element
+# off the vector alignment
+ADAMW_CASES = [
+    ("32768x768_f32", (32768, 768), torch.float32, dict(lr=3e-4, weight_decay=1e-4), 0),
+    ("768_f32", (768,), torch.float32, dict(lr=3e-4, weight_decay=1e-4), 0),
+    ("257x130_f32", (257, 130), torch.float32, dict(lr=1e-2, weight_decay=0.01), 0),
+    ("64x768_bf16", (64, 768), torch.bfloat16, dict(lr=1e-2, weight_decay=1e-4), 0),
+    ("b1_zero", (33, 7), torch.float32, dict(lr=1e-2, b1=0.0), 0),
+    ("unaligned_1001", (1001,), torch.float32,
+     dict(lr=3e-3, b1=0.8, b2=0.99, eps=1e-6, weight_decay=0.05), 1),
+]
+
+
+@pytest.mark.parametrize("case", ADAMW_CASES, ids=[c[0] for c in ADAMW_CASES])
+def test_fused_adamw_kernel_matches_plain_version(card, case):
+    _, shape, dtype, hp, offset = case
+    rng = np.random.default_rng(sum(shape))
+    n = int(np.prod(shape))
+
+    def on_card(a, dt=torch.float32):
+        flat = torch.empty(n + offset, dtype=dt, device=card)
+        t = flat[offset:].view(shape)
+        t.copy_(torch.from_numpy(a.astype(np.float32)).to(dt))
+        return t
+
+    p = on_card(rng.standard_normal(shape), dtype)
+    g = on_card(rng.standard_normal(shape), dtype)
+    m = on_card(rng.standard_normal(shape) * 0.1)
+    v = on_card(rng.uniform(0, 0.1, shape))
+    count = torch.tensor(7, dtype=torch.int32, device=card)
+    want = fused_adamw_update_reference(p, g, m, v, count, **hp)
+    l0 = fused_adamw_update_.launches
+    fused_adamw_update_(p, g, m, v, count, **hp)
+    torch.cuda.synchronize()
+    assert fused_adamw_update_.launches == l0 + 1
+    # f32: 1e-6 absolute (the same float32 expression; the compiler may
+    # fuse a multiply-add); bf16 parameters within one bf16 step
+    torch.testing.assert_close(m, want[1], atol=1e-6, rtol=0)
+    torch.testing.assert_close(v, want[2], atol=1e-6, rtol=0)
+    if dtype == torch.float32:
+        torch.testing.assert_close(p, want[0], atol=1e-6, rtol=0)
+    else:
+        assert _close_in_dtype(p, want[0])
+
+
+def test_lm_train_step_launch_counts(card):
+    """One bf16 train step of a 3-layer LM with ``fused_adamw``: K3a once
+    per LayerNorm (2 per block + ``ln_f``), K3b as often in the backward,
+    K4 once per parameter tensor; the cross entropy of (B, L) labels is the
+    plain per-position loss, so K2a/K2b stay at 0, as does K1."""
+    model = TransformerLM(vocab_size=512, num_layers=3, num_heads=4, head_dim=32, max_len=64,
+                          device=card, seed=0)
+    state = create_train_state(model, fused_adamw(3e-4, weight_decay=1e-4))
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, 512, (4, 65))).to(card)
+    batch = {"image": toks[:, :-1], "label": toks[:, 1:]}
+    step = make_train_step(bf16_compute())
+    counters = (layer_norm_fwd, layer_norm_bwd, fused_adamw_update_, cross_entropy_fwd,
+                cross_entropy_bwd, normalize_images)
+    for c in counters:
+        c.launches = 0
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    n_leaves = len(list(model.parameters()))
+    assert n_leaves == 2 + 12 * 3 + 3
+    assert [c.launches for c in counters] == [7, 7, n_leaves, 0, 0, 0]
+    assert np.isfinite(float(metrics["loss_sum"])) and float(metrics["count"]) == 4 * 64
+    assert {int(s["count"]) for s in state.optimizer.state.values()} == {1}
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adam"])
+def test_scheduled_lr_reads_the_applied_count_on_the_card(card, optimizer):
+    """A warm-up-cosine schedule read at the device count of applied
+    updates (fused SGD and capturable Adam take the lr as a device
+    scalar), with a NaN batch skipped at step 2: four health-guarded steps
+    on the card against the same steps on the CPU.  A linear model, f32,
+    TF32 off: only the order of the sums differs (1e-5 absolute)."""
+    from tpuframe_torch.fault.health import HealthPolicy
+    from tpuframe_torch.train import make_optimizer
+    from tpuframe_torch.train.schedules import warmup_cosine
+
+    rng = np.random.default_rng(0)
+    batches = [{"image": torch.from_numpy(rng.normal(0, 1, (8, 4, 4, 3)).astype(np.float32)),
+                "label": torch.from_numpy(rng.integers(0, 10, 8))} for _ in range(4)]
+    batches[2]["image"][0, 0, 0, 0] = float("nan")
+    models = {}
+    for dev in (card, torch.device("cpu")):
+        torch.manual_seed(0)
+        model = torch.nn.Sequential(torch.nn.Flatten(), torch.nn.Linear(48, 10)).to(dev)
+        state = create_train_state(model, make_optimizer(optimizer, warmup_cosine(0.05, 2, 6)))
+        step = make_train_step(full_precision(), health=HealthPolicy())
+        for b in batches:
+            state, _ = step(state, {k: v.to(dev) for k, v in b.items()})
+        assert state.step == 4 and int(state.updates) == 3
+        models[dev.type] = model
+    for a, b in zip(models["cuda"].parameters(), models["cpu"].parameters()):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), atol=1e-5, rtol=0)

@@ -34,6 +34,7 @@ from flax import linen as fnn
 from tpuframe.fault import health as jax_health
 from tpuframe.models import ResNet18 as JaxResNet18
 from tpuframe.models.norm import ReplicaGroupedBatchNorm as JaxGroupedBN
+from tpuframe.ops.fused_adamw import fused_adamw as jax_fused_adamw
 from tpuframe.parallel.precision import bf16_compute as jax_bf16
 from tpuframe.parallel.precision import full_precision as jax_f32
 from tpuframe.train import schedules as jax_schedules
@@ -51,6 +52,7 @@ from tpuframe_torch.fault.health import (
 )
 from tpuframe_torch.models import ReplicaGroupedBatchNorm, ResNet18, from_jax_variables
 from tpuframe_torch.models.interop import import_torch_resnet
+from tpuframe_torch.ops import fused_adamw
 from tpuframe_torch.parallel import bf16_compute, full_precision
 from tpuframe_torch.train import schedules
 from tpuframe_torch.train.optim import (
@@ -355,6 +357,50 @@ def test_nan_batch_leaves_params_optimizer_state_and_bn_stats_untouched():
     jafter = jax.tree.map(np.asarray, (js.params, js.opt_state, js.batch_stats))
     jax.tree.map(np.testing.assert_array_equal, jbefore, jafter)
     np.testing.assert_allclose(m["health_stats"].numpy()[:3], np.asarray(jm["health_stats"])[:3])
+
+
+# (name, JAX tx, port spec): SGD with momentum over a warm-up into cosine
+# decay (the schedule's count is optax's, inside opt_state), and the fused
+# AdamW (its count is FusedAdamWState.count)
+SKIP_OPTIMIZERS = [
+    ("sgd_warmup_cosine",
+     lambda: optax.sgd(jax_schedules.warmup_cosine(0.02, 2, 6, end_lr=0.002, init_lr=0.004),
+                       momentum=0.9),
+     lambda: make_optimizer("sgd", schedules.warmup_cosine(0.02, 2, 6, end_lr=0.002,
+                                                          init_lr=0.004))),
+    ("fused_adamw", lambda: jax_fused_adamw(1e-2, weight_decay=1e-4),
+     lambda: fused_adamw(1e-2, weight_decay=1e-4)),
+]
+
+
+@pytest.mark.parametrize("name,make_j,make_t", SKIP_OPTIMIZERS, ids=[o[0] for o in SKIP_OPTIMIZERS])
+def test_skipped_step_does_not_advance_the_optimizer_count(name, make_j, make_t):
+    """Four health-guarded steps, the third on a NaN batch: JAX restores
+    ``opt_state`` (the schedule's and AdamW's counts in it), so the fourth
+    step reads the schedule at count 2, not 3.  The port counts applied
+    updates on the device and restores the count with the rest; parameters
+    and BN statistics agree with JAX within the f32 step tolerance (peak lr
+    0.02: this small ResNet's f32 steps drift apart ~1e3-fold faster at
+    0.1).  Read at the count of steps taken instead, the SGD case moved the
+    parameters 2.5e-2 from JAX's, against 3e-5 read at the applied count."""
+    js, ts = _pair("f32", seed=10)
+    jtx = make_j()
+    js = js.replace(tx=jtx, opt_state=jtx.init(js.params))
+    ts = create_train_state(ts.model, make_t())
+    batches = _batches(4, seed=11)
+    batches[2]["image"][0, 0, 0, 0] = np.nan
+    jstep = jax_make_train_step(jax_f32(), donate=False, health=jax_health.HealthPolicy())
+    tstep = make_train_step(full_precision(), health=HealthPolicy())
+    bad = []
+    for b in batches:
+        js, _ = jstep(js, b)
+        ts, m = tstep(ts, _torch_batch(b))
+        bad.append(unpack_health_stats(m["health_stats"])["health_bad"])
+    assert bad == [0.0, 0.0, 1.0, 0.0]
+    assert ts.step == int(js.step) == 4 and int(ts.updates) == 3
+    params, stats = _tree(ts)
+    _assert_trees_close(params, js.params, 2e-4, "param")
+    _assert_trees_close(stats, js.batch_stats, 2e-4, "batch_stats")
 
 
 def _state_tensors(ts):

@@ -101,7 +101,7 @@ def test_prefetcher_on_the_cpu_copies_before_it_recycles():
 def test_trainer_refuses_what_is_not_ported():
     model = ResNet18(num_classes=10, num_filters=4, stem="cifar", device="cpu")
     for kw in ({"checkpointer": object()}, {"plan": object()}, {"ema_decay": 0.99},
-               {"grad_compression": "int8"}, {"preemption": True}, {"tx": object()},
+               {"grad_compression": "int8"}, {"preemption": True},
                {"straggler_sync_steps": 4}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(model, **kw)

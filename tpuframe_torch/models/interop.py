@@ -1,10 +1,10 @@
-"""Weights between the JAX package's ResNet tree, torchvision, and the port.
+"""Weights between the JAX package's trees, torchvision, and the port.
 
 The port's own copy of ``tpuframe/models/interop.py`` (numpy only), plus
 :func:`from_jax_variables`, which carries a JAX ``{"params",
-"batch_stats"}`` tree into the port ResNet's ``state_dict``.  The port's
-module names are torchvision's, so that ``state_dict`` is a torchvision
-one.
+"batch_stats"}`` tree into the ``state_dict`` of the matching port model:
+the ResNet (module names torchvision's, so that ``state_dict`` is a
+torchvision one) or the ``TransformerLM`` (module names the JAX tree's).
 
 Layout conversions:
 
@@ -12,6 +12,8 @@ Layout conversions:
 - Linear: torch (out, in) <-> JAX (in, out)
 - BatchNorm: weight/bias <-> scale/bias (params); running_mean/var <->
   mean/var (batch_stats)
+- Embedding: ``weight`` <-> ``embedding``; LayerNorm ``scale``/``bias``
+  keep their names
 """
 
 from __future__ import annotations
@@ -22,7 +24,13 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-__all__ = ["export_torch_resnet", "from_jax_variables", "import_torch_resnet"]
+__all__ = [
+    "export_torch_resnet",
+    "export_torch_transformer",
+    "from_jax_variables",
+    "import_torch_resnet",
+    "import_torch_transformer",
+]
 
 
 def import_torch_resnet(state_dict: Mapping[str, Any]) -> dict:
@@ -115,11 +123,54 @@ def export_torch_resnet(variables: Mapping[str, Any]) -> dict:
     return out
 
 
+def export_torch_transformer(variables: Mapping[str, Any]) -> dict:
+    """A JAX ``TransformerLM`` tree (``{"params": ...}``) as the port
+    ``TransformerLM``'s ``state_dict`` of numpy arrays: ``Dense`` kernels
+    (in, out) transposed into ``weight`` (out, in), ``Embed`` tables into
+    ``weight``, everything else (biases, LayerNorm ``scale``/``bias``) as
+    it is."""
+    out: dict[str, np.ndarray] = {}
+
+    def walk(tree: Mapping[str, Any], prefix: list[str]) -> None:
+        for name, value in tree.items():
+            if isinstance(value, Mapping):
+                walk(value, prefix + [name])
+                continue
+            arr = np.asarray(value)
+            attr = {"kernel": "weight", "embedding": "weight"}.get(name, name)
+            out[".".join(prefix + [attr])] = arr.T if name == "kernel" else arr
+
+    walk(variables.get("params", variables), [])
+    return out
+
+
+def import_torch_transformer(state_dict: Mapping[str, Any]) -> dict:
+    """The port ``TransformerLM``'s ``state_dict`` as the JAX tree
+    ``{"params": ...}``; inverse of :func:`export_torch_transformer`."""
+    params: dict = {}
+    for key, value in state_dict.items():
+        arr = value.detach().cpu().numpy() if hasattr(value, "detach") else np.asarray(value)
+        *mods, attr = key.split(".")
+        if attr == "weight":
+            attr = "embedding" if mods[-1] in ("embed", "pos_embed") else "kernel"
+            arr = arr if attr == "embedding" else arr.T
+        node = params
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[attr] = arr
+    return {"params": params}
+
+
 def from_jax_variables(variables_np: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """The JAX ``{"params", "batch_stats"}`` tree (numpy leaves) as the port
-    ResNet's ``state_dict``: CPU tensors, torchvision names, with a zero
+    """The JAX tree (numpy leaves) as the matching port model's
+    ``state_dict`` of CPU tensors: a ``TransformerLM`` tree (it has an
+    ``embed`` table) by :func:`export_torch_transformer`; a ResNet's
+    ``{"params", "batch_stats"}`` with torchvision names and a zero
     ``num_batches_tracked`` beside every BatchNorm.  Load it with
     ``model.load_state_dict(...)``."""
+    if "embed" in variables_np.get("params", {}):
+        return {k: torch.from_numpy(np.ascontiguousarray(np.array(v)))
+                for k, v in export_torch_transformer(variables_np).items()}
     state = {
         k: torch.from_numpy(np.ascontiguousarray(np.array(v)))
         for k, v in export_torch_resnet(variables_np).items()

@@ -75,16 +75,18 @@ BatchNorm2d = ReplicaGroupedBatchNorm
 
 
 class Linear(nn.Linear):
-    """Dense layer run in ``compute_dtype`` (input, weight and bias)."""
+    """Dense layer run in ``compute_dtype`` (input, weight and bias), as
+    flax ``Dense(dtype=...)`` casts them."""
 
-    def __init__(self, in_features: int, out_features: int, *,
+    def __init__(self, in_features: int, out_features: int, *, bias: bool = True,
                  compute_dtype: torch.dtype = torch.float32, device=None):
-        super().__init__(in_features, out_features, device=device)
+        super().__init__(in_features, out_features, bias=bias, device=device)
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 def _projection(in_ch: int, out_ch: int, stride: int, conv, norm):

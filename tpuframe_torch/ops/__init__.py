@@ -8,14 +8,42 @@ from tpuframe_torch.ops.cross_entropy import (
     fused_cross_entropy,
 )
 from tpuframe_torch.ops.dispatch import use_kernel
+from tpuframe_torch.ops.fused_adamw import (
+    FusedAdamW,
+    fused_adamw,
+    fused_adamw_update,
+    fused_adamw_update_,
+    fused_adamw_update_reference,
+)
+from tpuframe_torch.ops.layer_norm import (
+    FusedLayerNorm,
+    fused_layer_norm,
+    layer_norm_bwd,
+    layer_norm_bwd_reference,
+    layer_norm_fwd,
+    layer_norm_reference,
+)
 from tpuframe_torch.ops.normalize import normalize_images, normalize_images_reference
+from tpuframe_torch.ops.ring_attention import attention_reference
 
 __all__ = [
+    "FusedAdamW",
+    "FusedLayerNorm",
+    "attention_reference",
     "cross_entropy_bwd",
     "cross_entropy_bwd_reference",
     "cross_entropy_fwd",
     "cross_entropy_reference",
+    "fused_adamw",
+    "fused_adamw_update",
+    "fused_adamw_update_",
+    "fused_adamw_update_reference",
     "fused_cross_entropy",
+    "fused_layer_norm",
+    "layer_norm_bwd",
+    "layer_norm_bwd_reference",
+    "layer_norm_fwd",
+    "layer_norm_reference",
     "normalize_images",
     "normalize_images_reference",
     "use_kernel",

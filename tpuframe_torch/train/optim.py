@@ -56,15 +56,13 @@ class OptimizerSpec:
     """How to build and drive one optimizer.
 
     ``factory(params)`` builds the ``torch.optim.Optimizer``; ``lr`` is a
-    float or a schedule ``step -> lr`` read before each update;
+    float or a schedule ``count -> lr`` read at the count of applied
+    updates before each one (``TrainState.apply_gradients``);
     ``max_grad_norm`` (None = no clip) is optax's global-norm clip."""
 
     factory: Callable[[Iterable[torch.nn.Parameter]], torch.optim.Optimizer]
     lr: float | Schedule
     max_grad_norm: float | None = None
-
-    def lr_at(self, step: int) -> float:
-        return float(self.lr(step)) if callable(self.lr) else float(self.lr)
 
     def build(self, params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
         opt = self.factory(list(params))
@@ -73,15 +71,21 @@ class OptimizerSpec:
 
 
 def _sgd(lr0: float, momentum: float):
-    return lambda params: torch.optim.SGD(params, lr=lr0, momentum=momentum, dampening=0.0,
-                                          nesterov=False, weight_decay=0.0)
+    def factory(params):
+        # on the card the fused step takes a scheduled lr as a device scalar;
+        # the foreach step would read it back to the host every step
+        fused = bool(params) and all(p.is_cuda for p in params)
+        return torch.optim.SGD(params, lr=lr0, momentum=momentum, dampening=0.0,
+                               nesterov=False, weight_decay=0.0, fused=fused)
+    return factory
 
 
 def _adam(lr0: float, betas=(0.9, 0.999), eps: float = 1e-8, weight_decay: float | None = None):
     def factory(params):
         cuda = any(p.is_cuda for p in params)
         # capturable keeps the step count on the card, so a skipped step
-        # restores it there without a host sync
+        # restores it there without a host sync, and takes a scheduled lr
+        # as a device scalar
         kw = dict(lr=lr0, betas=tuple(float(b) for b in betas), eps=float(eps), capturable=cuda)
         if weight_decay is None:
             return torch.optim.Adam(params, weight_decay=0.0, **kw)

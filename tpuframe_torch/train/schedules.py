@@ -8,8 +8,9 @@ past ``t_max``), ``StepLR``-style staircase decay, and linear warmup into
 cosine decay (optax's ``warmup_cosine_decay_schedule``).
 
 An optax schedule is read at the update count before its increment, so the
-port's train step sets each param group's ``lr = schedule(step)`` before
-``optimizer.step()``, with ``step`` the number of steps taken so far.
+port's train step sets each param group's ``lr = schedule(count)`` before
+``optimizer.step()``, with ``count`` the number of updates applied so far
+(a step the health sentinel skips applies none; ``train.state``).
 
 ``from_config`` accepts the DeepSpeed-shaped ``{"type": ..., "params":
 {...}}`` dict; ``"auto"`` values resolve against ``total_steps``.

@@ -6,6 +6,13 @@ the same parts are an ``nn.Module`` (parameters and BatchNorm buffers),
 a ``torch.optim.Optimizer`` with its :class:`OptimizerSpec` (LR schedule,
 global-norm clip), the step count, the health sentinel's device scalars and
 a ``torch.Generator``, and a step updates them in place.
+
+The LR schedule is read at the count of *applied* updates, as optax reads
+its own count inside ``opt_state``: a step the health sentinel skips
+restores that count with the rest of the state.  The count is a device
+scalar, so reading the schedule at it needs no host sync: the schedule's
+values are kept in a float32 table on the device (filled on the host,
+grown by doubling, read by indexing with the count).
 """
 
 from __future__ import annotations
@@ -26,7 +33,8 @@ class TrainState:
     """The model, its optimizer and the step counters.
 
     ``step`` counts train steps taken (skipped ones included, as the JAX
-    ``state.step`` does); the LR schedule is read at it before each update.
+    ``state.step`` does).  ``updates`` (an int64 scalar on the model's
+    device) counts the updates applied; the LR schedule is read at it.
     ``health`` is the sentinel's state (``fault.health.init_health_state``).
     ``generator`` seeds the step's randomness (dropout-style layers).
     """
@@ -37,20 +45,35 @@ class TrainState:
     spec: OptimizerSpec
     health: dict
     generator: torch.Generator
+    updates: torch.Tensor
+    _lr_table: torch.Tensor | None = dataclasses.field(default=None, repr=False)
 
     def apply_gradients(self) -> "TrainState":
         """One update from the gradients in ``.grad``: the global-norm clip
-        when the spec has one, ``lr = schedule(step)``, ``optimizer.step()``,
-        then ``step += 1``."""
+        when the spec has one, ``lr = schedule(updates)``,
+        ``optimizer.step()``, then ``updates += 1`` and ``step += 1``."""
         if self.spec.max_grad_norm is not None:
             clip_by_global_norm_([p.grad for p in self.model.parameters()],
                                  self.spec.max_grad_norm)
-        lr = self.spec.lr_at(self.step)
+        lr = self._lr()
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.step()
+        self.updates += 1
         self.step += 1
         return self
+
+    def _lr(self) -> float | torch.Tensor:
+        """The learning rate of this update: a float for a constant, else
+        the schedule at ``updates`` as a device scalar."""
+        if not callable(self.spec.lr):
+            return float(self.spec.lr)
+        # updates <= step, so the table must reach index step
+        if self._lr_table is None or len(self._lr_table) <= self.step:
+            size = max(64, 2 * (self.step + 1))
+            self._lr_table = torch.tensor([float(self.spec.lr(i)) for i in range(size)],
+                                          dtype=torch.float32, device=self.updates.device)
+        return self._lr_table[self.updates]
 
 
 def create_train_state(model: nn.Module, spec: OptimizerSpec, *, seed: int = 0) -> TrainState:
@@ -65,5 +88,6 @@ def create_train_state(model: nn.Module, spec: OptimizerSpec, *, seed: int = 0) 
         spec=spec,
         health=init_health_state(device),
         generator=torch.Generator(device=device).manual_seed(seed),
+        updates=torch.zeros((), dtype=torch.int64, device=device),
     )
 

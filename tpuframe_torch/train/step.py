@@ -113,8 +113,9 @@ def _train_metrics(loss: torch.Tensor, logits: torch.Tensor, labels: torch.Tenso
 
 def _sentinel_tensors(state: TrainState) -> list[torch.Tensor]:
     """What a skipped step must leave untouched: parameters, float buffers
-    (BatchNorm running statistics) and the optimizer's state tensors."""
-    out = [p.data for p in state.model.parameters()]
+    (BatchNorm running statistics), the optimizer's state tensors and the
+    count of applied updates (the schedule's count)."""
+    out = [state.updates] + [p.data for p in state.model.parameters()]
     out += [b for b in state.model.buffers() if b.is_floating_point()]
     for st in state.optimizer.state.values():
         out += [v for v in st.values() if torch.is_tensor(v)]
@@ -123,12 +124,13 @@ def _sentinel_tensors(state: TrainState) -> list[torch.Tensor]:
 
 class _Snapshot:
     """Copies of the sentinel tensors, kept between steps and refreshed
-    before each one (one fused copy)."""
+    before each one (one fused copy per dtype)."""
 
     def __init__(self):
         self._key: list[tuple] = []
         self._live: list[torch.Tensor] = []
         self._old: list[torch.Tensor] = []
+        self._by_dtype: list[tuple[list, list]] = []
 
     @torch.no_grad()
     def take(self, state: TrainState) -> None:
@@ -137,8 +139,17 @@ class _Snapshot:
         if key != self._key:  # first step, or another state
             self._key = key
             self._old = [t.clone() for t in self._live]
+            # a list of mixed dtypes (the float32 state beside int counts)
+            # makes _foreach_copy_ copy tensor by tensor, one memcpy each
+            groups: dict = {}
+            for old, live in zip(self._old, self._live):
+                olds, lives = groups.setdefault((live.device, live.dtype), ([], []))
+                olds.append(old)
+                lives.append(live)
+            self._by_dtype = list(groups.values())
         else:
-            torch._foreach_copy_(self._old, self._live)
+            for olds, lives in self._by_dtype:
+                torch._foreach_copy_(olds, lives)
 
     @torch.no_grad()
     def restore_where(self, bad: torch.Tensor) -> None:

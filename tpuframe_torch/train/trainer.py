@@ -15,8 +15,9 @@ What this reduced Trainer does not do yet, each raising
 checkpoints (``checkpointer``, ``checkpoint_interval_batches``), parallel
 plans and DDP (``plan``), the compressed wire (``grad_compression``), EMA
 (``ema_decay``), preemption handling (``preemption=True``), straggler
-detection (``straggler_sync_steps``, ``straggler_factor``) and a custom
-optax ``tx``.  ``precompile`` is accepted and does nothing: eager PyTorch
+detection (``straggler_sync_steps``, ``straggler_factor``).  ``tx`` takes
+an ``OptimizerSpec`` in place of an optax transform (``ops.fused_adamw``
+returns one).  ``precompile`` is accepted and does nothing: eager PyTorch
 has no ahead-of-time compile step (``torch.compile`` comes with the
 compile slice).  The model arrives initialized, on its device (torch
 idiom); ``models.from_jax_variables`` carries JAX weights in.
@@ -40,7 +41,7 @@ from tpuframe_torch.track.telemetry import get_telemetry
 from tpuframe_torch.train.algorithms import Algorithm, apply_algorithms, resolve_algorithms
 from tpuframe_torch.train.callbacks import Callback
 from tpuframe_torch.train.duration import Duration
-from tpuframe_torch.train.optim import make_optimizer
+from tpuframe_torch.train.optim import OptimizerSpec, make_optimizer
 from tpuframe_torch.train.schedules import Schedule, resolve_schedule
 from tpuframe_torch.train.state import TrainState, create_train_state
 from tpuframe_torch.train.step import (
@@ -80,7 +81,11 @@ class Trainer:
     """Train a port model on one card with algorithms, callbacks and loggers.
 
     Args:
-      model: an initialized ``nn.Module`` taking NHWC images (``ResNet``).
+      model: an initialized ``nn.Module`` taking the batch's inputs: NHWC
+        images (``ResNet``) or int tokens (``TransformerLM``), both fed
+        under the ``"image"`` key as the JAX Trainer feeds them.
+      tx: an ``OptimizerSpec`` (e.g. ``ops.fused_adamw(3e-4)``) used as it
+        is, in place of ``optimizer`` and ``lr``; not with ``grad_clip``.
       optimizer / lr: the named optimizer (``"sgd"`` is SGD with momentum
         0.9, as the JAX Trainer's) and its learning rate: a float, a
         schedule ``step -> lr`` or a DeepSpeed-shaped scheduler dict.
@@ -142,7 +147,6 @@ class Trainer:
         health: Any = None,
     ):
         for arg, value, where in (
-            ("tx", tx, "the LM slice (pass optimizer= and lr=)"),
             ("checkpointer", checkpointer, "the checkpoint part of the training slice"),
             ("checkpoint_interval_batches", checkpoint_interval_batches,
              "the checkpoint part of the training slice"),
@@ -176,8 +180,18 @@ class Trainer:
         self.precompile_enabled = bool(precompile)
         self.health = _health.resolve_policy(health)
         self._health_flags: list = []
-        self.spec = make_optimizer(optimizer, self._resolve_lr(lr),
-                                   float(grad_clip) if grad_clip else None)
+        if tx is None:
+            self.spec = make_optimizer(optimizer, self._resolve_lr(lr),
+                                       float(grad_clip) if grad_clip else None)
+        elif grad_clip:
+            raise ValueError(
+                "grad_clip only applies when the Trainer builds the optimizer "
+                "(tx=None); give your OptimizerSpec max_grad_norm instead")
+        elif not isinstance(tx, OptimizerSpec):
+            raise TypeError(
+                f"tx takes an OptimizerSpec (e.g. ops.fused_adamw(...)), got {type(tx).__name__}")
+        else:
+            self.spec = tx
         if num_classes is None:
             num_classes = getattr(getattr(train_dataloader, "dataset", None), "num_classes", None)
         self.num_classes = num_classes
