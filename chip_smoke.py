@@ -25,7 +25,11 @@ Phases, each of which fails the script (nonzero exit, no result line):
    bf16 scale and bias, checked there, in f32 and at a ragged 1000 x 300;
    K4 fused AdamW over the 149 parameter tensors of the GPT-2-small LM for
    one step (``torch.optim.AdamW(fused=True)``, the same update), checked
-   there, at a ragged 257 x 130 leaf and a bf16 leaf.
+   there, at a ragged 257 x 130 leaf and a bf16 leaf; K5a bucket abs-max
+   (``torch.linalg.vector_norm(v, inf, dim=1)``), K5b encode (int8, int8
+   stochastic with the same noise, fp8) and K5c decode at the ResNet50-1K
+   wire's 25 x 1,022,336 float32, at (3, 130) and on edge rows: amax and
+   encode bit-equal, decode within 1e-6 with NaN where amax is NaN.
 4. Serve: ResNet50 with 1000 classes under ``bf16_compute`` serves 160
    uint8 224x224 images through ``ServeEngine`` (buckets 1/8/32/64) from 4
    client threads, plus one ``POST /predict`` through ``ServingServer``.
@@ -54,7 +58,20 @@ Phases, each of which fails the script (nonzero exit, no result line):
    of the float32 logits and loss at the step's shapes), ten steps on one
    batch that must lower the loss, kernel against plain LayerNorm and AdamW
    in f32 steps, and a small f32 LM step on the card against the CPU.
-7. Result: a ``kernels`` JSON line, the ``nvidia-smi`` line, then
+7. Compressed data-parallel train: phase 5's ResNet50-1K fit through
+   ``Trainer(plan=ParallelPlan(mesh=initialize().mesh), grad_compression=
+   "int8")`` on a one-rank NCCL group (``RANK=0``, ``WORLD_SIZE=1``, a free
+   ``MASTER_PORT``); counters zeroed just before and read just after: K5a,
+   K5b and K5c once a step, K1 and K2 at phase 5's counts.  First loss near
+   ln 1000, a non-zero error-feedback residual, then the compressed step's
+   median beside the uncompressed step's (in turns), the sync and the
+   buffer average alone, one compressed step under CUDA's sync debug mode
+   (it must never wait for the device) and a profile.
+8. Two ranks on one card: two spawned gloo ranks (NCCL refuses two ranks
+   on one device) sync a ResNet50-shaped named tree with the kernels; it
+   must equal the same ranks' plain run on the CPU bit for bit, give both
+   ranks one mean, and decode a NaN on one rank to NaN in its bucket.
+9. Result: a ``kernels`` JSON line, the ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -69,6 +86,7 @@ import sys
 import threading
 import time
 import urllib.request
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -596,6 +614,149 @@ def adamw_phase(flush, shapes) -> dict:
         f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, torch AdamW(fused=True) "
         f"{r['library_ms']:.3f} ms, bound {bound_ms:.3f} ms ({moved / 1e9:.2f} GB at 3.35 TB/s)")
     return r
+
+
+#: the ResNet50-1K gradient on the wire: 25,557,032 float32 elements in 161
+#: leaves, 25 buckets of 1,022,336 at the default 4 MiB
+WIRE_SHAPE = (25, 1_022_336)
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit-equal, NaNs compared by position (their payloads may differ)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        nan = torch.isnan(a)
+        if not torch.equal(nan, torch.isnan(b)):
+            return False
+        a, b = torch.where(nan, 0, a), torch.where(nan, 0, b)
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def quant_wire_phase(flush) -> list[dict]:
+    """K5a, K5b (int8, int8 stochastic with the same noise, fp8) and K5c
+    against their plain versions at the ResNet50-1K wire's (25, 1022336),
+    at (3, 130) and on edge rows: amax and encode bit-equal, decode within
+    1e-6 with NaN where the amax is not finite.  Then timed at the wire's
+    shape beside the plain versions and, for K5a, the library's
+    ``torch.linalg.vector_norm(v, inf, dim=1)``."""
+    from tpuframe_torch.ops.quant_wire import (
+        bucket_abs_max,
+        bucket_abs_max_reference,
+        quant_decode,
+        quant_decode_reference,
+        quant_encode,
+        quant_encode_reference,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    edges = torch.tensor([
+        [0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5, -126.5, 127, -127, 0, -0.0, 3.5, 4.5, 100.5,
+         -100.5],
+        [1e-40, -3e-41, 2e-39, 0, 5e-45, -1e-38, 1e-39, 7e-42] + [0] * 8,
+        [448, -448, 2 ** -9, 2 ** -10, 3 * 2 ** -10, 1, -1, 0.3, 17, 200, 300, 440, 447, 5.5, 6.5,
+         232]], device=dev)
+    cases = [("25x1022336", torch.randn(WIRE_SHAPE, generator=gen, device=dev) * 1e-3),
+             ("3x130", torch.randn((3, 130), generator=gen, device=dev) * 9),
+             ("edges", edges)]
+    err = {"bucket_abs_max": 0.0, "quant_encode": 0.0, "quant_decode": 0.0}
+
+    def max_diff(a, b):
+        """Largest |a - b|, NaNs at the same places counted as 0."""
+        return float((torch.nan_to_num(a.float()) - torch.nan_to_num(b.float())).abs().max())
+
+    for name, v in cases:
+        noise = torch.rand(v.shape, generator=gen, device=dev)
+        amax = bucket_abs_max(v)
+        want_amax = bucket_abs_max_reference(v)
+        check(same_bits(amax, want_amax), f"K5a {name}: not bit-equal")
+        err["bucket_abs_max"] = max(err["bucket_abs_max"], max_diff(amax, want_amax))
+        bad = amax.clone()
+        bad[0, 0] = float("nan")
+        for mode, nz in (("int8", None), ("int8", noise), ("fp8", None)):
+            tag = f"{name} {mode}{' stochastic' if nz is not None else ''}"
+            q, d = quant_encode(v, amax, mode, noise=nz)
+            wq, wd = quant_encode_reference(v, amax, mode, nz)
+            check(same_bits(q, wq) and same_bits(d, wd), f"K5b {tag}: not bit-equal")
+            err["quant_encode"] = max(err["quant_encode"], max_diff(q, wq), max_diff(d, wd))
+            total = q * 2  # two ranks' worth
+            for a in (amax, bad):
+                got = quant_decode(total, a, mode, 2)
+                want = quant_decode_reference(total, a, mode, 2)
+                check(torch.equal(torch.isnan(got), torch.isnan(want))
+                      and bool(torch.isnan(got[0]).all()) == (a is bad),
+                      f"K5c {tag}: NaN rows differ")
+                e = max_diff(got, want)
+                check(e <= 1e-6, f"K5c {tag}: max abs diff {e} > 1e-6")
+                err["quant_decode"] = max(err["quant_decode"], e)
+        torch.cuda.synchronize()
+        log(f"  quant_wire {name}: K5a and K5b (int8, int8 stochastic, fp8) bit-equal to the "
+            f"plain versions; K5c within {err['quant_decode']:.3g} (tol 1e-6), NaN where amax "
+            "is NaN")
+
+    v, noise = cases[0][1], torch.rand(WIRE_SHAPE, generator=gen, device=dev)
+    amax = bucket_abs_max(v)
+    q8, _ = quant_encode(v, amax, "int8")
+    qf, _ = quant_encode(v, amax, "fp8")
+    lib = functools.partial(torch.linalg.vector_norm, v, float("inf"), dim=1, keepdim=True)
+    check(same_bits(lib(), bucket_abs_max_reference(v)), "vector_norm(inf) yardstick differs")
+    arms = {
+        "bucket_abs_max": (functools.partial(bucket_abs_max, v),
+                           functools.partial(bucket_abs_max_reference, v), lib),
+        "quant_encode": (functools.partial(quant_encode, v, amax, "int8"),
+                         functools.partial(quant_encode_reference, v, amax, "int8"), None),
+        "quant_encode_stochastic": (functools.partial(quant_encode, v, amax, "int8", noise),
+                                    functools.partial(quant_encode_reference, v, amax, "int8",
+                                                      noise), None),
+        "quant_encode_fp8": (functools.partial(quant_encode, v, amax, "fp8"),
+                             functools.partial(quant_encode_reference, v, amax, "fp8"), None),
+        "quant_decode": (functools.partial(quant_decode, q8 * 2, amax, "int8", 2),
+                         functools.partial(quant_decode_reference, q8 * 2, amax, "int8", 2), None),
+        "quant_decode_fp8": (functools.partial(quant_decode, qf * 2, amax, "fp8", 2),
+                             functools.partial(quant_decode_reference, qf * 2, amax, "fp8", 2),
+                             None),
+    }
+    n, nb = v.numel(), v.shape[0]
+    # each input read once, each output written once (float32 or int32)
+    moved = {"bucket_abs_max": 4 * n + 4 * nb, "quant_encode": 8 * n + 4 * nb,
+             "quant_encode_stochastic": 12 * n + 4 * nb, "quant_encode_fp8": 8 * n + 4 * nb,
+             "quant_decode": 8 * n + 4 * nb, "quant_decode_fp8": 8 * n + 4 * nb}
+    times = {}
+    for which, (kernel, plain, library) in arms.items():
+        # plain, kernel, library, library, kernel, plain
+        plain_ms = [time_ms(plain, flush, iters=30)]
+        kernel_ms = [time_ms(kernel, flush)]
+        library_ms = [time_ms(library, flush), time_ms(library, flush)] if library else []
+        kernel_ms.append(time_ms(kernel, flush))
+        plain_ms.append(time_ms(plain, flush, iters=30))
+        bound_ms, bound_by = bound(moved[which], 5 * n)  # about 5 operations an element
+        times[which] = {"ms": min(kernel_ms), "plain_ms": min(plain_ms),
+                        "library_ms": min(library_ms) if library_ms else None,
+                        "bound_ms": bound_ms, "bound_by": bound_by, "bytes_moved": moved[which]}
+        t = times[which]
+        log(f"  {which} 25x1022336: kernel {t['ms'] * 1e3:.2f} us, plain "
+            f"{t['plain_ms'] * 1e3:.2f} us"
+            + (f", vector_norm(inf) {t['library_ms'] * 1e3:.2f} us" if library else "")
+            + f", bound {bound_ms * 1e3:.2f} us ({moved[which] / 1e6:.1f} MB at 3.35 TB/s)")
+    rows = []
+    for which, line, shape, extra in (
+            ("bucket_abs_max", 91, "25x1022336 f32 -> 25x1 f32", ()),
+            ("quant_encode", 107, "25x1022336 f32 -> int32 (int8 grid)",
+             ("quant_encode_stochastic", "quant_encode_fp8")),
+            ("quant_decode", 125, "25x1022336 int32 (int8 grid) -> f32", ("quant_decode_fp8",))):
+        row = {"name": which, "route": "cuda", "source": "tpuframe_torch/csrc/quant_wire.cu",
+               "replaces": f"tpuframe/ops/quant_wire.py:{line}", "launches": None,
+               "max_abs_err": err[which],
+               **{k: times[which][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                               "library_ms")},
+               "shape": shape, "bytes_moved": times[which]["bytes_moved"]}
+        for e in extra:
+            row[e.removeprefix(which + "_")] = times[e]
+        rows.append(row)
+    del cases, v, noise, q8, qf
+    return rows
 
 
 def profile(fn, what: str, top: int = 12) -> dict:
@@ -1337,6 +1498,308 @@ def lm_phase(card: str, dev: torch.device = torch.device("cuda"), cfg: dict = LM
     return launches, out
 
 
+def free_port() -> int:
+    """A free TCP port on this machine's loopback interface."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_phase(card: str, dev: torch.device = torch.device("cuda"), image_size: int = 224,
+             batch_size: int = TRAIN_BATCH) -> tuple[dict, dict]:
+    """ResNet50-1K trained as phase 5 configures it, but through
+    ``Trainer(plan=ParallelPlan(mesh=initialize().mesh), grad_compression=
+    "int8")`` on a one-rank process group (NCCL on the card): the main path,
+    counted.  Then the compressed step's median beside the uncompressed
+    step's on one device-resident batch, in turns, the wire's parts alone,
+    a check that the compressed step never waits for the device, and a
+    profile of one compressed step.  Returns (launch counts, summary).  The
+    device and sizes are arguments so the phase can be rehearsed small on
+    the CPU."""
+    import math
+    import os
+
+    from tpuframe_torch.core import initialize, shutdown
+    from tpuframe_torch.data import DataLoader, SyntheticImageDataset
+    from tpuframe_torch.models import ResNet50
+    from tpuframe_torch.ops.cross_entropy import cross_entropy_bwd, cross_entropy_fwd
+    from tpuframe_torch.ops.normalize import normalize_images
+    from tpuframe_torch.ops.quant_wire import bucket_abs_max, quant_decode, quant_encode
+    from tpuframe_torch.parallel import ParallelPlan, grad_layout, sync_gradients
+    from tpuframe_torch.parallel.compression import resolve_fused
+    from tpuframe_torch.train import Callback, Trainer
+    from tpuframe_torch.train.step import _average_buffers, make_train_step
+
+    class StepLosses(Callback):
+        def __init__(self):
+            self.losses = []
+
+        def on_batch_end(self, trainer, metrics):
+            self.losses.append(metrics["loss_sum"] / max(metrics["count"], 1.0))
+
+    os.environ.update({"RANK": "0", "WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1",
+                       "MASTER_PORT": str(free_port())})
+    try:
+        rt = initialize(device=dev)
+        import torch.distributed as dist
+
+        check(dist.is_initialized() and dist.get_world_size() == 1,
+              "initialize() built no one-rank process group")
+        backend = dist.get_backend()
+        model = ResNet50(num_classes=1000, norm_dtype=torch.bfloat16, device=dev, seed=0)
+        train = DataLoader(SyntheticImageDataset(n=batch_size * TRAIN_STEPS,
+                                                 image_size=image_size, num_classes=1000,
+                                                 seed=1),
+                           batch_size, shuffle=True, seed=0, transfer_dtype="uint8",
+                           num_workers=8)
+        eval_images = 2 * batch_size + 44 * batch_size // TRAIN_BATCH  # a ragged last batch
+        evl = DataLoader(SyntheticImageDataset(n=eval_images, image_size=image_size,
+                                               num_classes=1000, seed=2),
+                         batch_size, drop_last=False, transfer_dtype="uint8", num_workers=8)
+        steps = StepLosses()
+        trainer = Trainer(model, train_dataloader=train, eval_dataloader=evl, optimizer="sgd",
+                          lr=0.1, precision="bf16", normalize=(MEAN, STD),
+                          max_duration=f"{TRAIN_STEPS}ba", log_interval=1, callbacks=[steps],
+                          plan=ParallelPlan(mesh=rt.mesh), grad_compression="int8")
+        trainer.init_state()
+        n_eval = len(evl)
+        counters = {"normalize": normalize_images, "cross_entropy_fwd": cross_entropy_fwd,
+                    "cross_entropy_bwd": cross_entropy_bwd, "bucket_abs_max": bucket_abs_max,
+                    "quant_encode": quant_encode, "quant_decode": quant_decode}
+        # -- the main path: counts zeroed just before, read just after -----
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        result = trainer.fit()
+        sync(dev)
+        fit_s = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        expected = {"normalize": TRAIN_STEPS + n_eval, "cross_entropy_fwd": TRAIN_STEPS + n_eval,
+                    "cross_entropy_bwd": TRAIN_STEPS, "bucket_abs_max": TRAIN_STEPS,
+                    "quant_encode": TRAIN_STEPS, "quant_decode": TRAIN_STEPS}
+        wire = trainer._train_step.wire
+        log(f"  compressed fit ({backend}, world 1, int8): {TRAIN_STEPS} steps of {batch_size} "
+            f"+ eval of {eval_images} images in {fit_s:.2f} s; launches {launches} (expected "
+            f"{expected}); wire {wire['n_buckets']} buckets x {wire['bucket_elems']} "
+            f"({wire['flat_elems']} elements)")
+        check(launches == expected, f"compressed train launches {launches} != {expected}")
+        n_params = sum(p.numel() for p in model.parameters())
+        check((wire["n_buckets"], wire["bucket_elems"], wire["flat_elems"])
+              == (25, 1_022_336, n_params) and n_params == 25_557_032,
+              f"wire layout {wire}")
+        summary = result.history[-1]
+        check(SUMMARY_KEYS <= set(summary), f"epoch summary lacks {SUMMARY_KEYS - set(summary)}")
+        losses = steps.losses
+        check(len(losses) == TRAIN_STEPS and all(math.isfinite(v) for v in losses),
+              f"step losses {losses}")
+        check(abs(losses[0] - math.log(1000)) <= 1.0,
+              f"first-step loss {losses[0]:.4f} not within 1.0 of ln 1000")
+        check(summary["health_bad_steps"] == 0.0, f"{summary['health_bad_steps']} bad steps")
+        resid = float(trainer.state.comms["flat"].abs().max())
+        check(math.isfinite(resid) and resid > 0, f"error-feedback residual max |r| = {resid}")
+        log(f"  step losses {[round(v, 4) for v in losses]}; residual max |r| {resid:.4g}")
+        log("  epoch summary " + json.dumps({k: round(v, 6) for k, v in summary.items()}))
+
+        # -- the step alone: compressed and uncompressed, in turns ----------
+        rng = np.random.default_rng(3)
+        batch = {"image": torch.from_numpy(rng.integers(
+                     0, 256, (batch_size, image_size, image_size, 3), dtype=np.uint8)).to(dev),
+                 "label": torch.from_numpy(rng.integers(0, 1000, batch_size)).to(dev)}
+        state = trainer.state
+        compressed = trainer._train_step
+        transform = functools.partial(normalize_images, mean=MEAN, std=STD,
+                                      out_dtype=trainer.policy.compute_dtype)
+        plain = make_train_step(trainer.policy, batch_transform=lambda b: {
+            **b, "image": transform(b["image"])}, health=trainer.health)
+
+        def median_ms(fn, n=20):
+            """Median host wall of ``fn()`` from a synced device to its end."""
+            for _ in range(3):
+                fn()
+            times = []
+            for _ in range(n):
+                sync(dev)
+                t0 = time.perf_counter()
+                fn()
+                sync(dev)
+                times.append(time.perf_counter() - t0)
+            return statistics.median(times) * 1e3
+
+        def run_plain():
+            plain(state, batch)
+
+        def run_compressed():
+            compressed(state, batch)
+
+        arms = {"uncompressed": [median_ms(run_plain)], "compressed": [median_ms(run_compressed)]}
+        arms["compressed"].append(median_ms(run_compressed))
+        arms["uncompressed"].append(median_ms(run_plain))
+        step_ms = {k: min(v) for k, v in arms.items()}
+        log(f"  train step alone, batch {batch_size}: compressed int8 (world 1) median "
+            f"{step_ms['compressed']:.2f} ms {arms['compressed']}, uncompressed "
+            f"{step_ms['uncompressed']:.2f} ms {arms['uncompressed']} (the better of two "
+            f"medians of 20 steps, in turns U C C U) on {card}")
+        # what the compressed step adds, alone on this step's gradients
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        config = resolve_fused(trainer.plan, trainer.comms_config)
+        layout = grad_layout(grads, config, trainer.plan)
+        parts_ms = {
+            "sync_gradients": median_ms(lambda: sync_gradients(grads, state.comms, layout, config)),
+            "average_buffers": median_ms(lambda: _average_buffers(model, 1)),
+        }
+        log(f"  the wire's parts alone (median host wall to the device's end): "
+            f"{json.dumps(parts_ms)}")
+        if dev.type == "cuda":
+            # no call of the compressed step may wait for the device
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                run_compressed()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            log("  the compressed step makes no synchronizing call (sync debug mode)")
+        prof = profile(run_compressed,
+                       f"compressed train step of {batch_size} (bf16, int8 wire, health on)")
+        out = {"step_ms": step_ms, "step_ms_runs": arms, "parts_ms": parts_ms, "fit_s": fit_s,
+               "first_loss": losses[0], "last_loss": losses[-1], "residual_max": resid,
+               "wire": wire, "backend": backend, "profile": prof, "card": card}
+        log("  dp_json " + json.dumps(out))
+        del trainer, state, model, batch
+        return launches, out
+    finally:
+        shutdown()
+        for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+            os.environ.pop(k, None)
+
+
+def _two_rank_child(rank: int, world: int, store: str, out_dir: str, device: str) -> None:
+    """One of two ranks on the same card (gloo: NCCL refuses two ranks on
+    one device): ``sync_gradients`` over a ResNet50-shaped named tree with
+    the kernels, then the same ranks' plain run on the CPU; writes what it
+    saw as JSON."""
+    import hashlib
+    import os
+    import traceback
+
+    os.environ.update({"RANK": str(rank), "WORLD_SIZE": str(world),
+                       "TPUFRAME_COORDINATOR": f"file://{store}"})
+    out = {}
+    try:
+        from tpuframe_torch.core import initialize, shutdown
+        from tpuframe_torch.models import ResNet50
+        from tpuframe_torch.ops.quant_wire import bucket_abs_max, quant_decode, quant_encode
+        from tpuframe_torch.parallel import (
+            CommsConfig,
+            ParallelPlan,
+            grad_layout,
+            init_comms_state,
+            sync_gradients,
+        )
+
+        rt = initialize(device=device, backend="gloo")
+        try:
+            dev = rt.device
+            shapes = {n: p.shape for n, p in
+                      ResNet50(num_classes=1000, device="cpu").named_parameters()}
+            config = CommsConfig(mode="int8")
+            plan = ParallelPlan(mesh=rt.mesh)
+            gen = torch.Generator(device=dev).manual_seed(100 + rank)
+            grads = {n: torch.randn(s, generator=gen, device=dev) * 1e-2 for n, s in shapes.items()}
+            layout = grad_layout(grads, config, plan)
+            resid = init_comms_state(grads, plan, config)["flat"]
+            resid.normal_(0, 1e-5, generator=gen)
+            for poison in (False, True):
+                if poison and rank == 1:  # one bad value in the middle of the tree
+                    grads["layer3.0.conv2.weight"].view(-1)[7] = float("nan")
+                before = (bucket_abs_max.launches, quant_encode.launches, quant_decode.launches)
+                card_mean, card_resid = sync_gradients(grads, {"flat": resid}, layout, config)
+                sync(dev)
+                launched = [a - b for a, b in zip((bucket_abs_max.launches, quant_encode.launches,
+                                                   quant_decode.launches), before)]
+                cpu_mean, cpu_resid = sync_gradients({k: g.cpu() for k, g in grads.items()},
+                                                     {"flat": resid.cpu()}, layout, config)
+                equal = all(same_bits(card_mean[k].cpu(), cpu_mean[k]) for k in grads)
+                equal = equal and same_bits(card_resid["flat"].cpu(), cpu_resid["flat"])
+                flat = torch.cat([card_mean[p].reshape(-1).cpu() for p, _, _, _ in layout.flat])
+                nan = torch.isnan(flat)
+                digest = hashlib.sha256(torch.where(nan, 0, flat).numpy().tobytes()
+                                        + nan.numpy().tobytes()).hexdigest()
+                bucket = None
+                if poison:
+                    offset = next(o for p, _, _, o in layout.flat
+                                  if p == "layer3.0.conv2.weight") + 7
+                    bucket = offset // layout.bucket_elems
+                    lo, hi = bucket * layout.bucket_elems, (bucket + 1) * layout.bucket_elems
+                    want = torch.zeros(layout.padded_elems, dtype=torch.bool)
+                    want[lo:hi] = True
+                    nan_ok = torch.equal(nan, want[:layout.flat_elems])
+                else:
+                    nan_ok = not bool(nan.any())
+                out["nan" if poison else "clean"] = {
+                    "card_equals_cpu": equal, "digest": digest, "nan_bucket_ok": nan_ok,
+                    "bucket": bucket, "launches": launched, "backend": "gloo",
+                    "elements": layout.flat_elems, "buckets": layout.n_buckets}
+        finally:
+            shutdown()
+    except BaseException:
+        out["error"] = traceback.format_exc()
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def two_rank_phase(timeout_s: float = 300.0, device: str = "cuda:0") -> dict:
+    """Two gloo ranks on the one card, spawned: ``sync_gradients`` over a
+    ResNet50-shaped named tree (25,557,032 elements, each rank its own
+    gradient and residual) with the kernels must equal the same ranks'
+    plain run on the CPU bit for bit (int8 round half to even), give both
+    ranks the same mean, and decode a NaN on one rank to NaN in its bucket
+    on both.  ``device`` is an argument so the phase can be rehearsed on the
+    CPU."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_two_rank_child, args=(r, 2, f"{tmp}/store", tmp, device))
+                 for r in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(max(1.0, timeout_s - (time.perf_counter() - t0)))
+        finally:
+            hung = [r for r, p in enumerate(procs) if p.is_alive()]
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        check(not hung, f"two-rank phase: ranks {hung} hung past {timeout_s} s")
+        res = []
+        for r in range(2):
+            f = Path(tmp, f"rank{r}.json")
+            check(f.exists(), f"two-rank phase: rank {r} wrote nothing (exit {procs[r].exitcode})")
+            res.append(json.loads(f.read_text()))
+    for r, out in enumerate(res):
+        check("error" not in out, f"two-rank phase, rank {r}:\n{out.get('error')}")
+        for case in ("clean", "nan"):
+            o = out[case]
+            check(o["card_equals_cpu"], f"rank {r} {case}: card sync differs from the CPU's")
+            check(o["nan_bucket_ok"], f"rank {r} {case}: NaN outside (or missing from) "
+                                      f"bucket {o['bucket']}")
+            check(o["launches"] == [1, 1, 1], f"rank {r} {case}: launches {o['launches']}")
+    for case in ("clean", "nan"):
+        check(res[0][case]["digest"] == res[1][case]["digest"],
+              f"{case}: the two ranks decoded different means")
+    log(f"  two gloo ranks on one card, {res[0]['clean']['elements']} elements in "
+        f"{res[0]['clean']['buckets']} buckets: means and residuals with the kernels bit-equal "
+        f"to the plain run on the CPU on both ranks, one mean on both; a NaN on rank 1 decodes "
+        f"to NaN in bucket {res[0]['nan']['bucket']} only, on both ranks "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return {"ranks": 2, "seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     log("== phase 1: device")
     if not torch.cuda.is_available():
@@ -1378,6 +1841,7 @@ def main() -> int:
     from tpuframe_torch.models import TransformerLM
 
     k4 = adamw_phase(flush, [tuple(p.shape) for p in TransformerLM(**LM).parameters()])
+    k5a, k5b, k5c = quant_wire_phase(flush)
     del flush
     torch.cuda.empty_cache()
 
@@ -1390,9 +1854,19 @@ def main() -> int:
 
     log("== phase 6: LM train")
     lm_launches, _ = lm_phase(card)
+    torch.cuda.empty_cache()
+
+    log("== phase 7: compressed data-parallel train")
+    dp_launches, _ = dp_phase(card)
+    torch.cuda.empty_cache()
+
+    log("== phase 8: two ranks on one card")
+    two_rank_phase()
+
     # each kernel's launches on the main paths that run it: K1 serve and
     # train, K2 the ResNet train, K3 and K4 the LM train (where K1 and K2
-    # launched no time)
+    # launched no time), K5 the compressed train (which also runs K1 and K2,
+    # at phase 5's counts)
     k1["launches"] = serve_launches + train_launches["normalize"]
     k1["launches_serve"] = serve_launches
     k1["launches_train"] = train_launches["normalize"]
@@ -1401,9 +1875,12 @@ def main() -> int:
     k3a["launches"] = lm_launches["layer_norm_fwd"]
     k3b["launches"] = lm_launches["layer_norm_bwd"]
     k4["launches"] = lm_launches["fused_adamw"]
+    k5a["launches"] = dp_launches["bucket_abs_max"]
+    k5b["launches"] = dp_launches["quant_encode"]
+    k5c["launches"] = dp_launches["quant_decode"]
 
-    log("== phase 7: result")
-    print(json.dumps({"kernels": [k1, k2a, k2b, k3a, k3b, k4]}))
+    log("== phase 9: result")
+    print(json.dumps({"kernels": [k1, k2a, k2b, k3a, k3b, k4, k5a, k5b, k5c]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

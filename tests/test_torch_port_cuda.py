@@ -1,5 +1,7 @@
 """The port on the card: the CUDA kernels (K1 normalize, K2a/K2b cross
-entropy, K3a/K3b LayerNorm, K4 fused AdamW) against their plain versions, a
+entropy, K3a/K3b LayerNorm, K4 fused AdamW, K5a/K5b/K5c the compressed
+wire's amax, encode and decode) against their plain versions, the
+compressed wire's sync on the card against the CPU, a
 small serve slice, a small ``Trainer.fit``, eval mode for a model left in
 train mode, and the launch counts of one LM train step.
 
@@ -471,3 +473,216 @@ def test_scheduled_lr_reads_the_applied_count_on_the_card(card, optimizer):
         models[dev.type] = model
     for a, b in zip(models["cuda"].parameters(), models["cpu"].parameters()):
         torch.testing.assert_close(a.detach().cpu(), b.detach(), atol=1e-5, rtol=0)
+
+
+# -- K5a / K5b / K5c: the compressed wire ----------------------------------------
+
+# (name, rows, cols, offset): the ResNet50-1K gradient's 25 buckets, the JAX
+# test's shapes (130 columns: no 16-byte rows, the element path), and a
+# buffer one element off the 16-byte alignment
+QW_CASES = [
+    ("25x1022336", 25, 1_022_336, 0),
+    ("1x64", 1, 64, 0),
+    ("3x130", 3, 130, 0),
+    ("8x2048", 8, 2048, 0),
+    ("8x2048_unaligned", 8, 2048, 1),
+]
+
+#: .5 ties on a grid of scale 1, clip edges, zeros of both signs, float32
+#: subnormals, e4m3 grid points, midpoints and subnormals, past the e4m3 edge
+QW_EDGES = np.array([
+    [0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5, -126.5, 127, -127, 0, -0.0, 3.5, 4.5, 100.5, -100.5],
+    [1e-40, -3e-41, 2e-39, 0, 5e-45, -1e-38, 1e-39, 7e-42] + [0] * 8,
+    [0.0] * 16,
+    [-0.0] * 16,
+    [448, -448, 2 ** -9, 2 ** -10, 3 * 2 ** -10, 1, -1, 0.3, 17, 200, 300, 440, 447, 5.5, 6.5,
+     232],
+], np.float32)
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit-equal, NaNs compared by position (their payloads may differ)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        nan = torch.isnan(a)
+        if not torch.equal(nan, torch.isnan(b)):
+            return False
+        a, b = torch.where(nan, 0, a), torch.where(nan, 0, b)
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def _qw_inputs(rows, cols, offset, card, seed=0):
+    gen = torch.Generator(device=card).manual_seed(seed)
+
+    def place(t):
+        flat = torch.empty(t.numel() + offset, dtype=t.dtype, device=card)
+        out = flat[offset:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    v = torch.randn(rows, cols, generator=gen, device=card) * 9
+    noise = torch.rand(rows, cols, generator=gen, device=card)
+    return place(v), place(noise)
+
+
+@pytest.mark.parametrize("case", QW_CASES, ids=[c[0] for c in QW_CASES])
+def test_quant_wire_kernels_match_plain_versions(card, case):
+    from tpuframe_torch.ops import (
+        bucket_abs_max,
+        bucket_abs_max_reference,
+        quant_decode,
+        quant_decode_reference,
+        quant_encode,
+        quant_encode_reference,
+    )
+
+    _, rows, cols, offset = case
+    v, noise = _qw_inputs(rows, cols, offset, card)
+    counts = (bucket_abs_max.launches, quant_encode.launches, quant_decode.launches)
+    amax = bucket_abs_max(v)
+    assert _same_bits(amax, bucket_abs_max_reference(v))
+    for mode, nz in (("int8", None), ("int8", noise), ("fp8", None)):
+        q, d = quant_encode(v, amax, mode, noise=nz)
+        wq, wd = quant_encode_reference(v, amax, mode, nz)
+        assert _same_bits(q, wq) and _same_bits(d, wd), mode
+        total = q * 3  # three ranks' worth of the same payload
+        bad = amax.clone()
+        bad[0, 0] = float("nan")  # a poisoned bucket decodes to NaN
+        for a in (amax, bad):
+            got, want = quant_decode(total, a, mode, 3), quant_decode_reference(total, a, mode, 3)
+            assert torch.equal(torch.isnan(got), torch.isnan(want))
+            assert bool(torch.isnan(got[0]).all()) == (a is bad)
+            torch.testing.assert_close(torch.nan_to_num(got), torch.nan_to_num(want),
+                                       rtol=1e-6, atol=1e-6)
+    torch.cuda.synchronize()
+    assert (bucket_abs_max.launches, quant_encode.launches, quant_decode.launches) == (
+        counts[0] + 1, counts[1] + 3, counts[2] + 6)
+
+
+def test_quant_wire_kernels_take_the_edges_bit_for_bit(card):
+    from tpuframe_torch.ops import (
+        bucket_abs_max,
+        bucket_abs_max_reference,
+        quant_encode,
+        quant_encode_reference,
+    )
+
+    v = torch.from_numpy(QW_EDGES).to(card)
+    noise = torch.from_numpy(np.random.default_rng(3).uniform(0, 1, QW_EDGES.shape).astype(
+        np.float32)).to(card)
+    assert _same_bits(bucket_abs_max(v), bucket_abs_max_reference(v))
+    for amax in (bucket_abs_max(v), torch.tensor([[127.0], [1e-38], [0.0], [0.0], [400.0]],
+                                                 device=card)):
+        for mode, nz in (("int8", None), ("int8", noise), ("fp8", None)):
+            q, _ = quant_encode(v, amax, mode, noise=nz)
+            assert _same_bits(q, quant_encode_reference(v, amax, mode, nz)[0]), (mode, amax)
+    nan_row = v.clone()
+    nan_row[1, 3] = float("nan")
+    amax = bucket_abs_max(nan_row)
+    assert torch.isnan(amax[1, 0]) and _same_bits(amax, bucket_abs_max_reference(nan_row))
+    q, _ = quant_encode(nan_row, amax, "int8")
+    assert _same_bits(q, quant_encode_reference(nan_row, amax, "int8")[0])
+    assert not q[1].any()  # a NaN scale encodes to 0, as XLA's convert makes it
+
+
+def test_quant_wire_kernels_refuse_what_they_do_not_take(card):
+    from tpuframe_torch.ops import bucket_abs_max, quant_decode, quant_encode
+
+    v = torch.ones(4, 64, device=card)
+    amax = torch.ones(4, 1, device=card)
+    with pytest.raises(TypeError, match="dtype"):
+        bucket_abs_max(v.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        bucket_abs_max(v.t().contiguous().t()[:, ::2])
+    with pytest.raises(ValueError, match="amax must be"):
+        quant_encode(v, amax[:2], "int8")
+    with pytest.raises(ValueError, match="noise"):
+        quant_encode(v, amax, "int8", noise=torch.ones(4, 32, device=card))
+    with pytest.raises(TypeError, match="dtype"):
+        quant_decode(v, amax, "int8", 2)  # int8 totals are int32
+
+
+def test_sync_gradients_on_card_matches_the_cpu(card):
+    """The world-1 wire with the kernels against the same wire on the CPU
+    (plain versions): means and residuals bit-equal, in every mode."""
+    from tpuframe_torch.core import MeshSpec
+    from tpuframe_torch.parallel import (
+        CommsConfig,
+        ParallelPlan,
+        grad_layout,
+        init_comms_state,
+        sync_gradients,
+    )
+
+    rng = np.random.default_rng(5)
+    tree = {"a/w": rng.standard_normal((64, 3, 3, 3)) * 0.2, "b/b": rng.standard_normal(64),
+            "c/k": rng.standard_normal((1000, 37)) * 3e-3}
+    tree = {k: torch.from_numpy(a.astype(np.float32)) for k, a in tree.items()}
+    plan = ParallelPlan(mesh=MeshSpec().build(1))
+    for kw in (dict(mode="int8"), dict(mode="int8", bucket_mb=0.01, groups=3),
+               dict(mode="fp8", bucket_mb=0.01)):
+        config = CommsConfig(**kw)
+        layout = grad_layout(tree, config, plan)
+        resid = init_comms_state(tree, plan, config)["flat"]
+        resid.copy_(torch.from_numpy(rng.normal(0, 1e-3, resid.shape).astype(np.float32)))
+        out = {}
+        for dev in (card, torch.device("cpu")):
+            grads = {k: t.to(dev) for k, t in tree.items()}
+            out[dev.type] = sync_gradients(grads, {"flat": resid.to(dev)}, layout, config)
+        for k in tree:
+            assert _same_bits(out["cuda"][0][k].cpu(), out["cpu"][0][k]), (kw, k)
+        assert _same_bits(out["cuda"][1]["flat"].cpu(), out["cpu"][1]["flat"]), kw
+
+
+def test_compressed_trainer_fit_on_card_launches_the_wire(card):
+    """A few steps of a small ResNet18 through ``Trainer(grad_compression=
+    "int8")`` on one card without a process group: K5a, K5b and K5c once a
+    step."""
+    from tpuframe_torch.core import MeshSpec
+    from tpuframe_torch.ops import bucket_abs_max, quant_decode, quant_encode
+    from tpuframe_torch.parallel import ParallelPlan
+
+    model = ResNet18(num_classes=10, num_filters=8, stem="cifar", device=card, seed=1)
+    train = DataLoader(SyntheticImageDataset(n=64, image_size=32), 16, shuffle=True,
+                       transfer_dtype="uint8")
+    trainer = Trainer(model, train_dataloader=train, optimizer="sgd", lr=0.05,
+                      max_duration="4ba", normalize=(MEAN, STD), log_interval=2,
+                      plan=ParallelPlan(mesh=MeshSpec().build(1)), grad_compression="int8")
+    bucket_abs_max.launches = quant_encode.launches = quant_decode.launches = 0
+    result = trainer.fit()
+    torch.cuda.synchronize()
+    assert (bucket_abs_max.launches, quant_encode.launches, quant_decode.launches) == (4, 4, 4)
+    assert np.isfinite(result.history[-1]["train_loss"])
+    assert trainer._train_step.wire["bytes_per_step"] == 0  # world 1: no wire
+    assert float(trainer.state.comms["flat"].abs().max()) > 0
+
+
+def test_compressed_step_never_waits_for_the_device(card):
+    """No call of the compressed step synchronizes with the card (a constant
+    copied from pageable host memory would: it stalls the host mid-step)."""
+    from tpuframe_torch.core import MeshSpec
+    from tpuframe_torch.fault.health import HealthPolicy
+    from tpuframe_torch.parallel import CommsConfig, ParallelPlan, init_comms_state
+    from tpuframe_torch.train import make_optimizer
+
+    model = ResNet18(num_classes=10, num_filters=8, stem="cifar", device=card, seed=2)
+    plan = ParallelPlan(mesh=MeshSpec().build(1))
+    config = CommsConfig(mode="int8", bucket_mb=0.5)  # several buckets
+    state = create_train_state(model, make_optimizer("sgd", 0.05))
+    state.comms = init_comms_state(dict(model.named_parameters()), plan, config)
+    step = make_train_step(full_precision(), health=HealthPolicy(), plan=plan,
+                           grad_compression=config)
+    gen = torch.Generator(device=card).manual_seed(0)
+    batch = {"image": torch.randn(8, 32, 32, 3, generator=gen, device=card),
+             "label": torch.randint(0, 10, (8,), generator=gen, device=card)}
+    step(state, batch)  # builds the layout
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert step.wire["n_buckets"] > 1

@@ -68,8 +68,8 @@ def test_initialize_defaults_to_cuda_and_raises_without_it(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         initialize()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        initialize("cuda:0")
-    rt = initialize("cpu")
+        initialize(device="cuda:0")
+    rt = initialize(device="cpu")
     assert rt.device == torch.device("cpu") and rt.platform == "cpu"
     with pytest.raises(ValueError, match="expected cuda or cpu"):
         resolve_device("meta")

@@ -22,7 +22,9 @@ from tpuframe.data.datasets import SyntheticImageDataset as JaxSynthetic
 from tpuframe.models import ResNet18 as JaxResNet18
 from tpuframe.train.trainer import Trainer as JaxTrainer
 from tpuframe_torch.data import DataLoader, DevicePrefetcher, SyntheticImageDataset
+from tpuframe_torch.core import MeshSpec
 from tpuframe_torch.models import ResNet18, from_jax_variables
+from tpuframe_torch.parallel import ParallelPlan
 from tpuframe_torch.train import Trainer
 
 MEAN = (0.485, 0.456, 0.406)
@@ -100,11 +102,16 @@ def test_prefetcher_on_the_cpu_copies_before_it_recycles():
 
 def test_trainer_refuses_what_is_not_ported():
     model = ResNet18(num_classes=10, num_filters=4, stem="cifar", device="cpu")
-    for kw in ({"checkpointer": object()}, {"plan": object()}, {"ema_decay": 0.99},
-               {"grad_compression": "int8"}, {"preemption": True},
-               {"straggler_sync_steps": 4}):
+    mesh2 = MeshSpec(data=2).build(2)  # two ranks: no process group is needed to refuse
+    for kw in ({"checkpointer": object()},
+               {"plan": lambda: ParallelPlan(mesh=mesh2, zero_stage=1)},
+               {"ema_decay": 0.99},
+               {"plan": lambda: ParallelPlan(mesh=mesh2, comms_fused=True),
+                "grad_compression": "int8"},
+               {"plan": lambda: ParallelPlan(mesh=mesh2)},  # uncompressed over 2 ranks
+               {"preemption": True}, {"straggler_sync_steps": 4}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(model, **kw)
+            Trainer(model, **{k: v() if callable(v) else v for k, v in kw.items()})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(model, optimizer="lion")
 

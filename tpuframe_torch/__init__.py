@@ -10,7 +10,12 @@ over ``ResNet``, with the fused normalize kernel (``ops/normalize.py``,
 ``csrc/normalize.cu``) — and the one-card train path — ``Trainer.fit``
 over the train and eval steps, training-mode BatchNorm, SGD/Adam/AdamW,
 the schedules, the health sentinel and the ``DataLoader``, with the fused
-cross entropy kernels (``ops/cross_entropy.py``, ``csrc/cross_entropy.cu``).
+cross entropy kernels (``ops/cross_entropy.py``, ``csrc/cross_entropy.cu``);
+the LM train path with the LayerNorm and fused AdamW kernels
+(``ops/layer_norm.py``, ``ops/fused_adamw.py``); and data-parallel training
+through the compressed gradient wire — ``Trainer(plan=ParallelPlan(...),
+grad_compression="int8")`` over ``torch.distributed``, with the amax,
+encode and decode kernels (``ops/quant_wire.py``, ``csrc/quant_wire.cu``).
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,25 @@
-"""Runtime: the device every entry point resolves."""
+"""Runtime: the device, the process group and the mesh."""
 
-from tpuframe_torch.core.runtime import Runtime, initialize, resolve_device
+from tpuframe_torch.core.runtime import (
+    Mesh,
+    MeshSpec,
+    Runtime,
+    current_runtime,
+    initialize,
+    process_count,
+    process_index,
+    resolve_device,
+    shutdown,
+)
 
-__all__ = ["Runtime", "initialize", "resolve_device"]
+__all__ = [
+    "Mesh",
+    "MeshSpec",
+    "Runtime",
+    "current_runtime",
+    "initialize",
+    "process_count",
+    "process_index",
+    "resolve_device",
+    "shutdown",
+]

@@ -1,8 +1,7 @@
-"""Batch loading for one process: reusable host buffers, the
-:class:`DataLoader`, and the :class:`DevicePrefetcher` that copies batches
-to the card.
+"""Batch loading: reusable host buffers, the :class:`DataLoader`, and the
+:class:`DevicePrefetcher` that copies batches to the card.
 
-Port of ``tpuframe/data/loader.py`` for one process:
+Port of ``tpuframe/data/loader.py``:
 
 - :class:`BatchBufferPool`: preallocated batch buffers (images, labels and
   the validity mask), pinned when they feed a CUDA device, so the copy to
@@ -13,8 +12,11 @@ Port of ``tpuframe/data/loader.py`` for one process:
   the permutation ``default_rng(seed * 1_000_003 + epoch).permutation(n)``,
   ``drop_last`` or a padded last batch with its ``valid`` mask,
   ``transfer_dtype``, ``set_epoch`` / ``state_dict`` / ``load_state_dict``
-  resume, thread workers, and the bad-sample quarantine.  Process workers
-  and multi-process sharding come with the data-parallel slice.
+  resume, thread workers, the bad-sample quarantine, and the per-process
+  shard of a multi-process run (every ``process_count``-th index from
+  ``process_index``, the last share padded by wrapping around, with the
+  pad flagged in the ``valid`` mask).  Process workers come with a later
+  item of the data-parallel slice.
 - :class:`DevicePrefetcher`: a background thread copies each batch from
   the pooled buffers on a side CUDA stream; the consuming stream waits on
   the copy's event, and every batch tensor is marked with
@@ -39,6 +41,7 @@ from typing import Any, Iterator
 import numpy as np
 import torch
 
+from tpuframe_torch.core import runtime as rt
 from tpuframe_torch.core.runtime import resolve_device
 from tpuframe_torch.fault.health import _env_int
 from tpuframe_torch.track.telemetry import get_telemetry
@@ -145,18 +148,22 @@ class _BadSample:
 
 
 class DataLoader:
-    """Iterates ``(images, labels[, valid])`` numpy batches for one process.
+    """Iterates this process's ``(images, labels[, valid])`` numpy batches.
 
     Args:
       dataset: map-style dataset (``__len__``/``__getitem__`` -> (img, label)).
-      batch_size: batch size (the global batch: one process).
+      batch_size: the global batch size; each process yields
+        ``batch_size // process_count`` rows (``local_batch_size``).
       shuffle: reshuffle per epoch from (seed, epoch).
       drop_last: drop the trailing ragged batch (train default).  When
         False, the last batch is padded to full size by cycling its samples
         and a boolean ``valid`` mask is yielded as third element.
       num_workers: thread pool size for item fetch (0 = inline); None reads
         ``TPUFRAME_LOADER_WORKERS`` (else 0).
-      worker_mode: ``"thread"``; ``"process"`` comes with the DP slice.
+      worker_mode: ``"thread"``; ``"process"`` comes with a later item of
+        the data-parallel slice.
+      process_index / process_count: this process's shard; None reads the
+        runtime's (``core.runtime.process_index``/``process_count``).
       transfer_dtype: dtype of the batch buffers — what crosses to the card
         (``"uint8"`` pairs with ``Trainer(normalize=...)``); None reads
         ``TPUFRAME_LOADER_TRANSFER_DTYPE``, else the first sample's dtype.
@@ -172,12 +179,13 @@ class DataLoader:
 
     def __init__(self, dataset: Any, batch_size: int, *, shuffle: bool = False, seed: int = 0,
                  drop_last: bool = True, num_workers: int | None = None,
-                 worker_mode: str = "thread", transfer_dtype: str | None = None,
+                 worker_mode: str = "thread", process_index: int | None = None,
+                 process_count: int | None = None, transfer_dtype: str | None = None,
                  ring_buffers: int | None = None):
         if worker_mode != "thread":
             raise NotImplementedError(
-                f"worker_mode={worker_mode!r}: process workers come with the "
-                "data-parallel slice (ROADMAP.md); use 'thread'")
+                f"worker_mode={worker_mode!r}: process workers come with a later item of "
+                "the data-parallel slice (ROADMAP.md); use 'thread'")
         if num_workers is None:
             num_workers = max(0, _env_int("TPUFRAME_LOADER_WORKERS", 0))
         if ring_buffers is None:
@@ -187,14 +195,19 @@ class DataLoader:
             if env_dtype in ("uint8", "float32"):
                 transfer_dtype = env_dtype
         self.dataset = dataset
-        self.global_batch_size = self.local_batch_size = int(batch_size)
+        self.global_batch_size = int(batch_size)
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
         self.num_workers = num_workers
         self.worker_mode = worker_mode
         self.transfer_dtype = np.dtype(transfer_dtype) if transfer_dtype is not None else None
-        self.process_index, self.process_count = 0, 1
+        self.process_index = rt.process_index() if process_index is None else process_index
+        self.process_count = rt.process_count() if process_count is None else process_count
+        if self.global_batch_size % self.process_count:
+            raise ValueError(f"global batch size {batch_size} not divisible by "
+                             f"{self.process_count} processes")
+        self.local_batch_size = self.global_batch_size // self.process_count
         self._pool = BatchBufferPool(ring_buffers, pin_memory=torch.cuda.is_available())
         # FIFO of yielded-but-unreleased leases, released in yield order;
         # bounded, and a dropped lease swallows one future release so the
@@ -282,17 +295,36 @@ class DataLoader:
             return False
         return self._pool.release(lease, copy_done)
 
+    def _per_process_count(self) -> int:
+        n = len(self.dataset)
+        if not self.drop_last and n % self.process_count:
+            return n // self.process_count + 1
+        return n // self.process_count
+
     def _indices(self, epoch: int) -> tuple[np.ndarray, np.ndarray]:
+        """This process's (indices, genuine) for ``epoch``: genuine=False
+        marks the wrap-around duplicates that equalize the processes'
+        shares, so eval never counts them twice."""
         n = len(self.dataset)
         order = (np.random.default_rng(self.seed * 1_000_003 + epoch).permutation(n)
                  if self.shuffle else np.arange(n))
-        return order, np.ones(n, bool)
+        genuine = np.ones(n, bool)
+        total = self._per_process_count() * self.process_count
+        if total > n:
+            # np.resize repeats cyclically, also past the dataset's size
+            order = np.resize(order, total)
+            genuine = np.zeros(total, bool)
+            genuine[:n] = True
+        else:
+            order, genuine = order[:total], genuine[:total]
+        sl = slice(self.process_index, None, self.process_count)
+        return order[sl], genuine[sl]
 
     def __len__(self) -> int:
-        n = len(self.dataset)
+        per_proc = self._per_process_count()
         if self.drop_last:
-            return n // self.local_batch_size
-        return -(-n // self.local_batch_size)
+            return per_proc // self.local_batch_size
+        return -(-per_proc // self.local_batch_size)
 
     def __iter__(self) -> Iterator[tuple]:
         self._iter_gen += 1

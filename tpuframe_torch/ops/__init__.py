@@ -24,12 +24,22 @@ from tpuframe_torch.ops.layer_norm import (
     layer_norm_reference,
 )
 from tpuframe_torch.ops.normalize import normalize_images, normalize_images_reference
+from tpuframe_torch.ops.quant_wire import (
+    bucket_abs_max,
+    bucket_abs_max_reference,
+    quant_decode,
+    quant_decode_reference,
+    quant_encode,
+    quant_encode_reference,
+)
 from tpuframe_torch.ops.ring_attention import attention_reference
 
 __all__ = [
     "FusedAdamW",
     "FusedLayerNorm",
     "attention_reference",
+    "bucket_abs_max",
+    "bucket_abs_max_reference",
     "cross_entropy_bwd",
     "cross_entropy_bwd_reference",
     "cross_entropy_fwd",
@@ -46,5 +56,9 @@ __all__ = [
     "layer_norm_reference",
     "normalize_images",
     "normalize_images_reference",
+    "quant_decode",
+    "quant_decode_reference",
+    "quant_encode",
+    "quant_encode_reference",
     "use_kernel",
 ]

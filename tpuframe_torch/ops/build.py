@@ -24,7 +24,7 @@ from pathlib import Path
 __all__ = ["BUILD_DIR", "KERNELS", "NVCC_FLAGS", "build", "find_nvcc", "library_path", "load"]
 
 #: every kernel source of the port, by name (``csrc/<name>.cu``)
-KERNELS = ("cross_entropy", "fused_adamw", "layer_norm", "normalize")
+KERNELS = ("cross_entropy", "fused_adamw", "layer_norm", "normalize", "quant_wire")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

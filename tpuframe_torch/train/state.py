@@ -37,6 +37,8 @@ class TrainState:
     device) counts the updates applied; the LR schedule is read at it.
     ``health`` is the sentinel's state (``fault.health.init_health_state``).
     ``generator`` seeds the step's randomness (dropout-style layers).
+    ``comms`` holds the compressed wire's error-feedback residuals
+    (``parallel.compression.init_comms_state``), empty by default.
     """
 
     step: int
@@ -46,6 +48,7 @@ class TrainState:
     health: dict
     generator: torch.Generator
     updates: torch.Tensor
+    comms: dict = dataclasses.field(default_factory=dict)
     _lr_table: torch.Tensor | None = dataclasses.field(default=None, repr=False)
 
     def apply_gradients(self) -> "TrainState":

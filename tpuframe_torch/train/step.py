@@ -25,20 +25,48 @@ TrainState` that it updates in place, with the JAX step's semantics:
   sync.  The copies are one more float32 set of parameters, buffers and
   optimizer state on the card (about 0.2 GB for ResNet50 with momentum),
   each written and read once per step.  Bad steps report zero metrics.
+- **The compressed wire** (``grad_compression`` with a ``ParallelPlan``,
+  after the JAX ``_make_compressed_train_step``), a stage of the same step
+  between its backward and its update.  Each rank runs forward and
+  backward on its local batch (microbatches first, compressed once per
+  super-batch); ``parallel.compression.sync_gradients`` averages the
+  ``.grad``s across the ranks through the int8 or fp8 wire (K5a-K5c on the
+  card) and writes the mean back into them; floating BatchNorm buffers are
+  averaged (JAX's ``pmean`` of the updated statistics; BatchNorm itself
+  sees only the local batch, torch-DDP semantics); metrics are summed
+  across ranks; the health verdict is taken on the global mean loss and
+  the synced gradients, so it is the same on every rank; the error-feedback
+  residual (``TrainState.comms``) is part of what a skipped step restores.
+  Without a process group (world 1) no collective runs.  An uncompressed
+  plan over more than one rank raises: the JAX GSPMD step takes BatchNorm
+  statistics over the global batch, which is a DDP item of its own.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import Any, Callable, Iterator, Mapping
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.func import functional_call
 
 from tpuframe_torch.fault.health import HealthPolicy, health_verdict
 from tpuframe_torch.ops.cross_entropy import fused_cross_entropy
+from tpuframe_torch.parallel.compression import (
+    CommsConfig,
+    _wired,
+    check_transport,
+    comms_template,
+    grad_layout,
+    resolve_fused,
+    sync_gradients,
+    wire_plan,
+)
 from tpuframe_torch.parallel.precision import Policy, full_precision
+from tpuframe_torch.track.telemetry import get_telemetry
 from tpuframe_torch.train.state import TrainState
 
 __all__ = [
@@ -113,12 +141,14 @@ def _train_metrics(loss: torch.Tensor, logits: torch.Tensor, labels: torch.Tenso
 
 def _sentinel_tensors(state: TrainState) -> list[torch.Tensor]:
     """What a skipped step must leave untouched: parameters, float buffers
-    (BatchNorm running statistics), the optimizer's state tensors and the
-    count of applied updates (the schedule's count)."""
+    (BatchNorm running statistics), the optimizer's state tensors, the
+    count of applied updates (the schedule's count) and the compressed
+    wire's error-feedback residuals."""
     out = [state.updates] + [p.data for p in state.model.parameters()]
     out += [b for b in state.model.buffers() if b.is_floating_point()]
     for st in state.optimizer.state.values():
         out += [v for v in st.values() if torch.is_tensor(v)]
+    out += list(state.comms.values())
     return out
 
 
@@ -171,11 +201,27 @@ def _apply_with_health(state: TrainState, loss: torch.Tensor, metrics: dict,
     return state, metrics
 
 
+def _finish(step: Callable, state: TrainState, loss: torch.Tensor, metrics: dict,
+            health: HealthPolicy | None, snap: _Snapshot,
+            sync: "_WireSync | None") -> tuple[TrainState, dict]:
+    """Every train step's tail after the backward: the compressed wire's
+    sync when there is one (its plan then on ``step.wire``), then the
+    update, under the sentinel when armed."""
+    if sync is not None:
+        loss, metrics = sync(state, loss, metrics)
+        step.wire = sync.wire
+    if health is None:
+        return state.apply_gradients(), metrics
+    return _apply_with_health(state, loss, metrics, health, snap)
+
+
 def make_train_step(
     policy: Policy | None = None,
     loss_fn: LossFn = cross_entropy,
     batch_transform: Callable[[dict], dict] | None = None,
     health: HealthPolicy | None = None,
+    plan: Any = None,
+    grad_compression: str | CommsConfig | None = None,
 ) -> Callable[[TrainState, Mapping[str, torch.Tensor]], tuple[TrainState, dict]]:
     """The train step: ``(state, batch) -> (state, metrics)``, updating
     ``state`` in place.
@@ -184,8 +230,11 @@ def make_train_step(
     images).  The loss is the mean of ``loss_fn``'s per-example losses.
     ``health`` arms the sentinel (module docstring).  The global-norm clip
     is part of the optimizer's spec (``train.optim``), as optax chains it
-    into ``tx``."""
+    into ``tx``.  ``grad_compression`` (``"int8"``, ``"fp8"`` or a
+    ``CommsConfig``) with a ``plan`` builds the compressed data-parallel
+    step (module docstring)."""
     policy = policy or full_precision()
+    sync = _wire_stage(plan, grad_compression, 1)
     snap = _Snapshot()
 
     def step(state: TrainState, batch: Mapping[str, torch.Tensor]):
@@ -198,10 +247,9 @@ def make_train_step(
         loss = losses.mean()
         loss.backward()
         metrics = _train_metrics(loss, logits, batch["label"])
-        if health is None:
-            return state.apply_gradients(), metrics
-        return _apply_with_health(state, loss.detach(), metrics, health, snap)
+        return _finish(step, state, loss.detach(), metrics, health, snap, sync)
 
+    step.wire = None  # the compressed wire's plan, from the first call on
     return step
 
 
@@ -209,12 +257,15 @@ def make_eval_step(
     policy: Policy | None = None,
     loss_fn: LossFn = cross_entropy,
     batch_transform: Callable[[dict], dict] | None = None,
+    plan: Any = None,
 ) -> Callable[[TrainState, Mapping[str, torch.Tensor]], dict]:
     """Eval step: ``(state, batch) -> summed metrics``, in eval mode.
 
     ``batch["weight"]`` (0/1 per example) masks the padded rows the
-    DataLoader adds to the ragged last batch."""
+    DataLoader adds to the ragged last batch.  With a ``plan`` and a process
+    group the metrics are summed across the ranks."""
     policy = policy or full_precision()
+    summed = plan is not None
 
     @torch.no_grad()
     def step(state: TrainState, batch: Mapping[str, torch.Tensor]) -> dict:
@@ -227,11 +278,12 @@ def make_eval_step(
         weight = torch.ones_like(losses) if weight is None else weight.to(torch.float32)
         if weight.ndim < losses.ndim:  # per-example mask over per-token losses
             weight = weight.reshape(weight.shape + (1,) * (losses.ndim - weight.ndim))
-        return {
+        metrics = {
             "loss_sum": (losses * weight).sum(),
             "correct": ((logits.argmax(-1) == hard).float() * weight).sum(),
             "count": weight.sum(),
         }
+        return _sum_across_ranks(metrics) if summed and _wired() else metrics
 
     return step
 
@@ -269,6 +321,8 @@ def make_grad_accum_step(
     loss_fn: LossFn = cross_entropy,
     batch_transform: Callable[[dict], dict] | None = None,
     health: HealthPolicy | None = None,
+    plan: Any = None,
+    grad_compression: str | CommsConfig | None = None,
 ):
     """Gradient accumulation over leading-dim microbatches.
 
@@ -276,32 +330,169 @@ def make_grad_accum_step(
     microbatch runs forward and backward at the same parameters, BatchNorm
     statistics roll forward through them, and the summed gradients are
     divided by ``n_microbatches`` before the one update.  The super-batch
-    is the unit of health: one bad microbatch skips the whole step."""
+    is the unit of health: one bad microbatch skips the whole step.  With
+    ``grad_compression`` and a ``plan`` the super-batch gradient crosses the
+    compressed wire once per step."""
     policy = policy or full_precision()
+    sync = _wire_stage(plan, grad_compression, n_microbatches)
     snap = _Snapshot()
 
     def step(state: TrainState, batch: Mapping[str, torch.Tensor]):
         if health is not None:
             snap.take(state)
         state.optimizer.zero_grad(set_to_none=True)
-        metrics = None
-        for i in range(n_microbatches):
-            mb = {k: v[i] for k, v in batch.items()}
-            if batch_transform is not None:
-                mb = batch_transform(mb)
-            losses, logits = _forward(state.model, mb, policy, True, loss_fn)
-            loss = losses.mean()
-            loss.backward()
-            m = _train_metrics(loss, logits, mb["label"])
-            metrics = m if metrics is None else {k: metrics[k] + m[k] for k in m}
-        params = [p for p in state.model.parameters() if p.grad is not None]
-        torch._foreach_div_([p.grad for p in params], float(n_microbatches))
-        if health is None:
-            return state.apply_gradients(), metrics
+        metrics = _accumulate(state, batch, n_microbatches, policy, loss_fn, batch_transform)
         mean_loss = metrics["loss_sum"] / metrics["count"].clamp_min(1.0)
-        return _apply_with_health(state, mean_loss, metrics, health, snap)
+        return _finish(step, state, mean_loss, metrics, health, snap, sync)
 
+    step.wire = None  # the compressed wire's plan, from the first call on
     return step
+
+
+def _accumulate(state: TrainState, batch: Mapping[str, torch.Tensor], n_microbatches: int,
+                policy: Policy, loss_fn: LossFn, batch_transform) -> dict:
+    """Forward and backward over the microbatches: the summed metrics, and
+    the mean gradient in ``.grad``."""
+    metrics = None
+    for i in range(n_microbatches):
+        mb = {k: v[i] for k, v in batch.items()}
+        if batch_transform is not None:
+            mb = batch_transform(mb)
+        losses, logits = _forward(state.model, mb, policy, True, loss_fn)
+        loss = losses.mean()
+        loss.backward()
+        m = _train_metrics(loss, logits, mb["label"])
+        metrics = m if metrics is None else {k: metrics[k] + m[k] for k in m}
+    params = [p for p in state.model.parameters() if p.grad is not None]
+    torch._foreach_div_([p.grad for p in params], float(n_microbatches))
+    return metrics
+
+
+# -- the compressed data-parallel step ----------------------------------------
+
+
+def _refuse_uncompressed_dp(plan: Any) -> None:
+    if plan is not None and plan.dp_size > 1:
+        raise NotImplementedError(
+            f"an uncompressed plan over {plan.dp_size} ranks is not ported: the JAX GSPMD step "
+            "takes BatchNorm statistics over the global batch, which comes with its own DDP "
+            "item (ROADMAP.md, Queue 1); pass grad_compression='int8' or 'fp8'")
+
+
+@torch.no_grad()
+def _sum_across_ranks(metrics: dict) -> dict:
+    """The metrics summed over the process group in one collective."""
+    keys = sorted(metrics)
+    packed = torch.stack([metrics[k].to(torch.float32) for k in keys])
+    dist.all_reduce(packed, op=dist.ReduceOp.SUM)
+    return dict(zip(keys, packed.unbind()))
+
+
+@torch.no_grad()
+def _average_buffers(model: nn.Module, world: int) -> None:
+    """Floating buffers (BatchNorm running statistics) averaged across
+    the ranks in place, one collective a dtype."""
+    by_dtype: dict = {}
+    for b in model.buffers():
+        if b.is_floating_point():
+            by_dtype.setdefault(b.dtype, []).append(b)
+    for bufs in by_dtype.values():
+        flat = torch.cat([b.reshape(-1) for b in bufs])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+        flat /= world
+        torch._foreach_copy_(bufs, [t.view_as(b) for t, b in zip(
+            flat.split([b.numel() for b in bufs]), bufs)])
+
+
+def _wire_stage(plan: Any, grad_compression, n_microbatches: int) -> "_WireSync | None":
+    """The stage a train step runs between its backward and its update:
+    the compressed wire's sync, or None for an uncompressed step (which
+    refuses a plan over more than one rank)."""
+    if grad_compression is None:
+        _refuse_uncompressed_dp(plan)
+        return None
+    return _WireSync(plan, grad_compression, n_microbatches)
+
+
+class _WireSync:
+    """The compressed wire between the backward and the update (module
+    docstring): ``(state, loss, metrics) -> (global loss, summed metrics)``
+    with the synced mean in the ``.grad``s.
+
+    The wire layout depends on the model's parameters, so it is built at
+    the first call: the layout, the check of ``state.comms`` against it,
+    the ``wire`` plan (what the Trainer meters) and one ``comms/wire_plan``
+    event, or ``comms/ef_inactive`` when the state carries no residual."""
+
+    def __init__(self, plan: Any, grad_compression, n_microbatches: int):
+        config = CommsConfig.from_env(grad_compression)
+        if config is None:
+            raise ValueError(f"grad_compression={grad_compression!r} names no wire format")
+        if plan is None:
+            raise ValueError("grad_compression needs a plan (its mesh and data axes)")
+        self.config = resolve_fused(plan, config)
+        check_transport(grad_layout({}, self.config, plan), self.config)
+        self.plan, self.n_microbatches = plan, n_microbatches
+        #: the static per-step wire accounting (``wire_plan``), set at build
+        self.wire: dict | None = None
+        self._layout = None
+
+    def _build(self, state: TrainState) -> None:
+        params = dict(state.model.named_parameters())
+        layout = grad_layout(params, self.config, self.plan)
+        expected = {k: (1,) + tuple(v[1:])
+                    for k, v in comms_template(params, self.config, self.plan).items()}
+        have = {k: tuple(v.shape) for k, v in state.comms.items()}
+        ef = bool(expected) and bool(have)
+        if ef and have != expected:
+            raise ValueError(
+                f"TrainState.comms does not match this plan and config's residual layout (have "
+                f"{have}, expected {expected} on each rank); re-initialize it with "
+                "parallel.compression.init_comms_state(params, plan, config)")
+        self._run_config = (self.config if ef or not self.config.error_feedback
+                            else dataclasses.replace(self.config, error_feedback=False))
+        self._ef = ef
+        self.wire = wire_plan(layout, self._run_config)
+        tele = get_telemetry()
+        if self.config.error_feedback and not ef:
+            tele.event("comms/ef_inactive",
+                       reason="TrainState.comms is empty — init_comms_state() was never "
+                              "applied; running compressed without error feedback")
+        tele.event("comms/wire_plan", zero_stage=self.plan.zero_stage, error_feedback=ef,
+                   n_microbatches=self.n_microbatches,
+                   stochastic=self._run_config.stochastic_rounding, **self.wire)
+        self._layout = layout
+
+    def _rng(self, state: TrainState, device: torch.device) -> torch.Generator | None:
+        """The step's stochastic-rounding stream, distinct per step and
+        rank."""
+        if not self._run_config.stochastic_rounding:
+            return None
+        rank = dist.get_rank() if _wired() else 0
+        seed = ((state.generator.initial_seed() * 1_000_003 + state.step) * 8191 + rank) % 2**63
+        return torch.Generator(device=device).manual_seed(seed)
+
+    def __call__(self, state: TrainState, loss: torch.Tensor,
+                 metrics: dict) -> tuple[torch.Tensor, dict]:
+        if self._layout is None:
+            self._build(state)
+        named = list(state.model.named_parameters())
+        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p) for n, p in named}
+        synced, new_comms = sync_gradients(grads, state.comms if self._ef else {}, self._layout,
+                                           self._run_config, self._rng(state, loss.device))
+        with torch.no_grad():
+            for n, p in named:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            torch._foreach_copy_([p.grad for _, p in named], [synced[n] for n, _ in named])
+            for k, t in new_comms.items():
+                state.comms[k].copy_(t)  # in place: a skipped step restores it
+        if not _wired():
+            return loss, metrics
+        world = dist.get_world_size()
+        _average_buffers(state.model, world)
+        summed = _sum_across_ranks({**metrics, "_loss": loss})
+        return summed.pop("_loss") / world, summed
 
 
 def merge_metrics(acc: dict | None, new: Mapping[str, Any]) -> dict:

@@ -1,4 +1,4 @@
-"""High-level Trainer for one card: the port of ``tpuframe/train/trainer.py``.
+"""High-level Trainer: the port of ``tpuframe/train/trainer.py``.
 
 Same constructor shape and public names as the JAX Trainer (Composer's
 ``Trainer(model, optimizers, loaders, max_duration, algorithms,
@@ -10,12 +10,21 @@ epoch summary keys, so one analyzer reads logs from both sides.  Metrics
 are summed on the device and read by the host once per ``log_interval``
 steps; the health sentinel's verdict once per window.
 
+Data parallelism runs through the compressed wire: ``plan`` (default
+``ParallelPlan(mesh=current_runtime().mesh)``) with ``grad_compression``
+(``"int8"`` / ``"fp8"``; None reads ``TPUFRAME_COMMS_COMPRESSION``) trains
+each process on its share of the batch and averages the gradients as int8
+or e4m3 buckets with error feedback (``parallel.compression``); the
+residuals start at zero in ``TrainState.comms``.  Every rank runs the loop;
+only the main process logs and reports.
+
 What this reduced Trainer does not do yet, each raising
 ``NotImplementedError`` that names the slice which ports it:
-checkpoints (``checkpointer``, ``checkpoint_interval_batches``), parallel
-plans and DDP (``plan``), the compressed wire (``grad_compression``), EMA
-(``ema_decay``), preemption handling (``preemption=True``), straggler
-detection (``straggler_sync_steps``, ``straggler_factor``).  ``tx`` takes
+checkpoints (``checkpointer``, ``checkpoint_interval_batches``), plans
+beyond stage-0 compressed DP (ZeRO, rules, offload, an uncompressed plan
+over several ranks, the fused transport), EMA (``ema_decay``), preemption
+handling (``preemption=True``), straggler detection
+(``straggler_sync_steps``, ``straggler_factor``).  ``tx`` takes
 an ``OptimizerSpec`` in place of an optax transform (``ops.fused_adamw``
 returns one).  ``precompile`` is accepted and does nothing: eager PyTorch
 has no ahead-of-time compile step (``torch.compile`` comes with the
@@ -32,11 +41,14 @@ from typing import Any, Callable, Mapping, Sequence
 import numpy as np
 import torch
 
+from tpuframe_torch.core.runtime import current_runtime
 from tpuframe_torch.data.loader import DataLoader, DevicePrefetcher
 from tpuframe_torch.fault import health as _health
 from tpuframe_torch.fault.health import Divergence
 from tpuframe_torch.ops.normalize import normalize_images
+from tpuframe_torch.parallel.compression import CommsConfig, init_comms_state
 from tpuframe_torch.parallel.precision import Policy, align_model_dtype, get_policy
+from tpuframe_torch.parallel.sharding import ParallelPlan
 from tpuframe_torch.track.telemetry import get_telemetry
 from tpuframe_torch.train.algorithms import Algorithm, apply_algorithms, resolve_algorithms
 from tpuframe_torch.train.callbacks import Callback
@@ -92,6 +104,11 @@ class Trainer:
       train_dataloader / eval_dataloader: port DataLoaders.
       max_duration: ``"2ep"`` / ``"500ba"`` / ``"1000sp"`` / int epochs.
       algorithms / callbacks / loggers: as the JAX Trainer's.
+      plan: a stage-0 ``ParallelPlan`` (default: over the runtime's mesh,
+        which :func:`~tpuframe_torch.core.runtime.current_runtime` builds
+        on the model's device when none is initialized).
+      grad_compression: ``"int8"`` / ``"fp8"`` / a ``CommsConfig``: the
+        compressed gradient wire (None reads ``TPUFRAME_COMMS_COMPRESSION``).
       precision: policy name or Policy; when given, the model's compute
         dtype is aligned to it, else the policy follows the model.
       loss_fn: per-example loss (default: ``train.step.cross_entropy``).
@@ -150,8 +167,6 @@ class Trainer:
             ("checkpointer", checkpointer, "the checkpoint part of the training slice"),
             ("checkpoint_interval_batches", checkpoint_interval_batches,
              "the checkpoint part of the training slice"),
-            ("plan", plan, "the data-parallel part of the training slice"),
-            ("grad_compression", grad_compression, "the compressed-wire slice"),
             ("ema_decay", ema_decay, "the EMA part of the training slice"),
             ("straggler_sync_steps", straggler_sync_steps, "the platform planes (track)"),
             ("straggler_factor", straggler_factor, "the platform planes (track)"),
@@ -167,6 +182,11 @@ class Trainer:
             self.policy = get_policy(precision)
             self.model = align_model_dtype(model, self.policy)
         self.device = next(self.model.parameters()).device
+        if plan is None:
+            plan = ParallelPlan(mesh=current_runtime(device=self.device).mesh)
+        self.plan = plan
+        self.comms_config = CommsConfig.from_env(grad_compression)
+        self._comms_gauge_set = False
         self.train_dataloader = train_dataloader
         self.eval_dataloader = eval_dataloader
         self.max_duration = Duration.parse(max_duration)
@@ -228,14 +248,16 @@ class Trainer:
         else:
             self._norm_args = None
 
+        wire = dict(plan=plan, grad_compression=self.comms_config)
         if grad_accum > 1:
             self._train_step = make_grad_accum_step(
                 grad_accum, self.policy, loss_fn, batch_transform=train_transform,
-                health=self.health)
+                health=self.health, **wire)
         else:
             self._train_step = make_train_step(
-                self.policy, loss_fn, batch_transform=train_transform, health=self.health)
-        self._eval_step = make_eval_step(self.policy, loss_fn, batch_transform=eval_transform)
+                self.policy, loss_fn, batch_transform=train_transform, health=self.health, **wire)
+        self._eval_step = make_eval_step(self.policy, loss_fn, batch_transform=eval_transform,
+                                         plan=plan)
         self._predict = make_predict_fn(self.policy, input_transform=image_transform)
 
     # -- wiring ------------------------------------------------------------
@@ -247,7 +269,7 @@ class Trainer:
 
     @property
     def is_main(self) -> bool:
-        return True  # one process
+        return current_runtime(device=self.device).is_main
 
     def request_stop(self, reason: str) -> None:
         """Callbacks call this to end fit() after the current epoch."""
@@ -307,11 +329,28 @@ class Trainer:
                 step=self.batches_seen, bad_in_window=n_bad, window=window_steps,
                 loss_ewma=hs.get("loss_ewma"), policy=self.health)
 
+    def _meter_comms(self, tele) -> None:
+        """Per-step bytes on the wire: the compressed step's wire plan is
+        static, so the meter is one host add a step.  Uncompressed runs and
+        a world of 1 meter nothing."""
+        wire = getattr(self._train_step, "wire", None)
+        if not wire or not wire.get("bytes_per_step"):
+            return
+        if not self._comms_gauge_set:
+            tele.registry.gauge("comms/bytes_per_step").set(wire["bytes_per_step"])
+            tele.registry.gauge("comms/overlap_groups").set(wire.get("overlap_groups") or 1)
+            self._comms_gauge_set = True
+        tele.registry.counter("comms/bytes_on_wire").inc(wire["bytes_per_step"])
+
     def _log_metrics(self, metrics: Mapping[str, float], step: int) -> None:
+        if not self.is_main:
+            return
         for lg in self.loggers:
             lg.log_metrics(dict(metrics), step=step)
 
     def _log_params(self, params: Mapping[str, Any]) -> None:
+        if not self.is_main:
+            return
         for lg in self.loggers:
             if hasattr(lg, "log_params"):
                 lg.log_params(dict(params))
@@ -320,6 +359,10 @@ class Trainer:
     def init_state(self) -> TrainState:
         if self.state is None:
             self.state = create_train_state(self.model, self.spec, seed=self.seed)
+            if self.comms_config is not None:
+                # zero error-feedback residuals for the compressed wire
+                self.state.comms = init_comms_state(
+                    dict(self.model.named_parameters()), self.plan, self.comms_config)
         return self.state
 
     # -- data --------------------------------------------------------------
@@ -378,8 +421,8 @@ class Trainer:
             "max_duration": str(self.max_duration),
             "optimizer": type(self.state.optimizer).__name__,
             "precision": str(self.policy.compute_dtype),
-            "devices": 1,
-            "zero_stage": 0,
+            "devices": self.plan.dp_size,
+            "zero_stage": self.plan.zero_stage,
             "algorithms": ",".join(type(a).__name__ for a in self.algorithms),
         })
         self._emit("on_fit_start")
@@ -397,7 +440,7 @@ class Trainer:
                 result.metrics = epoch_summary
                 self._log_metrics(epoch_summary, step=self.epoch)
                 self._emit("on_epoch_end", self.epoch, epoch_summary)
-                if self.report is not None:
+                if self.report is not None and self.is_main:
                     self.report(epoch_summary, result.checkpoint)
                 self.epoch += 1
         except BaseException as e:
@@ -458,6 +501,7 @@ class Trainer:
                 dispatch += sp.elapsed
                 self.batches_seen += 1
                 self.samples_seen += self.train_dataloader.global_batch_size
+                self._meter_comms(tele)
                 self._health_step(metrics)
                 window = metrics if window is None else {k: window[k] + v
                                                          for k, v in metrics.items()}
