@@ -22,10 +22,15 @@ Phases, each of which fails the script (nonzero exit, no result line):
    train path's (128, 1000) f32 and at an HBM-bound (16384, 1000); K3a
    LayerNorm forward (``F.layer_norm(eps=1e-6)``) and K3b its backward
    (``torch.autograd.grad`` of it) at the LM path's (16384, 768) bf16 with
-   bf16 scale and bias, checked there, in f32 and at a ragged 1000 x 300;
-   K4 fused AdamW over the 149 parameter tensors of the GPT-2-small LM for
-   one step (``torch.optim.AdamW(fused=True)``, the same update), checked
-   there, at a ragged 257 x 130 leaf and a bf16 leaf; K5a bucket abs-max
+   bf16 scale and bias, checked there, in f32 and at a ragged 1000 x 300,
+   K3b also timed in f32 and at 1000 x 300 and split by kernel with
+   ``torch.profiler``; K4 fused AdamW, one launch over the 149 parameter
+   tensors of the GPT-2-small LM plus a misaligned view, over a ragged
+   list with ``b1 = 0``, a bf16 list and a list longer than one launch's
+   table, each bit-equal to one-entry calls, then one ``FusedAdamW.step()``
+   over the 149 tensors timed beside ``torch.optim.AdamW(fused=True)
+   .step()`` (the same update) and the per-tensor loop of one-entry calls;
+   K5a bucket abs-max
    (``torch.linalg.vector_norm(v, inf, dim=1)``), K5b encode (int8, int8
    stochastic with the same noise, fp8) and K5c decode at the ResNet50-1K
    wire's 25 x 1,022,336 float32, at (3, 130) and on edge rows: amax and
@@ -52,7 +57,8 @@ Phases, each of which fails the script (nonzero exit, no result line):
    1024, batch 16, random weights from a seed) for 12 batches of example
    06's next-token data, plus an eval whose last batch is ragged; counters
    zeroed just before and read just after: K3a 25 per forward, K3b 25 per
-   step, K4 149 per step, K1 and K2 none.  Then the train step alone on one
+   step, K4 1 per step (one launch for the 149 tensors), K1 and K2 none.
+   Then the train step alone on one
    device-resident batch (tokens per second and MFU, median of 30 steps, a
    ``torch.profiler`` table, and the time of the materialized attention and
    of the float32 logits and loss at the step's shapes), ten steps on one
@@ -80,6 +86,7 @@ from __future__ import annotations
 import functools
 import io
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -520,74 +527,185 @@ def layer_norm_phase(flush) -> list[dict]:
             f"{r['plain_ms'] * 1e3:.2f} us, library {r['library_ms'] * 1e3:.2f} us, bound "
             f"{bound_ms * 1e3:.2f} us ({moved[which] / 1e6:.2f} MB at 3.35 TB/s)")
         rows_out.append(r)
+    rows_out[1].update(layer_norm_bwd_detail(flush, inputs, layer_norm_bwd, arms["bwd"][0]))
     return rows_out
 
 
+def layer_norm_bwd_detail(flush, inputs, layer_norm_bwd, path_call) -> dict:
+    """K3b beyond the path's shape: its time at (16384, 768) f32 and at the
+    ragged (1000, 300) (the element path), and where a call at the path's
+    shape spends its device time, kernel by kernel (``torch.profiler``)."""
+    ms_by_shape = {}
+    for name, rows, d, dtype in (("16384x768 f32", 16384, 768, torch.float32),
+                                 ("1000x300 f32", 1000, 300, torch.float32),
+                                 ("1000x300 bf16", 1000, 300, torch.bfloat16)):
+        x, scale, _, g = inputs(rows, d, dtype)
+        ms_by_shape[name] = time_ms(functools.partial(layer_norm_bwd, x, scale, g), flush)
+    split = kernel_split(path_call)
+    log("  layer_norm_bwd at other shapes: " + ", ".join(
+        f"{k} {v * 1e3:.2f} us" for k, v in ms_by_shape.items()))
+    log("  layer_norm_bwd 16384x768 bf16, device time by kernel (profiler, no flush): " + ", ".join(
+        f"{k} {v:.2f} us" for k, v in split.items()))
+    return {"ms_by_shape": ms_by_shape, "profile_split_us": split}
+
+
+ADAMW_HP = dict(lr=3e-4, b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-4)
+
+
+def adamw_leaf(gen, shape, dtype=torch.float32, offset: int = 0):
+    """(p, g, m, v) on the card from ``gen``; ``offset`` > 0 places each
+    array that many elements into a larger buffer (off the vector
+    alignment)."""
+    dev = torch.device("cuda")
+    n = int(np.prod(shape))
+
+    def place(t):
+        if not offset:
+            return t
+        flat = torch.empty(n + offset, dtype=t.dtype, device=dev)
+        out = flat[offset:].view(shape)
+        out.copy_(t)
+        return out
+
+    p = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    g = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    m = torch.randn(shape, generator=gen, device=dev) * 0.1
+    v = torch.rand(shape, generator=gen, device=dev) * 0.1
+    return tuple(place(t) for t in (p, g, m, v))
+
+
 def adamw_phase(flush, shapes) -> dict:
-    """K4 against its plain version over ``shapes`` (the LM's parameter
-    tensors), a ragged 257 x 130 leaf and a bf16 leaf, then one whole
-    optimizer step over ``shapes`` timed beside the plain version and
-    ``torch.optim.AdamW(fused=True)``."""
-    from tpuframe_torch.ops.fused_adamw import fused_adamw_update_, fused_adamw_update_reference
+    """K4 against its plain version: one multi-tensor launch over
+    ``shapes`` (the LM's parameter tensors) plus a view one element off the
+    vector alignment, a ragged 257 x 130 list with ``b1 = 0``, a bf16 list,
+    and a list longer than one launch's table; each within 1e-6 of the plain
+    version (a bf16 parameter within one bf16 step) and bit-equal to
+    one-entry calls per tensor.  Then one optimizer step over ``shapes``,
+    timed (:func:`adamw_step_times`)."""
+    from tpuframe_torch.ops.fused_adamw import (
+        TABLE_CAPACITY,
+        fused_adamw_multi_update_,
+        fused_adamw_update_,
+        fused_adamw_update_reference,
+    )
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
-    hp = dict(lr=3e-4, b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-4)
-
-    def leaf(shape, dtype=torch.float32):
-        p = torch.randn(shape, generator=gen, device=dev).to(dtype)
-        g = torch.randn(shape, generator=gen, device=dev).to(dtype)
-        m = torch.randn(shape, generator=gen, device=dev) * 0.1
-        v = torch.rand(shape, generator=gen, device=dev) * 0.1
-        return p, g, m, v
-
     count = torch.full((), 7, dtype=torch.int32, device=dev)
-
-    def one(p, g, m, v, **kw):
-        want = fused_adamw_update_reference(p, g, m, v, count, **kw)
-        got = (p.clone(), m.clone(), v.clone())
-        fused_adamw_update_(*got[:1], g, *got[1:], count, **kw)
-        return got, want
-
-    leaves = [leaf(s) for s in shapes]
+    lm = [adamw_leaf(gen, s) for s in shapes]
+    cases = [
+        (f"{len(shapes)} LM tensors + 1001 off by one", lm + [adamw_leaf(gen, (1001,), offset=1)],
+         ADAMW_HP),
+        ("257x130 + 33x7 f32, b1 = 0", [adamw_leaf(gen, (257, 130)), adamw_leaf(gen, (33, 7))],
+         dict(lr=1e-2, b1=0.0, b2=0.999, eps=1e-8, weight_decay=0.01)),
+        ("bf16 4096x768 + 768 + 1001 off by one",
+         [adamw_leaf(gen, (4096, 768), torch.bfloat16), adamw_leaf(gen, (768,), torch.bfloat16),
+          adamw_leaf(gen, (1001,), torch.bfloat16, offset=1)], ADAMW_HP),
+        (f"{TABLE_CAPACITY + 3} small tensors (over one table)",
+         [adamw_leaf(gen, (int(k),)) for k in
+          np.random.default_rng(5).integers(1, 3000, TABLE_CAPACITY + 3)], ADAMW_HP),
+    ]
     worst = 0.0
-    for p, g, m, v in leaves:
-        got, want = one(p, g, m, v, **hp)
-        worst = max(worst, max(float((a - b).abs().max()) for a, b in zip(got, want)))
-    ragged_got, ragged_want = one(*leaf((257, 130)), lr=1e-2, b1=0.9, b2=0.999, eps=1e-8,
-                                  weight_decay=0.01)
-    bf16_got, bf16_want = one(*leaf((4096, 768), torch.bfloat16), **hp)
-    torch.cuda.synchronize()
-    ragged = max(float((a - b).abs().max()) for a, b in zip(ragged_got, ragged_want))
-    bf16_mv = max(float((a - b).abs().max()) for a, b in zip(bf16_got[1:], bf16_want[1:]))
-    bf16_p = bf16_steps(bf16_got[0], bf16_want[0])
-    # the same float32 expression (the compiler may fuse a multiply-add):
-    # 1e-6 absolute; a bf16 parameter within one bf16 step
-    log(f"  fused AdamW over {len(shapes)} LM tensors: max abs diff {worst:.3g}; 257x130 "
-        f"{ragged:.3g}; bf16 4096x768: m/v {bf16_mv:.3g}, p {bf16_p:.3g} bf16 steps "
-        f"(tol 1e-6, 1 step)")
-    check(max(worst, ragged, bf16_mv) <= 1e-6 and bf16_p <= 1,
-          f"K4: {worst}, {ragged}, {bf16_mv}, {bf16_p} bf16 steps")
-    del ragged_got, ragged_want, bf16_got, bf16_want
+    for name, leaves, hp in cases:
+        want = [fused_adamw_update_reference(p, g, m, v, count, **hp) for p, g, m, v in leaves]
+        multi = [(p.clone(), m.clone(), v.clone()) for p, _, m, v in leaves]
+        single = [(p.clone(), m.clone(), v.clone()) for p, _, m, v in leaves]
+        l0 = fused_adamw_multi_update_.launches
+        fused_adamw_multi_update_([t[0] for t in multi], [lf[1] for lf in leaves],
+                                  [t[1] for t in multi], [t[2] for t in multi],
+                                  [count] * len(leaves), **hp)
+        launches = fused_adamw_multi_update_.launches - l0
+        for (p, m, v), (_, g, _, _) in zip(single, leaves):
+            fused_adamw_update_(p, g, m, v, count, **hp)
+        torch.cuda.synchronize()
+        expect = -(-len(leaves) // TABLE_CAPACITY)
+        same = all(torch.equal(a, b) for got, one in zip(multi, single) for a, b in zip(got, one))
+        err_mv = max(float((a - b).abs().max()) for got, w in zip(multi, want)
+                     for a, b in zip(got[1:], w[1:]))
+        if leaves[0][0].dtype == torch.bfloat16:
+            err_p = max(bf16_steps(got[0], w[0]) for got, w in zip(multi, want))
+            ok = err_mv <= 1e-6 and err_p <= 1
+            tol = f"m/v {err_mv:.3g} (tol 1e-6), p {err_p:.3g} bf16 steps (tol 1)"
+        else:
+            err = max(err_mv, max(float((got[0] - w[0]).abs().max())
+                                  for got, w in zip(multi, want)))
+            worst = max(worst, err)
+            ok = err <= 1e-6
+            tol = f"max abs diff {err:.3g} (tol 1e-6)"
+        # the same float32 expression (the compiler may fuse a multiply-add)
+        log(f"  fused AdamW, {name}: {launches} launch(es) (expected {expect}); {tol}; "
+            f"bit-equal to one-entry calls: {same}")
+        check(ok and same and launches == expect, f"K4 {name}: {tol}, launches {launches}, "
+              f"bit-equal {same}")
+    del cases, want, multi, single
 
     # the library yardstick: torch's fused AdamW over the same tensors.  From
     # zero moments at step 1 it gives the same update as the plain version
-    params = [torch.nn.Parameter(p.clone()) for p, _, _, _ in leaves]
-    for prm, (_, g, _, _) in zip(params, leaves):
+    params = [torch.nn.Parameter(p.clone()) for p, _, _, _ in lm]
+    for prm, (_, g, _, _) in zip(params, lm):
         prm.grad = g.clone()
+    hp = ADAMW_HP
     lib = torch.optim.AdamW(params, lr=hp["lr"], betas=(hp["b1"], hp["b2"]), eps=hp["eps"],
                             weight_decay=hp["weight_decay"], fused=True)
     lib.step()
     one_count = torch.ones((), dtype=torch.int32, device=dev)
     lib_err = 0.0
-    for prm, (p, g, _, _) in zip(params, leaves):
+    for prm, (p, g, _, _) in zip(params, lm):
         zeros = torch.zeros_like(p)
         want = fused_adamw_update_reference(p, g, zeros, zeros, one_count, **hp)[0]
         lib_err = max(lib_err, float((prm.detach() - want).abs().max()))
     log(f"  torch.optim.AdamW(fused=True) yardstick: first step within {lib_err:.3g} of the "
         "plain version")
+    del lm, params, lib
+    torch.cuda.empty_cache()
 
-    def kernel():
+    t = adamw_step_times(flush, shapes)
+    n = t["parameters"]
+    moved = n * 4 * 7  # p, g, m, v read; p, m, v written; float32
+    bound_ms, bound_by = bound(moved, 16 * n)  # about 16 float32 operations an element
+    r = {"name": "fused_adamw", "route": "cuda", "source": "tpuframe_torch/csrc/fused_adamw.cu",
+         "replaces": "tpuframe/ops/fused_adamw.py:55", "launches": None, "max_abs_err": worst,
+         "ms": t["step_ms"], "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
+         "bound_by": bound_by, "library_ms": t["library_ms"],
+         "per_tensor_ms": t["per_tensor_ms"], "profile_split_us": t["split_us"],
+         "shape": f"FusedAdamW.step() over {len(shapes)} f32 tensors, {n} parameters",
+         "bytes_moved": moved}
+    log(f"  fused_adamw bound {bound_ms:.3f} ms ({moved / 1e9:.2f} GB at 3.35 TB/s): step at "
+        f"{bound_ms / r['ms']:.1%} of it; {r['library_ms'] / r['ms']:.3f}x the speed of "
+        "AdamW(fused=True)")
+    return r
+
+
+def adamw_step_times(flush, shapes, hp=ADAMW_HP) -> dict:
+    """One optimizer step over float32 tensors of ``shapes``, timed in
+    turns (median of 20 steps, L2 flushed before each): ``FusedAdamW.step()``
+    (what the Trainer runs: the counts' one increment, then K4), ``torch.
+    optim.AdamW(fused=True).step()``, the per-tensor loop of
+    ``fused_adamw_update_`` (one K4 launch a tensor), and the plain
+    version; then the device time of one ``FusedAdamW.step()`` by kernel."""
+    from tpuframe_torch.ops.fused_adamw import (
+        FusedAdamW,
+        fused_adamw_update_,
+        fused_adamw_update_reference,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    leaves = [adamw_leaf(gen, s) for s in shapes]
+    count = torch.full((), 7, dtype=torch.int32, device=dev)
+
+    def optimizer_params():
+        params = [torch.nn.Parameter(p.clone()) for p, _, _, _ in leaves]
+        for prm, (_, g, _, _) in zip(params, leaves):
+            prm.grad = g.clone()
+        return params
+
+    ours = FusedAdamW(optimizer_params(), hp["lr"], b1=hp["b1"], b2=hp["b2"], eps=hp["eps"],
+                      weight_decay=hp["weight_decay"])
+    lib = torch.optim.AdamW(optimizer_params(), lr=hp["lr"], betas=(hp["b1"], hp["b2"]),
+                            eps=hp["eps"], weight_decay=hp["weight_decay"], fused=True)
+
+    def per_tensor():
         for p, g, m, v in leaves:
             fused_adamw_update_(p, g, m, v, count, **hp)
 
@@ -596,24 +714,21 @@ def adamw_phase(flush, shapes) -> dict:
             fused_adamw_update_reference(p, g, m, v, count, **hp)
 
     timed = functools.partial(time_ms, flush=flush, iters=20, warmup=3)
-    plain_ms = [timed(plain)]
-    kernel_ms = [timed(kernel)]
-    library_ms = [timed(lib.step), timed(lib.step)]
-    kernel_ms.append(timed(kernel))
-    plain_ms.append(timed(plain))
-    n = sum(p.numel() for p, _, _, _ in leaves)
-    moved = n * 4 * 7  # p, g, m, v read; p, m, v written; float32
-    bound_ms, bound_by = bound(moved, 16 * n)  # about 16 float32 operations an element
-    r = {"name": "fused_adamw", "route": "cuda", "source": "tpuframe_torch/csrc/fused_adamw.cu",
-         "replaces": "tpuframe/ops/fused_adamw.py:55", "launches": None, "max_abs_err": worst,
-         "ms": min(kernel_ms), "plain_ms": min(plain_ms), "bound_ms": bound_ms,
-         "bound_by": bound_by, "library_ms": min(library_ms),
-         "shape": f"one step over {len(shapes)} f32 tensors, {n} parameters",
-         "bytes_moved": moved}
-    log(f"  fused_adamw step over {len(shapes)} tensors ({n / 1e6:.1f} M parameters): kernel "
-        f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, torch AdamW(fused=True) "
-        f"{r['library_ms']:.3f} ms, bound {bound_ms:.3f} ms ({moved / 1e9:.2f} GB at 3.35 TB/s)")
-    return r
+    arms = {"plain": plain, "step": ours.step, "per_tensor": per_tensor, "library": lib.step}
+    times = {k: [] for k in arms}
+    for k in ("plain", "step", "per_tensor", "library", "library", "per_tensor", "step", "plain"):
+        times[k].append(timed(arms[k]))
+    split = kernel_split(ours.step)
+    out = {f"{k}_ms": min(v) for k, v in times.items()}
+    out.update(parameters=sum(p.numel() for p, _, _, _ in leaves), split_us=split)
+    log(f"  one AdamW step over {len(shapes)} tensors ({out['parameters'] / 1e6:.1f} M "
+        f"parameters): FusedAdamW.step {out['step_ms']:.3f} ms, per-tensor loop of "
+        f"fused_adamw_update_ {out['per_tensor_ms']:.3f} ms, torch AdamW(fused=True) "
+        f"{out['library_ms']:.3f} ms, plain {out['plain_ms']:.3f} ms (each the better of two "
+        f"medians)")
+    log("  FusedAdamW.step device time by kernel (profiler, no flush): " + ", ".join(
+        f"{k} {v:.2f} us" for k, v in split.items()))
+    return out
 
 
 #: the ResNet50-1K gradient on the wire: 25,557,032 float32 elements in 161
@@ -759,10 +874,44 @@ def quant_wire_phase(flush) -> list[dict]:
     return rows
 
 
-def profile(fn, what: str, top: int = 12) -> dict:
+def dev_us(e) -> float:
+    """Device µs of one ``key_averages()`` entry."""
+    return float(getattr(e, "self_device_time_total", None)
+                 or getattr(e, "self_cuda_time_total", 0.0))
+
+
+def kernel_name(key: str) -> str:
+    """A profiler key's kernel name without namespace, template arguments
+    or parameters."""
+    key = key.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return re.split(r"[<(]", key, maxsplit=1)[0].strip()
+
+
+def kernel_split(fn, calls: int = 20) -> dict:
+    """Device µs that one call of ``fn`` spends in each CUDA kernel, by
+    kernel name (``torch.profiler`` over ``calls`` calls after a warm one;
+    no L2 flush between them)."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split: dict = {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            name = kernel_name(e.key)
+            split[name] = split.get(name, 0.0) + dev_us(e) / calls
+    return split
+
+
+def profile(fn, what: str, top: int = 12, also: tuple = ()) -> dict:
     """Where one call of ``fn`` spends its time: host wall time of the call
     (after one warm call), device time summed over its kernels
-    (``torch.profiler``), and the kernels with the most device time."""
+    (``torch.profiler``), the kernels with the most device time, and every
+    kernel whose name holds one of ``also`` (returned by name)."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     fn()
@@ -776,19 +925,19 @@ def profile(fn, what: str, top: int = 12) -> dict:
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if str(e.device_type).endswith("CUDA")]
-
-    def dev_us(e) -> float:
-        return float(getattr(e, "self_device_time_total", None)
-                     or getattr(e, "self_cuda_time_total", 0.0))
-
     total_ms = sum(dev_us(e) for e in kernels) / 1e3
     launches = sum(e.count for e in kernels)
     log(f"  profile, {what}: wall {wall_ms:.2f} ms, device "
         f"{total_ms:.2f} ms over {launches} kernel launches "
         f"(device busy {total_ms / wall_ms:.0%} of wall)")
-    for e in sorted(kernels, key=dev_us, reverse=True)[:top]:
-        log(f"    {dev_us(e) / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:110]}")
-    return {"wall_ms": wall_ms, "device_ms": total_ms, "launches": launches}
+    ranked = sorted(kernels, key=dev_us, reverse=True)
+    named = {}
+    for i, e in enumerate(ranked):
+        if i < top or any(a in e.key for a in also):
+            log(f"    {dev_us(e) / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:110]}")
+        if any(a in e.key for a in also):
+            named[kernel_name(e.key)] = {"ms": dev_us(e) / 1e3, "count": e.count}
+    return {"wall_ms": wall_ms, "device_ms": total_ms, "launches": launches, "named": named}
 
 
 def slice_phase(card: str):
@@ -1299,7 +1448,7 @@ def lm_phase(card: str, dev: torch.device = torch.device("cuda"), cfg: dict = LM
         cross_entropy_bwd,
         cross_entropy_fwd,
         fused_adamw,
-        fused_adamw_update_,
+        fused_adamw_multi_update_,
         layer_norm_bwd,
         layer_norm_fwd,
         normalize_images,
@@ -1330,7 +1479,7 @@ def lm_phase(card: str, dev: torch.device = torch.device("cuda"), cfg: dict = LM
     trainer.init_state()
     n_eval = len(evl)
     counters = {"layer_norm_fwd": layer_norm_fwd, "layer_norm_bwd": layer_norm_bwd,
-                "fused_adamw": fused_adamw_update_, "normalize": normalize_images,
+                "fused_adamw": fused_adamw_multi_update_, "normalize": normalize_images,
                 "cross_entropy_fwd": cross_entropy_fwd, "cross_entropy_bwd": cross_entropy_bwd}
     # -- the main path: counts zeroed just before, read just after ---------
     for fn in counters.values():
@@ -1342,7 +1491,7 @@ def lm_phase(card: str, dev: torch.device = torch.device("cuda"), cfg: dict = LM
     launches = {name: fn.launches for name, fn in counters.items()}
     n_ln = 2 * layers + 1  # ln1 and ln2 of every block, ln_f
     expected = {"layer_norm_fwd": n_ln * (LM_STEPS + n_eval), "layer_norm_bwd": n_ln * LM_STEPS,
-                "fused_adamw": n_leaves * LM_STEPS, "normalize": 0, "cross_entropy_fwd": 0,
+                "fused_adamw": LM_STEPS, "normalize": 0, "cross_entropy_fwd": 0,
                 "cross_entropy_bwd": 0}
     log(f"  LM fit: {n_params / 1e6:.1f} M parameters in {n_leaves} tensors, {LM_STEPS} steps "
         f"of {batch_size}x{seq} tokens + eval of {eval_n} sequences ({n_eval} batches) in "
@@ -1398,7 +1547,7 @@ def lm_phase(card: str, dev: torch.device = torch.device("cuda"), cfg: dict = LM
         f"MFU {mfu:.4f} ({(model_flops + attn_flops) / 1e12:.2f} TFLOP per step at 989 "
         f"TFLOP/s); peak memory {mem_gb:.2f} GB on {card}")
     prof = profile(lambda: step(state, batch), f"LM train step of {batch_size}x{seq} "
-                   "(bf16, health on)", top=30)
+                   "(bf16, health on)", top=30, also=("ln_bwd", "ln_fwd", "adamw"))
     del trainer, state, step, model, batch, toks
     parts = {}
     if dev.type == "cuda":

@@ -1,5 +1,6 @@
 """The port on the card: the CUDA kernels (K1 normalize, K2a/K2b cross
-entropy, K3a/K3b LayerNorm, K4 fused AdamW, K5a/K5b/K5c the compressed
+entropy, K3a/K3b LayerNorm, K4 fused AdamW over one tensor and over
+lists, K5a/K5b/K5c the compressed
 wire's amax, encode and decode) against their plain versions, the
 compressed wire's sync on the card against the CPU, a
 small serve slice, a small ``Trainer.fit``, eval mode for a model left in
@@ -23,11 +24,13 @@ import torch
 from tpuframe_torch.data import DataLoader, SyntheticImageDataset
 from tpuframe_torch.models import ResNet18, TransformerLM
 from tpuframe_torch.ops import (
+    FusedAdamW,
     cross_entropy_bwd,
     cross_entropy_bwd_reference,
     cross_entropy_fwd,
     cross_entropy_reference,
     fused_adamw,
+    fused_adamw_multi_update_,
     fused_adamw_update_,
     fused_adamw_update_reference,
     fused_cross_entropy,
@@ -39,6 +42,7 @@ from tpuframe_torch.ops import (
     normalize_images,
     normalize_images_reference,
 )
+from tpuframe_torch.ops.fused_adamw import TABLE_CAPACITY
 from tpuframe_torch.parallel import bf16_compute, full_precision
 from tpuframe_torch.serve import ServeEngine, ServeKnobs
 from tpuframe_torch.train import (
@@ -280,7 +284,9 @@ def test_model_left_in_train_mode_is_served_with_running_statistics(card):
 # the policy's bf16 scale, the same in f32, f32 x with a bf16 scale and the
 # reverse, a ragged f32 row the register path takes, a ragged bf16 row (300
 # is no multiple of 8: element path), the widest register row in bf16, and
-# a row too wide for the registers
+# a row too wide for the registers; one row, fewer rows than the backward
+# grid's warps (2 blocks of 8 an SM), and the widest f32 register row (one
+# block an SM) over many blocks
 LN_CASES = [
     ("16384x768_bf16", 16384, 768, torch.bfloat16, torch.bfloat16),
     ("16384x768_f32", 16384, 768, torch.float32, torch.float32),
@@ -290,6 +296,11 @@ LN_CASES = [
     ("1000x300_bf16", 1000, 300, torch.bfloat16, torch.bfloat16),
     ("33x2048_bf16", 33, 2048, torch.bfloat16, torch.bfloat16),
     ("9x4100_f32", 9, 4100, torch.float32, torch.float32),
+    ("1x768_bf16", 1, 768, torch.bfloat16, torch.bfloat16),
+    ("1x768_f32", 1, 768, torch.float32, torch.float32),
+    ("100x768_bf16", 100, 768, torch.bfloat16, torch.bfloat16),
+    ("3000x1024_f32", 3000, 1024, torch.float32, torch.float32),
+    ("2048x2048_bf16", 2048, 2048, torch.bfloat16, torch.bfloat16),
 ]
 
 
@@ -360,6 +371,33 @@ def test_layer_norm_backward_takes_any_gradient_strides(card, layout):
     assert _close_in_dtype(got, layer_norm_bwd_reference(x, scale, g)[0])
 
 
+@pytest.mark.parametrize("case", [("16384x768_bf16", 16384, 768, torch.bfloat16),
+                                  ("1000x300_f32", 1000, 300, torch.float32)],
+                         ids=["16384x768_bf16", "1000x300_f32"])
+def test_layer_norm_backward_takes_a_misaligned_g(card, case):
+    """A contiguous g one element off the 16-byte alignment (the element
+    path): within the plain-version tolerances, the same bits on a rerun."""
+    _, rows, d, dtype = case
+    x, scale, _, g = _ln_inputs(rows, d, dtype, dtype, card)
+    flat = torch.empty(rows * d + 1, dtype=dtype, device=card)
+    g_off = flat[1:].view(rows, d)
+    g_off.copy_(g)
+    got = layer_norm_bwd(x, scale, g_off)
+    torch.cuda.synchronize()
+    want_dx, want_ds, want_db = layer_norm_bwd_reference(x, scale, g)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got[0], want_dx, atol=1e-5, rtol=0)
+    else:
+        assert _close_in_dtype(got[0], want_dx)
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    xhat = (xf - mu) * torch.rsqrt((xf * xf).mean(-1, keepdim=True) - mu * mu + 1e-6)
+    assert _ln_sums_close(got[1], want_ds, (g.float() * xhat).abs().sum(0))
+    assert _ln_sums_close(got[2], want_db, g.float().abs().sum(0))
+    for a, b in zip(got, layer_norm_bwd(x, scale, g_off)):
+        assert torch.equal(a, b)
+
+
 def test_layer_norm_kernels_refuse_what_they_do_not_take(card):
     x, scale, bias, g = _ln_inputs(8, 16, torch.float32, torch.float32, card)
     with pytest.raises(TypeError, match="float32 or bfloat16 x"):
@@ -421,11 +459,93 @@ def test_fused_adamw_kernel_matches_plain_version(card, case):
         assert _close_in_dtype(p, want[0])
 
 
+def _gpt2_small_shapes(card):
+    model = TransformerLM(vocab_size=32768, num_layers=12, num_heads=12, head_dim=64,
+                          max_len=1024, device=card, seed=0)
+    return [tuple(p.shape) for p in model.parameters()]
+
+
+def test_fused_adamw_lists_match_plain_and_one_entry_calls(card):
+    """One launch over the 149 GPT-2-small tensors plus a view one element
+    off the vector alignment, and two over TABLE_CAPACITY + 7 small tensors:
+    within 1e-6 of the plain version and bit-equal to a one-entry call per
+    tensor."""
+    gen = torch.Generator(device=card).manual_seed(0)
+    hp = dict(lr=3e-4, b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-4)
+    count = torch.tensor(7, dtype=torch.int32, device=card)
+
+    def leaf(shape, offset=0):
+        n = int(np.prod(shape))
+        out = []
+        for scale, fill in ((1.0, torch.randn), (1.0, torch.randn), (0.1, torch.randn),
+                            (0.1, torch.rand)):
+            t = torch.empty(n + offset, device=card)[offset:].view(shape)
+            t.copy_(fill(shape, generator=gen, device=card) * scale)
+            out.append(t)
+        return out
+
+    shapes = _gpt2_small_shapes(card)
+    assert len(shapes) == 149
+    small = np.random.default_rng(1).integers(1, 5000, TABLE_CAPACITY + 7)
+    for leaves, launches in (([leaf(s) for s in shapes] + [leaf((1001,), offset=1)], 1),
+                             ([leaf((int(k),)) for k in small], 2)):
+        want = [fused_adamw_update_reference(p, g, m, v, count, **hp) for p, g, m, v in leaves]
+        multi = [(p.clone(), m.clone(), v.clone()) for p, _, m, v in leaves]
+        l0 = fused_adamw_multi_update_.launches
+        fused_adamw_multi_update_([t[0] for t in multi], [lf[1] for lf in leaves],
+                                  [t[1] for t in multi], [t[2] for t in multi],
+                                  [count] * len(leaves), **hp)
+        assert fused_adamw_multi_update_.launches == l0 + launches
+        for (p, g, m, v), got, w in zip(leaves, multi, want):
+            fused_adamw_update_(p, g, m, v, count, **hp)  # in place: the one-entry call
+            for a, b, c in zip(got, (p, m, v), w):
+                assert torch.equal(a, b)
+                torch.testing.assert_close(a, c, atol=1e-6, rtol=0)
+        del leaves, want, multi
+
+
+def test_fused_adamw_steps_the_same_after_load_state_dict(card):
+    """A bf16 and a float32 parameter in one group (two launches a step):
+    an optimizer loaded from another's state after its first step keeps
+    the int32 counts and float32 moments, and its second step gives the
+    same bits as the original's."""
+    gen = torch.Generator(device=card).manual_seed(0)
+    shapes = ((64, 768), (768,))
+    start = [torch.randn(s, generator=gen, device=card) for s in shapes]
+    grads = [[torch.randn(s, generator=gen, device=card) for s in shapes] for _ in range(2)]
+
+    def params():
+        return [torch.nn.Parameter(start[0].bfloat16()), torch.nn.Parameter(start[1].clone())]
+
+    first = params()
+    opt = FusedAdamW(first, lr=1e-2, weight_decay=1e-4)
+    for p, g in zip(first, grads[0]):
+        p.grad = g.to(p.dtype)
+    opt.step()
+    second = [torch.nn.Parameter(p.detach().clone()) for p in first]
+    loaded = FusedAdamW(second, lr=1e-2, weight_decay=1e-4)
+    loaded.load_state_dict(opt.state_dict())
+    l0 = fused_adamw_multi_update_.launches
+    for o, ps in ((opt, first), (loaded, second)):
+        for p, g in zip(ps, grads[1]):
+            p.grad = g.to(p.dtype)
+        o.step()
+    torch.cuda.synchronize()
+    assert fused_adamw_multi_update_.launches == l0 + 4
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+        sa, sb = opt.state[a], loaded.state[b]
+        assert sb["count"].dtype == torch.int32 and sb["mu"].dtype == torch.float32
+        for k in ("count", "mu", "nu"):
+            assert torch.equal(sa[k], sb[k])
+
+
 def test_lm_train_step_launch_counts(card):
     """One bf16 train step of a 3-layer LM with ``fused_adamw``: K3a once
     per LayerNorm (2 per block + ``ln_f``), K3b as often in the backward,
-    K4 once per parameter tensor; the cross entropy of (B, L) labels is the
-    plain per-position loss, so K2a/K2b stay at 0, as does K1."""
+    K4 once for all parameter tensors (one group, one dtype); the cross
+    entropy of (B, L) labels is the plain per-position loss, so K2a/K2b
+    stay at 0, as does K1."""
     model = TransformerLM(vocab_size=512, num_layers=3, num_heads=4, head_dim=32, max_len=64,
                           device=card, seed=0)
     state = create_train_state(model, fused_adamw(3e-4, weight_decay=1e-4))
@@ -433,15 +553,15 @@ def test_lm_train_step_launch_counts(card):
     toks = torch.from_numpy(rng.integers(0, 512, (4, 65))).to(card)
     batch = {"image": toks[:, :-1], "label": toks[:, 1:]}
     step = make_train_step(bf16_compute())
-    counters = (layer_norm_fwd, layer_norm_bwd, fused_adamw_update_, cross_entropy_fwd,
-                cross_entropy_bwd, normalize_images)
+    counters = (layer_norm_fwd, layer_norm_bwd, fused_adamw_multi_update_, cross_entropy_fwd,
+                cross_entropy_bwd, normalize_images, fused_adamw_update_)
     for c in counters:
         c.launches = 0
     state, metrics = step(state, batch)
     torch.cuda.synchronize()
     n_leaves = len(list(model.parameters()))
     assert n_leaves == 2 + 12 * 3 + 3
-    assert [c.launches for c in counters] == [7, 7, n_leaves, 0, 0, 0]
+    assert [c.launches for c in counters] == [7, 7, 1, 0, 0, 0, 0]
     assert np.isfinite(float(metrics["loss_sum"])) and float(metrics["count"]) == 4 * 64
     assert {int(s["count"]) for s in state.optimizer.state.values()} == {1}
 

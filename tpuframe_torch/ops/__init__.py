@@ -11,6 +11,7 @@ from tpuframe_torch.ops.dispatch import use_kernel
 from tpuframe_torch.ops.fused_adamw import (
     FusedAdamW,
     fused_adamw,
+    fused_adamw_multi_update_,
     fused_adamw_update,
     fused_adamw_update_,
     fused_adamw_update_reference,
@@ -45,6 +46,7 @@ __all__ = [
     "cross_entropy_fwd",
     "cross_entropy_reference",
     "fused_adamw",
+    "fused_adamw_multi_update_",
     "fused_adamw_update",
     "fused_adamw_update_",
     "fused_adamw_update_reference",
