@@ -12,14 +12,21 @@ Phases, each of which fails the script (nonzero exit, no result line):
 2. Build: every CUDA kernel of the port, compiled from ``tpuframe_torch/
    csrc`` with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all
    started together.
-3. Kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes its paths give it and at ragged ones, timed with CUDA events
-   (median of 100 launches after warm-up, L2 flushed before each) beside
-   its plain version and one library call of the same function, in turns:
-   K1 normalize (``torch.addcmul`` into a bf16 ``out=``), K2a cross
-   entropy forward (``F.cross_entropy(reduction="none")``) and K2b its
-   backward (``torch.autograd.grad`` of that loss), the last two at the
-   train path's (128, 1000) f32 and at an HBM-bound (16384, 1000); K3a
+3. Kernels: first the launch floor, the time of an empty kernel
+   (``csrc/launch_floor.cu``) launched through ``ctypes`` as every kernel
+   is, printed on its own line and given as ``floor_ms`` beside each
+   kernel's byte or operation bound.  Then each kernel against its plain
+   PyTorch version on the card, at the shapes its paths give it and at
+   ragged ones, timed with CUDA events (median of 100 launches after
+   warm-up, L2 flushed before each) beside its plain version and one
+   library call of the same function, in turns: K1 normalize at every
+   serve bucket and the train batch of 128 (``torch.addcmul`` into a bf16
+   ``out=`` at 64 and 128), K2a cross entropy forward
+   (``F.cross_entropy(reduction="none")``) and K2b its backward
+   (``torch.autograd.grad`` of that loss), the last two at the train
+   path's (128, 1000) f32 and at an HBM-bound (16384, 1000), each with its
+   ratio to the floor, and checked at every path of the forward with
+   labels at 0, at K - 1 and on the row's maximum; K3a
    LayerNorm forward (``F.layer_norm(eps=1e-6)``) and K3b its backward
    (``torch.autograd.grad`` of it) at the LM path's (16384, 768) bf16 with
    bf16 scale and bias, checked there, in f32 and at a ragged 1000 x 300,
@@ -77,8 +84,17 @@ Phases, each of which fails the script (nonzero exit, no result line):
    on one device) sync a ResNet50-shaped named tree with the kernels; it
    must equal the same ranks' plain run on the CPU bit for bit, give both
    ranks one mean, and decode a NaN on one rank to NaN in its bucket.
-9. Result: a ``kernels`` JSON line, the ``nvidia-smi`` line, then
-   ``{"ok": true, "device": {...}}`` as the last line.
+9. Result: a ``kernels`` JSON line (each kernel with ``floor_ms``), the
+   ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}`` as the last
+   line.
+
+One phase of 3 alone, for a short run on the card (the kernels it needs
+are built at first use)::
+
+    python3 -c "import torch, chip_smoke as cs; f = torch.empty(2**28, dtype=torch.uint8,
+    device='cuda'); fl = cs.floor_phase(f); cs.kernel_phase(f, fl); cs.cross_entropy_phase(f, fl)"
+
+(one line; the break inside the quotes is harmless).
 """
 
 from __future__ import annotations
@@ -206,7 +222,61 @@ def random_jax_variables(template: dict, seed: int) -> dict:
             "batch_stats": fill(template["batch_stats"], True)}
 
 
-def kernel_phase(flush):
+def floor_phase(flush) -> float:
+    """The launch floor: the median CUDA-event time of the empty kernel
+    (``csrc/launch_floor.cu``), launched from Python through ``ctypes`` as
+    every kernel is, after the same L2 flush.  Every kernel's time below
+    holds this much overhead."""
+    from tpuframe_torch.ops import launch_floor
+
+    before = launch_floor.launches
+    launch_floor()
+    torch.cuda.synchronize()
+    check(launch_floor.launches == before + 1,
+          f"launch floor counter moved {launch_floor.launches - before} for one launch")
+    floor = min(time_ms(launch_floor, flush), time_ms(launch_floor, flush))
+    return floor
+
+
+def normalize_timings(flush, x) -> dict:
+    """K1 on ``x`` (uint8 NHWC) into bf16, timed beside ``torch.addcmul``
+    (one TensorIterator launch of b + x * w from uint8 into a bf16 out=,
+    the same folded f32 constants; the port never calls it) and the plain
+    version; calls in turns (plain, kernel, library, library, kernel,
+    plain), the better of each pair kept."""
+    from tpuframe_torch.ops.normalize import normalize_images, normalize_images_reference
+
+    dev = x.device
+    w_t = torch.tensor([(1 / 255) / s for s in STD], dtype=torch.float32, device=dev)
+    b_t = torch.tensor([-m / s for m, s in zip(MEAN, STD)], dtype=torch.float32, device=dev)
+    lib_out = torch.empty(x.shape, dtype=torch.bfloat16, device=dev)
+    library = functools.partial(torch.addcmul, b_t, x, w_t, out=lib_out)
+    library()
+    want = normalize_images_reference(x, MEAN, STD, out_dtype=torch.bfloat16)
+    lib_ulps = bf16_ulp_distance(lib_out, want)
+    check(lib_ulps <= 1, f"torch.addcmul yardstick: {lib_ulps} bf16 ulps from plain (tol 1)")
+    kernel = functools.partial(normalize_images, x, MEAN, STD, out_dtype=torch.bfloat16)
+    plain = functools.partial(normalize_images_reference, x, MEAN, STD,
+                              out_dtype=torch.bfloat16)
+    plain_ms = [time_ms(plain, flush)]
+    kernel_ms = [time_ms(kernel, flush)]
+    library_ms = [time_ms(library, flush), time_ms(library, flush)]
+    kernel_ms.append(time_ms(kernel, flush))
+    plain_ms.append(time_ms(plain, flush))
+    n = x.numel()
+    moved = n * 1 + n * 2  # uint8 in, bf16 out
+    return {"shape": "x".join(map(str, x.shape)) + " uint8->bf16", "ms": min(kernel_ms),
+            "plain_ms": min(plain_ms), "library_ms": min(library_ms),
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bytes_moved": moved,
+            "library_ulps": lib_ulps}
+
+
+def kernel_phase(flush, floor_ms: float):
+    """K1 against its plain version on the card: the runs path (C = 3 and
+    C = 1 on aligned pointers) at every serve bucket, the train shape and
+    element counts that are no multiple of 48, the general path (pointers
+    1 byte off 16, 16 channels); then timed at the serve buckets and the
+    train shape 128x224x224x3, beside ``torch.addcmul`` at 64 and 128."""
     from tpuframe_torch.ops.normalize import (
         normalize_images,
         normalize_images_reference,
@@ -214,23 +284,33 @@ def kernel_phase(flush):
 
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
-    serve = torch.from_numpy(
-        rng.integers(0, 256, (64, 224, 224, 3), dtype=np.uint8)).to(dev)
-    ragged = torch.from_numpy(
-        rng.integers(0, 256, (3, 17, 17, 3), dtype=np.uint8)).to(dev)
+
+    def images(shape):
+        return torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+
+    batches = {b: images((b, 224, 224, 3)) for b in BUCKETS + (TRAIN_BATCH,)}
+    ragged = images((3, 17, 17, 3))  # 2,601 elements: 54 runs of 48 and 9 left
+    odd = images((1, 5, 7, 3))  # 105: two vectors of 16 and a tail of 9
     flat = torch.empty(ragged.numel() + 1, dtype=torch.uint8, device=dev)
     unaligned = flat[1:].view(ragged.shape)  # contiguous, 1 byte off 16
     unaligned.copy_(ragged)
     gray = torch.from_numpy(rng.random((2, 28, 28, 1), dtype=np.float32)).to(dev)
-    cases = [
-        ("64x224x224x3 uint8->bf16", serve, MEAN, STD, 1 / 255, torch.bfloat16),
-        ("64x224x224x3 uint8->f32", serve, MEAN, STD, 1 / 255, torch.float32),
+    wide = images((3, 5, 7, 16))
+    cases = [(f"{b}x224x224x3 uint8->bf16", batches[b], MEAN, STD, 1 / 255, torch.bfloat16)
+             for b in BUCKETS + (TRAIN_BATCH,)]
+    cases += [
+        ("64x224x224x3 uint8->f32", batches[64], MEAN, STD, 1 / 255, torch.float32),
+        (f"{TRAIN_BATCH}x224x224x3 uint8->f32", batches[TRAIN_BATCH], MEAN, STD, 1 / 255,
+         torch.float32),
         ("3x17x17x3 uint8->f32", ragged, MEAN, STD, 1 / 255, torch.float32),
         ("3x17x17x3 uint8->bf16", ragged, MEAN, STD, 1 / 255, torch.bfloat16),
+        ("1x5x7x3 uint8->bf16", odd, MEAN, STD, 1 / 255, torch.bfloat16),
         ("3x17x17x3 unaligned uint8->bf16", unaligned, MEAN, STD, 1 / 255,
          torch.bfloat16),
         ("2x28x28x1 f32 scale=1 ->f32", gray, (0.5,), (0.5,), 1.0, torch.float32),
         ("2x28x28x1 f32 scale=1 ->bf16", gray, (0.5,), (0.5,), 1.0, torch.bfloat16),
+        ("3x5x7x16 uint8->bf16", wide, tuple(np.linspace(0.1, 0.9, 16)),
+         tuple(np.linspace(0.2, 0.3, 16)), 1 / 255, torch.bfloat16),
     ]
     max_err = 0.0
     for name, x, mean, std, scale, out_dtype in cases:
@@ -247,36 +327,28 @@ def kernel_phase(flush):
             ulps = bf16_ulp_distance(got, want)
             check(ulps <= 1, f"normalize {name}: {ulps} bf16 ulps apart (tol 1)")
             log(f"  normalize {name}: max abs diff {err:.3g}, {ulps} bf16 ulp (tol 1)")
-        if x is serve and out_dtype == torch.bfloat16:
+        if x is batches[64] and out_dtype == torch.bfloat16:
             max_err = err
+        del got, want
 
-    # the library yardstick: one TensorIterator launch computing b + x * w
-    # from uint8 into bf16 with the same folded f32 constants; the port
-    # never calls it
-    w_t = torch.tensor([(1 / 255) / s for s in STD], dtype=torch.float32, device=dev)
-    b_t = torch.tensor([-m / s for m, s in zip(MEAN, STD)], dtype=torch.float32, device=dev)
-    lib_out = torch.empty(serve.shape, dtype=torch.bfloat16, device=dev)
-    library = functools.partial(torch.addcmul, b_t, serve, w_t, out=lib_out)
-    library()
-    want = normalize_images_reference(serve, MEAN, STD, out_dtype=torch.bfloat16)
-    lib_ulps = bf16_ulp_distance(lib_out, want)
-    check(lib_ulps <= 1, f"torch.addcmul yardstick: {lib_ulps} bf16 ulps from plain (tol 1)")
-    log(f"  torch.addcmul yardstick 64x224x224x3 uint8->bf16: {lib_ulps} bf16 ulp "
-        f"from the plain version (tol 1)")
-
-    kernel = functools.partial(normalize_images, serve, MEAN, STD,
-                               out_dtype=torch.bfloat16)
-    plain = functools.partial(normalize_images_reference, serve, MEAN, STD,
-                              out_dtype=torch.bfloat16)
-    # plain, kernel, library, library, kernel, plain: the pairs bracket any
-    # drift of the card
-    plain_ms = [time_ms(plain, flush)]
-    kernel_ms = [time_ms(kernel, flush)]
-    library_ms = [time_ms(library, flush), time_ms(library, flush)]
-    kernel_ms.append(time_ms(kernel, flush))
-    plain_ms.append(time_ms(plain, flush))
-    n = serve.numel()
-    moved = n * 1 + n * 2  # uint8 in, bf16 out
+    timed = {b: normalize_timings(flush, batches[b]) for b in (64, TRAIN_BATCH)}
+    for b in BUCKETS[:-1]:
+        kernel = functools.partial(normalize_images, batches[b], MEAN, STD,
+                                   out_dtype=torch.bfloat16)
+        n = batches[b].numel()
+        timed[b] = {"shape": f"{b}x224x224x3 uint8->bf16",
+                    "ms": min(time_ms(kernel, flush), time_ms(kernel, flush)),
+                    "bound_ms": 3 * n / HBM_BYTES_PER_S * 1e3, "bytes_moved": 3 * n}
+    for b in BUCKETS + (TRAIN_BATCH,):
+        t = timed[b]
+        extra = ""
+        if t.get("library_ms") is not None:
+            extra = (f", plain {t['plain_ms'] * 1e3:.2f} us, torch.addcmul "
+                     f"{t['library_ms'] * 1e3:.2f} us ({t['library_ulps']} bf16 ulp from plain)")
+        log(f"  normalize {t['shape']}: kernel {t['ms'] * 1e3:.2f} us, bound "
+            f"{t['bound_ms'] * 1e3:.2f} us ({t['bytes_moved'] / 1e6:.2f} MB at 3.35 TB/s, "
+            f"{100 * t['bound_ms'] / t['ms']:.1f} %), {t['ms'] / floor_ms:.2f}x the floor{extra}")
+    main = timed[64]
     return {
         "name": "normalize",
         "route": "cuda",
@@ -284,20 +356,25 @@ def kernel_phase(flush):
         "replaces": "tpuframe/ops/normalize.py:48",
         "launches": None,  # filled from the main path's run
         "max_abs_err": max_err,
-        "ms": min(kernel_ms),
-        "plain_ms": min(plain_ms),
-        "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
         "bound_by": "bytes",
-        "library_ms": min(library_ms),  # torch.addcmul into a bf16 out=
-        "shape": "64x224x224x3 uint8->bf16",
-        "bytes_moved": moved,
+        "library_ms": main["library_ms"],  # torch.addcmul into a bf16 out=
+        "shape": main["shape"],
+        "bytes_moved": main["bytes_moved"],
+        "buckets_ms": {str(b): timed[b]["ms"] for b in BUCKETS},
+        "train": {k: v for k, v in timed[TRAIN_BATCH].items() if k != "library_ulps"},
     }
 
 
-def cross_entropy_phase(flush) -> list[dict]:
-    """K2a and K2b against their plain versions at the train path's shapes
-    and ragged ones, then timed at (128, 1000) f32 and (16384, 1000) f32
-    beside the plain version and the library call."""
+def cross_entropy_phase(flush, floor_ms: float) -> list[dict]:
+    """K2a and K2b against their plain versions at the train path's shapes,
+    at every path of the forward (rows in registers, streamed, element by
+    element, a block per row) and ragged ones, with labels at 0, at K - 1
+    and on the row's maximum; then timed at (128, 1000) f32 and (16384,
+    1000) f32 beside the plain version, the library call and the launch
+    floor."""
     import torch.nn.functional as F
 
     from tpuframe_torch.ops.cross_entropy import (
@@ -310,11 +387,15 @@ def cross_entropy_phase(flush) -> list[dict]:
     dev = torch.device("cuda")
     rng = np.random.default_rng(2)
 
-    def inputs(b, k, dtype, label_dtype=torch.int64):
-        logits = torch.from_numpy((rng.standard_normal((b, k)) * 3).astype(np.float32))
-        labels = torch.from_numpy(rng.integers(0, k, (b,))).to(label_dtype)
+    def inputs(b, k, dtype, label_dtype=torch.int64, edges=False):
+        logits = (rng.standard_normal((b, k)) * 3).astype(np.float32)
+        labels = rng.integers(0, k, (b,))
+        if edges:  # rows labelled 0, K - 1, and a label on the row's maximum
+            labels[0::3], labels[1::3] = 0, k - 1
+            logits[2::3][np.arange(len(labels[2::3])), labels[2::3]] = 20.0
         g = torch.from_numpy(rng.uniform(0.5, 2.0, b).astype(np.float32))
-        return logits.to(dtype).to(dev), labels.to(dev), g.to(dev)
+        return (torch.from_numpy(logits).to(dtype).to(dev),
+                torch.from_numpy(labels).to(label_dtype).to(dev), g.to(dev))
 
     cases = [
         ("128x1000 f32 int64", 128, 1000, torch.float32, torch.int64, False),
@@ -326,22 +407,47 @@ def cross_entropy_phase(flush) -> list[dict]:
         ("128x1000 f32, stride-0 g", 128, 1000, torch.float32, torch.int64, True),
         ("128x1000 bf16, stride-0 g", 128, 1000, torch.bfloat16, torch.int64, True),
     ]
+    # the forward's paths at their edges: rows in registers up to 1024 f32
+    # and 2048 bf16, streamed up to 4096, a block per row above; element
+    # loads where K is no multiple of the 16-byte chunk.  A third of the
+    # rows put the row's maximum on the label, where the softmax is 1 less
+    # a small sum: the plain version's float32 sums lose most there, so the
+    # backward on these cases is held against the float64 softmax
+    cases += [(f"{b}x{k} {'f32' if dt == torch.float32 else 'bf16'} {str(ldt)[6:]}, edge labels",
+               b, k, dt, ldt, False)
+              for b, k, dt, ldt in ((128, 1000, torch.float32, torch.int32),
+                                    (128, 1001, torch.float32, torch.int64),
+                                    (128, 1024, torch.float32, torch.int64),
+                                    (16, 2048, torch.bfloat16, torch.int32),
+                                    (16, 4096, torch.float32, torch.int64),
+                                    (16, 4097, torch.float32, torch.int32),
+                                    (1, 1000, torch.float32, torch.int64),
+                                    (16384, 1001, torch.float32, torch.int64))]
     err = {"fwd": 0.0, "bwd": 0.0}
     for name, b, k, dtype, ldt, stride0 in cases:
-        logits, labels, g = inputs(b, k, dtype, ldt)
+        logits, labels, g = inputs(b, k, dtype, ldt, edges="edge labels" in name)
         if stride0:
             g = torch.full((), 1.0 / b, device=dev).expand(b)
         loss = cross_entropy_fwd(logits, labels)
         grad = cross_entropy_bwd(logits, labels, g)
         want_loss = cross_entropy_reference(logits, labels)
         want_grad = cross_entropy_bwd_reference(logits, labels, g)
+        note = ""
+        if "edge labels" in name:
+            onehot = F.one_hot(labels.long(), k).double()
+            exact = (torch.softmax(logits.double(), -1) - onehot) * g.double()[:, None]
+            note = (f"; against the float64 softmax: K2b "
+                    f"{float((grad.double() - exact).abs().max()):.3g}, plain "
+                    f"{float((want_grad.double() - exact).abs().max()):.3g}")
+            want_grad = exact.to(dtype)
         torch.cuda.synchronize()
         check(loss.shape == (b,) and loss.dtype == torch.float32, f"K2a {name}: {loss.shape}")
         check(grad.shape == (b, k) and grad.dtype == dtype, f"K2b {name}: {grad.dtype}")
         e_loss = float((loss - want_loss).abs().max())
         e_grad = float((grad.float() - want_grad.float()).abs().max())
         # losses of O(10): 1e-5 absolute; f32 gradients 1e-6 absolute; bf16
-        # gradients within one bf16 step of the plain value
+        # gradients within one bf16 step of the plain value (of the float64
+        # softmax on the edge cases)
         check(e_loss <= 1e-5, f"K2a {name}: max abs diff {e_loss} > 1e-5")
         if dtype == torch.float32:
             check(e_grad <= 1e-6, f"K2b {name}: max abs diff {e_grad} > 1e-6")
@@ -351,7 +457,7 @@ def cross_entropy_phase(flush) -> list[dict]:
             check(ulps <= 1, f"K2b {name}: {ulps} bf16 ulps apart (tol 1)")
             tol = f"{ulps} bf16 ulp, tol 1"
         log(f"  cross entropy {name}: K2a max abs diff {e_loss:.3g} (tol 1e-5), "
-            f"K2b {e_grad:.3g} ({tol})")
+            f"K2b {e_grad:.3g} ({tol}){note}")
         if name == "128x1000 f32 int64":
             err = {"fwd": e_loss, "bwd": e_grad}
 
@@ -391,9 +497,11 @@ def cross_entropy_phase(flush) -> list[dict]:
     rows = []
     for which, name, line in (("fwd", "cross_entropy_fwd", 49), ("bwd", "cross_entropy_bwd", 60)):
         s, l = small[which], large[which]
-        log(f"  {name}: 128x1000 f32 kernel {s['ms'] * 1e3:.2f} us, plain "
+        log(f"  {name}: 128x1000 f32 kernel {s['ms'] * 1e3:.2f} us "
+            f"({s['ms'] / floor_ms:.2f}x the floor), plain "
             f"{s['plain_ms'] * 1e3:.2f} us, library {s['library_ms'] * 1e3:.2f} us, bound "
-            f"{s['bound_ms'] * 1e3:.3f} us; 16384x1000 f32 kernel {l['ms'] * 1e3:.2f} us, "
+            f"{s['bound_ms'] * 1e3:.3f} us; 16384x1000 f32 kernel {l['ms'] * 1e3:.2f} us "
+            f"({l['ms'] / floor_ms:.2f}x the floor), "
             f"plain {l['plain_ms'] * 1e3:.2f} us, library {l['library_ms'] * 1e3:.2f} us, "
             f"bound {l['bound_ms'] * 1e3:.2f} us ({l['bytes_moved'] / 1e6:.2f} MB at 3.35 TB/s)")
         rows.append({
@@ -1980,12 +2088,15 @@ def main() -> int:
 
     log("== phase 3: kernels")
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")  # > 50 MB L2
-    k1 = kernel_phase(flush)
+    floor_ms = floor_phase(flush)
+    log(f"  launch floor: {floor_ms * 1e3:.2f} us (the empty kernel, CUDA events after the "
+        f"L2 flush) on {card}")
+    k1 = kernel_phase(flush, floor_ms)
     log(f"  normalize 64x224x224x3 uint8->bf16: kernel {k1['ms'] * 1e3:.2f} us, "
         f"plain {k1['plain_ms'] * 1e3:.2f} us, torch.addcmul {k1['library_ms'] * 1e3:.2f} us, "
         f"bound {k1['bound_ms'] * 1e3:.2f} us "
         f"({k1['bytes_moved'] / 1e6:.2f} MB at 3.35 TB/s) on {card}")
-    k2a, k2b = cross_entropy_phase(flush)
+    k2a, k2b = cross_entropy_phase(flush, floor_ms)
     k3a, k3b = layer_norm_phase(flush)
     from tpuframe_torch.models import TransformerLM
 
@@ -2029,7 +2140,10 @@ def main() -> int:
     k5c["launches"] = dp_launches["quant_decode"]
 
     log("== phase 9: result")
-    print(json.dumps({"kernels": [k1, k2a, k2b, k3a, k3b, k4, k5a, k5b, k5c]}))
+    kernels = [k1, k2a, k2b, k3a, k3b, k4, k5a, k5b, k5c]
+    for k in kernels:
+        k["floor_ms"] = floor_ms  # beside bound_ms, which stays the byte or operation bound
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,7 +1,8 @@
 """The port on the card: the CUDA kernels (K1 normalize, K2a/K2b cross
 entropy, K3a/K3b LayerNorm, K4 fused AdamW over one tensor and over
 lists, K5a/K5b/K5c the compressed
-wire's amax, encode and decode) against their plain versions, the
+wire's amax, encode and decode) against their plain versions, the launch
+floor's counter, a parameter without a gradient stepped by K4, the
 compressed wire's sync on the card against the CPU, a
 small serve slice, a small ``Trainer.fit``, eval mode for a model left in
 train mode, and the launch counts of one LM train step.
@@ -35,6 +36,7 @@ from tpuframe_torch.ops import (
     fused_adamw_update_reference,
     fused_cross_entropy,
     fused_layer_norm,
+    launch_floor,
     layer_norm_bwd,
     layer_norm_bwd_reference,
     layer_norm_fwd,
@@ -74,10 +76,17 @@ def _uint8(shape, seed=0):
     return torch.from_numpy(np.random.default_rng(seed).integers(0, 256, shape, dtype=np.uint8))
 
 
-# (name, input, mean, std, scale)
+# (name, input, mean, std, scale): C = 3 at element counts that are no
+# multiple of the kernel's 48 (105, 3,468), the serve bucket 1 and the train
+# batch 128 at 224 px, C = 1 in uint8 and f32, 16 channels (the general
+# kernel)
 INPUTS = [
     ("rgb_ragged", lambda: _uint8((4, 17, 17, 3)), MEAN, STD, 1 / 255),
+    ("rgb_105", lambda: _uint8((1, 5, 7, 3), seed=2), MEAN, STD, 1 / 255),
+    ("rgb_1x224", lambda: _uint8((1, 224, 224, 3), seed=3), MEAN, STD, 1 / 255),
     ("rgb_224", lambda: _uint8((2, 224, 224, 3)), MEAN, STD, 1 / 255),
+    ("rgb_128x224", lambda: _uint8((128, 224, 224, 3), seed=4), MEAN, STD, 1 / 255),
+    ("gray_uint8", lambda: _uint8((3, 9, 11, 1), seed=5), (0.5,), (0.25,), 1 / 255),
     ("gray_float", lambda: torch.from_numpy(
         np.random.default_rng(1).random((2, 28, 28, 1), dtype=np.float32)), (0.5,), (0.5,), 1.0),
     ("float_0_255", lambda: _uint8((3, 9, 7, 3)).float(), MEAN, STD, 1 / 255),
@@ -229,6 +238,106 @@ def test_cross_entropy_kernel_refuses_what_it_does_not_take(card):
         cross_entropy_fwd(logits, labels.to(torch.int16))
     with pytest.raises(ValueError, match="float32 g"):
         cross_entropy_bwd(logits, labels, torch.ones(8, device=card, dtype=torch.float64))
+
+
+# the forward's paths at their edges: rows in registers up to 1024 f32 and
+# 2048 bf16, streamed up to 4096, a block per row above; element loads where
+# K is no multiple of the 16-byte chunk
+CE_FWD_K = [("1000_f32", 1000, torch.float32), ("1001_f32", 1001, torch.float32),
+            ("1024_f32", 1024, torch.float32), ("2048_bf16", 2048, torch.bfloat16),
+            ("4096_f32", 4096, torch.float32), ("4097_f32", 4097, torch.float32)]
+
+
+@pytest.mark.parametrize("label_dtype", [torch.int32, torch.int64], ids=["int32", "int64"])
+@pytest.mark.parametrize("b", [1, 128, 16384])
+@pytest.mark.parametrize("case", CE_FWD_K, ids=[c[0] for c in CE_FWD_K])
+def test_cross_entropy_forward_paths_take_edge_labels(card, case, b, label_dtype):
+    """Labels at 0 and at K - 1, and rows whose label holds the row's
+    maximum.  The loss is held against the plain version.  On the rows whose
+    label holds the maximum the softmax is 1 less a small sum; there the
+    plain version's float32 sums lie several times further from the float64
+    softmax than the kernel's float64 row sum, on this data past the 1e-6
+    tolerance at B = 16384: so the backward is held against the float64
+    softmax, at the f32 gradient tolerance."""
+    _, k, dtype = case
+    rng = np.random.default_rng(k + b)
+    logits = (rng.standard_normal((b, k)) * 3).astype(np.float32)
+    labels = rng.integers(0, k, (b,))
+    labels[0::3], labels[1::3] = 0, k - 1
+    logits[2::3][np.arange(len(labels[2::3])), labels[2::3]] = 20.0
+    x = torch.from_numpy(logits).to(dtype).to(card)
+    lab = torch.from_numpy(labels).to(label_dtype).to(card)
+    f0 = cross_entropy_fwd.launches
+    loss = cross_entropy_fwd(x, lab)
+    g = torch.from_numpy(rng.uniform(0.5, 2, b).astype(np.float32)).to(card)
+    grad = cross_entropy_bwd(x, lab, g)
+    torch.cuda.synchronize()
+    assert cross_entropy_fwd.launches == f0 + 1
+    torch.testing.assert_close(loss, cross_entropy_reference(x, lab), atol=1e-5, rtol=0)
+    onehot = torch.nn.functional.one_hot(lab.long(), k).double()
+    exact = (torch.softmax(x.double(), -1) - onehot) * g.double()[:, None]
+    assert _close_in_dtype(grad, exact.to(dtype))
+
+
+def test_launch_floor_counts_one_per_launch(card):
+    before = launch_floor.launches
+    for i in range(3):
+        launch_floor(card)
+        assert launch_floor.launches == before + i + 1
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError, match="card"):
+        launch_floor("cpu")
+    assert launch_floor.launches == before + 3
+
+
+class _Gated(torch.nn.Module):
+    """``x[:, :-2] @ w + b``, plus ``x[:, -2:-1] * z`` when that column is
+    not all zero; ``u`` is never used.  Autograd leaves ``u`` (and ``z`` on
+    a batch whose gate column is zero) without a gradient."""
+
+    def __init__(self, device):
+        super().__init__()
+        gen = torch.Generator().manual_seed(0)
+        for name, shape in (("w", (6, 5)), ("b", (5,)), ("z", (5,)), ("u", (3,))):
+            setattr(self, name, torch.nn.Parameter(torch.randn(shape, generator=gen).to(device)))
+
+    def forward(self, x):
+        out = x[:, :-2] @ self.w + self.b
+        if bool(x[:, -2].any()):
+            out = out + x[:, -2:-1] * self.z
+        return out
+
+
+def test_fused_adamw_steps_a_parameter_without_gradient_on_the_card(card):
+    """Every parameter reaches K4 with a gradient, a fresh zero tensor where
+    autograd left none: one launch a step over one table kept across the
+    steps (the gradient addresses are written each step), and the same
+    parameters as the plain update on the CPU."""
+    gen = np.random.default_rng(1)
+    batches = []
+    for step in range(3):
+        x = gen.normal(0, 1, (8, 8)).astype(np.float32)
+        x[:, -2] = 0.0 if step == 0 else 1.0
+        batches.append({"image": torch.from_numpy(x),
+                        "label": torch.from_numpy(gen.integers(0, 5, (8,)))})
+    results = {}
+    for device in ("cpu", card):
+        model = _Gated(device)
+        state = create_train_state(model, fused_adamw(1e-2, weight_decay=0.1))
+        step = make_train_step(full_precision())
+        fused_adamw_multi_update_.launches = 0
+        plans = []
+        for b in batches:
+            state, _ = step(state, {k: v.to(device) for k, v in b.items()})
+            plans.append(state.optimizer._launch_plans[0])
+        results[str(device)] = {n: p.detach().cpu() for n, p in model.named_parameters()}
+        if device == card:
+            torch.cuda.synchronize()
+            assert fused_adamw_multi_update_.launches == 3
+            assert plans[0] is plans[1] is plans[2]  # one table for every step
+        assert {int(st["count"]) for st in state.optimizer.state.values()} == {3}
+    for n, want in results["cpu"].items():
+        torch.testing.assert_close(results["cuda"][n], want, atol=1e-6, rtol=0, msg=n)
 
 
 def test_small_trainer_fit_on_card_launches_every_kernel(card):

@@ -92,6 +92,20 @@ def test_library_path_is_keyed_by_source_and_flags():
     assert set(build.KERNELS) == {p.stem for p in build.CSRC.glob("*.cu")}
 
 
+def test_launch_floor_is_built_with_the_kernels_and_needs_the_card(monkeypatch):
+    """The empty kernel goes through the same build and ctypes route as
+    every kernel; it computes nothing, so a CPU device has no version of it
+    and raises before any build or launch."""
+    from tpuframe_torch.ops import launch_floor
+
+    assert "launch_floor" in build.KERNELS
+    assert 'extern "C" int tf_launch_floor(' in (build.CSRC / "launch_floor.cu").read_text()
+    monkeypatch.setattr(launch_floor, "launches", 0)
+    with pytest.raises(ValueError, match="card"):
+        launch_floor("cpu")
+    assert launch_floor.launches == 0
+
+
 def test_kernel_source_states_the_wrappers_channel_limit():
     src = (build.CSRC / "normalize.cu").read_text()
     assert f"#define TF_NORM_MAX_C {MAX_CHANNELS}" in src

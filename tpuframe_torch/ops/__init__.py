@@ -1,5 +1,6 @@
 """Ops with a hand-written Hopper kernel beside a plain PyTorch version."""
 
+from tpuframe_torch.ops.build import launch_floor
 from tpuframe_torch.ops.cross_entropy import (
     cross_entropy_bwd,
     cross_entropy_bwd_reference,
@@ -52,6 +53,7 @@ __all__ = [
     "fused_adamw_update_reference",
     "fused_cross_entropy",
     "fused_layer_norm",
+    "launch_floor",
     "layer_norm_bwd",
     "layer_norm_bwd_reference",
     "layer_norm_fwd",

@@ -8,11 +8,16 @@ library already built.  The library is loaded with :mod:`ctypes`.
 
 Without ``nvcc``, or when a build fails, these functions raise.  There is
 no fallback: a CUDA tensor either reaches its kernel or the call fails.
+
+:func:`launch_floor` launches ``csrc/launch_floor.cu``, a kernel that does
+nothing, by the same route as every kernel: its time is the least that any
+of them can take (``chip_smoke.py`` times it).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -21,10 +26,15 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "KERNELS", "NVCC_FLAGS", "build", "find_nvcc", "library_path", "load"]
+import torch
 
-#: every kernel source of the port, by name (``csrc/<name>.cu``)
-KERNELS = ("cross_entropy", "fused_adamw", "layer_norm", "normalize", "quant_wire")
+__all__ = ["BUILD_DIR", "KERNELS", "NVCC_FLAGS", "build", "find_nvcc", "launch_floor",
+           "library_path", "load"]
+
+#: every kernel source of the port, by name (``csrc/<name>.cu``); ``launch_floor``
+#: is the empty kernel that times a launch
+KERNELS = ("cross_entropy", "fused_adamw", "launch_floor", "layer_norm", "normalize",
+           "quant_wire")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -117,3 +127,30 @@ def load(name: str) -> ctypes.CDLL:
                 build((name,))
             lib = _LIBS[name] = ctypes.CDLL(str(path))
         return lib
+
+
+@functools.cache
+def _floor_kernel():
+    """``tf_launch_floor`` of the built library, its C signature declared."""
+    fn = load("launch_floor").tf_launch_floor
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch_floor(device: torch.device | str = "cuda") -> None:
+    """Launch the empty kernel of ``csrc/launch_floor.cu`` on the current
+    stream of ``device``, a CUDA device: there is nothing to compute, so
+    there is no plain version, and any other device raises.
+    ``launch_floor.launches`` counts launches."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the launch floor is a kernel of the card; got device {device}")
+    with torch.cuda.device(device):
+        rc = _floor_kernel()(torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"launch floor kernel launch failed: CUDA error {rc}")
+    launch_floor.launches += 1
+
+
+launch_floor.launches = 0

@@ -16,6 +16,10 @@ TrainState` that it updates in place, with the JAX step's semantics:
 - **Loss routing** (``step.py:33-56``).  (B,) integer labels go to the
   fused cross entropy (kernels K2a and K2b on the card); soft labels of
   the logits' rank go to a plain soft cross entropy.
+- **Every parameter steps.**  After the backward each parameter that
+  autograd left without a gradient gets a zero one, so the optimizer
+  updates it as optax updates every leaf (moment decay, weight decay, the
+  count); torch's optimizers would skip it.
 - **Metrics** stay on the device, summed (``loss_sum``, ``correct``,
   ``count``); whoever logs reads them and takes the mean.
 - **Health.**  With a ``HealthPolicy`` the step computes the sentinel's
@@ -201,12 +205,28 @@ def _apply_with_health(state: TrainState, loss: torch.Tensor, metrics: dict,
     return state, metrics
 
 
+@torch.no_grad()
+def _fill_missing_grads(model: nn.Module) -> None:
+    """A zero gradient for every parameter that autograd left without one.
+
+    optax updates every leaf on every step, a leaf outside the loss with a
+    zero gradient: its moments decay, its weight decay applies and the
+    shared count advances.  torch's optimizers skip a parameter whose
+    ``.grad`` is None, so a parameter that sat out a step would keep its
+    moments and its own count would lag."""
+    for p in model.parameters():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+
+
 def _finish(step: Callable, state: TrainState, loss: torch.Tensor, metrics: dict,
             health: HealthPolicy | None, snap: _Snapshot,
             sync: "_WireSync | None") -> tuple[TrainState, dict]:
-    """Every train step's tail after the backward: the compressed wire's
-    sync when there is one (its plan then on ``step.wire``), then the
-    update, under the sentinel when armed."""
+    """Every train step's tail after the backward: a zero gradient where
+    autograd left none, the compressed wire's sync when there is one (its
+    plan then on ``step.wire``), then the update, under the sentinel when
+    armed."""
+    _fill_missing_grads(state.model)
     if sync is not None:
         loss, metrics = sync(state, loss, metrics)
         step.wire = sync.wire
@@ -477,13 +497,10 @@ class _WireSync:
         if self._layout is None:
             self._build(state)
         named = list(state.model.named_parameters())
-        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p) for n, p in named}
+        grads = {n: p.grad for n, p in named}  # every one filled by _finish
         synced, new_comms = sync_gradients(grads, state.comms if self._ef else {}, self._layout,
                                            self._run_config, self._rng(state, loss.device))
         with torch.no_grad():
-            for n, p in named:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
             torch._foreach_copy_([p.grad for _, p in named], [synced[n] for n, _ in named])
             for k, t in new_comms.items():
                 state.comms[k].copy_(t)  # in place: a skipped step restores it
