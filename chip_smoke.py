@@ -11,7 +11,9 @@ Phases, each of which fails the script (nonzero exit, no result line):
    no run.
 2. Build: every CUDA kernel of the port, compiled from ``tpuframe_torch/
    csrc`` with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all
-   started together.
+   started together, and beside them the K2 baseline
+   (``tests/csrc/cross_entropy_baseline.cu``, the design before saved row
+   statistics, for timing only).
 3. Kernels: first the launch floor, the time of an empty kernel
    (``csrc/launch_floor.cu``) launched through ``ctypes`` as every kernel
    is, printed on its own line and given as ``floor_ms`` beside each
@@ -24,9 +26,12 @@ Phases, each of which fails the script (nonzero exit, no result line):
    ``out=`` at 64 and 128), K2a cross entropy forward
    (``F.cross_entropy(reduction="none")``) and K2b its backward
    (``torch.autograd.grad`` of that loss), the last two at the train
-   path's (128, 1000) f32 and at an HBM-bound (16384, 1000), each with its
-   ratio to the floor, and checked at every path of the forward with
-   labels at 0, at K - 1 and on the row's maximum; K3a
+   path's (128, 1000) and at an HBM-bound (16384, 1000), f32 and bf16,
+   each with its ratio to the floor, as the train path calls them (K2a
+   writing the row statistics, K2b taking them), without statistics, and
+   the baseline, in turns; checked at every path of the forward with
+   labels at 0, at K - 1 and on the row's maximum, K2b from the
+   statistics bit-equal to K2b without them; K3a
    LayerNorm forward (``F.layer_norm(eps=1e-6)``) and K3b its backward
    (``torch.autograd.grad`` of it) at the LM path's (16384, 768) bf16 with
    bf16 scale and bias, checked there, in f32 and at a ragged 1000 x 300,
@@ -71,7 +76,15 @@ Phases, each of which fails the script (nonzero exit, no result line):
    of the float32 logits and loss at the step's shapes), ten steps on one
    batch that must lower the loss, kernel against plain LayerNorm and AdamW
    in f32 steps, and a small f32 LM step on the card against the CPU.
-7. Compressed data-parallel train: phase 5's ResNet50-1K fit through
+7. Checkpoint and resume: phase 6's LM fit with
+   ``checkpoint_interval_batches=2`` stopped by a crash after step 4, a new
+   Trainer over the same directory that auto-resumes and runs to step 6
+   (its first batch must be batch 5), bit-equal to an uninterrupted 6-step
+   fit; the step directory in the JAX package's layout; then the wall time
+   and GB/s of a save and a restore of the full LM state (parameters and
+   both moments), and of an async save with the step time while it is in
+   flight.
+8. Compressed data-parallel train: phase 5's ResNet50-1K fit through
    ``Trainer(plan=ParallelPlan(mesh=initialize().mesh), grad_compression=
    "int8")`` on a one-rank NCCL group (``RANK=0``, ``WORLD_SIZE=1``, a free
    ``MASTER_PORT``); counters zeroed just before and read just after: K5a,
@@ -79,12 +92,13 @@ Phases, each of which fails the script (nonzero exit, no result line):
    ln 1000, a non-zero error-feedback residual, then the compressed step's
    median beside the uncompressed step's (in turns), the sync and the
    buffer average alone, one compressed step under CUDA's sync debug mode
-   (it must never wait for the device) and a profile.
-8. Two ranks on one card: two spawned gloo ranks (NCCL refuses two ranks
+   (it must never wait for the device) and a profile; then the state with
+   its residual saved, overwritten and restored, bit for bit.
+9. Two ranks on one card: two spawned gloo ranks (NCCL refuses two ranks
    on one device) sync a ResNet50-shaped named tree with the kernels; it
    must equal the same ranks' plain run on the CPU bit for bit, give both
    ranks one mean, and decode a NaN on one rank to NaN in its bucket.
-9. Result: a ``kernels`` JSON line (each kernel with ``floor_ms``), the
+10. Result: a ``kernels`` JSON line (each kernel with ``floor_ms``), the
    ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}`` as the last
    line.
 
@@ -92,7 +106,8 @@ One phase of 3 alone, for a short run on the card (the kernels it needs
 are built at first use)::
 
     python3 -c "import torch, chip_smoke as cs; f = torch.empty(2**28, dtype=torch.uint8,
-    device='cuda'); fl = cs.floor_phase(f); cs.kernel_phase(f, fl); cs.cross_entropy_phase(f, fl)"
+    device='cuda'); fl = cs.floor_phase(f); cs.kernel_phase(f, fl); cs.cross_entropy_phase(f, fl,
+    cs.baseline_library(cs.start_baseline_build()))"
 
 (one line; the break inside the quotes is harmless).
 """
@@ -102,6 +117,7 @@ from __future__ import annotations
 import functools
 import io
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -368,16 +384,65 @@ def kernel_phase(flush, floor_ms: float):
     }
 
 
-def cross_entropy_phase(flush, floor_ms: float) -> list[dict]:
+BASELINE_CE = Path(__file__).resolve().parent / "tests" / "csrc" / "cross_entropy_baseline.cu"
+
+
+def start_baseline_build():
+    """Start ``nvcc`` on the baseline K2 source (the design before saved row
+    statistics, ``tests/csrc/cross_entropy_baseline.cu``) with the port's
+    flags, beside :func:`build.build`'s; :func:`baseline_library` waits for
+    it.  Returns ``(process or None, temporary output, library path)``."""
+    import hashlib
+
+    from tpuframe_torch.ops import build
+
+    digest = hashlib.sha256(BASELINE_CE.read_bytes() + " ".join(build.NVCC_FLAGS).encode())
+    out = build.BUILD_DIR / f"libcross_entropy_baseline-{digest.hexdigest()[:16]}.so"
+    if out.exists():
+        return None, None, out
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    proc = subprocess.Popen([build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(tmp),
+                             str(BASELINE_CE)], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def baseline_library(handle, timeout_s: float = 600.0):
+    """The built baseline library, its C signatures declared (the ones
+    without statistics)."""
+    import ctypes
+
+    proc, tmp, out = handle
+    if proc is not None:
+        log_text, _ = proc.communicate(timeout=timeout_s)
+        check(proc.returncode == 0 and tmp.exists(),
+              f"nvcc failed to build {BASELINE_CE.name}:\n{log_text}")
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    lib.tf_cross_entropy_fwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    lib.tf_cross_entropy_bwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong,
+                                                                 ctypes.c_void_p] + [
+        ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.tf_cross_entropy_fwd.restype = lib.tf_cross_entropy_bwd.restype = ctypes.c_int
+    return lib
+
+
+def cross_entropy_phase(flush, floor_ms: float, baseline) -> list[dict]:
     """K2a and K2b against their plain versions at the train path's shapes,
     at every path of the forward (rows in registers, streamed, element by
     element, a block per row) and ragged ones, with labels at 0, at K - 1
-    and on the row's maximum; then timed at (128, 1000) f32 and (16384,
-    1000) f32 beside the plain version, the library call and the launch
-    floor."""
+    and on the row's maximum; K2b from the forward's row statistics (the
+    train path) bit-equal to K2b without them.  Then timed at (128, 1000)
+    and (16384, 1000), f32 and bf16, beside the plain version, the library
+    call, the launch floor and ``baseline`` (the design before saved
+    statistics), in turns."""
     import torch.nn.functional as F
 
     from tpuframe_torch.ops.cross_entropy import (
+        _LABEL_CODES,
+        _LOGIT_CODES,
         cross_entropy_bwd,
         cross_entropy_bwd_reference,
         cross_entropy_fwd,
@@ -397,6 +462,9 @@ def cross_entropy_phase(flush, floor_ms: float) -> list[dict]:
         return (torch.from_numpy(logits).to(dtype).to(dev),
                 torch.from_numpy(labels).to(label_dtype).to(dev), g.to(dev))
 
+    def bits(t):
+        return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
     cases = [
         ("128x1000 f32 int64", 128, 1000, torch.float32, torch.int64, False),
         ("128x1000 f32 int32", 128, 1000, torch.float32, torch.int32, False),
@@ -404,6 +472,7 @@ def cross_entropy_phase(flush, floor_ms: float) -> list[dict]:
         ("3x10 f32", 3, 10, torch.float32, torch.int64, False),
         ("3x10 bf16", 3, 10, torch.bfloat16, torch.int32, False),
         ("16384x1000 f32", 16384, 1000, torch.float32, torch.int64, False),
+        ("16384x1000 bf16", 16384, 1000, torch.bfloat16, torch.int64, False),
         ("128x1000 f32, stride-0 g", 128, 1000, torch.float32, torch.int64, True),
         ("128x1000 bf16, stride-0 g", 128, 1000, torch.bfloat16, torch.int64, True),
     ]
@@ -411,17 +480,19 @@ def cross_entropy_phase(flush, floor_ms: float) -> list[dict]:
     # and 2048 bf16, streamed up to 4096, a block per row above; element
     # loads where K is no multiple of the 16-byte chunk.  A third of the
     # rows put the row's maximum on the label, where the softmax is 1 less
-    # a small sum: the plain version's float32 sums lose most there, so the
-    # backward on these cases is held against the float64 softmax
+    # a small sum: the plain version's float32 exponentials lose most there,
+    # so the backward on these cases is held against the float64 softmax
     cases += [(f"{b}x{k} {'f32' if dt == torch.float32 else 'bf16'} {str(ldt)[6:]}, edge labels",
                b, k, dt, ldt, False)
               for b, k, dt, ldt in ((128, 1000, torch.float32, torch.int32),
+                                    (128, 1000, torch.bfloat16, torch.int64),
                                     (128, 1001, torch.float32, torch.int64),
                                     (128, 1024, torch.float32, torch.int64),
                                     (16, 2048, torch.bfloat16, torch.int32),
                                     (16, 4096, torch.float32, torch.int64),
                                     (16, 4097, torch.float32, torch.int32),
                                     (1, 1000, torch.float32, torch.int64),
+                                    (16384, 1000, torch.float32, torch.int64),
                                     (16384, 1001, torch.float32, torch.int64))]
     err = {"fwd": 0.0, "bwd": 0.0}
     for name, b, k, dtype, ldt, stride0 in cases:
@@ -429,7 +500,9 @@ def cross_entropy_phase(flush, floor_ms: float) -> list[dict]:
         if stride0:
             g = torch.full((), 1.0 / b, device=dev).expand(b)
         loss = cross_entropy_fwd(logits, labels)
+        loss_s, stats = cross_entropy_fwd(logits, labels, with_stats=True)
         grad = cross_entropy_bwd(logits, labels, g)
+        grad_s = cross_entropy_bwd(logits, labels, g, stats)
         want_loss = cross_entropy_reference(logits, labels)
         want_grad = cross_entropy_bwd_reference(logits, labels, g)
         note = ""
@@ -437,14 +510,18 @@ def cross_entropy_phase(flush, floor_ms: float) -> list[dict]:
             onehot = F.one_hot(labels.long(), k).double()
             exact = (torch.softmax(logits.double(), -1) - onehot) * g.double()[:, None]
             note = (f"; against the float64 softmax: K2b "
-                    f"{float((grad.double() - exact).abs().max()):.3g}, plain "
+                    f"{float((grad_s.double() - exact).abs().max()):.3g}, plain "
                     f"{float((want_grad.double() - exact).abs().max()):.3g}")
             want_grad = exact.to(dtype)
         torch.cuda.synchronize()
         check(loss.shape == (b,) and loss.dtype == torch.float32, f"K2a {name}: {loss.shape}")
-        check(grad.shape == (b, k) and grad.dtype == dtype, f"K2b {name}: {grad.dtype}")
+        check(torch.equal(loss, loss_s), f"K2a {name}: the statistics moved the loss")
+        check(grad_s.shape == (b, k) and grad_s.dtype == dtype, f"K2b {name}: {grad_s.dtype}")
+        # the statistics are the ones the stats-less K2b takes itself
+        check(torch.equal(bits(grad_s), bits(grad)),
+              f"K2b {name}: from the statistics not bit-equal to the stats-less K2b")
         e_loss = float((loss - want_loss).abs().max())
-        e_grad = float((grad.float() - want_grad.float()).abs().max())
+        e_grad = float((grad_s.float() - want_grad.float()).abs().max())
         # losses of O(10): 1e-5 absolute; f32 gradients 1e-6 absolute; bf16
         # gradients within one bf16 step of the plain value (of the float64
         # softmax on the edge cases)
@@ -453,57 +530,99 @@ def cross_entropy_phase(flush, floor_ms: float) -> list[dict]:
             check(e_grad <= 1e-6, f"K2b {name}: max abs diff {e_grad} > 1e-6")
             tol = "1e-6"
         else:
-            ulps = bf16_ulp_distance(grad, want_grad)
+            ulps = bf16_ulp_distance(grad_s, want_grad)
             check(ulps <= 1, f"K2b {name}: {ulps} bf16 ulps apart (tol 1)")
             tol = f"{ulps} bf16 ulp, tol 1"
         log(f"  cross entropy {name}: K2a max abs diff {e_loss:.3g} (tol 1e-5), "
-            f"K2b {e_grad:.3g} ({tol}){note}")
+            f"K2b {e_grad:.3g} ({tol}), bit-equal without statistics{note}")
         if name == "128x1000 f32 int64":
             err = {"fwd": e_loss, "bwd": e_grad}
 
-    def timed(b, k):
-        logits, labels, g = inputs(b, k, torch.float32)
-        x = logits.detach().requires_grad_(True)
+    stream = lambda: torch.cuda.current_stream(dev).cuda_stream  # noqa: E731
+
+    def timed(b, k, dtype):
+        logits, labels, g = inputs(b, k, dtype)
+        loss_buf = torch.empty(b, dtype=torch.float32, device=dev)
+        grad_buf = torch.empty((b, k), dtype=dtype, device=dev)
+        codes = (_LOGIT_CODES[dtype], _LABEL_CODES[labels.dtype])
+        # the baseline on the same inputs, bit-equal to the stats-less kernel
+        check(baseline.tf_cross_entropy_fwd(logits.data_ptr(), labels.data_ptr(),
+                                            loss_buf.data_ptr(), b, k, *codes, stream()) == 0,
+              "baseline K2a launch")
+        check(baseline.tf_cross_entropy_bwd(logits.data_ptr(), labels.data_ptr(), g.data_ptr(),
+                                            1, grad_buf.data_ptr(), b, k, *codes,
+                                            stream()) == 0, "baseline K2b launch")
+        loss, stats = cross_entropy_fwd(logits, labels, with_stats=True)
+        grad = cross_entropy_bwd(logits, labels, g, stats)
+        torch.cuda.synchronize()
+        # the same arithmetic: held at the kernels' tolerances, bits logged
+        check(float((loss_buf - loss).abs().max()) <= 1e-6
+              and (float((grad_buf.float() - grad.float()).abs().max()) <= 1e-6
+                   if dtype == torch.float32 else bf16_ulp_distance(grad_buf, grad) <= 1),
+              f"baseline K2 at {b}x{k} disagrees with the kernels")
+        log(f"  baseline K2 at {b}x{k} {str(dtype)[6:]}: loss bit-equal "
+            f"{torch.equal(loss_buf, loss)}, gradient bit-equal "
+            f"{torch.equal(bits(grad_buf), bits(grad))}")
+        x = logits.detach().float().requires_grad_(True)
         lib_loss = F.cross_entropy(x, labels, reduction="none")
         lib_err = (lib_loss.detach() - cross_entropy_reference(logits, labels)).abs().max()
-        check(float(lib_err) <= 1e-5,
-              "F.cross_entropy yardstick disagrees with the plain forward")
+        check(float(lib_err) <= 1e-5, "F.cross_entropy yardstick disagrees with the plain forward")
+        lib_x = logits.detach().requires_grad_(True)
+        lib_loss = F.cross_entropy(lib_x, labels, reduction="none")
         arms = {
-            "fwd": (functools.partial(cross_entropy_fwd, logits, labels),
-                    functools.partial(cross_entropy_reference, logits, labels),
-                    functools.partial(F.cross_entropy, logits, labels, reduction="none")),
-            "bwd": (functools.partial(cross_entropy_bwd, logits, labels, g),
-                    functools.partial(cross_entropy_bwd_reference, logits, labels, g),
-                    lambda: torch.autograd.grad(lib_loss, x, g, retain_graph=True)),
+            "fwd": {
+                "kernel": functools.partial(cross_entropy_fwd, logits, labels, with_stats=True),
+                "no_stats": functools.partial(cross_entropy_fwd, logits, labels),
+                "baseline": lambda: baseline.tf_cross_entropy_fwd(
+                    logits.data_ptr(), labels.data_ptr(), loss_buf.data_ptr(), b, k, *codes,
+                    stream()),
+                "plain": functools.partial(cross_entropy_reference, logits, labels),
+                "library": functools.partial(F.cross_entropy, logits, labels, reduction="none"),
+            },
+            "bwd": {
+                "kernel": functools.partial(cross_entropy_bwd, logits, labels, g, stats),
+                "no_stats": functools.partial(cross_entropy_bwd, logits, labels, g),
+                "baseline": lambda: baseline.tf_cross_entropy_bwd(
+                    logits.data_ptr(), labels.data_ptr(), g.data_ptr(), 1, grad_buf.data_ptr(),
+                    b, k, *codes, stream()),
+                "plain": functools.partial(cross_entropy_bwd_reference, logits, labels, g, stats),
+                "library": lambda: torch.autograd.grad(lib_loss, lib_x, g, retain_graph=True),
+            },
         }
+        esize = logits.element_size()
         out = {}
-        for which, (kernel, plain, library) in arms.items():
-            # plain, kernel, library, library, kernel, plain
-            plain_ms = [time_ms(plain, flush)]
-            kernel_ms = [time_ms(kernel, flush)]
-            library_ms = [time_ms(library, flush), time_ms(library, flush)]
-            kernel_ms.append(time_ms(kernel, flush))
-            plain_ms.append(time_ms(plain, flush))
-            # each input read once, each output written once: logits (B*K*4),
-            # int64 labels (B*8), g (B*4); loss (B*4) or gradient (B*K*4)
-            moved = (b * k * 4 + b * 8 + b * 4 if which == "fwd"
-                     else 2 * b * k * 4 + b * 8 + b * 4)
-            out[which] = {"ms": min(kernel_ms), "plain_ms": min(plain_ms),
-                          "library_ms": min(library_ms),
+        for which, arm in arms.items():
+            order = ["plain", "baseline", "kernel", "no_stats", "library"]
+            times = {name: [] for name in order}
+            for name in order + order[::-1]:  # in turns, each arm twice
+                times[name].append(time_ms(arm[name], flush))
+            # each input read once, each output written once: logits, int64
+            # labels (B*8), g (B*4) and the statistics (B*8) the backward
+            # reads or the forward writes; the loss (B*4) or the gradient
+            stats_bytes = b * 8
+            moved = (b * k * esize + b * 8 + b * 4 + stats_bytes if which == "fwd"
+                     else 2 * b * k * esize + b * 8 + b * 4 + stats_bytes)
+            best = {name: min(v) for name, v in times.items()}
+            out[which] = {"ms": best["kernel"], "no_stats_ms": best["no_stats"],
+                          "baseline_ms": best["baseline"], "plain_ms": best["plain"],
+                          "library_ms": best["library"], "runs_ms": times,
                           "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bytes_moved": moved}
         return out
 
-    small, large = timed(128, 1000), timed(16384, 1000)
+    shapes = {f"{b}x{k} {tag}": (b, k, dt) for b, k in ((128, 1000), (16384, 1000))
+              for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))}
+    timings = {name: timed(*shape) for name, shape in shapes.items()}
     rows = []
     for which, name, line in (("fwd", "cross_entropy_fwd", 49), ("bwd", "cross_entropy_bwd", 60)):
-        s, l = small[which], large[which]
-        log(f"  {name}: 128x1000 f32 kernel {s['ms'] * 1e3:.2f} us "
-            f"({s['ms'] / floor_ms:.2f}x the floor), plain "
-            f"{s['plain_ms'] * 1e3:.2f} us, library {s['library_ms'] * 1e3:.2f} us, bound "
-            f"{s['bound_ms'] * 1e3:.3f} us; 16384x1000 f32 kernel {l['ms'] * 1e3:.2f} us "
-            f"({l['ms'] / floor_ms:.2f}x the floor), "
-            f"plain {l['plain_ms'] * 1e3:.2f} us, library {l['library_ms'] * 1e3:.2f} us, "
-            f"bound {l['bound_ms'] * 1e3:.2f} us ({l['bytes_moved'] / 1e6:.2f} MB at 3.35 TB/s)")
+        for shape, t in timings.items():
+            r = t[which]
+            log(f"  {name} {shape}: kernel {r['ms'] * 1e3:.2f} us ({r['ms'] / floor_ms:.2f}x the "
+                f"floor, {r['bound_ms'] / r['ms'] * 100:.1f} % of the bound), without statistics "
+                f"{r['no_stats_ms'] * 1e3:.2f} us, baseline {r['baseline_ms'] * 1e3:.2f} us, plain "
+                f"{r['plain_ms'] * 1e3:.2f} us, library {r['library_ms'] * 1e3:.2f} us, bound "
+                f"{r['bound_ms'] * 1e3:.3f} us ({r['bytes_moved'] / 1e6:.2f} MB at 3.35 TB/s) "
+                f"on {floor_ms * 1e3:.2f} us floor")
+        s = timings["128x1000 f32"][which]
         rows.append({
             "name": name,
             "route": "cuda",
@@ -511,14 +630,12 @@ def cross_entropy_phase(flush, floor_ms: float) -> list[dict]:
             "replaces": f"tpuframe/ops/cross_entropy.py:{line}",
             "launches": None,  # filled from the main path's run
             "max_abs_err": err[which],
-            "ms": s["ms"],
-            "plain_ms": s["plain_ms"],
-            "bound_ms": s["bound_ms"],
+            **{k: s[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "no_stats_ms",
+                                 "baseline_ms", "bytes_moved")},
             "bound_by": "bytes",
-            "library_ms": s["library_ms"],
-            "shape": "128x1000 f32, int64 labels",
-            "bytes_moved": s["bytes_moved"],
-            "large": {"shape": "16384x1000 f32, int64 labels", **l},
+            "shape": "128x1000 f32, int64 labels, with the row statistics",
+            "at": {shape: {k: v for k, v in t[which].items() if k != "runs_ms"}
+                   for shape, t in timings.items() if shape != "128x1000 f32"},
         })
     return rows
 
@@ -1755,6 +1872,275 @@ def lm_phase(card: str, dev: torch.device = torch.device("cuda"), cfg: dict = LM
     return launches, out
 
 
+CKPT_STEPS = 6  # the uninterrupted fit
+CKPT_CRASH = 4  # the interrupted fit stops after this step
+CKPT_EVERY = 2  # its checkpoint_interval_batches
+
+
+def _state_tensors(state) -> list:
+    """Every tensor of a ``TrainState``'s saveable dict, in a fixed order."""
+    def walk(tree):
+        for v in tree.values():
+            if isinstance(v, dict):
+                yield from walk(v)
+            elif torch.is_tensor(v):
+                yield v
+    return list(walk(state.state_dict()))
+
+
+def _same_state(a, b) -> tuple[bool, float]:
+    """(bit-equal, largest |a - b|) over the parameters and optimizer state
+    of two ``TrainState``s."""
+    ta = [t for t in _state_tensors(a)]
+    tb = [t for t in _state_tensors(b)]
+    check(len(ta) == len(tb), "states of different layouts")
+    equal = all(torch.equal(x, y) for x, y in zip(ta, tb))
+    diff = max(float((x.double() - y.double()).abs().max()) for x, y in zip(ta, tb)
+               if x.is_floating_point())
+    return equal, diff
+
+
+def checkpoint_phase(card: str, dev: torch.device = torch.device("cuda"), cfg: dict = LM,
+                     batch_size: int = LM_BATCH) -> dict:
+    """Checkpoint and resume through ``Trainer.fit`` on phase 6's LM.
+
+    (a) A fit with ``checkpoint_interval_batches=2`` stopped by a crash
+    after step 4, then a new Trainer over the same directory that
+    auto-resumes from the snapshot of step 4 and runs to step 6, against an
+    uninterrupted 6-step fit: bit-equal (parameters and optimizer state),
+    and the resumed run's first batch is batch 5.  (b) The wall time and
+    rate of a save and a restore of the full state, and of an async save,
+    with the train step's time while it is in flight.  (d) The step
+    directories in the JAX package's layout.  The device and sizes are
+    arguments so the phase can be rehearsed small on the CPU."""
+    import shutil
+    import tempfile
+
+    from tpuframe_torch.ckpt import Checkpointer
+    from tpuframe_torch.ckpt.meta import (
+        _read_meta_doc,
+        is_committed,
+        read_health,
+        read_manifest,
+        valid_steps,
+    )
+    from tpuframe_torch.data import DataLoader
+    from tpuframe_torch.models import TransformerLM
+    from tpuframe_torch.ops import fused_adamw
+    from tpuframe_torch.ops.build import BUILD_DIR
+    from tpuframe_torch.train import Callback, Trainer
+
+    seq, vocab = cfg["max_len"], cfg["vocab_size"]
+
+    class Crash(Callback):
+        def on_step_end(self, trainer):
+            if trainer.batches_seen >= CKPT_CRASH:
+                raise RuntimeError("simulated crash")
+
+    class Positions(Callback):
+        def __init__(self):
+            self.seen = []
+
+        def on_step_end(self, trainer):
+            self.seen.append(trainer._train_prefetcher.state_dict()["batches_yielded"])
+
+    def make(directory=None, callbacks=()):
+        model = TransformerLM(**cfg, device=dev, seed=0)
+        data = NextTokenDataset(batch_size * (CKPT_STEPS + 2), seq, vocab, seed=1)
+        return Trainer(model, tx=fused_adamw(3e-4, weight_decay=1e-4),
+                       train_dataloader=DataLoader(data, batch_size, shuffle=True, seed=0,
+                                                   num_workers=4),
+                       precision="bf16", max_duration=f"{CKPT_STEPS}ba", log_interval=0,
+                       callbacks=list(callbacks),
+                       checkpointer=None if directory is None else Checkpointer(directory),
+                       checkpoint_interval_batches=CKPT_EVERY if directory else None)
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="ckpt_smoke_", dir=BUILD_DIR)
+    try:
+        # -- (a) interrupted, resumed, against uninterrupted ---------------
+        directory = os.path.join(root, "lm")
+        first = make(directory, [Crash()])
+        try:
+            first.fit()
+            check(False, "the interrupted fit ran to its end")
+        except RuntimeError as e:
+            check(str(e) == "simulated crash", f"the interrupted fit failed otherwise: {e!r}")
+        intra = directory + "_intra"
+        check(valid_steps(intra) == [CKPT_CRASH] and valid_steps(directory) == [],
+              f"snapshots {valid_steps(intra)}, epoch-end steps {valid_steps(directory)}")
+        snap = _read_meta_doc(intra, CKPT_CRASH)["meta"]
+        check(snap["batches_seen"] == CKPT_CRASH and snap["loader_state"]["batches_yielded"]
+              == CKPT_CRASH and snap["global_batch"] == batch_size,
+              f"snapshot meta {snap}")
+        del first
+        positions = Positions()
+        resumed = make(directory, [positions])
+        t0 = time.perf_counter()
+        result = resumed.fit()
+        sync(dev)
+        resume_s = time.perf_counter() - t0
+        want_pos = list(range(CKPT_CRASH + 1, CKPT_STEPS + 1))
+        check(positions.seen == want_pos,
+              f"the resumed run consumed batches {positions.seen}, not {want_pos}")
+        check(resumed.state.step == CKPT_STEPS
+              and result.checkpoint == os.path.join(directory, str(CKPT_STEPS)),
+              f"resumed to step {resumed.state.step}, checkpoint {result.checkpoint}")
+        straight = make()
+        straight.fit()
+        sync(dev)
+        equal, diff = _same_state(resumed.state, straight.state)
+        repeat_diff = None
+        if not equal:  # measure the card's own spread over two straight fits
+            again = make()
+            again.fit()
+            sync(dev)
+            _, repeat_diff = _same_state(again.state, straight.state)
+            del again
+            check(repeat_diff > 0 and diff <= repeat_diff,
+                  f"resumed fit {diff:.3g} from the uninterrupted one; two uninterrupted "
+                  f"fits {repeat_diff:.3g} apart")
+        log(f"  (a) fit of {CKPT_STEPS} steps of {batch_size}x{seq} stopped after step "
+            f"{CKPT_CRASH} (snapshots every {CKPT_EVERY}), resumed from the snapshot in "
+            f"{resume_s:.2f} s: first batch {positions.seen[0]}, bit-equal to the "
+            f"uninterrupted fit {equal} (max |diff| {diff:.3g}"
+            + (f", two uninterrupted fits {repeat_diff:.3g} apart)" if not equal else ")"))
+        del straight
+
+        # -- (d) the layout --------------------------------------------------
+        step_dir = os.path.join(directory, str(CKPT_STEPS))
+        state = resumed.state
+        n_leaves = len(_state_tensors(state))
+        manifest, stamp = read_manifest(directory), read_health(directory)
+        doc = _read_meta_doc(directory, CKPT_STEPS)
+        check(is_committed(step_dir)
+              and sorted(os.listdir(step_dir)) == ["_CHECKPOINT_METADATA", "meta", "state"]
+              and set(doc) == {"meta", "metrics", "topology", "health"}
+              and doc["meta"]["epoch"] == 1 and doc["meta"]["batches_seen"] == CKPT_STEPS
+              and manifest["world_size"] == 1 and len(manifest["leaves"]) == n_leaves
+              and stamp["healthy"] and stamp["step"] == CKPT_STEPS
+              and valid_steps(intra) == []
+              and not [e for e in os.listdir(directory) if not e.isdigit()],
+              f"step directory {sorted(os.listdir(step_dir))}, meta {doc.get('meta')}, "
+              f"{len(manifest['leaves'])} leaves, stamp {stamp}")
+        log(f"  (d) {step_dir}: {sorted(os.listdir(step_dir))}, state/ "
+            f"{sorted(os.listdir(os.path.join(step_dir, 'state')))}, meta keys {sorted(doc)}, "
+            f"{len(manifest['leaves'])} manifest leaves, health stamp {stamp}")
+
+        # -- (b) full-size save and restore ----------------------------------
+        nbytes = sum(t.numel() * t.element_size() for t in _state_tensors(state))
+        timing = Checkpointer(os.path.join(root, "timing"), max_to_keep=1)
+        sync(dev)
+        t0 = time.perf_counter()
+        timing.save(state, step=100)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        timing.restore(state)
+        sync(dev)
+        restore_s = time.perf_counter() - t0
+        rng = np.random.default_rng(3)
+        toks = torch.from_numpy(rng.integers(0, vocab, (batch_size, seq + 1))).to(dev)
+        batch = {"image": toks[:, :-1], "label": toks[:, 1:]}
+        step = resumed._train_step
+
+        def step_s():
+            sync(dev)
+            t = time.perf_counter()
+            step(state, batch)
+            sync(dev)
+            return time.perf_counter() - t
+
+        for _ in range(3):
+            step_s()
+        alone = [step_s() for _ in range(10)]
+        saved = [t.clone() for t in _state_tensors(state)]
+        async_ck = Checkpointer(os.path.join(root, "async"), max_to_keep=1, async_save=True)
+        t0 = time.perf_counter()
+        async_ck.save(state, step=200)
+        async_return_s = time.perf_counter() - t0
+        in_flight = []
+        while async_ck._pending is not None and async_ck._pending.is_alive() \
+                and len(in_flight) < 500:
+            in_flight.append(step_s())
+        async_ck.wait()
+        async_total_s = time.perf_counter() - t0
+        check(async_ck.all_steps() == [200], f"async steps {async_ck.all_steps()}")
+        async_ck.restore(state)
+        sync(dev)
+        check(all(torch.equal(a, b) for a, b in zip(_state_tensors(state), saved)),
+              "the async checkpoint does not hold the state of the save call")
+        gb = nbytes / 1e9
+        out = {
+            "state_gb": gb, "save_ms": save_s * 1e3, "save_gb_s": gb / save_s,
+            "restore_ms": restore_s * 1e3, "restore_gb_s": gb / restore_s,
+            "async_return_ms": async_return_s * 1e3, "async_total_ms": async_total_s * 1e3,
+            "step_ms_alone": statistics.median(alone) * 1e3,
+            "step_ms_in_flight": statistics.median(in_flight) * 1e3 if in_flight else None,
+            "steps_in_flight": len(in_flight), "resume_bit_equal": equal,
+            "resume_max_abs_diff": diff, "repeat_max_abs_diff": repeat_diff,
+            "resume_fit_s": resume_s, "card": card,
+        }
+        log(f"  (b) save of the full state ({gb:.3f} GB, {n_leaves} tensors): "
+            f"{out['save_ms']:.1f} ms wall, {out['save_gb_s']:.3f} GB/s; restore "
+            f"{out['restore_ms']:.1f} ms, {out['restore_gb_s']:.3f} GB/s (the machine's disk "
+            f"and host copies, not HBM); async save returns in {out['async_return_ms']:.1f} ms "
+            f"and commits after {out['async_total_ms']:.1f} ms; train step median "
+            f"{out['step_ms_alone']:.2f} ms alone, "
+            + (f"{out['step_ms_in_flight']:.2f} ms over {len(in_flight)} steps while the "
+               f"write is in flight" if in_flight else "no step while the write was in flight")
+            + f" on {card}")
+        log("  ckpt_json " + json.dumps(out))
+        del resumed, state, saved
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def compressed_round_trip(trainer, card: str) -> dict:
+    """(c) The compressed fit's state (parameters, BatchNorm buffers, SGD
+    momentum and the int8 wire's residual) saved, overwritten, and restored
+    in place: bit-equal, with the residual's global leaf in the manifest."""
+    import shutil
+    import tempfile
+
+    from tpuframe_torch.ckpt import Checkpointer
+    from tpuframe_torch.ops.build import BUILD_DIR
+
+    state = trainer.state
+    dev = state.updates.device
+    tensors = _state_tensors(state)
+    saved = [t.clone() for t in tensors]
+    root = tempfile.mkdtemp(prefix="ckpt_smoke_", dir=BUILD_DIR)
+    try:
+        ck = Checkpointer(root)
+        sync(dev)
+        t0 = time.perf_counter()
+        ck.save(state, plan=trainer.plan)
+        save_s = time.perf_counter() - t0
+        leaf = ck.manifest_for()["leaves"]["comms/flat"]
+        check(leaf["shape"] == [1, *WIRE_SHAPE] and leaf["dtype"] == "float32",
+              f"residual leaf {leaf}")
+        with torch.no_grad():
+            for t in tensors:
+                if t.is_floating_point():
+                    t.add_(1.0)
+        t0 = time.perf_counter()
+        ck.restore(state)
+        sync(dev)
+        restore_s = time.perf_counter() - t0
+        check(all(torch.equal(a, b) for a, b in zip(_state_tensors(state), saved)),
+              "the compressed state did not round-trip bit for bit")
+        nbytes = sum(t.numel() * t.element_size() for t in saved)
+        out = {"state_gb": nbytes / 1e9, "save_ms": save_s * 1e3, "restore_ms": restore_s * 1e3,
+               "residual_shape": leaf["shape"]}
+        log(f"  (c) compressed state ({nbytes / 1e9:.3f} GB with the residual "
+            f"{leaf['shape']}) round-trips bit for bit: save {out['save_ms']:.1f} ms, restore "
+            f"{out['restore_ms']:.1f} ms on {card}")
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def free_port() -> int:
     """A free TCP port on this machine's loopback interface."""
     import socket
@@ -1918,7 +2304,8 @@ def dp_phase(card: str, dev: torch.device = torch.device("cuda"), image_size: in
             log("  the compressed step makes no synchronizing call (sync debug mode)")
         prof = profile(run_compressed,
                        f"compressed train step of {batch_size} (bf16, int8 wire, health on)")
-        out = {"step_ms": step_ms, "step_ms_runs": arms, "parts_ms": parts_ms, "fit_s": fit_s,
+        round_trip = compressed_round_trip(trainer, card)
+        out = {"round_trip": round_trip, "step_ms": step_ms, "step_ms_runs": arms, "parts_ms": parts_ms, "fit_s": fit_s,
                "first_loss": losses[0], "last_loss": losses[-1], "residual_max": resid,
                "wire": wire, "backend": backend, "profile": prof, "card": card}
         log("  dp_json " + json.dumps(out))
@@ -2079,8 +2466,10 @@ def main() -> int:
     from tpuframe_torch.ops import build
 
     t0 = time.perf_counter()
+    baseline = start_baseline_build()  # the K2 baseline's nvcc runs beside the port's
     report = build.build()
-    log(f"  built {sorted(report)} in {time.perf_counter() - t0:.2f} s")
+    baseline = baseline_library(baseline)
+    log(f"  built {sorted(report)} and the K2 baseline in {time.perf_counter() - t0:.2f} s")
     for name, r in report.items():
         for line in r["log"].splitlines():
             if "registers" in line or "spill" in line:
@@ -2096,7 +2485,7 @@ def main() -> int:
         f"plain {k1['plain_ms'] * 1e3:.2f} us, torch.addcmul {k1['library_ms'] * 1e3:.2f} us, "
         f"bound {k1['bound_ms'] * 1e3:.2f} us "
         f"({k1['bytes_moved'] / 1e6:.2f} MB at 3.35 TB/s) on {card}")
-    k2a, k2b = cross_entropy_phase(flush, floor_ms)
+    k2a, k2b = cross_entropy_phase(flush, floor_ms, baseline)
     k3a, k3b = layer_norm_phase(flush)
     from tpuframe_torch.models import TransformerLM
 
@@ -2116,11 +2505,15 @@ def main() -> int:
     lm_launches, _ = lm_phase(card)
     torch.cuda.empty_cache()
 
-    log("== phase 7: compressed data-parallel train")
+    log("== phase 7: checkpoint and resume")
+    checkpoint_phase(card)
+    torch.cuda.empty_cache()
+
+    log("== phase 8: compressed data-parallel train")
     dp_launches, _ = dp_phase(card)
     torch.cuda.empty_cache()
 
-    log("== phase 8: two ranks on one card")
+    log("== phase 9: two ranks on one card")
     two_rank_phase()
 
     # each kernel's launches on the main paths that run it: K1 serve and
@@ -2139,7 +2532,7 @@ def main() -> int:
     k5b["launches"] = dp_launches["quant_encode"]
     k5c["launches"] = dp_launches["quant_decode"]
 
-    log("== phase 9: result")
+    log("== phase 10: result")
     kernels = [k1, k2a, k2b, k3a, k3b, k4, k5a, k5b, k5c]
     for k in kernels:
         k["floor_ms"] = floor_ms  # beside bound_ms, which stays the byte or operation bound

@@ -25,6 +25,7 @@ from tpuframe_torch.ops import (
     cross_entropy_bwd_reference,
     cross_entropy_fwd,
     cross_entropy_reference,
+    cross_entropy_stats_reference,
     fused_cross_entropy,
 )
 from tpuframe_torch.train.step import cross_entropy
@@ -148,3 +149,44 @@ def test_kernel_source_names_what_it_replaces():
     assert 'extern "C" int tf_cross_entropy_fwd' in src
     assert 'extern "C" int tf_cross_entropy_bwd' in src
     assert "cross_entropy" in build.KERNELS
+
+
+@pytest.mark.parametrize("b,k", [(13, 1000), (16, 128), (5, 4100)])
+def test_backward_from_saved_statistics_matches_jax_reference_gradient(b, k):
+    """The plain K2b from the forward's row statistics against the gradient
+    of JAX's reference loss, on rows whose label also holds the maximum:
+    1e-6 absolute (the statistics' float64 sum keeps such rows there)."""
+    logits, labels = _inputs(b, k, seed=2 * b + k)
+    logits[::2][np.arange(len(labels[::2])), labels[::2]] = 20.0
+    g = np.random.default_rng(b).uniform(0.5, 2.0, b).astype(np.float32)
+    lab = jnp.asarray(labels)
+    want = np.asarray(jax.grad(
+        lambda lg: jnp.sum(jax_reference(lg, lab) * jnp.asarray(g)))(jnp.asarray(logits)))
+    x, lb = torch.from_numpy(logits), torch.from_numpy(labels)
+    loss, stats = cross_entropy_fwd(x, lb, with_stats=True)
+    assert stats.shape == (b, 2) and stats.dtype == torch.float32
+    torch.testing.assert_close(stats, cross_entropy_stats_reference(x), atol=0, rtol=0)
+    torch.testing.assert_close(loss, cross_entropy_reference(x, lb), atol=0, rtol=0)
+    got = cross_entropy_bwd(x, lb, torch.from_numpy(g), stats)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_function_saves_statistics_and_matches_the_stats_less_gradient(dtype):
+    """With a gradient to take, the forward saves its row statistics and the
+    backward uses them: the gradient equals the stats-less backward's bit
+    for bit.  Without one, nothing beyond logits is computed."""
+    logits, labels = _inputs(13, 1000, seed=21)
+    x = torch.from_numpy(logits).to(dtype).requires_grad_(True)
+    lb = torch.from_numpy(labels)
+    loss = fused_cross_entropy(x, lb)
+    saved = loss.grad_fn.saved_tensors
+    assert len(saved) == 3
+    torch.testing.assert_close(saved[2], cross_entropy_stats_reference(x.detach()),
+                               atol=0, rtol=0)
+    loss.mean().backward()
+    g = torch.full((), 1 / 13).expand(13)
+    want = cross_entropy_bwd(x.detach(), lb, g)
+    assert torch.equal(x.grad, want)
+    with torch.no_grad():
+        assert fused_cross_entropy(x, lb).grad_fn is None

@@ -30,6 +30,7 @@ from tpuframe_torch.ops import (
     cross_entropy_bwd_reference,
     cross_entropy_fwd,
     cross_entropy_reference,
+    cross_entropy_stats_reference,
     fused_adamw,
     fused_adamw_multi_update_,
     fused_adamw_update_,
@@ -51,6 +52,7 @@ from tpuframe_torch.train import (
     Trainer,
     create_train_state,
     make_eval_step,
+    make_optimizer,
     make_predict_fn,
     make_train_step,
 )
@@ -277,6 +279,73 @@ def test_cross_entropy_forward_paths_take_edge_labels(card, case, b, label_dtype
     onehot = torch.nn.functional.one_hot(lab.long(), k).double()
     exact = (torch.softmax(x.double(), -1) - onehot) * g.double()[:, None]
     assert _close_in_dtype(grad, exact.to(dtype))
+
+
+# K2b from the forward's row statistics: the train path's (128, 1000) and
+# the HBM-bound (16384, 1000), a streamed row (1001: element loads) and a
+# row a block owns (4097), in f32 and bf16
+CE_STATS = [(b, k, dt) for b, k in ((128, 1000), (16384, 1000), (64, 1001), (16, 4097))
+            for dt in (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("case", CE_STATS,
+                         ids=[f"{b}x{k}_{'f32' if dt == torch.float32 else 'bf16'}"
+                              for b, k, dt in CE_STATS])
+def test_cross_entropy_backward_from_saved_statistics(card, case):
+    """K2a's statistics against the plain ones; K2b from them bit-equal to
+    the stats-less K2b (both take the same row max and 1/s, every element by
+    one expression) and to the plain version at the dtype's tolerance; rows
+    whose label holds the maximum against the float64 softmax at 1e-6."""
+    b, k, dtype = case
+    rng = np.random.default_rng(b + k)
+    logits = (rng.standard_normal((b, k)) * 3).astype(np.float32)
+    labels = rng.integers(0, k, (b,))
+    logits[2::3][np.arange(len(labels[2::3])), labels[2::3]] = 20.0  # label on the max
+    x = torch.from_numpy(logits).to(dtype).to(card)
+    lab = torch.from_numpy(labels).to(card)
+    g = torch.from_numpy(rng.uniform(0.5, 2, b).astype(np.float32)).to(card)
+    f0, b0 = cross_entropy_fwd.launches, cross_entropy_bwd.launches
+    loss, stats = cross_entropy_fwd(x, lab, with_stats=True)
+    grad = cross_entropy_bwd(x, lab, g, stats)
+    torch.cuda.synchronize()
+    assert cross_entropy_fwd.launches == f0 + 1 and cross_entropy_bwd.launches == b0 + 1
+    assert stats.shape == (b, 2) and stats.dtype == torch.float32
+    torch.testing.assert_close(loss, cross_entropy_fwd(x, lab), atol=0, rtol=0)
+    want = cross_entropy_stats_reference(x)
+    assert torch.equal(stats[:, 0], want[:, 0])  # the max is exact
+    # 1/s: the kernel sums chunks of 4 (f32) or 8 (bf16) exponentials in
+    # float32 before its float64 row sum, the plain version each one into
+    # float64; a few float32 ulps apart
+    torch.testing.assert_close(stats[:, 1], want[:, 1], atol=0, rtol=5e-7)
+    assert torch.equal(grad.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                       cross_entropy_bwd(x, lab, g).view(
+                           torch.int16 if dtype == torch.bfloat16 else torch.int32))
+    assert _close_in_dtype(grad, cross_entropy_bwd_reference(x, lab, g))
+    assert _close_in_dtype(grad, cross_entropy_bwd_reference(x, lab, g, stats))
+    onehot = torch.nn.functional.one_hot(lab.long(), k).double()
+    exact = (torch.softmax(x.double(), -1) - onehot) * g.double()[:, None]
+    assert _close_in_dtype(grad[2::3], exact[2::3].to(dtype))
+
+
+def test_cross_entropy_backward_refuses_bad_statistics(card):
+    logits, labels = _ce_inputs(8, 16, torch.float32, torch.int32, card)
+    g = torch.ones(8, device=card)
+    _, stats = cross_entropy_fwd(logits, labels, with_stats=True)
+    for bad in (stats.double(), stats[:4], stats.t().contiguous().t()[:, :1].expand(8, 2),
+                stats.cpu()):
+        with pytest.raises(ValueError, match="stats"):
+            cross_entropy_bwd(logits, labels, g, bad)
+
+
+def test_fused_cross_entropy_saves_statistics_only_for_a_gradient(card):
+    logits, labels = _ce_inputs(128, 1000, torch.float32, torch.int64, card)
+    x = logits.clone().requires_grad_(True)
+    loss = fused_cross_entropy(x, labels)
+    assert len(loss.grad_fn.saved_tensors) == 3  # logits, labels, statistics
+    with torch.no_grad():
+        f0 = cross_entropy_fwd.launches
+        fused_cross_entropy(x, labels)
+        assert cross_entropy_fwd.launches == f0 + 1
 
 
 def test_launch_floor_counts_one_per_launch(card):
@@ -915,3 +984,52 @@ def test_compressed_step_never_waits_for_the_device(card):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert step.wire["n_buckets"] > 1
+
+
+@pytest.mark.parametrize("kind", ["resnet18_sgd", "lm_fused_adamw"])
+def test_checkpoint_round_trip_of_a_card_state(card, kind, tmp_path):
+    """A state on the card saved and restored in place into another: every
+    tensor stays on the card with its dtype, bit for bit."""
+    from tpuframe_torch.ckpt import Checkpointer
+
+    if kind == "resnet18_sgd":
+        def make(seed):
+            model = ResNet18(num_classes=10, num_filters=8, stem="cifar", device=card, seed=seed)
+            return create_train_state(model, make_optimizer("sgd", 0.1), seed=seed)
+        rng = np.random.default_rng(0)
+        batch = {"image": torch.from_numpy(rng.standard_normal((8, 16, 16, 3)).astype(
+                     np.float32)).to(card),
+                 "label": torch.from_numpy(rng.integers(0, 10, (8,))).to(card)}
+    else:
+        def make(seed):
+            model = TransformerLM(vocab_size=128, num_layers=2, num_heads=4, head_dim=16,
+                                  max_len=16, device=card, seed=seed)
+            return create_train_state(model, fused_adamw(3e-3), seed=seed)
+        t = torch.from_numpy(np.random.default_rng(0).integers(0, 128, (4, 17))).to(card)
+        batch = {"image": t[:, :-1], "label": t[:, 1:]}
+
+    def tensors(state, tree=None):
+        tree = state.state_dict() if tree is None else tree
+        out = []
+        for v in tree.values():
+            if isinstance(v, dict):
+                out += tensors(state, v)
+            elif torch.is_tensor(v):
+                out.append(v)
+        return out
+
+    state = make(0)
+    step = make_train_step()
+    for _ in range(2):
+        state, _ = step(state, batch)
+    want = [t.clone() for t in tensors(state)]
+    with Checkpointer(tmp_path / "ck") as ck:
+        ck.save(state)
+        fresh = make(5)
+        restored, _ = ck.restore(fresh)
+    torch.cuda.synchronize()
+    got = tensors(restored)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.device == w.device and g.dtype == w.dtype and torch.equal(g, w)
+    assert any(g.is_cuda for g in got) and restored.step == 2

@@ -103,8 +103,7 @@ def test_prefetcher_on_the_cpu_copies_before_it_recycles():
 def test_trainer_refuses_what_is_not_ported():
     model = ResNet18(num_classes=10, num_filters=4, stem="cifar", device="cpu")
     mesh2 = MeshSpec(data=2).build(2)  # two ranks: no process group is needed to refuse
-    for kw in ({"checkpointer": object()},
-               {"plan": lambda: ParallelPlan(mesh=mesh2, zero_stage=1)},
+    for kw in ({"plan": lambda: ParallelPlan(mesh=mesh2, zero_stage=1)},
                {"ema_decay": 0.99},
                {"plan": lambda: ParallelPlan(mesh=mesh2, comms_fused=True),
                 "grad_compression": "int8"},

@@ -15,15 +15,19 @@ path uses, with the same knobs, field order and semantics:
 3. **Divergence.**  ``max_bad`` bad steps inside a ``window`` raise
    :class:`Divergence`.
 
+4. **Stamp.**  :func:`health_stamp` is the JSON health record a
+   checkpoint carries beside its topology manifest, which rollback
+   (``ckpt.meta.rollback_to_last_healthy``) selects on.
+
 The supervisor side (``RecoveryDirective``, ``escalate_recovery``,
-``consume_skip_batches``, the health stamp of a checkpoint) comes with the
-fault plane.  The module imports torch only inside the device-side
+``consume_skip_batches``) comes with the fault plane.  The module imports torch only inside the device-side
 helpers.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 from typing import Any, Mapping, Sequence
 
@@ -32,6 +36,7 @@ __all__ = [
     "HEALTH_STATS_FIELDS",
     "HealthPolicy",
     "enabled_by_env",
+    "health_stamp",
     "health_verdict",
     "init_health_state",
     "resolve_policy",
@@ -220,3 +225,27 @@ def health_verdict(loss, grads: Sequence, hstate: Mapping[str, Any], step: int,
         torch.ones_like(grad_norm),
     ])
     return bad, new_hstate, {"health_stats": stats}
+
+
+def health_stamp(hstate: Mapping[str, Any], step: int, policy: HealthPolicy) -> dict:
+    """The JSON health record :meth:`~tpuframe_torch.ckpt.Checkpointer.save`
+    embeds next to the topology manifest, read back by
+    ``ckpt.meta.read_health`` (the counterpart of the JAX package's
+    ``fault.health.health_stamp``).  ``hstate`` holds host numbers (or
+    0-d tensors).  ``healthy`` means the newest bad step is at least one
+    full check window behind this save, or there never was one."""
+    def _f(v) -> float | None:
+        v = float(v)
+        return v if math.isfinite(v) else None
+
+    last_bad = float(hstate["last_bad_step"])
+    healthy = last_bad < 0 or (step - last_bad) > policy.window
+    return {
+        "healthy": bool(healthy),
+        "step": int(step),
+        "loss_ewma": _f(hstate["loss_ewma"]),
+        "grad_norm": _f(hstate["grad_norm"]),
+        "bad_steps": int(float(hstate["bad_steps"])),
+        "last_bad_step": int(last_bad),
+        "window": policy.window,
+    }

@@ -6,6 +6,7 @@ from tpuframe_torch.ops.cross_entropy import (
     cross_entropy_bwd_reference,
     cross_entropy_fwd,
     cross_entropy_reference,
+    cross_entropy_stats_reference,
     fused_cross_entropy,
 )
 from tpuframe_torch.ops.dispatch import use_kernel
@@ -46,6 +47,7 @@ __all__ = [
     "cross_entropy_bwd_reference",
     "cross_entropy_fwd",
     "cross_entropy_reference",
+    "cross_entropy_stats_reference",
     "fused_adamw",
     "fused_adamw_multi_update_",
     "fused_adamw_update",

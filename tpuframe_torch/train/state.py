@@ -13,11 +13,16 @@ restores that count with the rest of the state.  The count is a device
 scalar, so reading the schedule at it needs no host sync: the schedule's
 values are kept in a float32 table on the device (filled on the host,
 grown by doubling, read by indexing with the count).
+
+:meth:`TrainState.state_dict` is what a checkpoint holds, the torch form
+of the JAX ``_state_data`` (``tpuframe/ckpt/checkpoint.py:60-76``), and
+:meth:`TrainState.load_state_dict` restores it in place.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Mapping
 
 import torch
 from torch import nn
@@ -77,6 +82,70 @@ class TrainState:
             self._lr_table = torch.tensor([float(self.spec.lr(i)) for i in range(size)],
                                           dtype=torch.float32, device=self.updates.device)
         return self._lr_table[self.updates]
+
+    def state_dict(self) -> dict:
+        """What a checkpoint saves: ``step`` (an int), ``updates``, the
+        model's ``state_dict`` (parameters and buffers), the optimizer's
+        per-parameter state keyed by parameter name (SGD's momentum,
+        Adam's moments and step, ``FusedAdamW``'s int32 count and float32
+        moments), the health sentinel's tensors, the generator's state as
+        ``rng``, and ``comms`` only when it holds residuals, so an
+        uncompressed state keeps the layout it had before the wire.  The
+        tensors are the live ones (the generator's state a copy); the
+        schedule's table is rebuilt, not saved."""
+        names = {p: n for n, p in self.model.named_parameters()}
+        optimizer = {}
+        for group in self.optimizer.param_groups:
+            for p in group["params"]:
+                if self.optimizer.state.get(p):
+                    optimizer[names[p]] = dict(self.optimizer.state[p])
+        data = {
+            "step": self.step,
+            "updates": self.updates,
+            "model": self.model.state_dict(),
+            "optimizer": optimizer,
+            "health": dict(self.health),
+            "rng": self.generator.get_state(),
+        }
+        if self.comms:
+            data["comms"] = dict(self.comms)
+        return data
+
+    @torch.no_grad()
+    def load_state_dict(self, data: Mapping[str, Any]) -> "TrainState":
+        """Restore :meth:`state_dict` in place: each saved tensor is copied
+        into the live tensor of the same key, which keeps its device, dtype
+        and address (the optimizer's launch tables and the step's
+        snapshots hold addresses), bit for bit where the dtypes agree.
+        ``comms`` is restored when both sides have it.  Keys or shapes that
+        differ raise ``ValueError``."""
+        live = self.state_dict()
+        if "comms" not in data:
+            live.pop("comms", None)
+        elif "comms" not in live:
+            raise ValueError("the saved state has comms residuals; this state has none")
+        _copy_into(live, data, "")
+        self.step = int(data["step"])
+        self.generator.set_state(data["rng"].cpu())
+        return self
+
+
+def _copy_into(live: Mapping, saved: Mapping, where: str) -> None:
+    """Copy the tensors of ``saved`` into those of ``live``, key by key."""
+    missing = sorted(set(live) - set(saved))
+    extra = sorted(set(saved) - set(live))
+    if missing or extra:
+        raise ValueError(f"state keys differ at {where or 'the top'!r}: missing {missing[:5]}, "
+                         f"unexpected {extra[:5]}")
+    for key, dst in live.items():
+        src, at = saved[key], f"{where}/{key}" if where else str(key)
+        if isinstance(dst, Mapping):
+            _copy_into(dst, src, at)
+        elif torch.is_tensor(dst):
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"{at}: saved shape {tuple(src.shape)}, live {tuple(dst.shape)}")
+            if src is not dst:
+                dst.copy_(src)
 
 
 def create_train_state(model: nn.Module, spec: OptimizerSpec, *, seed: int = 0) -> TrainState:

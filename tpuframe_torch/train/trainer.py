@@ -18,9 +18,14 @@ or e4m3 buckets with error feedback (``parallel.compression``); the
 residuals start at zero in ``TrainState.comms``.  Every rank runs the loop;
 only the main process logs and reports.
 
+Checkpoints go through ``ckpt.Checkpointer``: an epoch-end save every
+``checkpoint_interval`` epochs, mid-epoch snapshots every
+``checkpoint_interval_batches`` batches into the sibling ``<dir>_intra``
+(with the loader's position), and auto-resume at ``fit()`` from the newer
+of the two, as the JAX Trainer does.
+
 What this reduced Trainer does not do yet, each raising
-``NotImplementedError`` that names the slice which ports it:
-checkpoints (``checkpointer``, ``checkpoint_interval_batches``), plans
+``NotImplementedError`` that names the slice which ports it: plans
 beyond stage-0 compressed DP (ZeRO, rules, offload, an uncompressed plan
 over several ranks, the fused transport), EMA (``ema_decay``), preemption
 handling (``preemption=True``), straggler detection
@@ -113,6 +118,13 @@ class Trainer:
         dtype is aligned to it, else the policy follows the model.
       loss_fn: per-example loss (default: ``train.step.cross_entropy``).
       seed: seeds the state's generator and the algorithms' draws.
+      checkpointer: a ``ckpt.Checkpointer``: an epoch-end save every
+        ``checkpoint_interval`` epochs (the path lands in
+        ``FitResult.checkpoint``), and auto-resume at ``fit()``.
+      checkpoint_interval_batches: also snapshot every N batches inside an
+        epoch, with the loader's position, into ``<dir>_intra``
+        (``max_to_keep=1``); None reads ``TPUFRAME_CKPT_INTERVAL_BATCHES``.
+        Needs a loader with ``state_dict()``.
       num_classes: for label-space algorithms (default: the dataset's).
       eval_interval / log_interval: epochs between evals (0 = never), steps
         between host reads of the metrics.
@@ -148,6 +160,7 @@ class Trainer:
         seed: int = 0,
         num_classes: int | None = None,
         checkpointer: Any = None,
+        checkpoint_interval: int = 1,
         checkpoint_interval_batches: int | None = None,
         eval_interval: int = 1,
         log_interval: int = 10,
@@ -164,9 +177,6 @@ class Trainer:
         health: Any = None,
     ):
         for arg, value, where in (
-            ("checkpointer", checkpointer, "the checkpoint part of the training slice"),
-            ("checkpoint_interval_batches", checkpoint_interval_batches,
-             "the checkpoint part of the training slice"),
             ("ema_decay", ema_decay, "the EMA part of the training slice"),
             ("straggler_sync_steps", straggler_sync_steps, "the platform planes (track)"),
             ("straggler_factor", straggler_factor, "the platform planes (track)"),
@@ -194,6 +204,12 @@ class Trainer:
         self.loggers = list(loggers)
         self.loss_fn = loss_fn
         self.seed = seed
+        self.checkpointer = checkpointer
+        self.checkpoint_interval = checkpoint_interval
+        if checkpoint_interval_batches is None:
+            env_ckpt = _health._env_int("TPUFRAME_CKPT_INTERVAL_BATCHES", 0)
+            checkpoint_interval_batches = env_ckpt if env_ckpt > 0 else None
+        self.checkpoint_interval_batches = checkpoint_interval_batches
         self.eval_interval = eval_interval
         self.log_interval = log_interval
         self.report = report
@@ -223,6 +239,10 @@ class Trainer:
         self.samples_seen = 0
         self._stop_reason: str | None = None
         self._train_prefetcher: DevicePrefetcher | None = None
+        # a restored snapshot's loader position, applied at the next epoch
+        # start (after its set_epoch rewind)
+        self._pending_loader_state: dict | None = None
+        self._intra_ck: Any = None  # the sibling checkpointer of the snapshots
 
         if grad_accum is None:
             grad_accum = max(1, _health._env_int("TPUFRAME_GRAD_ACCUM", 1))
@@ -278,6 +298,94 @@ class Trainer:
     def _emit(self, hook: str, *args) -> None:
         for cb in self.callbacks:
             getattr(cb, hook)(self, *args)
+
+    def _intra_checkpointer(self):
+        """The sibling checkpointer of the mid-epoch snapshots,
+        ``<dir>_intra`` with ``max_to_keep=1``: apart from the epoch-end
+        steps, so frequent snapshots neither evict them nor collide with
+        their step numbers.  Made when snapshots are on, or when an earlier
+        run left one (auto-resume must see it even with the feature off)."""
+        if self._intra_ck is None and self.checkpointer is not None:
+            from tpuframe_torch.ckpt import Checkpointer
+            from tpuframe_torch.ckpt.meta import latest_step
+
+            intra_dir = str(self.checkpointer.directory) + "_intra"
+            if self.checkpoint_interval_batches or latest_step(intra_dir) is not None:
+                self._intra_ck = Checkpointer(intra_dir, max_to_keep=1)
+        return self._intra_ck
+
+    def _health_stamp(self) -> dict | None:
+        """The health record stamped into every save's meta JSON: loss
+        EWMA, grad norm, bad-step count, and the ``healthy`` verdict
+        rollback selects on (one host read)."""
+        if self.health is None or self.state is None or not self.state.health:
+            return None
+        keys = list(self.state.health)
+        vals = torch.stack([self.state.health[k].float() for k in keys]).cpu().tolist()
+        return _health.health_stamp(dict(zip(keys, vals)), self.state.step, self.health)
+
+    def _resume(self) -> None:
+        """Auto-resume from the newer of the last epoch-end checkpoint and
+        a mid-epoch snapshot: the state in place, the counters, and the
+        loader position for the next epoch start."""
+        source = self.checkpointer
+        intra = self._intra_checkpointer()
+        if intra is not None:
+            main_step, intra_step = self.checkpointer.latest_step(), intra.latest_step()
+            if intra_step is not None and (main_step is None or intra_step > main_step):
+                source = intra
+        self.state, meta = source.maybe_restore(self.state, plan=self.plan)
+        if not meta:
+            return
+        self.epoch = int(meta.get("epoch", 0))
+        self.batches_seen = int(meta.get("batches_seen", 0))
+        self.samples_seen = int(meta.get("samples_seen", 0))
+        self._pending_loader_state = meta.get("loader_state")
+        # the loader position counts global batches: it means nothing under
+        # another global batch, and a retry would replay or skip samples
+        saved_gb = meta.get("global_batch")
+        cur_gb = getattr(self.train_dataloader, "global_batch_size", None)
+        if saved_gb and cur_gb and int(saved_gb) != int(cur_gb):
+            raise ValueError(
+                f"restored checkpoint was trained at global batch {saved_gb} but this "
+                f"loader produces {cur_gb}: a world resize must keep the global batch "
+                "to keep the checkpointed loader position meaningful")
+
+    def _save_meta(self, epoch: int) -> dict:
+        return {"epoch": epoch, "batches_seen": self.batches_seen,
+                "samples_seen": self.samples_seen,
+                "global_batch": self.train_dataloader.global_batch_size}
+
+    def _maybe_snapshot(self) -> None:
+        """A mid-epoch snapshot every ``checkpoint_interval_batches``
+        batches, with the consumer-true loader position, so a crash resumes
+        with the next batch.  The epoch's last batch is skipped: the
+        epoch-end save follows it."""
+        every = self.checkpoint_interval_batches
+        if self.checkpointer is None or not every or self.batches_seen % every:
+            return
+        try:
+            epoch_len = len(self.train_dataloader) or 1
+        except TypeError:
+            epoch_len = 1 << 62
+        snap = self._train_prefetcher.state_dict()
+        if snap["batches_yielded"] < epoch_len:
+            self._intra_checkpointer().save(
+                self.state, meta={**self._save_meta(self.epoch), "loader_state": snap},
+                plan=self.plan, health=self._health_stamp())
+
+    def _save_epoch(self, epoch_summary: dict) -> str:
+        """The epoch-end save; it drops a snapshot at an earlier or equal
+        step, which it supersedes."""
+        path = self.checkpointer.save(self.state, metrics=epoch_summary,
+                                      meta=self._save_meta(self.epoch + 1), plan=self.plan,
+                                      health=self._health_stamp())
+        intra = self._intra_checkpointer()
+        if intra is not None:
+            saved, stale = self.checkpointer.latest_step(), intra.latest_step()
+            if saved is not None and stale is not None and stale <= saved:
+                intra.delete(stale)
+        return str(path)
 
     def _health_step(self, metrics: Mapping[str, Any]) -> None:
         """Buffer the step's on-device health vector; check per window."""
@@ -400,6 +508,13 @@ class Trainer:
                 yield out
 
         trackable = hasattr(loader, "state_dict")
+        if (train and self.checkpointer is not None and self.checkpoint_interval_batches
+                and not trackable):
+            raise ValueError(
+                "checkpoint_interval_batches (mid-epoch snapshots) requires a "
+                "train_dataloader with state_dict()/load_state_dict() (got "
+                f"{type(loader).__name__}); use tpuframe_torch.data.DataLoader or disable "
+                "checkpoint_interval_batches")
         pf = DevicePrefetcher(
             host_iter(),
             depth=max(1, _health._env_int("TPUFRAME_PREFETCH_DEPTH", 2)),
@@ -417,6 +532,8 @@ class Trainer:
         """Run to ``max_duration``; returns the FitResult."""
         result = FitResult()
         self.init_state()
+        if self.checkpointer is not None:
+            self._resume()
         self._log_params({
             "max_duration": str(self.max_duration),
             "optimizer": type(self.state.optimizer).__name__,
@@ -440,6 +557,10 @@ class Trainer:
                 result.metrics = epoch_summary
                 self._log_metrics(epoch_summary, step=self.epoch)
                 self._emit("on_epoch_end", self.epoch, epoch_summary)
+                # every process saves: the residuals differ by rank
+                if (self.checkpointer is not None
+                        and (self.epoch + 1) % self.checkpoint_interval == 0):
+                    result.checkpoint = self._save_epoch(epoch_summary)
                 if self.report is not None and self.is_main:
                     self.report(epoch_summary, result.checkpoint)
                 self.epoch += 1
@@ -463,6 +584,16 @@ class Trainer:
     def _run_epoch(self) -> dict[str, float]:
         self._emit("on_epoch_start", self.epoch)
         self.train_dataloader.set_epoch(self.epoch)
+        if self._pending_loader_state is not None:
+            # resume mid-epoch: skip the batches this epoch already trained
+            if not hasattr(self.train_dataloader, "load_state_dict"):
+                raise ValueError(
+                    "resuming a mid-epoch snapshot requires a train_dataloader with "
+                    f"load_state_dict() (got {type(self.train_dataloader).__name__}); restore "
+                    "with a tpuframe_torch.data.DataLoader or delete the *_intra snapshot "
+                    "directory")
+            self.train_dataloader.load_state_dict(self._pending_loader_state)
+            self._pending_loader_state = None
         acc = None
         window = None  # device-side metric sums, read once per interval
         t0 = time.perf_counter()
@@ -502,7 +633,9 @@ class Trainer:
                 self.batches_seen += 1
                 self.samples_seen += self.train_dataloader.global_batch_size
                 self._meter_comms(tele)
+                # may raise Divergence before the snapshot would save a doomed state
                 self._health_step(metrics)
+                self._maybe_snapshot()
                 window = metrics if window is None else {k: window[k] + v
                                                          for k, v in metrics.items()}
                 self._emit("on_step_end")
