@@ -25,7 +25,8 @@ Phases, each of which fails the script (nonzero exit, no result line):
    serve bucket and the train batch of 128 (``torch.addcmul`` into a bf16
    ``out=`` at 64 and 128), K2a cross entropy forward
    (``F.cross_entropy(reduction="none")``) and K2b its backward
-   (``torch.autograd.grad`` of that loss), the last two at the train
+   (``torch.autograd.grad`` of that loss), the last two checked also at
+   phase 10's (64, 1000) a rank, and timed at the train
    path's (128, 1000) and at an HBM-bound (16384, 1000), f32 and bf16,
    each with its ratio to the floor, as the train path calls them (K2a
    writing the row statistics, K2b taking them), without statistics, and
@@ -98,7 +99,25 @@ Phases, each of which fails the script (nonzero exit, no result line):
    on one device) sync a ResNet50-shaped named tree with the kernels; it
    must equal the same ranks' plain run on the CPU bit for bit, give both
    ranks one mean, and decode a NaN on one rank to NaN in its bucket.
-10. Result: a ``kernels`` JSON line (each kernel with ``floor_ms``), the
+10. Uncompressed data parallelism on one card: two spawned gloo ranks
+   train phase 5's ResNet50-1K through ``Trainer(plan=ParallelPlan(mesh=
+   rt.mesh)).fit()`` (global batch 128, 64 a rank, process loader workers)
+   for 4 batches plus an eval whose last batch is ragged; counters zeroed
+   just before and read just after on each rank: K1 and K2a once a batch
+   (train and eval), K2b once a step.  Both ranks end with the same
+   parameters and BatchNorm buffers bit for bit, the eval counts each
+   image once, the first loss is near ln 1000.  Then the two-rank step
+   alone (img/s; gloo routes every collective through the host) with a
+   ``torch.profiler`` count of its device time beside the same step with
+   each rank's BatchNorm on its own rows, and one
+   f32 step of the two ranks on their halves held against one process's
+   step on the global batch, for sync BatchNorm and for local with
+   ``bn_groups=2``: loss and running statistics within 1e-5, the update
+   within ``DDP_UPDATE_RTOL`` (sync also against one process through the
+   cross-rank function), beside controls of what rounding alone moves,
+   and two planted faults of the sync backward that must exceed it.
+11. Result: a ``kernels`` JSON line (each kernel with ``floor_ms``; K1 and
+   K2 also with ``launches_ddp``, phase 10's count on each rank), the
    ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}`` as the last
    line.
 
@@ -114,6 +133,7 @@ are built at first use)::
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import io
 import json
@@ -126,6 +146,7 @@ import threading
 import time
 import urllib.request
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -468,6 +489,9 @@ def cross_entropy_phase(flush, floor_ms: float, baseline) -> list[dict]:
     cases = [
         ("128x1000 f32 int64", 128, 1000, torch.float32, torch.int64, False),
         ("128x1000 f32 int32", 128, 1000, torch.float32, torch.int32, False),
+        # phase 10's logits on each of its two ranks
+        ("64x1000 f32", 64, 1000, torch.float32, torch.int64, False),
+        ("64x1000 bf16", 64, 1000, torch.bfloat16, torch.int64, False),
         ("130x1000 bf16", 130, 1000, torch.bfloat16, torch.int64, False),
         ("3x10 f32", 3, 10, torch.float32, torch.int64, False),
         ("3x10 bf16", 3, 10, torch.bfloat16, torch.int32, False),
@@ -2444,6 +2468,506 @@ def two_rank_phase(timeout_s: float = 300.0, device: str = "cuda:0") -> dict:
     return {"ranks": 2, "seconds": time.perf_counter() - t0}
 
 
+DDP_STEPS = 4  # the main path's batches on two ranks
+DDP_TIMED = 10  # steps of the two-rank step alone
+# f32, one SGD step (lr 0.1, momentum 0.9) of ResNet50-1K from one seed:
+# two gloo ranks on their halves of a batch of 128 against one process on
+# all of it (TF32 off).  The loss and the running statistics hold 1e-5: the
+# ranks sum the moments in another order and, under sync, take flax's
+# E[x^2] - E[x]^2 where one process takes cuDNN's variance (measured 1.9e-7
+# and within 2.5e-6 on an H100).  The update (parameters after the step) is
+# held as a whole, ||ranks - one|| / ||one - start|| <= DDP_UPDATE_RTOL.  A
+# fresh ResNet50's first backward cancels most of each BatchNorm's and
+# convolution's gradient sums, so their rounding shows in the update:
+# cuDNN picks its algorithms by shape, and local BN's step at the ranks'
+# shapes (two microbatches of 64, one process: the control printed beside)
+# lies as far from the step at 128 as the two ranks do (5.2e-3 on an H100
+# 80GB HBM3 at 700 W).  Sync BN measured 2.2e-2 there, as far as rounding
+# alone moves this step: the same step on images moved by 1e-7 of
+# themselves lies 2.1e-2 from it, and one process with every BatchNorm
+# through the cross-rank function (one-rank gloo group) 2.4e-2; the ranks
+# are held against that one too.  Two planted faults of the sync backward
+# (its all-reduce dropped: 0.30; the scale's and bias's gradients
+# all-reduced, the trap in models/norm.py: 9.2e-2) must read above the
+# limit, or the phase fails
+DDP_LOSS_RTOL = 1e-5
+DDP_STATS_TOL = 1e-5
+DDP_UPDATE_RTOL = 5e-2
+# local BN's two ranks against the same step in one process at their
+# shapes (two microbatches of 64): the same kernels on the same shapes and
+# the same sum of two gradients, so only the order inside cuDNN's
+# nondeterministic algorithms may differ (one process against itself with
+# deterministic ones moves the update 1.6e-5; the ranks measured 1.2e-5)
+DDP_SHAPES_RTOL = 1e-4
+DDP_FAULTS = ("no all-reduce", "summed affine")
+
+
+@contextlib.contextmanager
+def _through_cross_rank():
+    """Every training BatchNorm with ``groups=1`` through the cross-rank
+    function (sync BN's plain ops), whatever the world size: on a one-rank
+    group its all-reduces sum one term."""
+    from tpuframe_torch.models import ReplicaGroupedBatchNorm
+
+    forward = ReplicaGroupedBatchNorm.forward
+
+    def through(self, x):
+        if not (self.training and self.groups == 1):
+            return forward(self, x)
+        return self._sync_forward(x, self.weight.to(torch.float32), self.bias.to(torch.float32))
+
+    with mock.patch.object(ReplicaGroupedBatchNorm, "forward", through):
+        yield
+
+
+@contextlib.contextmanager
+def _planted_bn_fault(kind: str):
+    """A planted fault of sync BN's backward, for reading what the update's
+    limit catches: ``"no all-reduce"`` takes the input's gradient from the
+    rank's own sums; ``"summed affine"`` returns the all-reduced scale and
+    bias gradients (``world`` times the right ones after the step's
+    average)."""
+    import torch.distributed as dist
+
+    from tpuframe_torch.models import norm
+
+    sound = norm._CrossRankBatchNorm.backward
+
+    def backward(ctx, *grads):
+        if kind == "no all-reduce":
+            with mock.patch.object(dist, "all_reduce", lambda *a, **k: None):
+                return sound(ctx, *grads)
+        dx, dw, db, *rest = sound(ctx, *grads)
+        dist.all_reduce(dw)
+        dist.all_reduce(db)
+        return (dx, dw, db, *rest)
+
+    with mock.patch.object(norm._CrossRankBatchNorm, "backward", staticmethod(backward)):
+        yield
+
+
+def _ddp_reference(dev: torch.device, image_size: int, batch_size: int,
+                   ref_dir: str) -> dict:
+    """One process's f32 step on the global batch, from the seed the ranks
+    use, for ``bn_stats`` "sync" and "local" (two groups, the ranks'
+    halves): the start, the loss and the state after, saved under
+    ``ref_dir`` for the ranks to compare with (TF32 off, as the ranks run).
+    Returns the controls, each as ``_update_rel`` from the saved step: the
+    same step again with deterministic cuDNN algorithms, for each;
+    (``sync_plain``) the sync step with every BatchNorm through the
+    cross-rank function on a one-rank gloo group, saved too;
+    (``ulp_input``) the sync step on images moved by 1e-7 of themselves; and
+    (``local_shapes``) local BN's step at the ranks' shapes in one process,
+    two microbatches of 64, saved too."""
+    import torch.distributed as dist
+
+    from tpuframe_torch.models import ResNet50
+    from tpuframe_torch.parallel import full_precision
+    from tpuframe_torch.train import (
+        create_train_state,
+        make_grad_accum_step,
+        make_optimizer,
+        make_train_step,
+    )
+
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in _ddp_batch(image_size, batch_size).items()}
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+
+    def one_step(bn_stats: str, n_micro: int = 1, batch: dict = batch) -> dict:
+        model = ResNet50(num_classes=1000, device=dev, seed=7, bn_stats=bn_stats, bn_groups=2)
+        start = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        state = create_train_state(model, make_optimizer("sgd", 0.1))
+        if n_micro == 1:
+            state, m = make_train_step(full_precision())(state, batch)
+        else:
+            micro = {k: v.reshape((n_micro, v.shape[0] // n_micro) + v.shape[1:])
+                     for k, v in batch.items()}
+            state, m = make_grad_accum_step(n_micro, full_precision())(state, micro)
+        params[:] = [k for k, _ in model.named_parameters()]
+        return {"start": start, "loss": float(m["loss_sum"]) / float(m["count"]),
+                "after": {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}}
+
+    params: list = []
+    control, refs = {}, {}
+    for bn_stats in ("sync", "local"):
+        runs = []
+        for deterministic in (False, True):
+            torch.backends.cudnn.deterministic = deterministic
+            try:
+                runs.append(one_step(bn_stats))
+            finally:
+                torch.backends.cudnn.deterministic = False
+        refs[bn_stats] = runs[0]
+        torch.save(runs[0], Path(ref_dir, f"{bn_stats}.pt"))
+        control[bn_stats] = _update_rel(runs[1]["after"], runs[0], params)
+    # sync BN's plain ops in one process at the global batch
+    dist.init_process_group("gloo", init_method=f"file://{ref_dir}/one_rank_store",
+                            rank=0, world_size=1)
+    try:
+        with _through_cross_rank():
+            plain = one_step("sync")
+    finally:
+        dist.destroy_process_group()
+    torch.save(plain, Path(ref_dir, "sync_plain.pt"))
+    control["sync_plain"] = _update_rel(plain["after"], refs["sync"], params)
+    control["sync_plain_loss_rel"] = abs(plain["loss"] - refs["sync"]["loss"]) / refs["sync"]["loss"]
+    # how far rounding alone moves this step: cuDNN's sync step on images
+    # moved by 1e-7 of themselves (seeded noise, about one f32 ulp)
+    noise = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        batch["image"].shape).astype(np.float32)).to(dev)
+    moved = one_step("sync", batch={**batch, "image": batch["image"] * (1 + 1e-7 * noise)})
+    control["ulp_input"] = _update_rel(moved["after"], refs["sync"], params)
+    # one process at the ranks' shapes: two microbatches of 64 (grad
+    # accumulation), each its own BatchNorm group, which is local BN's step
+    accum = one_step("sync", n_micro=2)
+    torch.save(accum, Path(ref_dir, "local_accum.pt"))
+    control["local_shapes"] = _update_rel(accum["after"], refs["local"], params)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return control
+
+
+def _update_rel(after: dict, ref: dict, params: list) -> float:
+    """||after - ref's after|| / ||ref's update|| over the parameters."""
+    import math
+
+    diff = sum(float(((after[k] - ref["after"][k]) ** 2).sum()) for k in params)
+    update = sum(float(((ref["after"][k] - ref["start"][k]) ** 2).sum()) for k in params)
+    return math.sqrt(diff / update)
+
+
+def _ddp_batch(image_size: int, batch_size: int) -> dict:
+    rng = np.random.default_rng(8)
+    return {"image": rng.normal(0, 1, (batch_size, image_size, image_size, 3)).astype(np.float32),
+            "label": rng.integers(0, 1000, batch_size)}
+
+
+def _ddp_child(rank: int, world: int, store: str, out_dir: str, device: str, image_size: int,
+               batch_size: int) -> None:
+    """One of two gloo ranks on the one card: the main path (ResNet50-1K
+    through ``Trainer(plan=...).fit()``, counted), the two-rank step alone,
+    and the f32 step against one process's (``_ddp_reference``); writes
+    what it saw as JSON."""
+    import hashlib
+    import math
+    import os
+    import traceback
+
+    os.environ.update({"RANK": str(rank), "WORLD_SIZE": str(world),
+                       "TPUFRAME_COORDINATOR": f"file://{store}"})
+    # a spawned process starts from torch's defaults (TF32 convolutions)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        from tpuframe_torch.core import initialize, shutdown
+        from tpuframe_torch.data import DataLoader, SyntheticImageDataset
+        from tpuframe_torch.models import ReplicaGroupedBatchNorm, ResNet50
+        from tpuframe_torch.ops.cross_entropy import cross_entropy_bwd, cross_entropy_fwd
+        from tpuframe_torch.ops.normalize import normalize_images
+        from tpuframe_torch.parallel import ParallelPlan, full_precision
+        from tpuframe_torch.train import (
+            Callback,
+            Trainer,
+            create_train_state,
+            make_optimizer,
+            make_train_step,
+        )
+        from tpuframe_torch.train.step import _MeanSync
+
+        class StepLosses(Callback):
+            def __init__(self):
+                self.losses = []
+
+            def on_batch_end(self, trainer, metrics):
+                self.losses.append(metrics["loss_sum"] / max(metrics["count"], 1.0))
+
+        rt = initialize(device=device, backend="gloo")
+        try:
+            dev = rt.device
+            # -- the main path: counts zeroed just before, read just after --
+            model = ResNet50(num_classes=1000, norm_dtype=torch.bfloat16, device=dev, seed=0)
+            train = DataLoader(SyntheticImageDataset(n=batch_size * DDP_STEPS,
+                                                     image_size=image_size, num_classes=1000,
+                                                     seed=1),
+                               batch_size, shuffle=True, seed=0, transfer_dtype="uint8",
+                               num_workers=4, worker_mode="process")
+            eval_images = 2 * batch_size + 44 * batch_size // TRAIN_BATCH  # a ragged last batch
+            evl = DataLoader(SyntheticImageDataset(n=eval_images, image_size=image_size,
+                                                   num_classes=1000, seed=2),
+                             batch_size, drop_last=False, transfer_dtype="uint8", num_workers=4)
+            steps = StepLosses()
+            trainer = Trainer(model, train_dataloader=train, eval_dataloader=evl,
+                              optimizer="sgd", lr=0.1, precision="bf16", normalize=(MEAN, STD),
+                              max_duration=f"{DDP_STEPS}ba", log_interval=1, callbacks=[steps],
+                              plan=ParallelPlan(mesh=rt.mesh))
+            trainer.init_state()
+            eval_counts = []
+            eval_step = trainer._eval_step
+
+            def counted_eval(state, batch):
+                m = eval_step(state, batch)
+                eval_counts.append(float(m["count"]))
+                return m
+
+            trainer._eval_step = counted_eval
+            counters = {"normalize": normalize_images, "cross_entropy_fwd": cross_entropy_fwd,
+                        "cross_entropy_bwd": cross_entropy_bwd}
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            result = trainer.fit()
+            sync(dev)
+            fit_s = time.perf_counter() - t0
+            launches = {name: fn.launches for name, fn in counters.items()}
+            train.close()
+            digest = hashlib.sha256()
+            for t in model.state_dict().values():
+                digest.update(t.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+            summary = result.history[-1]
+            out["fit"] = {
+                "launches": launches, "n_eval": len(evl), "eval_count": sum(eval_counts),
+                "eval_images": eval_images, "losses": steps.losses, "fit_s": fit_s,
+                "digest": digest.hexdigest(), "plan_world": trainer.plan.dp_size,
+                "local_batch": train.local_batch_size, "bad_steps": summary["health_bad_steps"],
+                "eval_loss": summary["eval_loss"],
+                "finite": all(math.isfinite(v) for v in steps.losses)}
+
+            # -- the two-rank step alone on a device-resident local batch -----
+            rng = np.random.default_rng(3 + rank)
+            local = batch_size // world
+            batch = {"image": torch.from_numpy(rng.integers(
+                         0, 256, (local, image_size, image_size, 3), dtype=np.uint8)).to(dev),
+                     "label": torch.from_numpy(rng.integers(0, 1000, local)).to(dev)}
+            state, step = trainer.state, trainer._train_step
+            for _ in range(3):
+                step(state, batch)
+            times = []
+            for _ in range(DDP_TIMED):
+                sync(dev)
+                t0 = time.perf_counter()
+                step(state, batch)
+                sync(dev)
+                times.append(time.perf_counter() - t0)
+            out["step_ms"] = statistics.median(times) * 1e3
+            out["step_ms_all"] = [t * 1e3 for t in times]
+            # the stage alone on this step's gradients: the gradient
+            # all-reduce in 25 MB buckets and the metrics' sum
+            stage = _MeanSync(trainer.plan)
+            zero = torch.zeros((), device=dev)
+            times = []
+            for i in range(8):
+                sync(dev)
+                t0 = time.perf_counter()
+                stage(state, zero, {"count": zero})
+                sync(dev)
+                if i >= 3:
+                    times.append(time.perf_counter() - t0)
+            out["grad_sync_ms"] = statistics.median(times) * 1e3
+            if dev.type == "cuda":
+                # device time of the step, and of the same step with each
+                # rank's BatchNorm on its own rows (cuDNN's, no collective)
+                out["profile"] = profile(lambda: step(state, batch),
+                                         f"rank {rank}: two-rank step of {local} (sync BN)", top=0)
+                with mock.patch.object(_MeanSync, "statistics",
+                                       lambda self, model: contextlib.nullcontext()):
+                    out["profile_local_bn"] = profile(
+                        lambda: step(state, batch),
+                        f"rank {rank}: the same step, BatchNorm on the rank's rows", top=0)
+            del trainer, state, model, batch
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+
+            # -- f32: two ranks on their halves against one process ------------
+            glob = _ddp_batch(image_size, batch_size)
+            rows = slice(rank * local, (rank + 1) * local)
+            mine = {k: torch.from_numpy(np.ascontiguousarray(v[rows])).to(dev)
+                    for k, v in glob.items()}
+            refs = {name: torch.load(Path(out_dir, f"{name}.pt"))
+                    for name in ("sync", "local", "sync_plain", "local_accum")}
+            for bn_stats, fault in [("sync", None), ("local", None)] + [
+                    ("sync", f) for f in DDP_FAULTS]:
+                ref = refs[bn_stats]
+                f32 = ResNet50(num_classes=1000, device=dev, seed=7, bn_stats=bn_stats,
+                               bn_groups=2)
+                same_start = all(torch.equal(v.cpu(), ref["start"][k])
+                                 for k, v in f32.state_dict().items())
+                state = create_train_state(f32, make_optimizer("sgd", 0.1))
+                with _planted_bn_fault(fault) if fault else contextlib.nullcontext():
+                    state, m = make_train_step(full_precision(), plan=ParallelPlan(mesh=rt.mesh))(
+                        state, mine)
+                loss = float(m["loss_sum"]) / float(m["count"])
+                after = {k: v.cpu() for k, v in f32.state_dict().items()}
+                params = [k for k, _ in f32.named_parameters()]
+                rel = _update_rel(after, ref, params)
+                if fault:
+                    out[f"fault_{fault}"] = {"update_rel": rel, "vs_plain": _update_rel(
+                        after, refs["sync_plain"], params)}
+                    del f32, state
+                    continue
+                stats_err = max(float(((after[k] - ref["after"][k]).abs()
+                                       - DDP_STATS_TOL * (1.0 + ref["after"][k].abs())).max())
+                                for k in after if k.endswith(("running_mean", "running_var")))
+                digest = hashlib.sha256()
+                for t in after.values():
+                    digest.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+                out[f"f32_{bn_stats}"] = {
+                    "same_start": same_start, "loss": loss, "ref_loss": ref["loss"],
+                    "loss_rel": abs(loss - ref["loss"]) / abs(ref["loss"]),
+                    "stats_excess": stats_err, "update_rel": rel,
+                    "entry_abs": max(float((after[k] - ref["after"][k]).abs().max())
+                                     for k in params),
+                    "groups": sorted({mod.groups for mod in f32.modules()
+                                      if isinstance(mod, ReplicaGroupedBatchNorm)}),
+                    "digest": digest.hexdigest()}
+                if bn_stats == "local":
+                    out["f32_local"]["vs_shapes"] = _update_rel(after, refs["local_accum"], params)
+                else:
+                    out["f32_sync"]["vs_plain"] = _update_rel(after, refs["sync_plain"], params)
+                del f32, state
+        finally:
+            shutdown()
+    except BaseException:
+        out["error"] = traceback.format_exc()
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def ddp_phase(card: str, timeout_s: float = 900.0, device: str = "cuda:0",
+              image_size: int = 224, batch_size: int = TRAIN_BATCH) -> dict:
+    """Uncompressed data parallelism on one card: two spawned gloo ranks
+    (NCCL refuses two ranks on one device) train ResNet50-1K as phase 5
+    configures it through ``Trainer(plan=ParallelPlan(mesh=rt.mesh)).fit()``
+    (the main path, counted on each rank), time the two-rank step, and hold
+    one f32 step against one process's on the global batch, for sync and
+    local BatchNorm.  Returns the ranks' launch counts and a summary.  The
+    device and sizes are arguments so the phase can be rehearsed small on
+    the CPU."""
+    import math
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        control = _ddp_reference(torch.device(device), image_size, batch_size, tmp)
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_ddp_child, args=(r, 2, f"{tmp}/store", tmp, device,
+                                                      image_size, batch_size))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(max(1.0, timeout_s - (time.perf_counter() - t0)))
+        finally:
+            hung = [r for r, p in enumerate(procs) if p.is_alive()]
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        check(not hung, f"ddp phase: ranks {hung} hung past {timeout_s} s")
+        res = []
+        for r in range(2):
+            f = Path(tmp, f"rank{r}.json")
+            check(f.exists(), f"ddp phase: rank {r} wrote nothing (exit {procs[r].exitcode})")
+            res.append(json.loads(f.read_text()))
+    for r, out in enumerate(res):
+        check("error" not in out, f"ddp phase, rank {r}:\n{out.get('error')}")
+    fits = [o["fit"] for o in res]
+    n_eval = fits[0]["n_eval"]
+    expected = {"normalize": DDP_STEPS + n_eval, "cross_entropy_fwd": DDP_STEPS + n_eval,
+                "cross_entropy_bwd": DDP_STEPS}
+    for r, f in enumerate(fits):
+        check(f["launches"] == expected, f"ddp rank {r} launches {f['launches']} != {expected}")
+        check(f["plan_world"] == 2 and f["local_batch"] == batch_size // 2,
+              f"ddp rank {r}: plan world {f['plan_world']}, local batch {f['local_batch']}")
+        check(f["eval_count"] == f["eval_images"],
+              f"ddp rank {r}: eval counted {f['eval_count']} of {f['eval_images']} images")
+        check(f["finite"] and len(f["losses"]) == DDP_STEPS, f"ddp rank {r} losses {f['losses']}")
+        check(abs(f["losses"][0] - math.log(1000)) <= 1.0,
+              f"ddp first-step loss {f['losses'][0]:.4f} not within 1.0 of ln 1000")
+        check(f["bad_steps"] == 0.0, f"ddp rank {r}: {f['bad_steps']} bad steps")
+    check(fits[0]["digest"] == fits[1]["digest"],
+          "the two ranks ended the fit with different parameters or BatchNorm buffers")
+    check(fits[0]["losses"] == fits[1]["losses"], "the two ranks logged different losses")
+    log(f"  two gloo ranks on one card, ResNet50-1K bf16 through Trainer(plan).fit(): "
+        f"{DDP_STEPS} steps of {batch_size} ({batch_size // 2} a rank) + eval of "
+        f"{fits[0]['eval_images']} images, counted once each; launches a rank "
+        f"{fits[0]['launches']} (expected {expected}); step losses "
+        f"{[round(v, 4) for v in fits[0]['losses']]}; parameters and BN buffers bit-equal on "
+        f"both ranks ({fits[0]['fit_s']:.2f} s)")
+    f32 = {}
+    for bn_stats in ("sync", "local"):
+        a, b = (o[f"f32_{bn_stats}"] for o in res)
+        check(a["same_start"] and b["same_start"], f"f32 {bn_stats}: ranks started elsewhere")
+        check(a["digest"] == b["digest"] and a["loss"] == b["loss"],
+              f"f32 {bn_stats}: the ranks ended the step apart")
+        check(a["groups"] == [1 if bn_stats == "sync" else 2], f"f32 {bn_stats}: groups {a}")
+        log(f"  f32 step, two ranks vs one process ({bn_stats} BN, ResNet50-1K, {image_size} px, "
+            f"batch {batch_size}): loss rel diff {a['loss_rel']:.3g} (tol {DDP_LOSS_RTOL}), "
+            f"running statistics within {DDP_STATS_TOL} (excess {a['stats_excess']:.3g}), update "
+            f"rel diff {a['update_rel']:.3g} (tol {DDP_UPDATE_RTOL}; one process against itself "
+            f"with deterministic cuDNN: {control[bn_stats]:.3g}); largest entry diff "
+            f"{a['entry_abs']:.3g}")
+        check(a["loss_rel"] <= DDP_LOSS_RTOL, f"f32 {bn_stats} loss rel diff {a['loss_rel']}")
+        check(a["stats_excess"] <= 0.0,
+              f"f32 {bn_stats} running statistics beyond {DDP_STATS_TOL} (atol and rtol): {a}")
+        check(a["update_rel"] <= DDP_UPDATE_RTOL, f"f32 {bn_stats} update rel diff {a}")
+        f32[bn_stats] = {k: a[k] for k in ("loss_rel", "stats_excess", "update_rel", "entry_abs")}
+        f32[bn_stats]["control_rel"] = control[bn_stats]
+    a = res[0]["f32_local"]
+    log(f"  local BN's step in one process at the ranks' shapes (two microbatches of "
+        f"{batch_size // 2}): "
+        f"update rel diff {control['local_shapes']:.3g} from one process at batch 128; the "
+        f"two ranks {a['vs_shapes']:.3g} from it (tol {DDP_SHAPES_RTOL})")
+    check(a["vs_shapes"] <= DDP_SHAPES_RTOL, f"f32 local against the microbatched step: {a}")
+    f32["local"].update(vs_shapes=a["vs_shapes"], shapes_rel=control["local_shapes"])
+    a = res[0]["f32_sync"]
+    log(f"  sync BN's plain ops in one process (every BatchNorm through the cross-rank function "
+        f"on a one-rank gloo group, batch {batch_size}): update rel diff "
+        f"{control['sync_plain']:.3g} from cuDNN's step (loss rel diff "
+        f"{control['sync_plain_loss_rel']:.3g}); the two ranks {a['vs_plain']:.3g} from it "
+        f"(tol {DDP_UPDATE_RTOL}); "
+        f"cuDNN's step on images moved by 1e-7 of themselves {control['ulp_input']:.3g} from "
+        f"cuDNN's step (rounding alone)")
+    check(a["vs_plain"] <= DDP_UPDATE_RTOL, f"f32 sync against the plain-op step: {a}")
+    f32["sync"].update(vs_plain=a["vs_plain"], plain_rel=control["sync_plain"],
+                       ulp_input_rel=control["ulp_input"])
+    faults = {}
+    for fault in DDP_FAULTS:
+        fa, fb = (o[f"fault_{fault}"] for o in res)
+        faults[fault] = fa
+        log(f"  planted fault of the sync backward, {fault}: update rel diff "
+            f"{fa['update_rel']:.3g} from one process's step (limit {DDP_UPDATE_RTOL}), "
+            f"{fa['vs_plain']:.3g} from the plain-op one")
+        check(fa["update_rel"] > DDP_UPDATE_RTOL and fb["update_rel"] > DDP_UPDATE_RTOL,
+              f"the update's limit {DDP_UPDATE_RTOL} misses the planted fault {fault!r}: {fa}")
+    f32["faults"] = faults
+    step_ms = max(o["step_ms"] for o in res)
+    img_s = batch_size / (step_ms / 1e3)
+    grad_sync_ms = max(o["grad_sync_ms"] for o in res)
+    log(f"  two-rank step alone (bf16, {batch_size // 2} a rank, gloo: every collective goes "
+        f"through the host): median {step_ms:.2f} ms over {DDP_TIMED} steps = {img_s:.1f} img/s "
+        f"on {card}; a correctness phase, not a scaling number")
+    log(f"  of which the gradient all-reduce (25,557,032 f32 in 25 MB buckets) and the metrics' "
+        f"sum alone: median {grad_sync_ms:.2f} ms")
+    profiles = {}
+    if "profile" in res[0]:
+        for key, what in (("profile", "sync BN"),
+                          ("profile_local_bn", "BatchNorm on the rank's rows (cuDNN)")):
+            ps = [o[key] for o in res]
+            profiles[key] = {k: [p[k] for p in ps] for k in ("wall_ms", "device_ms", "launches")}
+            r = profiles[key]
+            log(f"  profile of the two-rank step, {what}: device {r['device_ms']} ms over "
+                f"{r['launches']} launches, wall {r['wall_ms']} ms (ranks 0, 1) on {card}")
+    out = {"launches": fits[0]["launches"], "step_ms": step_ms, "img_per_s": img_s,
+           "grad_sync_ms": grad_sync_ms,
+           "step_ms_ranks": [o["step_ms_all"] for o in res], "f32": f32, "profiles": profiles,
+           "fit_s": fits[0]["fit_s"], "losses": fits[0]["losses"], "card": card,
+           "seconds": time.perf_counter() - t0}
+    log("  ddp_json " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     log("== phase 1: device")
     if not torch.cuda.is_available():
@@ -2516,6 +3040,9 @@ def main() -> int:
     log("== phase 9: two ranks on one card")
     two_rank_phase()
 
+    log("== phase 10: uncompressed data parallelism on one card")
+    ddp = ddp_phase(card)
+
     # each kernel's launches on the main paths that run it: K1 serve and
     # train, K2 the ResNet train, K3 and K4 the LM train (where K1 and K2
     # launched no time), K5 the compressed train (which also runs K1 and K2,
@@ -2531,8 +3058,12 @@ def main() -> int:
     k5a["launches"] = dp_launches["bucket_abs_max"]
     k5b["launches"] = dp_launches["quant_encode"]
     k5c["launches"] = dp_launches["quant_decode"]
+    # phase 10's launches on each of its two ranks, beside the other paths
+    k1["launches_ddp"] = ddp["launches"]["normalize"]
+    k2a["launches_ddp"] = ddp["launches"]["cross_entropy_fwd"]
+    k2b["launches_ddp"] = ddp["launches"]["cross_entropy_bwd"]
 
-    log("== phase 10: result")
+    log("== phase 11: result")
     kernels = [k1, k2a, k2b, k3a, k3b, k4, k5a, k5b, k5c]
     for k in kernels:
         k["floor_ms"] = floor_ms  # beside bound_ms, which stays the byte or operation bound

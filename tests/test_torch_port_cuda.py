@@ -5,7 +5,8 @@ wire's amax, encode and decode) against their plain versions, the launch
 floor's counter, a parameter without a gradient stepped by K4, the
 compressed wire's sync on the card against the CPU, a
 small serve slice, a small ``Trainer.fit``, eval mode for a model left in
-train mode, and the launch counts of one LM train step.
+train mode, the launch counts of one LM train step, and BatchNorm with
+statistics across two gloo ranks on the card against one process's.
 
 Every test here needs an NVIDIA GPU and ``nvcc`` and skips without them.
 The file imports neither JAX nor the JAX package, so it also runs on a
@@ -16,6 +17,7 @@ machine that has only the port's dependencies::
 (``--noconftest``: the suite's ``conftest.py`` imports JAX.)
 """
 
+import contextlib
 import functools
 
 import numpy as np
@@ -1033,3 +1035,77 @@ def test_checkpoint_round_trip_of_a_card_state(card, kind, tmp_path):
     for g, w in zip(got, want):
         assert g.device == w.device and g.dtype == w.dtype and torch.equal(g, w)
     assert any(g.is_cuda for g in got) and restored.step == 2
+
+
+def _cross_rank_bn_inputs():
+    """(x NCHW, r, scale, bias) for a global batch of 16."""
+    rng = np.random.default_rng(12)
+    x = rng.normal(0.5, 2.0, (16, 32, 8, 8)).astype(np.float32)
+    r = rng.normal(0, 1, x.shape).astype(np.float32)
+    return x, r, rng.uniform(0.5, 1.5, 32).astype(np.float32), rng.normal(0, 0.3, 32).astype(
+        np.float32)
+
+
+def _cross_rank_bn(bn, x, r, rows, world):
+    """Forward and backward of ``bn`` over ``rows`` of the batch (each
+    rank's loss its local mean); the scale and bias gradients averaged over
+    the ranks: (y, dx, dscale, dbias, running mean, running var) on the
+    CPU."""
+    import torch.distributed as dist
+
+    from tpuframe_torch.models.norm import cross_rank_statistics
+
+    dev = bn.weight.device
+    xt = torch.from_numpy(x[rows]).to(dev).contiguous(memory_format=torch.channels_last)
+    xt.requires_grad_(True)
+    scope = cross_rank_statistics(bn) if world > 1 else contextlib.nullcontext()
+    with scope:
+        y = bn.train()(xt)
+    (y * torch.from_numpy(r[rows]).to(dev)).sum().div(len(range(*rows.indices(16)))).backward()
+    grads = torch.stack([bn.weight.grad, bn.bias.grad])
+    if world > 1:
+        dist.all_reduce(grads)
+        grads /= world
+    return [t.detach().cpu().numpy() for t in (y, xt.grad, grads[0], grads[1], bn.running_mean,
+                                               bn.running_var)]
+
+
+def _new_bn(x_scale, x_bias, device):
+    from tpuframe_torch.models import ReplicaGroupedBatchNorm
+
+    bn = ReplicaGroupedBatchNorm(32, device=device)
+    with torch.no_grad():
+        bn.weight.copy_(torch.from_numpy(x_scale))
+        bn.bias.copy_(torch.from_numpy(x_bias))
+    return bn
+
+
+def _cross_rank_bn_rank(rank, world):
+    from tpuframe_torch.core import initialize
+
+    rt = initialize(device="cuda:0", backend="gloo")
+    x, r, scale, bias = _cross_rank_bn_inputs()
+    n = 16 // world
+    return _cross_rank_bn(_new_bn(scale, bias, rt.device), x, r,
+                          slice(rank * n, (rank + 1) * n), world)
+
+
+def test_cross_rank_batchnorm_on_two_gloo_ranks_of_the_card(card, tmp_path):
+    """Sync BatchNorm over two gloo ranks on the one card (NCCL refuses two
+    ranks on one device) against one process's BatchNorm on the global
+    batch on the card: y, dx (a rank's loss is its local mean, so its dx is
+    twice the global loss's), the averaged scale and bias gradients and the
+    running statistics within 1e-5 (float32; flax's ``E[x^2] - E[x]^2``
+    against the two-pass variance, sums in another order)."""
+    from torch_ranks import run_ranks
+
+    ranks = run_ranks(_cross_rank_bn_rank, 2, tmp_path, timeout=300)
+    x, r, scale, bias = _cross_rank_bn_inputs()
+    want = _cross_rank_bn(_new_bn(scale, bias, card), x, r, slice(0, 16), 1)
+    got = [np.concatenate([ranks[0][0], ranks[1][0]]),
+           np.concatenate([ranks[0][1], ranks[1][1]]) / 2, *ranks[0][2:]]
+    names = ("y", "dx", "dscale", "dbias", "mean", "var")
+    for name, g, w in zip(names, got, want):
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5, err_msg=name)
+    for name, a, b in zip(names[2:], ranks[0][2:], ranks[1][2:]):
+        np.testing.assert_array_equal(a, b, err_msg=name)  # one value on both ranks

@@ -107,12 +107,15 @@ def test_trainer_refuses_what_is_not_ported():
                {"ema_decay": 0.99},
                {"plan": lambda: ParallelPlan(mesh=mesh2, comms_fused=True),
                 "grad_compression": "int8"},
-               {"plan": lambda: ParallelPlan(mesh=mesh2)},  # uncompressed over 2 ranks
                {"preemption": True}, {"straggler_sync_steps": 4}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(model, **{k: v() if callable(v) else v for k, v in kw.items()})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(model, optimizer="lion")
+    # uncompressed over 2 ranks is ported; without a process group of 2 the
+    # plan does not match the world
+    with pytest.raises(ValueError, match="dp_size is 2 .* world size is 1"):
+        Trainer(model, plan=ParallelPlan(mesh=mesh2))
 
 
 def test_fit_matches_the_jax_trainer():

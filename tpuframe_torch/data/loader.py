@@ -12,11 +12,13 @@ Port of ``tpuframe/data/loader.py``:
   the permutation ``default_rng(seed * 1_000_003 + epoch).permutation(n)``,
   ``drop_last`` or a padded last batch with its ``valid`` mask,
   ``transfer_dtype``, ``set_epoch`` / ``state_dict`` / ``load_state_dict``
-  resume, thread workers, the bad-sample quarantine, and the per-process
-  shard of a multi-process run (every ``process_count``-th index from
-  ``process_index``, the last share padded by wrapping around, with the
-  pad flagged in the ``valid`` mask).  Process workers come with a later
-  item of the data-parallel slice.
+  resume, thread or process workers, the bad-sample quarantine, and the
+  per-process shard of a multi-process run (every ``process_count``-th
+  index from ``process_index``, the last share padded by wrapping around,
+  with the pad flagged in the ``valid`` mask).  Process workers are one
+  persistent pool (``fork`` by default, as in JAX) that fetches samples
+  only: they return numpy samples and never touch CUDA; the parent writes
+  them into the pinned buffers.
 - :class:`DevicePrefetcher`: a background thread copies each batch from
   the pooled buffers on a side CUDA stream; the consuming stream waits on
   the copy's event, and every batch tensor is marked with
@@ -32,6 +34,7 @@ lease.
 from __future__ import annotations
 
 import collections
+import multiprocessing
 import os
 import queue
 import threading
@@ -147,6 +150,35 @@ class _BadSample:
         self.error = error
 
 
+# Process workers inherit the dataset through fork (copy-on-write: only the
+# returned samples are pickled).  A module global is the one channel that
+# fork-inherited state can ride.
+_WORKER_DATASET = None
+_WORKER_EPOCH = None
+
+
+def _pool_init(dataset) -> None:
+    global _WORKER_DATASET, _WORKER_EPOCH
+    _WORKER_DATASET = dataset
+    _WORKER_EPOCH = None
+
+
+def _pool_get(args):
+    """One sample in a worker.  The epoch rides along with every request:
+    the worker's copy of the dataset never sees the parent's ``set_epoch``,
+    and the epoch keys per-item augmentation."""
+    global _WORKER_EPOCH
+    idx, epoch = args
+    if epoch != _WORKER_EPOCH:
+        if hasattr(_WORKER_DATASET, "set_epoch"):
+            _WORKER_DATASET.set_epoch(epoch)
+        _WORKER_EPOCH = epoch
+    try:
+        return _WORKER_DATASET[int(idx)]
+    except _SKIPPABLE_SAMPLE_ERRORS as e:
+        return _BadSample(int(idx), f"{type(e).__name__}: {e}")
+
+
 class DataLoader:
     """Iterates this process's ``(images, labels[, valid])`` numpy batches.
 
@@ -158,10 +190,13 @@ class DataLoader:
       drop_last: drop the trailing ragged batch (train default).  When
         False, the last batch is padded to full size by cycling its samples
         and a boolean ``valid`` mask is yielded as third element.
-      num_workers: thread pool size for item fetch (0 = inline); None reads
+      num_workers: worker pool size for item fetch (0 = inline); None reads
         ``TPUFRAME_LOADER_WORKERS`` (else 0).
-      worker_mode: ``"thread"``; ``"process"`` comes with a later item of
-        the data-parallel slice.
+      worker_mode: ``"thread"``, or ``"process"``: a persistent process pool
+        made at construction (from the constructing thread), reused across
+        epochs and ended by :meth:`close`; the workers fetch numpy samples
+        only.
+      mp_context: the process pool's start method (``"fork"``, as in JAX).
       process_index / process_count: this process's shard; None reads the
         runtime's (``core.runtime.process_index``/``process_count``).
       transfer_dtype: dtype of the batch buffers — what crosses to the card
@@ -179,13 +214,12 @@ class DataLoader:
 
     def __init__(self, dataset: Any, batch_size: int, *, shuffle: bool = False, seed: int = 0,
                  drop_last: bool = True, num_workers: int | None = None,
-                 worker_mode: str = "thread", process_index: int | None = None,
-                 process_count: int | None = None, transfer_dtype: str | None = None,
-                 ring_buffers: int | None = None):
-        if worker_mode != "thread":
-            raise NotImplementedError(
-                f"worker_mode={worker_mode!r}: process workers come with a later item of "
-                "the data-parallel slice (ROADMAP.md); use 'thread'")
+                 worker_mode: str = "thread", mp_context: str = "fork",
+                 process_index: int | None = None, process_count: int | None = None,
+                 transfer_dtype: str | None = None, ring_buffers: int | None = None):
+        if worker_mode not in ("thread", "process"):
+            raise ValueError(f"worker_mode must be 'thread' or 'process', got {worker_mode!r}")
+        multiprocessing.get_context(mp_context)  # fail at init, not mid-train
         if num_workers is None:
             num_workers = max(0, _env_int("TPUFRAME_LOADER_WORKERS", 0))
         if ring_buffers is None:
@@ -201,6 +235,7 @@ class DataLoader:
         self.drop_last = drop_last
         self.num_workers = num_workers
         self.worker_mode = worker_mode
+        self.mp_context = mp_context
         self.transfer_dtype = np.dtype(transfer_dtype) if transfer_dtype is not None else None
         self.process_index = rt.process_index() if process_index is None else process_index
         self.process_count = rt.process_count() if process_count is None else process_count
@@ -221,6 +256,32 @@ class DataLoader:
         # thread while set_epoch may run on the main thread
         self._pos = (0, 0)
         self._resume_offset = 0
+        self._proc_pool = None
+        if num_workers and worker_mode == "process":
+            # fork now, from the constructing thread: a fork from the
+            # prefetcher's thread while others hold locks can deadlock
+            self._process_pool()
+
+    def _process_pool(self):
+        """The persistent worker pool, made once and reused across epochs."""
+        if self._proc_pool is None:
+            ctx = multiprocessing.get_context(self.mp_context)
+            self._proc_pool = ctx.Pool(self.num_workers, initializer=_pool_init,
+                                       initargs=(self.dataset,))
+        return self._proc_pool
+
+    def close(self) -> None:
+        """End the process pool (nothing to do for thread workers)."""
+        if self._proc_pool is not None:
+            self._proc_pool.terminate()
+            self._proc_pool.join()
+            self._proc_pool = None
+
+    def __del__(self):  # a pool must not outlive its loader
+        try:
+            self.close()
+        except Exception:
+            pass
 
     def set_epoch(self, epoch: int) -> None:
         """Change the shuffle order and rewind the position."""
@@ -336,7 +397,13 @@ class DataLoader:
         nb_full = len(indices) // self.local_batch_size
         tail = len(indices) % self.local_batch_size
         pool = None
-        if self.num_workers:
+        if self.num_workers and self.worker_mode == "process":
+            ppool = self._process_pool()
+            # chunked map: one round trip per chunk of a worker, not per item
+            chunk = max(1, self.local_batch_size // (self.num_workers * 2))
+            fetch = lambda idxs: ppool.map(  # noqa: E731
+                _pool_get, [(int(i), epoch) for i in idxs], chunksize=chunk)
+        elif self.num_workers:
             pool = ThreadPoolExecutor(self.num_workers)
             fetch = lambda idxs: list(pool.map(lambda i: self._fetch_one(int(i)), idxs))  # noqa: E731
         else:

@@ -155,7 +155,9 @@ class ResNet(nn.Module):
       bn_stats: "sync" (global batch statistics) or "local" (per-group
         statistics over ``bn_groups`` batch groups, torch-DDP's
         per-replica BN); on one card the two are the same computation.
-      bn_groups: statistic groups for ``bn_stats="local"`` (0 or 1 = sync).
+      bn_groups: statistic groups of the global batch for
+        ``bn_stats="local"`` (0 or 1 = sync); the Trainer fills 0 with the
+        plan's ``dp_size`` (:meth:`set_bn_groups`).
       in_channels: image channels.
       device: where the parameters live; None means ``cuda``, which raises
         without CUDA.
@@ -189,10 +191,10 @@ class ResNet(nn.Module):
         if bn_stats not in ("sync", "local"):
             raise ValueError(f"unknown bn_stats {bn_stats!r}; expected 'sync' or 'local'")
         self.compute_dtype = dtype
-        groups = bn_groups if bn_stats == "local" and bn_groups > 1 else 1
+        self.bn_stats, self.bn_groups = bn_stats, bn_groups
         conv = functools.partial(Conv2d, compute_dtype=dtype, device=device)
-        norm = functools.partial(ReplicaGroupedBatchNorm, groups=groups, momentum=0.9,
-                                 eps=1e-5, out_dtype=norm_dtype, device=device)
+        norm = functools.partial(ReplicaGroupedBatchNorm, groups=self._norm_groups(),
+                                 momentum=0.9, eps=1e-5, out_dtype=norm_dtype, device=device)
         self.conv1 = conv(in_channels, num_filters, stem_k, stem_s)
         self.bn1 = norm(num_filters)
         width = num_filters
@@ -220,6 +222,18 @@ class ResNet(nn.Module):
             elif isinstance(m, Linear):
                 m.weight.normal_(0.0, math.sqrt(1.0 / m.in_features), generator=gen)
                 m.bias.zero_()
+
+    def _norm_groups(self) -> int:
+        return self.bn_groups if self.bn_stats == "local" and self.bn_groups > 1 else 1
+
+    def set_bn_groups(self, bn_groups: int) -> None:
+        """Take ``bn_groups`` statistic groups from now on (flax's
+        ``model.clone(bn_groups=...)``): every BatchNorm's ``groups`` under
+        ``bn_stats="local"``; sync BN stays one group."""
+        self.bn_groups = bn_groups
+        for m in self.modules():
+            if isinstance(m, ReplicaGroupedBatchNorm):
+                m.groups = self._norm_groups()
 
     def set_compute_dtype(self, dtype: torch.dtype) -> None:
         """Run convs and ``fc`` in ``dtype`` from now on."""

@@ -2,10 +2,14 @@
 
 Port of ``tpuframe/parallel/sharding.py``'s ``ParallelPlan`` for stage-0
 data parallelism: every process holds the whole model and optimizer state,
-trains on its own share of the global batch, and the gradients cross the
-compressed wire (``parallel.compression``).  ZeRO stages 1-3, tensor
-parallel rules and optimizer offload raise ``NotImplementedError``: they are
-later items of the data-parallel slice (ROADMAP.md, Queue 1).
+trains on its own share of the global batch, and the gradients are
+averaged across the processes, either exactly (one all-reduce a bucket,
+with BatchNorm statistics over the global batch, as JAX's GSPMD step) or
+through the compressed wire (``parallel.compression``).  The data axis is
+the default process group: a plan's ``dp_size`` must equal its world size
+(:meth:`ParallelPlan.check_world`).  ZeRO stages 1-3, tensor parallel rules
+and optimizer offload raise ``NotImplementedError``: they are later items
+of the data-parallel slice (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ import math
 from typing import Any, Mapping, Sequence
 
 import torch
+import torch.distributed as dist
 
 from tpuframe_torch.core.runtime import DATA_AXIS, FSDP_AXIS, Mesh, current_runtime
 
@@ -66,6 +71,17 @@ class ParallelPlan:
     def dp_size(self) -> int:
         """Data-parallel ranks: the product of the data axes' sizes."""
         return math.prod(self.axis_size(a) for a in self.data_axes)
+
+    def check_world(self) -> int:
+        """The world size of the default process group (1 without one);
+        ``ValueError`` when it is not this plan's ``dp_size``."""
+        world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+        if world != self.dp_size:
+            raise ValueError(
+                f"the plan's dp_size is {self.dp_size} but the process group's world size is "
+                f"{world}: build the plan over the runtime's mesh (ParallelPlan(mesh="
+                "initialize().mesh)) in every process of the group")
+        return world
 
     def comms_schedule(self, config: Any = None) -> dict:
         """The compressed sync's schedule: bucket groups, fired in reverse

@@ -29,11 +29,25 @@ TrainState` that it updates in place, with the JAX step's semantics:
   sync.  The copies are one more float32 set of parameters, buffers and
   optimizer state on the card (about 0.2 GB for ResNet50 with momentum),
   each written and read once per step.  Bad steps report zero metrics.
+- **Data parallelism** (a ``ParallelPlan`` whose ``dp_size`` is the
+  process group's world size, above 1), the JAX GSPMD step over a data
+  mesh: a stage of the same step between its backward and its update.
+  Each rank runs forward and backward on its local batch; BatchNorm takes
+  its moments over the global batch ("sync", the default) or per group
+  of it ("local", ``bn_groups``) through ``models.norm.
+  cross_rank_statistics``, entered around the train forward alone; the
+  ``.grad``s are averaged, one ``all_reduce`` (SUM, then ``/ world``: gloo
+  has no AVG) a bucket of at most 25 MB of one dtype; the running
+  buffers are averaged only where BatchNorm runs "local" (under "sync"
+  they are equal on every rank already); metrics are summed across ranks
+  and the loss is the global mean, so the health verdict, taken on the
+  synced gradients, is the same on every rank.  Grad accumulation syncs
+  once per super-batch.
 - **The compressed wire** (``grad_compression`` with a ``ParallelPlan``,
-  after the JAX ``_make_compressed_train_step``), a stage of the same step
-  between its backward and its update.  Each rank runs forward and
-  backward on its local batch (microbatches first, compressed once per
-  super-batch); ``parallel.compression.sync_gradients`` averages the
+  after the JAX ``_make_compressed_train_step``), the same kind of stage.
+  Each rank runs forward and backward on its local batch (microbatches
+  first, compressed once per super-batch);
+  ``parallel.compression.sync_gradients`` averages the
   ``.grad``s across the ranks through the int8 or fp8 wire (K5a-K5c on the
   card) and writes the mean back into them; floating BatchNorm buffers are
   averaged (JAX's ``pmean`` of the updated statistics; BatchNorm itself
@@ -41,9 +55,7 @@ TrainState` that it updates in place, with the JAX step's semantics:
   across ranks; the health verdict is taken on the global mean loss and
   the synced gradients, so it is the same on every rank; the error-feedback
   residual (``TrainState.comms``) is part of what a skipped step restores.
-  Without a process group (world 1) no collective runs.  An uncompressed
-  plan over more than one rank raises: the JAX GSPMD step takes BatchNorm
-  statistics over the global batch, which is a DDP item of its own.
+  Without a process group (world 1) no collective runs.
 """
 
 from __future__ import annotations
@@ -58,6 +70,7 @@ from torch import nn
 from torch.func import functional_call
 
 from tpuframe_torch.fault.health import HealthPolicy, health_verdict
+from tpuframe_torch.models.norm import cross_rank_statistics, rank_local_buffers
 from tpuframe_torch.ops.cross_entropy import fused_cross_entropy
 from tpuframe_torch.parallel.compression import (
     CommsConfig,
@@ -219,13 +232,19 @@ def _fill_missing_grads(model: nn.Module) -> None:
             p.grad = torch.zeros_like(p)
 
 
+def _statistics(sync: "_Stage | None", model: nn.Module):
+    """The scope of a train forward: BatchNorm over the ranks under the
+    uncompressed data-parallel stage, else as it is."""
+    return sync.statistics(model) if sync is not None else contextlib.nullcontext()
+
+
 def _finish(step: Callable, state: TrainState, loss: torch.Tensor, metrics: dict,
             health: HealthPolicy | None, snap: _Snapshot,
-            sync: "_WireSync | None") -> tuple[TrainState, dict]:
+            sync: "_Stage | None") -> tuple[TrainState, dict]:
     """Every train step's tail after the backward: a zero gradient where
-    autograd left none, the compressed wire's sync when there is one (its
-    plan then on ``step.wire``), then the update, under the sentinel when
-    armed."""
+    autograd left none, the data-parallel stage when there is one (the
+    compressed wire's plan then on ``step.wire``), then the update, under
+    the sentinel when armed."""
     _fill_missing_grads(state.model)
     if sync is not None:
         loss, metrics = sync(state, loss, metrics)
@@ -250,9 +269,9 @@ def make_train_step(
     images).  The loss is the mean of ``loss_fn``'s per-example losses.
     ``health`` arms the sentinel (module docstring).  The global-norm clip
     is part of the optimizer's spec (``train.optim``), as optax chains it
-    into ``tx``.  ``grad_compression`` (``"int8"``, ``"fp8"`` or a
-    ``CommsConfig``) with a ``plan`` builds the compressed data-parallel
-    step (module docstring)."""
+    into ``tx``.  A ``plan`` over more than one rank builds the
+    data-parallel step, with ``grad_compression`` (``"int8"``, ``"fp8"`` or
+    a ``CommsConfig``) the compressed one (module docstring)."""
     policy = policy or full_precision()
     sync = _wire_stage(plan, grad_compression, 1)
     snap = _Snapshot()
@@ -263,7 +282,8 @@ def make_train_step(
         if health is not None:
             snap.take(state)  # before the forward: BatchNorm moves its buffers
         state.optimizer.zero_grad(set_to_none=True)
-        losses, logits = _forward(state.model, batch, policy, True, loss_fn)
+        with _statistics(sync, state.model):
+            losses, logits = _forward(state.model, batch, policy, True, loss_fn)
         loss = losses.mean()
         loss.backward()
         metrics = _train_metrics(loss, logits, batch["label"])
@@ -350,9 +370,10 @@ def make_grad_accum_step(
     microbatch runs forward and backward at the same parameters, BatchNorm
     statistics roll forward through them, and the summed gradients are
     divided by ``n_microbatches`` before the one update.  The super-batch
-    is the unit of health: one bad microbatch skips the whole step.  With
-    ``grad_compression`` and a ``plan`` the super-batch gradient crosses the
-    compressed wire once per step."""
+    is the unit of health: one bad microbatch skips the whole step.  With a
+    ``plan`` over several ranks the super-batch gradient is synced once per
+    step (through the compressed wire with ``grad_compression``); each
+    microbatch's BatchNorm statistics are taken over the ranks."""
     policy = policy or full_precision()
     sync = _wire_stage(plan, grad_compression, n_microbatches)
     snap = _Snapshot()
@@ -361,7 +382,8 @@ def make_grad_accum_step(
         if health is not None:
             snap.take(state)
         state.optimizer.zero_grad(set_to_none=True)
-        metrics = _accumulate(state, batch, n_microbatches, policy, loss_fn, batch_transform)
+        metrics = _accumulate(state, batch, n_microbatches, policy, loss_fn, batch_transform,
+                              sync)
         mean_loss = metrics["loss_sum"] / metrics["count"].clamp_min(1.0)
         return _finish(step, state, mean_loss, metrics, health, snap, sync)
 
@@ -370,7 +392,7 @@ def make_grad_accum_step(
 
 
 def _accumulate(state: TrainState, batch: Mapping[str, torch.Tensor], n_microbatches: int,
-                policy: Policy, loss_fn: LossFn, batch_transform) -> dict:
+                policy: Policy, loss_fn: LossFn, batch_transform, sync: "_Stage | None") -> dict:
     """Forward and backward over the microbatches: the summed metrics, and
     the mean gradient in ``.grad``."""
     metrics = None
@@ -378,7 +400,8 @@ def _accumulate(state: TrainState, batch: Mapping[str, torch.Tensor], n_microbat
         mb = {k: v[i] for k, v in batch.items()}
         if batch_transform is not None:
             mb = batch_transform(mb)
-        losses, logits = _forward(state.model, mb, policy, True, loss_fn)
+        with _statistics(sync, state.model):
+            losses, logits = _forward(state.model, mb, policy, True, loss_fn)
         loss = losses.mean()
         loss.backward()
         m = _train_metrics(loss, logits, mb["label"])
@@ -388,15 +411,7 @@ def _accumulate(state: TrainState, batch: Mapping[str, torch.Tensor], n_microbat
     return metrics
 
 
-# -- the compressed data-parallel step ----------------------------------------
-
-
-def _refuse_uncompressed_dp(plan: Any) -> None:
-    if plan is not None and plan.dp_size > 1:
-        raise NotImplementedError(
-            f"an uncompressed plan over {plan.dp_size} ranks is not ported: the JAX GSPMD step "
-            "takes BatchNorm statistics over the global batch, which comes with its own DDP "
-            "item (ROADMAP.md, Queue 1); pass grad_compression='int8' or 'fp8'")
+# -- the data-parallel stages ----------------------------------------------------
 
 
 @torch.no_grad()
@@ -409,6 +424,16 @@ def _sum_across_ranks(metrics: dict) -> dict:
 
 
 @torch.no_grad()
+def _mean_in_place(tensors: list[torch.Tensor], world: int) -> None:
+    """Tensors of one dtype averaged across the ranks in place, in one
+    collective (SUM, then ``/ world``: gloo has no AVG)."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+    flat /= world
+    torch._foreach_copy_(tensors, [f.view_as(t) for f, t in zip(
+        flat.split([t.numel() for t in tensors]), tensors)])
+
+
 def _average_buffers(model: nn.Module, world: int) -> None:
     """Floating buffers (BatchNorm running statistics) averaged across
     the ranks in place, one collective a dtype."""
@@ -417,21 +442,76 @@ def _average_buffers(model: nn.Module, world: int) -> None:
         if b.is_floating_point():
             by_dtype.setdefault(b.dtype, []).append(b)
     for bufs in by_dtype.values():
-        flat = torch.cat([b.reshape(-1) for b in bufs])
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM)
-        flat /= world
-        torch._foreach_copy_(bufs, [t.view_as(b) for t, b in zip(
-            flat.split([b.numel() for b in bufs]), bufs)])
+        _mean_in_place(bufs, world)
 
 
-def _wire_stage(plan: Any, grad_compression, n_microbatches: int) -> "_WireSync | None":
+def _global(state: TrainState, loss: torch.Tensor, metrics: dict, world: int,
+            average_buffers: bool) -> tuple[torch.Tensor, dict]:
+    """Both stages' tail: the running buffers averaged (where they differ
+    by rank), the metrics summed and the loss made the global mean, in one
+    collective."""
+    if average_buffers:
+        _average_buffers(state.model, world)
+    summed = _sum_across_ranks({**metrics, "_loss": loss})
+    return summed.pop("_loss") / world, summed
+
+
+def _wire_stage(plan: Any, grad_compression, n_microbatches: int) -> "_Stage | None":
     """The stage a train step runs between its backward and its update:
-    the compressed wire's sync, or None for an uncompressed step (which
-    refuses a plan over more than one rank)."""
-    if grad_compression is None:
-        _refuse_uncompressed_dp(plan)
-        return None
-    return _WireSync(plan, grad_compression, n_microbatches)
+    the compressed wire's sync, the exact mean over a plan of several
+    ranks, or None (one rank, or no plan)."""
+    if grad_compression is not None:
+        return _WireSync(plan, grad_compression, n_microbatches)
+    if plan is not None and plan.dp_size > 1:
+        return _MeanSync(plan)
+    return None
+
+
+class _MeanSync:
+    """Uncompressed data parallelism between the backward and the update
+    (module docstring): ``(state, loss, metrics) -> (global loss, summed
+    metrics)`` with the mean gradient in the ``.grad``s.  Checks at build
+    that the plan's ``dp_size`` is the process group's world size; cuts
+    the model's parameters into buckets at its first call (and again for
+    another model)."""
+
+    #: what the Trainer meters on the wire: nothing (exact all-reduce)
+    wire = None
+    bucket_bytes = 25 * 2**20
+
+    def __init__(self, plan: Any):
+        self.world = plan.check_world()
+        self._model = None
+
+    def statistics(self, model: nn.Module):
+        return cross_rank_statistics(model)
+
+    def _build(self, model: nn.Module) -> None:
+        """The parameters by dtype, in order, cut into runs of at most
+        ``bucket_bytes`` of gradient each (a larger tensor alone), and
+        whether the running buffers can differ by rank."""
+        self._buckets, size = [], 0
+        for p in sorted(model.parameters(), key=lambda p: str(p.dtype)):
+            nbytes = p.numel() * p.element_size()
+            if (not self._buckets or self._buckets[-1][0].dtype != p.dtype
+                    or size + nbytes > self.bucket_bytes):
+                self._buckets.append([])
+                size = 0
+            self._buckets[-1].append(p)
+            size += nbytes
+        # under sync BN the running buffers are equal on every rank already
+        # (and an average of equal values can move the last bit)
+        self._local = rank_local_buffers(model)
+        self._model = model
+
+    @torch.no_grad()
+    def __call__(self, state: TrainState, loss: torch.Tensor,
+                 metrics: dict) -> tuple[torch.Tensor, dict]:
+        if self._model is not state.model:
+            self._build(state.model)
+        for bucket in self._buckets:
+            _mean_in_place([p.grad for p in bucket], self.world)  # every one filled by _finish
+        return _global(state, loss, metrics, self.world, self._local)
 
 
 class _WireSync:
@@ -456,6 +536,10 @@ class _WireSync:
         #: the static per-step wire accounting (``wire_plan``), set at build
         self.wire: dict | None = None
         self._layout = None
+
+    def statistics(self, model: nn.Module):
+        """BatchNorm stays shard-local, as inside JAX's ``shard_map``."""
+        return contextlib.nullcontext()
 
     def _build(self, state: TrainState) -> None:
         params = dict(state.model.named_parameters())
@@ -506,10 +590,10 @@ class _WireSync:
                 state.comms[k].copy_(t)  # in place: a skipped step restores it
         if not _wired():
             return loss, metrics
-        world = dist.get_world_size()
-        _average_buffers(state.model, world)
-        summed = _sum_across_ranks({**metrics, "_loss": loss})
-        return summed.pop("_loss") / world, summed
+        return _global(state, loss, metrics, dist.get_world_size(), True)
+
+
+_Stage = _MeanSync | _WireSync
 
 
 def merge_metrics(acc: dict | None, new: Mapping[str, Any]) -> dict:

@@ -10,13 +10,18 @@ epoch summary keys, so one analyzer reads logs from both sides.  Metrics
 are summed on the device and read by the host once per ``log_interval``
 steps; the health sentinel's verdict once per window.
 
-Data parallelism runs through the compressed wire: ``plan`` (default
-``ParallelPlan(mesh=current_runtime().mesh)``) with ``grad_compression``
-(``"int8"`` / ``"fp8"``; None reads ``TPUFRAME_COMMS_COMPRESSION``) trains
-each process on its share of the batch and averages the gradients as int8
-or e4m3 buckets with error feedback (``parallel.compression``); the
-residuals start at zero in ``TrainState.comms``.  Every rank runs the loop;
-only the main process logs and reports.
+Data parallelism: ``plan`` (default ``ParallelPlan(mesh=
+current_runtime().mesh)``, whose ``dp_size`` is the process group's world
+size) trains each process on its share of the batch.  Without
+``grad_compression`` the step is JAX's GSPMD step over a data mesh: the
+gradients are averaged exactly and BatchNorm takes its moments over the
+global batch, or per replica group under ``bn_stats="local"``, whose
+``bn_groups`` the Trainer fills from ``plan.dp_size``.  With
+``grad_compression`` (``"int8"`` / ``"fp8"``; None reads
+``TPUFRAME_COMMS_COMPRESSION``) the gradients cross as int8 or e4m3
+buckets with error feedback (``parallel.compression``); the residuals
+start at zero in ``TrainState.comms``.  Every rank runs the loop; only the
+main process logs and reports.
 
 Checkpoints go through ``ckpt.Checkpointer``: an epoch-end save every
 ``checkpoint_interval`` epochs, mid-epoch snapshots every
@@ -26,8 +31,7 @@ of the two, as the JAX Trainer does.
 
 What this reduced Trainer does not do yet, each raising
 ``NotImplementedError`` that names the slice which ports it: plans
-beyond stage-0 compressed DP (ZeRO, rules, offload, an uncompressed plan
-over several ranks, the fused transport), EMA (``ema_decay``), preemption
+beyond stage-0 DP (ZeRO, rules, offload, the fused transport), EMA (``ema_decay``), preemption
 handling (``preemption=True``), straggler detection
 (``straggler_sync_steps``, ``straggler_factor``).  ``tx`` takes
 an ``OptimizerSpec`` in place of an optax transform (``ops.fused_adamw``
@@ -111,7 +115,8 @@ class Trainer:
       algorithms / callbacks / loggers: as the JAX Trainer's.
       plan: a stage-0 ``ParallelPlan`` (default: over the runtime's mesh,
         which :func:`~tpuframe_torch.core.runtime.current_runtime` builds
-        on the model's device when none is initialized).
+        on the model's device when none is initialized); its ``dp_size``
+        must be the process group's world size (``ValueError``).
       grad_compression: ``"int8"`` / ``"fp8"`` / a ``CommsConfig``: the
         compressed gradient wire (None reads ``TPUFRAME_COMMS_COMPRESSION``).
       precision: policy name or Policy; when given, the model's compute
@@ -195,6 +200,12 @@ class Trainer:
         if plan is None:
             plan = ParallelPlan(mesh=current_runtime(device=self.device).mesh)
         self.plan = plan
+        # per-replica BN ("local") needs the data shard count, which the
+        # model cannot see: fill it from the plan, as the JAX Trainer does
+        if (getattr(self.model, "bn_stats", None) == "local"
+                and not getattr(self.model, "bn_groups", 1)
+                and hasattr(self.model, "set_bn_groups")):
+            self.model.set_bn_groups(plan.dp_size)
         self.comms_config = CommsConfig.from_env(grad_compression)
         self._comms_gauge_set = False
         self.train_dataloader = train_dataloader
