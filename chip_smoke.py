@@ -9,9 +9,9 @@ Phases, each of which fails the script (nonzero exit, no result line):
 
 1. Device: the card's name and power limit from ``nvidia-smi``; no CUDA,
    no run.
-2. Build: every CUDA kernel of the port, compiled from ``tpuframe_torch/
-   csrc`` with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all
-   started together, and beside them the K2 baseline
+2. Build: every CUDA kernel of the port (seven sources), compiled from
+   ``tpuframe_torch/csrc`` with ``nvcc`` for ``sm_90a``, one ``nvcc`` per
+   source, all started together, and beside them the K2 baseline
    (``tests/csrc/cross_entropy_baseline.cu``, the design before saved row
    statistics, for timing only).
 3. Kernels: first the launch floor, the time of an empty kernel
@@ -47,14 +47,24 @@ Phases, each of which fails the script (nonzero exit, no result line):
    (``torch.linalg.vector_norm(v, inf, dim=1)``), K5b encode (int8, int8
    stochastic with the same noise, fp8) and K5c decode at the ResNet50-1K
    wire's 25 x 1,022,336 float32, at (3, 130) and on edge rows: amax and
-   encode bit-equal, decode within 1e-6 with NaN where amax is NaN.
+   encode bit-equal, decode within 1e-6 with NaN where amax is NaN; K6a
+   blockwise attention forward, K6b its backward's delta and dQ, K6c dK
+   and dV, against the plain schedule run in float32 at the long-context
+   path's (2, 8192, 12, 64) bf16 causal, ViT's (64, 196, 12, 64) bf16 and
+   ragged L = 13 and 1000 in f32 and bf16 (f32 within 1e-5 forward and
+   1e-4 gradients, bf16 at most twice the plain bf16 run's distance), two
+   backward runs bit-equal; timed at the path's shape beside the plain
+   passes and ``F.scaled_dot_product_attention(is_causal=True)`` forward
+   and autograd backward, each against its operation bound in bf16.
+   K6's counters are then zeroed, and phases 4 to 10 must leave them at 0.
 4. Serve: ResNet50 with 1000 classes under ``bf16_compute`` serves 160
    uint8 224x224 images through ``ServeEngine`` (buckets 1/8/32/64) from 4
    client threads, plus one ``POST /predict`` through ``ServingServer``.
    Launch counters are zeroed just before and read just after; every
-   kernel of the path must have launched.  Served rows are held against
-   direct predicts, against predicts through the plain normalize, and an
-   f32 forward on the card against the same forward on the CPU.
+   kernel of the path must have launched, once a batch, and no other.
+   Served rows are held against direct predicts, against predicts through
+   the plain normalize, and an f32 forward on the card against the same
+   forward on the CPU.
 5. Train: ``Trainer(...).fit()`` on ResNet50-1K (``norm_dtype=bf16``,
    ``precision="bf16"``, SGD lr 0.1 momentum 0.9, uint8 images normalized
    by K1) for 12 batches of 128 plus an eval whose last batch is ragged;
@@ -116,10 +126,24 @@ Phases, each of which fails the script (nonzero exit, no result line):
    within ``DDP_UPDATE_RTOL`` (sync also against one process through the
    cross-rank function), beside controls of what rounding alone moves,
    and two planted faults of the sync backward that must exceed it.
-11. Result: a ``kernels`` JSON line (each kernel with ``floor_ms``; K1 and
-   K2 also with ``launches_ddp``, phase 10's count on each rank), the
-   ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}`` as the last
-   line.
+11. ViT serve: phase 4's serve path over ViT-B/16 with 1000 classes
+   (random weights from a seed): K1 once a batch, K3a 25 times a forward,
+   K6 never (196 tokens take full attention), and the same checks.
+12. Long-context LM train: ``bench_lm.py``'s ``long_ctx`` (phase 6's widths
+   at seq 8192, batch 2, ``attn_impl="auto"``, so blockwise) through
+   ``Trainer(tx=fused_adamw(...), precision="bf16").fit()`` for 4 batches
+   plus an eval of 3 batches, counters zeroed just before and read just
+   after: K6a 12 a forward, K6b and K6c 12 a step, K3a, K3b and K4 at
+   their per-step counts.  The first loss near ln 32768; the step alone
+   (tokens per second, MFU on phase 6's formula, a profile with K6's
+   share); ten steps on one batch; then ``long_remat`` (``remat=True``)
+   for 2 batches: K6a 24 a step, its first loss bit-equal to
+   ``long_ctx``'s, its peak memory below it; a small f32 blockwise LM
+   step on the card against the CPU.
+13. Result: a ``kernels`` JSON line (each kernel with ``floor_ms``; K1 and
+   K2 also with ``launches_ddp``, phase 10's count on each rank; K6 with
+   ``launches_remat``), the ``nvidia-smi`` line, then ``{"ok": true,
+   "device": {...}}`` as the last line.
 
 One phase of 3 alone, for a short run on the card (the kernels it needs
 are built at first use)::
@@ -137,6 +161,7 @@ import contextlib
 import functools
 import io
 import json
+import math
 import os
 import re
 import statistics
@@ -1123,6 +1148,163 @@ def quant_wire_phase(flush) -> list[dict]:
     return rows
 
 
+#: bench_lm.py's long_ctx: the GPT-2-small widths at seq 8192, batch 2
+LONG_LM = dict(vocab_size=32768, num_layers=12, num_heads=12, head_dim=64, max_len=8192)
+LONG_BATCH = 2
+#: K6's shapes on the paths: the long-context LM's causal attention, and
+#: ViT-B/16's bidirectional attention at the serve bucket of 64
+ATTN_PATH = (LONG_BATCH, LONG_LM["max_len"], LONG_LM["num_heads"], LONG_LM["head_dim"])
+ATTN_VIT = (64, 196, 12, 64)
+# K6 against its plain version run in float32 on the same inputs: in f32
+# the sums run in another order over other tiles (1e-5 forward, 1e-4 for
+# the gradients); in bf16 the kernel may be at most twice as far from the
+# f32 result as the plain bf16 run (the same roundings at the same places,
+# other sums before them); lse is float32 on both sides (1e-5)
+K6_F32_FWD_TOL = 1e-5
+K6_F32_BWD_TOL = 1e-4
+K6_BF16_FACTOR = 2.0
+
+
+def blockwise_phase(flush) -> list[dict]:
+    """K6a (forward), K6b (delta and dQ) and K6c (dK and dV) against the
+    plain schedule on the card: at the long-context path's (2, 8192, 12,
+    64) bf16 causal, ViT's (64, 196, 12, 64) bf16 bidirectional, and ragged
+    L = 13 and 1000 in f32 and bf16, causal and not; two backward runs
+    bit-equal.  Then timed at the path's shape beside the plain passes and
+    ``F.scaled_dot_product_attention(is_causal=True)`` (forward, and its
+    autograd backward, which computes dQ, dK and dV together)."""
+    import torch.nn.functional as F
+
+    from tpuframe_torch.ops.blockwise_attention import (
+        _bwd_dkv_reference,
+        _bwd_dq_reference,
+        _delta,
+        blockwise_attention_bwd_dkv,
+        blockwise_attention_bwd_dq,
+        blockwise_attention_bwd_reference,
+        blockwise_attention_fwd,
+        blockwise_attention_reference,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(9)
+
+    def inputs(shape, dtype):
+        return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev).to(dtype)
+                for _ in range(4)]
+
+    def kernels(q, k, v, g, causal):
+        out, lse = blockwise_attention_fwd(q, k, v, causal=causal)
+        dq, delta = blockwise_attention_bwd_dq(q, k, v, out, lse, g, causal=causal)
+        dk, dv = blockwise_attention_bwd_dkv(q, k, v, lse, delta, g, causal=causal)
+        return out, lse, dq, dk, dv
+
+    def plain(q, k, v, g, causal):
+        out, lse = blockwise_attention_reference(q, k, v, causal=causal)
+        return (out, lse, *blockwise_attention_bwd_reference(q, k, v, out, lse, g, causal=causal))
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [("2x8192x12x64 bf16 causal", ATTN_PATH, bf16, True),
+             ("64x196x12x64 bf16", ATTN_VIT, bf16, False)]
+    cases += [(f"2x{l}x3x64 {str(dt)[6:]}{' causal' if c else ''}", (2, l, 3, 64), dt, c)
+              for l in (13, 1000) for dt in (f32, bf16) for c in (True, False)]
+    path_err = None
+    for name, shape, dtype, causal in cases:
+        q, k, v, g = inputs(shape, dtype)
+        got = kernels(q, k, v, g, causal)
+        torch.cuda.synchronize()
+        check([t.dtype for t in got] == [dtype, f32, dtype, dtype, dtype],
+              f"K6 {name}: dtypes {[t.dtype for t in got]}")
+        want = plain(*(t.float() for t in (q, k, v, g)), causal)
+        err = [float((a.float() - w).abs().max()) for a, w in zip(got, want)]
+        check(all(math.isfinite(e) for e in err), f"K6 {name}: non-finite error {err}")
+        if dtype == f32:
+            ok = err[0] <= K6_F32_FWD_TOL and err[1] <= K6_F32_FWD_TOL and max(err[2:]) <= K6_F32_BWD_TOL
+            tol = f"tol {K6_F32_FWD_TOL} out/lse, {K6_F32_BWD_TOL} gradients"
+        else:
+            ref = [float((a.float() - w).abs().max()) for a, w in zip(plain(q, k, v, g, causal), want)]
+            ok = err[1] <= K6_F32_FWD_TOL and all(
+                err[i] <= K6_BF16_FACTOR * ref[i] for i in (0, 2, 3, 4))
+            tol = (f"plain bf16 {[f'{e:.3g}' for e in ref]}, tol {K6_BF16_FACTOR}x that "
+                   f"(lse {K6_F32_FWD_TOL})")
+        log(f"  blockwise attention {name}: out/lse/dq/dk/dv max abs diff from the f32 plain "
+            f"version {[f'{e:.3g}' for e in err]} ({tol})")
+        check(ok, f"K6 {name}: errors {err} ({tol})")
+        again = kernels(q, k, v, g, causal)
+        check(all(torch.equal(a, b) for a, b in zip(got[2:], again[2:])),
+              f"K6 {name}: a rerun of the backward gave other bits")
+        if shape == ATTN_PATH:
+            path_err = err
+        del q, k, v, g, got, want, again
+    torch.cuda.empty_cache()
+
+    # -- timed at the path's shape: (2, 8192, 12, 64) bf16, causal ------------
+    q, k, v, g = inputs(ATTN_PATH, bf16)
+    out, lse = blockwise_attention_fwd(q, k, v, causal=True)
+    dq, delta = blockwise_attention_bwd_dq(q, k, v, out, lse, g, causal=True)
+    plain_delta = _delta(out, g)
+    heads = [t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v)]
+    g_heads = g.transpose(1, 2).contiguous()
+    lib_out = F.scaled_dot_product_attention(*heads, is_causal=True)
+    lib_err = float((lib_out.detach().transpose(1, 2).float() - out.float()).abs().max())
+    log(f"  F.scaled_dot_product_attention yardstick: {lib_err:.3g} max abs from K6a's output")
+    arms = {
+        "fwd": (lambda: blockwise_attention_fwd(q, k, v, causal=True),
+                lambda: blockwise_attention_reference(q, k, v, causal=True),
+                lambda: F.scaled_dot_product_attention(*heads, is_causal=True)),
+        "dq": (lambda: blockwise_attention_bwd_dq(q, k, v, out, lse, g, causal=True),
+               lambda: _bwd_dq_reference(q, k, v, lse, _delta(out, g), g, True, None), None),
+        "dkv": (lambda: blockwise_attention_bwd_dkv(q, k, v, lse, delta, g, causal=True),
+                lambda: _bwd_dkv_reference(q, k, v, lse, plain_delta, g, True, None), None),
+    }
+    times = {}
+    for which, (kernel, plain_fn, library) in arms.items():
+        plain_ms = [time_ms(plain_fn, flush, iters=3, warmup=1)]
+        kernel_ms = [time_ms(kernel, flush, iters=20, warmup=2)]
+        if library is not None:
+            times[which + "_library"] = min(time_ms(library, flush, iters=20, warmup=2)
+                                            for _ in range(2))
+        kernel_ms.append(time_ms(kernel, flush, iters=20, warmup=2))
+        plain_ms.append(time_ms(plain_fn, flush, iters=3, warmup=1))
+        times[which], times[which + "_plain"] = min(kernel_ms), min(plain_ms)
+    lib_bwd = lambda: torch.autograd.grad(lib_out, heads, g_heads, retain_graph=True)  # noqa: E731
+    times["bwd_library"] = min(time_ms(lib_bwd, flush, iters=20, warmup=2) for _ in range(2))
+
+    b, l, h, d = ATTN_PATH
+    product = 2 * b * h * (l * l / 2) * d  # one causal product: the visible half of L^2
+    elem, rows = b * l * h * d * 2, b * h * l * 4  # bf16 tensors, float32 rows
+    work = {"fwd": (4 * elem + rows, 2 * product),  # q, k, v in, out; lse
+            "dq": (6 * elem + 2 * rows, 3 * product),  # q, k, v, out, g in, dq; lse, delta
+            "dkv": (6 * elem + 2 * rows, 4 * product)}  # q, k, v, g in, dk, dv; lse, delta
+    fa2_bwd_ms = 5 * product / BF16_FLOPS * 1e3  # FlashAttention-2's five backward products
+    names = {"fwd": ("blockwise_attention_fwd", 64), "dq": ("blockwise_attention_bwd_dq", 150),
+             "dkv": ("blockwise_attention_bwd_dkv", 180)}
+    errs = {"fwd": path_err[0], "dq": path_err[2], "dkv": max(path_err[3:])}
+    rows_out = []
+    for which, (name, line) in names.items():
+        moved, flops = work[which]
+        by_bytes, by_ops = moved / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+        r = {"name": name, "route": "cuda", "source": "tpuframe_torch/csrc/blockwise_attention.cu",
+             "replaces": f"tpuframe/ops/blockwise_attention.py:{line}", "launches": None,
+             "max_abs_err": errs[which], "ms": times[which], "plain_ms": times[which + "_plain"],
+             "bound_ms": max(by_bytes, by_ops),
+             "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+             "library_ms": times["fwd_library"] if which == "fwd" else times["bwd_library"],
+             "shape": "2x8192x12x64 bf16 causal", "bytes_moved": moved, "flops": flops}
+        if which != "fwd":
+            r.update(library_covers="dQ, dK and dV together (SDPA's autograd backward)",
+                     backward_ms=times["dq"] + times["dkv"], fa2_backward_bound_ms=fa2_bwd_ms)
+        log(f"  {name} 2x8192x12x64 bf16 causal: kernel {r['ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({flops / 1e9:.1f} GFLOP at 989 TFLOP/s; "
+            f"{moved / 1e6:.1f} MB at 3.35 TB/s)")
+        rows_out.append(r)
+    log(f"  blockwise attention backward (K6b + K6c): {times['dq'] + times['dkv']:.3f} ms against "
+        f"FlashAttention-2's five products {fa2_bwd_ms:.3f} ms and SDPA's backward "
+        f"{times['bwd_library']:.3f} ms")
+    return rows_out
+
+
 def dev_us(e) -> float:
     """Device µs of one ``key_averages()`` entry."""
     return float(getattr(e, "self_device_time_total", None)
@@ -1189,20 +1371,57 @@ def profile(fn, what: str, top: int = 12, also: tuple = ()) -> dict:
     return {"wall_ms": wall_ms, "device_ms": total_ms, "launches": launches, "named": named}
 
 
-def slice_phase(card: str):
+def slice_phase(card: str) -> dict:
+    """Phase 4: ResNet50-1K served (K1 once a batch, nothing else)."""
     from tpuframe_torch.core import initialize
     from tpuframe_torch.models import ResNet50, from_jax_variables, import_torch_resnet
+
+    dev = initialize().device
+    model = ResNet50(num_classes=1000, device=dev)
+    variables = random_jax_variables(import_torch_resnet(model.state_dict()), seed=0)
+    model.load_state_dict(from_jax_variables(variables))
+    return serve_phase(card, model, "ResNet50-1K", {"normalize": 1})
+
+
+def vit_serve_phase(card: str) -> dict:
+    """Phase 11: ViT-B/16-1K (random weights from a seed) served: K1 once a
+    batch, K3a 25 times a forward (``ln1`` and ``ln2`` of 12 blocks and
+    ``ln_f``); at 196 tokens ``auto`` is full attention, so K6 never."""
+    from tpuframe_torch.core import initialize
+    from tpuframe_torch.models import ViT_B16
+
+    dev = initialize().device
+    model = ViT_B16(num_classes=1000, device=dev, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  ViT-B/16: {n_params / 1e6:.2f} M parameters, 196 tokens at 224 px")
+    return serve_phase(card, model, "ViT-B/16-1K", {"normalize": 1, "layer_norm_fwd": 25})
+
+
+def serve_phase(card: str, model, what: str, per_batch: dict) -> dict:
+    """``model`` under ``bf16_compute`` behind ``ServeEngine`` (buckets
+    1/8/32/64) and ``ServingServer``: 160 uint8 224x224 requests from 4
+    client threads plus one ``POST /predict``, every kernel counter zeroed
+    just before and read just after (``per_batch`` launches a served batch,
+    the others none); served rows against direct predicts and predicts
+    through the plain normalize; an f32 forward on the card against the
+    CPU.  Returns the launch counts."""
+    from tpuframe_torch.ops.blockwise_attention import (
+        blockwise_attention_bwd_dkv,
+        blockwise_attention_bwd_dq,
+        blockwise_attention_fwd,
+    )
+    from tpuframe_torch.ops.layer_norm import layer_norm_bwd, layer_norm_fwd
     from tpuframe_torch.ops.normalize import normalize_images, normalize_images_reference
     from tpuframe_torch.parallel import align_model_dtype, bf16_compute, full_precision
     from tpuframe_torch.serve import ServeEngine, ServeKnobs, ServingServer
     from tpuframe_torch.track.telemetry import get_telemetry
     from tpuframe_torch.train import make_predict_fn
 
-    rt = initialize()
-    dev = rt.device
-    model = ResNet50(num_classes=1000, device=dev)
-    variables = random_jax_variables(import_torch_resnet(model.state_dict()), seed=0)
-    model.load_state_dict(from_jax_variables(variables))
+    dev = next(model.parameters()).device
+    counters = {"normalize": normalize_images, "layer_norm_fwd": layer_norm_fwd,
+                "layer_norm_bwd": layer_norm_bwd, "blockwise_attention_fwd": blockwise_attention_fwd,
+                "blockwise_attention_bwd_dq": blockwise_attention_bwd_dq,
+                "blockwise_attention_bwd_dkv": blockwise_attention_bwd_dkv}
     policy = bf16_compute()
     align_model_dtype(model, policy)
     predict = make_predict_fn(policy, functools.partial(
@@ -1211,7 +1430,7 @@ def slice_phase(card: str):
         functools.partial(predict, model),
         knobs=ServeKnobs(buckets=BUCKETS, slo_ms=60_000, queue_cap=1024,
                          batch_wait_ms=5.0),
-        item_shape=(224, 224, 3), dtype="uint8",
+        item_shape=(224, 224, 3), dtype="uint8", device=dev,
     )
     t0 = time.perf_counter()
     engine.start()
@@ -1231,7 +1450,8 @@ def slice_phase(card: str):
 
     try:
         # the main path: counts zeroed just before, read just after
-        normalize_images.launches = 0
+        for fn in counters.values():
+            fn.launches = 0
         batches0 = reg.counter("serve/batches").value
         t_start = time.perf_counter()
         threads = [threading.Thread(target=client, args=(k,)) for k in range(N_CLIENTS)]
@@ -1250,7 +1470,7 @@ def slice_phase(card: str):
             status = resp.status
             http_out = np.asarray(json.loads(resp.read())["output"], np.float32)
         check(engine.drain(timeout=120), "engine did not drain")
-        launches = normalize_images.launches
+        launches = {name: fn.launches for name, fn in counters.items()}
         batches = int(reg.counter("serve/batches").value - batches0)
         submit_s = max(submitted.values()) - t_start
     finally:
@@ -1265,10 +1485,11 @@ def slice_phase(card: str):
     for i, out in served.items():
         check(tuple(out.shape) == (1000,) and bool(torch.isfinite(out).all()),
               f"request {i}: shape {tuple(out.shape)} or non-finite logits")
-    check(launches > 0 and launches == batches,
-          f"normalize launched {launches} times for {batches} served batches")
-    log(f"  served {N_REQUESTS} + 1 HTTP requests in {batches} batches; "
-        f"normalize launches {launches}")
+    expected = {name: per_batch.get(name, 0) * batches for name in counters}
+    check(batches > 0 and launches == expected,
+          f"{what} serve launches {launches} for {batches} served batches, expected {expected}")
+    log(f"  {what}: served {N_REQUESTS} + 1 HTTP requests in {batches} batches; "
+        f"launches {launches}")
     infer = reg.histogram("span/serve/infer").window()[-batches:]
     occupancy = reg.histogram("serve/batch_occupancy").window()[-batches:]
     log(f"  all {N_REQUESTS} submitted after {submit_s * 1e3:.1f} ms; per batch: "
@@ -1296,7 +1517,7 @@ def slice_phase(card: str):
     check(http_err <= BF16_REL_TOL, f"HTTP row rel err {http_err}")
 
     xb = torch.from_numpy(images[:BUCKETS[-1]]).to(dev)
-    profile(lambda: predict(model, xb), f"predict of {tuple(xb.shape)}")
+    prof = profile(lambda: predict(model, xb), f"{what} predict of {tuple(xb.shape)}")
 
     # f32 on the card (TF32 off) against the same model on the CPU
     align_model_dtype(model, full_precision())
@@ -1307,25 +1528,29 @@ def slice_phase(card: str):
     model_cpu = model.to("cpu")
     on_cpu = predict32(model_cpu, x2)
     f32_err = float((on_card - on_cpu).abs().max()) / float(on_cpu.abs().max())
-    log(f"  f32 card vs CPU: max |diff| / max|logit| = {f32_err:.3g} (tol {F32_REL_TOL}), "
+    log(f"  {what} f32 card vs CPU: max |diff| / max|logit| = {f32_err:.3g} (tol {F32_REL_TOL}), "
         f"max|logit| {float(on_cpu.abs().max()):.4g}")
     check(f32_err <= F32_REL_TOL, f"f32 card vs CPU rel err {f32_err}")
 
     ms = [v * 1e3 for v in lat]
     summary = {
+        "model": what,
         "requests": N_REQUESTS,
         "clients": N_CLIENTS,
         "batches": batches,
         "req_per_s": N_REQUESTS / wall,
         "p50_ms": ms[len(ms) // 2],
         "p99_ms": ms[min(len(ms) - 1, int(0.99 * len(ms)))],
+        "launches": launches,
+        "f32_card_vs_cpu": f32_err,
+        "predict_64_device_ms": prof["device_ms"],
         "card": card,
     }
-    log(f"  serve: {summary['req_per_s']:.1f} req/s, p50 {summary['p50_ms']:.1f} ms, "
+    log(f"  {what} serve: {summary['req_per_s']:.1f} req/s, p50 {summary['p50_ms']:.1f} ms, "
         f"p99 {summary['p99_ms']:.1f} ms over {N_REQUESTS} requests "
         f"({N_CLIENTS} clients, buckets {BUCKETS}) on {card}")
     log("  serve_json " + json.dumps(summary))
-    return launches
+    return summary
 
 
 #: the epoch summary keys of the JAX Trainer (health on, with eval)
@@ -1694,6 +1919,9 @@ def lm_phase(card: str, dev: torch.device = torch.device("cuda"), cfg: dict = LM
     from tpuframe_torch.models import TransformerLM
     from tpuframe_torch.ops import (
         FusedLayerNorm,
+        blockwise_attention_bwd_dkv,
+        blockwise_attention_bwd_dq,
+        blockwise_attention_fwd,
         cross_entropy_bwd,
         cross_entropy_fwd,
         fused_adamw,
@@ -1729,7 +1957,10 @@ def lm_phase(card: str, dev: torch.device = torch.device("cuda"), cfg: dict = LM
     n_eval = len(evl)
     counters = {"layer_norm_fwd": layer_norm_fwd, "layer_norm_bwd": layer_norm_bwd,
                 "fused_adamw": fused_adamw_multi_update_, "normalize": normalize_images,
-                "cross_entropy_fwd": cross_entropy_fwd, "cross_entropy_bwd": cross_entropy_bwd}
+                "cross_entropy_fwd": cross_entropy_fwd, "cross_entropy_bwd": cross_entropy_bwd,
+                "blockwise_attention_fwd": blockwise_attention_fwd,
+                "blockwise_attention_bwd_dq": blockwise_attention_bwd_dq,
+                "blockwise_attention_bwd_dkv": blockwise_attention_bwd_dkv}
     # -- the main path: counts zeroed just before, read just after ---------
     for fn in counters.values():
         fn.launches = 0
@@ -1741,7 +1972,8 @@ def lm_phase(card: str, dev: torch.device = torch.device("cuda"), cfg: dict = LM
     n_ln = 2 * layers + 1  # ln1 and ln2 of every block, ln_f
     expected = {"layer_norm_fwd": n_ln * (LM_STEPS + n_eval), "layer_norm_bwd": n_ln * LM_STEPS,
                 "fused_adamw": LM_STEPS, "normalize": 0, "cross_entropy_fwd": 0,
-                "cross_entropy_bwd": 0}
+                "cross_entropy_bwd": 0, "blockwise_attention_fwd": 0,
+                "blockwise_attention_bwd_dq": 0, "blockwise_attention_bwd_dkv": 0}
     log(f"  LM fit: {n_params / 1e6:.1f} M parameters in {n_leaves} tensors, {LM_STEPS} steps "
         f"of {batch_size}x{seq} tokens + eval of {eval_n} sequences ({n_eval} batches) in "
         f"{fit_s:.2f} s; launches {launches} (expected {expected})")
@@ -1894,6 +2126,232 @@ def lm_phase(card: str, dev: torch.device = torch.device("cuda"), cfg: dict = LM
     }
     log("  lm_json " + json.dumps(out))
     return launches, out
+
+
+LONG_STEPS = 4  # the long_ctx fit's batches
+LONG_REMAT_STEPS = 2  # the long_remat fit's batches
+LONG_TIMED = 5  # steps of the step alone
+#: the small f32 blockwise LM step on the card against the CPU
+LONG_CPU = dict(vocab_size=512, num_layers=2, num_heads=4, head_dim=32, max_len=256,
+                attn_impl="blockwise")
+
+
+def long_context_phase(card: str, dev: torch.device = torch.device("cuda"), cfg: dict = LONG_LM,
+                       batch_size: int = LONG_BATCH, cpu_cfg: dict = LONG_CPU) -> tuple[dict, dict]:
+    """Phase 12: ``bench_lm.py``'s ``long_ctx`` (GPT-2-small widths, seq
+    8192, batch 2, ``attn_impl="auto"``: blockwise) through ``Trainer(tx=
+    fused_adamw(...), precision="bf16").fit()`` with an eval, counters
+    zeroed just before and read just after; the step alone (tokens/s, MFU,
+    a profile with K6's share); ten steps on one batch; then ``long_remat``
+    (``remat=True``) through the Trainer (K6a twice a layer, the first loss
+    bit-equal, less peak memory); a small f32 blockwise LM step on the card
+    against the CPU.  Returns (launch counts, summary); the sizes are
+    arguments so the phase can be rehearsed small on the CPU."""
+    from tpuframe_torch.data import DataLoader
+    from tpuframe_torch.models import TransformerLM
+    from tpuframe_torch.ops import (
+        blockwise_attention_bwd_dkv,
+        blockwise_attention_bwd_dq,
+        blockwise_attention_fwd,
+        cross_entropy_bwd,
+        cross_entropy_fwd,
+        fused_adamw,
+        fused_adamw_multi_update_,
+        layer_norm_bwd,
+        layer_norm_fwd,
+        normalize_images,
+    )
+    from tpuframe_torch.parallel import full_precision
+    from tpuframe_torch.train import Callback, Trainer, create_train_state, make_train_step
+
+    class StepLosses(Callback):
+        def __init__(self):
+            self.losses = []
+
+        def on_batch_end(self, trainer, metrics):
+            self.losses.append(metrics["loss_sum"] / max(metrics["count"], 1.0))
+
+    seq, vocab, layers = cfg["max_len"], cfg["vocab_size"], cfg["num_layers"]
+    counters = {"blockwise_attention_fwd": blockwise_attention_fwd,
+                "blockwise_attention_bwd_dq": blockwise_attention_bwd_dq,
+                "blockwise_attention_bwd_dkv": blockwise_attention_bwd_dkv,
+                "layer_norm_fwd": layer_norm_fwd, "layer_norm_bwd": layer_norm_bwd,
+                "fused_adamw": fused_adamw_multi_update_, "normalize": normalize_images,
+                "cross_entropy_fwd": cross_entropy_fwd, "cross_entropy_bwd": cross_entropy_bwd}
+    n_ln = 2 * layers + 1
+
+    def fit(remat: bool, steps: int, with_eval: bool):
+        model = TransformerLM(**cfg, remat=remat, device=dev, seed=0)
+        train = DataLoader(NextTokenDataset(batch_size * LONG_STEPS, seq, vocab, seed=1),
+                           batch_size, shuffle=True, seed=0, num_workers=2)
+        evl = (DataLoader(NextTokenDataset(2 * batch_size + 1, seq, vocab, seed=2), batch_size,
+                          drop_last=False, num_workers=2) if with_eval else None)
+        losses = StepLosses()
+        trainer = Trainer(model, tx=fused_adamw(3e-4, weight_decay=1e-4), train_dataloader=train,
+                          eval_dataloader=evl, precision="bf16", max_duration=f"{steps}ba",
+                          log_interval=1, callbacks=[losses])
+        trainer.init_state()
+        # -- the main path: counts zeroed just before, read just after -------
+        for fn in counters.values():
+            fn.launches = 0
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        result = trainer.fit()
+        sync(dev)
+        fit_s = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else 0.0
+        n_eval = len(evl) if evl is not None else 0
+        fwd = steps * (2 if remat else 1) + n_eval  # the recompute runs each block again
+        expected = {"blockwise_attention_fwd": layers * fwd,
+                    "blockwise_attention_bwd_dq": layers * steps,
+                    "blockwise_attention_bwd_dkv": layers * steps,
+                    "layer_norm_fwd": n_ln * (steps + n_eval) + (2 * layers * steps if remat else 0),
+                    "layer_norm_bwd": n_ln * steps, "fused_adamw": steps, "normalize": 0,
+                    "cross_entropy_fwd": 0, "cross_entropy_bwd": 0}
+        what = "long_remat" if remat else "long_ctx"
+        log(f"  {what} fit: {steps} steps of {batch_size}x{seq} tokens"
+            f"{f' + eval of {2 * batch_size + 1} sequences ({n_eval} batches)' if evl else ''} in "
+            f"{fit_s:.2f} s; peak memory {peak:.2f} GB; launches {launches} (expected {expected})")
+        check(launches == expected, f"{what} launches {launches} != {expected}")
+        check(len(losses.losses) == steps and all(math.isfinite(v) for v in losses.losses),
+              f"{what} step losses {losses.losses}")
+        return trainer, result.history[-1], losses.losses, launches, peak, fit_s
+
+    trainer, summary, losses, launches, peak_ctx, fit_s = fit(False, LONG_STEPS, True)
+    n_params = sum(p.numel() for p in trainer.state.model.parameters())
+    # a model at init gives about ln(vocab) + 0.5 (phase 6)
+    check(abs(losses[0] - math.log(vocab)) <= 1.0,
+          f"long_ctx first loss {losses[0]:.4f} not within 1.0 of ln {vocab} = {math.log(vocab):.4f}")
+    check(summary["health_bad_steps"] == 0.0 and math.isfinite(summary["eval_loss"]),
+          f"long_ctx summary {summary}")
+    log(f"  long_ctx step losses {[round(v, 4) for v in losses]}, eval loss "
+        f"{summary['eval_loss']:.2f} (a per-sequence sum, ROADMAP Queue 3 item 3)")
+
+    # -- the train step alone on one device-resident batch -------------------
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, vocab, (batch_size, seq + 1))).to(dev)
+    batch = {"image": toks[:, :-1], "label": toks[:, 1:]}
+    state, step = trainer.state, trainer._train_step
+    fixed = []
+    for _ in range(10):  # ten steps on one batch: the overfit check
+        state, m = step(state, batch)
+        fixed.append(m["loss_sum"] / m["count"])
+    fixed = [float(v) for v in torch.stack(fixed).cpu()]
+    log(f"  ten steps on one batch: losses {[round(v, 4) for v in fixed]}")
+    check(all(math.isfinite(v) for v in fixed) and fixed[-1] < fixed[0],
+          f"ten steps on one batch did not lower the loss: {fixed}")
+    times = []
+    for _ in range(LONG_TIMED):
+        sync(dev)
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        sync(dev)
+        times.append(time.perf_counter() - t0)
+    step_ms = statistics.median(times) * 1e3
+    tokens = batch_size * seq
+    tok_s = tokens / (step_ms / 1e3)
+    # phase 6's formula: 6 N T for the parameters' products plus attention's
+    # QK^T and PV, forward and backward, over the full L^2 (3 x 4 B H L^2 Dh
+    # a layer): it counts the causal mask's skipped half as work
+    model_flops = 6 * n_params * tokens
+    attn_flops = 3 * 4 * batch_size * cfg["num_heads"] * seq * seq * cfg["head_dim"] * layers
+    mfu = (model_flops + attn_flops) / (step_ms / 1e3) / BF16_FLOPS
+    mfu_causal = (model_flops + attn_flops / 2) / (step_ms / 1e3) / BF16_FLOPS
+    log(f"  long_ctx train step alone, batch {batch_size}x{seq}: median {step_ms:.2f} ms over "
+        f"{LONG_TIMED} steps (min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}) = "
+        f"{tok_s:.0f} tokens/s; MFU {mfu:.4f} (phase 6's formula, attention over the full L^2; "
+        f"{mfu_causal:.4f} counting the causal half) at 989 TFLOP/s on {card}")
+    k6_names = ("attn_fwd_kernel", "attn_bwd_dq_kernel", "attn_bwd_dkv_kernel")
+    prof = {}
+    if dev.type == "cuda":
+        prof = profile(lambda: step(state, batch), f"long_ctx train step of {batch_size}x{seq} "
+                       "(bf16, health on)", top=20, also=k6_names)
+        k6_ms = sum(v["ms"] for v in prof["named"].values())
+        prof["k6_ms"], prof["k6_share"] = k6_ms, k6_ms / prof["device_ms"]
+        log(f"  K6 in the step: {k6_ms:.2f} ms of {prof['device_ms']:.2f} ms device time "
+            f"({prof['k6_share']:.1%}): " + ", ".join(
+                f"{k} {v['ms']:.2f} ms x{v['count']}" for k, v in prof["named"].items()))
+    del trainer, state, step, batch, toks
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # -- long_remat: the same model and data with remat=True -----------------
+    trainer, _, remat_losses, remat_launches, peak_remat, remat_fit_s = fit(
+        True, LONG_REMAT_STEPS, False)
+    toks = torch.from_numpy(rng.integers(0, vocab, (batch_size, seq + 1))).to(dev)
+    batch = {"image": toks[:, :-1], "label": toks[:, 1:]}
+    state, step = trainer.state, trainer._train_step
+    state, _ = step(state, batch)
+    remat_times = []
+    for _ in range(3):
+        sync(dev)
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        sync(dev)
+        remat_times.append(time.perf_counter() - t0)
+    remat_step_ms = statistics.median(remat_times) * 1e3
+    log(f"  long_remat train step alone: median {remat_step_ms:.2f} ms over 3 steps "
+        f"({tokens / (remat_step_ms / 1e3):.0f} tokens/s; long_ctx {step_ms:.2f} ms)")
+    del trainer, state, step, batch, toks
+    log(f"  long_remat first loss {remat_losses[0]!r}, long_ctx first loss {losses[0]!r}; peak "
+        f"memory long_remat {peak_remat:.3f} GB, long_ctx {peak_ctx:.3f} GB")
+    check(remat_losses[0] == losses[0], "long_remat's first loss is not bit-equal to long_ctx's")
+    check(dev.type != "cuda" or peak_remat < peak_ctx,
+          f"long_remat peak memory {peak_remat} GB not below long_ctx's {peak_ctx} GB")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # -- a small f32 blockwise LM step on the card against the CPU -----------
+    card_model = TransformerLM(**cpu_cfg, device=dev, seed=6)
+    cpu_model = TransformerLM(**cpu_cfg, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in card_model.state_dict().items()})
+    start = [p.detach().clone() for p in cpu_model.parameters()]
+    t = torch.from_numpy(np.random.default_rng(6).integers(0, cpu_cfg["vocab_size"],
+                                                           (4, cpu_cfg["max_len"] + 1)))
+    b_cpu = {"image": t[:, :-1], "label": t[:, 1:]}
+    f32_step = make_train_step(full_precision())
+    before = blockwise_attention_fwd.launches
+    _, cm = f32_step(create_train_state(card_model, fused_adamw(1e-3, **LM_STEP_ADAMW)),
+                     {k: v.to(dev) for k, v in b_cpu.items()})
+    check(dev.type != "cuda" or blockwise_attention_fwd.launches == before + cpu_cfg["num_layers"],
+          "the f32 blockwise step on the card did not launch K6a once a layer")
+    _, pm = f32_step(create_train_state(cpu_model, fused_adamw(1e-3, **LM_STEP_ADAMW)), b_cpu)
+    loss_err = abs(float(cm["loss_sum"]) - float(pm["loss_sum"])) / abs(float(pm["loss_sum"]))
+    pairs = list(zip((p.detach().cpu() for p in card_model.parameters()),
+                     (p.detach() for p in cpu_model.parameters()), start))
+    update_err = math.sqrt(sum(float(((a - b) ** 2).sum()) for a, b, _ in pairs)
+                           / sum(float(((b - s0) ** 2).sum()) for _, b, s0 in pairs))
+    log(f"  f32 blockwise LM step, card vs CPU ({cpu_cfg['num_layers']} layers, width "
+        f"{cpu_cfg['num_heads'] * cpu_cfg['head_dim']}, 4x{cpu_cfg['max_len']}): loss rel diff "
+        f"{loss_err:.3g} (tol {CPU_STEP_LOSS_RTOL}), update rel diff {update_err:.3g} "
+        f"(tol {LM_CPU_UPDATE_RTOL})")
+    check(loss_err <= CPU_STEP_LOSS_RTOL, f"blockwise LM card vs CPU loss rel diff {loss_err}")
+    check(update_err <= LM_CPU_UPDATE_RTOL, f"blockwise LM card vs CPU update rel diff {update_err}")
+
+    out = {
+        "tokens_per_s": tok_s,
+        "step_ms": step_ms,
+        "batch": batch_size,
+        "seq": seq,
+        "params": n_params,
+        "mfu": mfu,
+        "mfu_causal_half": mfu_causal,
+        "first_loss": losses[0],
+        "last_loss": losses[-1],
+        "fixed_batch_losses": [fixed[0], fixed[-1]],
+        "fit_s": fit_s,
+        "eval_loss": summary["eval_loss"],
+        "peak_memory_gb": peak_ctx,
+        "remat": {"first_loss": remat_losses[0], "peak_memory_gb": peak_remat,
+                  "step_ms": remat_step_ms, "fit_s": remat_fit_s, "launches": remat_launches},
+        "profile": prof,
+        "card_vs_cpu": {"loss_rel": loss_err, "update_rel": update_err},
+        "card": card,
+    }
+    log("  long_json " + json.dumps(out))
+    return {"long_ctx": launches, "long_remat": remat_launches}, out
 
 
 CKPT_STEPS = 6  # the uninterrupted fit
@@ -2662,6 +3120,11 @@ def _ddp_child(rank: int, world: int, store: str, out_dir: str, device: str, ima
         from tpuframe_torch.core import initialize, shutdown
         from tpuframe_torch.data import DataLoader, SyntheticImageDataset
         from tpuframe_torch.models import ReplicaGroupedBatchNorm, ResNet50
+        from tpuframe_torch.ops.blockwise_attention import (
+            blockwise_attention_bwd_dkv,
+            blockwise_attention_bwd_dq,
+            blockwise_attention_fwd,
+        )
         from tpuframe_torch.ops.cross_entropy import cross_entropy_bwd, cross_entropy_fwd
         from tpuframe_torch.ops.normalize import normalize_images
         from tpuframe_torch.parallel import ParallelPlan, full_precision
@@ -2711,7 +3174,10 @@ def _ddp_child(rank: int, world: int, store: str, out_dir: str, device: str, ima
 
             trainer._eval_step = counted_eval
             counters = {"normalize": normalize_images, "cross_entropy_fwd": cross_entropy_fwd,
-                        "cross_entropy_bwd": cross_entropy_bwd}
+                        "cross_entropy_bwd": cross_entropy_bwd,
+                        "blockwise_attention_fwd": blockwise_attention_fwd,
+                        "blockwise_attention_bwd_dq": blockwise_attention_bwd_dq,
+                        "blockwise_attention_bwd_dkv": blockwise_attention_bwd_dkv}
             for fn in counters.values():
                 fn.launches = 0
             t0 = time.perf_counter()
@@ -2875,7 +3341,8 @@ def ddp_phase(card: str, timeout_s: float = 900.0, device: str = "cuda:0",
     fits = [o["fit"] for o in res]
     n_eval = fits[0]["n_eval"]
     expected = {"normalize": DDP_STEPS + n_eval, "cross_entropy_fwd": DDP_STEPS + n_eval,
-                "cross_entropy_bwd": DDP_STEPS}
+                "cross_entropy_bwd": DDP_STEPS, "blockwise_attention_fwd": 0,
+                "blockwise_attention_bwd_dq": 0, "blockwise_attention_bwd_dkv": 0}
     for r, f in enumerate(fits):
         check(f["launches"] == expected, f"ddp rank {r} launches {f['launches']} != {expected}")
         check(f["plan_world"] == 2 and f["local_batch"] == batch_size // 2,
@@ -3015,11 +3482,21 @@ def main() -> int:
 
     k4 = adamw_phase(flush, [tuple(p.shape) for p in TransformerLM(**LM).parameters()])
     k5a, k5b, k5c = quant_wire_phase(flush)
+    k6a, k6b, k6c = blockwise_phase(flush)
     del flush
     torch.cuda.empty_cache()
+    from tpuframe_torch.ops.blockwise_attention import (
+        blockwise_attention_bwd_dkv,
+        blockwise_attention_bwd_dq,
+        blockwise_attention_fwd,
+    )
+
+    k6_counters = (blockwise_attention_fwd, blockwise_attention_bwd_dq, blockwise_attention_bwd_dkv)
+    for fn in k6_counters:  # phases 4 to 10 run no long context: K6 must stay at 0
+        fn.launches = 0
 
     log("== phase 4: serve")
-    serve_launches = slice_phase(card)
+    serve_launches = slice_phase(card)["launches"]["normalize"]
 
     log("== phase 5: train")
     train_launches, _ = train_phase(card)
@@ -3042,6 +3519,19 @@ def main() -> int:
 
     log("== phase 10: uncompressed data parallelism on one card")
     ddp = ddp_phase(card)
+    k6_early = [fn.launches for fn in k6_counters]
+    log(f"  K6 launches over phases 4 to 10 in this process: {k6_early} (each rank of phase 10: "
+        f"{[ddp['launches'][n] for n in ('blockwise_attention_fwd', 'blockwise_attention_bwd_dq', 'blockwise_attention_bwd_dkv')]})")
+    check(k6_early == [0, 0, 0], f"K6 launched {k6_early} times in phases 4 to 10")
+    torch.cuda.empty_cache()
+
+    log("== phase 11: ViT serve")
+    vit = vit_serve_phase(card)
+    torch.cuda.empty_cache()
+
+    log("== phase 12: long-context LM train")
+    long_launches, long = long_context_phase(card)
+    torch.cuda.empty_cache()
 
     # each kernel's launches on the main paths that run it: K1 serve and
     # train, K2 the ResNet train, K3 and K4 the LM train (where K1 and K2
@@ -3062,9 +3552,18 @@ def main() -> int:
     k1["launches_ddp"] = ddp["launches"]["normalize"]
     k2a["launches_ddp"] = ddp["launches"]["cross_entropy_fwd"]
     k2b["launches_ddp"] = ddp["launches"]["cross_entropy_bwd"]
+    # K6 on the long-context LM's fit (phase 12), the long_remat fit beside
+    # it; K3a also on the ViT serve (phase 11)
+    for k, name in ((k6a, "blockwise_attention_fwd"), (k6b, "blockwise_attention_bwd_dq"),
+                    (k6c, "blockwise_attention_bwd_dkv")):
+        k["launches"] = long_launches["long_ctx"][name]
+        k["launches_remat"] = long_launches["long_remat"][name]
+    k1["launches_vit_serve"] = vit["launches"]["normalize"]
+    k3a["launches_vit_serve"] = vit["launches"]["layer_norm_fwd"]
+    k3a["launches_long_ctx"] = long_launches["long_ctx"]["layer_norm_fwd"]
 
-    log("== phase 11: result")
-    kernels = [k1, k2a, k2b, k3a, k3b, k4, k5a, k5b, k5c]
+    log("== phase 13: result")
+    kernels = [k1, k2a, k2b, k3a, k3b, k4, k5a, k5b, k5c, k6a, k6b, k6c]
     for k in kernels:
         k["floor_ms"] = floor_ms  # beside bound_ms, which stays the byte or operation bound
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,9 @@
 """The port on the card: the CUDA kernels (K1 normalize, K2a/K2b cross
 entropy, K3a/K3b LayerNorm, K4 fused AdamW over one tensor and over
 lists, K5a/K5b/K5c the compressed
-wire's amax, encode and decode) against their plain versions, the launch
+wire's amax, encode and decode, K6a/K6b/K6c blockwise attention forward
+and backward) against their plain versions, the launch counts of a
+blockwise LM step with and without ``remat``, the launch
 floor's counter, a parameter without a gradient stepped by K4, the
 compressed wire's sync on the card against the CPU, a
 small serve slice, a small ``Trainer.fit``, eval mode for a model left in
@@ -28,6 +30,11 @@ from tpuframe_torch.data import DataLoader, SyntheticImageDataset
 from tpuframe_torch.models import ResNet18, TransformerLM
 from tpuframe_torch.ops import (
     FusedAdamW,
+    blockwise_attention_bwd_dkv,
+    blockwise_attention_bwd_dq,
+    blockwise_attention_bwd_reference,
+    blockwise_attention_fwd,
+    blockwise_attention_reference,
     cross_entropy_bwd,
     cross_entropy_bwd_reference,
     cross_entropy_fwd,
@@ -1109,3 +1116,104 @@ def test_cross_rank_batchnorm_on_two_gloo_ranks_of_the_card(card, tmp_path):
         np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5, err_msg=name)
     for name, a, b in zip(names[2:], ranks[0][2:], ranks[1][2:]):
         np.testing.assert_array_equal(a, b, err_msg=name)  # one value on both ranks
+
+
+# -- K6: blockwise attention --------------------------------------------------
+
+#: (id, B, L, H, D, dtype, causal): every head dim, ragged L, both dtypes
+K6_CASES = [
+    ("2x13x3x16_f32_causal", 2, 13, 3, 16, torch.float32, True),
+    ("2x100x3x32_f32", 2, 100, 3, 32, torch.float32, False),
+    ("2x1000x3x64_f32_causal", 2, 1000, 3, 64, torch.float32, True),
+    ("1x300x2x128_f32", 1, 300, 2, 128, torch.float32, False),
+    ("2x1000x3x64_bf16_causal", 2, 1000, 3, 64, torch.bfloat16, True),
+    ("4x196x12x64_bf16", 4, 196, 12, 64, torch.bfloat16, False),
+    ("1x257x2x128_bf16_causal", 1, 257, 2, 128, torch.bfloat16, True),
+]
+
+
+def _k6_inputs(b, l, h, d, dtype, card, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((b, l, h, d)).astype(np.float32)).to(card)
+            .to(dtype) for _ in range(4)]
+
+
+def _k6_run(q, k, v, g, causal):
+    out, lse = blockwise_attention_fwd(q, k, v, causal=causal)
+    dq, delta = blockwise_attention_bwd_dq(q, k, v, out, lse, g, causal=causal)
+    dk, dv = blockwise_attention_bwd_dkv(q, k, v, lse, delta, g, causal=causal)
+    return out, lse, dq, dk, dv
+
+
+def _k6_plain(q, k, v, g, causal):
+    out, lse = blockwise_attention_reference(q, k, v, causal=causal)
+    return (out, lse, *blockwise_attention_bwd_reference(q, k, v, out, lse, g, causal=causal))
+
+
+@pytest.mark.parametrize("case", K6_CASES, ids=[c[0] for c in K6_CASES])
+def test_blockwise_attention_kernels_match_plain_versions(card, case):
+    """K6a-K6c against the plain schedule run in float32 on the same
+    inputs: in float32 within 1e-5 (out, lse) and 1e-4 (gradients), the
+    sums in another order over other tiles; in bf16 no further than twice
+    the plain bf16 run's own distance (lse, float32 in both, within 1e-5).
+    A rerun gives the same bits (no atomics)."""
+    _, b, l, h, d, dtype, causal = case
+    q, k, v, g = _k6_inputs(b, l, h, d, dtype, card)
+    before = (blockwise_attention_fwd.launches, blockwise_attention_bwd_dq.launches,
+              blockwise_attention_bwd_dkv.launches)
+    got = _k6_run(q, k, v, g, causal)
+    torch.cuda.synchronize()
+    assert (blockwise_attention_fwd.launches, blockwise_attention_bwd_dq.launches,
+            blockwise_attention_bwd_dkv.launches) == tuple(n + 1 for n in before)
+    assert [t.dtype for t in got] == [dtype, torch.float32, dtype, dtype, dtype]
+    want = _k6_plain(*(t.float() for t in (q, k, v, g)), causal)
+    err = [float((a.float() - w).abs().max()) for a, w in zip(got, want)]
+    assert err[1] <= 1e-5, err
+    if dtype == torch.float32:
+        assert err[0] <= 1e-5 and max(err[2:]) <= 1e-4, err
+    else:
+        plain = [float((a.float() - w).abs().max()) for a, w in zip(_k6_plain(q, k, v, g, causal),
+                                                                    want)]
+        for i in (0, 2, 3, 4):
+            assert err[i] <= 2 * plain[i], (i, err, plain)
+    again = _k6_run(q, k, v, g, causal)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+def test_blockwise_attention_kernels_refuse_what_they_do_not_take(card):
+    q, k, v, g = _k6_inputs(1, 64, 2, 48, torch.float32, card)
+    before = blockwise_attention_fwd.launches
+    with pytest.raises(ValueError, match="head dims"):
+        blockwise_attention_fwd(q, k, v)
+    q, k, v, g = _k6_inputs(1, 64, 2, 64, torch.float16, card)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        blockwise_attention_fwd(q, k, v)
+    with pytest.raises(ValueError, match="must match"):
+        blockwise_attention_fwd(q, k[:, :32], v)
+    assert blockwise_attention_fwd.launches == before
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+def test_blockwise_lm_step_launch_counts_and_remat_bits(card, remat):
+    """One bf16 train step of a 2-layer LM at 4,096 tokens (``auto`` takes
+    the blockwise path): K6a once a layer in the forward and once more in
+    the recompute under ``remat``, K6b and K6c once a layer; with dropout
+    0.1 the ``remat`` step gives the same loss and parameters, bit for bit,
+    as the step without it."""
+    cfg = dict(vocab_size=256, num_layers=2, num_heads=2, head_dim=32, max_len=4096)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (1, 4097))).to(card)
+    batch = {"image": toks[:, :-1], "label": toks[:, 1:]}
+    out = {}
+    for r in (False, remat):
+        model = TransformerLM(**cfg, dropout=0.1, remat=r, device=card, seed=0)
+        state = create_train_state(model, fused_adamw(3e-4))
+        counters = (blockwise_attention_fwd, blockwise_attention_bwd_dq,
+                    blockwise_attention_bwd_dkv)
+        for c in counters:
+            c.launches = 0
+        state, metrics = make_train_step(bf16_compute())(state, batch)
+        torch.cuda.synchronize()
+        assert [c.launches for c in counters] == [4 if r else 2, 2, 2]
+        out[r] = (float(metrics["loss_sum"]), [p.detach().clone() for p in model.parameters()])
+    assert out[remat][0] == out[False][0] and np.isfinite(out[False][0])
+    assert all(torch.equal(a, b) for a, b in zip(out[remat][1], out[False][1]))

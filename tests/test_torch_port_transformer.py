@@ -126,14 +126,38 @@ def test_compute_dtype_follows_the_policy():
     (dict(dropout=0.1), "dropout"),
 ])
 def test_unported_options_name_their_slice(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        TransformerLM(**SMALL, device="cpu", **kw)
+    """``ring``, ``ulysses`` and MoE still raise, naming their slice.  The
+    long-context slice's options (blockwise attention, ``remat``, dropout)
+    are ported: they build, and a train-mode forward and backward runs (the
+    dropout one with a generator)."""
+    if match in ("sequence-parallel", "MoE"):
+        with pytest.raises(NotImplementedError, match=match):
+            TransformerLM(**SMALL, device="cpu", **kw)
+        return
+    tm = TransformerLM(**SMALL, device="cpu", **kw).train()
+    tm.dropout_generator = torch.Generator().manual_seed(0)
+    logits = tm(torch.from_numpy(_tokens()).long())
+    logits.sum().backward()
+    assert logits.shape == (2, 16, 128)
+    assert all(p.grad is not None and bool(torch.isfinite(p.grad).all()) for p in tm.parameters())
 
 
-def test_auto_attention_refuses_long_context_and_unknown_impls():
+def test_auto_attention_refuses_long_context_and_unknown_impls(monkeypatch):
+    """``auto`` takes the blockwise path at 4,096 tokens (JAX's static rule,
+    ``_BLOCKWISE_AUTO_LEN``) and full attention below; an unknown impl
+    raises."""
+    import tpuframe_torch.models.transformer as port_transformer
+
+    calls = []
+    real = port_transformer.blockwise_attention
+    monkeypatch.setattr(port_transformer, "blockwise_attention",
+                        lambda *a, **kw: calls.append(a[0].shape) or real(*a, **kw))
     tm = TransformerLM(vocab_size=8, num_layers=1, num_heads=1, head_dim=4, max_len=4096,
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="blockwise"):
-        tm(torch.zeros(1, 4096, dtype=torch.long))
+    assert port_transformer._BLOCKWISE_AUTO_LEN == 4096
+    out = tm(torch.zeros(1, 4096, dtype=torch.long))
+    assert calls == [(1, 4096, 1, 4)] and bool(torch.isfinite(out).all())
+    tm(torch.zeros(1, 4095, dtype=torch.long))
+    assert len(calls) == 1
     with pytest.raises(ValueError, match="unknown attn_impl"):
         TransformerLM(**SMALL, device="cpu", attn_impl="flash")

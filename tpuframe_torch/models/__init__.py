@@ -1,4 +1,5 @@
-"""Models: the ResNet family, the transformer LM, and their weight interop."""
+"""Models: the ResNet family, the transformer LM, ViT, and their weight
+interop."""
 
 from tpuframe_torch.models.interop import (
     export_torch_resnet,
@@ -17,12 +18,14 @@ from tpuframe_torch.models.resnet import (
     ResNet50,
     ResNet101,
 )
-from tpuframe_torch.models.transformer import Block, SelfAttention, TransformerLM
+from tpuframe_torch.models.transformer import Block, Dropout, SelfAttention, TransformerLM
+from tpuframe_torch.models.vit import ViT, ViT_B16, ViT_S16, vit_tp_rules
 
 __all__ = [
     "BasicBlock",
     "Block",
     "Bottleneck",
+    "Dropout",
     "ReplicaGroupedBatchNorm",
     "ResNet",
     "ResNet18",
@@ -31,9 +34,13 @@ __all__ = [
     "ResNet101",
     "SelfAttention",
     "TransformerLM",
+    "ViT",
+    "ViT_B16",
+    "ViT_S16",
     "export_torch_resnet",
     "export_torch_transformer",
     "from_jax_variables",
     "import_torch_resnet",
     "import_torch_transformer",
+    "vit_tp_rules",
 ]

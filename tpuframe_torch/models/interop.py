@@ -4,7 +4,8 @@ The port's own copy of ``tpuframe/models/interop.py`` (numpy only), plus
 :func:`from_jax_variables`, which carries a JAX ``{"params",
 "batch_stats"}`` tree into the ``state_dict`` of the matching port model:
 the ResNet (module names torchvision's, so that ``state_dict`` is a
-torchvision one) or the ``TransformerLM`` (module names the JAX tree's).
+torchvision one), the ``TransformerLM`` or the ``ViT`` (module names the
+JAX tree's).
 
 Layout conversions:
 
@@ -14,6 +15,8 @@ Layout conversions:
   mean/var (batch_stats)
 - Embedding: ``weight`` <-> ``embedding``; LayerNorm ``scale``/``bias``
   keep their names
+- ViT: ``patch_embed`` kernel HWIO <-> weight OIHW; ``pos_embed`` and
+  ``cls_token`` (parameters of the model itself) as they are
 """
 
 from __future__ import annotations
@@ -124,11 +127,12 @@ def export_torch_resnet(variables: Mapping[str, Any]) -> dict:
 
 
 def export_torch_transformer(variables: Mapping[str, Any]) -> dict:
-    """A JAX ``TransformerLM`` tree (``{"params": ...}``) as the port
-    ``TransformerLM``'s ``state_dict`` of numpy arrays: ``Dense`` kernels
-    (in, out) transposed into ``weight`` (out, in), ``Embed`` tables into
-    ``weight``, everything else (biases, LayerNorm ``scale``/``bias``) as
-    it is."""
+    """A JAX ``TransformerLM`` or ``ViT`` tree (``{"params": ...}``) as the
+    port model's ``state_dict`` of numpy arrays: ``Dense`` kernels (in, out)
+    transposed into ``weight`` (out, in), the ``Conv`` kernel HWIO into
+    ``weight`` OIHW, ``Embed`` tables into ``weight``, everything else
+    (biases, LayerNorm ``scale``/``bias``, ``pos_embed`` and ``cls_token``
+    arrays) as it is."""
     out: dict[str, np.ndarray] = {}
 
     def walk(tree: Mapping[str, Any], prefix: list[str]) -> None:
@@ -138,22 +142,25 @@ def export_torch_transformer(variables: Mapping[str, Any]) -> dict:
                 continue
             arr = np.asarray(value)
             attr = {"kernel": "weight", "embedding": "weight"}.get(name, name)
-            out[".".join(prefix + [attr])] = arr.T if name == "kernel" else arr
+            if name == "kernel":
+                arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+            out[".".join(prefix + [attr])] = arr
 
     walk(variables.get("params", variables), [])
     return out
 
 
 def import_torch_transformer(state_dict: Mapping[str, Any]) -> dict:
-    """The port ``TransformerLM``'s ``state_dict`` as the JAX tree
-    ``{"params": ...}``; inverse of :func:`export_torch_transformer`."""
+    """The port ``TransformerLM``'s or ``ViT``'s ``state_dict`` as the JAX
+    tree ``{"params": ...}``; inverse of :func:`export_torch_transformer`."""
     params: dict = {}
     for key, value in state_dict.items():
         arr = value.detach().cpu().numpy() if hasattr(value, "detach") else np.asarray(value)
         *mods, attr = key.split(".")
         if attr == "weight":
             attr = "embedding" if mods[-1] in ("embed", "pos_embed") else "kernel"
-            arr = arr if attr == "embedding" else arr.T
+            if attr == "kernel":
+                arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
         node = params
         for m in mods:
             node = node.setdefault(m, {})
@@ -164,11 +171,13 @@ def import_torch_transformer(state_dict: Mapping[str, Any]) -> dict:
 def from_jax_variables(variables_np: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """The JAX tree (numpy leaves) as the matching port model's
     ``state_dict`` of CPU tensors: a ``TransformerLM`` tree (it has an
-    ``embed`` table) by :func:`export_torch_transformer`; a ResNet's
+    ``embed`` table) or a ``ViT`` tree (it has a ``patch_embed``) by
+    :func:`export_torch_transformer`; a ResNet's
     ``{"params", "batch_stats"}`` with torchvision names and a zero
     ``num_batches_tracked`` beside every BatchNorm.  Load it with
     ``model.load_state_dict(...)``."""
-    if "embed" in variables_np.get("params", {}):
+    params = variables_np.get("params", {})
+    if "embed" in params or "patch_embed" in params:
         return {k: torch.from_numpy(np.ascontiguousarray(np.array(v)))
                 for k, v in export_torch_transformer(variables_np).items()}
     state = {

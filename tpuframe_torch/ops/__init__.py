@@ -1,5 +1,13 @@
 """Ops with a hand-written Hopper kernel beside a plain PyTorch version."""
 
+from tpuframe_torch.ops.blockwise_attention import (
+    blockwise_attention,
+    blockwise_attention_bwd_dkv,
+    blockwise_attention_bwd_dq,
+    blockwise_attention_bwd_reference,
+    blockwise_attention_fwd,
+    blockwise_attention_reference,
+)
 from tpuframe_torch.ops.build import launch_floor
 from tpuframe_torch.ops.cross_entropy import (
     cross_entropy_bwd,
@@ -41,6 +49,12 @@ __all__ = [
     "FusedAdamW",
     "FusedLayerNorm",
     "attention_reference",
+    "blockwise_attention",
+    "blockwise_attention_bwd_dkv",
+    "blockwise_attention_bwd_dq",
+    "blockwise_attention_bwd_reference",
+    "blockwise_attention_fwd",
+    "blockwise_attention_reference",
     "bucket_abs_max",
     "bucket_abs_max_reference",
     "cross_entropy_bwd",

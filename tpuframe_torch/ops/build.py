@@ -33,8 +33,8 @@ __all__ = ["BUILD_DIR", "KERNELS", "NVCC_FLAGS", "build", "find_nvcc", "launch_f
 
 #: every kernel source of the port, by name (``csrc/<name>.cu``); ``launch_floor``
 #: is the empty kernel that times a launch
-KERNELS = ("cross_entropy", "fused_adamw", "launch_floor", "layer_norm", "normalize",
-           "quant_wire")
+KERNELS = ("blockwise_attention", "cross_entropy", "fused_adamw", "launch_floor", "layer_norm",
+           "normalize", "quant_wire")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -13,6 +13,13 @@ TrainState` that it updates in place, with the JAX step's semantics:
   restores it after, as the JAX steps pass ``train=`` on every call; a
   model left in ``train()`` mode is evaluated and served with its running
   statistics.
+- **Dropout.**  A model with a ``dropout_generator`` attribute and dropout
+  in it (``TransformerLM``, ``ViT``) gets a fresh ``torch.Generator`` for
+  each train forward, :func:`step_generator`'s ``"dropout"`` stream: the
+  state's seed, the step and the rank, as JAX's ``state.step_rng(
+  "dropout")`` folded with the data-axis index, and in the grad-accum step
+  the microbatch besides, as JAX folds in the microbatch index.  Eval and
+  predict run in eval mode, where dropout does nothing.
 - **Loss routing** (``step.py:33-56``).  (B,) integer labels go to the
   fused cross entropy (kernels K2a and K2b on the card); soft labels of
   the logits' rank go to a plain soft cross entropy.
@@ -62,6 +69,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import zlib
 from typing import Any, Callable, Iterator, Mapping
 
 import torch
@@ -94,6 +102,7 @@ __all__ = [
     "make_predict_fn",
     "make_train_step",
     "merge_metrics",
+    "step_generator",
     "summarize_metrics",
     "soft_cross_entropy",
 ]
@@ -131,6 +140,43 @@ def _mode(model: nn.Module, train: bool) -> Iterator[None]:
     finally:
         for m, flag in flags:
             m.training = flag
+
+
+def step_generator(state: TrainState, device: torch.device, stream: str | None = None,
+                   index: int | None = None) -> torch.Generator:
+    """A generator on ``device`` for one use of one step: seeded from the
+    state's generator seed, ``state.step`` and the process rank, then from
+    the ``stream``'s name (crc32, the same in every process, as JAX's
+    ``step_rng``) and a microbatch ``index``.  Without a stream it is the
+    compressed wire's stochastic-rounding stream."""
+    rank = dist.get_rank() if _wired() else 0
+    seed = ((state.generator.initial_seed() * 1_000_003 + state.step) * 8191 + rank) % 2**63
+    if stream is not None:
+        seed = (seed * 1_000_033 + zlib.crc32(stream.encode())) % 2**63
+    if index is not None:
+        seed = (seed * 1_000_037 + index + 1) % 2**63
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def _uses_dropout(model: nn.Module) -> bool:
+    """Whether ``model`` draws dropout masks in train mode."""
+    return hasattr(model, "dropout_generator") and getattr(model, "dropout", 0.0) > 0.0
+
+
+@contextlib.contextmanager
+def _dropout_stream(state: TrainState, index: int | None = None) -> Iterator[None]:
+    """The step's dropout generator in the model's ``dropout_generator``
+    for one forward (nothing for a model without dropout)."""
+    model = state.model
+    if not _uses_dropout(model):
+        yield
+        return
+    device = next(model.parameters()).device
+    model.dropout_generator = step_generator(state, device, "dropout", index)
+    try:
+        yield
+    finally:
+        model.dropout_generator = None
 
 
 def _forward(model: nn.Module, batch: Mapping[str, torch.Tensor], policy: Policy,
@@ -282,7 +328,7 @@ def make_train_step(
         if health is not None:
             snap.take(state)  # before the forward: BatchNorm moves its buffers
         state.optimizer.zero_grad(set_to_none=True)
-        with _statistics(sync, state.model):
+        with _statistics(sync, state.model), _dropout_stream(state):
             losses, logits = _forward(state.model, batch, policy, True, loss_fn)
         loss = losses.mean()
         loss.backward()
@@ -400,7 +446,7 @@ def _accumulate(state: TrainState, batch: Mapping[str, torch.Tensor], n_microbat
         mb = {k: v[i] for k, v in batch.items()}
         if batch_transform is not None:
             mb = batch_transform(mb)
-        with _statistics(sync, state.model):
+        with _statistics(sync, state.model), _dropout_stream(state, i):
             losses, logits = _forward(state.model, mb, policy, True, loss_fn)
         loss = losses.mean()
         loss.backward()
@@ -572,9 +618,7 @@ class _WireSync:
         rank."""
         if not self._run_config.stochastic_rounding:
             return None
-        rank = dist.get_rank() if _wired() else 0
-        seed = ((state.generator.initial_seed() * 1_000_003 + state.step) * 8191 + rank) % 2**63
-        return torch.Generator(device=device).manual_seed(seed)
+        return step_generator(state, device)
 
     def __call__(self, state: TrainState, loss: torch.Tensor,
                  metrics: dict) -> tuple[torch.Tensor, dict]:
