@@ -13,7 +13,9 @@ Phases, each of which fails the script (nonzero exit, no result line):
    ``tpuframe_torch/csrc`` with ``nvcc`` for ``sm_90a``, one ``nvcc`` per
    source, all started together, and beside them the K2 baseline
    (``tests/csrc/cross_entropy_baseline.cu``, the design before saved row
-   statistics, for timing only).
+   statistics) and the K6 baseline (``tests/csrc/
+   blockwise_attention_baseline.cu``, every product a float32 FMA), for
+   timing only; each kernel's registers and spills from ``ptxas``.
 3. Kernels: first the launch floor, the time of an empty kernel
    (``csrc/launch_floor.cu``) launched through ``ctypes`` as every kernel
    is, printed on its own line and given as ``floor_ms`` beside each
@@ -53,9 +55,11 @@ Phases, each of which fails the script (nonzero exit, no result line):
    path's (2, 8192, 12, 64) bf16 causal, ViT's (64, 196, 12, 64) bf16 and
    ragged L = 13 and 1000 in f32 and bf16 (f32 within 1e-5 forward and
    1e-4 gradients, bf16 at most twice the plain bf16 run's distance), two
-   backward runs bit-equal; timed at the path's shape beside the plain
-   passes and ``F.scaled_dot_product_attention(is_causal=True)`` forward
-   and autograd backward, each against its operation bound in bf16.
+   backward runs bit-equal, the K6 baseline's K6b and K6c held to the same
+   bf16 rule at the path's shape; timed there beside the plain passes,
+   ``F.scaled_dot_product_attention(is_causal=True)`` forward and autograd
+   backward and, for K6b and K6c, the baseline, in turns, each against its
+   operation bound in bf16.
    K6's counters are then zeroed, and phases 4 to 10 must leave them at 0.
 4. Serve: ResNet50 with 1000 classes under ``bf16_compute`` serves 160
    uint8 224x224 images through ``ServeEngine`` (buckets 1/8/32/64) from 4
@@ -142,7 +146,9 @@ Phases, each of which fails the script (nonzero exit, no result line):
    step on the card against the CPU.
 13. Result: a ``kernels`` JSON line (each kernel with ``floor_ms``; K1 and
    K2 also with ``launches_ddp``, phase 10's count on each rank; K6 with
-   ``launches_remat``), the ``nvidia-smi`` line, then ``{"ok": true,
+   ``launches_remat`` and its share of the bound, K6b and K6c also with
+   ``baseline_ms``, ``speedup`` and ``ptxas``, the registers and spills
+   at each head dim), the ``nvidia-smi`` line, then ``{"ok": true,
    "device": {...}}`` as the last line.
 
 One phase of 3 alone, for a short run on the card (the kernels it needs
@@ -152,7 +158,9 @@ are built at first use)::
     device='cuda'); fl = cs.floor_phase(f); cs.kernel_phase(f, fl); cs.cross_entropy_phase(f, fl,
     cs.baseline_library(cs.start_baseline_build()))"
 
-(one line; the break inside the quotes is harmless).
+(one line; the break inside the quotes is harmless).  K6 against its
+baseline alone: ``cs.blockwise_phase(f, cs.baseline_library(
+cs.start_baseline_build(cs.BASELINE_K6)))``.
 """
 
 from __future__ import annotations
@@ -282,6 +290,48 @@ def random_jax_variables(template: dict, seed: int) -> dict:
 
     return {"params": fill(template["params"], False),
             "batch_stats": fill(template["batch_stats"], True)}
+
+
+def demangled(mangled: str) -> str:
+    """A kernel's mangled name as ``name<template arguments>``: the last
+    length-prefixed name, then its type (``f32``, ``bf16``) and integer
+    arguments."""
+    if not mangled.startswith("_Z"):
+        return mangled
+    i, name = (3 if mangled.startswith("_ZN") else 2), mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+    rest = mangled[i:]
+    if not rest.startswith("I"):
+        return name
+    targs = rest[1:rest.index("EE") + 1]
+    args = [t for t, pat in (("f32", r"^f"), ("bf16", r"^13__nv_bfloat16")) if re.match(pat, targs)]
+    return f"{name}<{','.join(args + re.findall(r'Li(\d+)E', targs))}>"
+
+
+def ptxas_table(text: str) -> dict:
+    """``{kernel: {"registers", "spill_stores", "spill_loads"}}`` from an
+    ``nvcc -Xptxas -v`` log, each kernel named by its function and template
+    arguments (``attn_bwd_dq_tc<64>``, ``attn_fwd_kernel<bf16,64>``)."""
+    table, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = demangled(m.group(1))
+            table[fn] = {"registers": None, "spill_stores": None, "spill_loads": None}
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            table[fn]["spill_stores"], table[fn]["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            table[fn]["registers"] = int(m.group(1))
+    return table
 
 
 def floor_phase(flush) -> float:
@@ -431,47 +481,63 @@ def kernel_phase(flush, floor_ms: float):
 
 
 BASELINE_CE = Path(__file__).resolve().parent / "tests" / "csrc" / "cross_entropy_baseline.cu"
+#: K6 before its bf16 backward moved to the tensor cores (every product a
+#: float32 FMA), its entry points renamed tf_blockwise_attention_baseline_*
+BASELINE_K6 = Path(__file__).resolve().parent / "tests" / "csrc" / "blockwise_attention_baseline.cu"
 
 
-def start_baseline_build():
-    """Start ``nvcc`` on the baseline K2 source (the design before saved row
-    statistics, ``tests/csrc/cross_entropy_baseline.cu``) with the port's
-    flags, beside :func:`build.build`'s; :func:`baseline_library` waits for
-    it.  Returns ``(process or None, temporary output, library path)``."""
+def start_baseline_build(source: Path = BASELINE_CE):
+    """Start ``nvcc`` on a baseline kernel source (the K2 design before
+    saved row statistics, ``BASELINE_CE``, or K6's FMA design,
+    ``BASELINE_K6``) with the port's flags, beside :func:`build.build`'s;
+    :func:`baseline_library` waits for it.  Returns ``(source, process or
+    None, temporary output, library path)``."""
     import hashlib
 
     from tpuframe_torch.ops import build
 
-    digest = hashlib.sha256(BASELINE_CE.read_bytes() + " ".join(build.NVCC_FLAGS).encode())
-    out = build.BUILD_DIR / f"libcross_entropy_baseline-{digest.hexdigest()[:16]}.so"
+    digest = hashlib.sha256(source.read_bytes() + " ".join(build.NVCC_FLAGS).encode())
+    out = build.BUILD_DIR / f"lib{source.stem}-{digest.hexdigest()[:16]}.so"
     if out.exists():
-        return None, None, out
+        return source, None, None, out
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     proc = subprocess.Popen([build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(tmp),
-                             str(BASELINE_CE)], stdout=subprocess.PIPE,
+                             str(source)], stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
+    return source, proc, tmp, out
 
 
 def baseline_library(handle, timeout_s: float = 600.0):
-    """The built baseline library, its C signatures declared (the ones
-    without statistics)."""
+    """The built baseline library, its C signatures declared (K2's: the ones
+    without statistics; K6's: those of ``ops/blockwise_attention.py``).
+    The ``ptxas`` lines of its build, if it was built here, are in
+    ``lib.build_log``."""
     import ctypes
 
-    proc, tmp, out = handle
+    source, proc, tmp, out = handle
+    log_text = ""
     if proc is not None:
         log_text, _ = proc.communicate(timeout=timeout_s)
         check(proc.returncode == 0 and tmp.exists(),
-              f"nvcc failed to build {BASELINE_CE.name}:\n{log_text}")
+              f"nvcc failed to build {source.name}:\n{log_text}")
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
-    lib.tf_cross_entropy_fwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    lib.tf_cross_entropy_bwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong,
-                                                                 ctypes.c_void_p] + [
-        ctypes.c_int] * 4 + [ctypes.c_void_p]
-    lib.tf_cross_entropy_fwd.restype = lib.tf_cross_entropy_bwd.restype = ctypes.c_int
+    lib.build_log = log_text
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    if source == BASELINE_K6:
+        shape = [i32, i32, i32, i32, i32, ctypes.c_float, i32, ptr]
+        lib.tf_blockwise_attention_baseline_fwd.argtypes = [ptr] * 5 + shape
+        lib.tf_blockwise_attention_baseline_bwd_dq.argtypes = [ptr] * 8 + shape
+        lib.tf_blockwise_attention_baseline_bwd_dkv.argtypes = [ptr] * 8 + shape
+        for fn in (lib.tf_blockwise_attention_baseline_fwd,
+                   lib.tf_blockwise_attention_baseline_bwd_dq,
+                   lib.tf_blockwise_attention_baseline_bwd_dkv):
+            fn.restype = i32
+        return lib
+    lib.tf_cross_entropy_fwd.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
+    lib.tf_cross_entropy_bwd.argtypes = [ptr] * 3 + [ctypes.c_longlong, ptr] + [i32] * 4 + [ptr]
+    lib.tf_cross_entropy_fwd.restype = lib.tf_cross_entropy_bwd.restype = i32
     return lib
 
 
@@ -1165,17 +1231,21 @@ K6_F32_BWD_TOL = 1e-4
 K6_BF16_FACTOR = 2.0
 
 
-def blockwise_phase(flush) -> list[dict]:
+def blockwise_phase(flush, baseline) -> list[dict]:
     """K6a (forward), K6b (delta and dQ) and K6c (dK and dV) against the
     plain schedule on the card: at the long-context path's (2, 8192, 12,
     64) bf16 causal, ViT's (64, 196, 12, 64) bf16 bidirectional, and ragged
     L = 13 and 1000 in f32 and bf16, causal and not; two backward runs
-    bit-equal.  Then timed at the path's shape beside the plain passes and
+    bit-equal.  At the path's shape ``baseline`` (K6's FMA design,
+    ``BASELINE_K6``) is held to the same bf16 rule on the same inputs.
+    Then timed at the path's shape beside the plain passes,
     ``F.scaled_dot_product_attention(is_causal=True)`` (forward, and its
-    autograd backward, which computes dQ, dK and dV together)."""
+    autograd backward, which computes dQ, dK and dV together) and, for K6b
+    and K6c, the baseline, in turns."""
     import torch.nn.functional as F
 
     from tpuframe_torch.ops.blockwise_attention import (
+        _CODES,
         _bwd_dkv_reference,
         _bwd_dq_reference,
         _delta,
@@ -1202,6 +1272,25 @@ def blockwise_phase(flush) -> list[dict]:
     def plain(q, k, v, g, causal):
         out, lse = blockwise_attention_reference(q, k, v, causal=causal)
         return (out, lse, *blockwise_attention_bwd_reference(q, k, v, out, lse, g, causal=causal))
+
+    def launch_baseline(fn, ptrs, q, causal):
+        b, l, h, d = q.shape
+        rc = fn(*(t.data_ptr() for t in ptrs), b, l, h, d, int(causal), 1.0 / math.sqrt(d),
+                _CODES[q.dtype], torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"baseline K6 launch failed: CUDA error {rc}")
+
+    def baseline_dq(q, k, v, out, lse, g, causal):
+        dq = torch.empty_like(q)
+        delta = torch.empty(lse.shape, dtype=torch.float32, device=dev)
+        launch_baseline(baseline.tf_blockwise_attention_baseline_bwd_dq,
+                        (q, k, v, out, g, lse, dq, delta), q, causal)
+        return dq, delta
+
+    def baseline_dkv(q, k, v, lse, delta, g, causal):
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        launch_baseline(baseline.tf_blockwise_attention_baseline_bwd_dkv,
+                        (q, k, v, g, lse, delta, dk, dv), q, causal)
+        return dk, dv
 
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [("2x8192x12x64 bf16 causal", ATTN_PATH, bf16, True),
@@ -1235,6 +1324,17 @@ def blockwise_phase(flush) -> list[dict]:
               f"K6 {name}: a rerun of the backward gave other bits")
         if shape == ATTN_PATH:
             path_err = err
+            # the baseline's K6b and K6c from the same forward, to the same rule
+            bdq, bdelta = baseline_dq(q, k, v, got[0], got[1], g, causal)
+            base = (bdq, *baseline_dkv(q, k, v, got[1], bdelta, g, causal))
+            base_err = [float((a.float() - w).abs().max()) for a, w in zip(base, want[2:])]
+            apart = [float((a.float() - b_.float()).abs().max()) for a, b_ in zip(base, got[2:])]
+            log(f"  baseline K6b/K6c {name}: dq/dk/dv max abs diff from the f32 plain version "
+                f"{[f'{e:.3g}' for e in base_err]}, from the kernels "
+                f"{[f'{e:.3g}' for e in apart]} (tol {K6_BF16_FACTOR}x the plain bf16 run's)")
+            check(all(e <= K6_BF16_FACTOR * r for e, r in zip(base_err, ref[2:])),
+                  f"baseline K6 {name}: errors {base_err}, plain bf16 {ref[2:]}")
+            del bdq, bdelta, base
         del q, k, v, g, got, want, again
     torch.cuda.empty_cache()
 
@@ -1251,19 +1351,25 @@ def blockwise_phase(flush) -> list[dict]:
     arms = {
         "fwd": (lambda: blockwise_attention_fwd(q, k, v, causal=True),
                 lambda: blockwise_attention_reference(q, k, v, causal=True),
-                lambda: F.scaled_dot_product_attention(*heads, is_causal=True)),
+                lambda: F.scaled_dot_product_attention(*heads, is_causal=True), None),
         "dq": (lambda: blockwise_attention_bwd_dq(q, k, v, out, lse, g, causal=True),
-               lambda: _bwd_dq_reference(q, k, v, lse, _delta(out, g), g, True, None), None),
+               lambda: _bwd_dq_reference(q, k, v, lse, _delta(out, g), g, True, None), None,
+               lambda: baseline_dq(q, k, v, out, lse, g, True)),
         "dkv": (lambda: blockwise_attention_bwd_dkv(q, k, v, lse, delta, g, causal=True),
-                lambda: _bwd_dkv_reference(q, k, v, lse, plain_delta, g, True, None), None),
+                lambda: _bwd_dkv_reference(q, k, v, lse, plain_delta, g, True, None), None,
+                lambda: baseline_dkv(q, k, v, lse, delta, g, True)),
     }
     times = {}
-    for which, (kernel, plain_fn, library) in arms.items():
+    for which, (kernel, plain_fn, library, base) in arms.items():
+        # plain, kernel, [library, library,] [baseline, baseline,] kernel, plain
         plain_ms = [time_ms(plain_fn, flush, iters=3, warmup=1)]
         kernel_ms = [time_ms(kernel, flush, iters=20, warmup=2)]
         if library is not None:
             times[which + "_library"] = min(time_ms(library, flush, iters=20, warmup=2)
                                             for _ in range(2))
+        if base is not None:
+            times[which + "_baseline"] = min(time_ms(base, flush, iters=10, warmup=1)
+                                             for _ in range(2))
         kernel_ms.append(time_ms(kernel, flush, iters=20, warmup=2))
         plain_ms.append(time_ms(plain_fn, flush, iters=3, warmup=1))
         times[which], times[which + "_plain"] = min(kernel_ms), min(plain_ms)
@@ -1291,17 +1397,24 @@ def blockwise_phase(flush) -> list[dict]:
              "bound_by": "operations" if by_ops >= by_bytes else "bytes",
              "library_ms": times["fwd_library"] if which == "fwd" else times["bwd_library"],
              "shape": "2x8192x12x64 bf16 causal", "bytes_moved": moved, "flops": flops}
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        extra = ""
         if which != "fwd":
             r.update(library_covers="dQ, dK and dV together (SDPA's autograd backward)",
-                     backward_ms=times["dq"] + times["dkv"], fa2_backward_bound_ms=fa2_bwd_ms)
+                     backward_ms=times["dq"] + times["dkv"], fa2_backward_bound_ms=fa2_bwd_ms,
+                     baseline_ms=times[which + "_baseline"],
+                     speedup=times[which + "_baseline"] / r["ms"])
+            extra = f", baseline {r['baseline_ms']:.3f} ms ({r['speedup']:.2f}x)"
         log(f"  {name} 2x8192x12x64 bf16 causal: kernel {r['ms']:.3f} ms, plain "
-            f"{r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({flops / 1e9:.1f} GFLOP at 989 TFLOP/s; "
-            f"{moved / 1e6:.1f} MB at 3.35 TB/s)")
+            f"{r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms{extra}, bound "
+            f"{r['bound_ms']:.4f} ms ({100 * r['bound_share']:.1f} %; {flops / 1e9:.1f} GFLOP "
+            f"at 989 TFLOP/s; {moved / 1e6:.1f} MB at 3.35 TB/s)")
         rows_out.append(r)
-    log(f"  blockwise attention backward (K6b + K6c): {times['dq'] + times['dkv']:.3f} ms against "
-        f"FlashAttention-2's five products {fa2_bwd_ms:.3f} ms and SDPA's backward "
-        f"{times['bwd_library']:.3f} ms")
+    pair_bound = (work["dq"][1] + work["dkv"][1]) / BF16_FLOPS * 1e3
+    log(f"  blockwise attention backward (K6b + K6c): {times['dq'] + times['dkv']:.3f} ms "
+        f"(baseline {times['dq_baseline'] + times['dkv_baseline']:.3f} ms) against its 7 "
+        f"products' {pair_bound:.4f} ms, FlashAttention-2's five products {fa2_bwd_ms:.3f} ms "
+        f"and SDPA's backward {times['bwd_library']:.3f} ms")
     return rows_out
 
 
@@ -2263,7 +2376,9 @@ def long_context_phase(card: str, dev: torch.device = torch.device("cuda"), cfg:
         f"{LONG_TIMED} steps (min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}) = "
         f"{tok_s:.0f} tokens/s; MFU {mfu:.4f} (phase 6's formula, attention over the full L^2; "
         f"{mfu_causal:.4f} counting the causal half) at 989 TFLOP/s on {card}")
-    k6_names = ("attn_fwd_kernel", "attn_bwd_dq_kernel", "attn_bwd_dkv_kernel")
+    # K6a and the bf16 backward on the tensor cores; the FMA backward is f32's
+    k6_names = ("attn_fwd_kernel", "tc::attn_bwd_dq_tc", "tc::attn_bwd_dkv_tc",
+                "attn_bwd_dq_kernel", "attn_bwd_dkv_kernel")
     prof = {}
     if dev.type == "cuda":
         prof = profile(lambda: step(state, batch), f"long_ctx train step of {batch_size}x{seq} "
@@ -3457,14 +3572,19 @@ def main() -> int:
     from tpuframe_torch.ops import build
 
     t0 = time.perf_counter()
-    baseline = start_baseline_build()  # the K2 baseline's nvcc runs beside the port's
+    # the K2 and K6 baselines' nvcc run beside the port's
+    baseline, baseline_k6 = start_baseline_build(), start_baseline_build(BASELINE_K6)
     report = build.build()
-    baseline = baseline_library(baseline)
-    log(f"  built {sorted(report)} and the K2 baseline in {time.perf_counter() - t0:.2f} s")
-    for name, r in report.items():
-        for line in r["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+    baseline, baseline_k6 = baseline_library(baseline), baseline_library(baseline_k6)
+    log(f"  built {sorted(report)} and the K2 and K6 baselines in "
+        f"{time.perf_counter() - t0:.2f} s")
+    regs = {}
+    for name, text in [(n, r["log"]) for n, r in report.items()] + [
+            (BASELINE_K6.stem, baseline_k6.build_log)]:
+        regs[name] = ptxas_table(text)
+        for fn, t in regs[name].items():
+            log(f"  {name}: {fn} {t['registers']} registers, spill stores/loads "
+                f"{t['spill_stores']}/{t['spill_loads']} bytes")
 
     log("== phase 3: kernels")
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")  # > 50 MB L2
@@ -3482,7 +3602,10 @@ def main() -> int:
 
     k4 = adamw_phase(flush, [tuple(p.shape) for p in TransformerLM(**LM).parameters()])
     k5a, k5b, k5c = quant_wire_phase(flush)
-    k6a, k6b, k6c = blockwise_phase(flush)
+    k6a, k6b, k6c = blockwise_phase(flush, baseline_k6)
+    for k, fn in ((k6b, "attn_bwd_dq_tc"), (k6c, "attn_bwd_dkv_tc")):
+        k["ptxas"] = {f"D={d}": regs["blockwise_attention"].get(f"{fn}<{d}>")
+                      for d in (16, 32, 64, 128)}
     del flush
     torch.cuda.empty_cache()
     from tpuframe_torch.ops.blockwise_attention import (

@@ -21,7 +21,11 @@ Tolerances, each with its reason:
   against the float32 full softmax (5e-2; measured 3.0e-3).
 """
 
+import ctypes
 import math
+import re
+from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -39,7 +43,8 @@ from tpuframe_torch.ops import (
     blockwise_attention_fwd,
     blockwise_attention_reference,
 )
-from tpuframe_torch.ops.blockwise_attention import DEFAULT_BLOCK
+from tpuframe_torch.ops import build
+from tpuframe_torch.ops.blockwise_attention import DEFAULT_BLOCK, _library
 
 
 def _inputs(l, b=2, h=3, d=8, seed=0, scale=1.0):
@@ -157,3 +162,30 @@ def test_mismatched_shapes_rejected_as_in_jax():
     qj, kj, vj = (jnp.asarray(a) for a in _inputs(32)[:3])
     with pytest.raises(ValueError, match="must match"):
         jax_blockwise(qj, kj[:, :16], vj)
+
+
+_SOURCE = Path(build.__file__).resolve().parents[1] / "csrc" / "blockwise_attention.cu"
+_C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int,
+            "float": ctypes.c_float}
+
+
+@pytest.mark.parametrize("entry", ["fwd", "bwd_dq", "bwd_dkv"])
+def test_kernel_interface_matches_its_source_without_a_build(entry, monkeypatch):
+    """The C entry points of ``csrc/blockwise_attention.cu``, which cannot be
+    built here, against the ``argtypes`` that ``_library()`` declares for
+    them: the same number of parameters, each of the ctypes type its C type
+    takes.  Read from the source text; ``build.load`` is replaced, so
+    nothing is compiled or loaded."""
+    src = _SOURCE.read_text()
+    assert "tpuframe/ops/blockwise_attention.py" in src  # the function it replaces
+    decls = dict(re.findall(r'extern "C" int (tf_blockwise_attention_\w+)\(([^)]*)\)', src))
+    assert sorted(decls) == sorted(f"tf_blockwise_attention_{e}" for e in ("fwd", "bwd_dq",
+                                                                           "bwd_dkv"))
+    assert "blockwise_attention" in build.KERNELS
+    fake = SimpleNamespace(**{name: SimpleNamespace() for name in decls})
+    monkeypatch.setattr(build, "load", lambda name: fake)
+    lib = _library.__wrapped__()  # the uncached body: the cache stays empty
+    params = [" ".join(p.split()[:-1]) for p in decls[f"tf_blockwise_attention_{entry}"].split(",")]
+    fn = getattr(lib, f"tf_blockwise_attention_{entry}")
+    assert [_C_TYPES[p] for p in params] == fn.argtypes
+    assert fn.restype is ctypes.c_int

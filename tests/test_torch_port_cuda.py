@@ -1120,7 +1120,9 @@ def test_cross_rank_batchnorm_on_two_gloo_ranks_of_the_card(card, tmp_path):
 
 # -- K6: blockwise attention --------------------------------------------------
 
-#: (id, B, L, H, D, dtype, causal): every head dim, ragged L, both dtypes
+#: (id, B, L, H, D, dtype, causal[, q's scale]): every head dim, ragged L,
+#: both dtypes; in bf16 every head dim of the tensor-core backward, path B's
+#: length (128 tiles in the loop) and large logits (q scaled by 8)
 K6_CASES = [
     ("2x13x3x16_f32_causal", 2, 13, 3, 16, torch.float32, True),
     ("2x100x3x32_f32", 2, 100, 3, 32, torch.float32, False),
@@ -1129,13 +1131,17 @@ K6_CASES = [
     ("2x1000x3x64_bf16_causal", 2, 1000, 3, 64, torch.bfloat16, True),
     ("4x196x12x64_bf16", 4, 196, 12, 64, torch.bfloat16, False),
     ("1x257x2x128_bf16_causal", 1, 257, 2, 128, torch.bfloat16, True),
+    ("2x13x3x16_bf16_causal", 2, 13, 3, 16, torch.bfloat16, True),
+    ("2x100x3x32_bf16", 2, 100, 3, 32, torch.bfloat16, False),
+    ("1x8192x2x64_bf16_causal", 1, 8192, 2, 64, torch.bfloat16, True),
+    ("2x1000x3x64_bf16_causal_q8", 2, 1000, 3, 64, torch.bfloat16, True, 8.0),
 ]
 
 
-def _k6_inputs(b, l, h, d, dtype, card, seed=0):
+def _k6_inputs(b, l, h, d, dtype, card, seed=0, q_scale=1.0):
     rng = np.random.default_rng(seed)
-    return [torch.from_numpy(rng.standard_normal((b, l, h, d)).astype(np.float32)).to(card)
-            .to(dtype) for _ in range(4)]
+    q, k, v, g = (rng.standard_normal((b, l, h, d)).astype(np.float32) for _ in range(4))
+    return [torch.from_numpy(a).to(card).to(dtype) for a in (q * np.float32(q_scale), k, v, g)]
 
 
 def _k6_run(q, k, v, g, causal):
@@ -1157,8 +1163,8 @@ def test_blockwise_attention_kernels_match_plain_versions(card, case):
     sums in another order over other tiles; in bf16 no further than twice
     the plain bf16 run's own distance (lse, float32 in both, within 1e-5).
     A rerun gives the same bits (no atomics)."""
-    _, b, l, h, d, dtype, causal = case
-    q, k, v, g = _k6_inputs(b, l, h, d, dtype, card)
+    _, b, l, h, d, dtype, causal, *q_scale = case
+    q, k, v, g = _k6_inputs(b, l, h, d, dtype, card, q_scale=q_scale[0] if q_scale else 1.0)
     before = (blockwise_attention_fwd.launches, blockwise_attention_bwd_dq.launches,
               blockwise_attention_bwd_dkv.launches)
     got = _k6_run(q, k, v, g, causal)

@@ -17,37 +17,86 @@
 //
 // Numerics, as JAX: products of storage-dtype values accumulated in float32
 // (a bf16 value widens to float32 exactly and a product of two fits in
-// float32's mantissa, so a float32 FMA is that product); the softmax state
-// float32; P rounded to the value dtype before P·V; dS rounded to the
-// storage dtype for dQ and dK, P for dV; out = o / max(lsum, 1e-30), cast
-// last.  The -inf guards are JAX's: m_safe, a correction of 0 while the
-// running max is -inf, lse_safe.  Every sum runs in an order fixed by the
-// shape: no atomics, so a rerun gives the same bits.
+// float32's mantissa, so a float32 FMA or a bf16 tensor-core product with a
+// float32 accumulator is that product); the softmax state float32; P
+// rounded to the value dtype before P·V; dS rounded to the storage dtype
+// for dQ and dK, P for dV; out = o / max(lsum, 1e-30), cast last.  The
+// -inf guards are JAX's: m_safe, a correction of 0 while the running max is
+// -inf, lse_safe.  Every sum runs in an order fixed by the shape: no
+// atomics, so a rerun gives the same bits.
 //
-// Bound.  Operations: at the LM path's (2, 8192, 12, 64) causal the forward
-// does 2 products of 2 * B * H * L^2 * D / 2 = 206 GFLOP (0.21 ms at the
-// card's 989 TFLOP/s in bf16), the backward 5 (515 GFLOP, 0.52 ms).  The
-// bytes (q, k, v, out, lse, g, dq, dk, dv: 25 MB each in bf16) take
-// microseconds.
+// Bound.  Operations: at the LM path's (2, 8192, 12, 64) causal one product
+// over the visible half of L^2 is 2 * B * H * L^2 * D / 2 = 103 GFLOP.  The
+// forward does 2 (0.2085 ms at the card's 989 TFLOP/s in bf16).  The
+// backward keeps JAX's two passes, 7 products: K6b 3 (S, dP, dQ), K6c 4 (S,
+// dP, dV, dK), 721 GFLOP, 0.7296 ms.  The bytes (q, k, v, out, lse, g, dq,
+// dk, dv: 25 MB each in bf16) take microseconds.
 //
-// Design (a simple kernel, right first; the tensor cores come with the
-// redesign).  A block of 256 threads owns one 64-row tile (a Q tile in K6a
-// and K6b, a K/V tile in K6c) of one (b, h) and walks the other operand's
-// 64-row tiles.  Tiles sit in shared memory as float32, rows padded by 4
-// floats so that the 16-byte loads of 8 threads cover distinct banks.
-// Thread (ty, tx) = (tid / 16, tid % 16) computes a 4 x 4 piece of the
-// 64 x 64 score tile, rows 4 ty + i and columns tx + 16 j, with float32
-// FMAs over 16-byte shared loads; a row's max and sum run over the 16 lanes
-// of a half warp by butterfly shuffles (every lane holds the same bits).
-// The probabilities (or dS) go to shared memory, rounded as above, and the
-// same thread then accumulates rows 4 ty + i of the 64 x D product against
-// the tile in its D / 16 columns, in registers.  K6b writes delta to global
-// memory for K6c.  Blocks run the heaviest causal tiles first.
+// Design of K6a and of the float32 backward (a simple kernel, right first).
+// A block of 256 threads owns one 64-row tile (a Q tile in K6a and K6b, a
+// K/V tile in K6c) of one (b, h) and walks the other operand's 64-row
+// tiles.  Tiles sit in shared memory as float32, rows padded by 4 floats so
+// that the 16-byte loads of 8 threads cover distinct banks.  Thread (ty, tx)
+// = (tid / 16, tid % 16) computes a 4 x 4 piece of the 64 x 64 score tile,
+// rows 4 ty + i and columns tx + 16 j, with float32 FMAs over 16-byte shared
+// loads; a row's max and sum run over the 16 lanes of a half warp by
+// butterfly shuffles (every lane holds the same bits).  The probabilities
+// (or dS) go to shared memory, rounded as above, and the same thread then
+// accumulates rows 4 ty + i of the 64 x D product against the tile in its
+// D / 16 columns, in registers.  K6b writes delta to global memory for K6c.
+// Blocks run the heaviest causal tiles first.  Float32 keeps these FMA
+// kernels: its gradients are held within 1e-4, which TF32 products cannot
+// give.
+//
+// Design of the bf16 backward (K6b, K6c on the tensor cores).  The FMA
+// kernels ran at ~32 TFLOP/s, half the card's float32 CUDA-core peak, so
+// no arrangement of FMAs could come near the bound.  Here:
+// - Every product is mma.sync.m16n8k16 bf16 with a float32 accumulator.  A
+//   block of 4 warps owns a 64-row tile, each warp 16 of its rows: query
+//   rows in K6b, key rows in K6c.  Operands come from shared memory by
+//   ldmatrix, and by ldmatrix.trans where the product reads the operand
+//   along its rows (K in dQ += dS·K, dO and Q in dV += Pᵀ·dO, dK += dSᵀ·Q).
+// - The scores stay in registers.  K6b forms S = Q·Kᵀ and dP = dO·Vᵀ (16 x
+//   64 a warp, float32 accumulator fragments), turns them into dS = P ∘ (dP
+//   - delta) · scale in place, rounds pairs to bf16 and hands those
+//   registers on as the A operand of dQ += dS·K: the accumulator layout of
+//   m16n8k16 is the A layout of the next product, so P and dS never touch
+//   shared memory.  K6c does the same on the transposed tile, Sᵀ = K·Qᵀ and
+//   dPᵀ = V·dOᵀ, so Pᵀ and dSᵀ are the A operands of dV += Pᵀ·dO and dK +=
+//   dSᵀ·Q.  lse and delta are per query, so per column there: each thread
+//   reads its columns' entries from a small shared array.
+// - Tiles sit in shared memory in bf16, rows padded by 16 bytes, so the
+//   eight 16-byte rows that one ldmatrix phase reads fall in distinct banks
+//   at every head dim.  The streamed operand (K and V in K6b; Q, dO, lse
+//   and delta in K6c) is double-buffered with cp.async: the next tile is in
+//   flight while the current one computes.  Rows past L are zero-filled
+//   (cp.async's src-size 0).
+// - The softmax term costs instruction slots beside the products, so p =
+//   exp(s · scale - lse) is exp2f of one FMA, log2(e) folded into scale
+//   and lse: faster than expf in both kernels, timed in turns on an H100,
+//   and no further from float32.
+// - Masks only where needed: the causal mask on the diagonal tile, the
+//   ragged-L mask on a tile that holds rows past L; every other tile runs
+//   unmasked.  The rules are those of the FMA kernels: tiles above the
+//   diagonal skipped, masked scores -inf before exp, lse_safe, p = 0 for a
+//   padded query row, the heaviest causal tiles first.
+// - K6b computes delta = rowsum(dO * O) itself, from the dO tile it has
+//   loaded, and writes it for K6c: two launches, no pre-pass.
+// - Registers a thread from ptxas (-Xptxas -v, CUDA 12.8, sm_90a; chip_smoke.py
+//   phase 2 prints them), no spills at any head dim:
+//     D          16    32    64   128
+//     K6b       123   128   168   254
+//     K6c       128   147   222   255
+//   K6c holds two 16 x D float32 accumulators (dK, dV) beside the two
+//   16 x 64 score tiles, so at D = 128 it sits at the 255 limit; a block of
+//   128 threads then leaves room for 2 blocks an SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -454,6 +503,420 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---- K6b and K6c in bf16 on the tensor cores --------------------------------
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kWarps = 4;              // each owns 16 rows of the block's 64-row tile
+constexpr int kThreads = 32 * kWarps;  // 128
+constexpr float kLog2e = 1.4426950408889634f;
+
+// bf16 elements a shared row: D and 16 bytes of padding
+template <int D>
+__host__ __device__ constexpr int stride() {
+  return D + 8;
+}
+template <int D>
+__host__ __device__ constexpr int tile_elems() {
+  return kTile * stride<D>();
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (or 4) bytes from global to shared, asynchronously; zeros where !full
+// (src is then not read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(full ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(full ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8 x 8 bf16 matrices; lanes 8 i .. 8 i + 7 give the row addresses of
+// matrix i, and r[i] holds (row lane / 4, columns 2 (lane % 4) + {0, 1})
+// of it, or with .trans of its transpose
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// c (16 x 8, float32) += a (16 x 16, bf16, row) · b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats rounded to bf16, the first in the low half
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Fragment coordinates.  Lane = 4 gr + tq.  The accumulator fragment of
+// n-tile j holds (row gr, columns 8 j + 2 tq + {0, 1}) in c[0], c[1] and
+// (row gr + 8, the same columns) in c[2], c[3].  The A fragment of k-step
+// kk (columns 16 kk .. 16 kk + 15) is then n-tiles 2 kk and 2 kk + 1,
+// packed in that order: the accumulator-to-A identity.
+
+// This lane's ldmatrix row (offset in elements) for the A operand at the
+// 16 x 16 block (row0, col0) of a row-major tile
+template <int D>
+__device__ __forceinline__ int a_off(int row0, int col0, int lane) {
+  return (row0 + (lane & 15)) * stride<D>() + col0 + (lane >> 4) * 8;
+}
+// For the B operands of two n-tiles (n0, n0 + 8) at k-step k0 from a tile
+// stored [n][k] (ldsm_x4): r = {b0, b1} of n0, then {b0, b1} of n0 + 8
+template <int D>
+__device__ __forceinline__ int b_off(int n0, int k0, int lane) {
+  return (n0 + (lane & 7) + ((lane >> 4) << 3)) * stride<D>() + k0 + ((lane >> 3) & 1) * 8;
+}
+// The same from a tile stored [k][n] (ldsm_x4_t)
+template <int D>
+__device__ __forceinline__ int bt_off(int k0, int n0, int lane) {
+  return (k0 + (lane & 7) + (((lane >> 3) & 1) << 3)) * stride<D>() + n0 + (lane >> 4) * 8;
+}
+
+// The 64 rows row0.. of (b, h) into a shared bf16 tile, asynchronously;
+// rows at or past L are zeros
+template <int D>
+__device__ __forceinline__ void load_tile_async(bf16* s, const bf16* g, int b, int h, int row0,
+                                                int L, int H) {
+  constexpr int kChunks = D / 8;  // 16 bytes each
+static_assert(kTile * kChunks % kThreads == 0, "whole rounds of chunks");
+#pragma unroll
+  for (int n = 0; n < kTile * kChunks / kThreads; ++n) {
+    const int i = threadIdx.x + n * kThreads;
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    const int l = row0 + r;
+    const bool in = l < L;
+    cp_async16(smem_u32(s + r * stride<D>() + c), in ? g + row_offset(b, l, h, L, H, D) + c : g,
+               in);
+  }
+}
+
+// c[j] += A · Bᵀ over D for the 8 n-tiles of a 16 x 64 score block: rows
+// a_row0.. of the tile As against the 64 rows of the tile Bs
+template <int D>
+__device__ __forceinline__ void scores(float (&c)[8][4], const bf16* As, int a_row0,
+                                       const bf16* Bs, int lane) {
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    uint32_t a[4];
+    ldsm_x4(a, smem_u32(As + a_off<D>(a_row0, 16 * ks, lane)));
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t b[4];
+      ldsm_x4(b, smem_u32(Bs + b_off<D>(16 * np, 16 * ks, lane)));
+      mma(c[2 * np], a, b[0], b[1]);
+      mma(c[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// acc (16 x D) += A (16 x 64, bf16 A fragments) · Bs (64 x D, stored [k][n])
+template <int D>
+__device__ __forceinline__ void accumulate(float (&acc)[D / 8][4], const uint32_t (&a)[4][4],
+                                           const bf16* Bs, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int nd = 0; nd < D / 16; ++nd) {
+      uint32_t b[4];
+      ldsm_x4_t(b, smem_u32(Bs + bt_off<D>(16 * kk, 16 * nd, lane)));
+      mma(acc[2 * nd], a[kk], b[0], b[1]);
+      mma(acc[2 * nd + 1], a[kk], b[2], b[3]);
+    }
+  }
+}
+
+// The A fragments of the 4 k-steps, from the 8 accumulator n-tiles of x
+__device__ __forceinline__ void to_a(uint32_t (&a)[4][4], const float (&x)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack(x[2 * kk][0], x[2 * kk][1]);
+    a[kk][1] = pack(x[2 * kk][2], x[2 * kk][3]);
+    a[kk][2] = pack(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+    a[kk][3] = pack(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+  }
+}
+
+// A warp's 16 rows row0.. of acc into (B, L, H, D) at (b, h); rows past L
+// skipped
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[D / 8][4], int b, int h,
+                                           int row0, int L, int H, int lane) {
+  const int gr = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int l = row0 + gr + 8 * half;
+    if (l >= L) continue;
+    bf16* row = dst + row_offset(b, l, h, L, H, D);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + 2 * tq) =
+          __floats2bfloat162_rn(acc[j][2 * half], acc[j][2 * half + 1]);
+    }
+  }
+}
+
+// ---- K6b --------------------------------------------------------------------
+
+template <int D>
+constexpr size_t dq_smem() {
+  return 6 * tile_elems<D>() * sizeof(bf16) + kTile * sizeof(float);
+}
+
+// S (in s) and dP of a warp's 16 query rows x 64 keys into dS, in place.
+// kMask: the tile needs the causal or the ragged mask.
+template <bool kMask>
+__device__ __forceinline__ void dq_ds(float (&s)[8][4], const float (&dp)[8][4],
+                                      const float (&ls)[2], const float (&dl)[2], int qi0,
+                                      int kj0, int L, int causal, float scale, int lane) {
+  const int gr = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      // p = exp(s scale - lse) as exp2 of one FMA, log2(e) folded in
+      float x = fmaf(s[j][e], scale * kLog2e, -ls[e >> 1] * kLog2e);
+      if (kMask) {
+        const int qi = qi0 + gr + 8 * (e >> 1), kj = kj0 + 8 * j + 2 * tq + (e & 1);
+        const bool ok = kj < L && qi < L && (!causal || kj <= qi);
+        x = ok ? x : -INFINITY;
+      }
+      const float p = exp2f(x);
+      s[j][e] = p * (dp[j][e] - dl[e >> 1]) * scale;
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    attn_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const bf16* __restrict__ out,
+                   const bf16* __restrict__ g, const float* __restrict__ lse,
+                   bf16* __restrict__ dq, float* __restrict__ delta, int L, int H, int causal,
+                   float scale) {
+  extern __shared__ float4 smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem4);
+  bf16* dOs = Qs + tile_elems<D>();
+  bf16* KV = dOs + tile_elems<D>();  // buffer i: K at tile 2 i of KV, V at 2 i + 1
+  float* delta_s = reinterpret_cast<float*>(KV + 4 * tile_elems<D>());
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int n_tiles = (L + kTile - 1) / kTile;
+  const int qt = n_tiles - 1 - blockIdx.y;  // the longest causal rows first
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t row_bh = (static_cast<size_t>(b) * H + h) * L;
+  const int last = causal ? qt : n_tiles - 1;  // tiles above the diagonal: skipped
+  const bool ragged = L % kTile != 0;
+
+  load_tile_async<D>(Qs, q, b, h, qt * kTile, L, H);
+  load_tile_async<D>(dOs, g, b, h, qt * kTile, L, H);
+  load_tile_async<D>(KV, k, b, h, 0, L, H);
+  load_tile_async<D>(KV + tile_elems<D>(), v, b, h, 0, L, H);
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
+  {  // delta = rowsum(dO * O): two threads a row, D / 2 columns each
+    const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
+    const int qi = qt * kTile + r;
+    float part = 0.f;
+    if (qi < L) {
+      const bf16* o_row = out + row_offset(b, qi, h, L, H, D) + half * (D / 2);
+      const bf16* do_row = dOs + r * stride<D>() + half * (D / 2);
+#pragma unroll
+      for (int c = 0; c < D / 2; c += 8) {
+        const uint4 ov = *reinterpret_cast<const uint4*>(o_row + c);
+        const uint4 dv = *reinterpret_cast<const uint4*>(do_row + c);
+        const bf16* oe = reinterpret_cast<const bf16*>(&ov);
+        const bf16* de = reinterpret_cast<const bf16*>(&dv);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) part = fmaf(to_f(oe[e]), to_f(de[e]), part);
+      }
+    }
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    if (half == 0) {
+      delta_s[r] = part;
+      if (qi < L) delta[row_bh + qi] = part;
+    }
+  }
+  __syncthreads();
+  float ls[2], dl[2];  // rows 16 warp + lane / 4 + {0, 8}
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = 16 * warp + (lane >> 2) + 8 * i, qi = qt * kTile + r;
+    const float x = qi < L ? lse[row_bh + qi] : 0.f;
+    ls[i] = x == -INFINITY ? 0.f : x;  // lse_safe
+    dl[i] = delta_s[r];
+  }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int kt = 0; kt <= last; ++kt) {
+    if (kt < last) {  // the next K/V tile into the other buffer, in flight
+      bf16* nxt = KV + 2 * ((kt + 1) & 1) * tile_elems<D>();
+      load_tile_async<D>(nxt, k, b, h, (kt + 1) * kTile, L, H);
+      load_tile_async<D>(nxt + tile_elems<D>(), v, b, h, (kt + 1) * kTile, L, H);
+    }
+    cp_commit();
+    cp_wait<1>();  // this tile's group has landed
+    __syncthreads();
+    const bf16* Ks = KV + 2 * (kt & 1) * tile_elems<D>();
+    const bf16* Vs = Ks + tile_elems<D>();
+    float s[8][4] = {}, dp[8][4] = {};
+    scores<D>(s, Qs, 16 * warp, Ks, lane);
+    scores<D>(dp, dOs, 16 * warp, Vs, lane);
+    const int qi0 = qt * kTile + 16 * warp, kj0 = kt * kTile;
+    if ((causal && kt == qt) || (ragged && (kt == n_tiles - 1 || qt == n_tiles - 1))) {
+      dq_ds<true>(s, dp, ls, dl, qi0, kj0, L, causal, scale, lane);
+    } else {
+      dq_ds<false>(s, dp, ls, dl, qi0, kj0, L, causal, scale, lane);
+    }
+    uint32_t a[4][4];
+    to_a(a, s);  // dS in k's dtype, straight from the accumulators
+    accumulate<D>(acc, a, Ks, lane);
+    __syncthreads();  // every warp is done with this buffer before it is refilled
+  }
+  store_rows<D>(dq, acc, b, h, qt * kTile + 16 * warp, L, H, lane);
+}
+
+// ---- K6c --------------------------------------------------------------------
+
+template <int D>
+constexpr size_t dkv_smem() {
+  return 6 * tile_elems<D>() * sizeof(bf16) + 4 * kTile * sizeof(float);
+}
+
+// A warp's transposed tile, Sᵀ (in st) and dPᵀ (in dpt) of 16 key rows x
+// 64 query columns, into Pᵀ (in st) and dSᵀ (in dpt).  lse_s and delta_s
+// hold the tile's 64 queries.  kMask: the tile needs the causal or the
+// ragged mask.
+template <bool kMask>
+__device__ __forceinline__ void dkv_p_ds(float (&st)[8][4], float (&dpt)[8][4],
+                                         const float* lse_s, const float* delta_s, int kj0,
+                                         int qi0, int L, int causal, float scale, int lane) {
+  const int gr = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = 8 * j + 2 * tq;
+    const float2 ls2 = *reinterpret_cast<const float2*>(lse_s + c);
+    const float2 dl2 = *reinterpret_cast<const float2*>(delta_s + c);
+    const float ls[2] = {ls2.x == -INFINITY ? 0.f : ls2.x,  // lse_safe
+                         ls2.y == -INFINITY ? 0.f : ls2.y};
+    const float dl[2] = {dl2.x, dl2.y};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = fmaf(st[j][e], scale * kLog2e, -ls[e & 1] * kLog2e);  // as in K6b
+      if (kMask) {
+        const int kj = kj0 + gr + 8 * (e >> 1), qi = qi0 + c + (e & 1);
+        const bool ok = kj < L && qi < L && (!causal || kj <= qi);
+        x = ok ? x : -INFINITY;
+      }
+      const float p = exp2f(x);
+      dpt[j][e] = p * (dpt[j][e] - dl[e & 1]) * scale;
+      st[j][e] = p;
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    attn_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ g,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    bf16* __restrict__ dk, bf16* __restrict__ dv, int L, int H, int causal,
+                    float scale) {
+  extern __shared__ float4 smem4[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem4);
+  bf16* Vs = Ks + tile_elems<D>();
+  bf16* QO = Vs + tile_elems<D>();  // buffer i: Q at tile 2 i of QO, dO at 2 i + 1
+  float* rows_s = reinterpret_cast<float*>(QO + 4 * tile_elems<D>());  // buffer i: lse, delta
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int n_tiles = (L + kTile - 1) / kTile;
+  const int kt = blockIdx.y;  // causal: the first K/V tiles meet the most Q tiles
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t row_bh = (static_cast<size_t>(b) * H + h) * L;
+  const int first = causal ? kt : 0;  // tiles above the diagonal: skipped
+  const bool ragged = L % kTile != 0;
+
+  // Q tile qt (q, dO, and the lse and delta of its rows) into buffer i,
+  // asynchronously: threads 0..63 copy lse, 64..127 delta
+  auto load_q = [&](int qt, int i) {
+    bf16* dst = QO + 2 * i * tile_elems<D>();
+    load_tile_async<D>(dst, q, b, h, qt * kTile, L, H);
+    load_tile_async<D>(dst + tile_elems<D>(), g, b, h, qt * kTile, L, H);
+    const int qi = qt * kTile + (threadIdx.x & (kTile - 1));
+    const float* src = threadIdx.x < kTile ? lse : delta;
+    const bool in = qi < L;
+    cp_async4(smem_u32(rows_s + 2 * kTile * i + threadIdx.x), in ? src + row_bh + qi : src, in);
+  };
+  load_tile_async<D>(Ks, k, b, h, kt * kTile, L, H);
+  load_tile_async<D>(Vs, v, b, h, kt * kTile, L, H);
+  load_q(first, 0);
+  cp_commit();
+  float acc_k[D / 8][4], acc_v[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.f;
+  }
+  for (int qt = first, it = 0; qt < n_tiles; ++qt, ++it) {
+    if (qt + 1 < n_tiles) load_q(qt + 1, (it + 1) & 1);  // in flight
+    cp_commit();
+    cp_wait<1>();  // this tile's group has landed
+    __syncthreads();
+    const bf16* Qs = QO + 2 * (it & 1) * tile_elems<D>();
+    const bf16* dOs = Qs + tile_elems<D>();
+    const float* lse_s = rows_s + 2 * kTile * (it & 1);
+    const float* delta_s = lse_s + kTile;
+    float st[8][4] = {}, dpt[8][4] = {};
+    scores<D>(st, Ks, 16 * warp, Qs, lane);
+    scores<D>(dpt, Vs, 16 * warp, dOs, lane);
+    const int kj0 = kt * kTile + 16 * warp, qi0 = qt * kTile;
+    if ((causal && qt == kt) || (ragged && (qt == n_tiles - 1 || kt == n_tiles - 1))) {
+      dkv_p_ds<true>(st, dpt, lse_s, delta_s, kj0, qi0, L, causal, scale, lane);
+    } else {
+      dkv_p_ds<false>(st, dpt, lse_s, delta_s, kj0, qi0, L, causal, scale, lane);
+    }
+    uint32_t a[4][4];
+    to_a(a, st);  // Pᵀ in dO's dtype, straight from the accumulators
+    accumulate<D>(acc_v, a, dOs, lane);
+    to_a(a, dpt);  // dSᵀ in q's dtype
+    accumulate<D>(acc_k, a, Qs, lane);
+    __syncthreads();  // every warp is done with this buffer before it is refilled
+  }
+  store_rows<D>(dk, acc_k, b, h, kt * kTile + 16 * warp, L, H, lane);
+  store_rows<D>(dv, acc_v, b, h, kt * kTile + 16 * warp, L, H, lane);
+}
+
+}  // namespace tc
+
 // ---- launches -------------------------------------------------------------
 
 template <typename Kernel>
@@ -480,13 +943,22 @@ template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* out, const void* g,
               const void* lse, void* dq, void* delta, int B, int L, int H, int causal,
               float scale, cudaStream_t s) {
-  constexpr size_t smem = dq_smem<T, D>();
-  if (int rc = prepare(attn_bwd_dq_kernel<T, D>, smem)) return rc;
   const dim3 grid(B * H, (L + kTile - 1) / kTile);
-  attn_bwd_dq_kernel<T, D><<<grid, kThreads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(out), static_cast<const T*>(g), static_cast<const float*>(lse),
-      static_cast<T*>(dq), static_cast<float*>(delta), L, H, causal, scale);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {  // the tensor cores
+    constexpr size_t smem = tc::dq_smem<D>();
+    if (int rc = prepare(tc::attn_bwd_dq_tc<D>, smem)) return rc;
+    tc::attn_bwd_dq_tc<D><<<grid, tc::kThreads, smem, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(out), static_cast<const T*>(g), static_cast<const float*>(lse),
+        static_cast<T*>(dq), static_cast<float*>(delta), L, H, causal, scale);
+  } else {
+    constexpr size_t smem = dq_smem<T, D>();
+    if (int rc = prepare(attn_bwd_dq_kernel<T, D>, smem)) return rc;
+    attn_bwd_dq_kernel<T, D><<<grid, kThreads, smem, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(out), static_cast<const T*>(g), static_cast<const float*>(lse),
+        static_cast<T*>(dq), static_cast<float*>(delta), L, H, causal, scale);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -494,14 +966,24 @@ template <typename T, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* g, const void* lse,
                const void* delta, void* dk, void* dv, int B, int L, int H, int causal,
                float scale, cudaStream_t s) {
-  constexpr size_t smem = dkv_smem<T, D>();
-  if (int rc = prepare(attn_bwd_dkv_kernel<T, D>, smem)) return rc;
   const dim3 grid(B * H, (L + kTile - 1) / kTile);
-  attn_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(g), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), L, H,
-      causal, scale);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {  // the tensor cores
+    constexpr size_t smem = tc::dkv_smem<D>();
+    if (int rc = prepare(tc::attn_bwd_dkv_tc<D>, smem)) return rc;
+    tc::attn_bwd_dkv_tc<D><<<grid, tc::kThreads, smem, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(g), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), L, H,
+        causal, scale);
+  } else {
+    constexpr size_t smem = dkv_smem<T, D>();
+    if (int rc = prepare(attn_bwd_dkv_kernel<T, D>, smem)) return rc;
+    attn_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(g), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), L, H,
+        causal, scale);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
