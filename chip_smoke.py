@@ -55,11 +55,13 @@ Phases, each of which fails the script (nonzero exit, no result line):
    path's (2, 8192, 12, 64) bf16 causal, ViT's (64, 196, 12, 64) bf16 and
    ragged L = 13 and 1000 in f32 and bf16 (f32 within 1e-5 forward and
    1e-4 gradients, bf16 at most twice the plain bf16 run's distance), two
-   backward runs bit-equal, the K6 baseline's K6b and K6c held to the same
-   bf16 rule at the path's shape; timed there beside the plain passes,
+   runs bit-equal, the K6 baseline held to the same bf16 rule at the path's
+   shape, K6a at q scaled by 8 with its lse within 1e-5 of the float64
+   logsumexp or no further than twice the f32 plain run; timed at the
+   path's shape beside the plain passes,
    ``F.scaled_dot_product_attention(is_causal=True)`` forward and autograd
-   backward and, for K6b and K6c, the baseline, in turns, each against its
-   operation bound in bf16.
+   backward and the baseline, in turns, each against its operation bound
+   in bf16.
    K6's counters are then zeroed, and phases 4 to 10 must leave them at 0.
 4. Serve: ResNet50 with 1000 classes under ``bf16_compute`` serves 160
    uint8 224x224 images through ``ServeEngine`` (buckets 1/8/32/64) from 4
@@ -146,10 +148,10 @@ Phases, each of which fails the script (nonzero exit, no result line):
    step on the card against the CPU.
 13. Result: a ``kernels`` JSON line (each kernel with ``floor_ms``; K1 and
    K2 also with ``launches_ddp``, phase 10's count on each rank; K6 with
-   ``launches_remat`` and its share of the bound, K6b and K6c also with
-   ``baseline_ms``, ``speedup`` and ``ptxas``, the registers and spills
-   at each head dim), the ``nvidia-smi`` line, then ``{"ok": true,
-   "device": {...}}`` as the last line.
+   ``launches_remat``, its share of the bound, ``baseline_ms``,
+   ``speedup`` and ``ptxas``, the registers and spills of its bf16
+   tensor-core kernel at each head dim), the ``nvidia-smi`` line, then
+   ``{"ok": true, "device": {...}}`` as the last line.
 
 One phase of 3 alone, for a short run on the card (the kernels it needs
 are built at first use)::
@@ -1229,19 +1231,37 @@ ATTN_VIT = (64, 196, 12, 64)
 K6_F32_FWD_TOL = 1e-5
 K6_F32_BWD_TOL = 1e-4
 K6_BF16_FACTOR = 2.0
+#: K6a at large logits (q scaled by 8, causal): lse against the float64
+#: logsumexp, since there the float32 plain run's own sums round it by as
+#: much as 1e-5 (lse ~ 40, a few float32 steps) and a kernel that sums in
+#: another order lands elsewhere; within 1e-5 of it, or no further than
+#: twice the float32 plain run (the bf16 rule's form)
+K6_LARGE_LOGITS = ((2, 1000, 3, 64), (2, 1000, 2, 128))
+
+
+def lse_float64(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
+    """The logsumexp (B, H, L) of the scaled scores in float64 over the same
+    values: what every float32 lse of attention approximates."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) / math.sqrt(q.shape[-1])
+    if causal:
+        l = q.shape[1]
+        s = s.masked_fill(~torch.ones(l, l, dtype=torch.bool, device=q.device).tril(), -math.inf)
+    return torch.logsumexp(s, -1)
 
 
 def blockwise_phase(flush, baseline) -> list[dict]:
     """K6a (forward), K6b (delta and dQ) and K6c (dK and dV) against the
     plain schedule on the card: at the long-context path's (2, 8192, 12,
     64) bf16 causal, ViT's (64, 196, 12, 64) bf16 bidirectional, and ragged
-    L = 13 and 1000 in f32 and bf16, causal and not; two backward runs
-    bit-equal.  At the path's shape ``baseline`` (K6's FMA design,
-    ``BASELINE_K6``) is held to the same bf16 rule on the same inputs.
+    L = 13 and 1000 in f32 and bf16, causal and not; two runs bit-equal;
+    K6a at large logits, its lse against the float64 logsumexp
+    (``K6_LARGE_LOGITS``).  At the path's shape ``baseline`` (K6's FMA
+    design, ``BASELINE_K6``) is held to the same bf16 rule on the same
+    inputs.
     Then timed at the path's shape beside the plain passes,
     ``F.scaled_dot_product_attention(is_causal=True)`` (forward, and its
-    autograd backward, which computes dQ, dK and dV together) and, for K6b
-    and K6c, the baseline, in turns."""
+    autograd backward, which computes dQ, dK and dV together) and the
+    baseline, in turns."""
     import torch.nn.functional as F
 
     from tpuframe_torch.ops.blockwise_attention import (
@@ -1278,6 +1298,13 @@ def blockwise_phase(flush, baseline) -> list[dict]:
         rc = fn(*(t.data_ptr() for t in ptrs), b, l, h, d, int(causal), 1.0 / math.sqrt(d),
                 _CODES[q.dtype], torch.cuda.current_stream().cuda_stream)
         check(rc == 0, f"baseline K6 launch failed: CUDA error {rc}")
+
+    def baseline_fwd(q, k, v, causal):
+        out = torch.empty_like(q)
+        lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]), dtype=torch.float32, device=dev)
+        launch_baseline(baseline.tf_blockwise_attention_baseline_fwd, (q, k, v, out, lse), q,
+                        causal)
+        return out, lse
 
     def baseline_dq(q, k, v, out, lse, g, causal):
         dq = torch.empty_like(q)
@@ -1320,22 +1347,48 @@ def blockwise_phase(flush, baseline) -> list[dict]:
             f"version {[f'{e:.3g}' for e in err]} ({tol})")
         check(ok, f"K6 {name}: errors {err} ({tol})")
         again = kernels(q, k, v, g, causal)
-        check(all(torch.equal(a, b) for a, b in zip(got[2:], again[2:])),
-              f"K6 {name}: a rerun of the backward gave other bits")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"K6 {name}: a rerun gave other bits")
         if shape == ATTN_PATH:
             path_err = err
-            # the baseline's K6b and K6c from the same forward, to the same rule
+            # the baseline's K6a, and its K6b and K6c from the kernels'
+            # forward, to the same rule
+            base = baseline_fwd(q, k, v, causal)
             bdq, bdelta = baseline_dq(q, k, v, got[0], got[1], g, causal)
-            base = (bdq, *baseline_dkv(q, k, v, got[1], bdelta, g, causal))
-            base_err = [float((a.float() - w).abs().max()) for a, w in zip(base, want[2:])]
-            apart = [float((a.float() - b_.float()).abs().max()) for a, b_ in zip(base, got[2:])]
-            log(f"  baseline K6b/K6c {name}: dq/dk/dv max abs diff from the f32 plain version "
+            base += (bdq, *baseline_dkv(q, k, v, got[1], bdelta, g, causal))
+            base_err = [float((a.float() - w).abs().max()) for a, w in zip(base, want)]
+            apart = [float((a.float() - b_.float()).abs().max()) for a, b_ in zip(base, got)]
+            log(f"  baseline K6 {name}: out/lse/dq/dk/dv max abs diff from the f32 plain version "
                 f"{[f'{e:.3g}' for e in base_err]}, from the kernels "
-                f"{[f'{e:.3g}' for e in apart]} (tol {K6_BF16_FACTOR}x the plain bf16 run's)")
-            check(all(e <= K6_BF16_FACTOR * r for e, r in zip(base_err, ref[2:])),
-                  f"baseline K6 {name}: errors {base_err}, plain bf16 {ref[2:]}")
+                f"{[f'{e:.3g}' for e in apart]} (tol {K6_BF16_FACTOR}x the plain bf16 run's, "
+                f"lse {K6_F32_FWD_TOL})")
+            check(base_err[1] <= K6_F32_FWD_TOL and all(
+                base_err[i] <= K6_BF16_FACTOR * ref[i] for i in (0, 2, 3, 4)),
+                f"baseline K6 {name}: errors {base_err}, plain bf16 {ref}")
             del bdq, bdelta, base
         del q, k, v, g, got, want, again
+    for shape in K6_LARGE_LOGITS:
+        q, k, v, _ = inputs(shape, bf16)
+        q = q * 8  # exact in bf16
+        name = f"{'x'.join(map(str, shape))} bf16 causal, q x 8"
+        want, plain_bf16 = (blockwise_attention_reference(*(t.float() for t in (q, k, v)),
+                                                          causal=True),
+                            blockwise_attention_reference(q, k, v, causal=True))
+        runs = {"K6a": blockwise_attention_fwd(q, k, v, causal=True),
+                "baseline": baseline_fwd(q, k, v, True), "plain f32": want}
+        exact = lse_float64(q, k, True)
+        lse_err = {n: float((r[1].double() - exact).abs().max()) for n, r in runs.items()}
+        out_err = float((runs["K6a"][0].float() - want[0]).abs().max())
+        out_ref = float((plain_bf16[0].float() - want[0]).abs().max())
+        lse_tol = max(K6_F32_FWD_TOL, K6_BF16_FACTOR * lse_err["plain f32"])
+        log(f"  blockwise attention forward {name}: lse max abs diff from the float64 "
+            f"logsumexp {', '.join(f'{n} {e:.3g}' for n, e in lse_err.items())} (K6a's tol "
+            f"{lse_tol:.3g}); K6a out {out_err:.3g} from the f32 plain version (plain bf16 "
+            f"{out_ref:.3g}, tol {K6_BF16_FACTOR}x that)")
+        check(lse_err["K6a"] <= lse_tol and out_err <= K6_BF16_FACTOR * out_ref,
+              f"K6a {name}: lse {lse_err['K6a']} (tol {lse_tol}), out {out_err} (plain bf16 "
+              f"{out_ref})")
+        del q, k, v, want, plain_bf16, runs, exact
     torch.cuda.empty_cache()
 
     # -- timed at the path's shape: (2, 8192, 12, 64) bf16, causal ------------
@@ -1351,7 +1404,8 @@ def blockwise_phase(flush, baseline) -> list[dict]:
     arms = {
         "fwd": (lambda: blockwise_attention_fwd(q, k, v, causal=True),
                 lambda: blockwise_attention_reference(q, k, v, causal=True),
-                lambda: F.scaled_dot_product_attention(*heads, is_causal=True), None),
+                lambda: F.scaled_dot_product_attention(*heads, is_causal=True),
+                lambda: baseline_fwd(q, k, v, True)),
         "dq": (lambda: blockwise_attention_bwd_dq(q, k, v, out, lse, g, causal=True),
                lambda: _bwd_dq_reference(q, k, v, lse, _delta(out, g), g, True, None), None,
                lambda: baseline_dq(q, k, v, out, lse, g, True)),
@@ -1361,15 +1415,14 @@ def blockwise_phase(flush, baseline) -> list[dict]:
     }
     times = {}
     for which, (kernel, plain_fn, library, base) in arms.items():
-        # plain, kernel, [library, library,] [baseline, baseline,] kernel, plain
+        # plain, kernel, [library, library,] baseline, baseline, kernel, plain
         plain_ms = [time_ms(plain_fn, flush, iters=3, warmup=1)]
         kernel_ms = [time_ms(kernel, flush, iters=20, warmup=2)]
         if library is not None:
             times[which + "_library"] = min(time_ms(library, flush, iters=20, warmup=2)
                                             for _ in range(2))
-        if base is not None:
-            times[which + "_baseline"] = min(time_ms(base, flush, iters=10, warmup=1)
-                                             for _ in range(2))
+        times[which + "_baseline"] = min(time_ms(base, flush, iters=10, warmup=1)
+                                         for _ in range(2))
         kernel_ms.append(time_ms(kernel, flush, iters=20, warmup=2))
         plain_ms.append(time_ms(plain_fn, flush, iters=3, warmup=1))
         times[which], times[which + "_plain"] = min(kernel_ms), min(plain_ms)
@@ -1398,15 +1451,13 @@ def blockwise_phase(flush, baseline) -> list[dict]:
              "library_ms": times["fwd_library"] if which == "fwd" else times["bwd_library"],
              "shape": "2x8192x12x64 bf16 causal", "bytes_moved": moved, "flops": flops}
         r["bound_share"] = r["bound_ms"] / r["ms"]
-        extra = ""
+        r.update(baseline_ms=times[which + "_baseline"], speedup=times[which + "_baseline"] / r["ms"])
         if which != "fwd":
             r.update(library_covers="dQ, dK and dV together (SDPA's autograd backward)",
-                     backward_ms=times["dq"] + times["dkv"], fa2_backward_bound_ms=fa2_bwd_ms,
-                     baseline_ms=times[which + "_baseline"],
-                     speedup=times[which + "_baseline"] / r["ms"])
-            extra = f", baseline {r['baseline_ms']:.3f} ms ({r['speedup']:.2f}x)"
+                     backward_ms=times["dq"] + times["dkv"], fa2_backward_bound_ms=fa2_bwd_ms)
         log(f"  {name} 2x8192x12x64 bf16 causal: kernel {r['ms']:.3f} ms, plain "
-            f"{r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms{extra}, bound "
+            f"{r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms, baseline "
+            f"{r['baseline_ms']:.3f} ms ({r['speedup']:.2f}x), bound "
             f"{r['bound_ms']:.4f} ms ({100 * r['bound_share']:.1f} %; {flops / 1e9:.1f} GFLOP "
             f"at 989 TFLOP/s; {moved / 1e6:.1f} MB at 3.35 TB/s)")
         rows_out.append(r)
@@ -2376,9 +2427,9 @@ def long_context_phase(card: str, dev: torch.device = torch.device("cuda"), cfg:
         f"{LONG_TIMED} steps (min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}) = "
         f"{tok_s:.0f} tokens/s; MFU {mfu:.4f} (phase 6's formula, attention over the full L^2; "
         f"{mfu_causal:.4f} counting the causal half) at 989 TFLOP/s on {card}")
-    # K6a and the bf16 backward on the tensor cores; the FMA backward is f32's
-    k6_names = ("attn_fwd_kernel", "tc::attn_bwd_dq_tc", "tc::attn_bwd_dkv_tc",
-                "attn_bwd_dq_kernel", "attn_bwd_dkv_kernel")
+    # K6 in bf16 on the tensor cores; the FMA kernels are f32's
+    k6_names = ("tc::attn_fwd_tc", "tc::attn_bwd_dq_tc", "tc::attn_bwd_dkv_tc",
+                "attn_fwd_kernel", "attn_bwd_dq_kernel", "attn_bwd_dkv_kernel")
     prof = {}
     if dev.type == "cuda":
         prof = profile(lambda: step(state, batch), f"long_ctx train step of {batch_size}x{seq} "
@@ -3603,7 +3654,7 @@ def main() -> int:
     k4 = adamw_phase(flush, [tuple(p.shape) for p in TransformerLM(**LM).parameters()])
     k5a, k5b, k5c = quant_wire_phase(flush)
     k6a, k6b, k6c = blockwise_phase(flush, baseline_k6)
-    for k, fn in ((k6b, "attn_bwd_dq_tc"), (k6c, "attn_bwd_dkv_tc")):
+    for k, fn in ((k6a, "attn_fwd_tc"), (k6b, "attn_bwd_dq_tc"), (k6c, "attn_bwd_dkv_tc")):
         k["ptxas"] = {f"D={d}": regs["blockwise_attention"].get(f"{fn}<{d}>")
                       for d in (16, 32, 64, 128)}
     del flush

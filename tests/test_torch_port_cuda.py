@@ -1156,13 +1156,27 @@ def _k6_plain(q, k, v, g, causal):
     return (out, lse, *blockwise_attention_bwd_reference(q, k, v, out, lse, g, causal=causal))
 
 
+def _k6_lse_exact(q, k, causal):
+    """The logsumexp of the scaled scores (B, H, L) in float64 over the same
+    values: what every float32 lse approximates.  The float32 plain run is
+    no yardstick for it at large logits: at q scaled by 8 its own sums
+    round it about 1e-5 away (``chip_smoke.py`` phase 3 logs the distance),
+    and a kernel that sums in another order lands elsewhere within that."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) / np.sqrt(q.shape[-1])
+    if causal:
+        l = q.shape[1]
+        s = s.masked_fill(~torch.ones(l, l, dtype=torch.bool, device=q.device).tril(), -np.inf)
+    return torch.logsumexp(s, -1)
+
+
 @pytest.mark.parametrize("case", K6_CASES, ids=[c[0] for c in K6_CASES])
 def test_blockwise_attention_kernels_match_plain_versions(card, case):
     """K6a-K6c against the plain schedule run in float32 on the same
-    inputs: in float32 within 1e-5 (out, lse) and 1e-4 (gradients), the
-    sums in another order over other tiles; in bf16 no further than twice
-    the plain bf16 run's own distance (lse, float32 in both, within 1e-5).
-    A rerun gives the same bits (no atomics)."""
+    inputs: in float32 within 1e-5 (out) and 1e-4 (gradients), the sums in
+    another order over other tiles; in bf16 no further than twice the plain
+    bf16 run's own distance.  lse (float32) within 1e-5 of the float64
+    logsumexp (``_k6_lse_exact``).  A rerun gives the same bits (no
+    atomics)."""
     _, b, l, h, d, dtype, causal, *q_scale = case
     q, k, v, g = _k6_inputs(b, l, h, d, dtype, card, q_scale=q_scale[0] if q_scale else 1.0)
     before = (blockwise_attention_fwd.launches, blockwise_attention_bwd_dq.launches,
@@ -1174,6 +1188,7 @@ def test_blockwise_attention_kernels_match_plain_versions(card, case):
     assert [t.dtype for t in got] == [dtype, torch.float32, dtype, dtype, dtype]
     want = _k6_plain(*(t.float() for t in (q, k, v, g)), causal)
     err = [float((a.float() - w).abs().max()) for a, w in zip(got, want)]
+    err[1] = float((got[1].double() - _k6_lse_exact(q, k, causal)).abs().max())
     assert err[1] <= 1e-5, err
     if dtype == torch.float32:
         assert err[0] <= 1e-5 and max(err[2:]) <= 1e-4, err
@@ -1184,6 +1199,78 @@ def test_blockwise_attention_kernels_match_plain_versions(card, case):
             assert err[i] <= 2 * plain[i], (i, err, plain)
     again = _k6_run(q, k, v, g, causal)
     assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+#: K6a alone: (id, B, L, H, D, causal[, q's scale]); every head dim of the
+#: bf16 tensor-core forward at ragged L = 13 and 1000, causal and not, path
+#: B's length, and large logits
+K6A_CASES = [(f"1x{l}x2x{d}{'_causal' if c else ''}", 1, l, 2, d, c)
+             for d in (16, 32, 64, 128) for l in (13, 1000) for c in (True, False)]
+K6A_CASES += [("1x8192x2x64_causal", 1, 8192, 2, 64, True),
+              ("1x8192x2x128_causal", 1, 8192, 2, 128, True),
+              ("2x1000x2x128_causal_q8", 2, 1000, 2, 128, True, 8.0),
+              ("2x1000x2x16_q8", 2, 1000, 2, 16, False, 8.0)]
+
+
+def _k6a_rule(got, q, k, v, causal):
+    """K6a's (out, lse) in bf16: out against the plain schedule run in
+    float32 on the same inputs, no further than twice the plain bf16 run's
+    own distance; lse within 1e-5 of the float64 logsumexp, or no further
+    from it than twice the float32 plain run (at q scaled by 8 and D = 128
+    both land about 1e-5 away: lse ~ 40, a few float32 steps)."""
+    want = blockwise_attention_reference(q.float(), k.float(), v.float(), causal=causal)
+    plain = blockwise_attention_reference(q, k, v, causal=causal)
+    exact = _k6_lse_exact(q, k, causal)
+    err = [float((got[0].float() - want[0]).abs().max()),
+           float((got[1].double() - exact).abs().max())]
+    ref = [float((plain[0].float() - want[0]).abs().max()),
+           float((want[1].double() - exact).abs().max())]
+    assert err[1] <= max(1e-5, 2 * ref[1]) and err[0] <= 2 * ref[0], (err, ref)
+
+
+@pytest.mark.parametrize("case", K6A_CASES, ids=[c[0] for c in K6A_CASES])
+def test_blockwise_attention_forward_on_the_tensor_cores(card, case):
+    """The bf16 forward (``tc::attn_fwd_tc``) at every head dim, held to the
+    bf16 rule; one launch a call, and a rerun gives the same bits."""
+    _, b, l, h, d, causal, *q_scale = case
+    q, k, v, _ = _k6_inputs(b, l, h, d, torch.bfloat16, card,
+                            q_scale=q_scale[0] if q_scale else 1.0)
+    before = blockwise_attention_fwd.launches
+    got = blockwise_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert blockwise_attention_fwd.launches == before + 1
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+    assert got[1].shape == (b, h, l)
+    _k6a_rule(got, q, k, v, causal)
+    again = blockwise_attention_fwd(q, k, v, causal=causal)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_blockwise_attention_forward_fully_masked_rows(card, dtype, d, causal):
+    """Scores of -inf play the mask: with q's first column positive, a key
+    whose first entry is -inf scores -inf against every query.  Head 0 has
+    every key so (every row fully masked: lse = -inf, out = 0, no NaN, as
+    JAX's guards give); head 1 every odd key (a mask across the tiles, held
+    to the plain schedule).  L = 100 is ragged."""
+    q, k, v, _ = _k6_inputs(1, 100, 2, d, dtype, card)
+    q[..., 0] = q[..., 0].abs() + 0.5
+    k[:, :, 0, 0] = -torch.inf
+    k[:, 1::2, 1, 0] = -torch.inf
+    out, lse = blockwise_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert not out.isnan().any() and not lse.isnan().any()
+    assert bool((lse[:, 0] == -torch.inf).all()) and bool((out[:, :, 0] == 0).all())
+    assert bool(torch.isfinite(lse[:, 1]).all())
+    one = [t[:, :, 1:].contiguous() for t in (q, k, v)]
+    got = (out[:, :, 1:], lse[:, 1:])
+    if dtype == torch.bfloat16:
+        _k6a_rule(got, *one, causal)
+    else:
+        want = blockwise_attention_reference(*one, causal=causal)
+        assert max(float((a - w).abs().max()) for a, w in zip(got, want)) <= 1e-5
 
 
 def test_blockwise_attention_kernels_refuse_what_they_do_not_take(card):

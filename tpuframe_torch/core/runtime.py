@@ -31,16 +31,23 @@ import torch.distributed as dist
 __all__ = [
     "AXIS_ORDER",
     "DATA_AXIS",
+    "EXPERT_AXIS",
     "FSDP_AXIS",
+    "MODEL_AXIS",
     "Mesh",
     "MeshSpec",
+    "PIPELINE_AXIS",
     "Runtime",
+    "SEQUENCE_AXIS",
     "current_runtime",
     "initialize",
+    "is_main_process",
     "process_count",
     "process_index",
+    "reset_runtime",
     "resolve_device",
     "shutdown",
+    "simulate_cpu_devices",
 ]
 
 PIPELINE_AXIS = "pipe"
@@ -155,6 +162,9 @@ class Runtime:
 
 
 _CURRENT: Runtime | None = None
+#: whether :func:`initialize` built the default process group (and so
+#: :func:`reset_runtime` may destroy it)
+_OWNS_GROUP = False
 
 
 def _env_int(*names: str) -> int | None:
@@ -187,7 +197,7 @@ def initialize(mesh: MeshSpec | Mapping[str, int] | None = None, *,
     overrides that choice (two ranks on one card need ``gloo``: NCCL
     refuses them).  A world above 1 without a rendezvous, rank or size
     raises, as in the JAX package."""
-    global _CURRENT
+    global _CURRENT, _OWNS_GROUP
     local = _env_int("LOCAL_RANK")
     if device is None and local is not None:
         device = f"cuda:{local}"
@@ -211,6 +221,7 @@ def initialize(mesh: MeshSpec | Mapping[str, int] | None = None, *,
             # failed init raises from this call
             dist.init_process_group(backend, init_method=method, world_size=world, rank=rank,
                                     **kw)
+            _OWNS_GROUP = True
     if dist.is_initialized():
         index, count = dist.get_rank(), dist.get_world_size()
     else:
@@ -238,10 +249,35 @@ def current_runtime(auto_init: bool = True, *,
 def shutdown() -> None:
     """Destroy the default process group (when there is one) and forget
     the runtime."""
-    global _CURRENT
+    global _CURRENT, _OWNS_GROUP
     if dist.is_initialized():
         dist.destroy_process_group()
-    _CURRENT = None
+    _CURRENT, _OWNS_GROUP = None, False
+
+
+def reset_runtime() -> None:
+    """Drop the cached Runtime (tests, or a re-init with another mesh), as
+    the JAX package's does.  The process group goes too, but only when
+    :func:`initialize` built it: a group the caller made stays."""
+    global _CURRENT, _OWNS_GROUP
+    if _OWNS_GROUP and dist.is_initialized():
+        dist.destroy_process_group()
+    _CURRENT, _OWNS_GROUP = None, False
+
+
+def is_main_process() -> bool:
+    """Rank-0 gate for logging and checkpoints: ``process_index() == 0``."""
+    return process_index() == 0
+
+
+def simulate_cpu_devices(n: int = 8) -> None:
+    """The JAX package forces ``n`` virtual CPU devices here through an XLA
+    flag; torch has no such flag, so this raises ``NotImplementedError``."""
+    raise NotImplementedError(
+        f"simulate_cpu_devices({n}): torch has no virtual CPU devices. The port simulates "
+        f"{n} devices as {n} gloo processes on the CPU (RANK/WORLD_SIZE with "
+        "initialize(device='cpu')); the launcher that spawns them comes with the launch "
+        "slice (ROADMAP.md, Queue 1 item 3)")
 
 
 def process_index() -> int:

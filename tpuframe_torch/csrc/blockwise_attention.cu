@@ -32,11 +32,11 @@
 // dP, dV, dK), 721 GFLOP, 0.7296 ms.  The bytes (q, k, v, out, lse, g, dq,
 // dk, dv: 25 MB each in bf16) take microseconds.
 //
-// Design of K6a and of the float32 backward (a simple kernel, right first).
-// A block of 256 threads owns one 64-row tile (a Q tile in K6a and K6b, a
-// K/V tile in K6c) of one (b, h) and walks the other operand's 64-row
-// tiles.  Tiles sit in shared memory as float32, rows padded by 4 floats so
-// that the 16-byte loads of 8 threads cover distinct banks.  Thread (ty, tx)
+// Design of the float32 kernels (simple kernels, right first).  A block of
+// 256 threads owns one 64-row tile (a Q tile in K6a and K6b, a K/V tile in
+// K6c) of one (b, h) and walks the other operand's 64-row tiles.  Tiles
+// sit in shared memory as float32, rows padded by 4 floats so that the
+// 16-byte loads of 8 threads cover distinct banks.  Thread (ty, tx)
 // = (tid / 16, tid % 16) computes a 4 x 4 piece of the 64 x 64 score tile,
 // rows 4 ty + i and columns tx + 16 j, with float32 FMAs over 16-byte shared
 // loads; a row's max and sum run over the 16 lanes of a half warp by
@@ -45,17 +45,29 @@
 // accumulates rows 4 ty + i of the 64 x D product against the tile in its
 // D / 16 columns, in registers.  K6b writes delta to global memory for K6c.
 // Blocks run the heaviest causal tiles first.  Float32 keeps these FMA
-// kernels: its gradients are held within 1e-4, which TF32 products cannot
-// give.
+// kernels: its forward is held within 1e-5 and its gradients within 1e-4,
+// which TF32 products cannot give.
 //
-// Design of the bf16 backward (K6b, K6c on the tensor cores).  The FMA
+// Design of the bf16 kernels (K6a, K6b, K6c on the tensor cores).  The FMA
 // kernels ran at ~32 TFLOP/s, half the card's float32 CUDA-core peak, so
 // no arrangement of FMAs could come near the bound.  Here:
 // - Every product is mma.sync.m16n8k16 bf16 with a float32 accumulator.  A
 //   block of 4 warps owns a 64-row tile, each warp 16 of its rows: query
-//   rows in K6b, key rows in K6c.  Operands come from shared memory by
-//   ldmatrix, and by ldmatrix.trans where the product reads the operand
-//   along its rows (K in dQ += dS·K, dO and Q in dV += Pᵀ·dO, dK += dSᵀ·Q).
+//   rows in K6a and K6b, key rows in K6c.  Operands come from shared
+//   memory by ldmatrix, and by ldmatrix.trans where the product reads the
+//   operand along its rows (V in o += P·V, K in dQ += dS·K, dO and Q in dV
+//   += Pᵀ·dO, dK += dSᵀ·Q).
+// - K6a reads its warp's 16 Q rows into A fragments once (ldmatrix) and
+//   keeps them for the whole K/V walk (D / 4 registers).  Each tile: S =
+//   Q·Kᵀ into the accumulators, then the online softmax on the fragments:
+//   the row max over a row's quad of lanes (shuffles 1 and 2), JAX's -inf
+//   guards, o rescaled by the correction, p = exp2 of one FMA.  The running
+//   max is that of the raw scores (the scale is positive, so times the
+//   scale it is JAX's m, bit for bit), and lse = m · scale + log(l) is
+//   written in natural-log units, the one conversion.  Each lane keeps its
+//   share of the row sum l (from the unrounded p, as JAX's l_new) and the
+//   quad adds the four shares once, at the end.  p rounded to bf16 is the
+//   A operand of o += P·V straight from the accumulators.
 // - The scores stay in registers.  K6b forms S = Q·Kᵀ and dP = dO·Vᵀ (16 x
 //   64 a warp, float32 accumulator fragments), turns them into dS = P ∘ (dP
 //   - delta) · scale in place, rounds pairs to bf16 and hands those
@@ -67,10 +79,10 @@
 //   reads its columns' entries from a small shared array.
 // - Tiles sit in shared memory in bf16, rows padded by 16 bytes, so the
 //   eight 16-byte rows that one ldmatrix phase reads fall in distinct banks
-//   at every head dim.  The streamed operand (K and V in K6b; Q, dO, lse
-//   and delta in K6c) is double-buffered with cp.async: the next tile is in
-//   flight while the current one computes.  Rows past L are zero-filled
-//   (cp.async's src-size 0).
+//   at every head dim.  The streamed operand (K and V in K6a and K6b; Q,
+//   dO, lse and delta in K6c) is double-buffered with cp.async: the next
+//   tile is in flight while the current one computes.  Rows past L are
+//   zero-filled (cp.async's src-size 0).
 // - The softmax term costs instruction slots beside the products, so p =
 //   exp(s · scale - lse) is exp2f of one FMA, log2(e) folded into scale
 //   and lse: faster than expf in both kernels, timed in turns on an H100,
@@ -85,6 +97,7 @@
 // - Registers a thread from ptxas (-Xptxas -v, CUDA 12.8, sm_90a; chip_smoke.py
 //   phase 2 prints them), no spills at any head dim:
 //     D          16    32    64   128
+//     K6a        80   108   128   239
 //     K6b       123   128   168   254
 //     K6c       128   147   222   255
 //   K6c holds two 16 x D float32 accumulators (dK, dV) beside the two
@@ -915,6 +928,163 @@ __global__ void __launch_bounds__(kThreads)
   store_rows<D>(dv, acc_v, b, h, kt * kTile + 16 * warp, L, H, lane);
 }
 
+// ---- K6a --------------------------------------------------------------------
+
+template <int D>
+constexpr size_t fwd_smem() {
+  return 5 * tile_elems<D>() * sizeof(bf16);
+}
+
+// c[j] += Q · Kᵀ for the 8 n-tiles of a warp's 16 x 64 score block: the Q
+// rows as A fragments in registers (qa[ks] for k-step ks), against the 64
+// rows of the tile Bs
+template <int D>
+__device__ __forceinline__ void scores_q(float (&c)[8][4], const uint32_t (&qa)[D / 16][4],
+                                         const bf16* Bs, int lane) {
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t b[4];
+      ldsm_x4(b, smem_u32(Bs + b_off<D>(16 * np, 16 * ks, lane)));
+      mma(c[2 * np], qa[ks], b[0], b[1]);
+      mma(c[2 * np + 1], qa[ks], b[2], b[3]);
+    }
+  }
+}
+
+// One K/V tile of the online softmax (ring_attention.py's _block_update) on
+// a warp's 16 query rows: s holds the raw scores Q·Kᵀ of rows gr (e < 2) and
+// gr + 8 (e >= 2) and ends as p; mr is the running max of the raw scores,
+// lp this lane's share of the running sum, o the output accumulator.  The
+// scale is positive, so the max of the raw scores times it is JAX's max of
+// the scaled ones, bit for bit; c = scale · log2(e) folds the exponent into
+// one FMA.  kMask: the tile needs the causal or the ragged mask.
+template <bool kMask, int D>
+__device__ __forceinline__ void fwd_softmax(float (&s)[8][4], float (&mr)[2], float (&lp)[2],
+                                            float (&o)[D / 8][4], int qi0, int kj0, int L,
+                                            int causal, float c, int lane) {
+  const int gr = lane >> 2, tq = lane & 3;
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (kMask) {
+        const int qi = qi0 + gr + 8 * (e >> 1), kj = kj0 + 8 * j + 2 * tq + (e & 1);
+        if (!(kj < L && (!causal || kj <= qi))) s[j][e] = -INFINITY;
+      }
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    }
+  }
+  float corr[2], mc[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {  // a row's four lanes are one quad: lanes 4 gr .. 4 gr + 3
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(mr[i], mx[i]);
+    // JAX's guards: m_safe = 0 while the max is -inf; the correction 0
+    // while the previous max is -inf (o and l are still 0) or the new one is
+    mc[i] = m_new == -INFINITY ? 0.f : m_new * c;
+    corr[i] = (mr[i] == -INFINITY || m_new == -INFINITY) ? 0.f : exp2f((mr[i] - m_new) * c);
+    mr[i] = m_new;
+    lp[i] *= corr[i];
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2f(fmaf(s[j][e], c, -mc[e >> 1]));  // masked: exp2(-inf) = 0
+      lp[e >> 1] += p;  // unrounded, as JAX's l_new
+      s[j][e] = p;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    o[j][0] *= corr[0];
+    o[j][1] *= corr[0];
+    o[j][2] *= corr[1];
+    o[j][3] *= corr[1];
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    attn_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ lse,
+                int L, int H, int causal, float scale) {
+  extern __shared__ float4 smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem4);
+  bf16* KV = Qs + tile_elems<D>();  // buffer i: K at tile 2 i of KV, V at 2 i + 1
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int n_tiles = (L + kTile - 1) / kTile;
+  const int qt = n_tiles - 1 - blockIdx.y;  // the longest causal rows first
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int last = causal ? qt : n_tiles - 1;  // tiles above the diagonal: skipped
+  const bool ragged = L % kTile != 0;
+  const float c = scale * kLog2e;
+
+  load_tile_async<D>(Qs, q, b, h, qt * kTile, L, H);
+  load_tile_async<D>(KV, k, b, h, 0, L, H);
+  load_tile_async<D>(KV + tile_elems<D>(), v, b, h, 0, L, H);
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
+  uint32_t qa[D / 16][4];  // the warp's 16 Q rows, held for the whole walk
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    ldsm_x4(qa[ks], smem_u32(Qs + a_off<D>(16 * warp, 16 * ks, lane)));
+  }
+  float o[D / 8][4], mr[2] = {-INFINITY, -INFINITY}, lp[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+
+  for (int kt = 0; kt <= last; ++kt) {
+    if (kt < last) {  // the next K/V tile into the other buffer, in flight
+      bf16* nxt = KV + 2 * ((kt + 1) & 1) * tile_elems<D>();
+      load_tile_async<D>(nxt, k, b, h, (kt + 1) * kTile, L, H);
+      load_tile_async<D>(nxt + tile_elems<D>(), v, b, h, (kt + 1) * kTile, L, H);
+    }
+    cp_commit();
+    cp_wait<1>();  // this tile's group has landed
+    __syncthreads();
+    const bf16* Ks = KV + 2 * (kt & 1) * tile_elems<D>();
+    const bf16* Vs = Ks + tile_elems<D>();
+    float s[8][4] = {};
+    scores_q<D>(s, qa, Ks, lane);
+    const int qi0 = qt * kTile + 16 * warp, kj0 = kt * kTile;
+    if ((causal && kt == qt) || (ragged && kt == n_tiles - 1)) {
+      fwd_softmax<true, D>(s, mr, lp, o, qi0, kj0, L, causal, c, lane);
+    } else {
+      fwd_softmax<false, D>(s, mr, lp, o, qi0, kj0, L, causal, c, lane);
+    }
+    uint32_t a[4][4];
+    to_a(a, s);  // P in v's dtype, straight from the accumulators
+    accumulate<D>(o, a, Vs, lane);
+    __syncthreads();  // every warp is done with this buffer before it is refilled
+  }
+
+  // out = o / max(l, 1e-30), cast last; lse = m + log(l) in natural-log
+  // units, m the raw max times the scale (JAX's m); a fully masked row
+  // keeps m = -inf, so lse = -inf and out = 0
+  const size_t row_bh = (static_cast<size_t>(b) * H + h) * L;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = lp[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float lsum = fmaxf(l, 1e-30f);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[j][2 * i] /= lsum;
+      o[j][2 * i + 1] /= lsum;
+    }
+    const int qi = qt * kTile + 16 * warp + (lane >> 2) + 8 * i;
+    if ((lane & 3) == 0 && qi < L) lse[row_bh + qi] = mr[i] * scale + logf(lsum);
+  }
+  store_rows<D>(out, o, b, h, qt * kTile + 16 * warp, L, H, lane);
+}
+
 }  // namespace tc
 
 // ---- launches -------------------------------------------------------------
@@ -930,12 +1100,20 @@ int prepare(Kernel kernel, size_t smem) {
 template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int B, int L,
                int H, int causal, float scale, cudaStream_t s) {
-  constexpr size_t smem = fwd_smem<T, D>();
-  if (int rc = prepare(attn_fwd_kernel<T, D>, smem)) return rc;
   const dim3 grid(B * H, (L + kTile - 1) / kTile);
-  attn_fwd_kernel<T, D><<<grid, kThreads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), static_cast<float*>(lse), L, H, causal, scale);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {  // the tensor cores
+    constexpr size_t smem = tc::fwd_smem<D>();
+    if (int rc = prepare(tc::attn_fwd_tc<D>, smem)) return rc;
+    tc::attn_fwd_tc<D><<<grid, tc::kThreads, smem, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(out), static_cast<float*>(lse), L, H, causal, scale);
+  } else {
+    constexpr size_t smem = fwd_smem<T, D>();
+    if (int rc = prepare(attn_fwd_kernel<T, D>, smem)) return rc;
+    attn_fwd_kernel<T, D><<<grid, kThreads, smem, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(out), static_cast<float*>(lse), L, H, causal, scale);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

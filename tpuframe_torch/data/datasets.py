@@ -1,18 +1,28 @@
 """Map-style datasets: in-memory arrays and deterministic synthetic images.
 
-The port's own copy of ``item_rng``, ``ArrayDataset`` and
-``SyntheticImageDataset`` from ``tpuframe/data/datasets.py`` (numpy only),
-so both packages draw the same samples from the same seed.  The HF-dataset
-ingest waits for the data slice.
+The port's own copy of ``tpuframe/data/datasets.py`` (numpy only):
+``item_rng``, ``ArrayDataset`` and ``SyntheticImageDataset``, so both
+packages draw the same samples from the same seed, and the HF-dataset
+helpers ``make_image_dataset``, ``hfds_download`` (``datasets`` is imported
+only when it is called) and ``hf_get_num_classes``, and ``Timer``.
 """
 
 from __future__ import annotations
 
+import timeit
 from typing import Any, Callable, Sequence
 
 import numpy as np
 
-__all__ = ["ArrayDataset", "SyntheticImageDataset", "item_rng"]
+__all__ = [
+    "ArrayDataset",
+    "SyntheticImageDataset",
+    "Timer",
+    "hf_get_num_classes",
+    "hfds_download",
+    "item_rng",
+    "make_image_dataset",
+]
 
 
 def item_rng(seed: int, epoch: int, idx: int) -> np.random.Generator:
@@ -59,6 +69,51 @@ class ArrayDataset:
         return np.asarray(image), int(self.labels[idx])
 
 
+def make_image_dataset(
+    data: Any,
+    image_key: str = "img",
+    label_key: str = "label",
+    transform: Callable | None = None,
+) -> ArrayDataset:
+    """An :class:`ArrayDataset` over a dict-like split (an HF dataset split
+    or a dict) of images and labels."""
+    return ArrayDataset(data[image_key], data[label_key], transform=transform)
+
+
+def hfds_download(
+    dataset_path: str,
+    cache_dir: str,
+    trust_remote_code: bool = False,
+    **kwargs: Any,
+):
+    """An HF dataset dict loaded into ``cache_dir`` by ``datasets.load_dataset``.
+
+    Without network egress this succeeds only for a dataset already in the
+    cache; the error says so instead of timing out."""
+    try:
+        from datasets import load_dataset
+    except ImportError as e:
+        raise ImportError("the 'datasets' package is required for HF ingest") from e
+    try:
+        return load_dataset(
+            path=dataset_path,
+            cache_dir=cache_dir,
+            trust_remote_code=trust_remote_code,
+            **kwargs,
+        )
+    except Exception as e:  # depends on the network and the cache
+        raise RuntimeError(
+            f"could not load HF dataset {dataset_path!r} from cache {cache_dir!r}; "
+            "if this host has no network egress, pre-populate the cache or use "
+            "tpuframe_torch.data.SyntheticImageDataset"
+        ) from e
+
+
+def hf_get_num_classes(dataset: Any, split_key: str, label_key: str = "label") -> int:
+    """The number of distinct labels in ``dataset[split_key][label_key]``."""
+    return len(set(dataset[split_key][label_key]))
+
+
 class SyntheticImageDataset:
     """Deterministic synthetic image classification data (for tests/bench).
 
@@ -101,3 +156,14 @@ class SyntheticImageDataset:
         if self.transform is not None:
             img = self.transform(img, item_rng(self.seed, self.epoch, idx))
         return np.asarray(img), label
+
+
+class Timer:
+    """Wall-clock timer: started when made, :meth:`stop` gives the seconds."""
+
+    def __init__(self):
+        self.start = timeit.default_timer()
+
+    def stop(self) -> float:
+        self.end = timeit.default_timer()
+        return self.end - self.start

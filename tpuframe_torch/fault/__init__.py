@@ -2,6 +2,7 @@
 knobs read."""
 
 from tpuframe_torch.fault.health import (
+    HEALTH_ENV_VARS,
     Divergence,
     HealthPolicy,
     health_verdict,
@@ -9,4 +10,11 @@ from tpuframe_torch.fault.health import (
     resolve_policy,
 )
 
-__all__ = ["Divergence", "HealthPolicy", "health_verdict", "init_health_state", "resolve_policy"]
+__all__ = [
+    "HEALTH_ENV_VARS",
+    "Divergence",
+    "HealthPolicy",
+    "health_verdict",
+    "init_health_state",
+    "resolve_policy",
+]

@@ -33,6 +33,7 @@ from typing import Any, Mapping, Sequence
 
 __all__ = [
     "Divergence",
+    "HEALTH_ENV_VARS",
     "HEALTH_STATS_FIELDS",
     "HealthPolicy",
     "enabled_by_env",
@@ -44,6 +45,23 @@ __all__ = [
 ]
 
 _FALSY = ("0", "false", "no", "off", "disabled")
+
+#: every env knob the health sentinel and its satellites read (the data
+#: loader's bad-sample cap, the checkpoint's save retries), as the JAX
+#: package lists them
+HEALTH_ENV_VARS = (
+    "TPUFRAME_HEALTH",
+    "TPUFRAME_HEALTH_SPIKE_FACTOR",
+    "TPUFRAME_HEALTH_SPIKE_MARGIN",
+    "TPUFRAME_HEALTH_EWMA_DECAY",
+    "TPUFRAME_HEALTH_WARMUP_STEPS",
+    "TPUFRAME_HEALTH_WINDOW",
+    "TPUFRAME_HEALTH_MAX_BAD",
+    "TPUFRAME_HEALTH_LR_BACKOFF",
+    "TPUFRAME_HEALTH_SKIP_BATCHES",
+    "TPUFRAME_MAX_BAD_SAMPLES",
+    "TPUFRAME_CKPT_SAVE_RETRIES",
+)
 
 
 def _env_float(name: str, default: float) -> float:

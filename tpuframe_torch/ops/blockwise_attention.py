@@ -24,9 +24,9 @@ off, the causal tile skip, the softmax state in float32.
 ``block_size`` (default 512, JAX's default block; the port does not read
 ``TPUFRAME_KERNEL_ATTN_BLOCK``) shapes only the plain schedule.  The
 kernels take tiles of their own (64 x 64), which changes where the sums
-round but not what they compute.  In bf16, K6b and K6c run on the tensor
-cores (``mma.sync`` bf16 products with float32 accumulators, P and dS
-kept in registers); K6a and every float32 kernel take float32 FMAs (the
+round but not what they compute.  In bf16, K6a, K6b and K6c run on the
+tensor cores (``mma.sync`` bf16 products with float32 accumulators, P and
+dS kept in registers); every float32 kernel takes float32 FMAs (the
 source's header comment has the design).
 
 Numerics, on both paths as in JAX: products in the storage dtype with

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import json
 import os
 import threading
 import time
@@ -40,6 +41,7 @@ __all__ = [
     "RequestRejected",
     "RequestShed",
     "ServeKnobs",
+    "read_export_meta",
     "sanitize_trace_id",
     "validate_payload",
 ]
@@ -306,3 +308,32 @@ class AdmissionController:
             req = self._q.popleft()
             self._depth_gauge.set(len(self._q))
             return req
+
+
+# -- stdlib artifact-meta reader ---------------------------------------------
+
+_MAX_HEADER = 1 << 20  # far above any real meta; rejects garbage lengths
+
+
+def read_export_meta(path: str | os.PathLike) -> dict:
+    """An export artifact's meta header (an 8-byte little-endian length,
+    then that many bytes of JSON with ``"magic": "tpuframe-export"``),
+    parsed with the stdlib alone, as the JAX package's reader does.  The
+    first 8 bytes of an arbitrary file decode to an arbitrary length, so
+    the length is bounds-checked and every parse failure is a
+    ``ValueError``, never a ``MemoryError``.  ``_blob_offset`` in the
+    result is where the payload starts."""
+    path = os.fspath(path)
+    size = os.path.getsize(path)
+    with open(path, "rb") as f:
+        header_len = int.from_bytes(f.read(8), "little")
+        if not 2 <= header_len <= min(_MAX_HEADER, size):
+            raise ValueError(f"{path} is not a tpuframe export artifact")
+        try:
+            meta = json.loads(f.read(header_len).decode("utf-8"))
+        except (UnicodeDecodeError, json.JSONDecodeError) as e:
+            raise ValueError(f"{path} is not a tpuframe export artifact") from e
+    if not isinstance(meta, dict) or meta.get("magic") != "tpuframe-export":
+        raise ValueError(f"{path} is not a tpuframe export artifact")
+    meta["_blob_offset"] = 8 + header_len
+    return meta

@@ -22,6 +22,7 @@ of the JAX ``_state_data`` (``tpuframe/ckpt/checkpoint.py:60-76``), and
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Mapping
 
 import torch
@@ -30,7 +31,7 @@ from torch import nn
 from tpuframe_torch.fault.health import init_health_state
 from tpuframe_torch.train.optim import OptimizerSpec, clip_by_global_norm_
 
-__all__ = ["TrainState", "create_train_state"]
+__all__ = ["TrainState", "create_train_state", "param_count"]
 
 
 @dataclasses.dataclass
@@ -163,3 +164,18 @@ def create_train_state(model: nn.Module, spec: OptimizerSpec, *, seed: int = 0) 
         updates=torch.zeros((), dtype=torch.int64, device=device),
     )
 
+
+def param_count(state_or_params: Any) -> int:
+    """The number of parameter elements: of a :class:`TrainState`'s model,
+    of an ``nn.Module``'s parameters, or over the leaves of a (nested)
+    mapping or sequence of tensors or arrays."""
+    tree = state_or_params.model if isinstance(state_or_params, TrainState) else state_or_params
+    if isinstance(tree, nn.Module):
+        return sum(p.numel() for p in tree.parameters())
+    if isinstance(tree, Mapping):
+        return sum(param_count(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(param_count(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.numel()
+    return math.prod(getattr(tree, "shape", ()))
