@@ -8,7 +8,8 @@ Run from the root of a checkout::
 Phases, each of which fails the script (nonzero exit, no result line):
 
 1. Device: the card's name and power limit from ``nvidia-smi``; no CUDA,
-   no run.
+   no run, and none while ``TPUFRAME_SIMULATE_DEVICES`` (the launcher's
+   request for CPU workers) is set.
 2. Build: every CUDA kernel of the port (seven sources), compiled from
    ``tpuframe_torch/csrc`` with ``nvcc`` for ``sm_90a``, one ``nvcc`` per
    source, all started together, and beside them the K2 baseline
@@ -146,7 +147,30 @@ Phases, each of which fails the script (nonzero exit, no result line):
    for 2 batches: K6a 24 a step, its first loss bit-equal to
    ``long_ctx``'s, its peak memory below it; a small f32 blockwise LM
    step on the card against the CPU.
-13. Result: a ``kernels`` JSON line (each kernel with ``floor_ms``; K1 and
+13. Launcher: example 01's ``train_cifar`` through ``Distributor(
+   num_processes=1).run`` on the card at the example's defaults (ResNet18
+   CIFAR stem, 32 px, global batch 64, 2 epochs of 512, bf16), its
+   worker's K1/K2a/K2b launches counted there (zeroed just before, read
+   just after) and held exact (0, 16, 16), and the time from spawn to
+   result; example 05 through ``TPUTrainer(...).fit()`` with one worker on
+   the card (``MnistNet``, 28 px): one report per epoch, launches (0, 16,
+   16), and its last checkpoint bundle reloaded into ``MnistNet``; two
+   gloo ranks on the one card through ``Distributor(num_processes=2)``:
+   three ``lion`` steps of ``MnistNet`` leave both ranks bit-equal,
+   ``broadcast_run_id`` agrees, a raising rank surfaces as its exception
+   with a ``DistributorError`` (rank 1, exit 1, its traceback) as cause,
+   and a lost rank (frozen by SIGSTOP) as ``WorkerLostError`` within a 3 s
+   heartbeat timeout, the heartbeat monitor built here; one bf16 step of
+   ``TransferClassifier(ResNet50(num_classes=0), 10)`` at 128 x 224 px,
+   backbone frozen, under ``sgd``, ``lion``, ``lamb``, ``adafactor`` and
+   ``sgd`` with EMA (median of 20 synced steps each), the backbone
+   bit-equal after all of them; the same step unfrozen (all 161 tensors
+   train) under ``sgd``, ``lion``, ``lamb`` and ``adafactor`` (median of
+   10 each), where the plain per-tensor optimizers cost most; then
+   examples 03 (which registers its
+   model and reads it back through ``load_model``) and 04 in this process
+   on the card, 3 steps of 64 and an eval each, their K2 launches exact.
+14. Result: a ``kernels`` JSON line (each kernel with ``floor_ms``; K1 and
    K2 also with ``launches_ddp``, phase 10's count on each rank; K6 with
    ``launches_remat``, its share of the bound, ``baseline_ms``,
    ``speedup`` and ``ptxas``, the registers and spills of its bf16
@@ -3601,10 +3625,327 @@ def ddp_phase(card: str, timeout_s: float = 900.0, device: str = "cuda:0",
     return out
 
 
+# -- phase 13: the launcher ------------------------------------------------------
+
+LAUNCH_DIR = Path(__file__).resolve().parent / "build" / "tpuframe_torch" / "launcher_smoke"
+EXAMPLES = "tpuframe_torch.examples"
+#: example 01's and 05's defaults (``examples/_common.py``, 2 epochs of 512)
+EX01_CFG = dict(epochs=2, batch_size=64, train_samples=512, image_size=32, num_classes=10,
+                lr=1e-3, seed=42)
+EX05_CFG = dict(epochs=2, batch_size=64, train_samples=512, lr=1e-3, seed=42)
+OPT_STEPS = 20  # timed steps a optimizer, after 3 warm-up steps
+OPT_BATCH = 128
+OPTIMIZERS = (("sgd", 0.1, None), ("lion", 1e-4, None), ("lamb", 1e-3, None),
+              ("adafactor", 1e-2, None), ("sgd", 0.1, 0.999))
+UNFROZEN_STEPS = 10  # timed unfrozen steps a optimizer, after 3 warm-up steps
+
+
+def _example(name: str):
+    """A ported example by module name (``tpuframe_torch/examples``)."""
+    import importlib
+
+    return importlib.import_module(f"{EXAMPLES}.{name}")
+
+
+def _k12():
+    """The counters of K1 and K2a/K2b, the kernels of the examples' paths."""
+    from tpuframe_torch.ops.cross_entropy import cross_entropy_bwd, cross_entropy_fwd
+    from tpuframe_torch.ops.normalize import normalize_images
+
+    return {"normalize": normalize_images, "cross_entropy_fwd": cross_entropy_fwd,
+            "cross_entropy_bwd": cross_entropy_bwd}
+
+
+def counted_call(module: str, fn: str, *args):
+    """Worker side: ``module.fn(*args)`` with K1/K2a/K2b counted, zeroed
+    just before and read just after.  Returns (its value, the counts)."""
+    counters = _k12()
+    for c in counters.values():
+        c.launches = 0
+    value = getattr(_example(module), fn)(*args)
+    torch.cuda.synchronize()
+    return value, {n: c.launches for n, c in counters.items()}
+
+
+def counted_loop(config: dict):
+    """Worker side of the TPUTrainer run: example 05's ``train_func``,
+    counted, the counts written beside the reports."""
+    from tpuframe_torch.launch import get_context
+
+    _, counts = counted_call("05_ray_fashion_mnist", "train_func", config)
+    ctx = get_context()
+    Path(ctx.get_result_dir(), f"launches_{ctx.get_world_rank()}.json").write_text(
+        json.dumps(counts))
+
+
+def two_rank_job(mode: str, steps: int = 3):
+    """Worker side of the two ranks on the one card (gloo: NCCL refuses two
+    ranks on one device).  ``"lion"``: a few lion steps of MnistNet over
+    the ranks' own batches, then both ranks' parameter digests and
+    broadcast run ids, gathered to rank 0.  ``"raise"``: rank 1 raises
+    (rank 0 returns at once).  ``"lost"``: rank 1 freezes whole (SIGSTOP)
+    once its beacon was heard."""
+    import hashlib
+    import signal
+    import uuid
+
+    rank = int(os.environ["RANK"])
+    if mode == "raise":
+        if rank == 1:
+            raise RuntimeError("planted failure on rank 1")
+        return None
+    if mode == "lost":
+        if rank == 1:
+            time.sleep(2.0)
+            os.kill(os.getpid(), signal.SIGSTOP)
+        time.sleep(120)
+        return None
+    import torch.distributed as dist
+
+    from tpuframe_torch.core import initialize, shutdown
+    from tpuframe_torch.models import MnistNet
+    from tpuframe_torch.parallel import ParallelPlan
+    from tpuframe_torch.track import broadcast_run_id
+    from tpuframe_torch.train import create_train_state, make_optimizer, make_train_step
+
+    rt = initialize(device="cuda:0", backend="gloo")
+    try:
+        model = MnistNet(device=rt.device, seed=0)
+        state = create_train_state(model, make_optimizer("lion", 1e-3))
+        step = make_train_step(plan=ParallelPlan(mesh=rt.mesh))
+        rng = np.random.default_rng(10 + rank)
+        losses = []
+        for _ in range(steps):
+            batch = {"image": torch.from_numpy(rng.uniform(0, 1, (32, 28, 28, 1)).astype(
+                         np.float32)).to(rt.device),
+                     "label": torch.from_numpy(rng.integers(0, 10, 32)).to(rt.device)}
+            state, m = step(state, batch)
+            losses.append(float(m["loss_sum"] / m["count"]))
+        digest = hashlib.sha256(b"".join(p.detach().cpu().numpy().tobytes()
+                                         for p in model.parameters())).hexdigest()
+        run_id = broadcast_run_id(uuid.uuid4().hex if rank == 0 else None)
+        gathered = [None, None]
+        dist.all_gather_object(gathered, {"digest": digest, "run_id": run_id,
+                                          "losses": losses, "device": str(rt.device)})
+        return gathered
+    finally:
+        shutdown()
+
+
+def launcher_phase(card: str) -> dict:
+    """Phase 13 (module docstring).  Returns its numbers."""
+    import shutil
+
+    from tpuframe_torch.core import native
+    from tpuframe_torch.core.runtime import reset_runtime
+    from tpuframe_torch.launch import (
+        Distributor,
+        DistributorError,
+        RunConfig,
+        ScalingConfig,
+        TPUTrainer,
+        WorkerLostError,
+    )
+    from tpuframe_torch.models import MnistNet, ResNet50, TransferClassifier, freeze
+    from tpuframe_torch.train import Trainer
+
+    out: dict = {}
+    shutil.rmtree(LAUNCH_DIR, ignore_errors=True)
+    LAUNCH_DIR.mkdir(parents=True)
+    try:
+        # -- 1. example 01's worker through the Distributor, on the card ---------
+        cfg = {**EX01_CFG, "tracking_uri": str(LAUNCH_DIR / "cifar" / "mlruns")}
+        t0 = time.perf_counter()
+        (summary, elapsed), counts = Distributor(num_processes=1, timeout_s=300).run(
+            counted_call, "01_distributor_cifar_resnet", "train_cifar", cfg)
+        spawn_s = time.perf_counter() - t0
+        n_steps = cfg["epochs"] * (cfg["train_samples"] // cfg["batch_size"])
+        want = {"normalize": 0, "cross_entropy_fwd": n_steps, "cross_entropy_bwd": n_steps}
+        log(f"  example 01 through Distributor(num_processes=1): {spawn_s:.2f} s from spawn to "
+            f"result, {elapsed:.2f} s in the worker's loop ({n_steps} steps of "
+            f"{cfg['batch_size']} at {cfg['image_size']} px, bf16); launches {counts} "
+            f"(expected {want}); {summary} on {card}")
+        check(counts == want, f"example 01's worker launches {counts} != {want}")
+        check(math.isfinite(summary["train_loss"]) and 0 <= summary["demo_pred"] < 10,
+              f"example 01's result {summary}")
+        out["ex01_spawn_to_result_s"] = spawn_s
+        out["ex01_loop_s"] = elapsed
+
+        # -- 2. example 05 through TPUTrainer, one worker on the card -------------
+        t0 = time.perf_counter()
+        result = TPUTrainer(counted_loop, train_loop_config=dict(EX05_CFG),
+                            scaling_config=ScalingConfig(num_workers=1),
+                            run_config=RunConfig(storage_path=str(LAUNCH_DIR / "ray"),
+                                                 name="fashion")).fit()
+        fit_s = time.perf_counter() - t0
+        check(result.error is None, f"example 05's fit failed: {result.error!r}")
+        counts = json.loads(Path(result.path, "launches_0.json").read_text())
+        n_steps = EX05_CFG["epochs"] * (EX05_CFG["train_samples"] // EX05_CFG["batch_size"])
+        want = {"normalize": 0, "cross_entropy_fwd": n_steps, "cross_entropy_bwd": n_steps}
+        epochs = [m["epoch"] for m in result.metrics_dataframe]
+        check(epochs == [float(e) for e in range(EX05_CFG["epochs"])],
+              f"example 05 reported epochs {epochs}")
+        check(counts == want, f"example 05's worker launches {counts} != {want}")
+        with result.checkpoint.as_directory() as d:
+            meta = json.loads(Path(d, "meta.json").read_text())
+            tree = torch.load(Path(d, "model.msgpack"), map_location="cuda", weights_only=True)
+        reloaded = MnistNet(device="cuda", seed=1)
+        reloaded.load_state_dict(tree["params"])
+        logp = reloaded(torch.zeros(2, 28, 28, 1, device="cuda"))
+        check(meta == {"epoch": EX05_CFG["epochs"] - 1} and bool(torch.isfinite(logp).all()),
+              f"example 05's checkpoint bundle: meta {meta}")
+        log(f"  example 05 through TPUTrainer(1 worker): {fit_s:.2f} s from spawn to result, "
+            f"{len(epochs)} reports, launches {counts} (expected {want}), metrics "
+            f"{result.metrics}; its last bundle reloads into MnistNet on the card")
+        out["ex05_spawn_to_result_s"] = fit_s
+
+        # -- 3. two ranks on the one card ------------------------------------------
+        check(native.heartbeat_available(), f"the heartbeat did not build: {native.build_error}")
+        t0 = time.perf_counter()
+        dist2 = Distributor(num_processes=2, timeout_s=300)
+        ranks = dist2.run(two_rank_job, "lion")
+        two_s = time.perf_counter() - t0
+        check(ranks[0]["digest"] == ranks[1]["digest"],
+              "two ranks' lion steps left different parameters")
+        check(ranks[0]["run_id"] == ranks[1]["run_id"] and len(ranks[0]["run_id"]) == 32,
+              f"broadcast_run_id gave {ranks[0]['run_id']!r} and {ranks[1]['run_id']!r}")
+        check(all(r["device"] == "cuda:0" for r in ranks), f"devices {ranks}")
+        log(f"  two gloo ranks on the card: 3 lion steps of MnistNet bit-equal on both ranks "
+            f"(losses {[round(v, 4) for v in ranks[0]['losses']]}), one run id; "
+            f"{two_s:.2f} s from spawn to result; heartbeat monitor {dist2.heartbeat_active}")
+        t0 = time.perf_counter()
+        try:
+            Distributor(num_processes=2, timeout_s=120).run(two_rank_job, "raise")
+            check(False, "a raising rank did not fail the run")
+        except RuntimeError as e:
+            cause = e.__cause__
+            check(isinstance(cause, DistributorError) and cause.rank == 1
+                  and cause.returncode == 1 and "planted failure" in cause.stderr_tail
+                  and "Traceback" in cause.stderr_tail, f"raising rank surfaced as {e!r}")
+        raise_s = time.perf_counter() - t0
+        lost = Distributor(num_processes=2, timeout_s=120, heartbeat_timeout_s=3.0)
+        t0 = time.perf_counter()
+        try:
+            lost.run(two_rank_job, "lost")
+            check(False, "a lost rank did not fail the run")
+        except WorkerLostError as e:
+            check(e.rank == 1 and lost.heartbeat_active is True,
+                  f"lost rank surfaced as {e!r} (monitor {lost.heartbeat_active})")
+            lost_s = time.perf_counter() - t0
+            log(f"  a raising rank: its RuntimeError with DistributorError(rank 1, exit 1, its "
+                f"traceback) as cause in {raise_s:.2f} s; a lost rank (SIGSTOP): "
+                f"WorkerLostError(rank 1, silent {e.silent_s:.1f} s) in {lost_s:.2f} s at a "
+                f"3 s heartbeat timeout, the monitor built here")
+        out.update(two_rank_s=two_s, raise_s=raise_s, lost_s=lost_s)
+
+        # -- 4. a step per optimizer, frozen ResNet50 backbone ---------------------
+        backbone = ResNet50(num_classes=0, device="cuda", seed=0)
+        model = freeze(TransferClassifier(backbone, 10, device="cuda", seed=0))
+        frozen0 = {n: p.detach().clone() for n, p in model.backbone.named_parameters()}
+        rng = np.random.default_rng(5)
+        batch = {"image": torch.from_numpy(rng.integers(
+                     0, 256, (OPT_BATCH, 224, 224, 3), dtype=np.uint8)).cuda(),
+                 "label": torch.from_numpy(rng.integers(0, 10, OPT_BATCH)).cuda()}
+
+        def timed_steps(name, lr, ema, n_steps):
+            """The median of ``n_steps`` synced steps of ``model`` under
+            ``name``, after 3 warm-up steps; the last step's metrics."""
+            trainer = Trainer(model, optimizer=name, lr=lr, ema_decay=ema, precision="bf16",
+                              normalize=(MEAN, STD), health=False)
+            state, step = trainer.init_state(), trainer._train_step
+            for _ in range(3):
+                state, m = step(state, batch)
+            times = []
+            for _ in range(n_steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            label = name if ema is None else f"{name}+ema"
+            check(math.isfinite(float(m["loss_sum"])), f"{label}: loss {m['loss_sum']}")
+            return label, statistics.median(times)
+
+        step_ms = {}
+        for name, lr, ema in OPTIMIZERS:
+            label, step_ms[label] = timed_steps(name, lr, ema, OPT_STEPS)
+            trained = [p for p in model.parameters() if p.requires_grad]
+            check(len(trained) == 2 and all(p.grad is not None for p in trained),
+                  f"{label}: the head's two tensors should train")
+        moved = [n for n, p in model.backbone.named_parameters()
+                 if not torch.equal(p, frozen0[n])]
+        check(not moved, f"the frozen backbone moved: {moved[:5]}")
+        log(f"  TransferClassifier(ResNet50(num_classes=0), 10), backbone frozen, bf16, "
+            f"{OPT_BATCH} x 224 px, one synced step (median of {OPT_STEPS}): "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in step_ms.items())
+            + f"; the backbone's {len(frozen0)} tensors bit-equal after all of them, on {card}")
+        out["optimizer_step_ms"] = step_ms
+        # the same step with every tensor training: the per-tensor optimizers'
+        # cost at a full model's 161 tensors
+        model.requires_grad_(True)
+        unfrozen_ms = {}
+        for name, lr, ema in OPTIMIZERS[:4]:
+            label, unfrozen_ms[label] = timed_steps(name, lr, ema, UNFROZEN_STEPS)
+            trained = list(model.parameters())
+            check(len(trained) == len(frozen0) + 2 and all(p.grad is not None for p in trained),
+                  f"{label}: every tensor should train")
+        moved = [n for n, p in model.backbone.named_parameters()
+                 if not torch.equal(p, frozen0[n])]
+        check(len(moved) == len(frozen0), f"unfrozen, {len(moved)} of {len(frozen0)} moved")
+        log(f"  the same step unfrozen ({len(frozen0) + 2} tensors train; median of "
+            f"{UNFROZEN_STEPS}): " + ", ".join(f"{k} {v:.3f} ms" for k, v in unfrozen_ms.items())
+            + f" on {card}")
+        out["unfrozen_step_ms"] = unfrozen_ms
+        del model, backbone, batch
+        torch.cuda.empty_cache()
+
+        # -- 5. examples 03 and 04 in this process, on the card --------------------
+        for name, tag in (("03_composer_cifar_resnet", "composer"),
+                          ("04_accelerate_cifar", "accelerate")):
+            counters = _k12()
+            for c in counters.values():
+                c.launches = 0
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                _example(name).main(["--epochs", "1", "--train-samples", "192",
+                                     "--eval-samples", "100", "--workdir", str(LAUNCH_DIR)])
+            torch.cuda.synchronize()
+            took = time.perf_counter() - t0
+            text = buf.getvalue()
+            counts = {n: c.launches for n, c in counters.items()}
+            # 3 train steps of 64 and an eval of 2 batches (64 + a ragged 36);
+            # example 03's LabelSmoothing and CutMix make soft labels, which
+            # take the plain soft cross entropy, so only its eval runs K2a
+            want = ({"normalize": 0, "cross_entropy_fwd": 2, "cross_entropy_bwd": 0}
+                    if tag == "composer" else
+                    {"normalize": 0, "cross_entropy_fwd": 5, "cross_entropy_bwd": 3})
+            check(counts == want, f"example {name}: launches {counts} != {want}")
+            if tag == "composer":
+                check("registered=v1@champion" in text, f"example 03 printed {text[-500:]}")
+            else:
+                check("epoch 0 [" in text and "eval_loss" in text,
+                      f"example 04 printed {text[-500:]}")
+            log(f"  example {name[:2]} in process: {took:.2f} s, 3 steps of 64 + eval, launches "
+                f"{counts} (expected {want}); {text.strip().splitlines()[-1][:160]}")
+            out[f"ex{name[:2]}_s"] = took
+            reset_runtime()
+    finally:
+        shutil.rmtree(LAUNCH_DIR, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     log("== phase 1: device")
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
+        return 2
+    from tpuframe_torch.core.runtime import SIMULATE_ENV
+
+    if os.environ.get(SIMULATE_ENV):
+        # the launcher's CPU request would move the default device off the card
+        print(f"chip_smoke: {SIMULATE_ENV}={os.environ[SIMULATE_ENV]!r} is set (the request "
+              "for CPU workers); unset it to run on the card", file=sys.stderr)
         return 2
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3736,7 +4077,11 @@ def main() -> int:
     k3a["launches_vit_serve"] = vit["launches"]["layer_norm_fwd"]
     k3a["launches_long_ctx"] = long_launches["long_ctx"]["layer_norm_fwd"]
 
-    log("== phase 13: result")
+    log("== phase 13: launcher")
+    launcher_phase(card)
+    torch.cuda.empty_cache()
+
+    log("== phase 14: result")
     kernels = [k1, k2a, k2b, k3a, k3b, k4, k5a, k5b, k5c, k6a, k6b, k6c]
     for k in kernels:
         k["floor_ms"] = floor_ms  # beside bound_ms, which stays the byte or operation bound

@@ -7,8 +7,10 @@ blockwise LM step with and without ``remat``, the launch
 floor's counter, a parameter without a gradient stepped by K4, the
 compressed wire's sync on the card against the CPU, a
 small serve slice, a small ``Trainer.fit``, eval mode for a model left in
-train mode, the launch counts of one LM train step, and BatchNorm with
-statistics across two gloo ranks on the card against one process's.
+train mode, the launch counts of one LM train step, BatchNorm with
+statistics across two gloo ranks on the card against one process's, and
+the plain-PyTorch optimizers of the launcher slice (lion, lamb,
+adafactor) and SGD with the moving average on the card against the CPU.
 
 Every test here needs an NVIDIA GPU and ``nvcc`` and skips without them.
 The file imports neither JAX nor the JAX package, so it also runs on a
@@ -1310,3 +1312,45 @@ def test_blockwise_lm_step_launch_counts_and_remat_bits(card, remat):
         out[r] = (float(metrics["loss_sum"]), [p.detach().clone() for p in model.parameters()])
     assert out[remat][0] == out[False][0] and np.isfinite(out[False][0])
     assert all(torch.equal(a, b) for a, b in zip(out[remat][1], out[False][1]))
+
+
+# the launcher slice's optimizers: plain PyTorch, so the card must give the
+# CPU's update; one leaf of each kind adafactor tells apart
+OPT_SHAPES = ((37,), (100, 50), (256, 512), (3, 130, 140), (3, 3, 64, 128))
+
+
+def _opt_run(build, device, ema: bool = False):
+    rng = np.random.default_rng(0)
+    p0 = [rng.standard_normal(s).astype(np.float32) for s in OPT_SHAPES]
+    grads = [[rng.standard_normal(s).astype(np.float32) for s in OPT_SHAPES] for _ in range(5)]
+    model = torch.nn.ParameterList(
+        [torch.nn.Parameter(torch.from_numpy(a.copy()).to(device)) for a in p0])
+    spec = build()
+    if ema:
+        from tpuframe_torch.train import with_ema
+
+        spec = with_ema(spec, 0.9)
+    state = create_train_state(model, spec)
+    for g in grads:
+        for p, a in zip(model, g):
+            p.grad = torch.from_numpy(a.copy()).to(device)
+        state.apply_gradients()
+    params = [p.detach().cpu() for p in model]
+    avg = [v.cpu() for v in state.ema.ema.values()] if ema else []
+    return params, avg
+
+
+@pytest.mark.parametrize("name", ["lion", "lamb", "adafactor", "sgd_ema"])
+def test_launcher_slice_optimizers_on_the_card_match_the_cpu(card, name):
+    """Five updates from the same gradients: every parameter (and, for
+    SGD with EMA, the average) within 1e-6 of the CPU's, relative to the
+    leaf's largest value."""
+    opt, ema = ("sgd", True) if name == "sgd_ema" else (name, False)
+    lr = 1e-2 if opt in ("sgd", "adafactor") else 1e-3
+    build = functools.partial(make_optimizer, opt, lr)
+    got, got_avg = _opt_run(build, card, ema)
+    want, want_avg = _opt_run(build, torch.device("cpu"), ema)
+    assert len(got_avg) == (len(OPT_SHAPES) if ema else 0)
+    for a, b in zip(got + got_avg, want + want_avg):
+        scale = float(b.abs().max())
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6 * scale)

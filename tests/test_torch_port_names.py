@@ -54,21 +54,15 @@ from tpuframe_torch.train.optim import make_optimizer
 
 REPO = Path(__file__).resolve().parents[1]
 SUBPACKAGES = ("core", "data", "train", "models", "ops", "parallel", "ckpt", "serve", "track",
-               "fault", "compile")
+               "fault", "compile", "launch")
 
 #: JAX modules (or whole packages) the port does not have yet, with the
 #: ROADMAP Queue 1 item that brings each
 QUEUE1_MODULES = {
-    "tpuframe.core.config": 3,
-    "tpuframe.core.workspace": 3,
-    "tpuframe.core.native": 4,
     "tpuframe.data.transforms": 4,
     "tpuframe.data.mds": 4,
     "tpuframe.data.streaming": 4,
-    "tpuframe.models.cnn": 1,
-    "tpuframe.models.transfer": 1,
     "tpuframe.models.moe": 8,
-    "tpuframe.train.ema": 1,
     "tpuframe.parallel.zero": 6,
     "tpuframe.parallel.memory": 6,
     "tpuframe.parallel.compose": 7,
@@ -79,11 +73,8 @@ QUEUE1_MODULES = {
     "tpuframe.fault.chaos": 9,
     "tpuframe.fault.preempt": 9,
     "tpuframe.fault.supervisor": 9,
-    "tpuframe.launch": 3,
     "tpuframe.autotune": 9,
     "tpuframe.compile.cache": 9,
-    "tpuframe.track.mlflow_store": 2,
-    "tpuframe.track.registry": 2,
     "tpuframe.track.tensorboard": 2,
     "tpuframe.track.system_metrics": 2,
     "tpuframe.track.profiler": 9,
@@ -118,7 +109,36 @@ LATER = {
     ("compile", "loader_batch_template"): (9, "torch.compile and CUDA graphs"),
     ("compile", "precompile_call"): (9, "torch.compile and CUDA graphs"),
     ("compile", "precompile_step"): (9, "torch.compile and CUDA graphs"),
+    ("launch", "RemoteDistributor"): (9, "the remote launcher"),
+    ("launch", "RemoteLaunchError"): (9, "the remote launcher"),
+    ("launch", "ssh_connect"): (9, "the remote launcher"),
+    ("launch", "all_env_vars"): (9, "the remote launcher"),
+    ("launch", "run_with_restarts"): (9, "the supervisor"),
+    ("launch", "run_elastic"): (9, "the supervisor"),
+    ("launch", "ElasticContext"): (9, "the supervisor"),
+    ("launch", "rederive_batch_split"): (9, "the supervisor"),
+    ("launch", "simulated_survivor_probe"): (9, "the supervisor"),
+    ("launch", "ZeroDistributor"): (6, "ZeRO"),
+    ("track", "HttpModelRegistry"): (9, "the HTTP store"),
 }
+
+#: modules ported in the launcher slice: (module under tpuframe, JAX
+#: module's own class or function) -> (Queue 1 item, what it waits for)
+LATER_IN_MODULE = {
+    ("core.native", "ZstdCodec"): (4, "the data remainder"),
+    ("core.native", "native_available"): (4, "the data remainder"),
+    ("core.native", "JpegDecoder"): (4, "the data remainder"),
+    ("core.native", "jpeg_native_available"): (4, "the data remainder"),
+    ("core.native", "ControlPlane"): (4, "the control plane"),
+    ("core.native", "control_plane"): (4, "the control plane"),
+    ("track.registry", "HttpModelRegistry"): (9, "the HTTP store"),
+    ("launch.distributor", "ZeroDistributor"): (6, "ZeRO"),
+}
+
+#: the modules of the launcher slice, compared module by module
+SLICE_MODULES = ("core.config", "core.workspace", "core.native", "models.cnn", "models.transfer",
+                 "train.ema", "track.mlflow_store", "track.registry", "launch.distributor",
+                 "launch.trainer_api")
 
 #: the JAX package's kernel switches: the port dispatches by device alone
 DROPPED = {"use_pallas", "kernel_enabled", "kernels_mode"}
@@ -175,6 +195,25 @@ def test_public_names_match_jax_but_for_the_listed_gaps(sub):
 
 def test_queue1_modules_are_still_missing_from_the_port():
     assert not [m for m in QUEUE1_MODULES if _port_has_module(m)]
+
+
+def _defined(module) -> set[str]:
+    """The public classes and functions a module defines itself."""
+    return {n for n, v in vars(module).items()
+            if not n.startswith("_") and callable(v)
+            and getattr(v, "__module__", None) == module.__name__}
+
+
+@pytest.mark.parametrize("module", SLICE_MODULES)
+def test_slice_module_names_match_jax_but_for_the_listed_gaps(module):
+    jax_names = _defined(importlib.import_module(f"tpuframe.{module}"))
+    port = importlib.import_module(f"tpuframe_torch.{module}")
+    port_names = {n for n in dir(port) if not n.startswith("_")}
+    later = {n for (m, n) in LATER_IN_MODULE if m == module}
+    missing, stale = sorted(jax_names - port_names - later), sorted(later & port_names)
+    assert not missing, f"tpuframe_torch.{module} lacks {missing}"
+    assert not stale, f"tpuframe_torch.{module} has {stale} now: take them out of the table"
+    assert set(getattr(port, "__all__", port_names)) <= port_names
 
 
 def _example_imports():
@@ -324,7 +363,8 @@ def test_reset_runtime_destroys_only_a_group_it_built(tmp_path, monkeypatch):
 
 
 def test_simulate_cpu_devices_names_the_ports_route():
-    with pytest.raises(NotImplementedError, match="gloo processes.*Queue 1 item 3"):
+    with pytest.raises(NotImplementedError,
+                       match=r"gloo processes.*Distributor\(num_processes=4, simulate_devices=1\)"):
         simulate_cpu_devices(4)
 
 

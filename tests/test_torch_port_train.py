@@ -490,7 +490,13 @@ def test_global_norm_clip_matches_optax():
 
 @pytest.mark.parametrize("name", ["lion", "lamb", "adafactor"])
 def test_unported_optimizers_name_the_roadmap(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_optimizer(name, 0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        optimizer_from_config({"optimizer": {"type": name, "params": {"lr": 0.1}}})
+    """These three raised, naming the ROADMAP, until the launcher slice
+    ported them (``tests/test_torch_port_optim.py`` holds them against
+    optax): both routes now build them, and an unknown name still raises."""
+    model = torch.nn.Linear(3, 2)
+    for spec in (make_optimizer(name, 0.1),
+                 optimizer_from_config({"optimizer": {"type": name, "params": {"lr": 0.1}}})):
+        opt = spec.build(model.parameters())
+        assert type(opt).__name__.lower() == name
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        make_optimizer(name + "x", 0.1)

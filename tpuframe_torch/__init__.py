@@ -15,7 +15,13 @@ the LM train path with the LayerNorm and fused AdamW kernels
 (``ops/layer_norm.py``, ``ops/fused_adamw.py``); and data-parallel training
 through the compressed gradient wire — ``Trainer(plan=ParallelPlan(...),
 grad_compression="int8")`` over ``torch.distributed``, with the amax,
-encode and decode kernels (``ops/quant_wire.py``, ``csrc/quant_wire.cu``).
+encode and decode kernels (``ops/quant_wire.py``, ``csrc/quant_wire.cu``);
+long context and ViT with the blockwise-attention kernels; and the
+launcher path — ``launch.Distributor`` and ``TPUTrainer`` over local
+workers with a heartbeat (``csrc/heartbeat.cpp``), ``core.Config``, the
+MLflow file store and model registry, ``MnistNet``,
+``TransferClassifier``, EMA and lion/lamb/adafactor, and the examples
+under ``tpuframe_torch/examples``.
 """
 
 __version__ = "0.1.0"

@@ -16,6 +16,12 @@ never gives way to gloo.
 
 The mesh names the data-parallel layout over the processes.  Only the
 ``data`` axis is ported: any other axis above 1 raises.
+
+``TPUFRAME_SIMULATE_DEVICES`` is the one request for the CPU besides an
+explicit ``device="cpu"``: the launcher sets it in its workers for
+``Distributor(simulate_devices=1)`` (the JAX package's virtual CPU
+devices), and :func:`resolve_device` then takes the CPU where no device is
+named.  A value above 1 raises, as :func:`simulate_cpu_devices` does.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import torch.distributed as dist
 __all__ = [
     "AXIS_ORDER",
     "DATA_AXIS",
+    "SIMULATE_ENV",
     "EXPERT_AXIS",
     "FSDP_AXIS",
     "MODEL_AXIS",
@@ -48,6 +55,7 @@ __all__ = [
     "resolve_device",
     "shutdown",
     "simulate_cpu_devices",
+    "simulated_devices",
 ]
 
 PIPELINE_AXIS = "pipe"
@@ -60,10 +68,39 @@ MODEL_AXIS = "model"
 AXIS_ORDER = (PIPELINE_AXIS, DATA_AXIS, FSDP_AXIS, SEQUENCE_AXIS, EXPERT_AXIS, MODEL_AXIS)
 
 
+#: the launcher's request for CPU workers (module docstring)
+SIMULATE_ENV = "TPUFRAME_SIMULATE_DEVICES"
+
+
+def check_simulated_devices(n: int) -> int:
+    """``n`` simulated devices a process: 1 is the CPU; above 1 raises
+    ``NotImplementedError``, as :func:`simulate_cpu_devices` does."""
+    n = int(n)
+    if n > 1:
+        raise NotImplementedError(
+            f"simulate_devices={n}: torch has no virtual CPU devices. The port simulates "
+            f"{n} devices as {n} gloo processes of one CPU device each "
+            f"(Distributor(num_processes={n}, simulate_devices=1))")
+    if n < 1:
+        raise ValueError(f"simulate_devices must be >= 1, got {n}")
+    return n
+
+
+def simulated_devices() -> int | None:
+    """The launcher's request in ``TPUFRAME_SIMULATE_DEVICES`` (1), or None
+    when it is unset or empty; any other value raises."""
+    raw = os.environ.get(SIMULATE_ENV, "").strip()
+    return check_simulated_devices(int(raw)) if raw else None
+
+
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
-    """``None`` -> ``cuda``; a CUDA device raises when CUDA is absent.
+    """``None`` -> ``cuda`` (the CPU when the launcher asked for simulated
+    devices, :data:`SIMULATE_ENV`); a CUDA device raises when CUDA is
+    absent.
 
     Only ``cuda`` and ``cpu`` devices are accepted."""
+    if device is None and simulated_devices():
+        return torch.device("cpu")
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -190,7 +227,8 @@ def initialize(mesh: MeshSpec | Mapping[str, int] | None = None, *,
                backend: str | None = None) -> Runtime:
     """Resolve the device, join the process group, and build the mesh.
 
-    ``device`` defaults to ``cuda`` (``cuda:LOCAL_RANK`` when that is set).
+    ``device`` defaults to ``cuda`` (``cuda:LOCAL_RANK`` when that is set),
+    or the CPU when the launcher asked for simulated devices.
     A process group that already exists is joined as it is; otherwise one
     is built when the env names a rendezvous (module docstring), with
     ``nccl`` on a CUDA device and ``gloo`` on the CPU.  ``backend``
@@ -199,7 +237,7 @@ def initialize(mesh: MeshSpec | Mapping[str, int] | None = None, *,
     raises, as in the JAX package."""
     global _CURRENT, _OWNS_GROUP
     local = _env_int("LOCAL_RANK")
-    if device is None and local is not None:
+    if device is None and local is not None and not simulated_devices():
         device = f"cuda:{local}"
     dev = resolve_device(device)
     if dev.type == "cuda":
@@ -275,9 +313,8 @@ def simulate_cpu_devices(n: int = 8) -> None:
     flag; torch has no such flag, so this raises ``NotImplementedError``."""
     raise NotImplementedError(
         f"simulate_cpu_devices({n}): torch has no virtual CPU devices. The port simulates "
-        f"{n} devices as {n} gloo processes on the CPU (RANK/WORLD_SIZE with "
-        "initialize(device='cpu')); the launcher that spawns them comes with the launch "
-        "slice (ROADMAP.md, Queue 1 item 3)")
+        f"{n} devices as {n} gloo processes on the CPU: "
+        f"launch.Distributor(num_processes={n}, simulate_devices=1)")
 
 
 def process_index() -> int:

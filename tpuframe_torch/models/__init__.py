@@ -1,7 +1,9 @@
-"""Models: the ResNet family, the transformer LM, ViT, and their weight
-interop."""
+"""Models: the ResNet family, the transformer LM, ViT, the MNIST CNN, the
+frozen-backbone wrapper, and their weight interop."""
 
+from tpuframe_torch.models.cnn import MnistNet
 from tpuframe_torch.models.interop import (
+    export_torch_mnist,
     export_torch_resnet,
     export_torch_transformer,
     from_jax_variables,
@@ -18,6 +20,7 @@ from tpuframe_torch.models.resnet import (
     ResNet50,
     ResNet101,
 )
+from tpuframe_torch.models.transfer import TransferClassifier, backbone_frozen_labels, freeze
 from tpuframe_torch.models.transformer import Block, Dropout, SelfAttention, TransformerLM
 from tpuframe_torch.models.vit import ViT, ViT_B16, ViT_S16, vit_tp_rules
 
@@ -26,6 +29,7 @@ __all__ = [
     "Block",
     "Bottleneck",
     "Dropout",
+    "MnistNet",
     "ReplicaGroupedBatchNorm",
     "ResNet",
     "ResNet18",
@@ -33,12 +37,16 @@ __all__ = [
     "ResNet50",
     "ResNet101",
     "SelfAttention",
+    "TransferClassifier",
     "TransformerLM",
     "ViT",
     "ViT_B16",
     "ViT_S16",
+    "backbone_frozen_labels",
+    "export_torch_mnist",
     "export_torch_resnet",
     "export_torch_transformer",
+    "freeze",
     "from_jax_variables",
     "import_torch_resnet",
     "import_torch_transformer",

@@ -5,7 +5,9 @@ The port's own copy of ``tpuframe/models/interop.py`` (numpy only), plus
 "batch_stats"}`` tree into the ``state_dict`` of the matching port model:
 the ResNet (module names torchvision's, so that ``state_dict`` is a
 torchvision one), the ``TransformerLM`` or the ``ViT`` (module names the
-JAX tree's).
+JAX tree's), ``MnistNet`` (the reference ``Net``'s names) and
+``TransferClassifier`` (its backbone's names under ``backbone.``, the head
+under ``head.``).
 
 Layout conversions:
 
@@ -17,6 +19,9 @@ Layout conversions:
   keep their names
 - ViT: ``patch_embed`` kernel HWIO <-> weight OIHW; ``pos_embed`` and
   ``cls_token`` (parameters of the model itself) as they are
+- MnistNet: flax flattens the (4, 4, 20) maps NHWC before ``fc1``, the
+  port NCHW (the reference ``Net``'s ``view(-1, 320)``), so ``fc1``'s 320
+  input rows are permuted from (h, w, c) to (c, h, w) order
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import numpy as np
 import torch
 
 __all__ = [
+    "export_torch_mnist",
     "export_torch_resnet",
     "export_torch_transformer",
     "from_jax_variables",
@@ -168,25 +174,65 @@ def import_torch_transformer(state_dict: Mapping[str, Any]) -> dict:
     return {"params": params}
 
 
+_MNIST_LAYERS = {"conv1", "conv2", "fc1", "fc2"}
+
+
+def export_torch_mnist(variables: Mapping[str, Any]) -> dict:
+    """A JAX ``MnistNet`` tree as the port's (and the reference ``Net``'s)
+    ``state_dict`` of numpy arrays: conv kernels HWIO -> OIHW, dense
+    kernels transposed, ``fc1``'s input rows from flax's NHWC flatten order
+    to NCHW."""
+    params = variables.get("params", variables)
+    out: dict[str, np.ndarray] = {}
+    for layer in sorted(_MNIST_LAYERS):
+        kernel = np.asarray(params[layer]["kernel"])
+        if kernel.ndim == 4:
+            kernel = kernel.transpose(3, 2, 0, 1)
+        else:
+            if layer == "fc1":  # rows (h, w, c) of the (4, 4, 20) maps -> (c, h, w)
+                h, w, c = 4, 4, kernel.shape[0] // 16
+                kernel = kernel.reshape(h, w, c, -1).transpose(2, 0, 1, 3).reshape(h * w * c, -1)
+            kernel = kernel.T
+        out[f"{layer}.weight"] = kernel
+        out[f"{layer}.bias"] = np.asarray(params[layer]["bias"])
+    return out
+
+
+def _tensors(arrays: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.ascontiguousarray(np.array(v))) for k, v in arrays.items()}
+
+
+def _resnet_state(variables_np: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    state = _tensors(export_torch_resnet(variables_np))
+    for k in [k for k in state if k.endswith(".running_var")]:
+        state[k[: -len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
+    return state
+
+
 def from_jax_variables(variables_np: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """The JAX tree (numpy leaves) as the matching port model's
     ``state_dict`` of CPU tensors: a ``TransformerLM`` tree (it has an
     ``embed`` table) or a ``ViT`` tree (it has a ``patch_embed``) by
-    :func:`export_torch_transformer`; a ResNet's
-    ``{"params", "batch_stats"}`` with torchvision names and a zero
-    ``num_batches_tracked`` beside every BatchNorm.  Load it with
-    ``model.load_state_dict(...)``."""
+    :func:`export_torch_transformer`; an ``MnistNet`` tree by
+    :func:`export_torch_mnist`; a ``TransferClassifier`` tree (``backbone``
+    and ``head``) as its backbone's under ``backbone.`` and the head's
+    ``weight`` and ``bias``; a ResNet's ``{"params", "batch_stats"}`` with
+    torchvision names and a zero ``num_batches_tracked`` beside every
+    BatchNorm.  Load it with ``model.load_state_dict(...)``."""
     params = variables_np.get("params", {})
     if "embed" in params or "patch_embed" in params:
-        return {k: torch.from_numpy(np.ascontiguousarray(np.array(v)))
-                for k, v in export_torch_transformer(variables_np).items()}
-    state = {
-        k: torch.from_numpy(np.ascontiguousarray(np.array(v)))
-        for k, v in export_torch_resnet(variables_np).items()
-    }
-    for k in [k for k in state if k.endswith(".running_var")]:
-        state[k[: -len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
-    return state
+        return _tensors(export_torch_transformer(variables_np))
+    if set(params) == _MNIST_LAYERS:
+        return _tensors(export_torch_mnist(variables_np))
+    if "backbone" in params and "head" in params:
+        backbone = {"params": params["backbone"],
+                    "batch_stats": variables_np.get("batch_stats", {}).get("backbone", {})}
+        state = {f"backbone.{k}": v for k, v in from_jax_variables(backbone).items()}
+        state["head.weight"] = torch.from_numpy(
+            np.ascontiguousarray(np.array(params["head"]["kernel"]).T))
+        state["head.bias"] = torch.from_numpy(np.array(params["head"]["bias"]))
+        return state
+    return _resnet_state(variables_np)
 
 
 def _convert_leaf(module: str, attr: str, value: np.ndarray):

@@ -206,6 +206,7 @@ class ResNet(nn.Module):
                 width = num_filters * 2**i * block_cls.expansion
             self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
         self.num_stages = len(stage_sizes)
+        self.num_features = width  # the pooled feature width, what a head takes
         self.fc = (Linear(width, num_classes, compute_dtype=dtype, device=device)
                    if num_classes else None)
         self._init_parameters(torch.Generator(device=device).manual_seed(seed))

@@ -94,11 +94,14 @@ class Dropout(nn.Module):
     """flax ``nn.Dropout``: in train mode each element is kept with
     probability ``1 - rate`` (a uniform draw below it) and scaled by
     ``1 / (1 - rate)``, else zeroed; in eval mode, or at rate 0, the input
-    as it is.  The masks come from the ``generator`` the caller hands in."""
+    as it is.  The masks come from the ``generator`` the caller hands in.
+    ``broadcast_dims`` are the dims one draw covers (flax's, so
+    ``(2, 3)`` on NCHW maps drops whole channels, ``Dropout2d``)."""
 
-    def __init__(self, rate: float):
+    def __init__(self, rate: float, broadcast_dims: tuple[int, ...] = ()):
         super().__init__()
         self.rate = float(rate)
+        self.broadcast_dims = tuple(broadcast_dims)
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
@@ -110,7 +113,8 @@ class Dropout(nn.Module):
         if self.rate >= 1.0:
             return torch.zeros_like(x)
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        shape = [1 if d in self.broadcast_dims else n for d, n in enumerate(x.shape)]
+        mask = torch.rand(shape, generator=generator, device=x.device) < keep
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

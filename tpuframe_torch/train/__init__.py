@@ -11,6 +11,7 @@ from tpuframe_torch.train.algorithms import (
 )
 from tpuframe_torch.train.callbacks import Callback, EarlyStopping, ProgressLogger
 from tpuframe_torch.train.duration import Duration
+from tpuframe_torch.train.ema import EmaState, ema_params, with_ema
 from tpuframe_torch.train.optim import OptimizerSpec, make_optimizer, optimizer_from_config
 from tpuframe_torch.train.schedules import (
     cosine_annealing,
@@ -39,6 +40,7 @@ __all__ = [
     "CutMix",
     "Duration",
     "EarlyStopping",
+    "EmaState",
     "FitResult",
     "LabelSmoothing",
     "MixUp",
@@ -50,6 +52,7 @@ __all__ = [
     "cosine_annealing",
     "create_train_state",
     "cross_entropy",
+    "ema_params",
     "make_eval_step",
     "make_grad_accum_step",
     "make_optimizer",
@@ -65,4 +68,5 @@ __all__ = [
     "warmup_cosine",
     "warmup_decay_lr",
     "warmup_lr",
+    "with_ema",
 ]

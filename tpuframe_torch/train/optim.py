@@ -24,9 +24,22 @@ library default:
 
 The optimizer state is created when the optimizer is (zero momentum and
 moments, a zero step count), as optax's ``init`` creates it, so a step
-that the health sentinel skips can restore it like any other tensor.
+that the health sentinel skips can restore it like any other tensor.  A
+parameter with ``requires_grad=False`` (a frozen backbone,
+``models.transfer.freeze``) gets no state and is never stepped, as
+``optax.set_to_zero`` leaves it.
+
 ``lion``, ``lamb`` and ``adafactor`` have no torch counterpart with optax's
-semantics and raise ``NotImplementedError``.
+semantics, so the port writes them here in plain PyTorch (:class:`Lion`,
+:class:`Lamb`, :class:`Adafactor`): optax computes them outside any Pallas
+kernel.  Each keeps optax's chain in its order and its float32 arithmetic;
+every parameter has its own step count, a float32 scalar on its device,
+where optax keeps one count for the tree (they agree: every stepped
+parameter has a gradient every step, a zero one where autograd left none).
+Defaults: the Trainer's names take bare optax's (``optax.lion(lr)``: b1
+0.9, b2 0.99, weight decay 1e-3; ``optax.lamb(lr)``: eps 1e-6, no decay;
+``optax.adafactor(lr)``), the config path
+``tpuframe/train/optim.py``'s.
 """
 
 from __future__ import annotations
@@ -34,22 +47,22 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Iterable, Mapping, Sequence
 
+import numpy as np
 import torch
 
 from tpuframe_torch.train.schedules import Schedule
 from tpuframe_torch.train.schedules import from_config as schedule_from_config
 
 __all__ = [
+    "Adafactor",
+    "Lamb",
+    "Lion",
     "OptimizerSpec",
     "clip_by_global_norm_",
     "init_optimizer_state",
     "make_optimizer",
     "optimizer_from_config",
 ]
-
-_LATER = ("{name!r} has no torch.optim counterpart with optax's semantics; it is "
-          "queued in ROADMAP.md, Queue 1, slice 2 ('lion/lamb/adafactor')")
-
 
 @dataclasses.dataclass(frozen=True)
 class OptimizerSpec:
@@ -63,6 +76,8 @@ class OptimizerSpec:
     factory: Callable[[Iterable[torch.nn.Parameter]], torch.optim.Optimizer]
     lr: float | Schedule
     max_grad_norm: float | None = None
+    #: the parameters' moving average (``train.ema.with_ema``), None = off
+    ema_decay: float | None = None
 
     def build(self, params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
         opt = self.factory(list(params))
@@ -96,12 +111,13 @@ def _adam(lr0: float, betas=(0.9, 0.999), eps: float = 1e-8, weight_decay: float
 @torch.no_grad()
 def init_optimizer_state(opt: torch.optim.Optimizer) -> None:
     """Create the state torch would create on the first ``step()``: SGD's
-    momentum buffers, Adam's step count and moments (all zeros)."""
+    momentum buffers, Adam's step count and moments (all zeros), the
+    port's optimizers' own.  Frozen parameters get none."""
     for group in opt.param_groups:
         for p in group["params"]:
-            state = opt.state[p]
-            if state:
+            if not p.requires_grad or opt.state.get(p):
                 continue
+            state = opt.state[p]
             if isinstance(opt, torch.optim.SGD):
                 if group["momentum"]:
                     state["momentum_buffer"] = torch.zeros_like(p, memory_format=torch.preserve_format)
@@ -135,16 +151,15 @@ def make_optimizer(name: str, lr: float | Schedule,
         "adam": lambda: _adam(lr0),
         "adamw": lambda: _adam(lr0, weight_decay=1e-4),  # optax.adamw's default
         "sgd": lambda: _sgd(lr0, 0.9),
+        # bare optax defaults (tpuframe/train/trainer.py:1646-1649)
+        "lamb": lambda: _port(Lamb, lr0),
+        "lion": lambda: _port(Lion, lr0),
+        "adafactor": lambda: _port(Adafactor, lr0),
     }
-    key = name.lower()
-    if key in ("lamb", "lion", "adafactor"):
-        raise NotImplementedError(_LATER.format(name=name))
     try:
-        factory = table[key]()
+        factory = table[name.lower()]()
     except KeyError:
-        raise ValueError(
-            f"unknown optimizer {name!r}; known: "
-            f"{sorted(table) + ['adafactor', 'lamb', 'lion']}") from None
+        raise ValueError(f"unknown optimizer {name!r}; known: {sorted(table)}") from None
     return OptimizerSpec(factory, lr, max_grad_norm)
 
 
@@ -157,9 +172,7 @@ def optimizer_from_config(cfg: Mapping[str, Any], *,
     opt_block = cfg.get("optimizer", {})
     kind = str(opt_block.get("type", "AdamW"))
     k = kind.lower()
-    if k in ("lamb", "lion", "adafactor"):
-        raise NotImplementedError(_LATER.format(name=kind))
-    if k not in ("adamw", "adam", "sgd"):
+    if k not in ("adafactor", "adam", "adamw", "lamb", "lion", "sgd"):
         raise ValueError(
             f"unknown optimizer type {kind!r}; known: "
             "['adafactor', 'adam', 'adamw', 'lamb', 'lion', 'sgd']")
@@ -176,6 +189,18 @@ def optimizer_from_config(cfg: Mapping[str, Any], *,
     lr0 = float(lr(0)) if callable(lr) else float(lr)
     if k == "sgd":
         factory = _sgd(lr0, float(p.get("momentum", 0.0)))
+    elif k == "lion":
+        b1, b2 = p.get("betas", (0.9, 0.99))
+        factory = _port(Lion, lr0, b1=float(b1), b2=float(b2),
+                        weight_decay=float(p.get("weight_decay", 1e-3)))
+    elif k == "lamb":  # the config's betas and eps do not reach optax.lamb
+        factory = _port(Lamb, lr0, weight_decay=float(p.get("weight_decay", 0.0)))
+    elif k == "adafactor":
+        factory = _port(Adafactor, lr0,
+                        min_dim_size_to_factor=int(p.get("min_dim_size_to_factor", 128)),
+                        decay_rate=float(p.get("decay_rate", 0.8)),
+                        weight_decay_rate=(float(p["weight_decay"]) if "weight_decay" in p
+                                           else None))
     else:
         betas = p.get("betas", (0.9, 0.999))
         wd = float(p.get("weight_decay", 1e-2)) if k == "adamw" else None
@@ -183,3 +208,172 @@ def optimizer_from_config(cfg: Mapping[str, Any], *,
     clip = cfg.get("gradient_clipping")
     max_norm = None if clip in (None, "auto", 0, 0.0) else float(clip)
     return OptimizerSpec(factory, lr, max_norm)
+
+
+# -- optax's lion, lamb and adafactor in plain PyTorch ---------------------------
+
+
+def _port(cls, lr0: float, **hp):
+    def factory(params):
+        return cls(params, lr=lr0, **hp)
+    return factory
+
+
+class _PortOptimizer(torch.optim.Optimizer):
+    """Common frame of the optax ports: the state of every trainable
+    parameter is made with the optimizer (optax's ``init``); ``step()``
+    walks every parameter that has a gradient, advances its count and
+    hands it to ``_update``, which returns optax's (negated) update ``u``;
+    the parameter becomes ``p + u`` (``optax.apply_updates``).
+    ``group["lr"]`` may be a float or a device scalar (a schedule read on
+    the device)."""
+
+    def __init__(self, params, defaults: dict):
+        super().__init__(params, defaults)
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.requires_grad:
+                    self.state[p] = self.initial_state(p)
+
+    def initial_state(self, p: torch.Tensor) -> dict:
+        """The zero state of one parameter (its count first)."""
+        return {"step": torch.zeros((), dtype=torch.float32, device=p.device)}
+
+    def _update(self, p, g, state, group, count) -> torch.Tensor:
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state.update(self.initial_state(p))
+                count = state["step"]  # optax's count before this update
+                p.add_(self._update(p, p.grad, state, group, count))
+                count.add_(1.0)
+        return loss
+
+
+class Lion(_PortOptimizer):
+    """``optax.lion``: ``u = sign((1 - b1) g + b1 m)``, ``m <- (1 - b2) g +
+    b2 m``, then decoupled decay ``u + wd p``, then ``-lr``.  ``sign(0)`` is
+    0, as in ``jnp.sign``."""
+
+    def __init__(self, params, lr: float = 1e-4, b1: float = 0.9, b2: float = 0.99,
+                 weight_decay: float = 1e-3):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, weight_decay=weight_decay))
+
+    def initial_state(self, p):
+        return {**super().initial_state(p), "mu": torch.zeros_like(p)}
+
+    def _update(self, p, g, state, group, count):
+        b1, b2, mu = group["b1"], group["b2"], state["mu"]
+        u = torch.sign((1.0 - b1) * g + b1 * mu)
+        mu.copy_((1.0 - b2) * g + b2 * mu)
+        if group["weight_decay"]:
+            u = u + group["weight_decay"] * p
+        return -group["lr"] * u
+
+
+class Lamb(_PortOptimizer):
+    """``optax.lamb``: Adam's moments with bias correction (eps outside the
+    root, ``eps_root`` 0), then ``+ wd p``, then the trust ratio
+    ``||p|| / ||u||`` (1 where either norm is 0), then ``-lr``."""
+
+    def __init__(self, params, lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-6, weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay))
+
+    def initial_state(self, p):
+        return {**super().initial_state(p), "mu": torch.zeros_like(p), "nu": torch.zeros_like(p)}
+
+    def _update(self, p, g, state, group, count):
+        b1, b2 = group["b1"], group["b2"]
+        mu, nu = state["mu"], state["nu"]
+        mu.copy_((1.0 - b1) * g + b1 * mu)
+        nu.copy_((1.0 - b2) * (g * g) + b2 * nu)
+        t = count + 1.0
+        # the corrections in float32, as optax's 1 - decay**count (a
+        # scalar base over the float32 count: no host-to-device copy)
+        mu_hat = mu / (1.0 - torch.pow(b1, t))
+        nu_hat = nu / (1.0 - torch.pow(b2, t))
+        u = mu_hat / (torch.sqrt(nu_hat) + group["eps"])
+        if group["weight_decay"]:
+            u = u + group["weight_decay"] * p
+        p_norm, u_norm = torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
+        ratio = torch.where((p_norm == 0.0) | (u_norm == 0.0), torch.ones_like(p_norm),
+                            p_norm / u_norm)
+        return -group["lr"] * (u * ratio)
+
+
+def _factored_dims(shape: Sequence[int], min_dim_size_to_factor: int):
+    """optax's choice: the two largest dims (second largest, largest), when
+    the second largest is at least ``min_dim_size_to_factor``; else None."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < min_dim_size_to_factor:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+class Adafactor(_PortOptimizer):
+    """``optax.adafactor``: factored second moments over the two largest
+    dims when both reach ``min_dim_size_to_factor`` (else a full one), with
+    ``beta2_t = 1 - (t + 1) ** -decay_rate`` and ``eps`` added to the
+    squared gradient; then the update clipped to block RMS 1.0, times the
+    lr, times the parameter's RMS (at least ``eps_scale``), plus
+    ``weight_decay_rate * p`` when given (after the lr, as optax chains
+    it), negated."""
+
+    def __init__(self, params, lr: float = 1e-2, min_dim_size_to_factor: int = 128,
+                 decay_rate: float = 0.8, eps: float = 1e-30, clipping_threshold: float = 1.0,
+                 eps_scale: float = 1e-3, weight_decay_rate: float | None = None):
+        super().__init__(params, dict(lr=lr, min_dim_size_to_factor=min_dim_size_to_factor,
+                                      decay_rate=decay_rate, eps=eps,
+                                      clipping_threshold=clipping_threshold,
+                                      eps_scale=eps_scale, weight_decay_rate=weight_decay_rate))
+
+    def initial_state(self, p):
+        state = super().initial_state(p)
+        dims = _factored_dims(p.shape, self.defaults["min_dim_size_to_factor"])
+        if dims is None:
+            state["v"] = torch.zeros_like(p)
+        else:
+            d1, d0 = dims
+            state["v_row"] = p.new_zeros([n for i, n in enumerate(p.shape) if i != d0])
+            state["v_col"] = p.new_zeros([n for i, n in enumerate(p.shape) if i != d1])
+        return state
+
+    def _update(self, p, g, state, group, count):
+        # beta2_t in float32, as optax's 1 - t ** -0.8 on a float32 t
+        decay = 1.0 - torch.pow(count + 1.0, -group["decay_rate"])
+        g_sq = g * g + group["eps"]
+        dims = _factored_dims(p.shape, group["min_dim_size_to_factor"])
+        if dims is None:
+            v = state["v"]
+            v.copy_(decay * v + (1.0 - decay) * g_sq)
+            u = g * v.pow(-0.5)
+        else:
+            d1, d0 = dims
+            v_row, v_col = state["v_row"], state["v_col"]
+            v_row.copy_(decay * v_row + (1.0 - decay) * g_sq.mean(dim=d0))
+            v_col.copy_(decay * v_col + (1.0 - decay) * g_sq.mean(dim=d1))
+            reduced_d1 = d1 - 1 if d1 > d0 else d1
+            row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)).pow(-0.5)
+            u = g * row_factor.unsqueeze(d0) * v_col.pow(-0.5).unsqueeze(d1)
+        u = u / torch.clamp(torch.sqrt((u * u).mean()) / group["clipping_threshold"], min=1.0)
+        u = u * group["lr"]
+        rms = torch.sqrt((p * p).mean())
+        u = u * torch.where(rms <= group["eps_scale"],
+                            torch.full_like(rms, group["eps_scale"]), rms)
+        if group["weight_decay_rate"] is not None:
+            u = u + group["weight_decay_rate"] * p
+        return -u

@@ -29,6 +29,7 @@ import torch
 from torch import nn
 
 from tpuframe_torch.fault.health import init_health_state
+from tpuframe_torch.train.ema import EmaState, init_ema, update_ema_
 from tpuframe_torch.train.optim import OptimizerSpec, clip_by_global_norm_
 
 __all__ = ["TrainState", "create_train_state", "param_count"]
@@ -45,6 +46,8 @@ class TrainState:
     ``generator`` seeds the step's randomness (dropout-style layers).
     ``comms`` holds the compressed wire's error-feedback residuals
     (``parallel.compression.init_comms_state``), empty by default.
+    ``ema`` is the parameters' moving average (``train.ema``) when the
+    spec asks for one.
     """
 
     step: int
@@ -55,12 +58,14 @@ class TrainState:
     generator: torch.Generator
     updates: torch.Tensor
     comms: dict = dataclasses.field(default_factory=dict)
+    ema: EmaState | None = None
     _lr_table: torch.Tensor | None = dataclasses.field(default=None, repr=False)
 
     def apply_gradients(self) -> "TrainState":
         """One update from the gradients in ``.grad``: the global-norm clip
         when the spec has one, ``lr = schedule(updates)``,
-        ``optimizer.step()``, then ``updates += 1`` and ``step += 1``."""
+        ``optimizer.step()``, the moving average of the new parameters
+        when there is one, then ``updates += 1`` and ``step += 1``."""
         if self.spec.max_grad_norm is not None:
             clip_by_global_norm_([p.grad for p in self.model.parameters()],
                                  self.spec.max_grad_norm)
@@ -68,6 +73,8 @@ class TrainState:
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.step()
+        if self.ema is not None:
+            update_ema_(self.ema, dict(self.model.named_parameters()))
         self.updates += 1
         self.step += 1
         return self
@@ -90,8 +97,9 @@ class TrainState:
         per-parameter state keyed by parameter name (SGD's momentum,
         Adam's moments and step, ``FusedAdamW``'s int32 count and float32
         moments), the health sentinel's tensors, the generator's state as
-        ``rng``, and ``comms`` only when it holds residuals, so an
-        uncompressed state keeps the layout it had before the wire.  The
+        ``rng``, ``comms`` only when it holds residuals, so an
+        uncompressed state keeps the layout it had before the wire, and
+        ``ema`` (the average by parameter name) only when there is one.  The
         tensors are the live ones (the generator's state a copy); the
         schedule's table is rebuilt, not saved."""
         names = {p: n for n, p in self.model.named_parameters()}
@@ -110,6 +118,8 @@ class TrainState:
         }
         if self.comms:
             data["comms"] = dict(self.comms)
+        if self.ema is not None:
+            data["ema"] = dict(self.ema.ema)
         return data
 
     @torch.no_grad()
@@ -119,12 +129,16 @@ class TrainState:
         and address (the optimizer's launch tables and the step's
         snapshots hold addresses), bit for bit where the dtypes agree.
         ``comms`` is restored when both sides have it.  Keys or shapes that
-        differ raise ``ValueError``."""
+        differ raise ``ValueError``, and so does an ``ema`` on one side
+        only."""
         live = self.state_dict()
         if "comms" not in data:
             live.pop("comms", None)
         elif "comms" not in live:
             raise ValueError("the saved state has comms residuals; this state has none")
+        if ("ema" in data) != ("ema" in live):
+            raise ValueError("the saved state and this state disagree on an EMA: "
+                             f"saved {'ema' in data}, live {'ema' in live}")
         _copy_into(live, data, "")
         self.step = int(data["step"])
         self.generator.set_state(data["rng"].cpu())
@@ -162,6 +176,8 @@ def create_train_state(model: nn.Module, spec: OptimizerSpec, *, seed: int = 0) 
         health=init_health_state(device),
         generator=torch.Generator(device=device).manual_seed(seed),
         updates=torch.zeros((), dtype=torch.int64, device=device),
+        ema=(None if spec.ema_decay is None
+             else init_ema(dict(model.named_parameters()), spec.ema_decay)),
     )
 
 

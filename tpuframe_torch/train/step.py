@@ -26,7 +26,11 @@ TrainState` that it updates in place, with the JAX step's semantics:
 - **Every parameter steps.**  After the backward each parameter that
   autograd left without a gradient gets a zero one, so the optimizer
   updates it as optax updates every leaf (moment decay, weight decay, the
-  count); torch's optimizers would skip it.
+  count); torch's optimizers would skip it.  A frozen parameter
+  (``requires_grad=False``, ``models.transfer.freeze``) gets none: it
+  must not move at all, as under optax's ``set_to_zero``, and the
+  data-parallel stages below carry only the trainable parameters
+  (``trainable_parameters``).
 - **Metrics** stay on the device, summed (``loss_sum``, ``correct``,
   ``count``); whoever logs reads them and takes the mean.
 - **Health.**  With a ``HealthPolicy`` the step computes the sentinel's
@@ -105,6 +109,7 @@ __all__ = [
     "step_generator",
     "summarize_metrics",
     "soft_cross_entropy",
+    "trainable_parameters",
 ]
 
 #: loss_fn(logits, labels) -> per-example losses
@@ -180,10 +185,13 @@ def _dropout_stream(state: TrainState, index: int | None = None) -> Iterator[Non
 
 
 def _forward(model: nn.Module, batch: Mapping[str, torch.Tensor], policy: Policy,
-             train: bool, loss_fn: LossFn) -> tuple[torch.Tensor, torch.Tensor]:
-    """(per-example losses, logits).  Parameters are cast inside the graph;
-    buffers are the module's own (training BatchNorm updates them)."""
-    params = policy.cast_params_for_compute(dict(model.named_parameters()))
+             train: bool, loss_fn: LossFn,
+             params: Mapping[str, torch.Tensor] | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(per-example losses, logits).  Parameters (the model's, or
+    ``params`` by name) are cast inside the graph; buffers are the module's
+    own (training BatchNorm updates them)."""
+    params = policy.cast_params_for_compute(
+        dict(model.named_parameters()) if params is None else dict(params))
     x = batch["input"] if "input" in batch else batch["image"]
     with _mode(model, train):
         logits = functional_call(model, params, (policy.cast_batch(x),), strict=False)
@@ -205,13 +213,15 @@ def _train_metrics(loss: torch.Tensor, logits: torch.Tensor, labels: torch.Tenso
 def _sentinel_tensors(state: TrainState) -> list[torch.Tensor]:
     """What a skipped step must leave untouched: parameters, float buffers
     (BatchNorm running statistics), the optimizer's state tensors, the
-    count of applied updates (the schedule's count) and the compressed
-    wire's error-feedback residuals."""
+    count of applied updates (the schedule's count), the compressed
+    wire's error-feedback residuals and the parameters' moving average."""
     out = [state.updates] + [p.data for p in state.model.parameters()]
     out += [b for b in state.model.buffers() if b.is_floating_point()]
     for st in state.optimizer.state.values():
         out += [v for v in st.values() if torch.is_tensor(v)]
     out += list(state.comms.values())
+    if state.ema is not None:
+        out += list(state.ema.ema.values())
     return out
 
 
@@ -266,16 +276,26 @@ def _apply_with_health(state: TrainState, loss: torch.Tensor, metrics: dict,
 
 @torch.no_grad()
 def _fill_missing_grads(model: nn.Module) -> None:
-    """A zero gradient for every parameter that autograd left without one.
+    """A zero gradient for every trainable parameter that autograd left
+    without one.
 
     optax updates every leaf on every step, a leaf outside the loss with a
     zero gradient: its moments decay, its weight decay applies and the
     shared count advances.  torch's optimizers skip a parameter whose
     ``.grad`` is None, so a parameter that sat out a step would keep its
-    moments and its own count would lag."""
+    moments and its own count would lag.  A frozen parameter is left
+    without one, so the optimizer skips it (no decay, no count)."""
     for p in model.parameters():
-        if p.grad is None:
+        if p.grad is None and p.requires_grad:
             p.grad = torch.zeros_like(p)
+
+
+def trainable_parameters(model: nn.Module) -> dict[str, nn.Parameter]:
+    """The parameters that step, by name: every one but the frozen
+    (``requires_grad=False``).  What the data-parallel stages average and
+    what the compressed wire's layout and residual cover; a frozen
+    parameter has no gradient to send."""
+    return {n: p for n, p in model.named_parameters() if p.requires_grad}
 
 
 def _statistics(sync: "_Stage | None", model: nn.Module):
@@ -349,15 +369,18 @@ def make_eval_step(
 
     ``batch["weight"]`` (0/1 per example) masks the padded rows the
     DataLoader adds to the ragged last batch.  With a ``plan`` and a process
-    group the metrics are summed across the ranks."""
+    group the metrics are summed across the ranks.  ``params`` (by name)
+    stand in for the model's, as the JAX Trainer evaluates the EMA by
+    swapping ``state.params``."""
     policy = policy or full_precision()
     summed = plan is not None
 
     @torch.no_grad()
-    def step(state: TrainState, batch: Mapping[str, torch.Tensor]) -> dict:
+    def step(state: TrainState, batch: Mapping[str, torch.Tensor],
+             params: Mapping[str, torch.Tensor] | None = None) -> dict:
         if batch_transform is not None:
             batch = batch_transform(dict(batch))
-        losses, logits = _forward(state.model, batch, policy, False, loss_fn)
+        losses, logits = _forward(state.model, batch, policy, False, loss_fn, params)
         labels = batch["label"]
         hard = labels.argmax(-1) if labels.ndim == logits.ndim else labels
         weight = batch.get("weight")
@@ -385,15 +408,18 @@ def make_predict_fn(
     its parameters cast to the compute dtype on every call (as the JAX step
     casts them) and its buffers (BatchNorm running statistics) as they
     are; the batch is cast to the compute dtype and the logits to the
-    output dtype.  Runs under ``torch.inference_mode``."""
+    output dtype.  ``params`` (by name, e.g. ``train.ema.ema_params``)
+    stand in for the model's.  Runs under ``torch.inference_mode``."""
     policy = policy or full_precision()
 
     @torch.inference_mode()
-    def predict(model: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    def predict(model: nn.Module, x: torch.Tensor,
+                params: Mapping[str, torch.Tensor] | None = None) -> torch.Tensor:
         if input_transform is not None:
             x = input_transform(x)
-        params = policy.cast_params_for_compute(
-            {n: p.detach() for n, p in model.named_parameters()})
+        if params is None:
+            params = dict(model.named_parameters())
+        params = policy.cast_params_for_compute({n: p.detach() for n, p in params.items()})
         with _mode(model, False):
             logits = functional_call(model, params, (policy.cast_batch(x),), strict=False)
         return policy.cast_outputs(logits)
@@ -533,11 +559,11 @@ class _MeanSync:
         return cross_rank_statistics(model)
 
     def _build(self, model: nn.Module) -> None:
-        """The parameters by dtype, in order, cut into runs of at most
+        """The trainable parameters by dtype, in order, cut into runs of at most
         ``bucket_bytes`` of gradient each (a larger tensor alone), and
         whether the running buffers can differ by rank."""
         self._buckets, size = [], 0
-        for p in sorted(model.parameters(), key=lambda p: str(p.dtype)):
+        for p in sorted(trainable_parameters(model).values(), key=lambda p: str(p.dtype)):
             nbytes = p.numel() * p.element_size()
             if (not self._buckets or self._buckets[-1][0].dtype != p.dtype
                     or size + nbytes > self.bucket_bytes):
@@ -556,7 +582,7 @@ class _MeanSync:
         if self._model is not state.model:
             self._build(state.model)
         for bucket in self._buckets:
-            _mean_in_place([p.grad for p in bucket], self.world)  # every one filled by _finish
+            _mean_in_place([p.grad for p in bucket], self.world)  # each filled by _finish
         return _global(state, loss, metrics, self.world, self._local)
 
 
@@ -588,7 +614,7 @@ class _WireSync:
         return contextlib.nullcontext()
 
     def _build(self, state: TrainState) -> None:
-        params = dict(state.model.named_parameters())
+        params = trainable_parameters(state.model)
         layout = grad_layout(params, self.config, self.plan)
         expected = {k: (1,) + tuple(v[1:])
                     for k, v in comms_template(params, self.config, self.plan).items()}
@@ -598,7 +624,8 @@ class _WireSync:
             raise ValueError(
                 f"TrainState.comms does not match this plan and config's residual layout (have "
                 f"{have}, expected {expected} on each rank); re-initialize it with "
-                "parallel.compression.init_comms_state(params, plan, config)")
+                "parallel.compression.init_comms_state(train.step.trainable_parameters(model), "
+                "plan, config)")
         self._run_config = (self.config if ef or not self.config.error_feedback
                             else dataclasses.replace(self.config, error_feedback=False))
         self._ef = ef
@@ -624,8 +651,8 @@ class _WireSync:
                  metrics: dict) -> tuple[torch.Tensor, dict]:
         if self._layout is None:
             self._build(state)
-        named = list(state.model.named_parameters())
-        grads = {n: p.grad for n, p in named}  # every one filled by _finish
+        named = list(trainable_parameters(state.model).items())
+        grads = {n: p.grad for n, p in named}  # each filled by _finish
         synced, new_comms = sync_gradients(grads, state.comms if self._ef else {}, self._layout,
                                            self._run_config, self._rng(state, loss.device))
         with torch.no_grad():

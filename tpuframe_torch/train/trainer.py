@@ -29,9 +29,12 @@ Checkpoints go through ``ckpt.Checkpointer``: an epoch-end save every
 (with the loader's position), and auto-resume at ``fit()`` from the newer
 of the two, as the JAX Trainer does.
 
+EMA: ``ema_decay`` wraps the optimizer with ``train.ema.with_ema``, and
+evaluate and predict read the average (the JAX ``_serving_state``).
+
 What this reduced Trainer does not do yet, each raising
 ``NotImplementedError`` that names the slice which ports it: plans
-beyond stage-0 DP (ZeRO, rules, offload, the fused transport), EMA (``ema_decay``), preemption
+beyond stage-0 DP (ZeRO, rules, offload, the fused transport), preemption
 handling (``preemption=True``), straggler detection
 (``straggler_sync_steps``, ``straggler_factor``).  ``tx`` takes
 an ``OptimizerSpec`` in place of an optax transform (``ops.fused_adamw``
@@ -62,6 +65,7 @@ from tpuframe_torch.track.telemetry import get_telemetry
 from tpuframe_torch.train.algorithms import Algorithm, apply_algorithms, resolve_algorithms
 from tpuframe_torch.train.callbacks import Callback
 from tpuframe_torch.train.duration import Duration
+from tpuframe_torch.train.ema import ema_params, with_ema
 from tpuframe_torch.train.optim import OptimizerSpec, make_optimizer
 from tpuframe_torch.train.schedules import Schedule, resolve_schedule
 from tpuframe_torch.train.state import TrainState, create_train_state
@@ -73,6 +77,7 @@ from tpuframe_torch.train.step import (
     make_train_step,
     merge_metrics,
     summarize_metrics,
+    trainable_parameters,
 )
 
 __all__ = ["FitResult", "Trainer"]
@@ -139,6 +144,8 @@ class Trainer:
       normalize: ``(mean, std[, scale])``; uint8 (or 0-255 float) images
         cross to the card raw and kernel K1 normalizes them into the
         compute dtype inside the train, eval and predict steps.
+      ema_decay: keep a moving average of the parameters at this decay;
+        evaluate and predict then read it.
       health: the training-health sentinel: None follows
         ``TPUFRAME_HEALTH`` (on unless falsy), False disables, a
         ``HealthPolicy`` sets thresholds.  A bad step applies no update;
@@ -182,7 +189,6 @@ class Trainer:
         health: Any = None,
     ):
         for arg, value, where in (
-            ("ema_decay", ema_decay, "the EMA part of the training slice"),
             ("straggler_sync_steps", straggler_sync_steps, "the platform planes (track)"),
             ("straggler_factor", straggler_factor, "the platform planes (track)"),
         ):
@@ -239,6 +245,11 @@ class Trainer:
                 f"tx takes an OptimizerSpec (e.g. ops.fused_adamw(...)), got {type(tx).__name__}")
         else:
             self.spec = tx
+        self.ema_decay = ema_decay
+        if ema_decay is not None:
+            # the average of the parameters rides beside the optimizer;
+            # evaluate and predict read it through _serving_params()
+            self.spec = with_ema(self.spec, float(ema_decay))
         if num_classes is None:
             num_classes = getattr(getattr(train_dataloader, "dataset", None), "num_classes", None)
         self.num_classes = num_classes
@@ -481,7 +492,7 @@ class Trainer:
             if self.comms_config is not None:
                 # zero error-feedback residuals for the compressed wire
                 self.state.comms = init_comms_state(
-                    dict(self.model.named_parameters()), self.plan, self.comms_config)
+                    trainable_parameters(self.model), self.plan, self.comms_config)
         return self.state
 
     # -- data --------------------------------------------------------------
@@ -686,17 +697,25 @@ class Trainer:
         if self.eval_dataloader is None:
             raise ValueError("no eval_dataloader")
         state = self.init_state()
+        params = self._serving_params()
+        serving = {} if params is None else {"params": params}
         self.eval_dataloader.set_epoch(0)
         acc = None
         with get_telemetry().span("train/eval", epoch=self.epoch):
             for batch in self._device_batches(self.eval_dataloader, train=False):
-                acc = merge_metrics(acc, self._eval_step(state, batch))
+                acc = merge_metrics(acc, self._eval_step(state, batch, **serving))
         return summarize_metrics(acc or {}, prefix="eval_")
+
+    def _serving_params(self) -> dict | None:
+        """The weights evaluate and predict read: the live parameters
+        (None), or the moving average when ``ema_decay`` is on."""
+        state = self.init_state()
+        return None if self.ema_decay is None else ema_params(state)
 
     def predict(self, images: np.ndarray) -> np.ndarray:
         """Logits for a (N, H, W, C) image batch, in eval mode."""
         x = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
-        return self._predict(self.init_state().model, x).cpu().numpy()
+        return self._predict(self.init_state().model, x, self._serving_params()).cpu().numpy()
 
 
 def _planned_total_steps(duration: Duration, dataloader) -> int | None:
