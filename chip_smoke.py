@@ -170,8 +170,36 @@ Phases, each of which fails the script (nonzero exit, no result line):
    examples 03 (which registers its
    model and reads it back through ``load_model``) and 04 in this process
    on the card, 3 steps of 64 and an eval each, their K2 launches exact.
-14. Result: a ``kernels`` JSON line (each kernel with ``floor_ms``; K1 and
-   K2 also with ``launches_ddp``, phase 10's count on each rank; K6 with
+14. Streaming: 4,096 synthetic 224 px images from ``--seed`` (default 0;
+   low-frequency, 1000 classes) written as a TFS volume (``ShardWriter``)
+   and an MDS volume (``MDSWriter``) of at least 8 shards each, JPEG where
+   PIL encodes and zstd where a codec exists, then streamed from that
+   "remote" directory into a local cache.  The phase prints which
+   ``decoder`` (``native``, ``pil`` or ``none``), ``codec`` (``native``,
+   ``zstandard`` or ``none``) and ``resize`` (``pil`` or ``nearest``) ran.
+   The producer ceiling: ``DataLoader(transfer_dtype="uint8")`` over
+   ``uint8_image_transforms(224)`` with ``decode_min_hw=(224, 224)`` and an
+   instant consumer, img/s for 1, 4 and ``min(16, cpu_count)`` thread
+   workers and that many process workers.  Then phase 5's ResNet50-1K
+   ``Trainer`` (bf16, K1 normalizing on the card) fed from the TFS volume
+   for 12 batches of 128 through the ``DevicePrefetcher``, then from MDS,
+   counters zeroed just before each and read just after: K1, K2a and K2b
+   once a step; the first loss near ln 1000; after each, the same step on
+   a device-resident batch (in turns), giving the data-fed and
+   device-resident img/s, ``input_stall_pct`` = 1 - fed/resident and
+   ``host_input_wait_frac``; one ``SystemMetricsMonitor.sample()`` mid-fit
+   (``device0_mem_used_mb`` within 1 % of ``torch.cuda.memory_allocated``);
+   the same TFS fit with half the workers, and over decoded uint8 arrays in
+   host memory (the fit loop without decode); the card's busy share over
+   steps 2 to 8 of a profiled data-fed fit.
+   Example 01a through its own ``main`` (``Distributor``, one worker on the
+   card, its defaults: 64 px, 200 classes, ResNet50, 2 epochs of 256),
+   its worker's K1/K2a/K2b launches held exact and its five-image spot
+   check; example 07 at ``--tp 1`` cut to 3 steps of 64 and an eval, in
+   this process, its K1, K2 and K3 launches held exact.
+15. Result: a ``kernels`` JSON line (each kernel with ``floor_ms``; K1 and
+   K2 also with ``launches_ddp``, phase 10's count on each rank, and
+   ``launches_streaming``, phase 14's TFS fit; K6 with
    ``launches_remat``, its share of the bound, ``baseline_ms``,
    ``speedup`` and ``ptxas``, the registers and spills of its bf16
    tensor-core kernel at each head dim), the ``nvidia-smi`` line, then
@@ -3935,7 +3963,469 @@ def launcher_phase(card: str) -> dict:
     return out
 
 
-def main() -> int:
+
+STREAM_DIR = Path(__file__).resolve().parent / "build" / "tpuframe_torch" / "stream_smoke"
+STREAM_IMAGES = 4096  # the volume, written from the seed
+STREAM_PX = 224
+STREAM_BATCH = 128
+STREAM_STEPS = 12  # batches of each data-fed fit
+STREAM_SHARDS = 10  # shards aimed at (each format must reach 8 at least)
+STREAM_RESIDENT_STEPS = 30  # synced steps of the device-resident step, each turn
+STREAM_PROFILED_STEPS = 8  # batches of the profiled data-fed fit (steps 2..8 profiled)
+#: example 01a's defaults (its ``main``: 64 px, 200 classes, 2 epochs of
+#: 256, eval 64, batch 64)
+EX01A_ARGS = dict(epochs=2, train_samples=256, eval_samples=64, batch_size=64)
+#: example 07 at ``--tp 1``, cut to 3 steps of 64 and an eval of 2 batches
+EX07_ARGV = ["--epochs", "1", "--train-samples", "192", "--eval-samples", "128"]
+
+
+def synth_image(rng: np.random.Generator, size: int) -> np.ndarray:
+    """Low-frequency synthetic image: upsampled 8x8 noise plus a gradient
+    (``benchmarks/bench_e2e.py``'s style), so it compresses like a
+    photograph (~10:1 as JPEG), not like noise."""
+    base = rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)
+    tile = -(-size // 8)
+    img = np.kron(base, np.ones((tile, tile, 1), np.uint8))[:size, :size]
+    ramp = np.linspace(0, 64, size, dtype=np.uint8)[:, None, None]
+    return np.clip(img.astype(np.int16) + ramp, 0, 255).astype(np.uint8)
+
+
+def stream_backends() -> dict:
+    """Which decoder, codec and resize the streaming path takes here."""
+    from tpuframe_torch.core import native
+    from tpuframe_torch.data import streaming
+
+    try:
+        import PIL  # noqa: F401
+
+        resize = "pil"
+    except ImportError:
+        resize = "nearest"
+    return {"decoder": streaming._decoder_name(), "codec": streaming._codec_name(),
+            "resize": resize,
+            "codec_build_error": native.build_errors.get("tfscodec"),
+            "jpeg_build_error": native.build_errors.get("tfjpeg")}
+
+
+def write_stream_volumes(root: Path, n_images: int, px: int, seed: int, backends: dict) -> dict:
+    """The same ``n_images`` synthetic images as a TFS volume
+    (``ShardWriter``) and an MDS volume (``MDSWriter``) under
+    ``root/remote``: JPEG where PIL encodes, else uint8 arrays (TFS only);
+    zstd where a codec exists.  Returns each format's directory and shard
+    count."""
+    import msgpack
+
+    from tpuframe_torch.data import MDSWriter, ShardWriter
+    from tpuframe_torch.data.streaming import CODECS
+
+    jpeg = backends["resize"] == "pil"
+    zstd = backends["codec"] != "none"
+    first = synth_image(np.random.default_rng(seed), px)
+    one = len(msgpack.packb({"image": CODECS["jpg" if jpeg else "ndarray"][0](first),
+                             "label": 0}, use_bin_type=True))
+    limit = max(1 << 16, one * n_images // STREAM_SHARDS)
+    out = {}
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    tfs = root / "remote" / "tfs"
+    with ShardWriter(str(tfs), {"image": "jpg" if jpeg else "ndarray", "label": "int"},
+                     shard_size_limit=limit, compression="zstd" if zstd else "none") as w:
+        for i in range(n_images):
+            w.write({"image": synth_image(rng, px), "label": i % 1000})
+    out["tfs"] = {"dir": tfs, "shards": len(json.loads((tfs / "index.json").read_text())["shards"])}
+    if jpeg:
+        rng = np.random.default_rng(seed)
+        mds = root / "remote" / "mds"
+        with MDSWriter(str(mds), {"image": "jpeg", "label": "int"},
+                       compression="zstd" if zstd else None, size_limit=limit) as w:
+            for i in range(n_images):
+                w.write({"image": synth_image(rng, px), "label": i % 1000})
+        out["mds"] = {"dir": mds,
+                      "shards": len(json.loads((mds / "index.json").read_text())["shards"])}
+    out["write_s"] = time.perf_counter() - t0
+    out["stored_mb"] = sum(f.stat().st_size for f in (root / "remote").rglob("*")
+                           if f.is_file()) / 1e6
+    out["shard_size_limit"] = limit
+    return out
+
+
+def stream_dataset(fmt: str, volumes: dict, root: Path, px: int):
+    """The measured dataset: the remote volume streamed into a local cache
+    of its own, ``uint8_image_transforms(px)`` with the fused decode at
+    scale, every shard kept decoded once read (a shuffled epoch touches
+    each shard over and over)."""
+    from tpuframe_torch.data import MDSDataset, StreamingDataset, uint8_image_transforms
+
+    vol = volumes[fmt]
+    tf = uint8_image_transforms(px)
+    cache = str(root / "cache" / fmt)
+    if fmt == "mds":
+        return MDSDataset(str(vol["dir"]), local_cache=cache, transform=tf,
+                          keep_decoded_shards=vol["shards"], decode_min_hw=(px, px))
+    return StreamingDataset(str(vol["dir"]), local_cache=cache, transform=tf,
+                            decoded_cache_shards=vol["shards"], decode_min_hw=(px, px))
+
+
+def producer_ceiling(ds, batch: int, workers: int, mode: str) -> float:
+    """img/s of the loader against an instant consumer (each lease handed
+    back the moment its batch lands), over one shuffled epoch after two
+    warm-up batches (``bench_e2e.py --consumer null``)."""
+    from tpuframe_torch.data import DataLoader
+
+    loader = DataLoader(ds, batch, shuffle=True, seed=0, num_workers=workers, worker_mode=mode,
+                        transfer_dtype="uint8", process_index=0, process_count=1)
+    try:
+        it = iter(loader)
+        for _ in range(2):
+            next(it)
+            loader.release_oldest()
+        n, t0 = 0, time.perf_counter()
+        for _, labels in it:
+            n += labels.shape[0]
+            loader.release_oldest()
+        return n / (time.perf_counter() - t0)
+    finally:
+        loader.close()
+
+
+class _FedTimes:
+    """Trainer callback: each step's start and each drained batch's end on
+    the host clock (``log_interval=1`` syncs after every step), one
+    ``SystemMetricsMonitor.sample()`` beside ``torch.cuda.memory_allocated``
+    at step ``sample_at``, and optionally a ``torch.profiler`` window from
+    the first drained step to step ``profile_to``."""
+
+    def __init__(self, sample_at: int | None = None, profile_to: int | None = None):
+        self.starts, self.ends, self.losses = [], [], []
+        self.sample_at, self.sample = sample_at, None
+        # a torch.profiler window over steps 2..profile_to (CUDA kernels only)
+        self.profiler, self.profile_to, self.profile_marks = None, profile_to, []
+        if profile_to is not None:
+            from torch.profiler import ProfilerActivity, profile as torch_profile
+
+            self.profiler = torch_profile(activities=[ProfilerActivity.CUDA])
+
+    def busy(self) -> dict:
+        """The profiled window's wall and device time, and the card's busy
+        share of it (kernel time over wall time)."""
+        wall_ms = (self.profile_marks[1] - self.profile_marks[0]) * 1e3
+        kernels = [e for e in self.profiler.key_averages() if str(e.device_type).endswith("CUDA")]
+        device_ms = sum(dev_us(e) for e in kernels) / 1e3
+        return {"steps": self.profile_to - 1, "wall_ms": wall_ms, "device_ms": device_ms,
+                "launches": sum(e.count for e in kernels), "busy": device_ms / wall_ms}
+
+    def on_fit_start(self, trainer): ...
+    def on_epoch_start(self, trainer, epoch): ...
+    def on_epoch_end(self, trainer, epoch, metrics): ...
+    def on_eval_end(self, trainer, epoch, metrics): ...
+    def on_fit_end(self, trainer): ...
+
+    def on_step_start(self, trainer):
+        self.starts.append(time.perf_counter())
+
+    def on_step_end(self, trainer):
+        if self.sample_at is not None and len(self.starts) == self.sample_at:
+            from tpuframe_torch.track import SystemMetricsMonitor
+
+            sample = SystemMetricsMonitor(interval_s=60.0).sample()
+            self.sample = (sample, torch.cuda.memory_allocated() / 2**20
+                           if torch.cuda.is_available() else 0.0)
+
+    def on_batch_end(self, trainer, metrics):
+        self.ends.append(time.perf_counter())
+        self.losses.append(metrics["loss_sum"] / max(metrics["count"], 1.0))
+        if self.profiler is not None and len(self.ends) in (1, self.profile_to):
+            # the window: from the first drained step to the last (steps 2..N)
+            if len(self.ends) == 1:
+                self.profiler.start()
+                self.profile_marks.append(time.perf_counter())
+            else:
+                self.profile_marks.append(time.perf_counter())
+                self.profiler.stop()
+
+    def window(self, batch: int) -> tuple[float, float]:
+        """(img/s over steps 2..N, the share of that window the host waited
+        in ``next(batch)``): from the end of the first drained step to the
+        end of the last, each wait from a drained step to the next start."""
+        span = self.ends[-1] - self.ends[0]
+        waits = sum(s - e for s, e in zip(self.starts[1:], self.ends[:-1]))
+        return batch * (len(self.ends) - 1) / span, waits / span
+
+
+def fed_fit(ds, dev: torch.device, batch: int, steps: int, workers: int, mode: str,
+            callback: _FedTimes):
+    """``Trainer(ResNet50-1K, bf16, normalize=ImageNet)`` fed from ``ds``
+    for ``steps`` batches (phase 5's step, SGD lr 0.1).  Returns (trainer,
+    fit result, wall seconds)."""
+    from tpuframe_torch.data import DataLoader
+    from tpuframe_torch.models import ResNet50
+    from tpuframe_torch.train import Trainer
+
+    loader = DataLoader(ds, batch, shuffle=True, seed=0, num_workers=workers, worker_mode=mode,
+                        transfer_dtype="uint8")
+    model = ResNet50(num_classes=1000, norm_dtype=torch.bfloat16, device=dev, seed=0)
+    trainer = Trainer(model, train_dataloader=loader, optimizer="sgd", lr=0.1, precision="bf16",
+                      normalize=(MEAN, STD), max_duration=f"{steps}ba", log_interval=1,
+                      callbacks=[callback])
+    trainer.init_state()
+    try:
+        sync(dev)
+        t0 = time.perf_counter()
+        result = trainer.fit()
+        sync(dev)
+        return trainer, result, time.perf_counter() - t0
+    finally:
+        loader.close()
+
+
+def resident_rate(trainer, dev: torch.device, batch: int, px: int, steps: int) -> float:
+    """img/s of the same train step on one device-resident uint8 batch:
+    ``steps`` synced steps after 3 warm-up ones (phase 5's measure)."""
+    rng = np.random.default_rng(3)
+    b = {"image": torch.from_numpy(rng.integers(0, 256, (batch, px, px, 3),
+                                                dtype=np.uint8)).to(dev),
+         "label": torch.from_numpy(rng.integers(0, 1000, batch)).to(dev)}
+    state, step = trainer.state, trainer._train_step
+    for _ in range(3):
+        state, _ = step(state, b)
+    total = 0.0
+    for _ in range(steps):
+        sync(dev)
+        t0 = time.perf_counter()
+        state, _ = step(state, b)
+        sync(dev)
+        total += time.perf_counter() - t0
+    return batch * steps / total
+
+
+def streaming_phase(card: str, dev: torch.device = torch.device("cuda"), seed: int = 0,
+                    n_images: int = STREAM_IMAGES, px: int = STREAM_PX,
+                    batch: int = STREAM_BATCH, steps: int = STREAM_STEPS,
+                    widest: int | None = None, examples: bool = True) -> tuple[dict, dict]:
+    """Phase 14 (module docstring).  Returns (launch counts of the TFS fit,
+    its numbers).  The device and sizes are arguments so the phase can be
+    rehearsed small on the CPU (``examples=False`` there: the examples
+    need the card)."""
+    import shutil
+
+    from tpuframe_torch.ops.cross_entropy import cross_entropy_bwd, cross_entropy_fwd
+    from tpuframe_torch.ops.normalize import normalize_images
+
+    counters = {"normalize": normalize_images, "cross_entropy_fwd": cross_entropy_fwd,
+                "cross_entropy_bwd": cross_entropy_bwd}
+    out: dict = {"card": card}
+    backends = stream_backends()
+    log("  stream_backends " + json.dumps({k: backends[k] for k in ("decoder", "codec",
+                                                                    "resize")}))
+    for what in ("codec", "jpeg"):
+        if backends[f"{what}_build_error"]:
+            log(f"  the native {what} did not build here: "
+                f"{backends[f'{what}_build_error'][:300]}")
+    out.update({k: backends[k] for k in ("decoder", "codec", "resize")})
+    shutil.rmtree(STREAM_DIR, ignore_errors=True)
+    STREAM_DIR.mkdir(parents=True)
+    try:
+        # -- 1. the volumes ---------------------------------------------------
+        volumes = write_stream_volumes(STREAM_DIR, n_images, px, seed, backends)
+        shards = {f: volumes[f]["shards"] for f in ("tfs", "mds") if f in volumes}
+        log(f"  wrote {n_images} synthetic {px} px images (seed {seed}, 1000 classes) as "
+            f"{' and '.join(shards)} in {volumes['write_s']:.2f} s: shards {shards} at a "
+            f"{volumes['shard_size_limit']} B limit, {volumes['stored_mb']:.2f} MB stored, "
+            f"{'JPEG' if backends['resize'] == 'pil' else 'uint8 arrays'}, "
+            f"{'zstd' if backends['codec'] != 'none' else 'no compression'} on {card}")
+        check(all(n >= 8 for n in shards.values()), f"too few shards: {shards}")
+        out["shards"], out["write_s"] = shards, volumes["write_s"]
+
+        # -- 2. the producer ceiling ------------------------------------------
+        widest = widest or min(16, os.cpu_count() or 1)
+        ceiling = {}
+        for workers, mode in ((1, "thread"), (4, "thread"), (widest, "thread"),
+                              (widest, "process")):
+            key = f"{mode}_{workers}"
+            if key not in ceiling:
+                ceiling[key] = producer_ceiling(stream_dataset("tfs", volumes, STREAM_DIR, px),
+                                                batch, workers, mode)
+        log(f"  producer ceiling (TFS, uint8, batch {batch}, instant consumer, "
+            f"{os.cpu_count()} host cores), img/s: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in ceiling.items()) + f" on {card}")
+        out["producer_ceiling"] = ceiling
+        mode = "process" if ceiling[f"process_{widest}"] > ceiling[f"thread_{widest}"] \
+            else "thread"
+        out["fit_workers"] = f"{mode}_{widest}"
+
+        # -- 3. the data-fed fits, the device-resident step in turns ----------
+        fits = {}
+        resident = []
+        for fmt in [f for f in ("tfs", "mds") if f in volumes]:
+            times = _FedTimes(sample_at=steps // 2 if dev.type == "cuda" else None)
+            for c in counters.values():
+                c.launches = 0
+            trainer, result, fit_s = fed_fit(stream_dataset(fmt, volumes, STREAM_DIR, px), dev,
+                                             batch, steps, widest, mode, times)
+            counts = {n: c.launches for n, c in counters.items()}
+            want = {"normalize": steps, "cross_entropy_fwd": steps, "cross_entropy_bwd": steps}
+            fed, wait = times.window(batch)
+            losses = [float(v) for v in times.losses]
+            summary = result.history[-1]
+            log(f"  data-fed fit from {fmt.upper()} ({mode} workers {widest}): {steps} steps of "
+                f"{batch} in {fit_s:.2f} s, {fed:.1f} img/s over steps 2..{steps}, host waited "
+                f"in next(batch) {wait:.1%} of that window; launches {counts} (expected {want}); "
+                f"losses {[round(v, 4) for v in losses]}; data_wait_s "
+                f"{summary['data_wait_s']:.3f}, assemble_s {summary['assemble_s']:.3f}, "
+                f"h2d_s {summary['h2d_s']:.3f} on {card}")
+            check(counts == want, f"{fmt} fit launches {counts} != {want}")
+            check(len(losses) == steps and all(math.isfinite(v) for v in losses),
+                  f"{fmt} fit losses {losses}")
+            check(abs(losses[0] - math.log(1000)) <= 1.0,
+                  f"{fmt} fit first loss {losses[0]:.4f} not within 1.0 of ln 1000")
+            if times.sample is not None:
+                sample, alloc_mb = times.sample
+                used = sample.get("system/device0_mem_used_mb", 0.0)
+                log(f"  SystemMetricsMonitor.sample() at step {steps // 2}: device0_mem_used_mb "
+                    f"{used:.1f}, torch.cuda.memory_allocated {alloc_mb:.1f} MB, "
+                    f"device0_mem_util {sample.get('system/device0_mem_util', 0.0):.4f} on {card}")
+                check(used > 0 and abs(used - alloc_mb) <= 0.01 * alloc_mb,
+                      f"system metrics device0_mem_used_mb {used} vs allocated {alloc_mb}")
+                out.setdefault("system_metrics", {"device0_mem_used_mb": used,
+                                                  "memory_allocated_mb": alloc_mb})
+            resident.append(resident_rate(trainer, dev, batch, px, STREAM_RESIDENT_STEPS))
+            log(f"  device-resident step (the same trainer, {STREAM_RESIDENT_STEPS} synced "
+                f"steps): {resident[-1]:.1f} img/s on {card}")
+            fits[fmt] = {"fed_img_s": fed, "host_input_wait_frac": wait, "first_loss": losses[0],
+                         "launches": counts, "fit_s": fit_s, "data_wait_s":
+                         summary["data_wait_s"], "resident_img_s": resident[-1]}
+            del trainer
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        # the same TFS fit with half the workers: do the loader's processes
+        # crowd out the training loop's host thread?
+        half = max(1, widest // 2)
+        times = _FedTimes()
+        trainer, _, _ = fed_fit(stream_dataset("tfs", volumes, STREAM_DIR, px), dev, batch,
+                                steps, half, mode, times)
+        fed, wait = times.window(batch)
+        log(f"  data-fed fit from TFS with {mode} workers {half} (half): {fed:.1f} img/s over "
+            f"steps 2..{steps}, host waited in next(batch) {wait:.1%} of that window on {card}")
+        out["fed_half_workers"] = {"workers": f"{mode}_{half}", "fed_img_s": fed,
+                                   "host_input_wait_frac": wait}
+        # the same fit loop over decoded uint8 arrays in host memory (no
+        # workers: a fetch is an index): what the Trainer's loop costs
+        # beside the step alone, with no decode behind it
+        from tpuframe_torch.data import ArrayDataset
+
+        rng = np.random.default_rng(seed)
+        arrays = ArrayDataset(rng.integers(0, 256, (batch * steps, px, px, 3), dtype=np.uint8),
+                              rng.integers(0, 1000, batch * steps))
+        times = _FedTimes()
+        trainer, _, _ = fed_fit(arrays, dev, batch, steps, 0, "thread", times)
+        loop, wait = times.window(batch)
+        log(f"  the same fit over uint8 arrays in host memory (no workers): {loop:.1f} img/s over "
+            f"steps 2..{steps}, host waited in next(batch) {wait:.1%} of that window on {card}")
+        out["in_memory_fit"] = {"img_s": loop, "host_input_wait_frac": wait}
+        del trainer, arrays
+        synthetic = statistics.mean(resident)
+        for fmt, f in fits.items():
+            f["input_stall_pct"] = 100 * (1 - f["fed_img_s"] / synthetic)
+        out["fits"], out["synthetic_img_s"] = fits, synthetic
+        log(f"  input stall (1 - fed / device-resident {synthetic:.1f} img/s): "
+            + ", ".join(f"{k} {v['input_stall_pct']:.1f} %" for k, v in fits.items())
+            + f" on {card}")
+
+        # -- 4. the card's busy share over one data-fed window ----------------
+        if dev.type == "cuda":
+            times = _FedTimes(profile_to=STREAM_PROFILED_STEPS)
+            trainer, _, _ = fed_fit(stream_dataset("tfs", volumes, STREAM_DIR, px), dev, batch,
+                                    STREAM_PROFILED_STEPS, widest, mode, times)
+            prof = times.busy()
+            log(f"  profile, steps 2..{STREAM_PROFILED_STEPS} of a data-fed fit: wall "
+                f"{prof['wall_ms']:.2f} ms, device {prof['device_ms']:.2f} ms over "
+                f"{prof['launches']} kernel launches (device busy {prof['busy']:.1%} of wall; "
+                f"{times.window(batch)[0]:.1f} img/s) on {card}")
+            out["profile"] = prof
+            del trainer
+            torch.cuda.empty_cache()
+
+        # -- 5. example 01a through the Distributor, example 07 in process ----
+        if examples:
+            out.update(streaming_examples(card))
+    finally:
+        shutil.rmtree(STREAM_DIR, ignore_errors=True)
+    log("  stream_json " + json.dumps(out, default=str))
+    return fits["tfs"]["launches"], out
+
+
+def streaming_examples(card: str) -> dict:
+    """Phase 14's examples on the card: 01a through its own ``main`` (the
+    Distributor, one worker) with the worker's K1/K2a/K2b launches
+    counted, and 07 at ``--tp 1`` cut to 3 steps, in this process."""
+    from tpuframe_torch.core.runtime import reset_runtime
+    from tpuframe_torch.launch import Distributor
+    from tpuframe_torch.ops.layer_norm import layer_norm_bwd, layer_norm_fwd
+
+    out = {}
+    ex = _example("01a_distributor_tiny_imagenet_streaming")
+    worker_counts = []
+
+    class CountedDistributor(Distributor):
+        """The example's Distributor, its worker fn counted in the worker."""
+
+        def run(self, fn, *args):
+            value, counts = super().run(counted_call, ex.__name__.rsplit(".", 1)[1],
+                                        fn.__name__, *args)
+            worker_counts.append(counts)
+            return value
+
+    workdir = STREAM_DIR / "ex01a"
+    argv = ["--num-processes", "1", "--workdir", str(workdir)]
+    t0 = time.perf_counter()
+    with mock.patch.object(ex, "Distributor", functools.partial(CountedDistributor,
+                                                                timeout_s=300)):
+        summary = ex.main(argv)
+    spawn_s = time.perf_counter() - t0
+    a = EX01A_ARGS
+    n_train = a["epochs"] * (a["train_samples"] // a["batch_size"])
+    n_eval = a["epochs"] * -(-a["eval_samples"] // a["batch_size"])
+    want = {"normalize": 0, "cross_entropy_fwd": n_train + n_eval, "cross_entropy_bwd": n_train}
+    counts = worker_counts[0]
+    log(f"  example 01a through its main (Distributor, 1 worker on the card, 64 px, 200 "
+        f"classes, ResNet50, bf16, shards written and streamed): {spawn_s:.2f} s from its "
+        f"start to the result, launches {counts} (expected {want}); {summary} on {card}")
+    check(counts == want, f"example 01a's worker launches {counts} != {want}")
+    check(len(summary["spot_preds"]) == 5 and all(0 <= p < 200 for p in summary["spot_preds"])
+          and math.isfinite(summary["train_loss"]), f"example 01a's result {summary}")
+    out["ex01a_s"] = spawn_s
+
+    ex7 = _example("07_vit_classifier")
+    counters = {**_k12(), "layer_norm_fwd": layer_norm_fwd, "layer_norm_bwd": layer_norm_bwd}
+    for c in counters.values():
+        c.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        metrics = ex7.main(EX07_ARGV + ["--workdir", str(STREAM_DIR / "ex07")])
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    counts = {n: c.launches for n, c in counters.items()}
+    # 4 layers: 9 LayerNorms a forward; 3 train steps and 2 eval batches; the
+    # soft labels of LabelSmoothing and MixUp take the plain soft cross
+    # entropy, so only the eval runs K2a; the images are float: no K1
+    want = {"normalize": 0, "cross_entropy_fwd": 2, "cross_entropy_bwd": 0,
+            "layer_norm_fwd": 9 * 5, "layer_norm_bwd": 9 * 3}
+    log(f"  example 07 (--tp 1, 3 steps of 64 + eval) in process: {took:.2f} s, launches "
+        f"{counts} (expected {want}); {buf.getvalue().strip().splitlines()[-1]} on {card}")
+    check(counts == want, f"example 07's launches {counts} != {want}")
+    check(math.isfinite(metrics["train_loss"]), f"example 07's metrics {metrics}")
+    out["ex07_s"] = took
+    reset_runtime()
+    return out
+
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Smoke test of tpuframe_torch on one GPU")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of phase 14's synthetic image volume")
+    args = parser.parse_args(argv)
     log("== phase 1: device")
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -4081,7 +4571,13 @@ def main() -> int:
     launcher_phase(card)
     torch.cuda.empty_cache()
 
-    log("== phase 14: result")
+    log("== phase 14: streaming")
+    stream_launches, _ = streaming_phase(card, seed=args.seed)
+    for k, name in ((k1, "normalize"), (k2a, "cross_entropy_fwd"), (k2b, "cross_entropy_bwd")):
+        k["launches_streaming"] = stream_launches[name]
+    torch.cuda.empty_cache()
+
+    log("== phase 15: result")
     kernels = [k1, k2a, k2b, k3a, k3b, k4, k5a, k5b, k5c, k6a, k6b, k6c]
     for k in kernels:
         k["floor_ms"] = floor_ms  # beside bound_ms, which stays the byte or operation bound

@@ -10,7 +10,9 @@ small serve slice, a small ``Trainer.fit``, eval mode for a model left in
 train mode, the launch counts of one LM train step, BatchNorm with
 statistics across two gloo ranks on the card against one process's, and
 the plain-PyTorch optimizers of the launcher slice (lion, lamb,
-adafactor) and SGD with the moving average on the card against the CPU.
+adafactor) and SGD with the moving average on the card against the CPU,
+and the streaming slice: a batch streamed from shards and normalized by
+K1 on the card, and ``device_memory_stats`` against the allocator.
 
 Every test here needs an NVIDIA GPU and ``nvcc`` and skips without them.
 The file imports neither JAX nor the JAX package, so it also runs on a
@@ -1354,3 +1356,63 @@ def test_launcher_slice_optimizers_on_the_card_match_the_cpu(card, name):
     for a, b in zip(got + got_avg, want + want_avg):
         scale = float(b.abs().max())
         torch.testing.assert_close(a, b, rtol=0, atol=1e-6 * scale)
+
+
+def _stream_volume(root, n: int = 24, px: int = 32) -> str:
+    """A small TFS volume of seeded images: JPEG where PIL encodes, else
+    uint8 arrays."""
+    from tpuframe_torch.data import ShardWriter
+
+    try:
+        import PIL  # noqa: F401
+
+        codec = "jpg"
+    except ImportError:
+        codec = "ndarray"
+    rng = np.random.default_rng(13)
+    with ShardWriter(str(root), {"image": codec, "label": "int"}, shard_size_limit=1 << 12,
+                     compression="none") as w:
+        for i in range(n):
+            w.write({"image": rng.integers(0, 256, (px, px, 3), dtype=np.uint8), "label": i})
+    return str(root)
+
+
+def test_a_streamed_uint8_batch_normalized_by_k1_equals_k1_on_the_same_array(card, tmp_path):
+    """The streaming path's bytes reach K1 unchanged: a batch streamed
+    from shards, shipped as uint8 by the DevicePrefetcher and normalized
+    on the card equals K1 on the same host array, bit for bit."""
+    from tpuframe_torch.data import DevicePrefetcher, StreamingDataset, uint8_image_transforms
+
+    remote = _stream_volume(tmp_path / "remote")
+
+    def loader():
+        ds = StreamingDataset(remote, local_cache=str(tmp_path / "cache"),
+                              transform=uint8_image_transforms(32), rng_seed=1)
+        return DataLoader(ds, 8, shuffle=True, seed=2, transfer_dtype="uint8")
+
+    host_images = next(iter(loader()))[0].copy()
+    device_images, _ = next(iter(DevicePrefetcher(loader(), device=card)))
+    assert device_images.dtype == torch.uint8 and device_images.device.type == "cuda"
+    before = normalize_images.launches
+    got = normalize_images(device_images, MEAN, STD, out_dtype=torch.bfloat16)
+    want = normalize_images(torch.from_numpy(host_images).to(card), MEAN, STD,
+                            out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert normalize_images.launches == before + 2
+    assert torch.equal(got, want)
+
+
+def test_device_memory_stats_reports_the_allocated_bytes(card):
+    from tpuframe_torch.track.system_metrics import SystemMetricsMonitor, device_memory_stats
+
+    keep = torch.empty(64 * 2**20, dtype=torch.uint8, device=card)
+    i = keep.device.index or 0
+    stats = device_memory_stats()
+    allocated = torch.cuda.memory_allocated(i) / 2**20
+    assert allocated >= 64
+    assert abs(stats[f"device{i}_mem_used_mb"] - allocated) <= 0.01 * allocated
+    total = torch.cuda.get_device_properties(i).total_memory / 2**20
+    assert stats[f"device{i}_mem_util"] == pytest.approx(stats[f"device{i}_mem_used_mb"] / total)
+    sample = SystemMetricsMonitor(interval_s=60.0).sample()
+    assert sample[f"system/device{i}_mem_used_mb"] >= 64
+    del keep

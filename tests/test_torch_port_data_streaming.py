@@ -1,0 +1,412 @@
+"""The streaming data path against the JAX package's: transforms, TFS and
+MDS shards, and example 01a.
+
+- Transforms: every class and both pipelines give JAX's array bit for bit
+  on the same image and ``item_rng(seed, epoch, idx)`` (PIL bilinear),
+  and with PIL hidden (numpy nearest).
+- TFS (``ShardWriter``/``StreamingDataset``) and MDS (``MDSWriter``/
+  ``MDSDataset``): equal writes give byte-equal ``index.json`` and shard
+  files; each package reads the other's volume through a local cache, and
+  the decoded samples are bit-equal across two epochs, with the fused
+  decode at scale, and after a pickle round trip of the dataset handle;
+  ``mds_to_tfs`` writes JAX's volume.
+- A corrupted shard raises in both packages; ``clean_stale_cache`` removes
+  the same files in both.
+- Example 01a: one spawned CPU worker through its ``main``, and in this
+  process its ``train_tiny_imagenet`` on the weights JAX's example starts
+  from, held against the JAX example's first loss at 1e-4 relative (f32;
+  both one step of 8 images at 32 px, so ``train_loss`` is the first
+  loss).
+
+Tolerance: exact unless stated.
+"""
+
+import functools
+import importlib
+import importlib.util
+import json
+import pickle
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import tpuframe.data as jax_data
+from tpuframe.data import mds as jax_mds
+from tpuframe.data import streaming as jax_streaming
+from tpuframe.data import transforms as jax_transforms
+from tpuframe_torch import data as port_data
+from tpuframe_torch.core.runtime import SIMULATE_ENV, reset_runtime
+from tpuframe_torch.data import item_rng, mds, streaming, transforms
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def test_the_data_packages_export_the_same_names():
+    assert port_data.__all__ == jax_data.__all__
+    assert streaming.CODECS.keys() == jax_streaming.CODECS.keys()
+    assert (streaming.INDEX_NAME, streaming.FORMAT_VERSION) == (
+        jax_streaming.INDEX_NAME, jax_streaming.FORMAT_VERSION)
+    assert (transforms.IMAGENET_MEAN, transforms.IMAGENET_STD) == (
+        jax_transforms.IMAGENET_MEAN, jax_transforms.IMAGENET_STD)
+
+
+# -- transforms ---------------------------------------------------------------
+
+TRANSFORMS = [
+    ("resize_up", lambda t: t.Resize(40)),
+    ("resize_down", lambda t: t.Resize(11)),
+    ("flip", lambda t: t.RandomHorizontalFlip(0.5)),
+    ("crop_pad", lambda t: t.RandomCrop(24, padding=4)),
+    ("center_crop", lambda t: t.CenterCrop(13)),
+    ("to_float", lambda t: t.ToFloat()),
+    ("gray_to_rgb", lambda t: t.GrayscaleToRGB()),
+    ("normalize", lambda t: t.Normalize()),
+    ("uint8_pipeline", lambda t: t.uint8_image_transforms(28)),
+    ("default_pipeline", lambda t: t.default_image_transforms(28)),
+    ("compose", lambda t: t.Compose([t.RandomCrop(20, 2), t.RandomHorizontalFlip(),
+                                     t.ToFloat(), t.Resize(17), t.Normalize((0.5,) * 3,
+                                                                            (0.25,) * 3)])),
+]
+IMAGES = {
+    "rgb": lambda rng: rng.integers(0, 256, (23, 31, 3), dtype=np.uint8),
+    "gray": lambda rng: rng.integers(0, 256, (23, 31), dtype=np.uint8),
+    "float": lambda rng: rng.random((23, 31, 3), dtype=np.float32),
+}
+
+
+# three-channel statistics do not apply to a one-channel image
+CASES = [(name, make, image) for name, make in TRANSFORMS for image in sorted(IMAGES)
+         if not (image == "gray" and name in ("normalize", "default_pipeline", "compose"))]
+
+
+@pytest.mark.parametrize("pil", [True, False], ids=["pil", "nearest"])
+@pytest.mark.parametrize("name,make,image", CASES, ids=[f"{c[0]}-{c[2]}" for c in CASES])
+def test_transforms_are_jaxs_bit_for_bit(name, make, image, pil, monkeypatch):
+    if not pil:  # Resize's fallback: `from PIL import Image` raises ImportError
+        monkeypatch.setitem(sys.modules, "PIL", None)
+    mine, theirs = make(transforms), make(jax_transforms)
+    for idx in range(4):
+        img = IMAGES[image](np.random.default_rng(idx))
+        got = mine(img, item_rng(5, 1, idx))
+        want = theirs(img, jax_data.datasets.item_rng(5, 1, idx))
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert np.array_equal(got, want)
+
+
+# -- TFS and MDS volumes -------------------------------------------------------
+
+
+def _samples(n: int = 40, px: int = 32) -> list[dict]:
+    rng = np.random.default_rng(3)
+    out = []
+    for i in range(n):
+        base = rng.integers(0, 256, (4, 4, 3), dtype=np.uint8)
+        img = np.kron(base, np.ones((px // 4, px // 4, 1), np.uint8))
+        out.append({"image": img, "label": int(rng.integers(0, 1000)), "name": f"img{i}"})
+    return out
+
+
+def _files(root: Path) -> dict[str, bytes]:
+    return {p.name: p.read_bytes() for p in sorted(root.iterdir()) if p.is_file()}
+
+
+TFS_CASES = [("jpg", "zstd"), ("png", "none"), ("ndarray", "zstd")]
+
+
+def _write_tfs(pkg, out: Path, image_codec: str, compression: str) -> Path:
+    with pkg.ShardWriter(str(out), {"image": image_codec, "label": "int", "name": "str"},
+                         shard_size_limit=1 << 11, compression=compression) as w:
+        for s in _samples():
+            w.write(s)
+    return out
+
+
+@pytest.mark.parametrize("image_codec,compression", TFS_CASES)
+def test_tfs_volumes_are_byte_equal_and_cross_read(image_codec, compression, tmp_path):
+    port_vol = _write_tfs(streaming, tmp_path / "port", image_codec, compression)
+    jax_vol = _write_tfs(jax_streaming, tmp_path / "jax", image_codec, compression)
+    assert _files(port_vol) == _files(jax_vol)
+    assert len(json.loads((port_vol / "index.json").read_text())["shards"]) >= 3
+    # a jpg column decodes at the covering DCT scale (20 px of 32), and
+    # Resize finishes the size
+    tf, jtf = (t.Compose([t.Resize(28), t.RandomCrop(24, 2), t.RandomHorizontalFlip()])
+               for t in (transforms, jax_transforms))
+    # each package reads the other's volume, through a local cache
+    mine = streaming.StreamingDataset(str(jax_vol), local_cache=str(tmp_path / "c1"),
+                                      transform=tf, rng_seed=9, decode_min_hw=(20, 20))
+    theirs = jax_streaming.StreamingDataset(str(port_vol), local_cache=str(tmp_path / "c2"),
+                                            transform=jtf, rng_seed=9, decode_min_hw=(20, 20))
+    assert len(mine) == len(theirs) == 40
+    for epoch in (0, 1):
+        mine.set_epoch(epoch)
+        theirs.set_epoch(epoch)
+        for i in range(len(mine)):
+            (a, la), (b, lb) = mine[i], theirs[i]
+            assert la == lb and a.shape == b.shape and np.array_equal(a, b)
+            assert mine.sample(i)["name"] == theirs.sample(i)["name"] == f"img{i}"
+    # the handle pickles without its decoded shards, and decodes the same after
+    clone = pickle.loads(pickle.dumps(mine))
+    assert clone._decoded == {} and clone.epoch == 1
+    for i in (0, 17, 39):
+        assert np.array_equal(clone[i][0], mine[i][0])
+    assert sorted(p.name for p in (tmp_path / "c1").iterdir()) == sorted(_files(jax_vol))
+
+
+MDS_CASES = [("jpeg", "zstd"), ("pil", None), ("png", "zstd:7")]
+
+
+def _write_mds(pkg, out: Path, image_enc: str, compression) -> Path:
+    with pkg.MDSWriter(str(out), {"image": image_enc, "label": "int", "name": "str"},
+                       compression=compression, size_limit=1 << 11) as w:
+        for s in _samples():
+            w.write(s)
+    return out
+
+
+@pytest.mark.parametrize("image_enc,compression", MDS_CASES)
+def test_mds_volumes_are_byte_equal_and_cross_read(image_enc, compression, tmp_path):
+    port_vol = _write_mds(mds, tmp_path / "port", image_enc, compression)
+    jax_vol = _write_mds(jax_mds, tmp_path / "jax", image_enc, compression)
+    assert _files(port_vol) == _files(jax_vol)
+    assert len(json.loads((port_vol / "index.json").read_text())["shards"]) >= 3
+    tf = transforms.uint8_image_transforms(24)
+    jtf = jax_transforms.uint8_image_transforms(24)
+    mine = mds.MDSDataset(str(jax_vol), local_cache=str(tmp_path / "c1"), transform=tf,
+                          rng_seed=2, decode_min_hw=(24, 24))
+    theirs = jax_mds.MDSDataset(str(port_vol), local_cache=str(tmp_path / "c2"), transform=jtf,
+                                rng_seed=2, decode_min_hw=(24, 24))
+    for epoch in (0, 3):
+        mine.set_epoch(epoch)
+        theirs.set_epoch(epoch)
+        for i in range(len(mine)):
+            (a, la), (b, lb) = mine[i], theirs[i]
+            assert la == lb and np.array_equal(a, b)
+    clone = pickle.loads(pickle.dumps(mine))
+    assert clone._lru == [] and all(s._data is None for s in clone.shards)
+    assert all(np.array_equal(clone[i][0], mine[i][0]) for i in (0, 21, 39))
+    # one-shot conversion into TFS: JAX's volume, byte for byte
+    n = mds.mds_to_tfs(str(port_vol), str(tmp_path / "tfs_port"), shard_size_limit=1 << 13)
+    jax_mds.mds_to_tfs(str(jax_vol), str(tmp_path / "tfs_jax"), shard_size_limit=1 << 13)
+    assert n == 40 and _files(tmp_path / "tfs_port") == _files(tmp_path / "tfs_jax")
+
+
+def _corrupt(path: Path) -> None:
+    raw = bytearray(path.read_bytes())
+    raw[len(raw) // 2] ^= 0xFF
+    path.write_bytes(bytes(raw))
+
+
+def test_a_corrupted_shard_raises_in_both_packages(tmp_path):
+    tfs = _write_tfs(streaming, tmp_path / "tfs", "ndarray", "zstd")
+    _corrupt(tfs / "shard.00001.tfs")
+    errors = []
+    for pkg in (streaming, jax_streaming):
+        ds = pkg.StreamingDataset(str(tfs))
+        ds[0]  # shard 0 is whole
+        n0 = ds.index["shards"][0]["n"]
+        with pytest.raises(IOError, match="checksum mismatch on shard.00001.tfs") as info:
+            ds[n0]
+        errors.append(str(info.value))
+    assert errors[0] == errors[1]
+    vol = _write_mds(mds, tmp_path / "mds", "pil", "zstd")
+    _corrupt(vol / "shard.00001.mds.zstd")
+    errors = []
+    for pkg in (mds, jax_mds):
+        # from a local cache: the bad copy is evicted, fetched again, refused again
+        ds = pkg.MDSDataset(str(vol), local_cache=str(tmp_path / f"cache_{pkg.__name__}"))
+        n0 = int(ds.index["shards"][0]["samples"])
+        ds.sample(0)
+        with pytest.raises(IOError, match="sha256") as info:
+            ds.sample(n0)
+        errors.append(str(info.value))
+        assert not (tmp_path / f"cache_{pkg.__name__}" / "shard.00001.mds.zstd").exists()
+    assert errors[0] == errors[1]
+
+
+def test_clean_stale_cache_removes_what_jax_removes(tmp_path):
+    names = ["index.json", "shard.00000.tfs", "shard.00001.tfs.123.456.tmp", "x.tmp",
+             "keep.tmpl", "shard.00002.mds.zstd.9.9.tmp"]
+    left = []
+    for pkg in (streaming, jax_streaming):
+        d = tmp_path / pkg.__name__
+        d.mkdir()
+        for n in names:
+            (d / n).write_bytes(b"x")
+        assert pkg.clean_stale_cache(str(d)) == 3
+        left.append(sorted(p.name for p in d.iterdir()))
+    assert left[0] == left[1] == ["index.json", "keep.tmpl", "shard.00000.tfs"]
+    assert streaming.clean_stale_cache(str(tmp_path / "missing")) == 0
+
+
+# -- example 01a ---------------------------------------------------------------
+
+
+def _jax_example(name: str):
+    """A JAX example by file name (``examples/<name>.py``), with its own
+    ``_common``."""
+    sys.modules.pop("_common", None)
+    sys.path.insert(0, str(REPO / "examples"))  # the fixture restores sys.path
+    spec = importlib.util.spec_from_file_location(f"jax_example_{name[:3]}",
+                                                  REPO / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    sys.modules.pop("_common", None)
+    return mod
+
+
+def _port_example(name: str):
+    sys.modules.pop("_common", None)
+    return importlib.import_module(f"tpuframe_torch.examples.{name}")
+
+
+@pytest.fixture
+def examples_env(monkeypatch):
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")
+    monkeypatch.setenv(SIMULATE_ENV, "1")  # the port's examples run on the CPU
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    monkeypatch.delitem(sys.modules, "_common", raising=False)
+    yield
+    reset_runtime()
+
+
+EX01A = "01a_distributor_tiny_imagenet_streaming"
+# one step of 8 at 64 px (the JAX example's mesh is conftest's 8 CPU devices)
+EX01A_ARGV = ["--image-size", "64", "--batch-size", "8", "--train-samples", "8",
+              "--eval-samples", "8", "--epochs", "1", "--num-classes", "200"]
+
+
+def test_example_01a_runs_through_its_distributor_on_one_cpu_worker(tmp_path, examples_env,
+                                                                      monkeypatch, capsys):
+    from tpuframe_torch.launch import Distributor
+
+    ex = _port_example(EX01A)
+    monkeypatch.setattr(ex, "Distributor", functools.partial(Distributor, timeout_s=90.0))
+    summary = ex.main(["--num-processes", "1", "--simulate-devices", "1",
+                       "--workdir", str(tmp_path), *EX01A_ARGV])
+    assert "1 epochs in" in capsys.readouterr().out
+    assert len(summary["spot_preds"]) == 5 and summary["spot_labels"] == [0, 1, 2, 3, 4]
+    assert all(0 <= p < 200 for p in summary["spot_preds"])
+    assert np.isfinite(summary["train_loss"]) and np.isfinite(summary["val_loss"])
+    assert (tmp_path / "stream_cache" / "host0" / "train" / "index.json").is_file()
+
+
+#: the first loss's tolerance (relative): 1e-4, or twice the JAX example's
+#: own spread where that is larger.  A freshly initialized ResNet50 in
+#: train mode at 8 images of 64 px is ill-conditioned (layer4's BatchNorm
+#: sees 32 values a channel, over activations whose mean dwarfs their
+#: spread): JAX's single-device forward of the same weights and batch lies
+#: 3.0e-4 from its own 8-device step, and the port 2.0e-4 (measured on the
+#: CPU; ROADMAP Queue 3)
+FIRST_LOSS_RTOL = 1e-4
+
+
+def test_example_01a_first_loss_is_the_jax_examples(tmp_path, examples_env, monkeypatch):
+    import jax
+    import optax
+
+    from tpuframe.models import ResNet50 as JaxResNet50
+    from tpuframe_torch.models import ResNet50, from_jax_variables
+
+    jex = _jax_example(EX01A)
+    ex = _port_example(EX01A)
+    args = ex.base_parser("").parse_args(["--workdir", str(tmp_path), *EX01A_ARGV])
+    train_remote, val_remote, classes = ex.write_shards(args)
+    jargs = jex.base_parser("").parse_args(["--workdir", str(tmp_path / "jax"), *EX01A_ARGV])
+    assert jex.write_shards(jargs)[2] == classes
+    for split in ("train", "val"):  # both examples' write_shards write the same volume
+        assert _files(Path(train_remote).parent / split) == _files(
+            tmp_path / "jax" / "tiny_imagenet_tfs" / split)
+    cfg = {"epochs": 1, "batch_size": args.batch_size, "image_size": args.image_size,
+           "num_classes": classes, "lr": args.lr, "seed": args.seed, "patience": 3,
+           "train_remote": train_remote, "val_remote": val_remote}
+
+    start = {}  # the JAX example's initial variables, captured as it builds its state
+    orig = jex.create_train_state
+
+    def capture(*a, **k):
+        state = orig(*a, **k)
+        start.update(jax.device_get({"params": state.params, "batch_stats": state.batch_stats}))
+        return state
+
+    monkeypatch.setattr(jex, "create_train_state", capture)
+    want, _ = jex.train_tiny_imagenet({**cfg, "workdir": str(tmp_path / "jax_run"),
+                                       "tracking_uri": str(tmp_path / "jax_mlruns")})
+
+    def resnet50_from_jax(num_classes, seed):
+        model = ResNet50(num_classes=num_classes, seed=seed, device="cpu")
+        model.load_state_dict(from_jax_variables(start))
+        return model
+
+    monkeypatch.setattr(ex, "ResNet50", resnet50_from_jax)
+    got, _ = ex.train_tiny_imagenet({**cfg, "workdir": str(tmp_path / "port_run"),
+                                     "tracking_uri": str(tmp_path / "port_mlruns")})
+
+    # JAX's own spread: its single-device train-mode forward of the same
+    # weights on the example's first batch (the port's loader gives JAX's)
+    tf = (jax_transforms.Compose([jax_transforms.RandomHorizontalFlip(0.5),
+                                  jax_transforms.ToFloat(),
+                                  jax_transforms.Normalize(jex.IMAGENET_MEAN, jex.IMAGENET_STD)]))
+    loader = jax_data.DataLoader(jax_streaming.StreamingDataset(train_remote, transform=tf,
+                                                                rng_seed=args.seed),
+                                 args.batch_size, shuffle=True, seed=args.seed, drop_last=True)
+    images, labels = (np.asarray(a) for a in next(iter(loader)))
+    logits, _ = JaxResNet50(num_classes=classes).apply(start, images, train=True,
+                                                      mutable=["batch_stats"])
+    single = float(optax.softmax_cross_entropy_with_integer_labels(logits, labels).mean())
+    spread = abs(single - want["train_loss"]) / abs(want["train_loss"])
+    err = abs(got["train_loss"] - want["train_loss"]) / abs(want["train_loss"])
+    assert err <= max(FIRST_LOSS_RTOL, 2 * spread), (got["train_loss"], want["train_loss"],
+                                                     single)
+    assert got["spot_labels"] == want["spot_labels"]
+    assert np.isfinite(got["val_loss"]) and len(got["spot_preds"]) == 5
+
+
+# -- example 07 ----------------------------------------------------------------
+
+EX07 = "07_vit_classifier"
+# one step of 16 at 16 px, then an eval of 16 (the JAX mesh: 8 CPU devices)
+EX07_ARGV = ["--image-size", "16", "--batch-size", "16", "--train-samples", "16",
+             "--eval-samples", "16", "--epochs", "1", "--layers", "2"]
+
+
+def test_example_07_first_loss_is_the_jax_examples(tmp_path, examples_env, monkeypatch, capsys):
+    """Example 07 in this process on the weights JAX's example starts from:
+    the first loss (MixUp and label smoothing on, one step, f32) within
+    1e-4 relative of the JAX example's; ``--tp 2`` names the DTensor
+    slice."""
+    import jax
+
+    import tpuframe.train.trainer as jax_trainer
+    import tpuframe_torch.models as port_models
+    from tpuframe_torch.models import from_jax_variables
+
+    jex = _jax_example(EX07)
+    start = {}
+    orig = jax_trainer.create_train_state
+
+    def capture(*a, **k):
+        state = orig(*a, **k)
+        start.update(jax.device_get({"params": state.params}))
+        return state
+
+    monkeypatch.setattr(jax_trainer, "create_train_state", capture)
+    want = jex.main(EX07_ARGV + ["--workdir", str(tmp_path)])
+
+    ViT = port_models.ViT
+
+    def vit_from_jax(**kw):
+        model = ViT(**kw, device="cpu")
+        model.load_state_dict(from_jax_variables(start))
+        return model
+
+    monkeypatch.setattr(port_models, "ViT", vit_from_jax)
+    ex = _port_example(EX07)
+    got = ex.main(EX07_ARGV + ["--simulate-devices", "1", "--workdir", str(tmp_path)])
+    assert "final: loss" in capsys.readouterr().out
+    assert abs(got["train_loss"] - want["train_loss"]) <= 1e-4 * abs(want["train_loss"]), (
+        got["train_loss"], want["train_loss"])
+    assert np.isfinite(got["eval_loss"])
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        ex.main(EX07_ARGV + ["--simulate-devices", "1", "--tp", "2"])

@@ -123,7 +123,9 @@ def test_port_modules_mirror_the_jax_package():
         assert (PORT / module).exists() and (REPO / "tpuframe" / module).exists(), module
     assert (PORT / "csrc" / "normalize.cu").exists()
     assert (PORT / "csrc" / "cross_entropy.cu").exists()
-    # CUDA kernels, and one host-side C++ source: the launcher's heartbeat
-    # (core/native.py builds it with g++)
+    # CUDA kernels, and three host-side C++ sources that core/native.py
+    # builds with g++: the launcher's heartbeat, the shard codec and the
+    # JPEG decoder
     sources = list((PORT / "csrc").iterdir())
-    assert {p.name for p in sources if p.suffix != ".cu"} == {"heartbeat.cpp"}
+    assert {p.name for p in sources if p.suffix != ".cu"} == {"codec.cpp", "heartbeat.cpp",
+                                                              "jpegdec.cpp"}

@@ -59,9 +59,6 @@ SUBPACKAGES = ("core", "data", "train", "models", "ops", "parallel", "ckpt", "se
 #: JAX modules (or whole packages) the port does not have yet, with the
 #: ROADMAP Queue 1 item that brings each
 QUEUE1_MODULES = {
-    "tpuframe.data.transforms": 4,
-    "tpuframe.data.mds": 4,
-    "tpuframe.data.streaming": 4,
     "tpuframe.models.moe": 8,
     "tpuframe.parallel.zero": 6,
     "tpuframe.parallel.memory": 6,
@@ -75,8 +72,6 @@ QUEUE1_MODULES = {
     "tpuframe.fault.supervisor": 9,
     "tpuframe.autotune": 9,
     "tpuframe.compile.cache": 9,
-    "tpuframe.track.tensorboard": 2,
-    "tpuframe.track.system_metrics": 2,
     "tpuframe.track.profiler": 9,
     "tpuframe.track.memory": 9,
     "tpuframe.track.device_time": 9,
@@ -92,8 +87,6 @@ QUEUE1_MODULES = {
 LATER = {
     ("fault", "recovery_directive"): (9, "the supervisor"),
     ("fault", "reset_recovery"): (9, "the supervisor"),
-    ("track", "publish_to_loggers"): (2, "the loggers"),
-    ("track", "MetricsExportCallback"): (2, "the loggers"),
     ("track", "start_metrics_server"): (9, "the HTTP store"),
     ("parallel", "Rule"): (7, "DTensor"),
     ("parallel", "infer_shard_dim"): (7, "DTensor"),
@@ -125,20 +118,21 @@ LATER = {
 #: modules ported in the launcher slice: (module under tpuframe, JAX
 #: module's own class or function) -> (Queue 1 item, what it waits for)
 LATER_IN_MODULE = {
-    ("core.native", "ZstdCodec"): (4, "the data remainder"),
-    ("core.native", "native_available"): (4, "the data remainder"),
-    ("core.native", "JpegDecoder"): (4, "the data remainder"),
-    ("core.native", "jpeg_native_available"): (4, "the data remainder"),
-    ("core.native", "ControlPlane"): (4, "the control plane"),
-    ("core.native", "control_plane"): (4, "the control plane"),
+    # the port sends its one host value (the run id) over the process group;
+    # the control plane comes with the multi-host launcher
+    ("core.native", "ControlPlane"): (9, "the multi-host launcher"),
+    ("core.native", "control_plane"): (9, "the multi-host launcher"),
     ("track.registry", "HttpModelRegistry"): (9, "the HTTP store"),
+    ("track.telemetry", "start_metrics_server"): (9, "the HTTP store"),
     ("launch.distributor", "ZeroDistributor"): (6, "ZeRO"),
 }
 
-#: the modules of the launcher slice, compared module by module
+#: the modules of the launcher slice and of the streaming slice, compared
+#: module by module
 SLICE_MODULES = ("core.config", "core.workspace", "core.native", "models.cnn", "models.transfer",
                  "train.ema", "track.mlflow_store", "track.registry", "launch.distributor",
-                 "launch.trainer_api")
+                 "launch.trainer_api", "data.transforms", "data.streaming", "data.mds",
+                 "track.tensorboard", "track.system_metrics", "track.telemetry")
 
 #: the JAX package's kernel switches: the port dispatches by device alone
 DROPPED = {"use_pallas", "kernel_enabled", "kernels_mode"}

@@ -131,8 +131,10 @@ def test_the_mlruns_tree_is_the_jax_writers(tmp_path):
 def test_the_port_refuses_what_waits_for_later_slices(tmp_path):
     with pytest.raises(NotImplementedError, match="HTTP tracking store"):
         MLflowLogger("e", tracking_uri="http://localhost:5000").run
-    with pytest.raises(NotImplementedError, match="system-metrics"):
-        MLflowLogger("e", tracking_uri=str(tmp_path), system_metrics=True)
+    # the system-metrics monitor has landed: it is accepted, and starts
+    # with the run (test_torch_port_track_loggers.py holds it against JAX)
+    logger = MLflowLogger("e", tracking_uri=str(tmp_path), system_metrics=True)
+    assert logger.system_metrics and logger._monitor is None
 
 
 def test_registry_round_trip_as_jax(tmp_path):

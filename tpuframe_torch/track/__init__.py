@@ -1,7 +1,14 @@
-"""Telemetry spine, stall watchdog, the MLflow file store and the model
-registry."""
+"""Telemetry spine, stall watchdog, the MLflow file store, the model
+registry, the TensorBoard event writer and the system-metrics monitor."""
 
-from tpuframe_torch.track import mlflow_store, registry, telemetry, watchdog
+from tpuframe_torch.track import (
+    mlflow_store,
+    registry,
+    system_metrics,
+    telemetry,
+    tensorboard,
+    watchdog,
+)
 from tpuframe_torch.track.mlflow_store import (
     ExperimentTracker,
     MLflowLogger,
@@ -11,13 +18,17 @@ from tpuframe_torch.track.mlflow_store import (
     start_run,
 )
 from tpuframe_torch.track.registry import ModelRegistry, ModelVersion, load_model
+from tpuframe_torch.track.system_metrics import SystemMetricsMonitor
 from tpuframe_torch.track.telemetry import (
+    MetricsExportCallback,
     MetricsRegistry,
     Telemetry,
     configure,
     get_telemetry,
+    publish_to_loggers,
     reset,
 )
+from tpuframe_torch.track.tensorboard import TensorBoardLogger
 from tpuframe_torch.track.watchdog import Watchdog
 
 #: the JAX package's name for :func:`configure`
@@ -26,11 +37,14 @@ configure_telemetry = configure
 __all__ = [
     "ExperimentTracker",
     "MLflowLogger",
+    "MetricsExportCallback",
     "MetricsRegistry",
     "ModelRegistry",
     "ModelVersion",
     "Run",
+    "SystemMetricsMonitor",
     "Telemetry",
+    "TensorBoardLogger",
     "Watchdog",
     "broadcast_run_id",
     "configure",
@@ -38,10 +52,13 @@ __all__ = [
     "get_telemetry",
     "load_model",
     "mlflow_store",
+    "publish_to_loggers",
     "registry",
     "reset",
     "set_experiment",
     "start_run",
+    "system_metrics",
     "telemetry",
+    "tensorboard",
     "watchdog",
 ]

@@ -15,9 +15,10 @@ reads runs of both packages.  Three differences:
 - :func:`broadcast_run_id` sends rank 0's id over the ``torch.distributed``
   process group (gloo or NCCL), where the JAX package uses its host
   control plane.
-- Only the file store is here: an ``http(s)://`` tracking URI and
-  ``system_metrics=True`` raise ``NotImplementedError`` (the HTTP store
-  and the system-metrics sampler come with later slices).
+- Only the file store is here: an ``http(s)://`` tracking URI raises
+  ``NotImplementedError`` (the HTTP store comes with a later slice).
+  ``MLflowLogger(system_metrics=True)`` starts a
+  ``track.system_metrics.SystemMetricsMonitor`` on the run, as in JAX.
 
 Implements the ``mlruns/`` file-store layout (experiment dirs with
 ``meta.yaml``, run dirs with ``params/``, ``metrics/``, ``tags/``,
@@ -388,10 +389,6 @@ class MLflowLogger:
         run_name: str | None = None,
         system_metrics: bool = False,
     ):
-        if system_metrics:
-            raise NotImplementedError(
-                "MLflowLogger(system_metrics=True): the system-metrics sampler is not ported "
-                "yet; it comes with the rest of the tracking stores (ROADMAP.md, Queue 1 item 2)")
         self.experiment_name = experiment_name
         self.tracking_uri = tracking_uri
         self.run_name = run_name
@@ -406,6 +403,11 @@ class MLflowLogger:
             self._tracker = make_tracker(self.tracking_uri)
             self._tracker.set_experiment(self.experiment_name)
             self._run = self._tracker.start_run(run_name=self.run_name)
+            if self.system_metrics:
+                from tpuframe_torch.track.system_metrics import SystemMetricsMonitor
+
+                self._monitor = SystemMetricsMonitor(self._run)
+                self._monitor.start()
         return self._run
 
     def log_params(self, params: Mapping[str, Any]) -> None:

@@ -14,7 +14,10 @@ side:
   enabled by ``TPUFRAME_TELEMETRY_DIR`` or :func:`configure`.  It opens
   with a ``meta`` record holding a wall/monotonic clock anchor pair.
 
-Log rotation and the logger bridges wait for a later slice.
+The logger bridge: :func:`publish_to_loggers` and
+:class:`MetricsExportCallback` hand the registry's snapshot to any logger
+with ``log_metrics(dict, step=)`` (the TensorBoard and MLflow loggers).
+Log rotation waits for a later slice.
 
 Env knobs::
 
@@ -40,11 +43,13 @@ __all__ = [
     "Counter",
     "Gauge",
     "Histogram",
+    "MetricsExportCallback",
     "MetricsRegistry",
     "Span",
     "Telemetry",
     "configure",
     "get_telemetry",
+    "publish_to_loggers",
     "reset",
 ]
 
@@ -174,6 +179,25 @@ class MetricsRegistry:
             if h is None:
                 h = self._histograms[name] = Histogram(name, max_samples)
             return h
+
+    def snapshot(self, prefix: str = "") -> dict[str, float]:
+        """Flat ``{name: value}`` dict, the shape ``log_metrics`` takes.
+
+        Histograms expand to ``<name>_count/_mean/_p50/_p95/_p99``.
+        """
+        with self._lock:
+            counters = list(self._counters.values())
+            gauges = list(self._gauges.values())
+            hists = list(self._histograms.values())
+        out: dict[str, float] = {}
+        for c in counters:
+            out[f"{prefix}{c.name}"] = c.value
+        for g in gauges:
+            out[f"{prefix}{g.name}"] = g.value
+        for h in hists:
+            for k, v in h.summary().items():
+                out[f"{prefix}{h.name}_{k}"] = v
+        return out
 
     @staticmethod
     def _prom_name(name: str) -> str:
@@ -497,3 +521,50 @@ def reset() -> None:
         old, _GLOBAL = _GLOBAL, None
     if old is not None:
         old.close()
+
+
+# -- exporters ----------------------------------------------------------------
+
+
+def publish_to_loggers(
+    loggers: Sequence[Any],
+    step: int,
+    *,
+    prefix: str = "telemetry/",
+    registry: MetricsRegistry | None = None,
+) -> dict[str, float]:
+    """Bridge the registry into the logger contract (``log_metrics(dict,
+    step=)``: ``TensorBoardLogger``, ``MLflowLogger``, any duck-typed
+    tracker).  Returns the published snapshot."""
+    snap = (registry or get_telemetry().registry).snapshot(prefix=prefix)
+    if snap:
+        for lg in loggers:
+            lg.log_metrics(dict(snap), step=step)
+    return snap
+
+
+class MetricsExportCallback:
+    """Trainer callback publishing the registry to the run's loggers at
+    every epoch end (rank 0, through the Trainer's own ``_log_metrics``).
+
+    Duck-typed against ``tpuframe_torch.train.callbacks.Callback`` rather
+    than subclassing it, so the telemetry module imports nothing of the
+    train package.
+    """
+
+    def __init__(self, prefix: str = "telemetry/"):
+        self.prefix = prefix
+
+    # the Trainer calls every hook by name, so all of them must exist
+    def on_fit_start(self, trainer) -> None: ...
+    def on_epoch_start(self, trainer, epoch) -> None: ...
+    def on_step_start(self, trainer) -> None: ...
+    def on_step_end(self, trainer) -> None: ...
+    def on_batch_end(self, trainer, metrics) -> None: ...
+    def on_eval_end(self, trainer, epoch, metrics) -> None: ...
+    def on_fit_end(self, trainer) -> None: ...
+
+    def on_epoch_end(self, trainer, epoch, metrics) -> None:
+        snap = get_telemetry().registry.snapshot(prefix=self.prefix)
+        if snap:
+            trainer._log_metrics(snap, step=epoch)
