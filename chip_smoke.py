@@ -115,7 +115,12 @@ Phases, each of which fails the script (nonzero exit, no result line):
 9. Two ranks on one card: two spawned gloo ranks (NCCL refuses two ranks
    on one device) sync a ResNet50-shaped named tree with the kernels; it
    must equal the same ranks' plain run on the CPU bit for bit, give both
-   ranks one mean, and decode a NaN on one rank to NaN in its bucket.
+   ranks one mean, and decode a NaN on one rank to NaN in its bucket.  The
+   fused transport in each form gloo carries for CUDA tensors
+   (``PHASE9_FORMS``: ``concurrent`` and ``single``; not the ring) must
+   equal the staged run bit for bit (the sign of a zero counts) for int8,
+   int8 stochastic and fp8 with error feedback, and keep the NaN in its
+   bucket; then each transport's time in ``sync_gradients``.
 10. Uncompressed data parallelism on one card: two spawned gloo ranks
    train phase 5's ResNet50-1K through ``Trainer(plan=ParallelPlan(mesh=
    rt.mesh)).fit()`` (global batch 128, 64 a rank, process loader workers)
@@ -197,9 +202,25 @@ Phases, each of which fails the script (nonzero exit, no result line):
    its worker's K1/K2a/K2b launches held exact and its five-image spot
    check; example 07 at ``--tp 1`` cut to 3 steps of 64 and an eval, in
    this process, its K1, K2 and K3 launches held exact.
-15. Result: a ``kernels`` JSON line (each kernel with ``floor_ms``; K1 and
+15. Overlapped and fused data parallelism: two spawned gloo ranks train
+   phase 10's ResNet50-1K (global batch 128, 4 batches and an eval)
+   through ``Trainer(plan=ParallelPlan(mesh=rt.mesh, comms_groups=4,
+   comms_fused=True), grad_compression="int8").fit()``, then through the
+   staged single shot (``comms_groups=1, comms_fused=False``), then
+   uncompressed (``Trainer(plan=...)``) with its buckets fired from the
+   backward and with the hooks unarmed; counters zeroed just before each
+   fit and read just after: K5a-K5c groups x steps on each rank, K1 and
+   K2 at phase 10's counts.  Deterministic cuDNN: the grouped fused fit
+   must equal the staged single shot bit for bit, the overlapped
+   uncompressed fit the non-overlapped one, each on both ranks; the first
+   loss near ln 1000.  Then the two-rank step of each arm (the wire at 1
+   and 4 groups, staged and fused; uncompressed armed and not) alone, in
+   turns, with its device-busy share (``torch.profiler``), printed beside
+   the two-rank step recorded in PERF.md §5, which came from other runs.
+16. Result: a ``kernels`` JSON line (each kernel with ``floor_ms``; K1 and
    K2 also with ``launches_ddp``, phase 10's count on each rank, and
-   ``launches_streaming``, phase 14's TFS fit; K6 with
+   ``launches_streaming``, phase 14's TFS fit; K5a-K5c with
+   ``launches_grouped``, phase 15's grouped fit on each rank; K6 with
    ``launches_remat``, its share of the bound, ``baseline_ms``,
    ``speedup`` and ``ptxas``, the registers and spills of its bf16
    tensor-core kernel at each head dim), the ``nvidia-smi`` line, then
@@ -214,7 +235,11 @@ are built at first use)::
 
 (one line; the break inside the quotes is harmless).  K6 against its
 baseline alone: ``cs.blockwise_phase(f, cs.baseline_library(
-cs.start_baseline_build(cs.BASELINE_K6)))``.
+cs.start_baseline_build(cs.BASELINE_K6)))``.  Phase 15 alone (its ranks
+build what they launch, so build first)::
+
+    python3 -c "import chip_smoke as cs; from tpuframe_torch.ops import build; build.build();
+    print(cs.overlap_phase('H100'))"
 """
 
 from __future__ import annotations
@@ -3017,11 +3042,28 @@ def dp_phase(card: str, dev: torch.device = torch.device("cuda"), image_size: in
             os.environ.pop(k, None)
 
 
+#: the fused transport's forms phase 9 runs on two gloo ranks of one card.
+#: ``ring`` is left out: its hops are point-to-point sends, and gloo's send
+#: and receive of a CUDA tensor fail there ("writev ... Bad address": gloo
+#: hands the device pointer to the socket; probed on an H100), where its
+#: all-reduce, all-to-all, all-gather and reduce-scatter copy through the
+#: host.  NCCL, which carries all three, refuses two ranks on one device.
+PHASE9_FORMS = ("concurrent", "single")
+#: phase 9's wire formats, each with error feedback: (name, CommsConfig kw)
+PHASE9_MODES = (("int8", dict(mode="int8")),
+                ("int8_stochastic", dict(mode="int8", stochastic_rounding=True)),
+                ("fp8", dict(mode="fp8")))
+PHASE9_TIMED = 3  # syncs timed a form, each turn
+
+
 def _two_rank_child(rank: int, world: int, store: str, out_dir: str, device: str) -> None:
     """One of two ranks on the same card (gloo: NCCL refuses two ranks on
     one device): ``sync_gradients`` over a ResNet50-shaped named tree with
-    the kernels, then the same ranks' plain run on the CPU; writes what it
-    saw as JSON."""
+    the kernels, then the same ranks' plain run on the CPU; then the fused
+    transport in each of ``PHASE9_FORMS`` against the staged run, for each
+    of ``PHASE9_MODES``, and each form's time; writes what it saw as
+    JSON."""
+    import dataclasses
     import hashlib
     import os
     import traceback
@@ -3040,6 +3082,7 @@ def _two_rank_child(rank: int, world: int, store: str, out_dir: str, device: str
             init_comms_state,
             sync_gradients,
         )
+        from tpuframe_torch.parallel import compression
 
         rt = initialize(device=device, backend="gloo")
         try:
@@ -3053,11 +3096,37 @@ def _two_rank_child(rank: int, world: int, store: str, out_dir: str, device: str
             layout = grad_layout(grads, config, plan)
             resid = init_comms_state(grads, plan, config)["flat"]
             resid.normal_(0, 1e-5, generator=gen)
+            poisoned = "layer3.0.conv2.weight"
+            offset = next(o for p, _, _, o in layout.flat if p == poisoned) + 7
+            bucket = offset // layout.bucket_elems
+            in_bucket = torch.zeros(layout.padded_elems, dtype=torch.bool)
+            in_bucket[bucket * layout.bucket_elems:(bucket + 1) * layout.bucket_elems] = True
+            in_bucket = in_bucket[:layout.flat_elems]
+
+            def flat_nan(mean):
+                flat = torch.cat([mean[p].reshape(-1).cpu() for p, _, _, _ in layout.flat])
+                return flat, torch.isnan(flat)
+
+            def run(tree, cfg, form=None, seed=None):
+                """sync_gradients staged (``form`` None) or fused in ``form``;
+                stochastic rounding from a generator seeded ``seed``."""
+                rng = None if seed is None else torch.Generator(device=dev).manual_seed(seed)
+                if form is None:
+                    return sync_gradients(tree, {"flat": resid}, layout, cfg, rng)
+                cfg = dataclasses.replace(cfg, fused=True)
+                # the form the phase asks for, whatever the backend's default
+                with mock.patch.object(compression, "_form_default", lambda: form):
+                    return sync_gradients(tree, {"flat": resid}, layout, cfg, rng)
+
+            def bits_equal(a, b):
+                return all(same_bits(a[0][k], b[0][k]) for k in a[0]) and same_bits(
+                    a[1]["flat"], b[1]["flat"])
+
             for poison in (False, True):
                 if poison and rank == 1:  # one bad value in the middle of the tree
-                    grads["layer3.0.conv2.weight"].view(-1)[7] = float("nan")
+                    grads[poisoned].view(-1)[7] = float("nan")
                 before = (bucket_abs_max.launches, quant_encode.launches, quant_decode.launches)
-                card_mean, card_resid = sync_gradients(grads, {"flat": resid}, layout, config)
+                card_mean, card_resid = run(grads, config)
                 sync(dev)
                 launched = [a - b for a, b in zip((bucket_abs_max.launches, quant_encode.launches,
                                                    quant_decode.launches), before)]
@@ -3065,25 +3134,45 @@ def _two_rank_child(rank: int, world: int, store: str, out_dir: str, device: str
                                                      {"flat": resid.cpu()}, layout, config)
                 equal = all(same_bits(card_mean[k].cpu(), cpu_mean[k]) for k in grads)
                 equal = equal and same_bits(card_resid["flat"].cpu(), cpu_resid["flat"])
-                flat = torch.cat([card_mean[p].reshape(-1).cpu() for p, _, _, _ in layout.flat])
-                nan = torch.isnan(flat)
+                flat, nan = flat_nan(card_mean)
                 digest = hashlib.sha256(torch.where(nan, 0, flat).numpy().tobytes()
                                         + nan.numpy().tobytes()).hexdigest()
-                bucket = None
-                if poison:
-                    offset = next(o for p, _, _, o in layout.flat
-                                  if p == "layer3.0.conv2.weight") + 7
-                    bucket = offset // layout.bucket_elems
-                    lo, hi = bucket * layout.bucket_elems, (bucket + 1) * layout.bucket_elems
-                    want = torch.zeros(layout.padded_elems, dtype=torch.bool)
-                    want[lo:hi] = True
-                    nan_ok = torch.equal(nan, want[:layout.flat_elems])
-                else:
-                    nan_ok = not bool(nan.any())
+                want_nan = in_bucket if poison else torch.zeros_like(nan)
+                # the fused transport in each form against the staged run
+                forms = {}
+                for form in PHASE9_FORMS:
+                    fused = run(grads, config, form)
+                    forms[form] = {"equals_staged": bits_equal(fused, (card_mean, card_resid)),
+                                   "nan_bucket_ok": torch.equal(flat_nan(fused[0])[1], want_nan)}
                 out["nan" if poison else "clean"] = {
-                    "card_equals_cpu": equal, "digest": digest, "nan_bucket_ok": nan_ok,
-                    "bucket": bucket, "launches": launched, "backend": "gloo",
-                    "elements": layout.flat_elems, "buckets": layout.n_buckets}
+                    "card_equals_cpu": equal, "digest": digest,
+                    "nan_bucket_ok": torch.equal(nan, want_nan), "bucket": bucket if poison else None,
+                    "launches": launched, "backend": "gloo", "elements": layout.flat_elems,
+                    "buckets": layout.n_buckets, "forms": forms}
+            grads[poisoned].view(-1)[7] = 0.0
+            modes = {}
+            for name, kw in PHASE9_MODES:
+                cfg = CommsConfig(**kw)
+                seed = 7 if cfg.stochastic_rounding else None
+                staged = run(grads, cfg, seed=seed)
+                modes[name] = {form: bits_equal(run(grads, cfg, form, seed), staged)
+                               for form in PHASE9_FORMS}
+            out["modes"] = modes
+            # each transport's time in sync_gradients, int8, in turns
+            arms = (None,) + PHASE9_FORMS
+            times = {str(a): [] for a in arms}
+            for turn in (arms, arms[::-1]):
+                for form in turn:
+                    run(grads, config, form)
+                    for _ in range(PHASE9_TIMED):
+                        sync(dev)
+                        t0 = time.perf_counter()
+                        run(grads, config, form)
+                        sync(dev)
+                        times[str(form)].append((time.perf_counter() - t0) * 1e3)
+            out["sync_ms"] = {("staged" if k == "None" else k): statistics.median(v)
+                              for k, v in times.items()}
+            out["sync_ms_all"] = times
         finally:
             shutdown()
     except BaseException:
@@ -3091,14 +3180,17 @@ def _two_rank_child(rank: int, world: int, store: str, out_dir: str, device: str
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
 
 
-def two_rank_phase(timeout_s: float = 300.0, device: str = "cuda:0") -> dict:
+def two_rank_phase(card: str = "", timeout_s: float = 300.0, device: str = "cuda:0") -> dict:
     """Two gloo ranks on the one card, spawned: ``sync_gradients`` over a
     ResNet50-shaped named tree (25,557,032 elements, each rank its own
     gradient and residual) with the kernels must equal the same ranks'
     plain run on the CPU bit for bit (int8 round half to even), give both
     ranks the same mean, and decode a NaN on one rank to NaN in its bucket
-    on both.  ``device`` is an argument so the phase can be rehearsed on the
-    CPU."""
+    on both.  The fused transport, in each of ``PHASE9_FORMS``, must equal
+    the staged run bit for bit (the sign of a zero counts) in int8, int8
+    stochastic and fp8 with error feedback, and keep the NaN in its bucket;
+    then each transport's median time in ``sync_gradients``.  ``device`` is
+    an argument so the phase can be rehearsed on the CPU."""
     import tempfile
 
     import torch.multiprocessing as mp
@@ -3133,15 +3225,29 @@ def two_rank_phase(timeout_s: float = 300.0, device: str = "cuda:0") -> dict:
             check(o["nan_bucket_ok"], f"rank {r} {case}: NaN outside (or missing from) "
                                       f"bucket {o['bucket']}")
             check(o["launches"] == [1, 1, 1], f"rank {r} {case}: launches {o['launches']}")
+            for form, f in o["forms"].items():
+                check(f["equals_staged"], f"rank {r} {case}: the fused {form} form differs from "
+                                          "the staged transport")
+                check(f["nan_bucket_ok"], f"rank {r} {case}: the fused {form} form's NaNs lie "
+                                          f"outside (or are missing from) bucket {o['bucket']}")
+        for mode, forms in out["modes"].items():
+            check(all(forms.values()), f"rank {r} {mode}: fused forms against staged {forms}")
     for case in ("clean", "nan"):
         check(res[0][case]["digest"] == res[1][case]["digest"],
               f"{case}: the two ranks decoded different means")
+    sync_ms = {k: max(o["sync_ms"][k] for o in res) for k in res[0]["sync_ms"]}
     log(f"  two gloo ranks on one card, {res[0]['clean']['elements']} elements in "
         f"{res[0]['clean']['buckets']} buckets: means and residuals with the kernels bit-equal "
         f"to the plain run on the CPU on both ranks, one mean on both; a NaN on rank 1 decodes "
         f"to NaN in bucket {res[0]['nan']['bucket']} only, on both ranks "
         f"({time.perf_counter() - t0:.1f} s)")
-    return {"ranks": 2, "seconds": time.perf_counter() - t0}
+    log(f"  the fused transport, forms {list(PHASE9_FORMS)} (ring left out: gloo cannot send a "
+        f"CUDA tensor point to point): bit-equal to the staged run in "
+        f"{sorted(res[0]['modes'])} with error feedback, and a NaN stays in its bucket")
+    log(f"  sync_gradients of the ResNet50 tree (int8, 1 group, median of {2 * PHASE9_TIMED} "
+        f"a transport, slower rank, in turns): {json.dumps(sync_ms)} ms on {card}")
+    return {"ranks": 2, "seconds": time.perf_counter() - t0, "sync_ms": sync_ms,
+            "sync_ms_ranks": [o["sync_ms_all"] for o in res]}
 
 
 DDP_STEPS = 4  # the main path's batches on two ranks
@@ -3650,6 +3756,283 @@ def ddp_phase(card: str, timeout_s: float = 900.0, device: str = "cuda:0",
            "fit_s": fits[0]["fit_s"], "losses": fits[0]["losses"], "card": card,
            "seconds": time.perf_counter() - t0}
     log("  ddp_json " + json.dumps(out))
+    return out
+
+
+# -- phase 15: overlapped and fused data parallelism -------------------------------
+
+OVERLAP_GROUPS = 4  # the grouped wire's bucket groups (25 buckets: 7, 6, 6, 6)
+OVERLAP_TIMED = 5  # timed steps an arm, each turn, after 2 warm ones
+#: the two-rank uncompressed step as first measured on the card, before its
+#: buckets were fired from the backward (PERF.md §5), for the log
+EARLIER_STEP_MS = "367-563"
+#: the fits of the phase: (name, plan keywords, grad_compression, hooks armed)
+OVERLAP_FITS = (
+    ("wire_g4_fused", dict(comms_groups=OVERLAP_GROUPS, comms_fused=True), "int8", True),
+    ("wire_g1_staged", dict(comms_groups=1, comms_fused=False), "int8", True),
+    ("mean_overlapped", {}, None, True),
+    ("mean_after_backward", {}, None, False),
+)
+#: the timed arms: (name, plan keywords, grad_compression, hooks armed)
+OVERLAP_ARMS = (
+    ("wire_g1_staged", dict(comms_groups=1, comms_fused=False), "int8", True),
+    ("wire_g1_fused", dict(comms_groups=1, comms_fused=True), "int8", True),
+    ("wire_g4_staged", dict(comms_groups=OVERLAP_GROUPS, comms_fused=False), "int8", True),
+    ("wire_g4_fused", dict(comms_groups=OVERLAP_GROUPS, comms_fused=True), "int8", True),
+    ("mean_overlapped", {}, None, True),
+    ("mean_after_backward", {}, None, False),
+)
+
+
+@contextlib.contextmanager
+def _hooks_unarmed(armed: bool):
+    """The data-parallel stages with their gradient hooks never armed (every
+    bucket taken after the backward, the non-overlapped order) unless
+    ``armed``."""
+    from tpuframe_torch.train import step as train_step
+
+    if armed:
+        yield
+        return
+    with mock.patch.object(train_step._FiredStage, "arm", lambda self, state, n=1: None):
+        yield
+
+
+def _overlap_child(rank: int, world: int, store: str, out_dir: str, device: str,
+                   image_size: int, batch_size: int) -> None:
+    """One of two gloo ranks on the one card: phase 10's ResNet50-1K fit
+    through each of ``OVERLAP_FITS`` (counted, deterministic cuDNN, so two
+    fits can be held bit for bit), then the step of each of
+    ``OVERLAP_ARMS`` alone, in turns, and a profile of each; writes what it
+    saw as JSON."""
+    import hashlib
+    import math
+    import os
+    import traceback
+
+    os.environ.update({"RANK": str(rank), "WORLD_SIZE": str(world),
+                       "TPUFRAME_COORDINATOR": f"file://{store}"})
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"fits": {}}
+    try:
+        from tpuframe_torch.core import initialize, shutdown
+        from tpuframe_torch.data import DataLoader, SyntheticImageDataset
+        from tpuframe_torch.models import ResNet50
+        from tpuframe_torch.ops.cross_entropy import cross_entropy_bwd, cross_entropy_fwd
+        from tpuframe_torch.ops.normalize import normalize_images
+        from tpuframe_torch.ops.quant_wire import bucket_abs_max, quant_decode, quant_encode
+        from tpuframe_torch.parallel import ParallelPlan
+        from tpuframe_torch.train import Callback, Trainer, make_train_step
+
+        class StepLosses(Callback):
+            def __init__(self):
+                self.losses = []
+
+            def on_batch_end(self, trainer, metrics):
+                self.losses.append(metrics["loss_sum"] / max(metrics["count"], 1.0))
+
+        counters = {"normalize": normalize_images, "cross_entropy_fwd": cross_entropy_fwd,
+                    "cross_entropy_bwd": cross_entropy_bwd, "bucket_abs_max": bucket_abs_max,
+                    "quant_encode": quant_encode, "quant_decode": quant_decode}
+        rt = initialize(device=device, backend="gloo")
+        try:
+            dev = rt.device
+
+            def trainer_for(plan_kw, wire, steps):
+                model = ResNet50(num_classes=1000, norm_dtype=torch.bfloat16, device=dev, seed=0)
+                train = DataLoader(SyntheticImageDataset(n=batch_size * steps,
+                                                         image_size=image_size, num_classes=1000,
+                                                         seed=1),
+                                   batch_size, shuffle=True, seed=0, transfer_dtype="uint8",
+                                   num_workers=4)
+                eval_images = 2 * batch_size + 44 * batch_size // TRAIN_BATCH  # ragged last
+                evl = DataLoader(SyntheticImageDataset(n=eval_images, image_size=image_size,
+                                                       num_classes=1000, seed=2),
+                                 batch_size, drop_last=False, transfer_dtype="uint8",
+                                 num_workers=4)
+                steps_cb = StepLosses()
+                trainer = Trainer(model, train_dataloader=train, eval_dataloader=evl,
+                                  optimizer="sgd", lr=0.1, precision="bf16",
+                                  normalize=(MEAN, STD), max_duration=f"{steps}ba",
+                                  log_interval=1, callbacks=[steps_cb],
+                                  plan=ParallelPlan(mesh=rt.mesh, **plan_kw),
+                                  grad_compression=wire)
+                trainer.init_state()
+                return trainer, steps_cb, len(evl)
+
+            # -- the main path, each fit counted: zeroed just before, read after
+            torch.backends.cudnn.deterministic = True
+            kept = {}
+            for name, plan_kw, wire, armed in OVERLAP_FITS:
+                trainer, steps_cb, n_eval = trainer_for(plan_kw, wire, DDP_STEPS)
+                for fn in counters.values():
+                    fn.launches = 0
+                t0 = time.perf_counter()
+                with _hooks_unarmed(armed):
+                    result = trainer.fit()
+                sync(dev)
+                fit_s = time.perf_counter() - t0
+                launches = {k: fn.launches for k, fn in counters.items()}
+                digest = hashlib.sha256()
+                for t in trainer.model.state_dict().values():
+                    digest.update(t.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+                summary = result.history[-1]
+                out["fits"][name] = {
+                    "launches": launches, "n_eval": n_eval, "losses": steps_cb.losses,
+                    "fit_s": fit_s, "digest": digest.hexdigest(),
+                    "finite": all(math.isfinite(v) for v in steps_cb.losses),
+                    "bad_steps": summary["health_bad_steps"],
+                    "groups": (trainer._train_step.wire or {}).get("overlap_groups"),
+                    "fused": (trainer._train_step.wire or {}).get("fused")}
+                if name in ("wire_g4_fused", "mean_overlapped"):
+                    kept["wire" if wire else "mean"] = trainer
+                else:
+                    del trainer
+            torch.backends.cudnn.deterministic = False
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+
+            # -- each arm's step alone on a device-resident local batch ----------
+            rng = np.random.default_rng(3 + rank)
+            local = batch_size // world
+            batch = {"image": torch.from_numpy(rng.integers(
+                         0, 256, (local, image_size, image_size, 3), dtype=np.uint8)).to(dev),
+                     "label": torch.from_numpy(rng.integers(0, 1000, local)).to(dev)}
+            calls = {}
+            for name, plan_kw, wire, armed in OVERLAP_ARMS:
+                trainer = kept["wire" if wire else "mean"]
+                transform = functools.partial(normalize_images, mean=MEAN, std=STD,
+                                              out_dtype=trainer.policy.compute_dtype)
+                step = make_train_step(trainer.policy, batch_transform=lambda b, t=transform: {
+                    **b, "image": t(b["image"])}, health=trainer.health,
+                    plan=ParallelPlan(mesh=rt.mesh, **plan_kw), grad_compression=wire)
+
+                def call(step=step, state=trainer.state, armed=armed):
+                    with _hooks_unarmed(armed):
+                        step(state, batch)
+
+                calls[name] = call
+            times = {name: [] for name in calls}
+            for turn in (list(calls), list(calls)[::-1]):
+                for name in turn:
+                    for _ in range(2):
+                        calls[name]()
+                    runs = []
+                    for _ in range(OVERLAP_TIMED):
+                        sync(dev)
+                        t0 = time.perf_counter()
+                        calls[name]()
+                        sync(dev)
+                        runs.append((time.perf_counter() - t0) * 1e3)
+                    times[name].append(statistics.median(runs))
+            out["step_ms"] = times
+            if dev.type == "cuda":
+                out["profiles"] = {name: profile(fn, f"rank {rank}: {name} step of {local}",
+                                                 top=0) for name, fn in calls.items()}
+            del kept, calls, batch
+        finally:
+            shutdown()
+    except BaseException:
+        out["error"] = traceback.format_exc()
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def overlap_phase(card: str, timeout_s: float = 900.0, device: str = "cuda:0",
+                  image_size: int = 224, batch_size: int = TRAIN_BATCH) -> dict:
+    """Two spawned gloo ranks on the one card train ResNet50-1K as phase 10
+    configures it through the grouped, fused wire (``Trainer(plan=
+    ParallelPlan(mesh=rt.mesh, comms_groups=4, comms_fused=True),
+    grad_compression="int8")``), then through the staged single shot, then
+    uncompressed with the buckets fired from the backward and with them
+    taken after it, each fit counted.  The grouped fused fit must equal the
+    staged single shot bit for bit (integer totals are exact), the
+    overlapped uncompressed fit the non-overlapped one (two addends
+    commute), each on both ranks; K5a-K5c launch groups x steps times on
+    each rank, K1 and K2 at phase 10's counts.  Then the two-rank step of
+    each arm alone (in turns) and its device-busy share.  Returns the
+    grouped fit's launches and a summary; the device and sizes are
+    arguments so the phase can be rehearsed small on the CPU."""
+    import math
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_overlap_child, args=(r, 2, f"{tmp}/store", tmp, device,
+                                                          image_size, batch_size))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(max(1.0, timeout_s - (time.perf_counter() - t0)))
+        finally:
+            hung = [r for r, p in enumerate(procs) if p.is_alive()]
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        check(not hung, f"overlap phase: ranks {hung} hung past {timeout_s} s")
+        res = []
+        for r in range(2):
+            f = Path(tmp, f"rank{r}.json")
+            check(f.exists(), f"overlap phase: rank {r} wrote nothing (exit {procs[r].exitcode})")
+            res.append(json.loads(f.read_text()))
+    for r, out in enumerate(res):
+        check("error" not in out, f"overlap phase, rank {r}:\n{out.get('error')}")
+    fits = {name: [o["fits"][name] for o in res] for name, _, _, _ in OVERLAP_FITS}
+    n_eval = fits["wire_g4_fused"][0]["n_eval"]
+    for name, _, wire, _ in OVERLAP_FITS:
+        groups = OVERLAP_GROUPS if name == "wire_g4_fused" else 1 if wire else 0
+        expected = {"normalize": DDP_STEPS + n_eval, "cross_entropy_fwd": DDP_STEPS + n_eval,
+                    "cross_entropy_bwd": DDP_STEPS, "bucket_abs_max": groups * DDP_STEPS,
+                    "quant_encode": groups * DDP_STEPS, "quant_decode": groups * DDP_STEPS}
+        for r, f in enumerate(fits[name]):
+            check(f["launches"] == expected,
+                  f"{name} rank {r}: launches {f['launches']} != {expected}")
+            check(f["finite"] and len(f["losses"]) == DDP_STEPS, f"{name} rank {r}: {f['losses']}")
+            check(abs(f["losses"][0] - math.log(1000)) <= 1.0,
+                  f"{name}: first-step loss {f['losses'][0]:.4f} not within 1.0 of ln 1000")
+            check(f["bad_steps"] == 0.0, f"{name} rank {r}: {f['bad_steps']} bad steps")
+        check(fits[name][0]["digest"] == fits[name][1]["digest"],
+              f"{name}: the two ranks ended the fit apart")
+        log(f"  {name}: {DDP_STEPS} steps of {batch_size} on two gloo ranks + eval, launches a "
+            f"rank {fits[name][0]['launches']} (expected {expected}), step losses "
+            f"{[round(v, 4) for v in fits[name][0]['losses']]}, both ranks bit-equal "
+            f"({fits[name][0]['fit_s']:.2f} s)")
+    f = fits["wire_g4_fused"][0]
+    check(f["groups"] == OVERLAP_GROUPS and f["fused"], f"the grouped fit's wire {f}")
+    check(fits["wire_g4_fused"][0]["digest"] == fits["wire_g1_staged"][0]["digest"],
+          "the grouped fused fit differs from the staged single-shot fit")
+    check(fits["mean_overlapped"][0]["digest"] == fits["mean_after_backward"][0]["digest"],
+          "the overlapped uncompressed fit differs from the non-overlapped one")
+    log(f"  the grouped fused wire ({OVERLAP_GROUPS} groups fired from the backward; gloo's "
+        "form is single) bit-equal to the staged single shot; the overlapped uncompressed fit "
+        "bit-equal to the one that sums after the backward (deterministic cuDNN)")
+    step_ms = {name: max(min(o["step_ms"][name]) for o in res) for name, _, _, _ in OVERLAP_ARMS}
+    log(f"  two-rank step alone, bf16, {batch_size // 2} a rank (the better of two medians of "
+        f"{OVERLAP_TIMED} steps in turns, slower rank): {json.dumps(step_ms)} ms on {card}; "
+        f"the two-rank uncompressed step measured {EARLIER_STEP_MS} ms in other runs, before "
+        "its buckets were fired from the backward (PERF.md §5)")
+    busy = {}
+    if "profiles" in res[0]:
+        for name, _, _, _ in OVERLAP_ARMS:
+            ps = [o["profiles"][name] for o in res]
+            busy[name] = {"device_ms": [p["device_ms"] for p in ps],
+                          "wall_ms": [p["wall_ms"] for p in ps],
+                          "busy": [p["device_ms"] / p["wall_ms"] for p in ps]}
+        log("  device busy of each arm's step (torch.profiler, ranks 0, 1): " + json.dumps(
+            {k: [round(b, 4) for b in v["busy"]] for k, v in busy.items()}) + " on " + card
+            + "; gloo routes every collective through the host, so this is a finding about "
+            "overlap there, not a scaling number")
+    out = {"launches": fits["wire_g4_fused"][0]["launches"], "step_ms": step_ms,
+           "step_ms_ranks": [o["step_ms"] for o in res], "busy": busy,
+           "losses": {k: v[0]["losses"] for k, v in fits.items()},
+           "fit_s": {k: v[0]["fit_s"] for k, v in fits.items()}, "card": card,
+           "seconds": time.perf_counter() - t0}
+    log("  overlap_json " + json.dumps(out))
     return out
 
 
@@ -4520,7 +4903,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     log("== phase 9: two ranks on one card")
-    two_rank_phase()
+    two_rank_phase(card)
 
     log("== phase 10: uncompressed data parallelism on one card")
     ddp = ddp_phase(card)
@@ -4577,7 +4960,13 @@ def main(argv=None) -> int:
         k["launches_streaming"] = stream_launches[name]
     torch.cuda.empty_cache()
 
-    log("== phase 15: result")
+    log("== phase 15: overlapped and fused data parallelism on one card")
+    overlap = overlap_phase(card)
+    for k, name in ((k5a, "bucket_abs_max"), (k5b, "quant_encode"), (k5c, "quant_decode")):
+        k["launches_grouped"] = overlap["launches"][name]
+    torch.cuda.empty_cache()
+
+    log("== phase 16: result")
     kernels = [k1, k2a, k2b, k3a, k3b, k4, k5a, k5b, k5c, k6a, k6b, k6c]
     for k in kernels:
         k["floor_ms"] = floor_ms  # beside bound_ms, which stays the byte or operation bound

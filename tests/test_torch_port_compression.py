@@ -26,7 +26,9 @@ against the JAX package's, on the same numpy inputs.
 - Error feedback telescopes: the applied means plus the final residual
   equal the sum of the exact gradients (1e-4 relative, 1e-5 absolute, as
   the JAX test holds it).
-- The plan features that are not ported raise ``NotImplementedError``.
+- The plan features that are not ported raise ``NotImplementedError``; the
+  fused transport's calls, which raised until it was ported, run on the two
+  ranks.
 """
 
 import dataclasses
@@ -132,6 +134,14 @@ def _sync_worker(rank: int, world: int) -> dict:
         synced, new = sync_gradients(grads, comms, layout, config, gen)
         out[f"sr_groups{groups}"] = ({k: v.numpy() for k, v in synced.items()},
                                      {k: v.numpy() for k, v in new.items()})
+    # the fused transport's calls, which ran only as refusals before it was ported
+    fused_plan = ParallelPlan(mesh=rt.mesh, comms_fused=True)
+    config = resolve_fused(fused_plan, CommsConfig())
+    tree = {"w": torch.ones(10)}
+    layout = grad_layout(tree, config, fused_plan)
+    out["fused_calls"] = (fused_active(layout, config),
+                          sync_gradients(tree, {}, layout, config)[0]["w"].numpy(),
+                          make_compressed_pmean(fused_plan)(tree)[0]["w"].numpy())
     return out
 
 
@@ -356,7 +366,7 @@ def test_world_one_wire_meters_no_bytes_and_leaves_gradients_quantized():
     torch.testing.assert_close(out["w"], torch.round(tree["w"] * 127) / 127, rtol=0, atol=1e-7)
 
 
-def test_what_is_not_ported_raises():
+def test_what_is_not_ported_raises(port_ranks):
     mesh2 = _mesh(2)
     for kw in ({"zero_stage": 1}, {"zero_stage": 2}, {"zero_stage": 3},
                {"rules": (("w", None),)}, {"offload_optimizer": True}):
@@ -367,15 +377,17 @@ def test_what_is_not_ported_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         MeshSpec(data=2, model=2).build(4)
     assert MeshSpec().build(3).shape["data"] == 3
-    # the fused transport, where it would engage (world >= 2)
+    # the fused transport, where it engages (world >= 2), is ported: the same
+    # calls run on two ranks (the module's spawn) and give the staged mean
     config = resolve_fused(ParallelPlan(mesh=mesh2, comms_fused=True), CommsConfig())
     tree = {"w": torch.ones(10)}
     layout = grad_layout(tree, config, ParallelPlan(mesh=mesh2))
     assert fused_active(layout, config)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sync_gradients(tree, {}, layout, config)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_compressed_pmean(ParallelPlan(mesh=mesh2, comms_fused=True))(tree)
+    for rank in range(2):
+        active, synced, measured = port_ranks[rank]["fused_calls"]
+        assert active
+        np.testing.assert_array_equal(synced, np.ones(10, np.float32))
+        np.testing.assert_array_equal(measured, np.ones(10, np.float32))
     # at world 1 the fused knob is inert, as in JAX
     one = grad_layout(tree, config, ParallelPlan(mesh=_mesh(1)))
     assert not fused_active(one, config)

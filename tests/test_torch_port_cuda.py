@@ -5,7 +5,8 @@ wire's amax, encode and decode, K6a/K6b/K6c blockwise attention forward
 and backward) against their plain versions, the launch counts of a
 blockwise LM step with and without ``remat``, the launch
 floor's counter, a parameter without a gradient stepped by K4, the
-compressed wire's sync on the card against the CPU, a
+compressed wire's sync on the card against the CPU, its fused forms at
+world 1 and a compressed step's bucket groups fired from its backward, a
 small serve slice, a small ``Trainer.fit``, eval mode for a model left in
 train mode, the launch counts of one LM train step, BatchNorm with
 statistics across two gloo ranks on the card against one process's, and
@@ -968,6 +969,56 @@ def test_compressed_trainer_fit_on_card_launches_the_wire(card):
     assert np.isfinite(result.history[-1]["train_loss"])
     assert trainer._train_step.wire["bytes_per_step"] == 0  # world 1: no wire
     assert float(trainer.state.comms["flat"].abs().max()) > 0
+
+
+def test_fused_forms_and_fired_groups_on_the_card(card):
+    """World 1 on the card (no process group): each form of the fused
+    transport returns its payload bit for bit, as JAX's does at W = 1; a
+    compressed step in 3 bucket groups issues them from inside the
+    backward, in the layout's fire order, with K5a-K5c once a group."""
+    from unittest import mock
+
+    from tpuframe_torch.core import MeshSpec
+    from tpuframe_torch.ops import bucket_abs_max, quant_decode, quant_encode
+    from tpuframe_torch.parallel import CommsConfig, ParallelPlan, grad_layout, init_comms_state
+    from tpuframe_torch.parallel import compression as C
+    from tpuframe_torch.train import make_optimizer
+    from tpuframe_torch.train.step import trainable_parameters
+
+    gen = torch.Generator(device=card).manual_seed(3)
+    q = torch.randint(-127, 128, (8, 125), generator=gen, device=card, dtype=torch.int32)
+    f = (torch.randn(8, 125, generator=gen, device=card) * 40).to(torch.float8_e4m3fn).float()
+    f[:, 0] = -0.0
+    for payload in (q, f):
+        for form in ("ring", "concurrent", "single"):
+            got = C._fused_allreduce(payload, 1, form=form)
+            assert got.device == payload.device and _same_bits(got.cpu(), payload.cpu()), form
+
+    model = ResNet18(num_classes=10, num_filters=8, stem="cifar", device=card, seed=4)
+    plan = ParallelPlan(mesh=MeshSpec().build(1))
+    config = CommsConfig(mode="int8", bucket_mb=0.2, groups=3, fused=True)
+    state = create_train_state(model, make_optimizer("sgd", 0.05))
+    state.comms = init_comms_state(trainable_parameters(model), plan, config)
+    layout = grad_layout(trainable_parameters(model), config, plan)
+    assert layout.n_groups == 3
+    step = make_train_step(full_precision(), plan=plan, grad_compression=config)
+    issued = []
+    real_issue = C._WireRound._issue
+
+    def issue(self, s, e):
+        issued.append((s, torch._C._current_graph_task_id() != -1))
+        return real_issue(self, s, e)
+
+    batch = {"image": torch.randn(8, 32, 32, 3, generator=gen, device=card),
+             "label": torch.randint(0, 10, (8,), generator=gen, device=card)}
+    bucket_abs_max.launches = quant_encode.launches = quant_decode.launches = 0
+    with mock.patch.object(C._WireRound, "_issue", issue):
+        for _ in range(2):
+            step(state, batch)
+    torch.cuda.synchronize()
+    assert issued == [(s, True) for s, _ in layout.group_bounds] * 2
+    assert (bucket_abs_max.launches, quant_encode.launches, quant_decode.launches) == (6, 6, 6)
+    assert all(torch.isfinite(p).all() for p in model.parameters())
 
 
 def test_compressed_step_never_waits_for_the_device(card):

@@ -94,7 +94,6 @@ LATER = {
     ("parallel", "path_str"): (7, "DTensor"),
     ("parallel", "spec_to_json"): (7, "DTensor"),
     ("parallel", "spec_from_json"): (7, "DTensor"),
-    ("parallel", "quantized_pmean"): (5, "the rest of the compressed wire"),
     ("models", "transformer_tp_rules"): (7, "DTensor"),
     ("ops", "ring_attention"): (8, "the ring (K7)"),
     ("ops", "ring_attention_local"): (8, "the ring (K7)"),

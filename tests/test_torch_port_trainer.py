@@ -104,11 +104,14 @@ def test_trainer_refuses_what_is_not_ported():
     model = ResNet18(num_classes=10, num_filters=4, stem="cifar", device="cpu")
     mesh2 = MeshSpec(data=2).build(2)  # two ranks: no process group is needed to refuse
     for kw in ({"plan": lambda: ParallelPlan(mesh=mesh2, zero_stage=1)},
-               {"plan": lambda: ParallelPlan(mesh=mesh2, comms_fused=True),
-                "grad_compression": "int8"},
                {"preemption": True}, {"straggler_sync_steps": 4}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(model, **{k: v() if callable(v) else v for k, v in kw.items()})
+    # the fused transport is ported: a fused plan builds (two ranks train
+    # through it in test_torch_port_comms_overlap.py)
+    fused = Trainer(model, plan=ParallelPlan(mesh=mesh2, comms_fused=True),
+                    grad_compression="int8")
+    assert fused.plan.comms_fused and fused.comms_config.mode == "int8"
     # EMA and lion/lamb/adafactor are ported now (test_torch_port_ema.py,
     # test_torch_port_optim.py): they build
     Trainer(model, optimizer="lion", ema_decay=0.99)

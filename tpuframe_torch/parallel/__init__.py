@@ -8,6 +8,7 @@ from tpuframe_torch.parallel.compression import (
     grad_layout,
     init_comms_state,
     make_compressed_pmean,
+    quantized_pmean,
     sync_gradients,
     wire_plan,
 )
@@ -36,6 +37,7 @@ __all__ = [
     "init_comms_state",
     "make_compressed_pmean",
     "pure_bf16",
+    "quantized_pmean",
     "sync_gradients",
     "wire_plan",
 ]

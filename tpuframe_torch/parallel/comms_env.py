@@ -14,14 +14,17 @@ rather than import the JAX package.
   quantization residual is carried in ``TrainState.comms`` and added to the
   next step's gradient.
 - ``TPUFRAME_COMMS_GROUPS``: bucket groups of the sync (default 1), fired
-  in reverse bucket order; ``ParallelPlan.comms_groups`` wins.
-- ``TPUFRAME_COMMS_FUSED``: ``1`` asks for the in-collective transport;
-  ``ParallelPlan.comms_fused`` wins.  Not ported: a transport that would
-  be active (world >= 2) raises.
+  in reverse bucket order, each from the backward's gradient hooks once
+  its gradients are final; ``ParallelPlan.comms_groups`` wins.
+- ``TPUFRAME_COMMS_FUSED``: ``1`` asks for the in-collective transport
+  (the narrow containers on the wire, in the form the process group's
+  backend takes); ``ParallelPlan.comms_fused`` wins.
 
 The JAX package's ``TPUFRAME_COMMS_FUSED_BLOCK`` (the Pallas kernels'
 column block) has no meaning here and is not read: the CUDA kernels work
-on the exact (buckets, elems) shape.
+on the exact (buckets, elems) shape.  Nor is ``TPUFRAME_COMMS_ASYNC``
+(XLA's async collective flags): the port's groups are issued
+asynchronously from the gradient hooks.
 """
 
 from __future__ import annotations
@@ -79,7 +82,7 @@ class CommsConfig:
     #: bucket-group count of the sync (1 = single shot); more groups than
     #: buckets clamps down at layout build
     groups: int = 1
-    #: the in-collective transport (not ported: raises where it would engage)
+    #: the in-collective transport (engages at world >= 2, fp8 up to world 73)
     fused: bool = False
 
     def __post_init__(self):

@@ -42,37 +42,55 @@ TrainState` that it updates in place, with the JAX step's semantics:
   each written and read once per step.  Bad steps report zero metrics.
 - **Data parallelism** (a ``ParallelPlan`` whose ``dp_size`` is the
   process group's world size, above 1), the JAX GSPMD step over a data
-  mesh: a stage of the same step between its backward and its update.
-  Each rank runs forward and backward on its local batch; BatchNorm takes
-  its moments over the global batch ("sync", the default) or per group
-  of it ("local", ``bn_groups``) through ``models.norm.
+  mesh: a stage of the same step around its backward and before its
+  update.  Each rank runs forward and backward on its local batch;
+  BatchNorm takes its moments over the global batch ("sync", the default)
+  or per group of it ("local", ``bn_groups``) through ``models.norm.
   cross_rank_statistics``, entered around the train forward alone; the
-  ``.grad``s are averaged, one ``all_reduce`` (SUM, then ``/ world``: gloo
-  has no AVG) a bucket of at most 25 MB of one dtype; the running
-  buffers are averaged only where BatchNorm runs "local" (under "sync"
-  they are equal on every rank already); metrics are summed across ranks
-  and the loss is the global mean, so the health verdict, taken on the
-  synced gradients, is the same on every rank.  Grad accumulation syncs
-  once per super-batch.
+  ``.grad``s are averaged in buckets of at most 25 MB of one dtype, cut
+  from the trainable parameters in reverse registration order (DDP's
+  order): each bucket's ``all_reduce`` (SUM; gloo has no AVG) is issued
+  from the gradient hooks as soon as the backward has finished its
+  gradients, in bucket order, and waited for, then divided by the world
+  size, after the backward; the running buffers are averaged only where
+  BatchNorm runs "local" (under "sync" they are equal on every rank
+  already); metrics are summed across ranks and the loss is the global
+  mean, so the health verdict, taken on the synced gradients, is the same
+  on every rank.  Grad accumulation syncs once per super-batch, from the
+  last microbatch's backward.
 - **The compressed wire** (``grad_compression`` with a ``ParallelPlan``,
   after the JAX ``_make_compressed_train_step``), the same kind of stage.
   Each rank runs forward and backward on its local batch (microbatches
-  first, compressed once per super-batch);
-  ``parallel.compression.sync_gradients`` averages the
-  ``.grad``s across the ranks through the int8 or fp8 wire (K5a-K5c on the
-  card) and writes the mean back into them; floating BatchNorm buffers are
-  averaged (JAX's ``pmean`` of the updated statistics; BatchNorm itself
-  sees only the local batch, torch-DDP semantics); metrics are summed
-  across ranks; the health verdict is taken on the global mean loss and
-  the synced gradients, so it is the same on every rank; the error-feedback
-  residual (``TrainState.comms``) is part of what a skipped step restores.
-  Without a process group (world 1) no collective runs.
+  first, compressed once per super-batch); the wire's bucket groups
+  (``comms_groups``) are issued from the gradient hooks during the
+  backward, each as soon as the gradients it covers are final and the
+  group before it in fire order was issued (``parallel.compression.
+  _WireRound``: K5a, the agreed scale, K5b, the sum or the fused
+  transport, left in flight); after the backward the stage waits for the
+  sums, decodes them (K5c) and writes the means into the ``.grad``s;
+  floating BatchNorm buffers are averaged (JAX's ``pmean`` of the updated
+  statistics; BatchNorm itself sees only the local batch, torch-DDP
+  semantics); metrics are summed across ranks; the health verdict is taken
+  on the global mean loss and the synced gradients, so it is the same on
+  every rank; the error-feedback residual (``TrainState.comms``) is part of
+  what a skipped step restores.  Without a process group (world 1) no
+  collective runs.
+- **The hooks** are ``register_post_accumulate_grad_hook``s on the
+  trainable parameters, armed at a train step's start (in the grad-accum
+  step, for the last microbatch, where the hook also divides by the
+  microbatch count) and disarmed when the step ends: eval, predict and a
+  backward of the caller's own fire nothing.  A parameter the backward
+  leaves without a gradient gets its zero one after the backward, and the
+  buckets or groups that hold it are issued then, still in order.  Nothing
+  is written until every sum has returned.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
+import weakref
 import zlib
 from typing import Any, Callable, Iterator, Mapping
 
@@ -86,12 +104,12 @@ from tpuframe_torch.models.norm import cross_rank_statistics, rank_local_buffers
 from tpuframe_torch.ops.cross_entropy import fused_cross_entropy
 from tpuframe_torch.parallel.compression import (
     CommsConfig,
+    _WireRound,
     _wired,
     check_transport,
     comms_template,
     grad_layout,
     resolve_fused,
-    sync_gradients,
     wire_plan,
 )
 from tpuframe_torch.parallel.precision import Policy, full_precision
@@ -308,9 +326,9 @@ def _finish(step: Callable, state: TrainState, loss: torch.Tensor, metrics: dict
             health: HealthPolicy | None, snap: _Snapshot,
             sync: "_Stage | None") -> tuple[TrainState, dict]:
     """Every train step's tail after the backward: a zero gradient where
-    autograd left none, the data-parallel stage when there is one (the
-    compressed wire's plan then on ``step.wire``), then the update, under
-    the sentinel when armed."""
+    autograd left none, the data-parallel stage's end when there is one
+    (the compressed wire's plan then on ``step.wire``), then the update,
+    under the sentinel when armed."""
     _fill_missing_grads(state.model)
     if sync is not None:
         loss, metrics = sync(state, loss, metrics)
@@ -348,12 +366,15 @@ def make_train_step(
         if health is not None:
             snap.take(state)  # before the forward: BatchNorm moves its buffers
         state.optimizer.zero_grad(set_to_none=True)
-        with _statistics(sync, state.model), _dropout_stream(state):
-            losses, logits = _forward(state.model, batch, policy, True, loss_fn)
-        loss = losses.mean()
-        loss.backward()
-        metrics = _train_metrics(loss, logits, batch["label"])
-        return _finish(step, state, loss.detach(), metrics, health, snap, sync)
+        with _disarmed_after(sync):
+            if sync is not None:
+                sync.arm(state)
+            with _statistics(sync, state.model), _dropout_stream(state):
+                losses, logits = _forward(state.model, batch, policy, True, loss_fn)
+            loss = losses.mean()
+            loss.backward()
+            metrics = _train_metrics(loss, logits, batch["label"])
+            return _finish(step, state, loss.detach(), metrics, health, snap, sync)
 
     step.wire = None  # the compressed wire's plan, from the first call on
     return step
@@ -454,10 +475,11 @@ def make_grad_accum_step(
         if health is not None:
             snap.take(state)
         state.optimizer.zero_grad(set_to_none=True)
-        metrics = _accumulate(state, batch, n_microbatches, policy, loss_fn, batch_transform,
-                              sync)
-        mean_loss = metrics["loss_sum"] / metrics["count"].clamp_min(1.0)
-        return _finish(step, state, mean_loss, metrics, health, snap, sync)
+        with _disarmed_after(sync):
+            metrics = _accumulate(state, batch, n_microbatches, policy, loss_fn,
+                                  batch_transform, sync)
+            mean_loss = metrics["loss_sum"] / metrics["count"].clamp_min(1.0)
+            return _finish(step, state, mean_loss, metrics, health, snap, sync)
 
     step.wire = None  # the compressed wire's plan, from the first call on
     return step
@@ -472,14 +494,19 @@ def _accumulate(state: TrainState, batch: Mapping[str, torch.Tensor], n_microbat
         mb = {k: v[i] for k, v in batch.items()}
         if batch_transform is not None:
             mb = batch_transform(mb)
+        if sync is not None and i == n_microbatches - 1:
+            sync.arm(state, n_microbatches)  # the last backward fires the buckets
         with _statistics(sync, state.model), _dropout_stream(state, i):
             losses, logits = _forward(state.model, mb, policy, True, loss_fn)
         loss = losses.mean()
         loss.backward()
         m = _train_metrics(loss, logits, mb["label"])
         metrics = m if metrics is None else {k: metrics[k] + m[k] for k in m}
-    params = [p for p in state.model.parameters() if p.grad is not None]
-    torch._foreach_div_([p.grad for p in params], float(n_microbatches))
+    # what the hooks did not divide (a gradient of an earlier microbatch only)
+    rest = [p.grad for p in state.model.parameters()
+            if p.grad is not None and (sync is None or not sync.took(p))]
+    if rest:
+        torch._foreach_div_(rest, float(n_microbatches))
     return metrics
 
 
@@ -529,9 +556,9 @@ def _global(state: TrainState, loss: torch.Tensor, metrics: dict, world: int,
 
 
 def _wire_stage(plan: Any, grad_compression, n_microbatches: int) -> "_Stage | None":
-    """The stage a train step runs between its backward and its update:
-    the compressed wire's sync, the exact mean over a plan of several
-    ranks, or None (one rank, or no plan)."""
+    """The stage a train step runs around its backward and before its
+    update: the compressed wire's sync, the exact mean over a plan of
+    several ranks, or None (one rank, or no plan)."""
     if grad_compression is not None:
         return _WireSync(plan, grad_compression, n_microbatches)
     if plan is not None and plan.dp_size > 1:
@@ -539,64 +566,178 @@ def _wire_stage(plan: Any, grad_compression, n_microbatches: int) -> "_Stage | N
     return None
 
 
-class _MeanSync:
-    """Uncompressed data parallelism between the backward and the update
-    (module docstring): ``(state, loss, metrics) -> (global loss, summed
-    metrics)`` with the mean gradient in the ``.grad``s.  Checks at build
-    that the plan's ``dp_size`` is the process group's world size; cuts
-    the model's parameters into buckets at its first call (and again for
-    another model)."""
+@contextlib.contextmanager
+def _disarmed_after(sync: "_Stage | None") -> Iterator[None]:
+    """The stage's hooks disarmed when the step ends, whether it returns or
+    raises."""
+    try:
+        yield
+    finally:
+        if sync is not None:
+            sync.disarm()
+
+
+def _fire(ref: weakref.ref, name: str, param: nn.Parameter) -> None:
+    """A parameter's post-accumulate-grad hook: hands its gradient to the
+    stage (held weakly, so a dropped step leaves no stage behind)."""
+    stage = ref()
+    if stage is not None and stage._armed:
+        stage._on_grad(name, param)
+
+
+class _FiredStage:
+    """What both data-parallel stages share: hooks on the trainable
+    parameters that hand each final gradient to the stage while it is
+    armed (module docstring), rebuilt when the stage meets another model.
+
+    ``arm(state, n)`` opens a round before the backward that fires it
+    (``n``: the microbatches the hook divides by); ``__call__`` (from
+    ``_finish``, after the backward) takes every gradient the hooks did not
+    deliver, completes the round and writes the means; ``disarm()`` ends
+    it.  Called without ``arm``, the stage takes every gradient after the
+    backward, the non-overlapped order."""
+
+    _armed = False
+
+    def __init__(self):
+        self._model = None
+        self._handles: list = []
+        self._live = False
+
+    def _hook(self, model: nn.Module) -> None:
+        """Hooks on ``model``'s trainable parameters, in place of the last
+        model's."""
+        for h in self._handles:
+            h.remove()
+        self._params = trainable_parameters(model)
+        ref = weakref.ref(self)
+        self._handles = [p.register_post_accumulate_grad_hook(functools.partial(_fire, ref, name))
+                         for name, p in self._params.items()]
+        weakref.finalize(self, _remove_all, self._handles)
+        self._model = model
+
+    def _start(self, state: TrainState) -> None:
+        if self._model is not state.model:
+            self._build(state)
+        self._taken: set[int] = set()
+        self._divide = 1
+        self._begin(state)
+        self._live = True
+
+    def arm(self, state: TrainState, n_microbatches: int = 1) -> None:
+        self._start(state)
+        self._divide = n_microbatches
+        self._armed = True
+
+    def disarm(self) -> None:
+        self._armed = self._live = False
+
+    def took(self, p: torch.Tensor) -> bool:
+        """Whether this round's hooks took (and divided) ``p``'s gradient."""
+        return self._live and id(p) in self._taken
+
+    @torch.no_grad()
+    def _on_grad(self, name: str, p: nn.Parameter) -> None:
+        if self._divide > 1:
+            torch._foreach_div_([p.grad], float(self._divide))  # as _accumulate divides
+        self._take(name, p)
+
+    def _take(self, name: str, p: nn.Parameter) -> None:
+        self._taken.add(id(p))
+        self._deliver(name, p)
+
+    def _take_the_rest(self, state: TrainState) -> None:
+        """Every gradient the hooks did not deliver (the round opened here
+        if it was not armed): the zero ones ``_finish`` gave, or all."""
+        if not self._live:
+            self._start(state)
+        for name, p in self._params.items():
+            if id(p) not in self._taken:
+                self._take(name, p)
+
+
+def _remove_all(handles: list) -> None:
+    for h in handles:
+        h.remove()
+
+
+class _MeanSync(_FiredStage):
+    """Uncompressed data parallelism around the backward (module
+    docstring): ``(state, loss, metrics) -> (global loss, summed metrics)``
+    with the mean gradient in the ``.grad``s.  Checks at build that the
+    plan's ``dp_size`` is the process group's world size; cuts the model's
+    trainable parameters into buckets when it first meets the model."""
 
     #: what the Trainer meters on the wire: nothing (exact all-reduce)
     wire = None
     bucket_bytes = 25 * 2**20
 
     def __init__(self, plan: Any):
+        super().__init__()
         self.world = plan.check_world()
-        self._model = None
 
     def statistics(self, model: nn.Module):
         return cross_rank_statistics(model)
 
-    def _build(self, model: nn.Module) -> None:
-        """The trainable parameters by dtype, in order, cut into runs of at most
-        ``bucket_bytes`` of gradient each (a larger tensor alone), and
+    def _build(self, state: TrainState) -> None:
+        """Buckets of at most ``bucket_bytes`` of gradient of one dtype each
+        (a larger tensor alone), filled in reverse registration order, and
         whether the running buffers can differ by rank."""
-        self._buckets, size = [], 0
-        for p in sorted(trainable_parameters(model).values(), key=lambda p: str(p.dtype)):
+        model = state.model
+        self._hook(model)
+        self._buckets: list[list[str]] = []
+        open_bucket: dict = {}  # dtype -> [bucket index, bytes]
+        for name, p in reversed(self._params.items()):
             nbytes = p.numel() * p.element_size()
-            if (not self._buckets or self._buckets[-1][0].dtype != p.dtype
-                    or size + nbytes > self.bucket_bytes):
+            cur = open_bucket.get(p.dtype)
+            if cur is None or cur[1] + nbytes > self.bucket_bytes:
                 self._buckets.append([])
-                size = 0
-            self._buckets[-1].append(p)
-            size += nbytes
+                cur = open_bucket[p.dtype] = [len(self._buckets) - 1, 0]
+            self._buckets[cur[0]].append(name)
+            cur[1] += nbytes
+        self._bucket_of = {n: i for i, b in enumerate(self._buckets) for n in b}
         # under sync BN the running buffers are equal on every rank already
         # (and an average of equal values can move the last bit)
         self._local = rank_local_buffers(model)
-        self._model = model
+
+    def _begin(self, state: TrainState) -> None:
+        self._waiting = [len(b) for b in self._buckets]
+        self._sums: list[tuple] = []  # (bucket's gradients flat, its all-reduce)
+
+    def _deliver(self, name: str, p: nn.Parameter) -> None:
+        self._waiting[self._bucket_of[name]] -= 1
+        while len(self._sums) < len(self._buckets) and not self._waiting[len(self._sums)]:
+            grads = [self._params[n].grad for n in self._buckets[len(self._sums)]]
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            self._sums.append((flat, dist.all_reduce(flat, op=dist.ReduceOp.SUM, async_op=True)))
 
     @torch.no_grad()
     def __call__(self, state: TrainState, loss: torch.Tensor,
                  metrics: dict) -> tuple[torch.Tensor, dict]:
-        if self._model is not state.model:
-            self._build(state.model)
-        for bucket in self._buckets:
-            _mean_in_place([p.grad for p in bucket], self.world)  # each filled by _finish
+        self._take_the_rest(state)  # each filled by _finish
+        for (flat, work), names in zip(self._sums, self._buckets):
+            work.wait()
+            flat /= self.world
+            grads = [self._params[n].grad for n in names]
+            torch._foreach_copy_(grads, [f.view_as(g) for f, g in zip(
+                flat.split([g.numel() for g in grads]), grads)])
+        self._live = False
         return _global(state, loss, metrics, self.world, self._local)
 
 
-class _WireSync:
-    """The compressed wire between the backward and the update (module
-    docstring): ``(state, loss, metrics) -> (global loss, summed metrics)``
-    with the synced mean in the ``.grad``s.
+class _WireSync(_FiredStage):
+    """The compressed wire around the backward (module docstring):
+    ``(state, loss, metrics) -> (global loss, summed metrics)`` with the
+    synced mean in the ``.grad``s.
 
-    The wire layout depends on the model's parameters, so it is built at
-    the first call: the layout, the check of ``state.comms`` against it,
-    the ``wire`` plan (what the Trainer meters) and one ``comms/wire_plan``
-    event, or ``comms/ef_inactive`` when the state carries no residual."""
+    The wire layout depends on the model's parameters, so it is built when
+    the stage first meets the model: the layout, the check of
+    ``state.comms`` against it, the ``wire`` plan (what the Trainer meters)
+    and one ``comms/wire_plan`` event, or ``comms/ef_inactive`` when the
+    state carries no residual."""
 
     def __init__(self, plan: Any, grad_compression, n_microbatches: int):
+        super().__init__()
         config = CommsConfig.from_env(grad_compression)
         if config is None:
             raise ValueError(f"grad_compression={grad_compression!r} names no wire format")
@@ -607,14 +748,14 @@ class _WireSync:
         self.plan, self.n_microbatches = plan, n_microbatches
         #: the static per-step wire accounting (``wire_plan``), set at build
         self.wire: dict | None = None
-        self._layout = None
 
     def statistics(self, model: nn.Module):
         """BatchNorm stays shard-local, as inside JAX's ``shard_map``."""
         return contextlib.nullcontext()
 
     def _build(self, state: TrainState) -> None:
-        params = trainable_parameters(state.model)
+        self._hook(state.model)
+        params = self._params
         layout = grad_layout(params, self.config, self.plan)
         expected = {k: (1,) + tuple(v[1:])
                     for k, v in comms_template(params, self.config, self.plan).items()}
@@ -647,16 +788,24 @@ class _WireSync:
             return None
         return step_generator(state, device)
 
+    def _begin(self, state: TrainState) -> None:
+        device = state.updates.device
+        self._round = _WireRound(self._layout, self._run_config,
+                                 state.comms if self._ef else {}, device,
+                                 self._rng(state, device))
+
+    def _deliver(self, name: str, p: nn.Parameter) -> None:
+        self._round.deliver(name, p.grad)
+
     def __call__(self, state: TrainState, loss: torch.Tensor,
                  metrics: dict) -> tuple[torch.Tensor, dict]:
-        if self._layout is None:
-            self._build(state)
-        named = list(trainable_parameters(state.model).items())
-        grads = {n: p.grad for n, p in named}  # each filled by _finish
-        synced, new_comms = sync_gradients(grads, state.comms if self._ef else {}, self._layout,
-                                           self._run_config, self._rng(state, loss.device))
+        self._take_the_rest(state)  # each filled by _finish
+        synced, new_comms = self._round.finish()
+        self._live = False
         with torch.no_grad():
-            torch._foreach_copy_([p.grad for _, p in named], [synced[n] for n, _ in named])
+            names = list(self._params)
+            torch._foreach_copy_([self._params[n].grad for n in names],
+                                 [synced[n] for n in names])
             for k, t in new_comms.items():
                 state.comms[k].copy_(t)  # in place: a skipped step restores it
         if not _wired():
