@@ -4802,6 +4802,489 @@ def streaming_examples(card: str) -> dict:
     reset_runtime()
     return out
 
+# -- phase 16: ZeRO on one card ---------------------------------------------------
+
+#: (name, stage, offload, wire) of the ResNet50-1K fits; zero_0 is the reference
+ZERO_RUNS = (("zero_0", 0, False, None), ("zero_1", 1, False, None), ("zero_2", 2, False, None),
+             ("zero_3", 3, False, None), ("zero_3_offload", 3, True, None),
+             ("zero_2_int8", 2, False, "int8"))
+ZERO_STEPS = 3  # the fit's batches, each 64 images a rank
+ZERO_TIMED = 3  # steps of the step alone a turn, after one warm step
+ZERO_CLIP = 0.3  # example 02a's gradient_clipping
+ZERO_LR = dict(warmup_max_lr=1e-3, warmup_num_steps=10)
+#: the clip's norm sums the owned slices' squares across the ranks, in
+#: another order than one rank's sum over whole tensors, so the clip's scale
+#: may differ in its last bits: stages 1-3 are held to zero_0 within this
+#: share of zero_0's update (max |diff| / max |update|); unclipped, the
+#: CPU tests hold them bit-equal
+ZERO_UPDATE_RTOL = 1e-3
+#: the memory check: GPT-2-small's width (repo LM config), 2 x 128 tokens a rank
+ZERO_LM = dict(LM, max_len=128)
+ZERO_LM_BATCH = 2
+ZERO_MEM_RTOL = 0.05  # persistent bytes against plan_memory's params + opt_state
+#: the bytes of the tensors a rank holds against the same estimate: every
+#: parameter and optimizer slot priced; what is left are a few scalars
+#: (counts, the health state) and the batch of token ids
+ZERO_REACH_MB = 0.1
+ZERO_PEAK_TOL = 0.15  # the JAX estimator's tolerance against compiled peaks (logged)
+
+
+def _zero_counters():
+    """K1, K2a/K2b, K4 and K5a-K5c."""
+    from tpuframe_torch.ops.fused_adamw import fused_adamw_multi_update_
+    from tpuframe_torch.ops.quant_wire import bucket_abs_max, quant_decode, quant_encode
+
+    return {**_k12(), "fused_adamw": fused_adamw_multi_update_,
+            "bucket_abs_max": bucket_abs_max, "quant_encode": quant_encode,
+            "quant_decode": quant_decode}
+
+
+def counted_zero_call(module: str, fn: str, *args, **kwargs):
+    """Worker side of a ZeroDistributor run: ``module.fn(*args, **kwargs)``
+    with K1, K2 and K4 counted, zeroed just before and read just after."""
+    counters = _zero_counters()
+    for c in counters.values():
+        c.launches = 0
+    value = getattr(_example(module), fn)(*args, **kwargs)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return value, {n: c.launches for n, c in counters.items()}
+
+
+def _params_host(state) -> dict:
+    """The model's parameters as float32 host copies (gathered under stage
+    3; every rank calls this)."""
+    return {k: v.detach().float().cpu().clone() for k, v in state.state_dict()["model"].items()
+            if v.is_floating_point()}
+
+
+def _digest(params: dict) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(params):
+        h.update(params[k].numpy().tobytes())
+    return h.hexdigest()
+
+
+def _reachable_cuda_mb() -> float:
+    """The bytes of every CUDA tensor Python can reach (each storage once),
+    in MiB: what a state holds, apart from blocks no tensor owns (library
+    workspaces, block rounding)."""
+    import gc
+
+    seen: dict[int, int] = {}
+    for obj in gc.get_objects():
+        if torch.is_tensor(obj) and obj.is_cuda:
+            st = obj.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values()) / 2**20
+
+
+def _zero_kernels_on_slices(state, dev: torch.device) -> dict:
+    """K4 over the state's owned slices, and K5a-K5c on a (world, chunk)
+    array of its largest sliced leaf and on the owned (1, chunk) row, each
+    against its plain version (launches here are not the main path's)."""
+    from tpuframe_torch.ops.fused_adamw import (
+        fused_adamw_multi_update_,
+        fused_adamw_update_reference,
+    )
+    from tpuframe_torch.ops.quant_wire import (
+        bucket_abs_max,
+        bucket_abs_max_reference,
+        quant_decode,
+        quant_decode_reference,
+        quant_encode,
+        quant_encode_reference,
+    )
+
+    zero = state.zero
+    gen = torch.Generator(device=dev).manual_seed(7)
+    ps = [t.detach().clone() for t in zero.opt_params if t.dtype == torch.float32]
+    gs = [torch.randn(p.shape, generator=gen, device=dev) * 1e-2 for p in ps]
+    ms = [torch.randn(p.shape, generator=gen, device=dev) * 1e-3 for p in ps]
+    vs = [torch.rand(p.shape, generator=gen, device=dev) * 1e-5 for p in ps]
+    # in each parameter's own layout (a whole conv weight is channels_last)
+    gs, ms, vs = ([torch.empty_like(p).copy_(t) for p, t in zip(ps, ts)] for ts in (gs, ms, vs))
+    count = torch.full((), 3, dtype=torch.int32, device=dev)
+    hp = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-4)
+    want = [fused_adamw_update_reference(p, g, m, v, count, **hp)
+            for p, g, m, v in zip(ps, gs, ms, vs)]
+    fused_adamw_multi_update_(ps, gs, ms, vs, [count] * len(ps), **hp)
+    sync(dev)
+    k4_err = max(float((a - b).abs().max()) for got, w in zip(zip(ps, ms, vs), want)
+                 for a, b in zip(got, w))
+    name = max(zero.opt, key=lambda n: zero.params[n].numel())
+    sl = zero.opt[name]
+    g = torch.randn(sl.shape, generator=gen, device=dev)
+    rows = sl.chunks(g).contiguous()
+    amax = bucket_abs_max(rows)
+    q, deq = quant_encode(rows, amax, "int8")
+    q_ref, deq_ref = quant_encode_reference(rows, amax, "int8")
+    total = q[sl.index:sl.index + 1] * 2  # two ranks' equal payloads
+    mean = quant_decode(total, amax[sl.index:sl.index + 1], "int8", 2)
+    exact = (torch.equal(amax, bucket_abs_max_reference(rows)) and torch.equal(q, q_ref)
+             and torch.equal(deq, deq_ref) and torch.equal(mean, quant_decode_reference(
+                 total, amax[sl.index:sl.index + 1], "int8", 2)))
+    return {"k4_owned_slices": len(ps), "k4_max_abs_err": k4_err,
+            "k5_leaf": name, "k5_rows": list(rows.shape), "k5_bit_equal": exact}
+
+
+def _zero_child(rank: int, world: int, store: str, out_dir: str, device: str,
+                image_size: int, batch_size: int, lm_cfg: dict, lm_batch: int) -> None:
+    """One of two gloo ranks on the one card (mesh fsdp 2): ResNet50-1K
+    through ``Trainer(plan=...).fit`` under each of ``ZERO_RUNS`` (counted,
+    deterministic cuDNN), each run's step alone and its memory, K4 and K5
+    on the owned slices against their plain versions, then the LM memory
+    check under stages 0-3; writes what it saw as JSON."""
+    import gc
+    import traceback
+
+    os.environ.update({"RANK": str(rank), "WORLD_SIZE": str(world),
+                       "TPUFRAME_COORDINATOR": f"file://{store}"})
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"runs": {}, "lm": {}}
+    try:
+        import warnings
+
+        from tpuframe_torch.core import initialize, shutdown
+        from tpuframe_torch.data import DataLoader, SyntheticImageDataset
+        from tpuframe_torch.models import ResNet50, TransformerLM
+        from tpuframe_torch.ops import fused_adamw
+        from tpuframe_torch.parallel import ZeroConfig, plan_memory
+        from tpuframe_torch.train import (
+            Trainer,
+            create_train_state,
+            make_train_step,
+            schedule_from_config,
+        )
+
+        warnings.simplefilter("ignore")  # the CPU rehearsal's offload downgrade
+        rt = initialize({"data": 1, "fsdp": world}, device=device, backend="gloo")
+        cuda = rt.device.type == "cuda"
+        if not cuda:  # the CPU rehearsal: two ranks share the host's cores
+            torch.set_num_threads(2)
+        try:
+            dev = rt.device
+            schedule = schedule_from_config({"scheduler": {"type": "WarmupLR", "params": {
+                "warmup_min_lr": 0, "warmup_type": "linear", **ZERO_LR}}})
+            counters = _zero_counters()
+            rng = np.random.default_rng(3 + rank)
+            local = batch_size // world
+            resident = {"image": torch.from_numpy(rng.integers(
+                            0, 256, (local, image_size, image_size, 3), dtype=np.uint8)).to(dev),
+                        "label": torch.from_numpy(rng.integers(0, 1000, local)).to(dev)}
+            torch.backends.cudnn.deterministic = True
+            init, kept = None, {}
+            for name, stage, offload, wire in ZERO_RUNS:
+                gc.collect()
+                if cuda:
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats(dev)
+                base = torch.cuda.memory_allocated(dev) if cuda else 0
+                model = ResNet50(num_classes=1000, norm_dtype=torch.bfloat16, device=dev, seed=0)
+                if init is None:
+                    init = {k: v.detach().float().cpu().clone()
+                            for k, v in model.state_dict().items() if v.is_floating_point()}
+                loader = DataLoader(SyntheticImageDataset(n=batch_size * ZERO_STEPS,
+                                                          image_size=image_size,
+                                                          num_classes=1000, seed=1),
+                                    batch_size, shuffle=True, seed=0, transfer_dtype="uint8",
+                                    num_workers=4 if cuda else 0)
+                plan = ZeroConfig(stage=stage, offload_optimizer=offload).plan(rt.mesh)
+                trainer = Trainer(model, train_dataloader=loader, precision="bf16",
+                                  tx=fused_adamw(schedule, weight_decay=1e-4,
+                                                 max_grad_norm=ZERO_CLIP),
+                                  normalize=(MEAN, STD), max_duration=f"{ZERO_STEPS}ba",
+                                  log_interval=1, plan=plan, grad_compression=wire)
+                state = trainer.init_state()
+                for fn in counters.values():
+                    fn.launches = 0
+                t0 = time.perf_counter()
+                result = trainer.fit()
+                sync(dev)
+                fit_s = time.perf_counter() - t0
+                launches = {k: fn.launches for k, fn in counters.items()}
+                params = _params_host(state)
+                run = {"launches": launches, "fit_s": fit_s, "digest": _digest(params),
+                       "loss": result.history[-1].get("train_loss"),
+                       "sliced": len(state.zero.opt) if state.zero is not None else 0,
+                       "resting": len(state.zero.rest) if state.zero is not None else 0,
+                       "wire": trainer._train_step.wire}
+                if name == "zero_0":
+                    ref = params
+                delta = max(float((params[k] - ref[k]).abs().max()) for k in ref)
+                update = max(float((ref[k] - init[k]).abs().max()) for k in ref)
+                run["update_rel"] = delta / update
+                if offload and state.zero is not None:
+                    copies = []
+                    for _ in range(3):
+                        sync(dev)
+                        t0 = time.perf_counter()
+                        with state.zero.offloaded(state.optimizer):
+                            pass
+                        copies.append((time.perf_counter() - t0) * 1e3)
+                    run["offload_copy_ms"] = statistics.median(copies)
+                    run["offload_mb"] = sum(
+                        v.numel() * v.element_size() for st in state.optimizer.state.values()
+                        for v in st.values() if torch.is_tensor(v) and v.is_pinned()) / 2**20
+                    run["opt_kinds"] = sorted({
+                        "pinned_host" if v.is_pinned() else "device"
+                        for st in state.optimizer.state.values() for v in st.values()
+                        if torch.is_tensor(v) and v.ndim > 0})
+                if name == "zero_2" and cuda:
+                    run["kernels"] = _zero_kernels_on_slices(state, dev)
+                state.model.zero_grad(set_to_none=True)
+                state.optimizer.zero_grad(set_to_none=True)
+                gc.collect()
+                if cuda:
+                    sync(dev)
+                    run["persistent_mb"] = (torch.cuda.memory_allocated(dev) - base) / 2**20
+                    run["peak_mb"] = (torch.cuda.max_memory_allocated(dev) - base) / 2**20
+                out["runs"][name] = run
+                kept[name] = trainer  # for the step alone, in turns below
+                del state, model, loader, params
+            # each run's step alone on a device-resident batch, in turns
+            # (every run, then every run backwards): the better median
+            for turn in (list(kept), list(kept)[::-1]):
+                for name in turn:
+                    trainer = kept[name]
+                    trainer._train_step(trainer.state, resident)
+                    times = []
+                    for _ in range(ZERO_TIMED):
+                        sync(dev)
+                        t0 = time.perf_counter()
+                        trainer._train_step(trainer.state, resident)
+                        sync(dev)
+                        times.append((time.perf_counter() - t0) * 1e3)
+                    out["runs"][name].setdefault("step_ms_turns", []).append(
+                        statistics.median(times))
+            for name in kept:
+                out["runs"][name]["step_ms"] = min(out["runs"][name]["step_ms_turns"])
+            del kept, trainer
+            torch.backends.cudnn.deterministic = False
+            del resident
+
+            # -- the memory check: GPT-2-small width under stages 0-3 ------------
+            for stage in (0, 1, 2, 3):
+                gc.collect()
+                if cuda:
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats(dev)
+                base = torch.cuda.memory_allocated(dev) if cuda else 0
+                model = TransformerLM(**lm_cfg, device=dev, seed=0)
+                template = {n: p for n, p in model.named_parameters()}
+                plan = ZeroConfig(stage=stage).plan(rt.mesh)
+                est = plan_memory(plan, template, {"input": ((world * lm_batch,
+                                                              lm_cfg["max_len"]), "int32")},
+                                  optimizer="adamw")
+                state = create_train_state(model, fused_adamw(3e-4), plan=plan)
+                step = make_train_step(plan=plan)
+                tok = torch.from_numpy(np.random.default_rng(rank).integers(
+                    0, lm_cfg["vocab_size"], (lm_batch, lm_cfg["max_len"] + 1))).to(dev)
+                for _ in range(2):
+                    state, m = step(state, {"input": tok[:, :-1], "label": tok[:, 1:]})
+                loss = float(m["loss_sum"] / m["count"])
+                state.model.zero_grad(set_to_none=True)
+                state.optimizer.zero_grad(set_to_none=True)
+                gc.collect()
+                rec = {"estimate": est["per_device_mb"], "loss": loss,
+                       "n_params": sum(p.numel() for p in template.values())}
+                if cuda:
+                    sync(dev)
+                    rec["persistent_mb"] = (torch.cuda.memory_allocated(dev) - base) / 2**20
+                    rec["peak_mb"] = (torch.cuda.max_memory_allocated(dev) - base) / 2**20
+                    rec["reachable_mb"] = _reachable_cuda_mb()
+                out["lm"][stage] = rec
+                del state, step, model, template
+        finally:
+            shutdown()
+    except BaseException:
+        out["error"] = traceback.format_exc()
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def zero_examples(card: str, workdir: Path, ex02_argv: list, ex02a_argv: list) -> dict:
+    """Examples 02 and 02a through their own ``main`` (ZeroDistributor, two
+    workers sharing the card over gloo), each worker's K1, K2 and K4
+    launches counted."""
+    out = {}
+    for module, argv in (("02_deepspeed_zero_cifar_resnet", ex02_argv),
+                         ("02a_deepspeed_zero_imagenet1k", ex02a_argv)):
+        ex = _example(module)
+        counts = []
+
+        class CountedZeroDistributor(ex.ZeroDistributor):
+            """The example's ZeroDistributor, its worker fn counted there."""
+
+            def run(self, fn, *args, **kwargs):
+                value, c = super().run(counted_zero_call, module, fn.__name__, *args, **kwargs)
+                counts.append(c)
+                return value
+
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with mock.patch.object(ex, "ZeroDistributor", functools.partial(
+                CountedZeroDistributor, timeout_s=600)), contextlib.redirect_stdout(buf):
+            result = ex.main(argv + ["--workdir", str(workdir / module)])
+        took = time.perf_counter() - t0
+        check(math.isfinite(result["train_loss"]) and math.isfinite(result["val_loss"]),
+              f"example {module}: {result}")
+        out[module] = {"result": result, "launches": counts[0], "s": took}
+        log(f"  example {module.split('_')[0]} through its main (ZeroDistributor, 2 workers on "
+            f"the card, gloo): {took:.2f} s from its start to the result, rank 0's launches "
+            f"{counts[0]}; {result} on {card}")
+    return out
+
+
+EX02_ARGV = ["--zero-stage", "2", "--fsdp", "2", "--num-processes", "2", "--epochs", "1",
+             "--batch-size", "64", "--train-samples", "128", "--eval-samples", "64"]
+EX02A_ARGV = ["--zero-stage", "3", "--offload", "--fsdp", "2", "--num-processes", "2",
+              "--epochs", "1", "--batch-size", "32", "--train-samples", "64",
+              "--eval-samples", "32", "--grad-accum", "2"]
+
+
+def zero_phase(card: str, timeout_s: float = 900.0, device: str = "cuda:0",
+               image_size: int = 224, batch_size: int = TRAIN_BATCH, lm_cfg: dict = ZERO_LM,
+               lm_batch: int = ZERO_LM_BATCH, examples: bool = True) -> dict:
+    """Two spawned gloo ranks on the one card (mesh fsdp 2): ResNet50-1K at
+    224 px, 64 images a rank, bf16, AdamW (K4) with warmup and clip 0.3,
+    through ``Trainer(plan=...).fit`` under ``zero_0``, ``zero_1``,
+    ``zero_2``, ``zero_3``, ``zero_3_offload`` and ``zero_2`` with the int8
+    wire, each fit counted: stages 1-3 (and offload) bit-equal to each other
+    and within ``ZERO_UPDATE_RTOL`` of zero_0's update; K4 once a step a
+    rank, K5a-K5c (1 + sliced leaves) times a step under the int8 wire; each
+    run's step alone, its persistent and peak memory.  K4 and K5 on the
+    owned slices against their plain versions.  The memory check on the
+    GPT-2-small-width LM: each rank's persistent bytes within
+    ``ZERO_MEM_RTOL`` of ``plan_memory``'s params + opt_state for stages
+    0-3, the peak logged beside its total.  Then examples 02 and 02a
+    through ZeroDistributor.  Returns the counts and a summary; the device
+    and sizes are arguments so the phase can be rehearsed small on the
+    CPU."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_zero_child, args=(r, 2, f"{tmp}/store", tmp, device,
+                                                       image_size, batch_size, lm_cfg,
+                                                       lm_batch))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(max(1.0, timeout_s - (time.perf_counter() - t_start)))
+        finally:
+            hung = [r for r, p in enumerate(procs) if p.is_alive()]
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        check(not hung, f"ZeRO phase: ranks {hung} hung past {timeout_s} s")
+        res = []
+        for r in range(2):
+            f = Path(tmp, f"rank{r}.json")
+            check(f.exists(), f"ZeRO phase: rank {r} wrote nothing (exit {procs[r].exitcode})")
+            res.append(json.loads(f.read_text()))
+    for r, o in enumerate(res):
+        check("error" not in o, f"ZeRO phase, rank {r}:\n{o.get('error')}")
+    cuda = device.startswith("cuda")
+    runs = {name: [o["runs"][name] for o in res] for name, _, _, _ in ZERO_RUNS}
+    for name, stage, offload, wire in ZERO_RUNS:
+        r0 = runs[name][0]
+        sliced = r0["sliced"]
+        per_step = (1 + sliced) if wire else 0
+        want = {"normalize": ZERO_STEPS, "cross_entropy_fwd": ZERO_STEPS,
+                "cross_entropy_bwd": ZERO_STEPS, "fused_adamw": ZERO_STEPS,
+                "bucket_abs_max": per_step * ZERO_STEPS, "quant_encode": per_step * ZERO_STEPS,
+                "quant_decode": per_step * ZERO_STEPS}
+        for r, run in enumerate(runs[name]):
+            check(run["launches"] == want or not cuda,
+                  f"{name} rank {r}: launches {run['launches']} != {want}")
+            check(run["loss"] is not None and math.isfinite(run["loss"]),
+                  f"{name} rank {r}: loss {run['loss']}")
+        check(runs[name][0]["digest"] == runs[name][1]["digest"],
+              f"{name}: the two ranks ended the fit apart")
+        check(stage == 0 or sliced > 0, f"{name}: no leaf was sliced")
+        if not wire:
+            check(r0["update_rel"] <= ZERO_UPDATE_RTOL,
+                  f"{name}: {r0['update_rel']:.3g} of zero_0's update from it (tol "
+                  f"{ZERO_UPDATE_RTOL})")
+        mem = (f", persistent {[round(x['persistent_mb'], 1) for x in runs[name]]} MB, peak "
+               f"{[round(x['peak_mb'], 1) for x in runs[name]]} MB a rank" if cuda else "")
+        extra = (f", offload copies {r0['offload_copy_ms']:.2f} ms a step (the "
+                 f"{r0.get('offload_mb', 0):.1f} MB of pinned state to the card and back), "
+                 f"optimizer state in {r0['opt_kinds']}" if "offload_copy_ms" in r0 else "")
+        log(f"  {name}: {ZERO_STEPS} steps of {batch_size} on two ranks, {sliced} sliced leaves"
+            f"{', ' + str(r0['resting']) + ' resting as shards' if r0['resting'] else ''}, "
+            f"launches a rank {r0['launches']} (expected {want}), "
+            f"{r0['update_rel']:.3g} of zero_0's update from it, ranks bit-equal, step alone "
+            f"{max(x['step_ms'] for x in runs[name]):.1f} ms (the better of two medians of "
+            f"{ZERO_TIMED} in turns, slower rank){mem}{extra} on {card}")
+    ladder = [runs[n][0]["digest"] for n in ("zero_1", "zero_2", "zero_3", "zero_3_offload")]
+    check(len(set(ladder)) == 1, "stages 1-3 and offload ended the fit apart")
+    if cuda:
+        check(runs["zero_3_offload"][0]["opt_kinds"] == ["pinned_host"],
+              f"offload's optimizer state in {runs['zero_3_offload'][0]['opt_kinds']}")
+        kern = runs["zero_2"][0]["kernels"]
+        check(kern["k4_max_abs_err"] <= 1e-6 and kern["k5_bit_equal"],
+              f"the kernels on the owned slices: {kern}")
+        log(f"  K4 over the {kern['k4_owned_slices']} owned slices and whole leaves of zero_2: "
+            f"max abs diff {kern['k4_max_abs_err']:.3g} from the plain version (tol 1e-6); "
+            f"K5a-K5c on {kern['k5_leaf']} as {kern['k5_rows']} rows and its owned (1, chunk) "
+            f"row bit-equal to the plain versions: {kern['k5_bit_equal']}")
+    log(f"  stages 1-3 and offload bit-equal to each other; each within {ZERO_UPDATE_RTOL} of "
+        "zero_0's update (the clip's plan-global norm sums in another order)")
+    lm = {int(k): [o["lm"][k] for o in res] for k in res[0]["lm"]}
+    for stage, recs in lm.items():
+        est = recs[0]["estimate"]
+        want_mb = est["params"] + est["opt_state"] + est["ef_residual"]
+        line = (f"  LM memory, stage {stage} ({recs[0]['n_params']} parameters, 2 x "
+                f"{lm_cfg['max_len']} tokens a rank): plan_memory params {est['params']} + "
+                f"opt_state {est['opt_state']} MB = {want_mb:.1f} MB, total {est['total']} MB")
+        if cuda:
+            for r, rec in enumerate(recs):
+                rel = rec["persistent_mb"] / want_mb - 1.0
+                check(abs(rel) <= ZERO_MEM_RTOL,
+                      f"LM stage {stage} rank {r}: persistent {rec['persistent_mb']:.1f} MB is "
+                      f"{rel:+.2%} from plan_memory's {want_mb:.1f} MB (tol {ZERO_MEM_RTOL})")
+                check(abs(rec["reachable_mb"] - want_mb) <= ZERO_REACH_MB,
+                      f"LM stage {stage} rank {r}: the tensors held {rec['reachable_mb']:.3f} MB, "
+                      f"plan_memory prices {want_mb:.3f} (tol {ZERO_REACH_MB} MB)")
+            line += (f"; tensors held {[round(x['reachable_mb'], 3) for x in recs]} MB (tol "
+                     f"{ZERO_REACH_MB}), allocated beside them "
+                     f"{[round(x['persistent_mb'] - x['reachable_mb'], 1) for x in recs]} MB "
+                     f"(blocks no tensor owns)")
+            line += (f"; persistent {[round(x['persistent_mb'], 1) for x in recs]} MB "
+                     f"({[f'{x['persistent_mb'] / want_mb - 1:+.2%}' for x in recs]}), peak "
+                     f"{[round(x['peak_mb'], 1) for x in recs]} MB "
+                     f"({[f'{x['peak_mb'] / est['total'] - 1:+.1%}' for x in recs]} of the "
+                     f"total; JAX holds {ZERO_PEAK_TOL:.0%} against compiled peaks)")
+        log(line + f", loss {recs[0]['loss']:.4f} on {card}")
+    out = {"launches": {name: runs[name][0]["launches"] for name in runs},
+           "step_ms": {name: max(x["step_ms"] for x in runs[name]) for name in runs},
+           "update_rel": {name: runs[name][0]["update_rel"] for name in runs},
+           "memory_mb": {name: [(x.get("persistent_mb"), x.get("peak_mb")) for x in runs[name]]
+                         for name in runs},
+           "offload_copy_ms": runs["zero_3_offload"][0].get("offload_copy_ms"),
+           "offload_mb": runs["zero_3_offload"][0].get("offload_mb"),
+           "lm": {k: {"estimate": v[0]["estimate"],
+                      "persistent_mb": [x.get("persistent_mb") for x in v],
+                      "reachable_mb": [x.get("reachable_mb") for x in v],
+                      "peak_mb": [x.get("peak_mb") for x in v]} for k, v in lm.items()},
+           "card": card}
+    if examples:
+        out["examples"] = zero_examples(card, LAUNCH_DIR.parent / "zero_smoke", EX02_ARGV,
+                                        EX02A_ARGV)
+    out["seconds"] = time.perf_counter() - t_start
+    log("  zero_json " + json.dumps(out))
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4966,7 +5449,14 @@ def main(argv=None) -> int:
         k["launches_grouped"] = overlap["launches"][name]
     torch.cuda.empty_cache()
 
-    log("== phase 16: result")
+    log("== phase 16: ZeRO on one card")
+    zero = zero_phase(card)
+    k4["launches_zero"] = {n: v["fused_adamw"] for n, v in zero["launches"].items()}
+    for k, name in ((k5a, "bucket_abs_max"), (k5b, "quant_encode"), (k5c, "quant_decode")):
+        k["launches_zero_int8"] = zero["launches"]["zero_2_int8"][name]
+    torch.cuda.empty_cache()
+
+    log("== phase 17: result")
     kernels = [k1, k2a, k2b, k3a, k3b, k4, k5a, k5b, k5c, k6a, k6b, k6c]
     for k in kernels:
         k["floor_ms"] = floor_ms  # beside bound_ms, which stays the byte or operation bound

@@ -12,8 +12,11 @@ train mode, the launch counts of one LM train step, BatchNorm with
 statistics across two gloo ranks on the card against one process's, and
 the plain-PyTorch optimizers of the launcher slice (lion, lamb,
 adafactor) and SGD with the moving average on the card against the CPU,
-and the streaming slice: a batch streamed from shards and normalized by
-K1 on the card, and ``device_memory_stats`` against the allocator.
+the streaming slice: a batch streamed from shards and normalized by
+K1 on the card, and ``device_memory_stats`` against the allocator, and
+ZeRO: K4 over owned slices, two gloo ranks under stages 0, 2 and 3, and
+the compressed wire's sliced leaves through K5a-K5c against the plain
+versions.
 
 Every test here needs an NVIDIA GPU and ``nvcc`` and skips without them.
 The file imports neither JAX nor the JAX package, so it also runs on a
@@ -1467,3 +1470,135 @@ def test_device_memory_stats_reports_the_allocated_bytes(card):
     sample = SystemMetricsMonitor(interval_s=60.0).sample()
     assert sample[f"system/device{i}_mem_used_mb"] >= 64
     del keep
+
+
+# -- ZeRO: K4 over owned slices, the sliced wire ---------------------------------
+
+
+def test_fused_adamw_over_owned_slices_on_the_card(card):
+    """K4 over the owned slices of ZeRO's exact path (runs of each
+    parameter's storage, views: a channels_last conv weight's halves, a
+    linear weight's) beside a whole bias: each within 1e-6 of the plain
+    version, and the two halves' update bit-equal to K4 over the whole
+    tensors (every element takes the same expression whatever the list)."""
+    gen = torch.Generator(device=card).manual_seed(11)
+    conv = torch.randn(64, 64, 3, 3, generator=gen, device=card).to(
+        memory_format=torch.channels_last)
+    lin = torch.randn(256, 768, generator=gen, device=card)
+    bias = torch.randn(768, generator=gen, device=card)
+    count = torch.full((), 4, dtype=torch.int32, device=card)
+    hp = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-4)
+
+    def memory_run(t):  # the storage in memory order, as ZeRO walks it
+        order = sorted(range(t.ndim), key=lambda d: -t.stride()[d])
+        return t.permute(order).reshape(-1)
+
+    full = [conv.clone(), lin.clone(), bias.clone()]
+    grads = [torch.randn(t.shape, generator=gen, device=card) * 1e-2 for t in full]
+    grads = [torch.empty_like(t).copy_(g) for t, g in zip(full, grads)]
+    moments = [(torch.rand_like(t) * 1e-3, torch.rand_like(t) * 1e-5) for t in full]
+    whole = [t.clone() for t in full]
+    whole_m = [(m.clone(), v.clone()) for m, v in moments]
+    fused_adamw_multi_update_(whole, grads, [m for m, _ in whole_m], [v for _, v in whole_m],
+                              [count] * 3, **hp)
+    sliced = [t.clone() for t in full]
+    sm = [(m.clone(), v.clone()) for m, v in moments]
+    ps, gs, ms, vs = [], [], [], []
+    for i in range(2):  # the two ranks' halves of the sliced leaves
+        for k in (0, 1):
+            n = full[k].numel() // 2
+            run = slice(i * n, (i + 1) * n)
+            ps.append(memory_run(sliced[k])[run])
+            gs.append(memory_run(grads[k])[run])
+            ms.append(memory_run(sm[k][0])[run])
+            vs.append(memory_run(sm[k][1])[run])
+    assert all(p.is_contiguous() and p._base is not None for p in ps)  # views, no copies
+    ps.append(sliced[2])
+    gs.append(grads[2])
+    ms.append(sm[2][0])
+    vs.append(sm[2][1])
+    launches = fused_adamw_multi_update_.launches
+    fused_adamw_multi_update_(ps, gs, ms, vs, [count] * len(ps), **hp)
+    torch.cuda.synchronize()
+    assert fused_adamw_multi_update_.launches == launches + 1
+    for k in range(3):
+        assert torch.equal(sliced[k], whole[k]) and torch.equal(sm[k][0], whole_m[k][0])
+        want = fused_adamw_update_reference(full[k], grads[k], *moments[k], count, **hp)
+        assert float((sliced[k] - want[0]).abs().max()) <= 1e-6
+
+
+def _zero_card_rank(rank: int, world: int) -> dict:
+    """Two gloo ranks on the one card: an MLP under ZeRO stages 0, 2 and 3
+    (K4 on the card), and the compressed wire's sliced sync on CUDA
+    tensors (K5a-K5c) and on CPU tensors (the plain versions)."""
+    import warnings
+
+    from tpuframe_torch.core import initialize
+    from tpuframe_torch.ops.quant_wire import bucket_abs_max, quant_decode, quant_encode
+    from tpuframe_torch.parallel import CommsConfig, ZeroConfig
+    from tpuframe_torch.parallel import compression as C
+
+    warnings.simplefilter("ignore")
+    rt = initialize({"data": 1, "fsdp": world}, device="cuda:0", backend="gloo")
+    out = {}
+    for stage in (0, 2, 3):
+        torch.manual_seed(0)
+        model = torch.nn.Sequential(torch.nn.Linear(64, 256), torch.nn.ReLU(),
+                                    torch.nn.Linear(256, 16)).to(rt.device)
+        plan = ZeroConfig(stage=stage, min_shard_elems=1024).plan(rt.mesh)
+        state = create_train_state(model, fused_adamw(1e-2, weight_decay=1e-4), plan=plan)
+        step = make_train_step(plan=plan)
+        g = torch.Generator().manual_seed(1)
+        launches = fused_adamw_multi_update_.launches
+        for _ in range(3):
+            x, y = torch.randn(16, 64, generator=g), torch.randint(0, 16, (16,), generator=g)
+            state, _ = step(state, {"input": x[rank * 8:(rank + 1) * 8].to(rt.device),
+                                    "label": y[rank * 8:(rank + 1) * 8].to(rt.device)})
+        out[stage] = {"params": {k: v.cpu().numpy() for k, v in
+                                 state.state_dict()["model"].items()},
+                      "k4": fused_adamw_multi_update_.launches - launches,
+                      "sliced": len(state.zero.opt) if state.zero is not None else 0}
+    plan = ZeroConfig(stage=2, min_shard_elems=1024).plan(rt.mesh)
+    rng = np.random.default_rng(rank)
+    tree = {"w": rng.standard_normal((64, 256)).astype(np.float32),
+            "b": rng.standard_normal(256).astype(np.float32)}
+    for mode in ("int8", "fp8"):
+        config = CommsConfig(mode=mode, bucket_mb=0.001)
+        synced = {}
+        for dev in ("cpu", "cuda"):
+            grads = {k: torch.from_numpy(v).to(dev) for k, v in tree.items()}
+            layout = C.grad_layout(grads, config, plan)
+            comms = {k: torch.zeros((1,) + tuple(s[1:]), device=dev)
+                     for k, s in C.comms_template(grads, config, plan).items()}
+            counts = [f.launches for f in (bucket_abs_max, quant_encode, quant_decode)]
+            got, new = C.sync_gradients(grads, comms, layout, config)
+            synced[dev] = ({k: v.cpu().numpy() for k, v in got.items()},
+                           {k: v.cpu().numpy() for k, v in new.items()},
+                           [f.launches - c for f, c in zip(
+                               (bucket_abs_max, quant_encode, quant_decode), counts)],
+                           len(layout.sliced))
+        out[mode] = synced
+    return out
+
+
+def test_zero_on_two_gloo_ranks_of_the_card(card, tmp_path):
+    """Stages 2 and 3 update bit for bit as stage 0 does, K4 once a step on
+    each rank; the compressed wire's sliced leaf through K5a-K5c on the
+    card equals the plain versions on the CPU bit for bit (means, owned
+    chunks and residuals), one launch each per group and per sliced leaf."""
+    from torch_ranks import run_ranks
+
+    ranks = run_ranks(_zero_card_rank, 2, tmp_path, timeout=300)
+    for r in ranks:
+        assert r[0]["k4"] == r[2]["k4"] == r[3]["k4"] == 3
+        assert r[2]["sliced"] == r[3]["sliced"] == 2
+        for stage in (2, 3):
+            for k, v in r[0]["params"].items():
+                np.testing.assert_array_equal(r[stage]["params"][k], v, err_msg=k)
+        for mode in ("int8", "fp8"):
+            cpu, cuda = r[mode]["cpu"], r[mode]["cuda"]
+            assert cuda[3] == 1 and cuda[2] == [2, 2, 2] and cpu[2] == [0, 0, 0]
+            for a, b in zip(cpu[:2], cuda[:2]):
+                for k in a:
+                    assert np.array_equal(np.ascontiguousarray(a[k]).view(np.uint8),
+                                          np.ascontiguousarray(b[k]).view(np.uint8)), (mode, k)

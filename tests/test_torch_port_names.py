@@ -60,8 +60,6 @@ SUBPACKAGES = ("core", "data", "train", "models", "ops", "parallel", "ckpt", "se
 #: ROADMAP Queue 1 item that brings each
 QUEUE1_MODULES = {
     "tpuframe.models.moe": 8,
-    "tpuframe.parallel.zero": 6,
-    "tpuframe.parallel.memory": 6,
     "tpuframe.parallel.compose": 7,
     "tpuframe.parallel.pipeline": 7,
     "tpuframe.ops.ulysses": 8,
@@ -89,9 +87,6 @@ LATER = {
     ("fault", "reset_recovery"): (9, "the supervisor"),
     ("track", "start_metrics_server"): (9, "the HTTP store"),
     ("parallel", "Rule"): (7, "DTensor"),
-    ("parallel", "infer_shard_dim"): (7, "DTensor"),
-    ("parallel", "mesh_axes"): (7, "DTensor"),
-    ("parallel", "path_str"): (7, "DTensor"),
     ("parallel", "spec_to_json"): (7, "DTensor"),
     ("parallel", "spec_from_json"): (7, "DTensor"),
     ("models", "transformer_tp_rules"): (7, "DTensor"),
@@ -110,7 +105,6 @@ LATER = {
     ("launch", "ElasticContext"): (9, "the supervisor"),
     ("launch", "rederive_batch_split"): (9, "the supervisor"),
     ("launch", "simulated_survivor_probe"): (9, "the supervisor"),
-    ("launch", "ZeroDistributor"): (6, "ZeRO"),
     ("track", "HttpModelRegistry"): (9, "the HTTP store"),
 }
 
@@ -123,7 +117,9 @@ LATER_IN_MODULE = {
     ("core.native", "control_plane"): (9, "the multi-host launcher"),
     ("track.registry", "HttpModelRegistry"): (9, "the HTTP store"),
     ("track.telemetry", "start_metrics_server"): (9, "the HTTP store"),
-    ("launch.distributor", "ZeroDistributor"): (6, "ZeRO"),
+    # tensor-parallel rules and their JSON form wait for DTensor
+    ("parallel.sharding", "spec_to_json"): (7, "DTensor"),
+    ("parallel.sharding", "spec_from_json"): (7, "DTensor"),
 }
 
 #: the modules of the launcher slice and of the streaming slice, compared
@@ -131,7 +127,8 @@ LATER_IN_MODULE = {
 SLICE_MODULES = ("core.config", "core.workspace", "core.native", "models.cnn", "models.transfer",
                  "train.ema", "track.mlflow_store", "track.registry", "launch.distributor",
                  "launch.trainer_api", "data.transforms", "data.streaming", "data.mds",
-                 "track.tensorboard", "track.system_metrics", "track.telemetry")
+                 "track.tensorboard", "track.system_metrics", "track.telemetry",
+                 "parallel.zero", "parallel.memory", "parallel.sharding")
 
 #: the JAX package's kernel switches: the port dispatches by device alone
 DROPPED = {"use_pallas", "kernel_enabled", "kernels_mode"}

@@ -103,10 +103,14 @@ def test_prefetcher_on_the_cpu_copies_before_it_recycles():
 def test_trainer_refuses_what_is_not_ported():
     model = ResNet18(num_classes=10, num_filters=4, stem="cifar", device="cpu")
     mesh2 = MeshSpec(data=2).build(2)  # two ranks: no process group is needed to refuse
-    for kw in ({"plan": lambda: ParallelPlan(mesh=mesh2, zero_stage=1)},
+    for kw in ({"plan": lambda: ParallelPlan(mesh=mesh2, rules=(("w", None),))},
                {"preemption": True}, {"straggler_sync_steps": 4}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(model, **{k: v() if callable(v) else v for k, v in kw.items()})
+    # ZeRO is ported: a Trainer takes a ZeRO plan (two ranks train through
+    # it in test_torch_port_zero.py)
+    zero = Trainer(model, plan=ParallelPlan(mesh=mesh2, zero_stage=2), grad_compression="int8")
+    assert zero.plan.zero_stage == 2 and zero.comms_config.mode == "int8"
     # the fused transport is ported: a fused plan builds (two ranks train
     # through it in test_torch_port_comms_overlap.py)
     fused = Trainer(model, plan=ParallelPlan(mesh=mesh2, comms_fused=True),

@@ -37,7 +37,6 @@ live ones.
 
 from __future__ import annotations
 
-import hashlib
 import json
 import os
 import random
@@ -132,23 +131,6 @@ def _dtype_name(dtype: torch.dtype) -> str:
 # -- topology manifests -------------------------------------------------------
 
 
-def _plan_signature(plan: Any) -> str:
-    """Stable short digest of a plan's policy and topology (the port's
-    counterpart of the JAX ``ParallelPlan.signature``, over the fields the
-    port's plan has)."""
-    payload = {
-        "mesh": sorted((str(k), int(v)) for k, v in plan.mesh.shape.items()),
-        "zero_stage": plan.zero_stage,
-        "data_axes": list(plan.data_axes),
-        "offload": bool(plan.offload_optimizer),
-    }
-    if plan.comms_groups is not None and plan.comms_groups != 1:
-        payload["comms_groups"] = int(plan.comms_groups)
-    if plan.comms_fused:
-        payload["comms_fused"] = True
-    return hashlib.sha256(json.dumps(payload, sort_keys=True).encode()).hexdigest()[:12]
-
-
 def topology_manifest(state: Any, plan: Any = None) -> dict:
     """The topology manifest of a live state: ``version`` 1, the mesh axes
     (the plan's, else one data axis over the world), ``world_size``,
@@ -175,7 +157,7 @@ def topology_manifest(state: Any, plan: Any = None) -> dict:
         "mesh_axes": mesh,
         "world_size": world,
         "process_count": world,
-        "plan_signature": _plan_signature(plan) if plan is not None else None,
+        "plan_signature": plan.signature() if plan is not None else None,
         "zero_stage": getattr(plan, "zero_stage", None),
         "leaves": leaves,
     }
@@ -415,8 +397,10 @@ class Checkpointer:
         A ``TrainState`` is restored in place: every tensor lands in the
         live one, on its device with its dtype.  A mapping template is
         left as it is; a new dict is returned.  ``plan`` is accepted for
-        the JAX signature: the port's plans replicate every leaf but the
-        residuals, whose world size the manifest gives."""
+        the JAX signature: every saved leaf is whole (a ZeRO state saves
+        its optimizer leaves at the parameters' full shapes and slices them
+        again on load), but the residuals, whose world size the manifest
+        gives."""
         del plan
         self.wait()
         if step is None:

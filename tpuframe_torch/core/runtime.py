@@ -14,8 +14,12 @@ the CPU.  ``TPUFRAME_COORDINATOR`` may also be an ``init_method`` URL
 (``tcp://host:port``, ``file:///path``).  A failed ``nccl`` init raises; it
 never gives way to gloo.
 
-The mesh names the data-parallel layout over the processes.  Only the
-``data`` axis is ported: any other axis above 1 raises.
+The mesh names the data-parallel layout over the processes: the ``data``
+and ``fsdp`` axes (ZeRO shards over ``fsdp``); any other axis above 1
+raises.  Ranks follow the JAX package's device order, the grid reshaped in
+:data:`AXIS_ORDER`, so rank = data index * fsdp size + fsdp index.
+:func:`initialize` builds each axis's process groups once
+(``Runtime.groups``).
 
 ``TPUFRAME_SIMULATE_DEVICES`` is the one request for the CPU besides an
 explicit ``device="cpu"``: the launcher sets it in its workers for
@@ -31,6 +35,7 @@ import math
 import os
 from typing import Mapping
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -123,13 +128,31 @@ class Mesh:
 
     shape: Mapping[str, int]
 
+    @property
+    def devices(self) -> np.ndarray:
+        """The ranks as the JAX mesh's device grid: ``arange(world)``
+        reshaped in :data:`AXIS_ORDER`."""
+        sizes = [int(self.shape.get(a, 1)) for a in AXIS_ORDER]
+        return np.arange(math.prod(sizes)).reshape(sizes)
+
+    def coords(self, rank: int) -> dict[str, int]:
+        """``rank``'s index along each axis of the grid."""
+        where = np.argwhere(self.devices == rank)[0]
+        return {a: int(i) for a, i in zip(AXIS_ORDER, where)}
+
+    def lines(self, axis: str) -> list[list[int]]:
+        """The rank groups along ``axis``: every line of the grid through
+        that axis, in grid order."""
+        grid = np.moveaxis(self.devices, AXIS_ORDER.index(axis), -1)
+        return [list(map(int, row)) for row in grid.reshape(-1, grid.shape[-1])]
+
 
 @dataclasses.dataclass(frozen=True)
 class MeshSpec:
     """Logical mesh shape; ``-1`` on at most one axis means "all remaining".
 
-    The six axes of the JAX package; only ``data`` may exceed 1 in the
-    port (the others come with their own slices)."""
+    The six axes of the JAX package; only ``data`` and ``fsdp`` may exceed
+    1 in the port (the others come with their own slices)."""
 
     pipe: int = 1
     data: int = -1
@@ -162,14 +185,14 @@ class MeshSpec:
 
     def build(self, n_devices: int) -> Mesh:
         """The :class:`Mesh` over ``n_devices`` processes (one device each).
-        Raises ``NotImplementedError`` for an axis other than ``data`` above
-        1."""
+        Raises ``NotImplementedError`` for an axis other than ``data`` and
+        ``fsdp`` above 1."""
         sizes = self.resolve(n_devices)
-        beyond = {n: s for n, s in sizes.items() if n != DATA_AXIS and s > 1}
+        beyond = {n: s for n, s in sizes.items() if n not in (DATA_AXIS, FSDP_AXIS) and s > 1}
         if beyond:
             raise NotImplementedError(
-                f"mesh axes {beyond}: the port has data parallelism only; ZeRO (fsdp), "
-                "tensor, sequence, expert and pipeline axes come with later items of the "
+                f"mesh axes {beyond}: the port has the data and fsdp axes only; tensor, "
+                "sequence, expert and pipeline axes come with later items of the "
                 "data-parallel slice (ROADMAP.md, Queue 1)")
         return Mesh(sizes)
 
@@ -185,13 +208,16 @@ class MeshSpec:
 @dataclasses.dataclass(frozen=True)
 class Runtime:
     """The device a process runs on, its platform (``gpu`` or ``cpu``), the
-    mesh, and this process's place in the world."""
+    mesh, this process's place in the world, and its process group along
+    each mesh axis above 1 (None where the axis spans every rank: the
+    default group)."""
 
     device: torch.device
     platform: str
     mesh: Mesh
     process_index: int = 0
     process_count: int = 1
+    groups: Mapping[str, object] = dataclasses.field(default_factory=dict)
 
     @property
     def is_main(self) -> bool:
@@ -228,7 +254,10 @@ def initialize(mesh: MeshSpec | Mapping[str, int] | None = None, *,
     """Resolve the device, join the process group, and build the mesh.
 
     ``device`` defaults to ``cuda`` (``cuda:LOCAL_RANK`` when that is set),
-    or the CPU when the launcher asked for simulated devices.
+    or the CPU when the launcher asked for simulated devices.  When a
+    host's local ranks (``LOCAL_WORLD_SIZE``) outnumber its cards, rank
+    ``LOCAL_RANK`` takes card ``LOCAL_RANK % cards`` and the group is
+    ``gloo`` (NCCL refuses two ranks on one device).
     A process group that already exists is joined as it is; otherwise one
     is built when the env names a rendezvous (module docstring), with
     ``nccl`` on a CUDA device and ``gloo`` on the CPU.  ``backend``
@@ -238,6 +267,10 @@ def initialize(mesh: MeshSpec | Mapping[str, int] | None = None, *,
     global _CURRENT, _OWNS_GROUP
     local = _env_int("LOCAL_RANK")
     if device is None and local is not None and not simulated_devices():
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if cards and (_env_int("LOCAL_WORLD_SIZE") or 1) > cards:
+            local %= cards
+            backend = backend or "gloo"
         device = f"cuda:{local}"
     dev = resolve_device(device)
     if dev.type == "cuda":
@@ -267,10 +300,32 @@ def initialize(mesh: MeshSpec | Mapping[str, int] | None = None, *,
     if isinstance(mesh, Mapping):
         mesh = MeshSpec.from_config(mesh)
     spec = mesh or MeshSpec()
+    built = spec.build(count)
     _CURRENT = Runtime(device=dev, platform="gpu" if dev.type == "cuda" else "cpu",
-                       mesh=spec.build(count), process_index=index,
-                       process_count=count)
+                       mesh=built, process_index=index, process_count=count,
+                       groups=_axis_groups(built, index, count))
     return _CURRENT
+
+
+def _axis_groups(mesh: Mesh, rank: int, world: int) -> dict[str, object]:
+    """This rank's process group along each axis above 1, every line's
+    group built by every rank in one order (``dist.new_group`` is
+    collective); an axis over the whole world takes the default group."""
+    groups: dict[str, object] = {}
+    if not dist.is_initialized():
+        return groups
+    for axis in AXIS_ORDER:
+        size = int(mesh.shape.get(axis, 1))
+        if size <= 1:
+            continue
+        if size == world:
+            groups[axis] = None
+            continue
+        for line in mesh.lines(axis):
+            group = dist.new_group(line)
+            if rank in line:
+                groups[axis] = group
+    return groups
 
 
 def current_runtime(auto_init: bool = True, *,

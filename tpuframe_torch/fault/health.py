@@ -198,10 +198,12 @@ def init_health_state(device=None) -> dict:
 
 
 def health_verdict(loss, grads: Sequence, hstate: Mapping[str, Any], step: int,
-                   policy: HealthPolicy):
+                   policy: HealthPolicy, grad_sq=None):
     """The per-step check, on the device.
 
-    ``loss`` is the scalar step loss, ``grads`` the gradient tensors.
+    ``loss`` is the scalar step loss, ``grads`` the gradient tensors;
+    ``grad_sq`` (their summed squares, the plan-global value under ZeRO)
+    stands in for them when given.
     Returns ``(bad, new_hstate, metrics)``: ``bad`` a 0-d bool tensor,
     ``new_hstate`` the advanced sentinel state (EWMA moved on good steps
     only), and ``metrics`` ``{"health_stats": vector}`` in
@@ -210,7 +212,9 @@ def health_verdict(loss, grads: Sequence, hstate: Mapping[str, Any], step: int,
 
     loss = loss.detach().to(torch.float32)
     grads = [g.detach() for g in grads if g is not None]
-    if grads:
+    if grad_sq is not None:
+        grad_sq = grad_sq.to(torch.float32)
+    elif grads:
         norms = torch._foreach_norm(grads)  # one fused pass over the gradients
         grad_sq = torch.stack([n.float() for n in norms]).square().sum()
     else:

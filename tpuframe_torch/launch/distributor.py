@@ -15,7 +15,8 @@ The worker env is the JAX launcher's contract: ``MASTER_ADDR`` /
 worker; the coordinator, the control-plane port and the run's token only
 when there is more than one process.  ``core.initialize()`` in the worker
 reads it: one process drives one device, ``cuda:LOCAL_RANK``, in an NCCL
-group (a world of one included).
+group (a world of one included); more workers than cards share them in a
+gloo group (``LOCAL_WORLD_SIZE``).
 
 Liveness: with more than one process, a heartbeat monitor
 (``core.native``) hears every worker's beacon; a rank whose beacon goes
@@ -34,8 +35,9 @@ groups, one device a process).  A value above 1 raises
 processes of one device each instead.  Nothing else puts a worker on the
 CPU.
 
-Not yet: ``local_mode=False`` (remote hosts) and ``ZeroDistributor``
-raise, and wait for later slices (ROADMAP.md, Queue 1 items 9 and 6).
+Not yet: ``local_mode=False`` (remote hosts) raises, and waits for a
+later slice (ROADMAP.md, Queue 1 item 9).  :class:`ZeroDistributor` hands
+the train fn its ``zero_config=``.
 """
 
 from __future__ import annotations
@@ -254,6 +256,7 @@ class Distributor:
             MASTER_PORT=str(port),
             RANK=str(rank),
             LOCAL_RANK=str(rank),
+            LOCAL_WORLD_SIZE=str(self.num_processes),
             WORLD_SIZE=str(self.num_processes),
             TPUFRAME_NUM_PROCESSES=str(self.num_processes),
             TPUFRAME_PROCESS_ID=str(rank),
@@ -390,3 +393,18 @@ class Distributor:
             return None
         err = outcome.get("error") if not outcome.get("ok", True) else None
         return err if isinstance(err, BaseException) else None
+
+
+class ZeroDistributor(Distributor):
+    """A :class:`Distributor` that hands a ZeRO config to the train fn: it
+    receives ``zero_config=`` (a ``tpuframe_torch.parallel.ZeroConfig``)
+    and builds its ``ParallelPlan`` from it."""
+
+    def __init__(self, *args: Any, zero_config: Any = None, **kwargs: Any):
+        super().__init__(*args, **kwargs)
+        self.zero_config = zero_config
+
+    def run(self, fn: Callable, *args: Any, **kwargs: Any) -> Any:
+        if self.zero_config is not None:
+            kwargs = {**kwargs, "zero_config": self.zero_config}
+        return super().run(fn, *args, **kwargs)

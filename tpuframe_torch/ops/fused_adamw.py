@@ -112,8 +112,17 @@ def _check(p, g, m, v, count) -> None:
             f"{tuple(m.shape)} {tuple(v.shape)}")
     if any(t.device != p.device for t in (g, m, v, count)):
         raise ValueError("p, g, m, v and the count must lie on one device")
-    if not all(t.is_contiguous() for t in (p, g, m, v)):
-        raise ValueError("fused AdamW kernel needs contiguous p, g, m and v")
+    if not _dense(p) or any(t.stride() != p.stride() for t in (g, m, v)):
+        raise ValueError("fused AdamW kernel needs p, g, m and v dense with one layout "
+                         "(contiguous, or channels_last alike)")
+
+
+def _dense(t: torch.Tensor) -> bool:
+    """Whether ``t``'s elements fill its storage run without gaps or
+    overlaps (contiguous or channels_last): the kernel walks them by
+    offset, the same offsets in p, g, m and v."""
+    return t.is_contiguous() or (t.ndim == 4 and t.is_contiguous(
+        memory_format=torch.channels_last))
 
 
 class AdamWTable:
@@ -137,13 +146,16 @@ class AdamWTable:
                 raise ValueError(f"one launch takes one dtype on one device, got {p.dtype} on "
                                  f"{p.device} beside {self.dtype} on {self.device}")
         self.shapes = [p.shape for p in ps]
+        self.strides = [p.stride() for p in ps]
+        self.likes = list(ps)  # a gradient of another layout is copied into theirs
         self.rows = np.array([(p.data_ptr(), 0, m.data_ptr(), v.data_ptr(), c.data_ptr(),
                                p.numel()) for p, m, v, c in zip(ps, ms, vs, counts)],
                              dtype=np.int64)
 
     def fill(self, gs) -> list[torch.Tensor]:
         """Write the addresses of ``gs``, one gradient per row; checks their
-        dtype, device and shape, and copies a non-contiguous one.  Returns
+        dtype, device and shape, and copies one of another layout than its
+        parameter's.  Returns
         the gradients the rows point at: keep them until the launch."""
         dt, dev = self.dtype, self.device.index
         if not (len(gs) == len(self.shapes) and all(g.dtype is dt for g in gs)
@@ -159,7 +171,8 @@ class AdamWTable:
                     raise ValueError(f"a gradient of shape {tuple(g.shape)} for a parameter of "
                                      f"{tuple(shape)}")
             raise ValueError(f"{len(gs)} gradients for a table of {len(self.shapes)} tensors")
-        gs = [g if g.is_contiguous() else g.contiguous() for g in gs]
+        gs = [g if g.stride() == s else torch.empty_like(p_like).copy_(g)
+              for g, s, p_like in zip(gs, self.strides, self.likes)]
         self.rows[:, 1] = [g.data_ptr() for g in gs]
         return gs
 
@@ -278,6 +291,10 @@ class FusedAdamW(torch.optim.Optimizer):
     copy.  Parameters and state are updated in place, so their addresses
     hold."""
 
+    #: the lr is the kernel's float argument: ``TrainState`` reads a
+    #: schedule on the host for it
+    host_lr = True
+
     def __init__(self, params, lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                  weight_decay: float = 0.0):
         super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay))
@@ -349,11 +366,15 @@ class FusedAdamW(torch.optim.Optimizer):
         return None
 
 
-def fused_adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                weight_decay: float = 0.0):
+def fused_adamw(learning_rate, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                weight_decay: float = 0.0, max_grad_norm: float | None = None):
     """The JAX ``fused_adamw`` transform for the port's ``Trainer(tx=...)``:
-    an ``OptimizerSpec`` that builds a :class:`FusedAdamW`."""
-    lr = float(learning_rate)
+    an ``OptimizerSpec`` that builds a :class:`FusedAdamW`.
+    ``learning_rate`` is a float or a schedule of the update count (read
+    on the host each step); ``max_grad_norm`` chains the global-norm
+    clip."""
+    lr = learning_rate if callable(learning_rate) else float(learning_rate)
+    lr0 = float(lr(0)) if callable(lr) else lr
     return OptimizerSpec(
-        lambda params: FusedAdamW(params, lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay),
-        lr)
+        lambda params: FusedAdamW(params, lr0, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay),
+        lr, max_grad_norm)

@@ -19,6 +19,10 @@ rather than import the JAX package.
 - ``TPUFRAME_COMMS_FUSED``: ``1`` asks for the in-collective transport
   (the narrow containers on the wire, in the form the process group's
   backend takes); ``ParallelPlan.comms_fused`` wins.
+- ``TPUFRAME_ZERO_STAGE``: the ZeRO stage [0, 3] a plan takes where the
+  caller passes none (:func:`zero_stage_default`, default 0).
+- ``TPUFRAME_OFFLOAD_OPTIMIZER``: ``1`` defaults optimizer offload on
+  (:func:`offload_optimizer_default`).
 
 The JAX package's ``TPUFRAME_COMMS_FUSED_BLOCK`` (the Pallas kernels'
 column block) has no meaning here and is not read: the CUDA kernels work
@@ -32,7 +36,8 @@ from __future__ import annotations
 import dataclasses
 import os
 
-__all__ = ["COMMS_ENV_VARS", "COMPRESSION_MODES", "CommsConfig"]
+__all__ = ["COMMS_ENV_VARS", "COMPRESSION_MODES", "CommsConfig", "offload_optimizer_default",
+           "zero_stage_default"]
 
 #: the knobs this module reads
 COMMS_ENV_VARS = (
@@ -42,6 +47,8 @@ COMMS_ENV_VARS = (
     "TPUFRAME_COMMS_EF",
     "TPUFRAME_COMMS_GROUPS",
     "TPUFRAME_COMMS_FUSED",
+    "TPUFRAME_ZERO_STAGE",
+    "TPUFRAME_OFFLOAD_OPTIMIZER",
 )
 
 #: wire formats the compressed collectives understand
@@ -127,3 +134,23 @@ class CommsConfig:
             fused=_env_bool("TPUFRAME_COMMS_FUSED", False),
         )
 
+
+
+def zero_stage_default(environ: dict | None = None) -> int:
+    """``TPUFRAME_ZERO_STAGE`` clamped to [0, 3] (default 0 = pure DP; a
+    malformed value reads as 0)."""
+    env = os.environ if environ is None else environ
+    raw = str(env.get("TPUFRAME_ZERO_STAGE", "") or "").strip()
+    try:
+        val = int(raw) if raw else 0
+    except ValueError:
+        val = 0
+    return max(0, min(3, val))
+
+
+def offload_optimizer_default(environ: dict | None = None) -> bool:
+    """``TPUFRAME_OFFLOAD_OPTIMIZER`` as a bool (default off); a plan still
+    downgrades loudly where there is no host memory space."""
+    env = os.environ if environ is None else environ
+    raw = str(env.get("TPUFRAME_OFFLOAD_OPTIMIZER", "") or "").strip().lower()
+    return raw not in _FALSY

@@ -1,12 +1,13 @@
 """The compressed gradient wire: bucketed int8 / fp8 all-reduce with error
 feedback.
 
-Port of ``tpuframe/parallel/compression.py`` for stage-0 data parallelism
-over ``torch.distributed``:
+Port of ``tpuframe/parallel/compression.py`` over ``torch.distributed``:
 
 - **Layout** (:func:`grad_layout`).  Float gradient leaves, sorted by
   name, are flattened into fixed-size float32 buckets, each with its own
-  scale; integer leaves are summed exactly.  The layout is host-side
+  scale; integer leaves are summed exactly.  Under ZeRO stages 1-3 each
+  leaf the plan's ``update_shard_specs`` slices over the data world goes
+  its own way instead (the sliced leaves, below).  The layout is host-side
   Python, built once per (tree, config, plan).
 - **The sync** (:func:`sync_gradients`), one bucket group at a time in
   fire order: per-bucket ``max |v|`` (K5a), the scale every rank agrees on
@@ -39,13 +40,21 @@ over ``torch.distributed``:
   a NaN abs-max is mapped to +inf before the ``MAX`` (NCCL's and gloo's
   max may drop a NaN; JAX's ``pmax`` keeps it), and the decode writes NaN
   where the agreed scale is not finite.
+- **ZeRO-sliced leaves**, after the flat groups, in path order (reverse
+  path order under a grouped schedule): the leaf's shard dim moved to the
+  front as a (world, chunk) array, one agreed abs-max a chunk (K5a and a
+  ``MAX``), the encode (K5b), a reduce-scatter (the staged path the
+  backend's own, the fused path :func:`_reduce_scatter_chunks` in its
+  form), and the decode of the owned chunk as a (1, chunk) row (K5c; NaN
+  when any chunk's scale is not finite, as in JAX).  The owned chunk of
+  the mean is what the train step's optimizer steps; each leaf's residual
+  is full-shape, one row a rank.
 - :func:`quantized_pmean`, the per-tensor int8 mean over the data axis.
 
 Without a process group no collective is called: at world 1 the wire is
 the identity, as in JAX, and the kernels still run.  With one (even of one
 rank) every collective goes through it; the default process group is the
-data axis.  Not ported: ZeRO-sliced leaves (:func:`check_transport` raises
-``NotImplementedError``).
+data axes.
 """
 
 from __future__ import annotations
@@ -96,8 +105,8 @@ class GradLayout:
 
     ``flat``: ``(name, shape, dtype, offset)`` in sorted-name order (bucket
     membership is a function of the sorted names alone); ``sliced``: ZeRO
-    leaves (always empty here); ``exact``: the names of integer leaves,
-    summed exactly.  ``group_bounds``: ``(start, stop)`` bucket ranges in
+    leaves, ``(name, shape, dtype, dim)`` with ``dim`` the leaf's own shard
+    dim; ``exact``: the names of integer leaves, summed exactly.  ``group_bounds``: ``(start, stop)`` bucket ranges in
     fire order (reverse bucket order); empty = one shot."""
 
     flat: tuple
@@ -152,11 +161,14 @@ def _dtype_name(dtype: torch.dtype) -> str:
 
 
 def grad_layout(tree: Mapping[str, Any], config: CommsConfig, plan: Any = None,
-                group_buckets: int | None = None) -> GradLayout:
+                group_buckets: int | None = None,
+                orders: Mapping[str, Sequence[int]] | None = None) -> GradLayout:
     """The wire layout of ``tree`` (name -> tensor, or anything with
     ``shape`` and a torch ``dtype``) under ``plan``.  ``group_buckets``
     splits the buckets into that many groups; None takes the plan's
-    ``comms_groups``, then ``config.groups``."""
+    ``comms_groups``, then ``config.groups``.  Under ZeRO stages 1-3 the
+    leaves of ``plan.update_shard_specs`` are sliced, each on the dim JAX
+    picks on its flax layout (``orders``: ``sharding.flax_orders``)."""
     mesh = getattr(plan, "mesh", None)
     if mesh is not None:
         axes = tuple(a for a in plan.data_axes if mesh.shape.get(a, 1) > 1) or tuple(
@@ -164,13 +176,18 @@ def grad_layout(tree: Mapping[str, Any], config: CommsConfig, plan: Any = None,
         world = math.prod(int(mesh.shape.get(a, 1)) for a in axes)
     else:
         axes, world = (), 1
-    flat, exact = [], []
+    update_specs: dict[str, tuple] = {}
+    if plan is not None and getattr(plan, "zero_stage", 0) in (1, 2, 3):
+        update_specs = plan.update_shard_specs(tree, orders)
+    flat, sliced, exact = [], [], []
     offset = 0
     for path in sorted(tree):
         leaf = tree[path]
         shape = tuple(int(d) for d in leaf.shape)
         if not leaf.dtype.is_floating_point:
             exact.append(path)
+        elif path in update_specs:
+            sliced.append((path, shape, _dtype_name(leaf.dtype), update_specs[path][0]))
         else:
             flat.append((path, shape, _dtype_name(leaf.dtype), offset))
             offset += math.prod(shape)
@@ -179,21 +196,31 @@ def grad_layout(tree: Mapping[str, Any], config: CommsConfig, plan: Any = None,
         group_buckets = getattr(plan, "comms_groups", None)
     if group_buckets is None:
         group_buckets = getattr(config, "groups", 1) or 1
-    return GradLayout(flat=tuple(flat), sliced=(), exact=tuple(exact), flat_elems=offset,
+    return GradLayout(flat=tuple(flat), sliced=tuple(sliced), exact=tuple(exact),
+                      flat_elems=offset,
                       n_buckets=n, bucket_elems=be, axes=axes, world=world,
                       group_bounds=_group_bounds(n, group_buckets))
 
 
+def _leaf_key(path: str) -> str:
+    """The ``comms`` key of a sliced leaf's residual (the JAX package's)."""
+    return "leaf." + path.replace("/", ".")
+
+
 def comms_template(params: Mapping[str, Any], config: CommsConfig | None, plan: Any) -> dict:
     """The ``TrainState.comms`` residual structure: {key: global shape},
-    ``(world, n_buckets, bucket_elems)`` for the buckets.  Empty when
-    compression or error feedback is off."""
+    ``(world, n_buckets, bucket_elems)`` for the buckets and ``(world,
+    *shape)`` for each sliced leaf.  Empty when compression or error
+    feedback is off."""
     if config is None or not config.error_feedback:
         return {}
     layout = grad_layout(params, config, plan)
-    if not layout.flat_elems:
-        return {}
-    return {"flat": (layout.world, layout.n_buckets, layout.bucket_elems)}
+    out: dict[str, tuple] = {}
+    if layout.flat_elems:
+        out["flat"] = (layout.world, layout.n_buckets, layout.bucket_elems)
+    for path, shape, _, _ in layout.sliced:
+        out[_leaf_key(path)] = (layout.world,) + shape
+    return out
 
 
 def init_comms_state(params: Mapping[str, torch.Tensor], plan: Any,
@@ -319,14 +346,6 @@ def resolve_fused(plan: Any, config: CommsConfig | None) -> CommsConfig | None:
     return dataclasses.replace(config, fused=bool(pinned))
 
 
-def check_transport(layout: GradLayout, config: CommsConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port's wire does not carry:
-    ZeRO-sliced leaves."""
-    if layout.sliced:
-        raise NotImplementedError("ZeRO-sliced gradient leaves are not ported; they come with "
-                                  "ZeRO (ROADMAP.md, Queue 1 item 6)")
-
-
 # -- the fused (in-collective) transport --------------------------------------
 
 
@@ -380,92 +399,124 @@ def _bytes(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous().view(torch.uint8)
 
 
-def _exchange(sent: torch.Tensor) -> torch.Tensor:
-    """One ring hop: ``sent`` to rank + 1, the same shape from rank - 1."""
-    rank, world = dist.get_rank(), dist.get_world_size()
+def _group_rank(group=None) -> int:
+    """This process's rank inside ``group`` (None: the default group)."""
+    return dist.get_rank() if group is None else dist.get_group_rank(group, dist.get_rank())
+
+
+def _exchange(sent: torch.Tensor, group=None) -> torch.Tensor:
+    """One ring hop: ``sent`` to the next rank of ``group``, the same shape
+    from the previous one."""
+    rank, world = _group_rank(group), dist.get_world_size(group)
+
+    def peer(r: int) -> int:
+        return r if group is None else dist.get_global_rank(group, r)
+
     got = torch.empty_like(sent)
-    ops = [dist.P2POp(dist.isend, _bytes(sent), (rank + 1) % world),
-           dist.P2POp(dist.irecv, got.view(torch.uint8), (rank - 1) % world)]
+    ops = [dist.P2POp(dist.isend, _bytes(sent), peer((rank + 1) % world), group),
+           dist.P2POp(dist.irecv, got.view(torch.uint8), peer((rank - 1) % world), group)]
     for work in dist.batch_isend_irecv(ops):
         work.wait()
     return got
 
 
-def _ring_reduce_scatter(own: torch.Tensor) -> torch.Tensor:
+def _ring_reduce_scatter(own: torch.Tensor, group=None, exact: bool = False) -> torch.Tensor:
     """Exact ring reduce-scatter: ``own`` is this rank's (W, chunk)
     contribution; rank *i* ends owning the sum of chunk *i*.  W - 1 hops,
-    each carrying one partial sum in :func:`_narrow_total`'s container,
-    widened and summed on arrival in the payload's accumulator dtype."""
+    each carrying one partial sum in :func:`_narrow_total`'s container
+    (as it is with ``exact``), widened and summed on arrival in the
+    payload's accumulator dtype."""
     world = own.shape[0]
     if world == 1:
         return own[0]
-    my = dist.get_rank()
+    my = _group_rank(group)
     buf = own[(my - 1) % world]
     for hop in range(world - 1):
-        sent, widen = _narrow_total(buf, world)
-        buf = widen(_exchange(sent)) + own[(my - 2 - hop) % world]
-    return _canonical_zero(buf)
+        sent, widen = (buf, _same) if exact else _narrow_total(buf, world)
+        buf = widen(_exchange(sent, group)) + own[(my - 2 - hop) % world]
+    return buf if exact else _canonical_zero(buf)
 
 
-def _a2a_reduce_scatter(own: torch.Tensor) -> torch.Tensor:
+def _a2a_reduce_scatter(own: torch.Tensor, group=None, exact: bool = False) -> torch.Tensor:
     """Exact concurrent reduce-scatter: one all-to-all of the one-byte
-    containers gives each rank every peer's contribution to its chunk, then
-    a local sum over the peers."""
+    containers (of the values as they are with ``exact``) gives each rank
+    every peer's contribution to its chunk, then a local sum over the peers
+    in rank order."""
     world = own.shape[0]
     if world == 1:
         return own[0]
-    sent, widen = _narrow_wire(own)
+    sent, widen = (own, _same) if exact else _narrow_wire(own)
     got = torch.empty_like(sent)
-    dist.all_to_all_single(got.view(torch.uint8), _bytes(sent))
+    dist.all_to_all_single(got.view(torch.uint8), _bytes(sent), group=group)
     wide = widen(got)
+    if exact:  # chained in rank order, as a backend's sum of the same terms
+        total = wide[0].clone()
+        for row in wide[1:]:
+            total += row
+        return total
     return _canonical_zero(wide.sum(0, dtype=wide.dtype))
 
 
-def _reduce_scatter_chunks(own: torch.Tensor, form: str | None = None) -> torch.Tensor:
+def _same(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def _reduce_scatter_chunks(own: torch.Tensor, form: str | None = None, group=None,
+                           exact: bool = False) -> torch.Tensor:
     """The fused transport's reduce-scatter of the (W, chunk) contributions
-    in ``form`` (default :func:`_form_default`); ``"single"`` is the
-    backend's own reduce-scatter."""
+    over ``group`` (None: the default group) in ``form`` (default
+    :func:`_form_default`); ``"single"`` is the backend's own
+    reduce-scatter.  ``exact`` sums the values as they are (the
+    uncompressed ZeRO gradients): no narrow containers, and a zero sum
+    keeps the sign the backend gives it."""
     form = form or _form_default()
     if form == "ring":
-        return _ring_reduce_scatter(own)
+        return _ring_reduce_scatter(own, group, exact)
     if form == "concurrent":
-        return _a2a_reduce_scatter(own)
+        return _a2a_reduce_scatter(own, group, exact)
     if own.shape[0] == 1:
         return own[0]
     mine = own.new_empty(own.shape[1:])
-    dist.reduce_scatter_tensor(mine.view(-1), own.contiguous().view(-1), op=dist.ReduceOp.SUM)
-    return _canonical_zero(mine)
+    dist.reduce_scatter_tensor(mine.view(-1), own.contiguous().view(-1), op=dist.ReduceOp.SUM,
+                               group=group)
+    return mine if exact else _canonical_zero(mine)
 
 
-def _ring_all_gather(chunk: torch.Tensor, world: int) -> torch.Tensor:
+def _ring_all_gather(chunk: torch.Tensor, world: int, group=None,
+                     exact: bool = False) -> torch.Tensor:
     """Exact ring all-gather: rank *i*'s ``chunk`` lands at index *i* of
-    every rank's (W, chunk) result after W - 1 hops of narrowed totals."""
+    every rank's (W, chunk) result after W - 1 hops of narrowed totals (as
+    they are with ``exact``)."""
     if world == 1:
         return chunk[None]
-    my = dist.get_rank()
-    sent, widen = _narrow_total(chunk, world)
+    my = _group_rank(group)
+    sent, widen = (chunk, _same) if exact else _narrow_total(chunk, world)
     out = sent.new_zeros((world,) + tuple(sent.shape))
     out[my] = sent
     buf = sent
     for hop in range(world - 1):
-        buf = _exchange(buf)
+        buf = _exchange(buf, group)
         out[(my - 1 - hop) % world] = buf
     return widen(out)
 
 
-def _all_gather_chunks(chunk: torch.Tensor, world: int, form: str | None = None) -> torch.Tensor:
+def _all_gather_chunks(chunk: torch.Tensor, world: int, form: str | None = None, group=None,
+                       exact: bool = False) -> torch.Tensor:
     """The fused transport's all-gather of each rank's reduced chunk into a
-    (W, chunk) array: the ring form hop by hop, the concurrent form one
-    all-gather of the narrowed container, the single form one all-gather
-    as it is."""
+    (W, chunk) array over ``group``: the ring form hop by hop, the
+    concurrent form one all-gather of the narrowed container, the single
+    form one all-gather as it is.  ``exact`` sends every form's values as
+    they are (the ZeRO parameter slices)."""
     form = form or _form_default()
     if form == "ring":
-        return _ring_all_gather(chunk, world)
+        return _ring_all_gather(chunk, world, group, exact)
     if world == 1:
         return chunk[None]
-    sent, widen = _narrow_total(chunk, world) if form == "concurrent" else (chunk, lambda g: g)
+    sent, widen = (_narrow_total(chunk, world) if form == "concurrent" and not exact
+                   else (chunk, _same))
     out = sent.new_empty((world,) + tuple(sent.shape))
-    dist.all_gather_into_tensor(out.view(-1).view(torch.uint8), _bytes(sent).view(-1))
+    dist.all_gather_into_tensor(out.view(-1).view(torch.uint8), _bytes(sent).view(-1),
+                                group=group)
     return widen(out)
 
 
@@ -540,7 +591,6 @@ class _WireRound:
     def __init__(self, layout: GradLayout, config: CommsConfig,
                  comms: Mapping[str, torch.Tensor], device: torch.device,
                  rng: torch.Generator | None = None):
-        check_transport(layout, config)
         self.wired = _wired()
         world = layout.world
         if self.wired and dist.get_world_size() != world:
@@ -563,6 +613,9 @@ class _WireRound:
             # schedule rounds with the uniforms the single shot would
             if rng is not None and config.stochastic_rounding and config.mode != "fp8":
                 self.noise = torch.rand(self.v.shape, generator=rng, device=device)
+        #: the sliced leaves' stochastic-rounding stream (after the buckets' draw)
+        self.noise_rng = (rng if rng is not None and config.stochastic_rounding
+                          and config.mode != "fp8" else None)
         be = layout.bucket_elems
         #: leaf name -> (offset, size, the groups whose buckets it touches);
         #: a group of padding alone (buckets round up to 64 elements) waits
@@ -578,6 +631,7 @@ class _WireRound:
             self.leaves[path] = (offset, size, groups)
         self.delivered: dict[str, torch.dtype] = {}
         self.exact: dict[str, torch.Tensor] = {}
+        self.sliced_names = {path for path, _, _, _ in layout.sliced}
         self.issued: list[tuple] = []  # (start, amax, pending sum, residual)
 
     def deliver(self, path: str, grad: torch.Tensor) -> None:
@@ -593,7 +647,7 @@ class _WireRound:
                 self.waiting[i] -= 1
             while len(self.issued) < len(self.bounds) and not self.waiting[len(self.issued)]:
                 self._issue(*self.bounds[len(self.issued)])
-        else:
+        else:  # an exact or a sliced leaf: sent after the backward
             self.exact[path] = grad
 
     def _issue(self, s: int, e: int) -> None:
@@ -638,6 +692,13 @@ class _WireRound:
             for path, shape, _, offset in layout.flat:
                 out[path] = mean[offset:offset + math.prod(shape)].view(shape).to(
                     self.delivered[path])
+        sliced = list(enumerate(layout.sliced))
+        if layout.group_bounds[1:]:  # a grouped schedule: reverse path order
+            sliced.reverse()
+        for tag, (path, shape, _, dim) in sliced:
+            out[path], resid = self._slice_sync(tag, path, shape, dim)
+            if resid is not None:
+                new_comms[_leaf_key(path)] = resid
         for path in layout.exact:
             g = self.exact[path]
             total = _widen(g)
@@ -651,6 +712,41 @@ class _WireRound:
         return out, new_comms
 
 
+    def _slice_sync(self, tag: int, path: str, shape: tuple, dim: int):
+        """One sliced leaf: ``(owned chunk of the mean, new residual or
+        None)``.  The chunk is the leaf's shard dim moved to the front,
+        rows ``[i * c, (i + 1) * c)`` for rank ``i``, in the leaf's dtype."""
+        from tpuframe_torch.ops.quant_wire import bucket_abs_max, quant_decode
+
+        world, grad = self.layout.world, self.exact[path]
+        g = grad.to(torch.float32)
+        if self.ef:
+            g = g + self.comms[_leaf_key(path)][0]
+        moved = g.movedim(dim, 0)
+        rows = moved.reshape(world, -1).contiguous()  # (world, chunk): one scale a chunk
+        amax = _agreed_amax(bucket_abs_max(rows), self.wired)
+        noise = None
+        if self.noise_rng is not None:
+            noise = torch.rand(rows.shape, generator=self.noise_rng, device=rows.device)
+        q, deq = _encode(rows, amax, self.config, noise=noise)
+        if not self.wired:
+            mine = q[0]
+        else:
+            form = _form_default() if self.fused else "single"
+            mine = _reduce_scatter_chunks(q, form)
+        index = dist.get_rank() if self.wired else 0
+        finite = torch.isfinite(amax).all()
+        own_amax = torch.where(finite, amax[index], torch.inf).reshape(1, 1)
+        mean = quant_decode(mine.reshape(1, -1), own_amax, self.config.mode, world)
+        chunk_shape = (moved.shape[0] // world,) + tuple(moved.shape[1:])
+        mean = mean.view(chunk_shape).to(grad.dtype)
+        resid = None
+        if self.ef:
+            r = torch.where(finite, rows - q.to(torch.float32) * deq, 0.0)
+            resid = r.view(moved.shape).movedim(0, dim)[None]
+        return mean, resid
+
+
 @torch.no_grad()
 def sync_gradients(grads: Mapping[str, torch.Tensor], comms: Mapping[str, torch.Tensor],
                    layout: GradLayout, config: CommsConfig,
@@ -658,7 +754,9 @@ def sync_gradients(grads: Mapping[str, torch.Tensor], comms: Mapping[str, torch.
     """Compress and average this rank's gradients across the process group.
 
     Returns ``(synced, new_comms)``: the mean gradients by name, in each
-    leaf's dtype (integer leaves summed), and the new residuals.  ``comms``
+    leaf's dtype (integer leaves summed; for a sliced leaf the owned chunk
+    of its mean, the shard dim moved to the front), and the new
+    residuals.  ``comms``
     holds this rank's ``(1, ...)`` residual rows; empty = error feedback
     off.  Groups are issued in ``layout.group_bounds`` order, each sum left
     in flight while the next is issued; the sums go through the fused
@@ -669,6 +767,8 @@ def sync_gradients(grads: Mapping[str, torch.Tensor], comms: Mapping[str, torch.
     for path, shape, _, _ in layout.flat:
         sync.deliver(path, grads[path])
     for path in layout.exact:
+        sync.deliver(path, grads[path])
+    for path, _, _, _ in layout.sliced:
         sync.deliver(path, grads[path])
     synced, new_comms = sync.finish()
     return {name: synced[name] for name in grads}, new_comms
@@ -697,6 +797,7 @@ def wire_plan(layout: GradLayout, config: CommsConfig, exact_bytes: int = 0) -> 
             "groups": [],
         }
     ar = 2.0 * (W - 1) / W
+    rs = 1.0 * (W - 1) / W  # a reduce-scatter or all-gather leg
     bpe = config.wire_bytes_per_elem
     comp = f32 = 0.0
     groups = []
@@ -710,6 +811,12 @@ def wire_plan(layout: GradLayout, config: CommsConfig, exact_bytes: int = 0) -> 
                 "payload_bytes": int(round(ar * nb * layout.bucket_elems * bpe)),
                 "scale_bytes": int(round(ar * nb * 4)),
             })
+    for _, shape, _, _ in layout.sliced:
+        size = math.prod(shape)
+        # the quantized reduce-scatter and the per-chunk scales, then the
+        # f32 all-gather of the updated slices
+        comp += rs * size * bpe + ar * W * 4 + rs * size * 4
+        f32 += ar * size * 4
     comp += ar * exact_bytes
     f32 += ar * exact_bytes
     fused = fused_active(layout, config)
@@ -752,7 +859,6 @@ def make_compressed_pmean(plan: Any, config: CommsConfig | str = "int8"):
             bool(residual),)
         if key not in cache:
             layout = grad_layout(tree, config, plan)
-            check_transport(layout, config)
             cache[key] = (layout, wire_plan(layout, config))
         layout, plan_bytes = cache[key]
         tele = get_telemetry()

@@ -163,12 +163,14 @@ def make_optimizer(name: str, lr: float | Schedule,
     return OptimizerSpec(factory, lr, max_grad_norm)
 
 
-def optimizer_from_config(cfg: Mapping[str, Any], *,
-                          total_steps: int | None = None) -> OptimizerSpec:
+def optimizer_from_config(cfg: Mapping[str, Any], *, total_steps: int | None = None,
+                          fused: bool = False) -> OptimizerSpec:
     """One :class:`OptimizerSpec` from a DeepSpeed-shaped config: its
     ``optimizer`` block, ``scheduler`` (optional; its schedule replaces the
     static lr) and ``gradient_clipping`` (optional, global norm).  ``lr:
-    "auto"`` with no scheduler is an error."""
+    "auto"`` with no scheduler is an error.  ``fused`` steps ``AdamW``
+    through ``ops.fused_adamw`` (kernel K4) with the same
+    hyperparameters."""
     opt_block = cfg.get("optimizer", {})
     kind = str(opt_block.get("type", "AdamW"))
     k = kind.lower()
@@ -207,6 +209,12 @@ def optimizer_from_config(cfg: Mapping[str, Any], *,
         factory = _adam(lr0, betas, float(p.get("eps", 1e-8)), wd)
     clip = cfg.get("gradient_clipping")
     max_norm = None if clip in (None, "auto", 0, 0.0) else float(clip)
+    if fused and k == "adamw":
+        from tpuframe_torch.ops.fused_adamw import fused_adamw
+
+        b1, b2 = (float(b) for b in p.get("betas", (0.9, 0.999)))
+        return fused_adamw(lr, b1, b2, float(p.get("eps", 1e-8)),
+                           float(p.get("weight_decay", 1e-2)), max_norm)
     return OptimizerSpec(factory, lr, max_norm)
 
 
@@ -287,6 +295,9 @@ class Lamb(_PortOptimizer):
     root, ``eps_root`` 0), then ``+ wd p``, then the trust ratio
     ``||p|| / ||u||`` (1 where either norm is 0), then ``-lr``."""
 
+    #: computes over whole tensors (the trust ratio's norms)
+    per_tensor = True
+
     def __init__(self, params, lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-6, weight_decay: float = 0.0):
         super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay))
@@ -332,6 +343,9 @@ class Adafactor(_PortOptimizer):
     lr, times the parameter's RMS (at least ``eps_scale``), plus
     ``weight_decay_rate * p`` when given (after the lr, as optax chains
     it), negated."""
+
+    #: computes over whole tensors (the factored moments, the block RMS)
+    per_tensor = True
 
     def __init__(self, params, lr: float = 1e-2, min_dim_size_to_factor: int = 128,
                  decay_rate: float = 0.8, eps: float = 1e-30, clipping_threshold: float = 1.0,

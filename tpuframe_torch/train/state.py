@@ -17,6 +17,12 @@ grown by doubling, read by indexing with the count).
 :meth:`TrainState.state_dict` is what a checkpoint holds, the torch form
 of the JAX ``_state_data`` (``tpuframe/ckpt/checkpoint.py:60-76``), and
 :meth:`TrainState.load_state_dict` restores it in place.
+
+Under a ZeRO plan (``create_train_state(..., plan=)``) the state carries a
+``parallel.zero.ZeroShards`` and the optimizer steps its owned slices:
+the clip takes the plan-global norm, the new slices are gathered into the
+parameters after each update, and a save holds every optimizer leaf at its
+parameter's full shape (gathered), which a restore slices again.
 """
 
 from __future__ import annotations
@@ -27,6 +33,8 @@ from typing import Any, Mapping
 
 import torch
 from torch import nn
+
+import contextlib
 
 from tpuframe_torch.fault.health import init_health_state
 from tpuframe_torch.train.ema import EmaState, init_ema, update_ema_
@@ -47,7 +55,9 @@ class TrainState:
     ``comms`` holds the compressed wire's error-feedback residuals
     (``parallel.compression.init_comms_state``), empty by default.
     ``ema`` is the parameters' moving average (``train.ema``) when the
-    spec asks for one.
+    spec asks for one.  ``plan`` is the ``ParallelPlan`` the state was laid
+    out for (None: none given), and ``zero`` holds the owned slices under a
+    ZeRO plan (``parallel.zero.ZeroShards``), None otherwise.
     """
 
     step: int
@@ -59,20 +69,35 @@ class TrainState:
     updates: torch.Tensor
     comms: dict = dataclasses.field(default_factory=dict)
     ema: EmaState | None = None
+    plan: Any = None
+    zero: Any = None
     _lr_table: torch.Tensor | None = dataclasses.field(default=None, repr=False)
 
-    def apply_gradients(self) -> "TrainState":
+    def apply_gradients(self, grad_sq: torch.Tensor | None = None) -> "TrainState":
         """One update from the gradients in ``.grad``: the global-norm clip
         when the spec has one, ``lr = schedule(updates)``,
         ``optimizer.step()``, the moving average of the new parameters
-        when there is one, then ``updates += 1`` and ``step += 1``."""
+        when there is one, then ``updates += 1`` and ``step += 1``.
+
+        Under ZeRO the gradients are the owned slices' (and the whole
+        leaves'), the clip's norm is the plan-global one (``grad_sq``, the
+        summed squares, when the caller has it), and the new slices are
+        gathered into the parameters after the update."""
+        zero = self.zero
         if self.spec.max_grad_norm is not None:
-            clip_by_global_norm_([p.grad for p in self.model.parameters()],
-                                 self.spec.max_grad_norm)
+            if zero is not None:
+                zero.clip_(self.spec.max_grad_norm,
+                           zero.global_grad_sq() if grad_sq is None else grad_sq)
+            else:
+                clip_by_global_norm_([p.grad for p in self.model.parameters()],
+                                     self.spec.max_grad_norm)
         lr = self._lr()
         for group in self.optimizer.param_groups:
             group["lr"] = lr
-        self.optimizer.step()
+        with zero.offloaded(self.optimizer) if zero is not None else contextlib.nullcontext():
+            self.optimizer.step()
+        if zero is not None:
+            zero.after_update()
         if self.ema is not None:
             update_ema_(self.ema, dict(self.model.named_parameters()))
         self.updates += 1
@@ -81,9 +106,14 @@ class TrainState:
 
     def _lr(self) -> float | torch.Tensor:
         """The learning rate of this update: a float for a constant, else
-        the schedule at ``updates`` as a device scalar."""
+        the schedule at ``updates`` as a device scalar (as a float for an
+        optimizer with ``host_lr``, ``FusedAdamW``)."""
         if not callable(self.spec.lr):
             return float(self.spec.lr)
+        if getattr(self.optimizer, "host_lr", False):
+            # a kernel that takes its lr as an argument: the schedule is
+            # read on the host, at the count read back from the device
+            return float(self.spec.lr(int(self.updates)))
         # updates <= step, so the table must reach index step
         if self._lr_table is None or len(self._lr_table) <= self.step:
             size = max(64, 2 * (self.step + 1))
@@ -102,16 +132,25 @@ class TrainState:
         ``ema`` (the average by parameter name) only when there is one.  The
         tensors are the live ones (the generator's state a copy); the
         schedule's table is rebuilt, not saved."""
+        zero = self.zero
         names = {p: n for n, p in self.model.named_parameters()}
+        if zero is not None:
+            names.update({t: n for n, t in zero.shards.items()})
         optimizer = {}
         for group in self.optimizer.param_groups:
             for p in group["params"]:
                 if self.optimizer.state.get(p):
-                    optimizer[names[p]] = dict(self.optimizer.state[p])
+                    name = names[p]
+                    optimizer[name] = {k: (zero.full_tensor(name, v)
+                                           if zero is not None and torch.is_tensor(v) else v)
+                                       for k, v in self.optimizer.state[p].items()}
+        model = self.model.state_dict()
+        if zero is not None:
+            model.update(zero.full_params())
         data = {
             "step": self.step,
             "updates": self.updates,
-            "model": self.model.state_dict(),
+            "model": model,
             "optimizer": optimizer,
             "health": dict(self.health),
             "rng": self.generator.get_state(),
@@ -130,7 +169,8 @@ class TrainState:
         snapshots hold addresses), bit for bit where the dtypes agree.
         ``comms`` is restored when both sides have it.  Keys or shapes that
         differ raise ``ValueError``, and so does an ``ema`` on one side
-        only."""
+        only.  Under ZeRO the full-shape leaves are sliced into the owned
+        ones (every rank calls this: the live full shapes are gathered)."""
         live = self.state_dict()
         if "comms" not in data:
             live.pop("comms", None)
@@ -140,6 +180,8 @@ class TrainState:
             raise ValueError("the saved state and this state disagree on an EMA: "
                              f"saved {'ema' in data}, live {'ema' in live}")
         _copy_into(live, data, "")
+        if self.zero is not None:
+            self.zero.load_full(live["model"], live["optimizer"], self.optimizer)
         self.step = int(data["step"])
         self.generator.set_state(data["rng"].cpu())
         return self
@@ -163,21 +205,53 @@ def _copy_into(live: Mapping, saved: Mapping, where: str) -> None:
                 dst.copy_(src)
 
 
-def create_train_state(model: nn.Module, spec: OptimizerSpec, *, seed: int = 0) -> TrainState:
+def create_train_state(model: nn.Module, spec: OptimizerSpec, *, seed: int = 0,
+                       plan: Any = None, grad_compression: Any = None) -> TrainState:
     """A :class:`TrainState` over an initialized ``model`` (torch modules
     arrive initialized; ``models.from_jax_variables`` carries JAX weights
-    in), with the optimizer built by ``spec`` over its parameters."""
+    in), with the optimizer built by ``spec`` over its parameters.
+
+    A ZeRO ``plan`` (stage 1-3 over more than one rank; every process
+    calls this) builds the optimizer over the owned slices instead
+    (``parallel.zero.ZeroShards``), with ``grad_compression`` the slices of
+    the compressed wire; under stage 3 the parameters then rest as their
+    shards, and under offload on the card the optimizer state lives in
+    pinned host memory.  The model's full parameters exist on every rank
+    first (torch builds them so)."""
     device = next(model.parameters()).device
+    zero = None
+    if plan is not None and getattr(plan, "zero_stage", 0) >= 1:
+        from tpuframe_torch.parallel.zero import ZeroShards
+
+        zero = ZeroShards(model, plan, compressed=grad_compression is not None)
+        if not zero.active:
+            zero = None
+    ema = (None if spec.ema_decay is None
+           else init_ema(dict(model.named_parameters()), spec.ema_decay))
+    if zero is not None:
+        optimizer = spec.build(zero.opt_params)
+        if getattr(optimizer, "per_tensor", False):
+            raise NotImplementedError(
+                f"{type(optimizer).__name__} computes over whole tensors (norms, factored "
+                "moments); over owned slices it needs those reduced across the group, which "
+                "is not ported (ROADMAP.md, Queue 3): use sgd, adam, adamw, fused_adamw or "
+                "lion under ZeRO stages 1-3")
+        zero.release_params()
+        if plan._offload_active():
+            zero.offload(optimizer)
+    else:
+        optimizer = spec.build(model.parameters())
     return TrainState(
         step=0,
         model=model,
-        optimizer=spec.build(model.parameters()),
+        optimizer=optimizer,
         spec=spec,
         health=init_health_state(device),
         generator=torch.Generator(device=device).manual_seed(seed),
         updates=torch.zeros((), dtype=torch.int64, device=device),
-        ema=(None if spec.ema_decay is None
-             else init_ema(dict(model.named_parameters()), spec.ema_decay)),
+        ema=ema,
+        plan=plan,
+        zero=zero,
     )
 
 

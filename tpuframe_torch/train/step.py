@@ -75,6 +75,18 @@ TrainState` that it updates in place, with the JAX step's semantics:
   every rank; the error-feedback residual (``TrainState.comms``) is part of
   what a skipped step restores.  Without a process group (world 1) no
   collective runs.
+- **ZeRO** (a state built with ``create_train_state(..., plan=)`` at
+  stage 1-3, ``parallel.zero.ZeroShards``).  A step without a ``plan``
+  takes the state's.  Under the exact mean each bucket of sliced leaves
+  (the buckets keep sliced and whole leaves apart) is reduce-scattered
+  inside the fsdp group as its hook completes it (``compression.
+  _reduce_scatter_chunks``, the values as they are) and its owned chunk
+  summed across the data group; divided by the world size it becomes the
+  shard's gradient, and the full gradient is freed.  Under the compressed
+  wire the sliced leaves take the wire's reduce-scatter.  Stage 3 gathers
+  the resting parameters on the step's entry and frees them on its exit
+  (and the eval step gathers them for its forward).  The health verdict
+  and the clip take the plan-global norm.
 - **The hooks** are ``register_post_accumulate_grad_hook``s on the
   trainable parameters, armed at a train step's start (in the grad-accum
   step, for the last microbatch, where the hook also divides by the
@@ -104,15 +116,16 @@ from tpuframe_torch.models.norm import cross_rank_statistics, rank_local_buffers
 from tpuframe_torch.ops.cross_entropy import fused_cross_entropy
 from tpuframe_torch.parallel.compression import (
     CommsConfig,
+    _reduce_scatter_chunks,
     _WireRound,
     _wired,
-    check_transport,
     comms_template,
     grad_layout,
     resolve_fused,
     wire_plan,
 )
 from tpuframe_torch.parallel.precision import Policy, full_precision
+from tpuframe_torch.parallel.sharding import flax_orders
 from tpuframe_torch.track.telemetry import get_telemetry
 from tpuframe_torch.train.state import TrainState
 
@@ -233,7 +246,10 @@ def _sentinel_tensors(state: TrainState) -> list[torch.Tensor]:
     (BatchNorm running statistics), the optimizer's state tensors, the
     count of applied updates (the schedule's count), the compressed
     wire's error-feedback residuals and the parameters' moving average."""
-    out = [state.updates] + [p.data for p in state.model.parameters()]
+    if state.zero is not None:
+        out = [state.updates] + state.zero.sentinel_tensors()
+    else:
+        out = [state.updates] + [p.data for p in state.model.parameters()]
     out += [b for b in state.model.buffers() if b.is_floating_point()]
     for st in state.optimizer.state.values():
         out += [v for v in st.values() if torch.is_tensor(v)]
@@ -283,8 +299,10 @@ def _apply_with_health(state: TrainState, loss: torch.Tensor, metrics: dict,
     """The sentinel tail: verdict, update, then the old values back where
     the step was bad; a bad step's metrics are zeroed."""
     grads = [p.grad for p in state.model.parameters() if p.grad is not None]
-    bad, new_health, hmetrics = health_verdict(loss, grads, state.health, state.step, health)
-    state.apply_gradients()
+    grad_sq = state.zero.global_grad_sq() if state.zero is not None else None
+    bad, new_health, hmetrics = health_verdict(loss, grads, state.health, state.step, health,
+                                               grad_sq=grad_sq)
+    state.apply_gradients(grad_sq)
     snap.restore_where(bad)
     state.health = new_health
     metrics = {k: torch.where(bad, torch.zeros_like(v), v) for k, v in metrics.items()}
@@ -322,6 +340,32 @@ def _statistics(sync: "_Stage | None", model: nn.Module):
     return sync.statistics(model) if sync is not None else contextlib.nullcontext()
 
 
+@contextlib.contextmanager
+def _zero_step(state: TrainState) -> Iterator[None]:
+    """A train step's frame under ZeRO: no gradient left from before,
+    stage 3's parameters gathered for the step and freed after it."""
+    zero = state.zero
+    if zero is None:
+        yield
+        return
+    state.model.zero_grad(set_to_none=True)
+    zero.gather_params()
+    try:
+        yield
+    finally:
+        zero.release_params()
+
+
+def _stage_for(built: list, state: TrainState, plan: Any, grad_compression,
+               n_microbatches: int) -> "_Stage | None":
+    """The step's data-parallel stage: built with the step from its
+    ``plan``, else at the first call from the state's (``built`` holds
+    it)."""
+    if built[0] is None and plan is None and state.plan is not None:
+        built[0] = _wire_stage(state.plan, grad_compression, n_microbatches)
+    return built[0]
+
+
 def _finish(step: Callable, state: TrainState, loss: torch.Tensor, metrics: dict,
             health: HealthPolicy | None, snap: _Snapshot,
             sync: "_Stage | None") -> tuple[TrainState, dict]:
@@ -357,16 +401,17 @@ def make_train_step(
     data-parallel step, with ``grad_compression`` (``"int8"``, ``"fp8"`` or
     a ``CommsConfig``) the compressed one (module docstring)."""
     policy = policy or full_precision()
-    sync = _wire_stage(plan, grad_compression, 1)
+    built = [_wire_stage(plan, grad_compression, 1)]
     snap = _Snapshot()
 
     def step(state: TrainState, batch: Mapping[str, torch.Tensor]):
+        sync = _stage_for(built, state, plan, grad_compression, 1)
         if batch_transform is not None:
             batch = batch_transform(dict(batch))
         if health is not None:
             snap.take(state)  # before the forward: BatchNorm moves its buffers
         state.optimizer.zero_grad(set_to_none=True)
-        with _disarmed_after(sync):
+        with _zero_step(state), _disarmed_after(sync):
             if sync is not None:
                 sync.arm(state)
             with _statistics(sync, state.model), _dropout_stream(state):
@@ -394,14 +439,15 @@ def make_eval_step(
     stand in for the model's, as the JAX Trainer evaluates the EMA by
     swapping ``state.params``."""
     policy = policy or full_precision()
-    summed = plan is not None
 
     @torch.no_grad()
     def step(state: TrainState, batch: Mapping[str, torch.Tensor],
              params: Mapping[str, torch.Tensor] | None = None) -> dict:
+        summed = plan is not None or state.plan is not None
         if batch_transform is not None:
             batch = batch_transform(dict(batch))
-        losses, logits = _forward(state.model, batch, policy, False, loss_fn, params)
+        with state.zero.gathered() if state.zero is not None else contextlib.nullcontext():
+            losses, logits = _forward(state.model, batch, policy, False, loss_fn, params)
         labels = batch["label"]
         hard = labels.argmax(-1) if labels.ndim == logits.ndim else labels
         weight = batch.get("weight")
@@ -468,14 +514,15 @@ def make_grad_accum_step(
     step (through the compressed wire with ``grad_compression``); each
     microbatch's BatchNorm statistics are taken over the ranks."""
     policy = policy or full_precision()
-    sync = _wire_stage(plan, grad_compression, n_microbatches)
+    built = [_wire_stage(plan, grad_compression, n_microbatches)]
     snap = _Snapshot()
 
     def step(state: TrainState, batch: Mapping[str, torch.Tensor]):
+        sync = _stage_for(built, state, plan, grad_compression, n_microbatches)
         if health is not None:
             snap.take(state)
         state.optimizer.zero_grad(set_to_none=True)
-        with _disarmed_after(sync):
+        with _zero_step(state), _disarmed_after(sync):
             metrics = _accumulate(state, batch, n_microbatches, policy, loss_fn,
                                   batch_transform, sync)
             mean_loss = metrics["loss_sum"] / metrics["count"].clamp_min(1.0)
@@ -681,18 +728,28 @@ class _MeanSync(_FiredStage):
 
     def _build(self, state: TrainState) -> None:
         """Buckets of at most ``bucket_bytes`` of gradient of one dtype each
-        (a larger tensor alone), filled in reverse registration order, and
-        whether the running buffers can differ by rank."""
+        (a larger tensor alone), filled in reverse registration order, the
+        ZeRO-sliced leaves in buckets of their own, and whether the running
+        buffers can differ by rank."""
         model = state.model
         self._hook(model)
+        zero = state.zero
+        if zero is not None and zero.compressed and zero.opt:
+            raise ValueError("this state's owned slices are the compressed wire's; build it "
+                             "with create_train_state(..., plan=plan) for the exact mean")
+        self._zero = zero if zero is not None and zero.opt else None
+        sliced = self._zero.opt if self._zero is not None else {}
         self._buckets: list[list[str]] = []
-        open_bucket: dict = {}  # dtype -> [bucket index, bytes]
+        self._sliced: list[bool] = []
+        open_bucket: dict = {}  # (dtype, sliced) -> [bucket index, bytes]
         for name, p in reversed(self._params.items()):
             nbytes = p.numel() * p.element_size()
-            cur = open_bucket.get(p.dtype)
+            key = (p.dtype, name in sliced)
+            cur = open_bucket.get(key)
             if cur is None or cur[1] + nbytes > self.bucket_bytes:
                 self._buckets.append([])
-                cur = open_bucket[p.dtype] = [len(self._buckets) - 1, 0]
+                self._sliced.append(key[1])
+                cur = open_bucket[key] = [len(self._buckets) - 1, 0]
             self._buckets[cur[0]].append(name)
             cur[1] += nbytes
         self._bucket_of = {n: i for i, b in enumerate(self._buckets) for n in b}
@@ -707,21 +764,43 @@ class _MeanSync(_FiredStage):
     def _deliver(self, name: str, p: nn.Parameter) -> None:
         self._waiting[self._bucket_of[name]] -= 1
         while len(self._sums) < len(self._buckets) and not self._waiting[len(self._sums)]:
-            grads = [self._params[n].grad for n in self._buckets[len(self._sums)]]
+            k = len(self._sums)
+            if self._sliced[k]:
+                self._sums.append((self._scatter(self._buckets[k]), None))
+                continue
+            grads = [self._params[n].grad for n in self._buckets[k]]
             flat = torch.cat([g.reshape(-1) for g in grads])
             self._sums.append((flat, dist.all_reduce(flat, op=dist.ReduceOp.SUM, async_op=True)))
+
+    def _scatter(self, names: list[str]) -> torch.Tensor:
+        """A bucket of sliced leaves: each gradient as its (F, chunk) rows,
+        side by side, reduce-scattered inside the fsdp group (the values as
+        they are), then the owned chunks summed across the data group."""
+        zero = self._zero
+        own = torch.cat([zero.opt[n].chunks(self._params[n].grad) for n in names], dim=1)
+        mine = _reduce_scatter_chunks(own, group=zero.opt[names[0]].group, exact=True)
+        if zero.replica_world > 1:
+            dist.all_reduce(mine, op=dist.ReduceOp.SUM, group=zero.replica_group)
+        return mine
 
     @torch.no_grad()
     def __call__(self, state: TrainState, loss: torch.Tensor,
                  metrics: dict) -> tuple[torch.Tensor, dict]:
         self._take_the_rest(state)  # each filled by _finish
-        for (flat, work), names in zip(self._sums, self._buckets):
-            work.wait()
+        for (flat, work), names, sliced in zip(self._sums, self._buckets, self._sliced):
+            if work is not None:
+                work.wait()
             flat /= self.world
+            if sliced:  # the owned chunks become the shards' gradients
+                shards = [self._zero.shards[n] for n in names]
+                for f, t, n in zip(flat.split([t.numel() for t in shards]), shards, names):
+                    t.grad = f.view(t.shape)
+                    self._params[n].grad = None
+                continue
             grads = [self._params[n].grad for n in names]
             torch._foreach_copy_(grads, [f.view_as(g) for f, g in zip(
                 flat.split([g.numel() for g in grads]), grads)])
-        self._live = False
+        self._live, self._sums = False, []  # no bucket copy outlives the step
         return _global(state, loss, metrics, self.world, self._local)
 
 
@@ -743,8 +822,12 @@ class _WireSync(_FiredStage):
             raise ValueError(f"grad_compression={grad_compression!r} names no wire format")
         if plan is None:
             raise ValueError("grad_compression needs a plan (its mesh and data axes)")
+        if plan.offload_optimizer:
+            raise ValueError(
+                "grad_compression does not compose with offload_optimizer: the wire's owned "
+                "slices keep the optimizer state on the device, as the JAX package's "
+                "compressed step does")
         self.config = resolve_fused(plan, config)
-        check_transport(grad_layout({}, self.config, plan), self.config)
         self.plan, self.n_microbatches = plan, n_microbatches
         #: the static per-step wire accounting (``wire_plan``), set at build
         self.wire: dict | None = None
@@ -756,7 +839,15 @@ class _WireSync(_FiredStage):
     def _build(self, state: TrainState) -> None:
         self._hook(state.model)
         params = self._params
-        layout = grad_layout(params, self.config, self.plan)
+        layout = grad_layout(params, self.config, self.plan, orders=flax_orders(state.model))
+        zero = state.zero
+        owned = {n: sl.dim for n, sl in zero.opt.items()} if zero is not None else {}
+        if {path: dim for path, _, _, dim in layout.sliced} != owned or (
+                owned and not zero.compressed):
+            raise ValueError(
+                "the wire slices these leaves but the state does not own the same slices: "
+                "build it with create_train_state(..., plan=plan, grad_compression=...)")
+        self._zero = zero
         expected = {k: (1,) + tuple(v[1:])
                     for k, v in comms_template(params, self.config, self.plan).items()}
         have = {k: tuple(v.shape) for k, v in state.comms.items()}
@@ -801,11 +892,15 @@ class _WireSync(_FiredStage):
                  metrics: dict) -> tuple[torch.Tensor, dict]:
         self._take_the_rest(state)  # each filled by _finish
         synced, new_comms = self._round.finish()
-        self._live = False
+        self._live, self._round = False, None  # nor the bucket array
         with torch.no_grad():
-            names = list(self._params)
+            sliced = self._zero.opt if self._zero is not None else {}
+            names = [n for n in self._params if n not in sliced]
             torch._foreach_copy_([self._params[n].grad for n in names],
                                  [synced[n] for n in names])
+            for n in sliced:  # the owned chunk of the mean steps the shard
+                self._zero.shards[n].grad = synced[n]
+                self._params[n].grad = None
             for k, t in new_comms.items():
                 state.comms[k].copy_(t)  # in place: a skipped step restores it
         if not _wired():

@@ -20,7 +20,11 @@ global batch, or per replica group under ``bn_stats="local"``, whose
 ``grad_compression`` (``"int8"`` / ``"fp8"``; None reads
 ``TPUFRAME_COMMS_COMPRESSION``) the gradients cross as int8 or e4m3
 buckets with error feedback (``parallel.compression``); the residuals
-start at zero in ``TrainState.comms``.  Every rank runs the loop; only the
+start at zero in ``TrainState.comms``.  A ZeRO plan (stages 1-3,
+``parallel.zero``; ``offload_optimizer`` on the card) lays the state out
+in owned slices (``create_train_state(..., plan=)``); the global-norm clip
+then takes the plan-global norm inside the step, as the JAX Trainer moves
+its clip into the compressed step.  Every rank runs the loop; only the
 main process logs and reports.
 
 Checkpoints go through ``ckpt.Checkpointer``: an epoch-end save every
@@ -34,8 +38,7 @@ evaluate and predict read the average (the JAX ``_serving_state``).
 
 What this reduced Trainer does not do yet, each raising
 ``NotImplementedError`` that names the slice which ports it: plans
-beyond stage-0 DP (ZeRO, rules, offload, the fused transport), preemption
-handling (``preemption=True``), straggler detection
+with tensor-parallel rules, preemption handling (``preemption=True``), straggler detection
 (``straggler_sync_steps``, ``straggler_factor``).  ``tx`` takes
 an ``OptimizerSpec`` in place of an optax transform (``ops.fused_adamw``
 returns one).  ``precompile`` is accepted and does nothing: eager PyTorch
@@ -46,6 +49,7 @@ idiom); ``models.from_jax_variables`` carries JAX weights in.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import time
 from typing import Any, Callable, Mapping, Sequence
@@ -118,7 +122,7 @@ class Trainer:
       train_dataloader / eval_dataloader: port DataLoaders.
       max_duration: ``"2ep"`` / ``"500ba"`` / ``"1000sp"`` / int epochs.
       algorithms / callbacks / loggers: as the JAX Trainer's.
-      plan: a stage-0 ``ParallelPlan`` (default: over the runtime's mesh,
+      plan: a ``ParallelPlan`` of any ZeRO stage (default: over the runtime's mesh,
         which :func:`~tpuframe_torch.core.runtime.current_runtime` builds
         on the model's device when none is initialized); its ``dp_size``
         must be the process group's world size (``ValueError``).
@@ -488,7 +492,8 @@ class Trainer:
     # -- state -------------------------------------------------------------
     def init_state(self) -> TrainState:
         if self.state is None:
-            self.state = create_train_state(self.model, self.spec, seed=self.seed)
+            self.state = create_train_state(self.model, self.spec, seed=self.seed,
+                                            plan=self.plan, grad_compression=self.comms_config)
             if self.comms_config is not None:
                 # zero error-feedback residuals for the compressed wire
                 self.state.comms = init_comms_state(
@@ -715,7 +720,9 @@ class Trainer:
     def predict(self, images: np.ndarray) -> np.ndarray:
         """Logits for a (N, H, W, C) image batch, in eval mode."""
         x = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
-        return self._predict(self.init_state().model, x, self._serving_params()).cpu().numpy()
+        state = self.init_state()
+        with state.zero.gathered() if state.zero is not None else contextlib.nullcontext():
+            return self._predict(state.model, x, self._serving_params()).cpu().numpy()
 
 
 def _planned_total_steps(duration: Duration, dataloader) -> int | None:
