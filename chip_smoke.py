@@ -217,10 +217,30 @@ Phases, each of which fails the script (nonzero exit, no result line):
    and 4 groups, staged and fused; uncompressed armed and not) alone, in
    turns, with its device-busy share (``torch.profiler``), printed beside
    the two-rank step recorded in PERF.md §5, which came from other runs.
-16. Result: a ``kernels`` JSON line (each kernel with ``floor_ms``; K1 and
+16. ZeRO on one card: two spawned gloo ranks train ResNet50-1K under
+   stages 0-3, offload and int8 ``zero_2`` (``zero_phase``), the
+   GPT-2-small-width LM's memory against ``plan_memory``, examples 02 and
+   02a through ``ZeroDistributor``.
+17. Tensor and pipeline parallelism on one card (``tp_phase``): (a) the
+   GPT-2-small-width LM under ``transformer_tp_rules`` on two gloo ranks,
+   its first f32 loss and update against one process's unsharded run, the
+   vocab-parallel loss's K2a/K2b on a shard against their plain versions,
+   then 3 bf16 steps timed with each rank's K2a/K2b/K3a/K3b/K4 launches
+   held exact; (b) ``PipelinedTransformerLM`` under ``compose(tp=2,
+   pp=2)`` on four ranks, 8 sequences in 4 microbatches, each schedule's
+   first loss bit-equal to the others' and held against (a)'s
+   one-process loss, its step, hops and memory beside ``plan_memory``;
+   (c) that state saved and restored into ``compose(tp=4)`` on the same
+   ranks and into one process's plan here, bit-exact with one
+   ``fault/reshard`` each, and another vocabulary refused before any read;
+   (d) example 07 with ``--tp 2`` through the ``Distributor``.
+18. Result: a ``kernels`` JSON line (each kernel with ``floor_ms``; K1 and
    K2 also with ``launches_ddp``, phase 10's count on each rank, and
-   ``launches_streaming``, phase 14's TFS fit; K5a-K5c with
-   ``launches_grouped``, phase 15's grouped fit on each rank; K6 with
+   ``launches_streaming``, phase 14's TFS fit; K2a/K2b, K3a/K3b and K4
+   with ``launches_tp`` and ``launches_tp_pp``, phase 17's counts on each
+   rank, and ``launches_example07_tp2``; K4 with ``launches_zero``;
+   K5a-K5c with ``launches_grouped``, phase 15's grouped fit on each rank,
+   and ``launches_zero_int8``; K6 with
    ``launches_remat``, its share of the bound, ``baseline_ms``,
    ``speedup`` and ``ptxas``, the registers and spills of its bf16
    tensor-core kernel at each head dim), the ``nvidia-smi`` line, then
@@ -251,6 +271,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -3180,6 +3201,45 @@ def _two_rank_child(rank: int, world: int, store: str, out_dir: str, device: str
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
 
 
+def _spawn(target, world: int, args: tuple, timeout_s: float, what: str,
+           tmp: str | None = None) -> list[dict]:
+    """``world`` spawned processes running ``target(rank, world, store,
+    out_dir, *args)`` (``out_dir`` is ``tmp``, else a fresh temporary
+    directory); each rank's ``rank{r}.json``, failing the run on a hang, a
+    missing file or an error."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    if tmp is None:
+        with tempfile.TemporaryDirectory() as fresh:
+            return _spawn(target, world, args, timeout_s, what, fresh)
+    t0 = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, world, f"{tmp}/store", tmp) + args)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(max(1.0, timeout_s - (time.perf_counter() - t0)))
+    finally:
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    check(not hung, f"{what}: ranks {hung} hung past {timeout_s} s")
+    res = []
+    for r in range(world):
+        f = Path(tmp, f"rank{r}.json")
+        check(f.exists(), f"{what}: rank {r} wrote nothing (exit {procs[r].exitcode})")
+        res.append(json.loads(f.read_text()))
+    errors = [f"rank {r}:\n{o['error']}" for r, o in enumerate(res) if "error" in o]
+    check(not errors, f"{what}, " + "\n".join(errors))
+    return res
+
+
 def two_rank_phase(card: str = "", timeout_s: float = 300.0, device: str = "cuda:0") -> dict:
     """Two gloo ranks on the one card, spawned: ``sync_gradients`` over a
     ResNet50-shaped named tree (25,557,032 elements, each rank its own
@@ -3191,34 +3251,9 @@ def two_rank_phase(card: str = "", timeout_s: float = 300.0, device: str = "cuda
     stochastic and fp8 with error feedback, and keep the NaN in its bucket;
     then each transport's median time in ``sync_gradients``.  ``device`` is
     an argument so the phase can be rehearsed on the CPU."""
-    import tempfile
-
-    import torch.multiprocessing as mp
-
-    with tempfile.TemporaryDirectory() as tmp:
-        ctx = mp.get_context("spawn")
-        procs = [ctx.Process(target=_two_rank_child, args=(r, 2, f"{tmp}/store", tmp, device))
-                 for r in range(2)]
-        t0 = time.perf_counter()
-        for p in procs:
-            p.start()
-        try:
-            for p in procs:
-                p.join(max(1.0, timeout_s - (time.perf_counter() - t0)))
-        finally:
-            hung = [r for r, p in enumerate(procs) if p.is_alive()]
-            for p in procs:
-                if p.is_alive():
-                    p.kill()
-                    p.join()
-        check(not hung, f"two-rank phase: ranks {hung} hung past {timeout_s} s")
-        res = []
-        for r in range(2):
-            f = Path(tmp, f"rank{r}.json")
-            check(f.exists(), f"two-rank phase: rank {r} wrote nothing (exit {procs[r].exitcode})")
-            res.append(json.loads(f.read_text()))
+    t0 = time.perf_counter()
+    res = _spawn(_two_rank_child, 2, (device,), timeout_s, "two-rank phase")
     for r, out in enumerate(res):
-        check("error" not in out, f"two-rank phase, rank {r}:\n{out.get('error')}")
         for case in ("clean", "nan"):
             o = out[case]
             check(o["card_equals_cpu"], f"rank {r} {case}: card sync differs from the CPU's")
@@ -3634,34 +3669,11 @@ def ddp_phase(card: str, timeout_s: float = 900.0, device: str = "cuda:0",
     import math
     import tempfile
 
-    import torch.multiprocessing as mp
-
+    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
         control = _ddp_reference(torch.device(device), image_size, batch_size, tmp)
-        ctx = mp.get_context("spawn")
-        procs = [ctx.Process(target=_ddp_child, args=(r, 2, f"{tmp}/store", tmp, device,
-                                                      image_size, batch_size))
-                 for r in range(2)]
-        for p in procs:
-            p.start()
-        try:
-            for p in procs:
-                p.join(max(1.0, timeout_s - (time.perf_counter() - t0)))
-        finally:
-            hung = [r for r, p in enumerate(procs) if p.is_alive()]
-            for p in procs:
-                if p.is_alive():
-                    p.kill()
-                    p.join()
-        check(not hung, f"ddp phase: ranks {hung} hung past {timeout_s} s")
-        res = []
-        for r in range(2):
-            f = Path(tmp, f"rank{r}.json")
-            check(f.exists(), f"ddp phase: rank {r} wrote nothing (exit {procs[r].exitcode})")
-            res.append(json.loads(f.read_text()))
-    for r, out in enumerate(res):
-        check("error" not in out, f"ddp phase, rank {r}:\n{out.get('error')}")
+        res = _spawn(_ddp_child, 2, (device, image_size, batch_size), timeout_s, "ddp phase",
+                     tmp)
     fits = [o["fit"] for o in res]
     n_eval = fits[0]["n_eval"]
     expected = {"normalize": DDP_STEPS + n_eval, "cross_entropy_fwd": DDP_STEPS + n_eval,
@@ -3953,35 +3965,10 @@ def overlap_phase(card: str, timeout_s: float = 900.0, device: str = "cuda:0",
     grouped fit's launches and a summary; the device and sizes are
     arguments so the phase can be rehearsed small on the CPU."""
     import math
-    import tempfile
 
-    import torch.multiprocessing as mp
-
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        ctx = mp.get_context("spawn")
-        procs = [ctx.Process(target=_overlap_child, args=(r, 2, f"{tmp}/store", tmp, device,
-                                                          image_size, batch_size))
-                 for r in range(2)]
-        for p in procs:
-            p.start()
-        try:
-            for p in procs:
-                p.join(max(1.0, timeout_s - (time.perf_counter() - t0)))
-        finally:
-            hung = [r for r, p in enumerate(procs) if p.is_alive()]
-            for p in procs:
-                if p.is_alive():
-                    p.kill()
-                    p.join()
-        check(not hung, f"overlap phase: ranks {hung} hung past {timeout_s} s")
-        res = []
-        for r in range(2):
-            f = Path(tmp, f"rank{r}.json")
-            check(f.exists(), f"overlap phase: rank {r} wrote nothing (exit {procs[r].exitcode})")
-            res.append(json.loads(f.read_text()))
-    for r, out in enumerate(res):
-        check("error" not in out, f"overlap phase, rank {r}:\n{out.get('error')}")
+    t0 = time.perf_counter()
+    res = _spawn(_overlap_child, 2, (device, image_size, batch_size), timeout_s,
+                 "overlap phase")
     fits = {name: [o["fits"][name] for o in res] for name, _, _, _ in OVERLAP_FITS}
     n_eval = fits["wire_g4_fused"][0]["n_eval"]
     for name, _, wire, _ in OVERLAP_FITS:
@@ -4067,14 +4054,17 @@ def _k12():
             "cross_entropy_bwd": cross_entropy_bwd}
 
 
-def counted_call(module: str, fn: str, *args):
-    """Worker side: ``module.fn(*args)`` with K1/K2a/K2b counted, zeroed
-    just before and read just after.  Returns (its value, the counts)."""
-    counters = _k12()
+def counted_call(kernels, module: str, fn: str, *args, **kwargs):
+    """Worker side: ``module.fn(*args, **kwargs)`` with the kernels that
+    ``kernels()`` names (:func:`_k12`, :func:`_zero_counters`,
+    :func:`_tp_counters`) counted, zeroed just before and read just after.
+    Returns (its value, the counts)."""
+    counters = kernels()
     for c in counters.values():
         c.launches = 0
-    value = getattr(_example(module), fn)(*args)
-    torch.cuda.synchronize()
+    value = getattr(_example(module), fn)(*args, **kwargs)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
     return value, {n: c.launches for n, c in counters.items()}
 
 
@@ -4083,7 +4073,7 @@ def counted_loop(config: dict):
     counted, the counts written beside the reports."""
     from tpuframe_torch.launch import get_context
 
-    _, counts = counted_call("05_ray_fashion_mnist", "train_func", config)
+    _, counts = counted_call(_k12, "05_ray_fashion_mnist", "train_func", config)
     ctx = get_context()
     Path(ctx.get_result_dir(), f"launches_{ctx.get_world_rank()}.json").write_text(
         json.dumps(counts))
@@ -4168,7 +4158,7 @@ def launcher_phase(card: str) -> dict:
         cfg = {**EX01_CFG, "tracking_uri": str(LAUNCH_DIR / "cifar" / "mlruns")}
         t0 = time.perf_counter()
         (summary, elapsed), counts = Distributor(num_processes=1, timeout_s=300).run(
-            counted_call, "01_distributor_cifar_resnet", "train_cifar", cfg)
+            counted_call, _k12, "01_distributor_cifar_resnet", "train_cifar", cfg)
         spawn_s = time.perf_counter() - t0
         n_steps = cfg["epochs"] * (cfg["train_samples"] // cfg["batch_size"])
         want = {"normalize": 0, "cross_entropy_fwd": n_steps, "cross_entropy_bwd": n_steps}
@@ -4753,7 +4743,7 @@ def streaming_examples(card: str) -> dict:
         """The example's Distributor, its worker fn counted in the worker."""
 
         def run(self, fn, *args):
-            value, counts = super().run(counted_call, ex.__name__.rsplit(".", 1)[1],
+            value, counts = super().run(counted_call, _k12, ex.__name__.rsplit(".", 1)[1],
                                         fn.__name__, *args)
             worker_counts.append(counts)
             return value
@@ -4839,18 +4829,6 @@ def _zero_counters():
             "quant_decode": quant_decode}
 
 
-def counted_zero_call(module: str, fn: str, *args, **kwargs):
-    """Worker side of a ZeroDistributor run: ``module.fn(*args, **kwargs)``
-    with K1, K2 and K4 counted, zeroed just before and read just after."""
-    counters = _zero_counters()
-    for c in counters.values():
-        c.launches = 0
-    value = getattr(_example(module), fn)(*args, **kwargs)
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-    return value, {n: c.launches for n, c in counters.items()}
-
-
 def _params_host(state) -> dict:
     """The model's parameters as float32 host copies (gathered under stage
     3; every rank calls this)."""
@@ -4867,18 +4845,24 @@ def _digest(params: dict) -> str:
     return h.hexdigest()
 
 
-def _reachable_cuda_mb() -> float:
+def _reachable_cuda_mb(by_dtype: bool = False) -> float | dict:
     """The bytes of every CUDA tensor Python can reach (each storage once),
     in MiB: what a state holds, apart from blocks no tensor owns (library
-    workspaces, block rounding)."""
+    workspaces, block rounding); ``by_dtype``: split by the dtype of the
+    first tensor seen on each storage."""
     import gc
 
-    seen: dict[int, int] = {}
+    seen: dict[int, tuple[int, str]] = {}
     for obj in gc.get_objects():
         if torch.is_tensor(obj) and obj.is_cuda:
             st = obj.untyped_storage()
-            seen[st.data_ptr()] = st.nbytes()
-    return sum(seen.values()) / 2**20
+            seen.setdefault(st.data_ptr(), (st.nbytes(), str(obj.dtype).removeprefix("torch.")))
+    if not by_dtype:
+        return sum(n for n, _ in seen.values()) / 2**20
+    out: dict[str, float] = {}
+    for n, dt in seen.values():
+        out[dt] = round(out.get(dt, 0.0) + n / 2**20, 3)
+    return out
 
 
 def _zero_kernels_on_slices(state, dev: torch.device) -> dict:
@@ -5118,7 +5102,8 @@ def zero_examples(card: str, workdir: Path, ex02_argv: list, ex02a_argv: list) -
             """The example's ZeroDistributor, its worker fn counted there."""
 
             def run(self, fn, *args, **kwargs):
-                value, c = super().run(counted_zero_call, module, fn.__name__, *args, **kwargs)
+                value, c = super().run(counted_call, _zero_counters, module, fn.__name__,
+                                       *args, **kwargs)
                 counts.append(c)
                 return value
 
@@ -5162,36 +5147,9 @@ def zero_phase(card: str, timeout_s: float = 900.0, device: str = "cuda:0",
     through ZeroDistributor.  Returns the counts and a summary; the device
     and sizes are arguments so the phase can be rehearsed small on the
     CPU."""
-    import tempfile
-
-    import torch.multiprocessing as mp
-
     t_start = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        ctx = mp.get_context("spawn")
-        procs = [ctx.Process(target=_zero_child, args=(r, 2, f"{tmp}/store", tmp, device,
-                                                       image_size, batch_size, lm_cfg,
-                                                       lm_batch))
-                 for r in range(2)]
-        for p in procs:
-            p.start()
-        try:
-            for p in procs:
-                p.join(max(1.0, timeout_s - (time.perf_counter() - t_start)))
-        finally:
-            hung = [r for r, p in enumerate(procs) if p.is_alive()]
-            for p in procs:
-                if p.is_alive():
-                    p.kill()
-                    p.join()
-        check(not hung, f"ZeRO phase: ranks {hung} hung past {timeout_s} s")
-        res = []
-        for r in range(2):
-            f = Path(tmp, f"rank{r}.json")
-            check(f.exists(), f"ZeRO phase: rank {r} wrote nothing (exit {procs[r].exitcode})")
-            res.append(json.loads(f.read_text()))
-    for r, o in enumerate(res):
-        check("error" not in o, f"ZeRO phase, rank {r}:\n{o.get('error')}")
+    res = _spawn(_zero_child, 2, (device, image_size, batch_size, lm_cfg, lm_batch),
+                 timeout_s, "ZeRO phase")
     cuda = device.startswith("cuda")
     runs = {name: [o["runs"][name] for o in res] for name, _, _, _ in ZERO_RUNS}
     for name, stage, offload, wire in ZERO_RUNS:
@@ -5282,6 +5240,600 @@ def zero_phase(card: str, timeout_s: float = 900.0, device: str = "cuda:0",
                                         EX02A_ARGV)
     out["seconds"] = time.perf_counter() - t_start
     log("  zero_json " + json.dumps(out))
+    return out
+
+
+# -- phase 17: tensor and pipeline parallelism on one card ---------------------------
+
+TP_BATCH = 8  # sequences a step, the same on every rank (data axis 1)
+TP_STEPS = 3  # timed bf16 steps of the TP LM
+TP_MICRO = 4  # the pipeline's microbatches
+#: f32 against one process's unsharded run of the same weights and batch:
+#: the split products and the cotangents' all-reduces sum in another order,
+#: so the loss holds 1e-5 relative and the update (AdamW, eps 1e-3, as the
+#: LM phase's f32 checks) 1e-3 of its largest element
+TP_LOSS_RTOL = 1e-5
+TP_UPDATE_RTOL = 1e-3
+TP_DIR = Path(__file__).resolve().parent / "build" / "tpuframe_torch" / "tp_smoke"
+EX07_TP2_ARGV = ["--tp", "2", "--epochs", "1", "--batch-size", "32", "--train-samples", "96",
+             "--eval-samples", "32"]
+EX07_LAYERS = 4  # example 07's default --layers
+
+
+def _tp_counters():
+    """K2a/K2b, K3a/K3b and K4, the kernels of the TP and pipeline paths."""
+    from tpuframe_torch.ops.cross_entropy import cross_entropy_bwd, cross_entropy_fwd
+    from tpuframe_torch.ops.fused_adamw import fused_adamw_multi_update_
+    from tpuframe_torch.ops.layer_norm import layer_norm_bwd, layer_norm_fwd
+
+    return {"cross_entropy_fwd": cross_entropy_fwd, "cross_entropy_bwd": cross_entropy_bwd,
+            "layer_norm_fwd": layer_norm_fwd, "layer_norm_bwd": layer_norm_bwd,
+            "fused_adamw": fused_adamw_multi_update_}
+
+
+def _tp_batch(cfg: dict, dev: torch.device) -> dict:
+    toks = torch.from_numpy(np.random.default_rng(11).integers(
+        0, cfg["vocab_size"], (TP_BATCH, cfg["max_len"] + 1))).to(dev)
+    return {"input": toks[:, :-1].contiguous(), "label": toks[:, 1:].contiguous()}
+
+
+def flax_template(model) -> dict:
+    """``{flax path: (flax-layout shape, dtype name)}`` of a port model's
+    parameters: what ``plan_memory`` prices under the plan's rules."""
+    from tpuframe_torch.parallel.tensor import _orders, flax_path
+
+    orders = _orders(model)
+    out = {}
+    for name, p in model.named_parameters():
+        shape = tuple(p.shape)
+        if name in orders:
+            shape = tuple(shape[d] for d in orders[name])
+        out[flax_path(model, name)] = (shape, str(p.dtype).removeprefix("torch."))
+    return out
+
+
+def _whole_digest(state) -> tuple[str, int]:
+    """A digest of the state as a checkpoint holds it (every tensor whole;
+    every rank calls this) and the count of its tensors."""
+    import hashlib
+
+    h, n = hashlib.sha256(), 0
+
+    def walk(tree, prefix):
+        nonlocal n
+        for k in sorted(tree):
+            v = tree[k]
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}/")
+            elif torch.is_tensor(v):
+                h.update(f"{prefix}{k}".encode())
+                h.update(v.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy()
+                         .tobytes())
+                n += 1
+
+    walk(state.state_dict(), "")
+    return h.hexdigest(), n
+
+
+def _mark(tele) -> str:
+    """A marker event; :func:`_since` returns what came after it (the
+    telemetry keeps a bounded window of recent events, so a count taken
+    before would not do)."""
+    token = f"smoke-mark-{time.monotonic_ns()}"
+    tele.event("smoke/mark", token=token)
+    return token
+
+
+def _since(tele, token: str, name: str | None = None) -> list[dict]:
+    events = tele.recent_events(10**6)
+    at = max(i for i, e in enumerate(events)
+             if e.get("name") == "smoke/mark" and e.get("token") == token)
+    return [e for e in events[at + 1:] if name is None or e.get("name") == name]
+
+
+def _memory(dev: torch.device, base: int) -> dict:
+    if dev.type != "cuda":
+        return {}
+    sync(dev)
+    return {"persistent_mb": (torch.cuda.memory_allocated(dev) - base) / 2**20,
+            "peak_mb": (torch.cuda.max_memory_allocated(dev) - base) / 2**20}
+
+
+def _tp_lm_child(rank: int, world: int, store: str, out_dir: str, device: str, cfg: dict,
+                 steps: int, ref_path: str) -> None:
+    """(a) One of two gloo ranks on the one card (mesh model 2):
+    ``TransformerLM`` under ``transformer_tp_rules``.  One f32 step; on rank
+    0 one process's unsharded f32 step of the same weights and batch (its
+    parameters after the step saved at ``ref_path`` for (b)); the
+    vocab-parallel loss (K2a/K2b) on the card against its plain version on
+    CPU copies of the same shard; then ``steps`` bf16 steps timed and
+    counted; writes what it saw as JSON."""
+    import gc
+    import traceback
+
+    os.environ.update({"RANK": str(rank), "WORLD_SIZE": str(world),
+                       "TPUFRAME_COORDINATOR": f"file://{store}"})
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        from tpuframe_torch.core import initialize, shutdown
+        from tpuframe_torch.models import TransformerLM, transformer_tp_rules
+        from tpuframe_torch.ops import fused_adamw
+        from tpuframe_torch.parallel import (
+            ParallelPlan,
+            align_model_dtype,
+            bf16_compute,
+            full_precision,
+            plan_memory,
+        )
+        from tpuframe_torch.parallel.tensor import full_tensor, vocab_parallel_cross_entropy
+        from tpuframe_torch.train import create_train_state, make_train_step
+
+        rt = initialize({"data": 1, "model": world}, device=device, backend="gloo")
+        dev, cuda = rt.device, rt.device.type == "cuda"
+        if not cuda:
+            torch.set_num_threads(2)
+        try:
+            batch = _tp_batch(cfg, dev)
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev) if cuda else 0
+            model = TransformerLM(**cfg, attn_impl="full", device=dev, seed=0)
+            init = {n: p.detach().clone() for n, p in model.named_parameters()} if rank == 0 \
+                else None
+            plan = ParallelPlan(mesh=rt.mesh, rules=transformer_tp_rules())
+            est = plan_memory(plan, flax_template(model),
+                              {"input": ((TP_BATCH, cfg["max_len"]), "int32")},
+                              optimizer="adamw")
+            state = create_train_state(model, fused_adamw(3e-4, **LM_STEP_ADAMW), plan=plan)
+            out["local_shapes"] = {n: list(p.shape) for n, p in model.named_parameters()
+                                   if n in ("embed.weight", "block0.attn.query.weight",
+                                            "block0.mlp_out.weight", "lm_head.weight")}
+            step32 = make_train_step(full_precision(), plan=plan)
+            state, m = step32(state, batch)
+            out["loss_f32"] = float(m["loss_sum"] / m["count"])
+            whole = {n: full_tensor(p.data, model.tp_layout[n], model.tp_mesh)
+                     if n in model.tp_layout else p.data
+                     for n, p in model.named_parameters()}
+            if rank == 0:  # one process's unsharded run of the same weights and batch
+                ref = TransformerLM(**cfg, attn_impl="full", device=dev, seed=0)
+                ref_state = create_train_state(ref, fused_adamw(3e-4, **LM_STEP_ADAMW))
+                ref_state, rm = make_train_step(full_precision())(ref_state, batch)
+                out["loss_ref"] = float(rm["loss_sum"] / rm["count"])
+                gap = max(float((whole[n] - p.data).abs().max())
+                          for n, p in ref.named_parameters())
+                update = max(float((p.data - init[n]).abs().max())
+                             for n, p in ref.named_parameters())
+                out["update_gap"], out["update_max"] = gap, update
+                torch.save({n: p.detach().cpu() for n, p in ref.named_parameters()}, ref_path)
+                del ref, ref_state, init
+            del whole
+            gc.collect()
+            # K2a/K2b on this rank's vocabulary shard at the step's shape,
+            # against the plain version on CPU copies (gloo carries both)
+            from tpuframe_torch.parallel.tensor import axis
+
+            ax = axis("model", rt.mesh)
+            gen = torch.Generator(device=dev).manual_seed(5 + rank)
+            n_tok = TP_BATCH * cfg["max_len"]
+            local = torch.randn((n_tok, cfg["vocab_size"] // world), generator=gen,
+                                device=dev) * 3
+            labels = batch["label"].reshape(-1)
+            g = torch.rand(n_tok, generator=gen, device=dev)
+            got = []
+            for x in (local, local.cpu()):
+                x = x.clone().requires_grad_(True)
+                loss = vocab_parallel_cross_entropy(x, labels.to(x.device), ax)
+                (loss * g.to(x.device)).sum().backward()
+                got.append((loss.detach().cpu(), x.grad.cpu()))
+            out["k2_shard"] = {"shape": [n_tok, cfg["vocab_size"] // world],
+                               "loss_err": float((got[0][0] - got[1][0]).abs().max()),
+                               "grad_err": float((got[0][1] - got[1][1]).abs().max())}
+            del got, local
+            # the bf16 steps, timed and counted
+            align_model_dtype(model, bf16_compute())
+            step16 = make_train_step(bf16_compute(), plan=plan)
+            counters = _tp_counters()
+            for c in counters.values():
+                c.launches = 0
+            times, losses = [], []
+            for _ in range(steps):
+                sync(dev)
+                t0 = time.perf_counter()
+                state, m = step16(state, batch)
+                sync(dev)
+                times.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(m["loss_sum"] / m["count"]))
+            out["launches"] = {n: c.launches for n, c in counters.items()}
+            out["step_ms"], out["losses_bf16"] = times, losses
+            state.model.zero_grad(set_to_none=True)
+            out["estimate"] = est["per_device_mb"]
+            gc.collect()
+            out.update(_memory(dev, base))
+            if cuda:
+                out["reachable_mb"] = _reachable_cuda_mb()
+                out["reachable_by_dtype"] = _reachable_cuda_mb(by_dtype=True)
+        finally:
+            shutdown()
+    except BaseException:
+        out["error"] = traceback.format_exc()
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def _pp_update(model, cfg: dict, ref_path: str | None) -> dict:
+    """The pipelined model's whole parameters after its first step (every
+    rank calls this): their digest, and with ``ref_path`` the largest gap
+    from one process's ``TransformerLM`` after its step (the same seed
+    builds the same weights; the stacked ``blocks`` are its layers)."""
+    import hashlib
+
+    from tpuframe_torch.parallel.tensor import full_tensor
+
+    layout, h, gap = model.tp_layout, hashlib.sha256(), None
+    ref = torch.load(ref_path) if ref_path else None
+    for name, p in model.named_parameters():
+        whole = full_tensor(p.data, layout[name], model.tp_mesh) if name in layout else p.data
+        h.update(whole.cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+        if ref is not None:
+            if name.startswith("blocks."):
+                rest = name.removeprefix("blocks.")
+                want = torch.stack([ref[f"block{i}.{rest}"] for i in range(cfg["num_layers"])])
+            else:
+                want = ref[name.removeprefix("embed_head.")]
+            gap = max(gap or 0.0, float((whole - want.to(whole.device)).abs().max()))
+        del whole
+    return {"digest": h.hexdigest(), **({"update_gap": gap} if ref is not None else {})}
+
+
+def _tp_pp_child(rank: int, world: int, store: str, out_dir: str, device: str, cfg: dict,
+                 ck_dir: str, ref_path: str) -> None:
+    """(b) and (c): one of four gloo ranks on the one card.
+    ``PipelinedTransformerLM`` under ``compose(tp=2, pp=2)``, one f32 step
+    under each schedule (its first loss, the digest of the whole
+    parameters after it, time, launches and memory; under ``interleaved``
+    on rank 0 the largest gap of those parameters from one process's
+    update saved at ``ref_path`` by (a)), then the last state saved, its
+    whole digest taken, and restored into ``compose(tp=4)`` on the same
+    ranks; writes what it saw as JSON."""
+    import gc
+    import traceback
+
+    os.environ.update({"RANK": str(rank), "WORLD_SIZE": str(world),
+                       "TPUFRAME_COORDINATOR": f"file://{store}"})
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"schedules": {}}
+    try:
+        import torch.distributed as dist
+
+        from tpuframe_torch.ckpt import Checkpointer
+        from tpuframe_torch.core import initialize, shutdown
+        from tpuframe_torch.ops import fused_adamw
+        from tpuframe_torch.parallel import (
+            PP_SCHEDULES,
+            PipelinedTransformerLM,
+            compose,
+            full_precision,
+            plan_memory,
+        )
+        from tpuframe_torch.track.telemetry import get_telemetry
+        from tpuframe_torch.train import create_train_state, make_train_step
+
+        rt = initialize({"pipe": 2, "data": 1, "model": 2}, device=device, backend="gloo")
+        dev, cuda = rt.device, rt.device.type == "cuda"
+        if not cuda:
+            torch.set_num_threads(2)
+        try:
+            batch = _tp_batch(cfg, dev)
+            hop = dist.all_to_all_single
+            calls = {"hop": 0}
+
+            def counted_hop(*a, **kw):
+                calls["hop"] += 1
+                return hop(*a, **kw)
+
+            dist.all_to_all_single = counted_hop
+            for i, schedule in enumerate(PP_SCHEDULES):
+                gc.collect()
+                if cuda:
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats(dev)
+                base = torch.cuda.memory_allocated(dev) if cuda else 0
+                plan = compose(tp=2, pp=2, schedule=schedule, microbatches=TP_MICRO)
+                model = PipelinedTransformerLM(**cfg, n_microbatches=TP_MICRO,
+                                               schedule=schedule, device=dev, seed=0)
+                est = plan_memory(plan, flax_template(model),
+                                  {"input": ((TP_BATCH, cfg["max_len"]), "int32")},
+                                  optimizer="adamw")
+                state = create_train_state(model, fused_adamw(3e-4, **LM_STEP_ADAMW),
+                                           plan=plan)
+                step = make_train_step(full_precision(), plan=plan)
+                counters = _tp_counters()
+                for c in counters.values():
+                    c.launches = 0
+                calls["hop"] = 0
+                sync(dev)
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                sync(dev)
+                rec = {"step_ms": (time.perf_counter() - t0) * 1e3,
+                       "loss": float(m["loss_sum"] / m["count"]),
+                       "launches": {n: c.launches for n, c in counters.items()},
+                       "hops": calls["hop"], "estimate": est["per_device_mb"],
+                       "layers_here": int(model.blocks.ln1.scale.shape[0])}
+                rec.update(_pp_update(model, cfg, ref_path if rank == 0 and i == 0 else None))
+                # a second step, timed (the first warms the libraries)
+                sync(dev)
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                sync(dev)
+                rec["step2_ms"] = (time.perf_counter() - t0) * 1e3
+                state.model.zero_grad(set_to_none=True)
+                gc.collect()
+                rec.update(_memory(dev, base))
+                if cuda:
+                    rec["reachable_mb"] = _reachable_cuda_mb()
+                out["schedules"][schedule] = rec
+                if i < len(PP_SCHEDULES) - 1:  # the last state is saved in (c)
+                    del state, model, step, m
+                    gc.collect()
+            dist.all_to_all_single = hop
+            # (c) save under tp2 x pp2, restore into tp4 on the same ranks
+            digest, n = _whole_digest(state)
+            out["digest"], out["tensors"] = digest, n
+            with Checkpointer(ck_dir) as ck:
+                ck.save(state, step=2, plan=plan)
+            out["saved_signature"] = plan.signature()
+            del state, model
+            gc.collect()
+            plan4 = compose(tp=4)
+            template = create_train_state(
+                PipelinedTransformerLM(**cfg, n_microbatches=TP_MICRO, device=dev, seed=9),
+                fused_adamw(3e-4, **LM_STEP_ADAMW), plan=plan4)
+            tiny = {k: v[:, :16] for k, v in _tp_batch(cfg, dev).items()}
+            template, _ = make_train_step(full_precision(), plan=plan4)(template, tiny)
+            tele = get_telemetry()
+            mark = _mark(tele)
+            t0 = time.perf_counter()
+            with Checkpointer(ck_dir) as ck:
+                template, _ = ck.restore(template, plan=plan4)
+            out["restore_tp4_s"] = time.perf_counter() - t0
+            out["restore_tp4_events"] = _since(tele, mark, "fault/reshard")
+            out["restore_tp4_digest"] = _whole_digest(template)[0]
+            out["restore_tp4_layout"] = {k: v for k, v in template.model.tp_layout.items()
+                                         if k.startswith("embed_head")}
+        finally:
+            shutdown()
+    except BaseException:
+        out["error"] = traceback.format_exc()
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out, default=str))
+
+
+def _restore_one_process(card: str, cfg: dict, dev: torch.device, ck_dir: str, want: str,
+                         saved_signature: str) -> dict:
+    """(c) in this process (world 1): the TP x PP checkpoint restored into
+    one process's plan bit-exact with one ``fault/reshard`` event; a model
+    of another vocabulary refused before any read."""
+    from tpuframe_torch.ckpt import Checkpointer
+    from tpuframe_torch.ops import fused_adamw
+    from tpuframe_torch.parallel import PipelinedTransformerLM, compose, full_precision
+    from tpuframe_torch.track.telemetry import get_telemetry
+    from tpuframe_torch.train import create_train_state, make_train_step
+
+    plan1 = compose(devices=1)
+    template = create_train_state(
+        PipelinedTransformerLM(**cfg, n_microbatches=TP_MICRO, device=dev, seed=9),
+        fused_adamw(3e-4, **LM_STEP_ADAMW), plan=plan1)
+    tiny = {k: v[:, :16] for k, v in _tp_batch(cfg, dev).items()}
+    template, _ = make_train_step(full_precision(), plan=plan1)(template, tiny)
+    tele = get_telemetry()
+    mark = _mark(tele)
+    t0 = time.perf_counter()
+    with Checkpointer(ck_dir) as ck:
+        template, _ = ck.restore(template, plan=plan1)
+    took = time.perf_counter() - t0
+    events = _since(tele, mark, "fault/reshard")
+    digest = _whole_digest(template)[0]
+    check(digest == want, "the TP x PP checkpoint restored into one process is not bit-exact")
+    check(len(events) == 1 and events[0]["from_plan"] == saved_signature
+          and events[0]["to_plan"] == plan1.signature(),
+          f"one-process restore: fault/reshard events {events}")
+    del template
+    other_vocab = cfg["vocab_size"] - cfg["vocab_size"] // 4
+    other = PipelinedTransformerLM(**dict(cfg, vocab_size=other_vocab),
+                                   n_microbatches=TP_MICRO, device=dev, seed=0)
+    other_state = create_train_state(other, fused_adamw(3e-4), plan=plan1)
+    mark = _mark(tele)
+    refused = False
+    try:
+        with Checkpointer(ck_dir) as ck:
+            ck.restore(other_state, plan=plan1)
+    except ValueError as e:
+        refused = "cannot reshard onto the target topology" in str(e)
+    names = [e.get("name") for e in _since(tele, mark)]
+    check(refused and "ckpt/restore" not in names and "fault/reshard" not in names,
+          f"another vocabulary: refused {refused}, events {names}")
+    del other, other_state
+    log(f"  (c) the TP x PP state restored into one process's plan ({plan1.signature()}) in "
+        f"{took:.2f} s: bit-exact, one fault/reshard event {events[0]['from_axes']} -> "
+        f"{events[0]['to_axes']}; a model of vocabulary {other_vocab} refused "
+        f"with ValueError before any read (no ckpt/restore span) on {card}")
+    return {"restore_one_s": took}
+
+
+def tp_examples(card: str, workdir: Path, argv: list) -> dict:
+    """(d) Example 07 with ``--tp 2`` through its main (``Distributor``, two
+    workers sharing the card over gloo), each worker's launches counted."""
+    import tpuframe_torch.launch as launch
+
+    module = "07_vit_classifier"
+    counts = []
+
+    class CountedDistributor(launch.Distributor):
+        """The launcher, its worker fn counted there."""
+
+        def run(self, fn, *args, **kwargs):
+            value, c = super().run(counted_call, _tp_counters, module, fn.__name__, *args,
+                                   **kwargs)
+            counts.append(c)
+            return value
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with mock.patch.object(launch, "Distributor", functools.partial(
+            CountedDistributor, timeout_s=600)), contextlib.redirect_stdout(buf):
+        metrics = _example(module).main(argv + ["--workdir", str(workdir)])
+    took = time.perf_counter() - t0
+    c = counts[0] if counts else {}
+    check(math.isfinite(metrics["train_loss"]), f"example 07 --tp 2: {metrics}")
+    # the ViT's LayerNorms (two a block, the final one) on each train and
+    # eval batch; K2a on the eval batches (MixUp's soft labels take the
+    # gathered logits in training); AdamW is torch's
+    arg = {k: int(v) for k, v in zip(argv[::2], argv[1::2])}
+    n_train = arg["--train-samples"] // arg["--batch-size"]
+    n_eval = -(-arg["--eval-samples"] // arg["--batch-size"])
+    norms = 2 * EX07_LAYERS + 1
+    want = {"cross_entropy_fwd": n_eval, "cross_entropy_bwd": 0,
+            "layer_norm_fwd": (n_train + n_eval) * norms, "layer_norm_bwd": n_train * norms,
+            "fused_adamw": 0}
+    check(c == want or not torch.cuda.is_available(),
+          f"example 07 --tp 2: rank 0's launches {c} != {want}")
+    log(f"  (d) example 07 --tp 2 through its main (Distributor, 2 workers on the card, gloo): "
+        f"{took:.2f} s from its start to the result, rank 0's launches {c} (expected); train_loss "
+        f"{metrics['train_loss']:.4f} on {card}")
+    return {"launches": c, "s": took, "metrics": metrics}
+
+
+def tp_phase(card: str, timeout_s: float = 600.0, device: str = "cuda:0", cfg: dict = LM,
+             steps: int = TP_STEPS, examples: bool = True) -> dict:
+    """Phase 17 on the one card.  (a) ``TransformerLM`` at ``cfg``'s width
+    under ``transformer_tp_rules`` on two gloo ranks: its first f32 loss and
+    update against one process's unsharded run, the vocab-parallel loss's
+    K2a/K2b on a shard against the plain version, ``steps`` bf16 steps timed
+    with each rank's K2a/K2b/K3a/K3b/K4 launches exact.  (b)
+    ``PipelinedTransformerLM`` under ``compose(tp=2, pp=2)`` on four ranks,
+    8 sequences in 4 microbatches, each schedule once: first losses
+    bit-equal and held against (a)'s one-process loss, step time, hops,
+    memory beside ``plan_memory``.  (c) Its state saved, restored into
+    ``compose(tp=4)`` on the same ranks and into one process's plan here,
+    bit-exact, one ``fault/reshard`` each; another vocabulary refused.  (d)
+    Example 07 with ``--tp 2``.  Returns the launch counts and a summary;
+    the device and sizes are arguments so the phase can be rehearsed small
+    on the CPU."""
+    t_start = time.perf_counter()
+    cuda = device.startswith("cuda")
+    layers = cfg["num_layers"]
+    TP_DIR.mkdir(parents=True, exist_ok=True)
+    ref_path = str(TP_DIR / "one_process.pt")
+    res = _spawn(_tp_lm_child, 2, (device, cfg, steps, ref_path), timeout_s, "TP LM")
+    r0 = res[0]
+    check(abs(r0["loss_f32"] / r0["loss_ref"] - 1) <= TP_LOSS_RTOL,
+          f"(a) TP f32 loss {r0['loss_f32']!r} vs one process's {r0['loss_ref']!r} (rtol "
+          f"{TP_LOSS_RTOL})")
+    rel = r0["update_gap"] / r0["update_max"]
+    check(rel <= TP_UPDATE_RTOL, f"(a) the TP update is {rel:.3g} of the update's largest "
+          f"element from one process's (tol {TP_UPDATE_RTOL})")
+    want = {"cross_entropy_fwd": steps, "cross_entropy_bwd": steps,
+            "layer_norm_fwd": (2 * layers + 1) * steps, "layer_norm_bwd": (2 * layers + 1) * steps,
+            "fused_adamw": steps}
+    for r, o in enumerate(res):
+        check(o["launches"] == want or not cuda,
+              f"(a) rank {r}: launches {o['launches']} != {want}")
+        check(o["k2_shard"]["loss_err"] <= 1e-4 and o["k2_shard"]["grad_err"] <= 1e-6,
+              f"(a) rank {r}: K2 on the shard against the plain version {o['k2_shard']}")
+        check(all(math.isfinite(x) for x in o["losses_bf16"]), f"(a) rank {r}: {o['losses_bf16']}")
+    check(res[0]["losses_bf16"] == res[1]["losses_bf16"], "(a) the two ranks' losses differ")
+    mem = (f"; persistent {[round(o['persistent_mb'], 1) for o in res]} MB (tensors held "
+           f"{[round(o['reachable_mb'], 1) for o in res]} MB, by dtype "
+           f"{[o['reachable_by_dtype'] for o in res]}), peak "
+           f"{[round(o['peak_mb'], 1) for o in res]} MB a rank beside plan_memory's params "
+           f"{r0['estimate']['params']} + opt_state {r0['estimate']['opt_state']} MB, total "
+           f"{r0['estimate']['total']} MB" if cuda else "")
+    log(f"  (a) TransformerLM {cfg} under transformer_tp_rules, model=2 on two gloo ranks, "
+        f"{TP_BATCH} x {cfg['max_len']} tokens: local shapes {r0['local_shapes']}; first f32 "
+        f"loss {r0['loss_f32']!r} vs one process's {r0['loss_ref']!r} "
+        f"({r0['loss_f32'] / r0['loss_ref'] - 1:+.3g}, tol {TP_LOSS_RTOL}), update gap "
+        f"{r0['update_gap']:.3g} of largest element {r0['update_max']:.3g} ({rel:.3g}, tol "
+        f"{TP_UPDATE_RTOL}); K2a/K2b on the {r0['k2_shard']['shape']} shard vs plain: loss "
+        f"{r0['k2_shard']['loss_err']:.3g}, grad {r0['k2_shard']['grad_err']:.3g}; {steps} "
+        f"bf16 steps {[[round(t, 1) for t in o['step_ms']] for o in res]} ms, losses "
+        f"{[round(x, 4) for x in r0['losses_bf16']]}, launches a rank "
+        f"{[o['launches'] for o in res]} (expected {want}){mem} on {card}")
+
+    ck_dir = str(TP_DIR / "ck")
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    res4 = _spawn(_tp_pp_child, 4, (device, cfg, ck_dir, ref_path), timeout_s, "TP x PP LM")
+    firsts = {s: [o["schedules"][s]["loss"] for o in res4] for s in res4[0]["schedules"]}
+    ref_loss = r0["loss_ref"]
+    for s, losses in firsts.items():
+        check(losses == firsts["interleaved"], f"(b) {s}: first losses {losses} are not "
+              f"bit-equal to interleaved's {firsts['interleaved']}")
+        digests = {o["schedules"][s]["digest"] for o in res4}
+        check(digests == {res4[0]["schedules"]["interleaved"]["digest"]},
+              f"(b) {s}: the whole parameters after the first step are not bit-equal to "
+              "interleaved's on every rank")
+    check(abs(firsts["interleaved"][0] / ref_loss - 1) <= TP_LOSS_RTOL,
+          f"(b) first loss {firsts['interleaved'][0]!r} vs one process's {ref_loss!r}")
+    pp_rel = res4[0]["schedules"]["interleaved"]["update_gap"] / r0["update_max"]
+    check(pp_rel <= TP_UPDATE_RTOL, f"(b) the TP x PP update is {pp_rel:.3g} of the update's "
+          f"largest element from one process's (tol {TP_UPDATE_RTOL})")
+    per = 2 * (layers // 2) * TP_MICRO  # LayerNorms of a stage's layers over the microbatches
+    for s in firsts:
+        recs = [o["schedules"][s] for o in res4]
+        check(all(o["hops"] > 0 for o in recs), f"(b) {s}: no hop went over all_to_all_single")
+        want_pp = {"cross_entropy_fwd": 1, "cross_entropy_bwd": 1,
+                   "layer_norm_fwd": per + 1 + (per if s == "1f1b" else 0),
+                   "layer_norm_bwd": per + 1, "fused_adamw": 1}
+        for r, o in enumerate(recs):
+            check(o["launches"] == want_pp or not cuda,
+                  f"(b) {s} rank {r}: launches {o['launches']} != {want_pp}")
+        mem = (f", persistent {[round(o['persistent_mb'], 1) for o in recs]} MB (tensors "
+               f"held {[round(o['reachable_mb'], 1) for o in recs]} MB), peak "
+               f"{[round(o['peak_mb'], 1) for o in recs]} MB a rank beside plan_memory's params "
+               f"{recs[0]['estimate']['params']} + opt_state {recs[0]['estimate']['opt_state']} "
+               f"MB, total {recs[0]['estimate']['total']} MB" if cuda else "")
+        upd = (f", the update {recs[0]['update_gap']:.3g} from one process's ({pp_rel:.3g} of "
+               f"its largest element, tol {TP_UPDATE_RTOL})" if "update_gap" in recs[0] else "")
+        log(f"  (b) PipelinedTransformerLM under compose(tp=2, pp=2), schedule {s}: first f32 "
+            f"loss {recs[0]['loss']!r} ({recs[0]['loss'] / ref_loss - 1:+.3g} from one "
+            f"process's){upd}, parameters after it bit-equal across schedules and ranks, "
+            f"{recs[0]['layers_here']} layers a stage, step "
+            f"{[round(o['step_ms'], 1) for o in recs]} ms then "
+            f"{[round(o['step2_ms'], 1) for o in recs]} ms a rank, all_to_all_single hops a step "
+            f"{[o['hops'] for o in recs]} (gloo carried them on {device} tensors), launches a rank "
+            f"{[o['launches'] for o in recs]} (expected {want_pp}){mem} on {card}")
+    for r, o in enumerate(res4):
+        check(o["restore_tp4_digest"] == o["digest"],
+              f"(c) rank {r}: the tp4 restore is not bit-exact")
+        ev = o["restore_tp4_events"]
+        check(len(ev) == 1 and ev[0]["from_plan"] == o["saved_signature"],
+              f"(c) rank {r}: fault/reshard events {ev}")
+    check(len({o["digest"] for o in res4}) == 1, "(b) the ranks' whole states differ")
+    log(f"  (c) the TP x PP state ({res4[0]['tensors']} tensors, saved whole) restored into "
+        f"compose(tp=4) on the same ranks in {[round(o['restore_tp4_s'], 2) for o in res4]} s: "
+        f"bit-exact, one fault/reshard each, embed_head layout "
+        f"{res4[0]['restore_tp4_layout']}")
+    dev = torch.device(device)
+    one = _restore_one_process(card, cfg, dev, ck_dir, res4[0]["digest"],
+                               res4[0]["saved_signature"])
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    out = {"launches_tp": [o["launches"] for o in res],
+           "launches_tp_pp": {s: [o["schedules"][s]["launches"] for o in res4] for s in firsts},
+           "tp_step_ms": [o["step_ms"] for o in res],
+           "tp_pp_step_ms": {s: [o["schedules"][s]["step2_ms"] for o in res4] for s in firsts},
+           "loss_ref": ref_loss, "loss_tp": r0["loss_f32"], "loss_tp_pp": firsts["interleaved"][0],
+           "update_rel_tp": rel, "update_rel_tp_pp": pp_rel,
+           "reachable_tp": [o.get("reachable_mb") for o in res],
+           "memory_tp": [(o.get("persistent_mb"), o.get("peak_mb")) for o in res],
+           "memory_tp_pp": {s: [(o["schedules"][s].get("persistent_mb"),
+                                 o["schedules"][s].get("peak_mb")) for o in res4] for s in firsts},
+           "estimate_tp": r0["estimate"],
+           "estimate_tp_pp": res4[0]["schedules"]["interleaved"]["estimate"],
+           **one, "card": card}
+    if examples:
+        out["example07"] = tp_examples(card, LAUNCH_DIR.parent / "tp_smoke_ex07",
+                                       EX07_TP2_ARGV)
+    out["seconds"] = time.perf_counter() - t_start
+    log("  tp_json " + json.dumps(out))
     return out
 
 
@@ -5456,7 +6008,17 @@ def main(argv=None) -> int:
         k["launches_zero_int8"] = zero["launches"]["zero_2_int8"][name]
     torch.cuda.empty_cache()
 
-    log("== phase 17: result")
+    log("== phase 17: tensor and pipeline parallelism on one card")
+    tp = tp_phase(card)
+    for k, name in ((k2a, "cross_entropy_fwd"), (k2b, "cross_entropy_bwd"),
+                    (k3a, "layer_norm_fwd"), (k3b, "layer_norm_bwd"), (k4, "fused_adamw")):
+        k["launches_tp"] = [r[name] for r in tp["launches_tp"]]
+        k["launches_tp_pp"] = [r[name] for r in tp["launches_tp_pp"]["interleaved"]]
+        if "example07" in tp:
+            k["launches_example07_tp2"] = tp["example07"]["launches"][name]
+    torch.cuda.empty_cache()
+
+    log("== phase 18: result")
     kernels = [k1, k2a, k2b, k3a, k3b, k4, k5a, k5b, k5c, k6a, k6b, k6c]
     for k in kernels:
         k["floor_ms"] = floor_ms  # beside bound_ms, which stays the byte or operation bound

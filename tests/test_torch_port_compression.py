@@ -368,8 +368,15 @@ def test_world_one_wire_meters_no_bytes_and_leaves_gradients_quantized():
 
 def test_what_is_not_ported_raises(port_ranks):
     mesh2 = _mesh(2)
+    # tensor-parallel rules are ported; the compressed wire beside the model
+    # axis is not (a later part of Queue 1 item 7)
+    from tpuframe_torch.train import make_train_step
+
+    rules = ((r"mlp_in/kernel", (None, "model")),)
+    tp = ParallelPlan(mesh=MeshSpec(data=1, model=2).build(2), rules=rules)
+    assert tp.rules == rules and tp.split_axes == ("model",)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ParallelPlan(mesh=mesh2, rules=(("w", None),))
+        make_train_step(plan=tp, grad_compression="int8")
     # ZeRO is ported: every stage builds, and offload builds (on the CPU it
     # warns and stays on the device, as JAX's does off a host memory space)
     for stage in (1, 2, 3):
@@ -378,8 +385,9 @@ def test_what_is_not_ported_raises(port_ranks):
         assert ParallelPlan(mesh=mesh2, zero_stage=3, offload_optimizer=True).offload_optimizer
     with pytest.raises(ValueError, match="zero_stage"):
         ParallelPlan(mesh=mesh2, zero_stage=4)
+    assert MeshSpec(data=2, model=2).build(4).shape["model"] == 2  # the TP axis is ported
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MeshSpec(data=2, model=2).build(4)
+        MeshSpec(data=2, seq=2).build(4)
     assert MeshSpec(data=1, fsdp=2).build(2).shape["fsdp"] == 2
     assert MeshSpec().build(3).shape["data"] == 3
     # the fused transport, where it engages (world >= 2), is ported: the same

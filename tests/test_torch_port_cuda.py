@@ -1602,3 +1602,70 @@ def test_zero_on_two_gloo_ranks_of_the_card(card, tmp_path):
                 for k in a:
                     assert np.array_equal(np.ascontiguousarray(a[k]).view(np.uint8),
                                           np.ascontiguousarray(b[k]).view(np.uint8)), (mode, k)
+
+
+def _tp_pp_card_rank(rank: int, world: int) -> dict:
+    """Two gloo ranks on the one card: a small ``TransformerLM`` under
+    ``transformer_tp_rules`` (model 2), one f32 step on CUDA tensors (K2a/
+    K2b on the vocabulary shard, K3a/K3b on whole rows, K4 on the shards)
+    and the same step on CPU tensors (the plain versions); then
+    ``gpipe_spmd`` over a pipe axis of 2 on CUDA and CPU tensors (the hop
+    by ``all_to_all_single``)."""
+    from tpuframe_torch.core import MeshSpec, initialize
+    from tpuframe_torch.models import transformer_tp_rules
+    from tpuframe_torch.parallel import ParallelPlan, full_precision, gpipe_spmd
+    from tpuframe_torch.parallel.tensor import full_tensor
+
+    # a spawned process starts with TF32 on; the CPU has none
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    rt = initialize({"data": 1, "model": world}, device="cuda:0", backend="gloo")
+    cfg = dict(vocab_size=512, num_layers=2, num_heads=4, head_dim=16, max_len=64)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, 512, (4, 65)))
+    out = {}
+    for dev in ("cpu", "cuda:0"):
+        # the same weights on both: drawn on the CPU (a CUDA generator draws others)
+        model = TransformerLM(**cfg, attn_impl="full", device="cpu", seed=0).to(dev)
+        plan = ParallelPlan(mesh=rt.mesh, rules=transformer_tp_rules())
+        state = create_train_state(model, fused_adamw(1e-3, eps=1e-3), plan=plan)
+        counters = (cross_entropy_fwd, cross_entropy_bwd, layer_norm_fwd, layer_norm_bwd,
+                    fused_adamw_multi_update_)
+        before = [c.launches for c in counters]
+        batch = {"input": toks[:, :-1].to(dev), "label": toks[:, 1:].to(dev)}
+        state, m = make_train_step(full_precision(), plan=plan)(state, batch)
+        torch.cuda.synchronize()
+        grads = {n: full_tensor(p.grad, model.tp_layout[n], model.tp_mesh).cpu().numpy()
+                 if n in model.tp_layout else p.grad.cpu().numpy()
+                 for n, p in model.named_parameters()}
+        out[dev] = {"loss": float(m["loss_sum"] / m["count"]), "grads": grads,
+                    "launches": [c.launches - b for c, b in zip(counters, before)]}
+    mesh = MeshSpec(pipe=world, data=1).build(world)
+    rng = np.random.default_rng(5)
+    w = rng.standard_normal((world, 32, 32)).astype(np.float32) * 0.3
+    x = rng.standard_normal((4, 8, 32)).astype(np.float32)
+    for dev in ("cpu", "cuda:0"):
+        p = {"w": torch.from_numpy(w[rank:rank + 1]).to(dev).requires_grad_(True)}
+        y = gpipe_spmd(lambda q, h: torch.tanh(h @ q["w"]), p, torch.from_numpy(x).to(dev),
+                       mesh=mesh)
+        (y ** 2).mean().backward()
+        out[f"pipe_{dev}"] = {"y": y.detach().cpu().numpy(), "g": p["w"].grad.cpu().numpy()}
+    return out
+
+
+def test_tensor_and_pipeline_parallel_on_gloo_ranks_of_the_card(card, tmp_path):
+    """The TP step's loss and whole gradients on the card (the kernels on
+    the shards) against the same step's plain versions on the CPU, within
+    1e-5 relative (loss) and 1e-5 of each gradient's largest element, with
+    K2a/K2b once, K3a/K3b five times and K4 once on each rank; the GPipe
+    schedule's outputs and gradients on CUDA tensors within 1e-5 of the CPU
+    tensors' (the hop carried by gloo's ``all_to_all_single`` both ways)."""
+    from torch_ranks import run_ranks
+
+    for r in run_ranks(_tp_pp_card_rank, 2, tmp_path, timeout=300):
+        cpu, gpu = r["cpu"], r["cuda:0"]
+        assert gpu["launches"] == [1, 1, 5, 5, 1] and cpu["launches"] == [0] * 5
+        assert abs(gpu["loss"] / cpu["loss"] - 1) <= 1e-5
+        for k, v in cpu["grads"].items():
+            np.testing.assert_allclose(gpu["grads"][k], v, rtol=0,
+                                       atol=1e-5 * float(np.abs(v).max()), err_msg=k)
+        for k in ("y", "g"):
+            np.testing.assert_allclose(r["pipe_cuda:0"][k], r["pipe_cpu"][k], rtol=0, atol=1e-5)

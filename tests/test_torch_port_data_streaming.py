@@ -374,8 +374,8 @@ EX07_ARGV = ["--image-size", "16", "--batch-size", "16", "--train-samples", "16"
 def test_example_07_first_loss_is_the_jax_examples(tmp_path, examples_env, monkeypatch, capsys):
     """Example 07 in this process on the weights JAX's example starts from:
     the first loss (MixUp and label smoothing on, one step, f32) within
-    1e-4 relative of the JAX example's; ``--tp 2`` names the DTensor
-    slice."""
+    1e-4 relative of the JAX example's; ``--tp 2`` (``vit_tp_rules``) runs
+    to a finite loss on two CPU workers through the ``Distributor``."""
     import jax
 
     import tpuframe.train.trainer as jax_trainer
@@ -408,5 +408,6 @@ def test_example_07_first_loss_is_the_jax_examples(tmp_path, examples_env, monke
     assert abs(got["train_loss"] - want["train_loss"]) <= 1e-4 * abs(want["train_loss"]), (
         got["train_loss"], want["train_loss"])
     assert np.isfinite(got["eval_loss"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        ex.main(EX07_ARGV + ["--simulate-devices", "1", "--tp", "2"])
+    tp2 = ex.main(EX07_ARGV + ["--simulate-devices", "1", "--tp", "2",
+                               "--workdir", str(tmp_path)])
+    assert np.isfinite(tp2["train_loss"]) and np.isfinite(tp2["eval_loss"])

@@ -322,7 +322,8 @@ def _jobs(rank, world, jobs):
 
 
 BN_CASES = [(2, 1, "float32"), (2, 1, "bfloat16"), (2, 2, "float32"), (2, 4, "float32"),
-            (4, 1, "float32"), (4, 1, "bfloat16"), (4, 4, "float32"), (4, 8, "float32")]
+            (4, 1, "float32"), (4, 1, "bfloat16"), (4, 2, "float32"), (4, 4, "float32"),
+            (4, 8, "float32")]
 STEP_CASES = [(2, "sync"), (2, "local"), (4, "sync")]
 
 
@@ -636,9 +637,13 @@ def test_plan_must_match_the_process_group():
 
 
 def test_groups_that_span_ranks_raise():
+    """Groups that span ranks are ported (world 4 with 2 groups is the
+    ``world4_groups2`` case above, against JAX's grouped BatchNorm); a
+    count that neither divides the world nor is a multiple of it raises."""
+    assert (4, 2, "float32") in BN_CASES
     bn = ReplicaGroupedBatchNorm(3, groups=3, device="cpu").train()
     bn.world = 2  # as cross_rank_statistics sets it on two ranks
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="must divide the world size"):
         bn(torch.zeros(4, 3, 2, 2))
 
 

@@ -111,10 +111,15 @@ def _jax_counterpart(rel: Path) -> Path:
     return REPO / "tpuframe" / rel
 
 
+#: the port's own modules, with no JAX counterpart: the kernels' build, and
+#: the tensor-parallel split forms (GSPMD inserts those collectives in JAX)
+PORT_ONLY = {"ops/build.py", "parallel/tensor.py"}
+
+
 def test_port_modules_mirror_the_jax_package():
     ported = {p.relative_to(PORT) for p in PORT.rglob("*.py") if p.name != "__init__.py"}
     missing = [str(p) for p in ported if not _jax_counterpart(p).exists()
-               and p.parts[-1] != "build.py"]
+               and p.as_posix() not in PORT_ONLY]
     assert not missing, f"port modules with no JAX counterpart: {missing}"
     for module in ("ops/cross_entropy.py", "models/norm.py", "fault/health.py",
                    "train/state.py", "train/step.py", "train/schedules.py", "train/optim.py",

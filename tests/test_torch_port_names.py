@@ -60,8 +60,6 @@ SUBPACKAGES = ("core", "data", "train", "models", "ops", "parallel", "ckpt", "se
 #: ROADMAP Queue 1 item that brings each
 QUEUE1_MODULES = {
     "tpuframe.models.moe": 8,
-    "tpuframe.parallel.compose": 7,
-    "tpuframe.parallel.pipeline": 7,
     "tpuframe.ops.ulysses": 8,
     "tpuframe.ops.moe_gating": 8,
     "tpuframe.ops.ledger": 9,
@@ -86,10 +84,6 @@ LATER = {
     ("fault", "recovery_directive"): (9, "the supervisor"),
     ("fault", "reset_recovery"): (9, "the supervisor"),
     ("track", "start_metrics_server"): (9, "the HTTP store"),
-    ("parallel", "Rule"): (7, "DTensor"),
-    ("parallel", "spec_to_json"): (7, "DTensor"),
-    ("parallel", "spec_from_json"): (7, "DTensor"),
-    ("models", "transformer_tp_rules"): (7, "DTensor"),
     ("ops", "ring_attention"): (8, "the ring (K7)"),
     ("ops", "ring_attention_local"): (8, "the ring (K7)"),
     ("compile", "abstract_state"): (9, "torch.compile and CUDA graphs"),
@@ -117,9 +111,6 @@ LATER_IN_MODULE = {
     ("core.native", "control_plane"): (9, "the multi-host launcher"),
     ("track.registry", "HttpModelRegistry"): (9, "the HTTP store"),
     ("track.telemetry", "start_metrics_server"): (9, "the HTTP store"),
-    # tensor-parallel rules and their JSON form wait for DTensor
-    ("parallel.sharding", "spec_to_json"): (7, "DTensor"),
-    ("parallel.sharding", "spec_from_json"): (7, "DTensor"),
 }
 
 #: the modules of the launcher slice and of the streaming slice, compared
@@ -128,7 +119,8 @@ SLICE_MODULES = ("core.config", "core.workspace", "core.native", "models.cnn", "
                  "train.ema", "track.mlflow_store", "track.registry", "launch.distributor",
                  "launch.trainer_api", "data.transforms", "data.streaming", "data.mds",
                  "track.tensorboard", "track.system_metrics", "track.telemetry",
-                 "parallel.zero", "parallel.memory", "parallel.sharding")
+                 "parallel.zero", "parallel.memory", "parallel.sharding", "parallel.compose",
+                 "parallel.pipeline")
 
 #: the JAX package's kernel switches: the port dispatches by device alone
 DROPPED = {"use_pallas", "kernel_enabled", "kernels_mode"}

@@ -103,10 +103,23 @@ def test_prefetcher_on_the_cpu_copies_before_it_recycles():
 def test_trainer_refuses_what_is_not_ported():
     model = ResNet18(num_classes=10, num_filters=4, stem="cifar", device="cpu")
     mesh2 = MeshSpec(data=2).build(2)  # two ranks: no process group is needed to refuse
-    for kw in ({"plan": lambda: ParallelPlan(mesh=mesh2, rules=(("w", None),))},
-               {"preemption": True}, {"straggler_sync_steps": 4}):
+    for kw in ({"preemption": True}, {"straggler_sync_steps": 4}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(model, **{k: v() if callable(v) else v for k, v in kw.items()})
+            Trainer(model, **kw)
+    # tensor-parallel rules are ported: a plan with rules builds, and a
+    # Trainer takes it (two ranks train ViT through it in
+    # test_torch_port_tensor_parallel.py and example 07 with --tp 2); ZeRO
+    # beside the model axis still raises, when the state is laid out
+    from tpuframe_torch.models import vit_tp_rules
+    from tpuframe_torch.ops import fused_adamw
+    from tpuframe_torch.train import create_train_state
+
+    tp2 = MeshSpec(data=1, model=2).build(2)
+    rules = Trainer(model, plan=ParallelPlan(mesh=tp2, rules=vit_tp_rules()))
+    assert rules.plan.rules == vit_tp_rules()
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        create_train_state(model, fused_adamw(1e-3),
+                           plan=ParallelPlan(mesh=tp2, rules=vit_tp_rules(), zero_stage=1))
     # ZeRO is ported: a Trainer takes a ZeRO plan (two ranks train through
     # it in test_torch_port_zero.py)
     zero = Trainer(model, plan=ParallelPlan(mesh=mesh2, zero_stage=2), grad_compression="int8")

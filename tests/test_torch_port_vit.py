@@ -161,8 +161,14 @@ def test_sequence_parallel_attention_names_its_slice(attn_impl):
 
 
 def test_tp_rules_name_their_slice():
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        vit_tp_rules()
+    """``vit_tp_rules()`` is the JAX package's: the same patterns and specs,
+    each spec naming the flax layout's dims."""
+    from tpuframe.models.vit import vit_tp_rules as jax_vit_tp_rules
+    from tpuframe.parallel.sharding import spec_to_json as jax_spec_to_json
+    from tpuframe_torch.parallel import spec_to_json
+
+    assert [(p, spec_to_json(s)) for p, s in vit_tp_rules()] == \
+        [(p, jax_spec_to_json(s)) for p, s in jax_vit_tp_rules()]
 
 
 def test_dropout_and_remat_train_as_without_remat():

@@ -107,8 +107,10 @@ def test_mesh_lays_ranks_out_in_jax_device_order():
         for rank in range(n):
             assert tm.coords(rank)["fsdp"] == rank % mesh["fsdp"]
             assert tm.coords(rank)["data"] == rank // mesh["fsdp"]
+    # the model axis is ported (tensor parallelism); seq still raises
+    assert MeshSpec(fsdp=2, model=2).build(4).shape["model"] == 2
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MeshSpec(fsdp=2, model=2).build(4)
+        MeshSpec(fsdp=2, seq=2).build(4)
 
 
 class ConvAndLinear(nn.Module):

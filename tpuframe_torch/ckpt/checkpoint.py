@@ -23,7 +23,19 @@ What is saved is :meth:`TrainState.state_dict`: the model's parameters and
 buffers, the optimizer's state, ``step``, ``updates``, the health
 sentinel's tensors, the generator's state, and the compressed wire's
 residuals ``comms`` when there are any.  A restore copies into the live
-tensors in place, so they keep their device, dtype and address.
+tensors in place, so they keep their device, dtype and address.  Every
+tensor is saved whole (ZeRO's slices and the shards of tensor and pipeline
+parallelism gathered), under the same key and shape whatever the plan, so
+a restore under another plan or world size re-slices.
+
+**Reshard-on-restore.**  When the step's topology (the manifest's mesh
+axes and world size) differs from the target's (the ``plan=`` given, else
+the state's plan, else one data axis over the world), the restore first
+checks every saved leaf's global shape and dtype against the template's
+(``ValueError`` on a mismatch: another model, not another mesh, before
+any read, event or span), then ticks ``fault/reshards`` and emits one
+``fault/reshard`` event with both topologies and both plan signatures,
+as the JAX package does.  A restore at the same topology emits nothing.
 
 The residuals differ by rank: each rank holds its own ``(1, n_buckets,
 bucket_elems)`` row.  DCP keeps one copy of a tensor that every rank saves
@@ -50,6 +62,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.distributed.checkpoint as dcp
+from torch.distributed.checkpoint.api import CheckpointException
 
 from tpuframe_torch.ckpt.meta import (  # noqa: F401  (re-exports, as the JAX module's)
     COMMIT_MARKERS,
@@ -161,6 +174,52 @@ def topology_manifest(state: Any, plan: Any = None) -> dict:
         "zero_stage": getattr(plan, "zero_stage", None),
         "leaves": leaves,
     }
+
+
+def _target_topology(state: Any, plan: Any) -> dict:
+    """The restore target's mesh axes and world size: ``plan``'s, else the
+    state's plan's, else one data axis over the world (as
+    :func:`topology_manifest` writes them)."""
+    plan = plan if plan is not None else getattr(state, "plan", None)
+    if plan is not None:
+        return {"mesh_axes": {str(k): int(v) for k, v in plan.mesh.shape.items()},
+                "world_size": int(plan.mesh.devices.size), "plan": plan}
+    return {"mesh_axes": {"data": _world()}, "world_size": _world(), "plan": None}
+
+
+def _same_topology(manifest: dict, target: dict) -> bool:
+    """Equal world sizes and equal axes above 1 (a manifest written without
+    a plan names the data axis alone)."""
+    def above_one(axes):
+        return {k: int(v) for k, v in (axes or {}).items() if int(v) > 1}
+
+    return (manifest.get("world_size") == target["world_size"]
+            and above_one(manifest.get("mesh_axes")) == above_one(target["mesh_axes"]))
+
+
+def _validate_manifest_compat(manifest: dict, template: dict) -> None:
+    """A reshard is legal only between topologies of the same logical
+    state: every saved leaf but the residuals (whose leading dim is the
+    world) must have the template's global shape and dtype, else this is
+    another model or optimizer and the restore refuses before any read."""
+    current = dict(_leaves(template))
+    mismatched = []
+    for path, rec in (manifest.get("leaves") or {}).items():
+        if path.startswith("comms/"):
+            continue
+        leaf = current.get(path)
+        if not torch.is_tensor(leaf):
+            continue
+        if [int(d) for d in leaf.shape] != list(rec["shape"]) or \
+                _dtype_name(leaf.dtype) != rec["dtype"]:
+            mismatched.append(f"{path}: saved {rec['shape']}/{rec['dtype']} vs target "
+                              f"{[int(d) for d in leaf.shape]}/{_dtype_name(leaf.dtype)}")
+    if mismatched:
+        raise ValueError(
+            "checkpoint cannot reshard onto the target topology: global leaf shapes/dtypes "
+            "differ (logical shapes are topology-independent, so this is a different "
+            "model/optimizer, not a different mesh): " + "; ".join(mismatched[:5])
+            + (f" (+{len(mismatched) - 5} more)" if len(mismatched) > 5 else ""))
 
 
 def _comms_restore_action(template: dict, manifest: dict | None):
@@ -396,12 +455,13 @@ class Checkpointer:
 
         A ``TrainState`` is restored in place: every tensor lands in the
         live one, on its device with its dtype.  A mapping template is
-        left as it is; a new dict is returned.  ``plan`` is accepted for
-        the JAX signature: every saved leaf is whole (a ZeRO state saves
-        its optimizer leaves at the parameters' full shapes and slices them
-        again on load), but the residuals, whose world size the manifest
-        gives."""
-        del plan
+        left as it is; a new dict is returned.  ``plan`` is the target
+        plan (default: the state's): every saved leaf is whole, and the
+        live state slices it onto its own plan; where the step's topology
+        differs, the restore reshards through the boundary of the module
+        docstring (``ValueError`` before any read on a logical mismatch).
+        Whatever DCP raises while reading reaches the caller as an
+        ``Exception``."""
         self.wait()
         if step is None:
             step = self.latest_healthy_step() if healthy_only else self.latest_step()
@@ -414,6 +474,10 @@ class Checkpointer:
         if isinstance(state, Mapping):  # a new dict; the caller's tensors stay as they are
             template = _clone_tree(template)
         manifest = read_manifest(self.directory, step)
+        target = _target_topology(state, plan)
+        resharding = bool(manifest) and not _same_topology(manifest, target)
+        if resharding:
+            _validate_manifest_compat(manifest, template)
         action, saved = _comms_restore_action(template, manifest)
         request = {k: v for k, v in template.items() if k != "comms"}
         rank = str(_rank())
@@ -429,10 +493,22 @@ class Checkpointer:
             tele.event("comms/ef_reset", step=step,
                        reason="checkpoint has no matching EF residual (pre-compression "
                               "history, or bucket layout changed)")
-        with tele.span("ckpt/restore", step=step, reshard=action == "fold"), \
+        if resharding:
+            to_plan = target["plan"]
+            tele.registry.counter("fault/reshards").inc()
+            tele.event("fault/reshard", step=step, from_axes=manifest.get("mesh_axes"),
+                       to_axes=target["mesh_axes"], from_world=manifest.get("world_size"),
+                       to_world=target["world_size"], from_plan=manifest.get("plan_signature"),
+                       to_plan=to_plan.signature() if to_plan is not None else None,
+                       leaves=len(manifest.get("leaves") or {}))
+        with tele.span("ckpt/restore", step=step, reshard=resharding or action == "fold"), \
                 tele.guard("ckpt/restore"):
-            dcp.load(request, checkpoint_id=os.path.join(self.directory, str(step), "state"),
-                     no_dist=_world() == 1)
+            try:
+                dcp.load(request, no_dist=_world() == 1,
+                         checkpoint_id=os.path.join(self.directory, str(step), "state"))
+            except CheckpointException as e:  # a BaseException: `except Exception` misses it
+                raise RuntimeError(f"reading checkpoint step {step} under {self.directory} "
+                                   f"failed: {e}") from e
         if "comms" in template:
             if action is None:
                 request["comms"] = template["comms"]  # loaded in place

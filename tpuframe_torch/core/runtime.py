@@ -14,10 +14,12 @@ the CPU.  ``TPUFRAME_COORDINATOR`` may also be an ``init_method`` URL
 (``tcp://host:port``, ``file:///path``).  A failed ``nccl`` init raises; it
 never gives way to gloo.
 
-The mesh names the data-parallel layout over the processes: the ``data``
-and ``fsdp`` axes (ZeRO shards over ``fsdp``); any other axis above 1
-raises.  Ranks follow the JAX package's device order, the grid reshaped in
-:data:`AXIS_ORDER`, so rank = data index * fsdp size + fsdp index.
+The mesh names the layout over the processes: the ``data`` and ``fsdp``
+axes (ZeRO shards over ``fsdp``), ``pipe`` (pipeline stages) and
+``model`` (tensor parallelism); ``seq`` or ``expert`` above 1 raises
+(ROADMAP.md, Queue 1 item 8).  Ranks follow the JAX package's device order,
+the grid reshaped in :data:`AXIS_ORDER`, so a rank's coordinates are those
+of the JAX device with the same id in the same ``MeshSpec``.
 :func:`initialize` builds each axis's process groups once
 (``Runtime.groups``).
 
@@ -140,19 +142,32 @@ class Mesh:
         where = np.argwhere(self.devices == rank)[0]
         return {a: int(i) for a, i in zip(AXIS_ORDER, where)}
 
-    def lines(self, axis: str) -> list[list[int]]:
-        """The rank groups along ``axis``: every line of the grid through
-        that axis, in grid order."""
-        grid = np.moveaxis(self.devices, AXIS_ORDER.index(axis), -1)
-        return [list(map(int, row)) for row in grid.reshape(-1, grid.shape[-1])]
+    def lines(self, axis: str | tuple[str, ...]) -> list[list[int]]:
+        """The rank groups along ``axis`` (or along several axes together):
+        every line (plane) of the grid through it, in grid order."""
+        axes = (axis,) if isinstance(axis, str) else tuple(axis)
+        grid = np.moveaxis(self.devices, [AXIS_ORDER.index(a) for a in axes],
+                           list(range(-len(axes), 0)))
+        size = math.prod(grid.shape[-len(axes):])
+        return [list(map(int, row)) for row in grid.reshape(-1, size)]
+
+    def local_slice(self, full: torch.Tensor, splits, rank: int | None = None
+                    ) -> torch.Tensor:
+        """``rank``'s (default: this process's) block of a whole tensor
+        split along each ``(dim, axis)`` of ``splits``: a view."""
+        at = self.coords(process_index() if rank is None else rank)
+        for dim, name in splits:
+            n = full.shape[dim] // int(self.shape[name])
+            full = full.narrow(dim, at[name] * n, n)
+        return full
 
 
 @dataclasses.dataclass(frozen=True)
 class MeshSpec:
     """Logical mesh shape; ``-1`` on at most one axis means "all remaining".
 
-    The six axes of the JAX package; only ``data`` and ``fsdp`` may exceed
-    1 in the port (the others come with their own slices)."""
+    The six axes of the JAX package; ``seq`` and ``expert`` may not exceed
+    1 in the port (they come with the sequence-parallel slice)."""
 
     pipe: int = 1
     data: int = -1
@@ -184,16 +199,17 @@ class MeshSpec:
         return sizes
 
     def build(self, n_devices: int) -> Mesh:
-        """The :class:`Mesh` over ``n_devices`` processes (one device each).
-        Raises ``NotImplementedError`` for an axis other than ``data`` and
-        ``fsdp`` above 1."""
+        """The :class:`Mesh` over ``n_devices`` processes (one device each);
+        ``n_devices`` may be a sequence (its length counts).  Raises
+        ``NotImplementedError`` for ``seq`` or ``expert`` above 1."""
+        if not isinstance(n_devices, int):
+            n_devices = len(n_devices)
         sizes = self.resolve(n_devices)
-        beyond = {n: s for n, s in sizes.items() if n not in (DATA_AXIS, FSDP_AXIS) and s > 1}
+        beyond = {n: s for n, s in sizes.items() if n in (SEQUENCE_AXIS, EXPERT_AXIS) and s > 1}
         if beyond:
             raise NotImplementedError(
-                f"mesh axes {beyond}: the port has the data and fsdp axes only; tensor, "
-                "sequence, expert and pipeline axes come with later items of the "
-                "data-parallel slice (ROADMAP.md, Queue 1)")
+                f"mesh axes {beyond}: the sequence and expert axes are not ported; they come "
+                "with sequence parallelism and MoE (ROADMAP.md, Queue 1 item 8)")
         return Mesh(sizes)
 
     @classmethod
@@ -222,6 +238,19 @@ class Runtime:
     @property
     def is_main(self) -> bool:
         return self.process_index == 0
+
+    @property
+    def data_index(self) -> int:
+        """This process's data shard: its index over the ``data`` and
+        ``fsdp`` axes (the batch's split); the ranks along ``pipe`` and
+        ``model`` share it."""
+        c = self.mesh.coords(self.process_index)
+        return c[DATA_AXIS] * int(self.mesh.shape.get(FSDP_AXIS, 1)) + c[FSDP_AXIS]
+
+    @property
+    def data_count(self) -> int:
+        """The data shards: the ``data`` axis times the ``fsdp`` axis."""
+        return int(self.mesh.shape.get(DATA_AXIS, 1)) * int(self.mesh.shape.get(FSDP_AXIS, 1))
 
 
 _CURRENT: Runtime | None = None
@@ -308,24 +337,50 @@ def initialize(mesh: MeshSpec | Mapping[str, int] | None = None, *,
 
 
 def _axis_groups(mesh: Mesh, rank: int, world: int) -> dict[str, object]:
-    """This rank's process group along each axis above 1, every line's
-    group built by every rank in one order (``dist.new_group`` is
-    collective); an axis over the whole world takes the default group."""
+    """This rank's process group along each axis above 1, and along the
+    data plane (``data`` x ``fsdp``, key ``"dp"``: the ranks a gradient
+    is averaged over) where it is not one axis; every line's group built
+    by every rank in one order (``dist.new_group`` is collective); a line
+    over the whole world takes the default group."""
     groups: dict[str, object] = {}
     if not dist.is_initialized():
         return groups
-    for axis in AXIS_ORDER:
-        size = int(mesh.shape.get(axis, 1))
+    plane = (DATA_AXIS, FSDP_AXIS)
+    for axis in AXIS_ORDER + (plane,):
+        axes = axis if isinstance(axis, tuple) else (axis,)
+        size = math.prod(int(mesh.shape.get(a, 1)) for a in axes)
+        key = "dp" if isinstance(axis, tuple) else axis
         if size <= 1:
             continue
-        if size == world:
-            groups[axis] = None
+        if key == "dp" and size in (int(mesh.shape[DATA_AXIS]), int(mesh.shape[FSDP_AXIS])):
+            groups["dp"] = groups[DATA_AXIS if mesh.shape[DATA_AXIS] > 1 else FSDP_AXIS]
             continue
-        for line in mesh.lines(axis):
+        if size == world:
+            groups[key] = None
+            continue
+        for line in mesh.lines(axes):
             group = dist.new_group(line)
             if rank in line:
-                groups[axis] = group
+                groups[key] = group
     return groups
+
+
+#: process groups of meshes other than the runtime's: (world group, axes) -> groups
+_GROUPS: dict = {}
+
+
+def groups_for(mesh: Mesh) -> Mapping[str, object]:
+    """The process groups of ``mesh``'s axes for this rank
+    (:func:`_axis_groups`): the runtime's own where ``mesh`` has its
+    shape, else built once per shape (collective: every rank calls this
+    with the same mesh the first time, as ``create_train_state`` does)."""
+    if _CURRENT is not None and dict(_CURRENT.mesh.shape) == dict(mesh.shape):
+        return _CURRENT.groups
+    key = (id(dist.group.WORLD) if dist.is_initialized() else None,
+           tuple(sorted(mesh.shape.items())))
+    if key not in _GROUPS:
+        _GROUPS[key] = _axis_groups(mesh, process_index(), process_count())
+    return _GROUPS[key]
 
 
 def current_runtime(auto_init: bool = True, *,
@@ -346,6 +401,7 @@ def shutdown() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()
     _CURRENT, _OWNS_GROUP = None, False
+    _GROUPS.clear()
 
 
 def reset_runtime() -> None:
@@ -356,6 +412,7 @@ def reset_runtime() -> None:
     if _OWNS_GROUP and dist.is_initialized():
         dist.destroy_process_group()
     _CURRENT, _OWNS_GROUP = None, False
+    _GROUPS.clear()
 
 
 def is_main_process() -> bool:
@@ -377,6 +434,15 @@ def process_index() -> int:
     if _CURRENT is not None:
         return _CURRENT.process_index
     return dist.get_rank() if dist.is_initialized() else 0
+
+
+def data_shard() -> tuple[int, int]:
+    """``(index, count)`` of this process's share of the batch: the
+    runtime's data shard (ranks along ``pipe`` and ``model`` share one),
+    else the process group's rank and size, else ``(0, 1)``."""
+    if _CURRENT is not None:
+        return _CURRENT.data_index, _CURRENT.data_count
+    return process_index(), process_count()
 
 
 def process_count() -> int:

@@ -198,7 +198,9 @@ class DataLoader:
         only.
       mp_context: the process pool's start method (``"fork"``, as in JAX).
       process_index / process_count: this process's shard; None reads the
-        runtime's (``core.runtime.process_index``/``process_count``).
+        runtime's data shard (``core.runtime.data_shard``: the process
+        index and count where the mesh has only data axes; the ranks along
+        ``pipe`` and ``model`` read the same rows).
       transfer_dtype: dtype of the batch buffers — what crosses to the card
         (``"uint8"`` pairs with ``Trainer(normalize=...)``); None reads
         ``TPUFRAME_LOADER_TRANSFER_DTYPE``, else the first sample's dtype.
@@ -237,8 +239,9 @@ class DataLoader:
         self.worker_mode = worker_mode
         self.mp_context = mp_context
         self.transfer_dtype = np.dtype(transfer_dtype) if transfer_dtype is not None else None
-        self.process_index = rt.process_index() if process_index is None else process_index
-        self.process_count = rt.process_count() if process_count is None else process_count
+        shard = rt.data_shard()
+        self.process_index = shard[0] if process_index is None else process_index
+        self.process_count = shard[1] if process_count is None else process_count
         if self.global_batch_size % self.process_count:
             raise ValueError(f"global batch size {batch_size} not divisible by "
                              f"{self.process_count} processes")

@@ -6,11 +6,12 @@ like the Composer recipe (``03_composer_cifar_resnet.py``): the
 Composer-shaped Trainer with LabelSmoothing/MixUp algorithms, a cosine
 schedule from the schedule library, and bf16 on the card.
 
-Tensor parallelism (``--tp`` above 1, which the JAX example shards with
-``vit_tp_rules``) raises ``NotImplementedError``: it waits for the port's
-DTensor slice.  ``--simulate-devices 1`` runs the example on the CPU.
+``--tp`` above 1 shards QKV/MLP/patch-embed/head with ``vit_tp_rules``
+over ``MeshSpec(data=-1, model=tp)``.  The port runs one process a device,
+so it launches ``--num-processes`` workers (default: ``--tp``) through the
+``Distributor``; ``--simulate-devices 1`` runs them on the CPU.
 
-Run:  python 07_vit_classifier.py --epochs 2
+Run:  python 07_vit_classifier.py --epochs 2 --tp 2 --simulate-devices 1
 """
 
 from __future__ import annotations
@@ -29,16 +30,16 @@ def train(args) -> dict:
     from tpuframe_torch.core import runtime as rt
     from tpuframe_torch.core.runtime import MeshSpec
     from tpuframe_torch.data import DataLoader
-    from tpuframe_torch.models import ViT
+    from tpuframe_torch.models import ViT, vit_tp_rules
     from tpuframe_torch.parallel import ParallelPlan
     from tpuframe_torch.train import LabelSmoothing, MixUp, Trainer, cosine_annealing
 
-    if args.tp > 1:
-        raise NotImplementedError(
-            f"--tp {args.tp}: tensor parallelism (vit_tp_rules) comes with the port's "
-            "DTensor slice (ROADMAP.md, Queue 1 item 7); run with --tp 1")
     runtime = rt.initialize(MeshSpec(data=-1, model=args.tp))
-    plan = ParallelPlan(mesh=runtime.mesh)
+    plan = ParallelPlan(
+        mesh=runtime.mesh,
+        rules=vit_tp_rules() if args.tp > 1 else (),
+        min_shard_elems=1,
+    )
 
     train_ds, eval_ds = make_datasets(args)
     train_loader = DataLoader(
@@ -88,9 +89,18 @@ def main(argv=None):
     p.add_argument("--layers", type=int, default=4)
     p.add_argument("--heads", type=int, default=4)
     p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="workers, one device each (default: --tp)")
     args = p.parse_args(argv)
-    simulate_in_process(args)
-    metrics = train(args)
+    workers = args.num_processes or args.tp
+    if workers > 1:
+        from tpuframe_torch.launch import Distributor
+
+        metrics = Distributor(num_processes=workers,
+                              simulate_devices=args.simulate_devices).run(train, args)
+    else:
+        simulate_in_process(args)
+        metrics = train(args)
     assert np.isfinite(metrics["train_loss"])
     return metrics
 

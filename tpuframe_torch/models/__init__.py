@@ -21,7 +21,13 @@ from tpuframe_torch.models.resnet import (
     ResNet101,
 )
 from tpuframe_torch.models.transfer import TransferClassifier, backbone_frozen_labels, freeze
-from tpuframe_torch.models.transformer import Block, Dropout, SelfAttention, TransformerLM
+from tpuframe_torch.models.transformer import (
+    Block,
+    Dropout,
+    SelfAttention,
+    TransformerLM,
+    transformer_tp_rules,
+)
 from tpuframe_torch.models.vit import ViT, ViT_B16, ViT_S16, vit_tp_rules
 
 __all__ = [
@@ -50,5 +56,6 @@ __all__ = [
     "from_jax_variables",
     "import_torch_resnet",
     "import_torch_transformer",
+    "transformer_tp_rules",
     "vit_tp_rules",
 ]

@@ -132,6 +132,15 @@ def export_torch_resnet(variables: Mapping[str, Any]) -> dict:
     return out
 
 
+def _kernel_to_torch(arr: np.ndarray) -> np.ndarray:
+    """A flax kernel in the torch weight's layout: a Dense (in, out) ->
+    (out, in), a layer-stacked Dense (L, in, out) -> (L, out, in), a Conv
+    HWIO -> OIHW."""
+    if arr.ndim == 4:
+        return arr.transpose(3, 2, 0, 1)
+    return arr.transpose(0, 2, 1) if arr.ndim == 3 else arr.T
+
+
 def export_torch_transformer(variables: Mapping[str, Any]) -> dict:
     """A JAX ``TransformerLM`` or ``ViT`` tree (``{"params": ...}``) as the
     port model's ``state_dict`` of numpy arrays: ``Dense`` kernels (in, out)
@@ -149,7 +158,7 @@ def export_torch_transformer(variables: Mapping[str, Any]) -> dict:
             arr = np.asarray(value)
             attr = {"kernel": "weight", "embedding": "weight"}.get(name, name)
             if name == "kernel":
-                arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+                arr = _kernel_to_torch(arr)
             out[".".join(prefix + [attr])] = arr
 
     walk(variables.get("params", variables), [])
@@ -166,7 +175,8 @@ def import_torch_transformer(state_dict: Mapping[str, Any]) -> dict:
         if attr == "weight":
             attr = "embedding" if mods[-1] in ("embed", "pos_embed") else "kernel"
             if attr == "kernel":
-                arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+                arr = (arr.transpose(2, 3, 1, 0) if arr.ndim == 4
+                       else arr.transpose(0, 2, 1) if arr.ndim == 3 else arr.T)
         node = params
         for m in mods:
             node = node.setdefault(m, {})
@@ -209,18 +219,28 @@ def _resnet_state(variables_np: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     return state
 
 
-def from_jax_variables(variables_np: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+def from_jax_variables(variables_np: Mapping[str, Any], model: Any = None
+                       ) -> dict[str, torch.Tensor]:
     """The JAX tree (numpy leaves) as the matching port model's
     ``state_dict`` of CPU tensors: a ``TransformerLM`` tree (it has an
-    ``embed`` table) or a ``ViT`` tree (it has a ``patch_embed``) by
-    :func:`export_torch_transformer`; an ``MnistNet`` tree by
+    ``embed`` table), a ``ViT`` tree (it has a ``patch_embed``) or a
+    ``PipelinedTransformerLM`` tree (``embed_head`` and the layer-stacked
+    ``blocks``) by :func:`export_torch_transformer`; an ``MnistNet`` tree by
     :func:`export_torch_mnist`; a ``TransferClassifier`` tree (``backbone``
     and ``head``) as its backbone's under ``backbone.`` and the head's
     ``weight`` and ``bias``; a ResNet's ``{"params", "batch_stats"}`` with
     torchvision names and a zero ``num_batches_tracked`` beside every
-    BatchNorm.  Load it with ``model.load_state_dict(...)``."""
+    BatchNorm.  Load it with ``model.load_state_dict(...)``.
+
+    The JAX tree holds whole parameters under any plan.  ``model``, a port
+    model a plan split (``create_train_state(..., plan=)``), makes each
+    entry it holds a shard of this rank's shard (``Mesh.local_slice``)."""
+    if model is not None and getattr(model, "tp_layout", None):
+        full = from_jax_variables(variables_np)
+        return {k: model.tp_mesh.local_slice(v, model.tp_layout[k]).contiguous()
+                if k in model.tp_layout else v for k, v in full.items()}
     params = variables_np.get("params", {})
-    if "embed" in params or "patch_embed" in params:
+    if "embed" in params or "patch_embed" in params or "embed_head" in params:
         return _tensors(export_torch_transformer(variables_np))
     if set(params) == _MNIST_LAYERS:
         return _tensors(export_torch_mnist(variables_np))

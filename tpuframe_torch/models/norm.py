@@ -34,7 +34,12 @@ one BatchNorm of the port's ResNet.  What it keeps from the JAX side:
     each rank's rows and no collective (each global group lies on one
     rank).  The step averages the running buffers across the ranks after,
     which makes them the mean over all groups, as in JAX.
-  - Groups that span ranks raise ``NotImplementedError``.
+  - ``groups`` dividing the world size: ``world // groups`` consecutive
+    ranks share each group's moments, the sync form over a subgroup of
+    the process group (one per global group, built once per world and
+    group count).  The step averages the running buffers across the
+    ranks after, the mean over the groups, as in JAX.  Any other count
+    raises ``ValueError``.
 
   Plain tensor ops, so the same code runs under gloo on the CPU and under
   NCCL on the card.  Outside the context (world 1, eval, and the
@@ -65,8 +70,8 @@ def _per_channel(t: torch.Tensor, ndim: int) -> torch.Tensor:
 
 
 class _CrossRankBatchNorm(torch.autograd.Function):
-    """Training BatchNorm over the batch of every rank of the default
-    process group (sync BN).  Returns ``(y, mean, var)``: the output in
+    """Training BatchNorm over the batch of every rank of ``group`` (sync
+    BN; None: the default process group).  Returns ``(y, mean, var)``: the output in
     ``out_dtype`` and the global float32 moments (biased variance) for the
     running buffers.
 
@@ -77,13 +82,14 @@ class _CrossRankBatchNorm(torch.autograd.Function):
     gradients are those of the global mean loss."""
 
     @staticmethod
-    def forward(ctx, x, w, b, eps: float, out_dtype: torch.dtype):
+    def forward(ctx, x, w, b, eps: float, out_dtype: torch.dtype, group=None):
+        ctx.group = group
         nd, c = x.ndim, x.shape[1]
         dims = [0, *range(2, nd)]
         x32 = x.to(torch.float32)
         packed = torch.cat([x32.sum(dims), x32.square().sum(dims),
                             x32.new_full((1,), float(x32.numel() // c))])
-        dist.all_reduce(packed)
+        dist.all_reduce(packed, group=group)
         n = packed[2 * c:]
         mean = packed[:c] / n
         var = (packed[c:2 * c] / n - mean * mean).clamp_min_(0.0)
@@ -102,10 +108,10 @@ class _CrossRankBatchNorm(torch.autograd.Function):
         sum_dy = dy32.sum(dims)
         sum_dy_xhat = (dy32 * xhat).sum(dims)
         packed = torch.cat([sum_dy, sum_dy_xhat])
-        dist.all_reduce(packed)
+        dist.all_reduce(packed, group=ctx.group)
         dx = _per_channel(w * inv / n, nd) * (
             n * dy32 - _per_channel(packed[:c], nd) - xhat * _per_channel(packed[c:], nd))
-        return dx.to(x.dtype), sum_dy_xhat, sum_dy, None, None
+        return dx.to(x.dtype), sum_dy_xhat, sum_dy, None, None, None
 
 
 def rank_local_buffers(model: nn.Module) -> bool:
@@ -118,21 +124,49 @@ def rank_local_buffers(model: nn.Module) -> bool:
                for b in m.buffers(recurse=False))
 
 
+#: the subgroups of groups that span ranks: (world group, world, groups) ->
+#: this rank's subgroup
+_SPANS: dict = {}
+
+
+def _span_group(world: int, groups: int):
+    """This rank's subgroup of ``world // groups`` consecutive ranks of the
+    default process group, every subgroup built by every rank in one order
+    once (``dist.new_group`` is collective)."""
+    key = (id(dist.group.WORLD), world, groups)
+    if key not in _SPANS:
+        k, rank, mine = world // groups, dist.get_rank(), None
+        for i in range(groups):
+            members = list(range(i * k, (i + 1) * k))
+            group = dist.new_group(members)
+            if rank in members:
+                mine = group
+        _SPANS[key] = mine
+    return _SPANS[key]
+
+
 @contextlib.contextmanager
-def cross_rank_statistics(model: nn.Module) -> Iterator[None]:
-    """Training BatchNorm over every rank of the default process group for
-    the forwards run inside: each :class:`ReplicaGroupedBatchNorm` of
-    ``model`` reads its ``groups`` as groups of the global batch (module
-    docstring).  Restored on exit."""
-    world = dist.get_world_size()
+def cross_rank_statistics(model: nn.Module, group=None) -> Iterator[None]:
+    """Training BatchNorm over every rank of ``group`` (default: the
+    process group) for the forwards run inside: each
+    :class:`ReplicaGroupedBatchNorm` of ``model`` reads its ``groups`` as
+    groups of the global batch (module docstring).  Groups that span ranks
+    are built over the default group only.  Restored on exit."""
+    world = dist.get_world_size(group)
     norms = [m for m in model.modules() if isinstance(m, ReplicaGroupedBatchNorm)]
     for m in norms:
-        m.world = world
+        m.world, m.group = world, group
+        if 1 < m.groups < world and world % m.groups == 0:
+            if group is not None:
+                raise NotImplementedError(
+                    f"{m.groups} BatchNorm groups that span ranks of a data plane smaller "
+                    "than the world (a plan with model or pipe above 1) are not ported")
+            m.span = _span_group(world, m.groups)
     try:
         yield
     finally:
         for m in norms:
-            m.world = 1
+            m.world, m.group, m.span = 1, None, None
 
 
 class ReplicaGroupedBatchNorm(nn.BatchNorm2d):
@@ -155,8 +189,9 @@ class ReplicaGroupedBatchNorm(nn.BatchNorm2d):
             raise ValueError(f"groups must be >= 1, got {groups}")
         self.groups = groups
         self.out_dtype = out_dtype
-        # the ranks that share statistics, set by cross_rank_statistics
-        self.world = 1
+        # the ranks that share statistics, their group, and the subgroup of
+        # groups that span ranks, set by cross_rank_statistics
+        self.world, self.group, self.span = 1, None, None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight.to(torch.float32)
@@ -164,12 +199,13 @@ class ReplicaGroupedBatchNorm(nn.BatchNorm2d):
         g = self.groups
         if self.training and self.world > 1:
             if g == 1:
-                return self._sync_forward(x, w, b)
+                return self._sync_forward(x, w, b, self.group)
+            if g < self.world and self.world % g == 0:
+                return self._sync_forward(x, w, b, self.span)
             if g % self.world:
-                raise NotImplementedError(
-                    f"{g} BatchNorm groups over {self.world} ranks: groups that span ranks are "
-                    "not ported (ROADMAP.md, Queue 1); use groups=1 (sync) or a multiple of "
-                    "the world size")
+                raise ValueError(
+                    f"{g} BatchNorm groups over {self.world} ranks: the group count must "
+                    "divide the world size or be a multiple of it")
             g //= self.world
         x = x.to(torch.float32)
         if not self.training:
@@ -193,9 +229,10 @@ class ReplicaGroupedBatchNorm(nn.BatchNorm2d):
             self._fold(mean, var)
         return y.to(self.out_dtype or torch.float32)
 
-    def _sync_forward(self, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    def _sync_forward(self, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                      group=None) -> torch.Tensor:
         y, mean, var = _CrossRankBatchNorm.apply(x, w, b, self.eps,
-                                                 self.out_dtype or torch.float32)
+                                                 self.out_dtype or torch.float32, group)
         with torch.no_grad():
             self._fold(mean, var)
         return y

@@ -76,7 +76,14 @@ BatchNorm2d = ReplicaGroupedBatchNorm
 
 class Linear(nn.Linear):
     """Dense layer run in ``compute_dtype`` (input, weight and bias), as
-    flax ``Dense(dtype=...)`` casts them."""
+    flax ``Dense(dtype=...)`` casts them.  ``tp`` is its tensor-parallel
+    form (``parallel.tensor``) once a plan splits it: column-parallel split
+    on its output dim, row-parallel on its input dim, taken only in a pair
+    its owner declares (``tp_pairs``) or as the model's ``tp_head``."""
+
+    #: the split form ``parallel.tensor.shard_model`` gives it, or None
+    tp = None
+    tp_forms = {0: "col", 1: "row"}
 
     def __init__(self, in_features: int, out_features: int, *, bias: bool = True,
                  compute_dtype: torch.dtype = torch.float32, device=None):
@@ -86,6 +93,8 @@ class Linear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
+        if self.tp is not None:
+            return self.tp.linear(self.weight.to(dt), bias, x.to(dt))
         return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 

@@ -59,18 +59,35 @@ from torch import nn
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
-from tpuframe_torch.core.runtime import resolve_device
+from tpuframe_torch.core.runtime import MODEL_AXIS, resolve_device
 from tpuframe_torch.models.resnet import Linear
 from tpuframe_torch.ops.blockwise_attention import blockwise_attention
 from tpuframe_torch.ops.layer_norm import FusedLayerNorm
 from tpuframe_torch.ops.ring_attention import attention_reference
 
-__all__ = ["Block", "Dropout", "SelfAttention", "TransformerLM", "remat_call"]
+__all__ = ["Block", "Dropout", "SelfAttention", "TransformerLM", "remat_call",
+           "transformer_tp_rules"]
 
 #: attn_impl="auto" switches full -> blockwise at this unsharded length
 _BLOCKWISE_AUTO_LEN = 4096
 #: flax's truncated-normal correction: the std of a unit normal cut at +-2
 _TRUNC_STD = 0.87962566103423978
+
+
+def transformer_tp_rules():
+    """The plan's tensor-parallel rules (Megatron's pairing, as the JAX
+    package declares them): ``query``/``key``/``value`` and ``mlp_in``
+    column-parallel, ``attn_out`` and ``mlp_out`` row-parallel, the
+    embedding tables split on their features and ``lm_head`` on the
+    vocabulary, over ``model``.  Specs name the flax layout's dims."""
+    return (
+        (r"(query|key|value)/kernel", (None, MODEL_AXIS)),
+        (r"attn_out/kernel", (MODEL_AXIS, None)),
+        (r"mlp_in/kernel", (None, MODEL_AXIS)),
+        (r"mlp_out/kernel", (MODEL_AXIS, None)),
+        (r"embed/embedding", (None, MODEL_AXIS)),
+        (r"lm_head/kernel", (None, MODEL_AXIS)),
+    )
 
 
 def _later(what: str, where: str) -> NotImplementedError:
@@ -79,7 +96,14 @@ def _later(what: str, where: str) -> NotImplementedError:
 
 
 class Embed(nn.Embedding):
-    """flax ``Embed``: the table cast to ``compute_dtype``, then gathered."""
+    """flax ``Embed``: the table cast to ``compute_dtype``, then gathered
+    (vocab-parallel, or split on the features, once a plan splits it:
+    ``parallel.tensor``)."""
+
+    #: the split form ``parallel.tensor.shard_model`` gives it, or None
+    tp = None
+    #: the form it takes by the dim a plan splits its table on, applied alone
+    tp_forms, tp_alone = {0: "vocab", 1: "features"}, True
 
     def __init__(self, num_embeddings: int, features: int, *,
                  compute_dtype: torch.dtype = torch.float32, device=None):
@@ -87,6 +111,8 @@ class Embed(nn.Embedding):
         self.compute_dtype = compute_dtype
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            return self.tp.embed(self.weight.to(self.compute_dtype), tokens)
         return F.embedding(tokens, self.weight.to(self.compute_dtype))
 
 
@@ -119,7 +145,15 @@ class Dropout(nn.Module):
 
 
 class SelfAttention(nn.Module):
-    """Multi-head self-attention, full or blockwise on one card."""
+    """Multi-head self-attention, full or blockwise on one card; under a
+    plan that splits ``query``/``key``/``value`` by columns and
+    ``attn_out`` by rows (``tp_heads``, the ``model`` axis), over this
+    rank's heads."""
+
+    #: the model axis the heads are split over, or None
+    tp_heads = None
+    #: the column-parallel products and the row-parallel one that pair
+    tp_pairs = ((("query", "key", "value"), "attn_out"),)
 
     def __init__(self, features: int, num_heads: int, head_dim: int, *, causal: bool = True,
                  attn_impl: str = "auto", dtype: torch.dtype = torch.float32, device=None):
@@ -142,7 +176,11 @@ class SelfAttention(nn.Module):
         impl = self.attn_impl
         if impl == "auto":
             impl = "blockwise" if l >= _BLOCKWISE_AUTO_LEN else "full"
-        heads = (b, l, self.num_heads, self.head_dim)
+        n_heads = self.num_heads
+        if self.tp_heads is not None:  # one all-reduce of the cotangent for q, k and v
+            n_heads //= self.tp_heads.size
+            x = self.tp_heads.copy_to_group(x)
+        heads = (b, l, n_heads, self.head_dim)
         q = self.query(x).reshape(heads)
         k = self.key(x).reshape(heads)
         v = self.value(x).reshape(heads)
@@ -152,10 +190,23 @@ class SelfAttention(nn.Module):
             out = attention_reference(q, k, v, causal=self.causal)
         return self.attn_out(out.reshape(b, l, -1))
 
+    def tp_pair(self, ax) -> bool:
+        """Take the pair of :attr:`tp_pairs` over ``ax`` (a
+        ``parallel.tensor.Axis``): run this rank's heads, the input passed
+        through ``ax.copy_to_group`` once for the three columns.  False
+        (the pair is gathered on use) when the heads do not divide."""
+        if self.num_heads % ax.size:
+            return False
+        self.tp_heads = ax
+        return True
+
 
 class Block(nn.Module):
     """Pre-norm block: LN -> attention -> dropout -> +residual, LN -> MLP ->
     dropout -> +residual."""
+
+    #: the MLP's column- and row-parallel products, paired under a plan
+    tp_pairs = ((("mlp_in",), "mlp_out"),)
 
     def __init__(self, features: int, num_heads: int, head_dim: int, *, mlp_ratio: int = 4,
                  dropout: float = 0.0, causal: bool = True, attn_impl: str = "auto",
@@ -243,6 +294,10 @@ class TransformerLM(nn.Module):
         without CUDA.
       seed: seeds the parameter init (a ``torch.Generator`` on ``device``).
     """
+
+    #: the output head whose logits stay split over the vocabulary under a
+    #: plan that splits it by columns (``parallel.tensor.shard_model``)
+    tp_head = "lm_head"
 
     def __init__(self, vocab_size: int, num_layers: int = 4, num_heads: int = 8,
                  head_dim: int = 32, max_len: int = 2048, mlp_ratio: int = 4,

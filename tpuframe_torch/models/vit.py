@@ -21,8 +21,8 @@ one (the patch kernel HWIO there, OIHW here).
 The JAX model learns its token count from the first input it is
 initialized with; a torch module needs it when it is built, so the port
 takes ``image_size`` (default 224) and raises for an input of another
-size.  :func:`vit_tp_rules` raises ``NotImplementedError``: it comes with
-the tensor-parallel rules (ROADMAP.md, Queue 1).
+size.  :func:`vit_tp_rules` gives the JAX package's tensor-parallel rules
+(``parallel.tensor`` has the split forms).
 
 Standard sizes: ViT-S/16 about 22 M parameters, ViT-B/16 about 86 M.
 """
@@ -36,9 +36,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpuframe_torch.core.runtime import resolve_device
+from tpuframe_torch.core.runtime import MODEL_AXIS, resolve_device
 from tpuframe_torch.models.resnet import Linear
-from tpuframe_torch.models.transformer import _TRUNC_STD, Block, Dropout, _later, run_blocks
+from tpuframe_torch.models.transformer import (
+    _TRUNC_STD,
+    Block,
+    Dropout,
+    run_blocks,
+    transformer_tp_rules,
+)
 from tpuframe_torch.ops.layer_norm import FusedLayerNorm
 
 __all__ = ["PatchEmbed", "ViT", "ViT_B16", "ViT_S16", "vit_tp_rules"]
@@ -46,7 +52,13 @@ __all__ = ["PatchEmbed", "ViT", "ViT_B16", "ViT_S16", "vit_tp_rules"]
 
 class PatchEmbed(nn.Conv2d):
     """flax ``Conv(features, (p, p), strides=(p, p), padding="VALID")`` over
-    NHWC images, run in ``compute_dtype``: (B, H, W, C) -> (B, patches, D)."""
+    NHWC images, run in ``compute_dtype``: (B, H, W, C) -> (B, patches, D);
+    split on its output channels once a plan splits it (``tp``)."""
+
+    #: the split form ``parallel.tensor.shard_model`` gives it, or None
+    tp = None
+    #: split on its output channels it runs column-parallel, alone
+    tp_forms, tp_alone = {0: "col"}, True
 
     def __init__(self, in_channels: int, features: int, patch: int, *,
                  compute_dtype: torch.dtype = torch.float32, device=None):
@@ -55,8 +67,11 @@ class PatchEmbed(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        y = F.conv2d(x.permute(0, 3, 1, 2).to(dt), self.weight.to(dt), self.bias.to(dt),
-                     self.stride)
+        args = (self.weight.to(dt), self.bias.to(dt), x.permute(0, 3, 1, 2).to(dt))
+        if self.tp is not None:
+            y = self.tp.conv(*args, self.stride)
+        else:
+            y = F.conv2d(args[2], args[0], args[1], self.stride)
         return y.permute(0, 2, 3, 1).reshape(x.shape[0], -1, self.out_channels)
 
 
@@ -77,6 +92,9 @@ class ViT(nn.Module):
       device: where the parameters live; None means ``cuda``.
       seed: seeds the parameter init.
     """
+
+    #: the classifier head whose logits stay split over the classes
+    tp_head = "head"
 
     def __init__(self, num_classes: int = 1000, patch_size: int = 16, hidden_dim: int = 384,
                  num_layers: int = 12, num_heads: int = 6, mlp_ratio: int = 4,
@@ -157,8 +175,16 @@ class ViT(nn.Module):
 
 
 def vit_tp_rules():
-    """The ViT's tensor-parallel rules: not ported yet."""
-    raise _later("vit_tp_rules", "the tensor-parallel rules of parallel/sharding.py")
+    """The ViT's tensor-parallel rules, the JAX package's: the transformer
+    block's (column-parallel ``query``/``key``/``value`` and ``mlp_in``,
+    row-parallel ``attn_out`` and ``mlp_out``), the patch embedding's
+    output channels and the classifier head's classes, over ``model``."""
+    block_rules = tuple(r for r in transformer_tp_rules()
+                        if "embed" not in r[0] and "lm_head" not in r[0])
+    return block_rules + (
+        (r"patch_embed/kernel", (None, None, None, MODEL_AXIS)),
+        (r"head/kernel", (None, MODEL_AXIS)),
+    )
 
 
 def _check_image(h: int, w: int, p: int) -> None:

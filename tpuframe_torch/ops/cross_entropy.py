@@ -79,11 +79,14 @@ def cross_entropy_bwd_reference(logits: torch.Tensor, labels: torch.Tensor,
                                 ) -> torch.Tensor:
     """Plain backward: ``(softmax(x) - onehot) * g[:, None]`` in the logits
     dtype, the softmax ``exp(x - m) * inv`` from the row statistics
-    ``stats`` (default: :func:`cross_entropy_stats_reference` of ``logits``)."""
+    ``stats`` (default: :func:`cross_entropy_stats_reference` of ``logits``).
+    A label outside ``[0, K)`` takes no one-hot, as in the kernel (the
+    vocab-parallel loss passes -1 for a label another rank's columns hold)."""
     if stats is None:
         stats = cross_entropy_stats_reference(logits)
     p = torch.exp(logits.float() - stats[:, :1]) * stats[:, 1:]
-    onehot = torch.nn.functional.one_hot(labels.long(), logits.shape[-1]).float()
+    cols = torch.arange(logits.shape[-1], device=logits.device)
+    onehot = (cols[None, :] == labels.long()[:, None]).float()
     return ((p - onehot) * g.float()[:, None]).to(logits.dtype)
 
 

@@ -19,6 +19,14 @@ rather than import the JAX package.
 - ``TPUFRAME_COMMS_FUSED``: ``1`` asks for the in-collective transport
   (the narrow containers on the wire, in the form the process group's
   backend takes); ``ParallelPlan.comms_fused`` wins.
+- ``TPUFRAME_PP_MICROBATCHES``: the pipeline's microbatch count where
+  neither the plan nor the model pins one (:func:`pp_microbatches`, 0 =
+  unset); ``ParallelPlan.pp_microbatches`` wins.
+- ``TPUFRAME_PP_SCHEDULE``: the pipeline's schedule, one of
+  :data:`PP_SCHEDULE_CHOICES` (:func:`pp_schedule`, default
+  ``interleaved``); ``ParallelPlan.pp_schedule`` wins.
+- ``TPUFRAME_TP_SIZE``: the ``model`` axis ``parallel.compose.compose``
+  builds where the caller passes no ``tp=`` (:func:`tp_size`, default 1).
 - ``TPUFRAME_ZERO_STAGE``: the ZeRO stage [0, 3] a plan takes where the
   caller passes none (:func:`zero_stage_default`, default 0).
 - ``TPUFRAME_OFFLOAD_OPTIMIZER``: ``1`` defaults optimizer offload on
@@ -36,8 +44,9 @@ from __future__ import annotations
 import dataclasses
 import os
 
-__all__ = ["COMMS_ENV_VARS", "COMPRESSION_MODES", "CommsConfig", "offload_optimizer_default",
-           "zero_stage_default"]
+__all__ = ["COMMS_ENV_DOMAINS", "COMMS_ENV_VARS", "COMPRESSION_MODES", "CommsConfig",
+           "PP_SCHEDULE_CHOICES", "offload_optimizer_default", "pp_microbatches", "pp_schedule",
+           "tp_size", "zero_stage_default"]
 
 #: the knobs this module reads
 COMMS_ENV_VARS = (
@@ -47,12 +56,35 @@ COMMS_ENV_VARS = (
     "TPUFRAME_COMMS_EF",
     "TPUFRAME_COMMS_GROUPS",
     "TPUFRAME_COMMS_FUSED",
+    "TPUFRAME_PP_MICROBATCHES",
+    "TPUFRAME_PP_SCHEDULE",
+    "TPUFRAME_TP_SIZE",
     "TPUFRAME_ZERO_STAGE",
     "TPUFRAME_OFFLOAD_OPTIMIZER",
 )
 
+#: value domains of the knobs above, the JAX table's rows for them
+COMMS_ENV_DOMAINS = {
+    "TPUFRAME_COMMS_COMPRESSION": {
+        "type": "enum", "choices": ("", "int8", "fp8"), "apply": "restart"},
+    "TPUFRAME_COMMS_BUCKET_MB": {"type": "float", "range": (0.25, 1024.0), "apply": "restart"},
+    "TPUFRAME_COMMS_STOCHASTIC": {"type": "bool", "apply": "restart"},
+    "TPUFRAME_COMMS_EF": {"type": "bool", "apply": "restart"},
+    "TPUFRAME_COMMS_GROUPS": {"type": "int", "range": (1, 64), "apply": "restart"},
+    "TPUFRAME_COMMS_FUSED": {"type": "bool", "apply": "restart"},
+    "TPUFRAME_PP_MICROBATCHES": {"type": "int", "range": (0, 4096), "apply": "restart"},
+    "TPUFRAME_PP_SCHEDULE": {
+        "type": "enum", "choices": ("", "interleaved", "barriered", "1f1b"), "apply": "restart"},
+    "TPUFRAME_TP_SIZE": {"type": "int", "range": (1, 64), "apply": "restart"},
+    "TPUFRAME_ZERO_STAGE": {"type": "int", "range": (0, 3), "apply": "restart"},
+    "TPUFRAME_OFFLOAD_OPTIMIZER": {"type": "bool", "apply": "restart"},
+}
+
 #: wire formats the compressed collectives understand
 COMPRESSION_MODES = ("int8", "fp8")
+
+#: the pipeline schedules (``parallel.pipeline.PP_SCHEDULES`` is this tuple)
+PP_SCHEDULE_CHOICES = ("interleaved", "barriered", "1f1b")
 
 _FALSY = {"0", "false", "off", "no", ""}
 
@@ -154,3 +186,35 @@ def offload_optimizer_default(environ: dict | None = None) -> bool:
     env = os.environ if environ is None else environ
     raw = str(env.get("TPUFRAME_OFFLOAD_OPTIMIZER", "") or "").strip().lower()
     return raw not in _FALSY
+
+
+def _env_int_clamped(env, name: str, default: int, lo: int, hi: int) -> int:
+    raw = str(env.get(name, "") or "").strip()
+    try:
+        val = int(raw) if raw else default
+    except ValueError:
+        val = default
+    return max(lo, min(hi, val))
+
+
+def pp_microbatches(environ: dict | None = None) -> int:
+    """``TPUFRAME_PP_MICROBATCHES`` clamped to [0, 4096]; 0 = unset (the
+    model's ``n_microbatches`` default applies; a malformed value reads 0)."""
+    return _env_int_clamped(os.environ if environ is None else environ,
+                            "TPUFRAME_PP_MICROBATCHES", 0, 0, 4096)
+
+
+def pp_schedule(environ: dict | None = None) -> str:
+    """``TPUFRAME_PP_SCHEDULE`` if it names one of :data:`PP_SCHEDULE_CHOICES`,
+    else ``interleaved`` (the pipeline itself validates a schedule passed in
+    code)."""
+    env = os.environ if environ is None else environ
+    raw = str(env.get("TPUFRAME_PP_SCHEDULE", "") or "").strip().lower()
+    return raw if raw in PP_SCHEDULE_CHOICES else "interleaved"
+
+
+def tp_size(environ: dict | None = None) -> int:
+    """``TPUFRAME_TP_SIZE`` clamped to [1, 64] (default 1: no tensor
+    parallelism); ``compose`` reads it where no ``tp=`` is passed."""
+    return _env_int_clamped(os.environ if environ is None else environ,
+                            "TPUFRAME_TP_SIZE", 1, 1, 64)

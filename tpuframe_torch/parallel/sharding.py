@@ -23,8 +23,17 @@ is HWIO, a linear weight (out, in) where flax's kernel is (in, out), so
 the methods take an ``order`` (the torch dims in flax order,
 :func:`flax_orders`) and map the choice back.  Where in = out that picks
 JAX's logical axis, so the wire's per-chunk scales cover the same
-elements.  Tensor-parallel ``rules`` raise ``NotImplementedError``
-(ROADMAP.md, Queue 1 item 7).
+elements.
+
+Tensor-parallel ``rules`` (:data:`Rule`: a regex over the parameter's
+flax path and a spec) assign a spec to the first parameter path they
+match; its axes (``model``, ``pipe``) name dims of the *flax* layout,
+which ``param_spec`` maps to the torch dims through ``order`` as it does
+the fsdp choice: ``P(None, "model")`` on a Dense kernel (in, out) splits
+dim 0 of the (out, in) weight.  ``train.state.create_train_state`` keeps
+each matched parameter as this rank's shard (``parallel.tensor``).
+``pp_microbatches`` and ``pp_schedule`` pin the pipeline's schedule
+(``parallel.pipeline``) on the plan, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ import dataclasses
 import hashlib
 import json
 import math
+import re
 import warnings
 from typing import Any, Iterator, Mapping, Sequence
 
@@ -42,16 +52,44 @@ from torch import nn
 
 from tpuframe_torch.core.runtime import DATA_AXIS, FSDP_AXIS, Mesh, current_runtime
 
-__all__ = ["ParallelPlan", "flax_orders", "infer_shard_dim", "mesh_axes", "path_str"]
+__all__ = ["ParallelPlan", "Rule", "flax_orders", "infer_shard_dim", "mesh_axes", "path_str",
+           "spec_from_json", "spec_to_json"]
 
 #: a spec: an axis name, a tuple of names, or None per dimension
 Spec = tuple
 
+#: a tensor-parallel rule: (regex over the flax parameter path, spec)
+Rule = tuple[str, Spec]
 
-def _later(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported; it comes with a later item of the data-parallel slice "
-        "(ROADMAP.md, Queue 1)")
+
+def P(*entries) -> Spec:
+    """A spec from its entries, as ``jax.sharding.PartitionSpec(*entries)``
+    reads: ``P(None, "model")``."""
+    return tuple(entries)
+
+
+def spec_to_json(spec: Spec) -> list:
+    """A spec as plain JSON, each entry None, a str, or a list of strs (the
+    form checkpoint manifests and the plan's signature carry)."""
+    return [e if e is None or isinstance(e, str) else list(e) for e in spec]
+
+
+def spec_from_json(entries: Sequence) -> Spec:
+    """Inverse of :func:`spec_to_json`."""
+    return tuple(tuple(e) if isinstance(e, list) else e for e in entries)
+
+
+def to_torch_spec(spec: Spec, ndim: int, order: Sequence[int] | None) -> Spec:
+    """A spec over the flax layout's dims as one over the torch dims:
+    flax dim ``j`` is torch dim ``order[j]`` (identity without an order)."""
+    if order is None or not spec:
+        return tuple(spec)
+    out: list = [None] * ndim
+    for j, e in enumerate(spec):
+        out[order[j]] = e
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
 
 
 def mesh_axes(mesh: Mesh) -> dict[str, int]:
@@ -150,7 +188,10 @@ class ParallelPlan:
     ``offload_optimizer`` keeps the sharded optimizer state in pinned host
     memory on the card (a warning and plain device state on the CPU).
     ``comms_groups`` and ``comms_fused`` pin the compressed sync's bucket
-    groups and transport over the ``TPUFRAME_COMMS_*`` env knobs."""
+    groups and transport over the ``TPUFRAME_COMMS_*`` env knobs.
+    ``rules`` are tensor-parallel rules (module docstring);
+    ``pp_microbatches`` and ``pp_schedule`` pin the pipeline's microbatch
+    count and schedule over ``TPUFRAME_PP_*``."""
 
     mesh: Mesh
     zero_stage: int = 0
@@ -161,12 +202,20 @@ class ParallelPlan:
     offload_optimizer: bool = False
     comms_groups: int | None = None
     comms_fused: bool | None = None
+    pp_microbatches: int | None = None
+    pp_schedule: str | None = None
 
     def __post_init__(self):
+        from tpuframe_torch.parallel.comms_env import PP_SCHEDULE_CHOICES
+
         if self.zero_stage not in (0, 1, 2, 3):
             raise ValueError(f"zero_stage must be 0..3, got {self.zero_stage}")
-        if self.rules:
-            raise _later("tensor-parallel rules")
+        if self.pp_microbatches is not None and self.pp_microbatches < 1:
+            raise ValueError(
+                f"pp_microbatches must be >= 1 (or None), got {self.pp_microbatches}")
+        if self.pp_schedule is not None and self.pp_schedule not in PP_SCHEDULE_CHOICES:
+            raise ValueError(f"pp_schedule must be one of {PP_SCHEDULE_CHOICES} (or None), "
+                             f"got {self.pp_schedule!r}")
         if self.comms_groups is not None and self.comms_groups < 1:
             raise ValueError(f"comms_groups must be >= 1 (or None), got {self.comms_groups}")
         if self.comms_fused not in (None, True, False):
@@ -184,12 +233,12 @@ class ParallelPlan:
     # -- identity / topology ----------------------------------------------
     def signature(self) -> str:
         """Stable short digest of the plan's policy and topology, the JAX
-        package's digest for the same mesh and policy (its pipeline pins
-        are absent here, which is what its default omits)."""
+        package's digest for the same mesh and policy: the rules as
+        :func:`spec_to_json`, the pipeline pins only where set."""
         payload = {
             "mesh": sorted(mesh_axes(self.mesh).items()),
             "zero_stage": self.zero_stage,
-            "rules": [],
+            "rules": [[pat, spec_to_json(spec)] for pat, spec in self.rules],
             "min_shard_elems": self.min_shard_elems,
             "fsdp_axis": self.fsdp_axis,
             "data_axes": list(self.data_axes),
@@ -199,6 +248,10 @@ class ParallelPlan:
             payload["comms_groups"] = int(self.comms_groups)
         if self.comms_fused:
             payload["comms_fused"] = True
+        if self.pp_microbatches is not None:
+            payload["pp_microbatches"] = int(self.pp_microbatches)
+        if self.pp_schedule is not None and self.pp_schedule != "interleaved":
+            payload["pp_schedule"] = str(self.pp_schedule)
         blob = json.dumps(payload, sort_keys=True).encode()
         return hashlib.sha256(blob).hexdigest()[:12]
 
@@ -206,8 +259,7 @@ class ParallelPlan:
         """The compressed sync's schedule: bucket groups, fired in reverse
         bucket order (the reverse-backward leaf order); ``config`` (a
         ``CommsConfig``) supplies the env default where the plan pins
-        nothing.  The pipeline keys of the JAX dict are kept at their
-        defaults (no pipeline here)."""
+        nothing; the pipeline's schedule beside them."""
         groups = self.comms_groups
         if groups is None:
             groups = int(getattr(config, "groups", 1) or 1)
@@ -220,8 +272,8 @@ class ParallelPlan:
             "pinned": self.comms_groups is not None,
             "fused": bool(fused),
             "fused_pinned": self.comms_fused is not None,
-            "pp_schedule": "interleaved",
-            "pp_pinned": False,
+            "pp_schedule": self.pp_schedule or "interleaved",
+            "pp_pinned": self.pp_schedule is not None,
         }
 
     def describe_topology(self) -> dict:
@@ -239,7 +291,8 @@ class ParallelPlan:
     def rebind(self, mesh: Mesh) -> "ParallelPlan":
         """The same policy over another mesh, with one
         ``parallel/plan_rebind`` event, and a warning when an axis above 1
-        collapses to 1 (ZeRO sharding vanishes when ``fsdp`` does)."""
+        collapses to 1 (ZeRO sharding vanishes when ``fsdp`` does, tensor
+        parallelism when ``model`` does); the rules and pins carry over."""
         from tpuframe_torch.track.telemetry import get_telemetry
 
         old_axes, new_axes = mesh_axes(self.mesh), mesh_axes(mesh)
@@ -254,8 +307,9 @@ class ParallelPlan:
             warnings.warn(
                 f"plan rebind collapsed mesh axis(es) {collapsed} to size 1 "
                 f"({old_axes} -> {new_axes}): sharding over those axes is now inert (ZeRO "
-                "partitions gather to every replica when fsdp collapses). Re-check the memory "
-                "budget fits the new world.", stacklevel=2)
+                "partitions gather to every replica when fsdp collapses; TP rules naming a "
+                "collapsed axis replicate). Re-check the memory budget fits the new world.",
+                stacklevel=2)
         return new
 
     # -- axis helpers ------------------------------------------------------
@@ -267,16 +321,24 @@ class ParallelPlan:
         """Data-parallel ranks: the product of the data axes' sizes."""
         return math.prod(self.axis_size(a) for a in self.data_axes)
 
+    @property
+    def split_axes(self) -> tuple[str, ...]:
+        """The axes above 1 that split the model rather than the batch:
+        ``pipe`` and ``model``."""
+        return tuple(a for a in ("pipe", "model") if self.axis_size(a) > 1)
+
     def check_world(self) -> int:
-        """The world size of the default process group (1 without one);
-        ``ValueError`` when it is not this plan's ``dp_size``."""
+        """This plan's ``dp_size`` (the ranks a gradient is averaged over);
+        ``ValueError`` when the default process group's world size (1
+        without one) is not the mesh's size."""
         world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
-        if world != self.dp_size:
+        size = int(self.mesh.devices.size)
+        if world != size:
             raise ValueError(
-                f"the plan's dp_size is {self.dp_size} but the process group's world size is "
-                f"{world}: build the plan over the runtime's mesh (ParallelPlan(mesh="
-                "initialize().mesh)) in every process of the group")
-        return world
+                f"the plan's dp_size is {self.dp_size} (its mesh spans {size} ranks) but the "
+                f"process group's world size is {world}: build the plan over the runtime's mesh "
+                "(ParallelPlan(mesh=initialize().mesh)) in every process of the group")
+        return self.dp_size
 
     # -- batch -------------------------------------------------------------
     def batch_spec(self) -> Spec:
@@ -298,8 +360,11 @@ class ParallelPlan:
 
     # -- params ------------------------------------------------------------
     def _rule_spec(self, path: str) -> Spec | None:
-        """The tensor-parallel rule's spec for ``path``: none (no rules)."""
-        del path
+        """The spec of the first rule whose regex matches ``path`` (a flax
+        path ``a/b/c``), None where none does."""
+        for pattern, spec in self.rules:
+            if re.search(pattern, path):
+                return tuple(spec)
         return None
 
     def _maybe_fsdp(self, shape: Sequence[int], base: Spec,
@@ -323,8 +388,10 @@ class ParallelPlan:
 
     def param_spec(self, path: str, shape: Sequence[int],
                    order: Sequence[int] | None = None) -> Spec:
-        """Where a parameter lives: whole, or (stage 3) sharded over fsdp."""
-        spec = self._rule_spec(path) or ()
+        """Where a parameter lives: split by its rule (the rule's flax dims
+        mapped to the torch dims through ``order``), and (stage 3) over
+        fsdp."""
+        spec = to_torch_spec(self._rule_spec(path) or (), len(shape), order)
         if self.zero_stage == 3:
             spec = self._maybe_fsdp(shape, spec, order)
         return spec
@@ -334,8 +401,7 @@ class ParallelPlan:
         """Where a parameter's optimizer state lives: with the parameter,
         plus fsdp from stage 1 on."""
         spec = self._rule_spec(path) or ()
-        if len(spec) > len(shape):
-            spec = ()
+        spec = () if len(spec) > len(shape) else to_torch_spec(spec, len(shape), order)
         if self.zero_stage >= 1:
             spec = self._maybe_fsdp(shape, spec, order)
         return spec

@@ -129,14 +129,20 @@ def init_optimizer_state(opt: torch.optim.Optimizer) -> None:
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float,
+                         grad_sq: torch.Tensor | None = None) -> torch.Tensor:
     """optax ``clip_by_global_norm`` in place: scale every gradient by
     ``max_norm / norm`` when the global norm exceeds ``max_norm``, else
-    leave it.  Returns the global norm (a device scalar, no host sync)."""
+    leave it.  ``grad_sq`` is the summed squares where the caller has them
+    (a plan that splits the parameters: their global sum).  Returns the
+    global norm (a device scalar, no host sync)."""
     grads = [g for g in grads if g is not None]
     if not grads:
         return torch.zeros(())
-    norm = torch.stack([n.float() for n in torch._foreach_norm(grads)]).square().sum().sqrt()
+    if grad_sq is not None:
+        norm = grad_sq.float().sqrt()
+    else:
+        norm = torch.stack([n.float() for n in torch._foreach_norm(grads)]).square().sum().sqrt()
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     torch._foreach_mul_(grads, scale)
     return norm

@@ -23,6 +23,13 @@ Under a ZeRO plan (``create_train_state(..., plan=)``) the state carries a
 the clip takes the plan-global norm, the new slices are gathered into the
 parameters after each update, and a save holds every optimizer leaf at its
 parameter's full shape (gathered), which a restore slices again.
+
+Under a plan whose rules split parameters over ``model`` or ``pipe``
+(tensor and pipeline parallelism) each rank's model holds its shards
+(``parallel.tensor.shard_model``) and the optimizer steps them; the clip
+takes the global norm, and a save holds every parameter, optimizer leaf
+and moving average whole, the same keys and shapes under every plan,
+which a restore slices onto this rank's shards.
 """
 
 from __future__ import annotations
@@ -37,6 +44,8 @@ from torch import nn
 import contextlib
 
 from tpuframe_torch.fault.health import init_health_state
+from tpuframe_torch.parallel.tensor import full_tensor, shard_model
+from tpuframe_torch.parallel.tensor import grad_sq as split_grad_sq
 from tpuframe_torch.train.ema import EmaState, init_ema, update_ema_
 from tpuframe_torch.train.optim import OptimizerSpec, clip_by_global_norm_
 
@@ -89,8 +98,10 @@ class TrainState:
                 zero.clip_(self.spec.max_grad_norm,
                            zero.global_grad_sq() if grad_sq is None else grad_sq)
             else:
+                if grad_sq is None and _split(self.model):
+                    grad_sq = split_grad_sq(self.model)
                 clip_by_global_norm_([p.grad for p in self.model.parameters()],
-                                     self.spec.max_grad_norm)
+                                     self.spec.max_grad_norm, grad_sq)
         lr = self._lr()
         for group in self.optimizer.param_groups:
             group["lr"] = lr
@@ -147,6 +158,15 @@ class TrainState:
         model = self.model.state_dict()
         if zero is not None:
             model.update(zero.full_params())
+        layout, mesh = _split(self.model), getattr(self.model, "tp_mesh", None)
+        if layout:
+            params = dict(self.model.named_parameters())
+            for name, splits in layout.items():
+                model[name] = full_tensor(params[name], splits, mesh)
+                if name in optimizer:
+                    optimizer[name] = {
+                        k: full_tensor(v, splits, mesh) if _like(v, params[name]) else v
+                        for k, v in optimizer[name].items()}
         data = {
             "step": self.step,
             "updates": self.updates,
@@ -158,7 +178,8 @@ class TrainState:
         if self.comms:
             data["comms"] = dict(self.comms)
         if self.ema is not None:
-            data["ema"] = dict(self.ema.ema)
+            data["ema"] = {k: full_tensor(v, layout[k], mesh) if k in layout else v
+                           for k, v in self.ema.ema.items()}
         return data
 
     @torch.no_grad()
@@ -182,9 +203,30 @@ class TrainState:
         _copy_into(live, data, "")
         if self.zero is not None:
             self.zero.load_full(live["model"], live["optimizer"], self.optimizer)
+        layout, mesh = _split(self.model), getattr(self.model, "tp_mesh", None)
+        if layout:  # the whole tensors sliced onto this rank's shards
+            params = dict(self.model.named_parameters())
+            for name, splits in layout.items():
+                p = params[name]
+                p.data.copy_(mesh.local_slice(live["model"][name], splits))
+                for k, v in self.optimizer.state.get(p, {}).items():
+                    if _like(v, p):
+                        v.copy_(mesh.local_slice(live["optimizer"][name][k], splits))
+                if self.ema is not None and name in self.ema.ema:
+                    self.ema.ema[name].copy_(mesh.local_slice(live["ema"][name], splits))
         self.step = int(data["step"])
         self.generator.set_state(data["rng"].cpu())
         return self
+
+
+def _split(model: nn.Module) -> dict:
+    """The layout of a model a plan split (``parallel.tensor``), else {}."""
+    return getattr(model, "tp_layout", None) or {}
+
+
+def _like(v: Any, p: torch.Tensor) -> bool:
+    """Whether an optimizer state value is shaped like its parameter."""
+    return torch.is_tensor(v) and v.shape == p.shape and v.ndim > 0
 
 
 def _copy_into(live: Mapping, saved: Mapping, where: str) -> None:
@@ -220,6 +262,16 @@ def create_train_state(model: nn.Module, spec: OptimizerSpec, *, seed: int = 0,
     first (torch builds them so)."""
     device = next(model.parameters()).device
     zero = None
+    if plan is not None and plan.split_axes:
+        what = [w for w, on in (("zero_stage >= 1", plan.zero_stage >= 1),
+                                ("offload_optimizer", plan.offload_optimizer),
+                                ("grad_compression", grad_compression is not None)) if on]
+        if what:
+            raise NotImplementedError(
+                f"{', '.join(what)} with the {'/'.join(plan.split_axes)} axis above 1 is not "
+                "ported: ZeRO, offload and the compressed wire beside tensor and pipeline "
+                "parallelism come with a later part of ROADMAP.md, Queue 1 item 7")
+        shard_model(model, plan)
     if plan is not None and getattr(plan, "zero_stage", 0) >= 1:
         from tpuframe_torch.parallel.zero import ZeroShards
 
@@ -241,6 +293,11 @@ def create_train_state(model: nn.Module, spec: OptimizerSpec, *, seed: int = 0,
             zero.offload(optimizer)
     else:
         optimizer = spec.build(model.parameters())
+        if _split(model) and getattr(optimizer, "per_tensor", False):
+            raise NotImplementedError(
+                f"{type(optimizer).__name__} computes over whole tensors (norms, factored "
+                "moments); over tensor-parallel shards it needs those reduced across the "
+                "group, which is not ported: use sgd, adam, adamw, fused_adamw or lion")
     return TrainState(
         step=0,
         model=model,

@@ -87,6 +87,19 @@ TrainState` that it updates in place, with the JAX step's semantics:
   the resting parameters on the step's entry and frees them on its exit
   (and the eval step gathers them for its forward).  The health verdict
   and the clip take the plan-global norm.
+- **Tensor and pipeline parallelism** (a state built with
+  ``create_train_state(..., plan=)`` under rules that split parameters
+  over ``model`` or ``pipe``, ``parallel.tensor`` and
+  ``parallel.pipeline``).  The forward gathers the parameters that are
+  gathered on use; over vocabulary-split logits (``model.tp_logits``) the
+  loss is ``parallel.tensor.vocab_parallel_cross_entropy`` (K2a and K2b on
+  the shard) and the prediction ``split_argmax``, any other ``loss_fn``
+  taking the gathered logits.  The gradients are averaged over the data
+  plane's group alone (``Runtime.groups["dp"]``), and the metrics summed
+  over it; the ranks along ``model`` and ``pipe`` hold the same loss.  The
+  clip and the health verdict take the global norm
+  (``parallel.tensor.grad_sq``).  Dropout draws by data shard, so the
+  ranks of one shard draw the same masks.
 - **The hooks** are ``register_post_accumulate_grad_hook``s on the
   trainable parameters, armed at a train step's start (in the grad-accum
   step, for the last microbatch, where the hook also divides by the
@@ -111,6 +124,7 @@ import torch.distributed as dist
 from torch import nn
 from torch.func import functional_call
 
+from tpuframe_torch.core.runtime import groups_for
 from tpuframe_torch.fault.health import HealthPolicy, health_verdict
 from tpuframe_torch.models.norm import cross_rank_statistics, rank_local_buffers
 from tpuframe_torch.ops.cross_entropy import fused_cross_entropy
@@ -126,6 +140,13 @@ from tpuframe_torch.parallel.compression import (
 )
 from tpuframe_torch.parallel.precision import Policy, full_precision
 from tpuframe_torch.parallel.sharding import flax_orders
+from tpuframe_torch.parallel.tensor import (
+    gather_from_group,
+    gathered_params,
+    split_argmax,
+    vocab_parallel_cross_entropy,
+)
+from tpuframe_torch.parallel.tensor import grad_sq as split_grad_sq
 from tpuframe_torch.track.telemetry import get_telemetry
 from tpuframe_torch.train.state import TrainState
 
@@ -186,6 +207,12 @@ def step_generator(state: TrainState, device: torch.device, stream: str | None =
     ``step_rng``) and a microbatch ``index``.  Without a stream it is the
     compressed wire's stochastic-rounding stream."""
     rank = dist.get_rank() if _wired() else 0
+    plan = state.plan
+    if stream is not None and plan is not None and plan.split_axes:
+        # the ranks along model and pipe hold one data shard and draw one
+        # mask, as JAX folds in the data-axis index
+        c = plan.mesh.coords(rank)
+        rank = c["data"] * plan.axis_size("fsdp") + c["fsdp"]
     seed = ((state.generator.initial_seed() * 1_000_003 + state.step) * 8191 + rank) % 2**63
     if stream is not None:
         seed = (seed * 1_000_033 + zlib.crc32(stream.encode())) % 2**63
@@ -223,20 +250,36 @@ def _forward(model: nn.Module, batch: Mapping[str, torch.Tensor], policy: Policy
     own (training BatchNorm updates them)."""
     params = policy.cast_params_for_compute(
         dict(model.named_parameters()) if params is None else dict(params))
+    params = gathered_params(model, params)
     x = batch["input"] if "input" in batch else batch["image"]
     with _mode(model, train):
         logits = functional_call(model, params, (policy.cast_batch(x),), strict=False)
     logits = policy.cast_outputs(logits)
-    return loss_fn(logits, batch["label"]), logits
+    labels = batch["label"]
+    ax = getattr(model, "tp_logits", None)
+    if ax is None:
+        return loss_fn(logits, labels), logits
+    if loss_fn is cross_entropy and labels.ndim == logits.ndim - 1:
+        flat = vocab_parallel_cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                            labels.reshape(-1), ax)
+        return flat.reshape(labels.shape), logits
+    return loss_fn(gather_from_group(logits, -1, ax), labels), logits
 
 
-def _train_metrics(loss: torch.Tensor, logits: torch.Tensor, labels: torch.Tensor) -> dict:
+def _argmax(model: nn.Module, logits: torch.Tensor) -> torch.Tensor:
+    """The predicted class: over the last dim, split or whole."""
+    ax = getattr(model, "tp_logits", None)
+    return logits.argmax(-1) if ax is None else split_argmax(logits, ax)
+
+
+def _train_metrics(loss: torch.Tensor, logits: torch.Tensor, labels: torch.Tensor,
+                   model: nn.Module) -> dict:
     """The summed train metrics: ``loss_sum``, ``correct``, ``count``."""
     hard = labels.argmax(-1) if labels.ndim == logits.ndim else labels
     n = float(hard.numel())
     return {
         "loss_sum": loss.detach().float() * n,
-        "correct": (logits.detach().argmax(-1) == hard).sum().float(),
+        "correct": (_argmax(model, logits.detach()) == hard).sum().float(),
         "count": torch.full((), n, dtype=torch.float32, device=logits.device),
     }
 
@@ -300,6 +343,8 @@ def _apply_with_health(state: TrainState, loss: torch.Tensor, metrics: dict,
     the step was bad; a bad step's metrics are zeroed."""
     grads = [p.grad for p in state.model.parameters() if p.grad is not None]
     grad_sq = state.zero.global_grad_sq() if state.zero is not None else None
+    if grad_sq is None and getattr(state.model, "tp_layout", None):
+        grad_sq = split_grad_sq(state.model)
     bad, new_health, hmetrics = health_verdict(loss, grads, state.health, state.step, health,
                                                grad_sq=grad_sq)
     state.apply_gradients(grad_sq)
@@ -418,7 +463,7 @@ def make_train_step(
                 losses, logits = _forward(state.model, batch, policy, True, loss_fn)
             loss = losses.mean()
             loss.backward()
-            metrics = _train_metrics(loss, logits, batch["label"])
+            metrics = _train_metrics(loss, logits, batch["label"], state.model)
             return _finish(step, state, loss.detach(), metrics, health, snap, sync)
 
     step.wire = None  # the compressed wire's plan, from the first call on
@@ -443,7 +488,7 @@ def make_eval_step(
     @torch.no_grad()
     def step(state: TrainState, batch: Mapping[str, torch.Tensor],
              params: Mapping[str, torch.Tensor] | None = None) -> dict:
-        summed = plan is not None or state.plan is not None
+        the_plan = plan if plan is not None else state.plan
         if batch_transform is not None:
             batch = batch_transform(dict(batch))
         with state.zero.gathered() if state.zero is not None else contextlib.nullcontext():
@@ -456,10 +501,12 @@ def make_eval_step(
             weight = weight.reshape(weight.shape + (1,) * (losses.ndim - weight.ndim))
         metrics = {
             "loss_sum": (losses * weight).sum(),
-            "correct": ((logits.argmax(-1) == hard).float() * weight).sum(),
+            "correct": ((_argmax(state.model, logits) == hard).float() * weight).sum(),
             "count": weight.sum(),
         }
-        return _sum_across_ranks(metrics) if summed and _wired() else metrics
+        if the_plan is None or not _wired() or the_plan.dp_size == 1:
+            return metrics
+        return _sum_across_ranks(metrics, _dp_group(the_plan))
 
     return step
 
@@ -547,7 +594,7 @@ def _accumulate(state: TrainState, batch: Mapping[str, torch.Tensor], n_microbat
             losses, logits = _forward(state.model, mb, policy, True, loss_fn)
         loss = losses.mean()
         loss.backward()
-        m = _train_metrics(loss, logits, mb["label"])
+        m = _train_metrics(loss, logits, mb["label"], state.model)
         metrics = m if metrics is None else {k: metrics[k] + m[k] for k in m}
     # what the hooks did not divide (a gradient of an earlier microbatch only)
     rest = [p.grad for p in state.model.parameters()
@@ -560,27 +607,37 @@ def _accumulate(state: TrainState, batch: Mapping[str, torch.Tensor], n_microbat
 # -- the data-parallel stages ----------------------------------------------------
 
 
+def _dp_group(plan: Any):
+    """The process group of the data plane (``data`` x ``fsdp``) this rank
+    averages its gradients over: the default group where the plan splits
+    nothing over ``model`` or ``pipe``."""
+    if not plan.split_axes:
+        return None
+    return groups_for(plan.mesh).get("dp")
+
+
 @torch.no_grad()
-def _sum_across_ranks(metrics: dict) -> dict:
-    """The metrics summed over the process group in one collective."""
+def _sum_across_ranks(metrics: dict, group=None) -> dict:
+    """The metrics summed over ``group`` (default: the process group) in
+    one collective."""
     keys = sorted(metrics)
     packed = torch.stack([metrics[k].to(torch.float32) for k in keys])
-    dist.all_reduce(packed, op=dist.ReduceOp.SUM)
+    dist.all_reduce(packed, op=dist.ReduceOp.SUM, group=group)
     return dict(zip(keys, packed.unbind()))
 
 
 @torch.no_grad()
-def _mean_in_place(tensors: list[torch.Tensor], world: int) -> None:
+def _mean_in_place(tensors: list[torch.Tensor], world: int, group=None) -> None:
     """Tensors of one dtype averaged across the ranks in place, in one
     collective (SUM, then ``/ world``: gloo has no AVG)."""
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
     flat /= world
     torch._foreach_copy_(tensors, [f.view_as(t) for f, t in zip(
         flat.split([t.numel() for t in tensors]), tensors)])
 
 
-def _average_buffers(model: nn.Module, world: int) -> None:
+def _average_buffers(model: nn.Module, world: int, group=None) -> None:
     """Floating buffers (BatchNorm running statistics) averaged across
     the ranks in place, one collective a dtype."""
     by_dtype: dict = {}
@@ -588,17 +645,17 @@ def _average_buffers(model: nn.Module, world: int) -> None:
         if b.is_floating_point():
             by_dtype.setdefault(b.dtype, []).append(b)
     for bufs in by_dtype.values():
-        _mean_in_place(bufs, world)
+        _mean_in_place(bufs, world, group)
 
 
 def _global(state: TrainState, loss: torch.Tensor, metrics: dict, world: int,
-            average_buffers: bool) -> tuple[torch.Tensor, dict]:
+            average_buffers: bool, group=None) -> tuple[torch.Tensor, dict]:
     """Both stages' tail: the running buffers averaged (where they differ
     by rank), the metrics summed and the loss made the global mean, in one
-    collective."""
+    collective, over ``group`` (default: the process group)."""
     if average_buffers:
-        _average_buffers(state.model, world)
-    summed = _sum_across_ranks({**metrics, "_loss": loss})
+        _average_buffers(state.model, world, group)
+    summed = _sum_across_ranks({**metrics, "_loss": loss}, group)
     return summed.pop("_loss") / world, summed
 
 
@@ -607,6 +664,11 @@ def _wire_stage(plan: Any, grad_compression, n_microbatches: int) -> "_Stage | N
     update: the compressed wire's sync, the exact mean over a plan of
     several ranks, or None (one rank, or no plan)."""
     if grad_compression is not None:
+        if plan is not None and plan.split_axes:
+            raise NotImplementedError(
+                "grad_compression with the model or pipe axis above 1 is not ported; the "
+                "compressed wire beside tensor and pipeline parallelism comes with a later "
+                "part of ROADMAP.md, Queue 1 item 7")
         return _WireSync(plan, grad_compression, n_microbatches)
     if plan is not None and plan.dp_size > 1:
         return _MeanSync(plan)
@@ -722,9 +784,10 @@ class _MeanSync(_FiredStage):
     def __init__(self, plan: Any):
         super().__init__()
         self.world = plan.check_world()
+        self.group = _dp_group(plan)
 
     def statistics(self, model: nn.Module):
-        return cross_rank_statistics(model)
+        return cross_rank_statistics(model, self.group)
 
     def _build(self, state: TrainState) -> None:
         """Buckets of at most ``bucket_bytes`` of gradient of one dtype each
@@ -770,7 +833,8 @@ class _MeanSync(_FiredStage):
                 continue
             grads = [self._params[n].grad for n in self._buckets[k]]
             flat = torch.cat([g.reshape(-1) for g in grads])
-            self._sums.append((flat, dist.all_reduce(flat, op=dist.ReduceOp.SUM, async_op=True)))
+            self._sums.append((flat, dist.all_reduce(flat, op=dist.ReduceOp.SUM,
+                                                     group=self.group, async_op=True)))
 
     def _scatter(self, names: list[str]) -> torch.Tensor:
         """A bucket of sliced leaves: each gradient as its (F, chunk) rows,
@@ -801,7 +865,7 @@ class _MeanSync(_FiredStage):
             torch._foreach_copy_(grads, [f.view_as(g) for f, g in zip(
                 flat.split([g.numel() for g in grads]), grads)])
         self._live, self._sums = False, []  # no bucket copy outlives the step
-        return _global(state, loss, metrics, self.world, self._local)
+        return _global(state, loss, metrics, self.world, self._local, self.group)
 
 
 class _WireSync(_FiredStage):

@@ -24,8 +24,12 @@ start at zero in ``TrainState.comms``.  A ZeRO plan (stages 1-3,
 ``parallel.zero``; ``offload_optimizer`` on the card) lays the state out
 in owned slices (``create_train_state(..., plan=)``); the global-norm clip
 then takes the plan-global norm inside the step, as the JAX Trainer moves
-its clip into the compressed step.  Every rank runs the loop; only the
-main process logs and reports.
+its clip into the compressed step.  A plan whose rules split parameters
+over ``model`` or ``pipe`` (``vit_tp_rules``, ``transformer_tp_rules``,
+``parallel.compose``) trains each rank on its shards
+(``parallel.tensor``, ``parallel.pipeline``); the loader's rows follow the
+data shard, so the ranks along ``model`` and ``pipe`` read the same batch.
+Every rank runs the loop; only the main process logs and reports.
 
 Checkpoints go through ``ckpt.Checkpointer``: an epoch-end save every
 ``checkpoint_interval`` epochs, mid-epoch snapshots every
@@ -37,8 +41,8 @@ EMA: ``ema_decay`` wraps the optimizer with ``train.ema.with_ema``, and
 evaluate and predict read the average (the JAX ``_serving_state``).
 
 What this reduced Trainer does not do yet, each raising
-``NotImplementedError`` that names the slice which ports it: plans
-with tensor-parallel rules, preemption handling (``preemption=True``), straggler detection
+``NotImplementedError`` that names the slice which ports it:
+preemption handling (``preemption=True``), straggler detection
 (``straggler_sync_steps``, ``straggler_factor``).  ``tx`` takes
 an ``OptimizerSpec`` in place of an optax transform (``ops.fused_adamw``
 returns one).  ``precompile`` is accepted and does nothing: eager PyTorch
@@ -122,10 +126,10 @@ class Trainer:
       train_dataloader / eval_dataloader: port DataLoaders.
       max_duration: ``"2ep"`` / ``"500ba"`` / ``"1000sp"`` / int epochs.
       algorithms / callbacks / loggers: as the JAX Trainer's.
-      plan: a ``ParallelPlan`` of any ZeRO stage (default: over the runtime's mesh,
-        which :func:`~tpuframe_torch.core.runtime.current_runtime` builds
-        on the model's device when none is initialized); its ``dp_size``
-        must be the process group's world size (``ValueError``).
+      plan: a ``ParallelPlan`` of any ZeRO stage, or with rules (default:
+        over the runtime's mesh, which :func:`~tpuframe_torch.core.runtime.
+        current_runtime` builds on the model's device when none is
+        initialized); its mesh must span the process group (``ValueError``).
       grad_compression: ``"int8"`` / ``"fp8"`` / a ``CommsConfig``: the
         compressed gradient wire (None reads ``TPUFRAME_COMMS_COMPRESSION``).
       precision: policy name or Policy; when given, the model's compute
