@@ -10,7 +10,7 @@ Phases, each of which fails the script (nonzero exit, no result line):
 1. Device: the card's name and power limit from ``nvidia-smi``; no CUDA,
    no run, and none while ``TPUFRAME_SIMULATE_DEVICES`` (the launcher's
    request for CPU workers) is set.
-2. Build: every CUDA kernel of the port (seven sources), compiled from
+2. Build: every CUDA kernel of the port (eight sources), compiled from
    ``tpuframe_torch/csrc`` with ``nvcc`` for ``sm_90a``, one ``nvcc`` per
    source, all started together, and beside them the K2 baseline
    (``tests/csrc/cross_entropy_baseline.cu``, the design before saved row
@@ -234,7 +234,28 @@ Phases, each of which fails the script (nonzero exit, no result line):
    ranks and into one process's plan here, bit-exact with one
    ``fault/reshard`` each, and another vocabulary refused before any read;
    (d) example 07 with ``--tp 2`` through the ``Distributor``.
-18. Result: a ``kernels`` JSON line (each kernel with ``floor_ms``; K1 and
+18. Sequence parallelism and MoE on one card (``sp_phase``): (a) the ring
+   and (b) Ulysses: ``long_ctx``'s LM (vocabulary 32,768, 12 x 64 heads,
+   seq 8192, batch 2) on four gloo ranks (mesh seq 4, 2,048 positions a
+   rank) with ``fused_adamw``, its first f32 loss and update at 2 layers
+   against one process's blockwise step (loss 1e-5 relative, update 1e-3
+   of its largest element), then 3 bf16 steps at 12 layers, each rank's
+   launches held exact (K6a-K6c 12 (r + 1) a step on seq rank r under the
+   ring, 12 under Ulysses; K3a/K3b 25 and K4 1, K2 none: the (B, L)
+   labels take the plain per-position loss, as in phase 6) and its
+   ``all_to_all_single`` calls (the ring 7 a layer a step, Ulysses 4);
+   (c) ``gpt_small``'s widths with 8 experts, top 2, 8 sequences on data 2
+   x expert 2 under ``moe_rules``: the f32 checks at 2 layers at the
+   default capacity and at one that drops tokens, 3 bf16 steps at 12
+   layers with K9a 24, K9b 24 and K9c 12 a step on each rank, and each
+   rank's CUDA tensors beside ``plan_memory``; (d) example 06 through its
+   workers three ways (Ulysses on seq 2; the ring with MoE on seq 2; full
+   attention with MoE on expert 2), rank 0's K6 and K9 launches held
+   exact; (e) K9a-K9c against their plain versions (K9a and K9b bit-equal,
+   K9c within 1e-5) at the MoE path's shape and small, timed beside the
+   plain versions and ``index_put_``, and K6's float32 partials at the
+   ring's tile, rounded to bf16 bit-equal to the default launches.
+19. Result: a ``kernels`` JSON line (each kernel with ``floor_ms``; K1 and
    K2 also with ``launches_ddp``, phase 10's count on each rank, and
    ``launches_streaming``, phase 14's TFS fit; K2a/K2b, K3a/K3b and K4
    with ``launches_tp`` and ``launches_tp_pp``, phase 17's counts on each
@@ -243,7 +264,10 @@ Phases, each of which fails the script (nonzero exit, no result line):
    and ``launches_zero_int8``; K6 with
    ``launches_remat``, its share of the bound, ``baseline_ms``,
    ``speedup`` and ``ptxas``, the registers and spills of its bf16
-   tensor-core kernel at each head dim), the ``nvidia-smi`` line, then
+   tensor-core kernel at each head dim, and ``launches_ring``,
+   ``launches_ulysses`` and ``launches_example06``, phase 18's counts;
+   K9a-K9c with ``launches_moe`` on each rank of phase 18's MoE LM and
+   ``launches_example06``), the ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 One phase of 3 alone, for a short run on the card (the kernels it needs
@@ -5837,6 +5861,621 @@ def tp_phase(card: str, timeout_s: float = 600.0, device: str = "cuda:0", cfg: d
     return out
 
 
+# -- phase 18: sequence parallelism and MoE on one card ------------------------------
+
+SP_SEQ = 4  # the seq axis of (a) and (b): 2,048 of long_ctx's 8,192 positions a rank
+SP_STEPS = 3  # timed bf16 steps of each path
+SP_CHECK_LAYERS = 2  # depth of the f32 checks against one process
+MOE_LM = dict(LM, moe_experts=8, moe_top_k=2)  # gpt_small's widths, 8 experts, top 2
+MOE_BATCH = 8  # sequences a step over data 2 (4 a rank), each on both expert ranks
+MOE_MESH = {"data": 2, "expert": 2}
+MOE_DROP_CF = 0.25  # a capacity factor at which the routing drops tokens
+MOE_CAPACITIES = (1.25, MOE_DROP_CF)  # MoEMLP's default, then the dropping one
+#: f32 against one process's run of the same weights and batch (the ring and
+#: Ulysses tiles and the token group's all-reduce sum in another order): the
+#: loss 1e-5 relative, the update (AdamW, eps 1e-3) 1e-3 of its largest element
+SP_LOSS_RTOL = 1e-5
+SP_UPDATE_RTOL = 1e-3
+SP_DIR = Path(__file__).resolve().parent / "build" / "tpuframe_torch" / "sp_smoke"
+EX06_RUNS = (  # (name, argv) of example 06 through its workers on the card
+    ("ulysses_seq2", ["--attn", "ulysses", "--seq-shards", "2"]),
+    ("ring_seq2_moe2", ["--attn", "ring", "--seq-shards", "2", "--moe-experts", "2",
+                        "--expert-shards", "1"]),
+    ("full_moe2_expert2", ["--attn", "full", "--seq-shards", "1", "--moe-experts", "2",
+                           "--expert-shards", "2"]),
+)
+EX06_ARGV = ["--epochs", "1", "--train-samples", "64", "--batch-size", "16"]
+EX06_LAYERS = 2  # example 06's default --layers
+K6_NAMES = ("blockwise_attention_fwd", "blockwise_attention_bwd_dq",
+            "blockwise_attention_bwd_dkv")
+K9_NAMES = ("moe_dispatch", "moe_combine", "moe_gate_grad")
+
+
+def _sp_counters():
+    """The kernels of the sequence-parallel and MoE paths: K2a/K2b, K3a/K3b,
+    K4, K6a-K6c and K9a-K9c."""
+    from tpuframe_torch.ops.blockwise_attention import (
+        blockwise_attention_bwd_dkv,
+        blockwise_attention_bwd_dq,
+        blockwise_attention_fwd,
+    )
+    from tpuframe_torch.ops.moe_gating import moe_combine, moe_dispatch, moe_gate_grad
+
+    return {**_tp_counters(), "blockwise_attention_fwd": blockwise_attention_fwd,
+            "blockwise_attention_bwd_dq": blockwise_attention_bwd_dq,
+            "blockwise_attention_bwd_dkv": blockwise_attention_bwd_dkv,
+            "moe_dispatch": moe_dispatch, "moe_combine": moe_combine,
+            "moe_gate_grad": moe_gate_grad}
+
+
+def _sp_batch(cfg: dict, batch: int, dev: torch.device, seed: int) -> dict:
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg["vocab_size"], (batch, cfg["max_len"] + 1))).to(dev)
+    return {"input": toks[:, :-1].contiguous(), "label": toks[:, 1:].contiguous()}
+
+
+def _set_capacity(model, factor: float) -> None:
+    from tpuframe_torch.models import MoEMLP
+
+    for m in model.modules():
+        if isinstance(m, MoEMLP):
+            m.capacity_factor = factor
+
+
+def _one_process(cfg: dict, batch: dict, dev: torch.device, capacity: float | None = None,
+                 **kw) -> dict:
+    """One process's f32 step of ``TransformerLM(**cfg, seed=0, **kw)`` on the
+    whole batch: its loss, the parameters before and after."""
+    from tpuframe_torch.models import TransformerLM
+    from tpuframe_torch.ops import fused_adamw
+    from tpuframe_torch.parallel import full_precision
+    from tpuframe_torch.train import create_train_state, make_train_step
+
+    ref = TransformerLM(**cfg, device=dev, seed=0, **kw)
+    if capacity is not None:
+        _set_capacity(ref, capacity)
+    init = {n: p.detach().clone() for n, p in ref.named_parameters()}
+    state = create_train_state(ref, fused_adamw(3e-4, **LM_STEP_ADAMW))
+    state, m = make_train_step(full_precision())(state, batch)
+    after = {n: p.detach().clone() for n, p in ref.named_parameters()}
+    return {"loss": float(m["loss_sum"] / m["count"]), "init": init, "after": after}
+
+
+def _save_one_process(ref: dict, path: str) -> None:
+    torch.save({"loss": ref["loss"],
+                **{k: {n: t.cpu() for n, t in ref[k].items()} for k in ("init", "after")}}, path)
+
+
+def _update_gap(whole: dict, ref: dict) -> tuple[float, float]:
+    """(largest gap of the whole parameters after a step from one process's,
+    the largest element of one process's update)."""
+    gap = max(float((whole[n] - p.to(whole[n].device)).abs().max())
+              for n, p in ref["after"].items())
+    update = max(float((p - ref["init"][n]).abs().max()) for n, p in ref["after"].items())
+    return gap, update
+
+
+def _whole_params(model) -> dict:
+    """Every parameter whole (each split one gathered; every rank calls
+    this)."""
+    from tpuframe_torch.parallel.tensor import full_tensor
+
+    layout = getattr(model, "tp_layout", None) or {}
+    return {n: full_tensor(p.data, layout[n], model.tp_mesh) if n in layout else p.data
+            for n, p in model.named_parameters()}
+
+
+def _sp_bf16_steps(model, plan, batch: dict, steps: int, dev: torch.device,
+                   calls: dict) -> dict:
+    """``steps`` bf16 steps of ``model``'s state under ``plan``: their times,
+    losses, the kernels' launches and the all-to-alls, counted from 0, and
+    the state (its gradients freed)."""
+    from tpuframe_torch.ops import fused_adamw
+    from tpuframe_torch.parallel import align_model_dtype, bf16_compute
+    from tpuframe_torch.train import create_train_state, make_train_step
+
+    state = create_train_state(model, fused_adamw(3e-4, **LM_STEP_ADAMW), plan=plan)
+    align_model_dtype(model, bf16_compute())
+    step = make_train_step(bf16_compute(), plan=plan)
+    counters = _sp_counters()
+    for c in counters.values():
+        c.launches = 0
+    calls["a2a"] = 0
+    times, losses = [], []
+    for _ in range(steps):
+        sync(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss_sum"] / m["count"]))
+    out = {"launches": {n: c.launches for n, c in counters.items()}, "a2a": calls["a2a"],
+           "step_ms": times, "losses": losses}
+    state.model.zero_grad(set_to_none=True)
+    return out, state
+
+
+def _counted_all_to_all(calls: dict):
+    """``dist.all_to_all_single`` counted in ``calls["a2a"]`` (the ring's
+    hops and Ulysses' re-shards)."""
+    import torch.distributed as dist
+
+    real = dist.all_to_all_single
+
+    def counted(*a, **kw):
+        calls["a2a"] += 1
+        return real(*a, **kw)
+
+    return mock.patch.object(dist, "all_to_all_single", counted)
+
+
+def _sp_seq_child(rank: int, world: int, store: str, out_dir: str, device: str, cfg: dict,
+                  batch_size: int, steps: int, ref_path: str) -> None:
+    """(a) and (b): one of ``world`` gloo ranks on the one card (mesh seq =
+    world).  For the ring, then Ulysses: one f32 step at ``SP_CHECK_LAYERS``
+    layers (on rank 0 against one process's blockwise step of the same
+    weights and batch, saved at ``ref_path``: a model under this runtime
+    would see the seq split), then ``steps`` bf16 steps at ``cfg``'s depth,
+    timed, with each kernel's launches and the all-to-alls counted; writes
+    what it saw as JSON."""
+    import gc
+    import traceback
+
+    os.environ.update({"RANK": str(rank), "WORLD_SIZE": str(world),
+                       "TPUFRAME_COORDINATOR": f"file://{store}"})
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        from tpuframe_torch.core import initialize, shutdown
+        from tpuframe_torch.models import TransformerLM
+        from tpuframe_torch.ops import fused_adamw
+        from tpuframe_torch.parallel import ParallelPlan, full_precision
+        from tpuframe_torch.train import create_train_state, make_train_step
+
+        rt = initialize({"data": 1, "seq": world}, device=device, backend="gloo")
+        dev, cuda = rt.device, rt.device.type == "cuda"
+        if not cuda:
+            torch.set_num_threads(2)
+        calls = {"a2a": 0}
+        try:
+            batch = _sp_batch(cfg, batch_size, dev, seed=13)  # every rank: the same rows
+            small = dict(cfg, num_layers=SP_CHECK_LAYERS)
+            ref = torch.load(ref_path) if rank == 0 else None
+            with _counted_all_to_all(calls):
+                for impl in ("ring", "ulysses"):
+                    plan = ParallelPlan(mesh=rt.mesh)
+                    model = TransformerLM(**small, attn_impl=impl, device=dev, seed=0)
+                    state = create_train_state(model, fused_adamw(3e-4, **LM_STEP_ADAMW),
+                                               plan=plan)
+                    state, m = make_train_step(full_precision(), plan=plan)(state, batch)
+                    rec = {"loss_f32": float(m["loss_sum"] / m["count"])}
+                    if rank == 0:
+                        rec["loss_ref"] = ref["loss"]
+                        rec["update_gap"], rec["update_max"] = _update_gap(
+                            _whole_params(model), ref)
+                    del model, state, m
+                    gc.collect()
+                    if cuda:
+                        torch.cuda.empty_cache()
+                    model = TransformerLM(**cfg, attn_impl=impl, device=dev, seed=0)
+                    steps_rec, state = _sp_bf16_steps(model, plan, batch, steps, dev, calls)
+                    rec.update(steps_rec)
+                    del model, state
+                    gc.collect()
+                    if cuda:
+                        torch.cuda.empty_cache()
+                        rec["peak_mb"] = torch.cuda.max_memory_allocated(dev) / 2**20
+                    out[impl] = rec
+        finally:
+            shutdown()
+    except BaseException:
+        out["error"] = traceback.format_exc()
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def _sp_moe_child(rank: int, world: int, store: str, out_dir: str, device: str, cfg: dict,
+                  batch_size: int, steps: int, ref_paths: dict) -> None:
+    """(c): one of four gloo ranks on the one card (mesh data 2 x expert 2):
+    ``TransformerLM`` with MoE blocks under ``moe_rules``.  f32 steps at
+    ``SP_CHECK_LAYERS`` layers at the default capacity and at
+    ``MOE_DROP_CF`` (on rank 0 against one process's step of the same
+    weights and the whole batch, saved at ``ref_paths[cf]``), then
+    ``steps`` bf16 steps at ``cfg``'s
+    depth timed and counted, and the CUDA tensors a rank holds beside
+    ``plan_memory``; writes what it saw as JSON."""
+    import gc
+    import traceback
+
+    os.environ.update({"RANK": str(rank), "WORLD_SIZE": str(world),
+                       "TPUFRAME_COORDINATOR": f"file://{store}"})
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        from tpuframe_torch.core import initialize, shutdown
+        from tpuframe_torch.models import TransformerLM, moe_rules
+        from tpuframe_torch.ops import fused_adamw
+        from tpuframe_torch.parallel import ParallelPlan, full_precision, plan_memory
+        from tpuframe_torch.train import create_train_state, make_train_step
+
+        rt = initialize(MOE_MESH, device=device, backend="gloo")
+        dev, cuda = rt.device, rt.device.type == "cuda"
+        if not cuda:
+            torch.set_num_threads(2)
+        calls = {"a2a": 0}
+        try:
+            whole = _sp_batch(cfg, batch_size, dev, seed=17)
+            rows = batch_size // rt.data_count
+            batch = {k: v[rt.data_index * rows:(rt.data_index + 1) * rows]
+                     for k, v in whole.items()}
+            small = dict(cfg, num_layers=SP_CHECK_LAYERS)
+            plan = ParallelPlan(mesh=rt.mesh, rules=moe_rules())
+            out["checks"] = {}
+            for cf in MOE_CAPACITIES:
+                model = TransformerLM(**small, device=dev, seed=0)
+                _set_capacity(model, cf)
+                state = create_train_state(model, fused_adamw(3e-4, **LM_STEP_ADAMW), plan=plan)
+                state, m = make_train_step(full_precision(), plan=plan)(state, batch)
+                rec = {"loss_f32": float(m["loss_sum"] / m["count"])}
+                params = _whole_params(model)
+                if rank == 0:
+                    ref = torch.load(ref_paths[str(cf)])
+                    rec["loss_ref"] = ref["loss"]
+                    rec["update_gap"], rec["update_max"] = _update_gap(params, ref)
+                    del ref
+                rec["local_experts"] = int(model.block0.moe.w_in.shape[0])
+                out["checks"][str(cf)] = rec
+                del model, state, m, params
+                gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev) if cuda else 0
+            model = TransformerLM(**cfg, device=dev, seed=0)
+            est = plan_memory(plan, flax_template(model),
+                              {"input": ((batch_size, cfg["max_len"]), "int32")},
+                              optimizer="adamw")
+            with _counted_all_to_all(calls):
+                steps_rec, state = _sp_bf16_steps(model, plan, batch, steps, dev, calls)
+            out.update(steps_rec)
+            out["estimate"] = est["per_device_mb"]
+            out["layout"] = {k: v for k, v in model.tp_layout.items() if "block0" in k}
+            gc.collect()
+            out.update(_memory(dev, base))
+            if cuda:
+                out["reachable_mb"] = _reachable_cuda_mb()
+        finally:
+            shutdown()
+    except BaseException:
+        out["error"] = traceback.format_exc()
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def sp_examples(card: str, workdir: Path) -> dict:
+    """(d) Example 06 through its main (``Distributor``, its workers on the
+    card over gloo) three ways, each worker's kernels counted; rank 0's
+    K6 and K9 launches held exact."""
+    import tpuframe_torch.launch as launch
+
+    module = "06_lm_sequence_parallel"
+    out = {}
+    arg = {k: int(v) for k, v in zip(EX06_ARGV[::2], EX06_ARGV[1::2])}
+    steps = arg["--train-samples"] // arg["--batch-size"]
+    for name, argv in EX06_RUNS:
+        counts = []
+
+        class CountedDistributor(launch.Distributor):
+            """The launcher, its worker fn counted there."""
+
+            def run(self, fn, *args, **kwargs):
+                value, c = super().run(counted_call, _sp_counters, module, fn.__name__, *args,
+                                       **kwargs)
+                counts.append(c)
+                return value
+
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with mock.patch.object(launch, "Distributor", functools.partial(
+                CountedDistributor, timeout_s=600)), contextlib.redirect_stdout(buf):
+            metrics = _example(module).main(argv + EX06_ARGV + ["--workdir", str(workdir)])
+        took = time.perf_counter() - t0
+        c = counts[0] if counts else {}
+        check(math.isfinite(metrics["train_loss"]), f"example 06 {name}: {metrics}")
+        # rank 0 of each run: K6 once a layer (Ulysses; the ring's first rank
+        # holds the diagonal tile alone), K9 per MoE layer: dispatch and
+        # combine twice, the gate gradient once
+        ring_or_ulysses = "full" not in name
+        moe = "moe" in name
+        per = EX06_LAYERS * steps
+        want = {n: per if ring_or_ulysses else 0 for n in K6_NAMES}
+        want.update({"moe_dispatch": 2 * per if moe else 0, "moe_combine": 2 * per if moe else 0,
+                     "moe_gate_grad": per if moe else 0})
+        got = {n: c.get(n) for n in want}
+        check(got == want or not torch.cuda.is_available(),
+              f"example 06 {name}: rank 0's launches {got} != {want}")
+        log(f"  (d) example 06 {' '.join(argv)} through its main (Distributor, workers on the "
+            f"card, gloo): {took:.2f} s from its start to the result, rank 0's launches {c} "
+            f"(K6/K9 expected {want}); train_loss {metrics['train_loss']:.4f} on {card}")
+        out[name] = {"launches": c, "s": took, "train_loss": metrics["train_loss"]}
+    return out
+
+
+def sp_phase(card: str, timeout_s: float = 900.0, device: str = "cuda:0", cfg: dict = LONG_LM,
+             batch_size: int = LONG_BATCH, moe_cfg: dict = MOE_LM, moe_batch: int = MOE_BATCH,
+             steps: int = SP_STEPS, examples: bool = True) -> dict:
+    """Phase 18 on the one card.  (a) The ring and (b) Ulysses: ``cfg``'s
+    LM on ``SP_SEQ`` gloo ranks (mesh seq), each rank its run of positions:
+    the first f32 loss and update at ``SP_CHECK_LAYERS`` layers against one
+    process's blockwise run, then ``steps`` bf16 steps at full depth with
+    each rank's launches and all-to-alls held exact.  (c) The MoE LM
+    (``moe_cfg``) on data 2 x expert 2: the f32 checks at the default and a
+    dropping capacity, ``steps`` bf16 steps with K9's launches held exact,
+    memory beside ``plan_memory``.  (d) Example 06 three ways.  Returns the
+    launches and a summary; sizes are arguments so the phase can be
+    rehearsed small on the CPU."""
+    t_start = time.perf_counter()
+    cuda = device.startswith("cuda")
+    layers = cfg["num_layers"]
+    SP_DIR.mkdir(parents=True, exist_ok=True)
+    dev = torch.device(device)
+    # one process's f32 steps here: under the ranks' runtime a model sees their split
+    ref_seq = str(SP_DIR / "one_process_seq.pt")
+    _save_one_process(_one_process(dict(cfg, num_layers=SP_CHECK_LAYERS),
+                                   _sp_batch(cfg, batch_size, dev, seed=13), dev,
+                                   attn_impl="blockwise"), ref_seq)
+    ref_moe = {}
+    for cf in MOE_CAPACITIES:
+        ref_moe[str(cf)] = str(SP_DIR / f"one_process_moe_{cf}.pt")
+        _save_one_process(_one_process(dict(moe_cfg, num_layers=SP_CHECK_LAYERS),
+                                       _sp_batch(moe_cfg, moe_batch, dev, seed=17), dev,
+                                       capacity=cf), ref_moe[str(cf)])
+    if cuda:
+        torch.cuda.empty_cache()
+    res = _spawn(_sp_seq_child, SP_SEQ, (device, cfg, batch_size, steps, ref_seq), timeout_s,
+                 "ring and Ulysses LM")
+    r0 = res[0]
+    out = {"card": card}
+    for impl in ("ring", "ulysses"):
+        rec = r0[impl]
+        check(abs(rec["loss_f32"] / rec["loss_ref"] - 1) <= SP_LOSS_RTOL,
+              f"({impl}) f32 loss {rec['loss_f32']!r} vs one process's {rec['loss_ref']!r}")
+        rel = rec["update_gap"] / rec["update_max"]
+        check(rel <= SP_UPDATE_RTOL, f"({impl}) the update is {rel:.3g} of the update's largest "
+              f"element from one process's (tol {SP_UPDATE_RTOL})")
+        per_layer_hops = (2 * SP_SEQ - 1) if impl == "ring" else 4
+        for r, o in enumerate(res):
+            tiles = (r + 1) if impl == "ring" else 1
+            # the LM's (B, L) labels take the plain per-position loss (phase 6)
+            want = {"cross_entropy_fwd": 0, "cross_entropy_bwd": 0,
+                    "layer_norm_fwd": (2 * layers + 1) * steps,
+                    "layer_norm_bwd": (2 * layers + 1) * steps, "fused_adamw": steps,
+                    **{n: layers * tiles * steps for n in K6_NAMES},
+                    **{n: 0 for n in K9_NAMES}}
+            got = o[impl]
+            check(got["launches"] == want or not cuda,
+                  f"({impl}) rank {r}: launches {got['launches']} != {want}")
+            check(got["a2a"] == layers * per_layer_hops * steps,
+                  f"({impl}) rank {r}: {got['a2a']} all-to-alls, expected "
+                  f"{layers * per_layer_hops * steps}")
+            check(all(math.isfinite(x) for x in got["losses"]), f"({impl}) rank {r}: "
+                  f"{got['losses']}")
+        check(len({tuple(o[impl]["losses"]) for o in res}) == 1,
+              f"({impl}) the ranks' losses differ")
+        log(f"  ({'a' if impl == 'ring' else 'b'}) {impl}: TransformerLM {cfg} on seq={SP_SEQ} "
+            f"gloo ranks, {batch_size} x {cfg['max_len'] // SP_SEQ} tokens a rank; at "
+            f"{SP_CHECK_LAYERS} layers the first f32 loss {rec['loss_f32']!r} vs one process's "
+            f"blockwise {rec['loss_ref']!r} ({rec['loss_f32'] / rec['loss_ref'] - 1:+.3g}, tol "
+            f"{SP_LOSS_RTOL}), update gap {rec['update_gap']:.3g} of largest element "
+            f"{rec['update_max']:.3g} ({rel:.3g}, tol {SP_UPDATE_RTOL}); {steps} bf16 steps "
+            f"{[[round(t, 1) for t in o[impl]['step_ms']] for o in res]} ms, losses "
+            f"{[round(x, 4) for x in rec['losses']]}, all_to_all_single {rec['a2a']} a rank "
+            f"({per_layer_hops} a layer a step), launches a rank "
+            f"{[{n: o[impl]['launches'][n] for n in K6_NAMES} for o in res]} (K6a-K6c; the "
+            f"others {({n: v for n, v in rec['launches'].items() if n not in K6_NAMES})})"
+            + (f", peak {[round(o[impl]['peak_mb'], 1) for o in res]} MB a rank" if cuda else "")
+            + f" on {card}")
+        out[f"launches_{impl}"] = [o[impl]["launches"] for o in res]
+        out[f"{impl}_step_ms"] = [o[impl]["step_ms"] for o in res]
+        out[f"{impl}_loss"] = (rec["loss_f32"], rec["loss_ref"], rel)
+        out[f"{impl}_a2a"] = rec["a2a"]
+
+    moe_layers = moe_cfg["num_layers"]
+    resm = _spawn(_sp_moe_child, 4, (device, moe_cfg, moe_batch, steps, ref_moe), timeout_s,
+                  "MoE LM")
+    m0 = resm[0]
+    for cf, rec in m0["checks"].items():
+        check(abs(rec["loss_f32"] / rec["loss_ref"] - 1) <= SP_LOSS_RTOL,
+              f"(c) capacity factor {cf}: f32 loss {rec['loss_f32']!r} vs one process's "
+              f"{rec['loss_ref']!r}")
+        rel = rec["update_gap"] / rec["update_max"]
+        check(rel <= SP_UPDATE_RTOL, f"(c) capacity factor {cf}: the update is {rel:.3g} of "
+              f"the update's largest element from one process's (tol {SP_UPDATE_RTOL})")
+        log(f"  (c) MoE at {SP_CHECK_LAYERS} layers, capacity factor {cf}, data 2 x expert 2 "
+            f"({rec['local_experts']} experts a rank): first f32 loss {rec['loss_f32']!r} vs one "
+            f"process's {rec['loss_ref']!r} ({rec['loss_f32'] / rec['loss_ref'] - 1:+.3g}, tol "
+            f"{SP_LOSS_RTOL}), update gap {rec['update_gap']:.3g} of {rec['update_max']:.3g} "
+            f"({rel:.3g}, tol {SP_UPDATE_RTOL})")
+    want = {"cross_entropy_fwd": 0, "cross_entropy_bwd": 0,
+            "layer_norm_fwd": (2 * moe_layers + 1) * steps,
+            "layer_norm_bwd": (2 * moe_layers + 1) * steps, "fused_adamw": steps,
+            **{n: 0 for n in K6_NAMES}, "moe_dispatch": 2 * moe_layers * steps,
+            "moe_combine": 2 * moe_layers * steps, "moe_gate_grad": moe_layers * steps}
+    for r, o in enumerate(resm):
+        check(o["launches"] == want or not cuda, f"(c) rank {r}: launches {o['launches']} != "
+              f"{want}")
+        check(all(math.isfinite(x) for x in o["losses"]), f"(c) rank {r}: {o['losses']}")
+    mem = (f"; tensors held {[round(o['reachable_mb'], 1) for o in resm]} MB, persistent "
+           f"{[round(o['persistent_mb'], 1) for o in resm]} MB, peak "
+           f"{[round(o['peak_mb'], 1) for o in resm]} MB a rank beside plan_memory's params "
+           f"{m0['estimate']['params']} + opt_state {m0['estimate']['opt_state']} MB, total "
+           f"{m0['estimate']['total']} MB" if cuda else "")
+    log(f"  (c) MoE TransformerLM {moe_cfg} under moe_rules on {MOE_MESH}, {moe_batch} x "
+        f"{moe_cfg['max_len']} tokens ({moe_batch // 2} sequences a rank), layout "
+        f"{m0['layout']}: {steps} bf16 steps {[[round(t, 1) for t in o['step_ms']] for o in resm]}"
+        f" ms, losses {[round(x, 4) for x in m0['losses']]}, launches a rank "
+        f"{[{n: o['launches'][n] for n in K9_NAMES} for o in resm]} (expected "
+        f"{ {n: want[n] for n in K9_NAMES} }){mem} on {card}")
+    out.update(launches_moe=[o["launches"] for o in resm],
+               moe_step_ms=[o["step_ms"] for o in resm],
+               moe_checks=m0["checks"], moe_estimate=m0["estimate"],
+               moe_memory=[(o.get("reachable_mb"), o.get("persistent_mb"), o.get("peak_mb"))
+                           for o in resm])
+    if examples:
+        out["example06"] = sp_examples(card, LAUNCH_DIR.parent / "sp_smoke_ex06")
+    shutil.rmtree(SP_DIR, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_start
+    log("  sp_json " + json.dumps(out))
+    return out
+
+
+def moe_kernel_phase(floor_ms: float) -> list[dict]:
+    """(e) K9a-K9c against their plain versions on random inputs: at the
+    MoE path's shape (a rank's 4,096 tokens, D 768, bf16, 8 experts of which
+    4 are held, top 2, capacity 2,560) and small in f32, at both expert
+    offsets; K9a and K9b bit-equal, K9c within 1e-5 of the largest dot.
+    Timed at the path's shape beside the plain versions and, for K9a,
+    ``index_put_`` (the library call that writes the same rows).  Then K6's
+    float32 partials at the ring's (2, 2048, 12, 64) bf16, causal and not:
+    rounded to bf16 they are the default launch's bits."""
+    from tpuframe_torch.ops.blockwise_attention import (
+        blockwise_attention_bwd_dkv,
+        blockwise_attention_bwd_dq,
+        blockwise_attention_fwd,
+    )
+    from tpuframe_torch.ops.moe_gating import (
+        _descriptors,
+        _routing,
+        moe_combine,
+        moe_combine_reference,
+        moe_dispatch,
+        moe_dispatch_reference,
+        moe_gate_grad,
+        moe_gate_grad_reference,
+    )
+
+    dev = torch.device("cuda")
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    n, d, e, k, e_local = MOE_BATCH // 2 * LM["max_len"], LM["num_heads"] * LM["head_dim"], 8, 2, 4
+    capacity = max(1, int(-(-(k * n * 2) // e) * 1.25))  # the path's global tokens
+    rows = min(capacity, k * n)
+    err = {name: 0.0 for name in K9_NAMES}
+    cases = [("path", torch.bfloat16, n, d, e, e_local), ("small", torch.float32, 300, 96, 6, 3)]
+    for name, dtype, nn_, dd, ee, el in cases:
+        for e0 in (0, el):
+            gen = np.random.default_rng(21 + e0)
+            idx = torch.from_numpy(np.argsort(gen.random((nn_, ee)), -1)[:, :k].astype(np.int32))
+            cap = max(1, int(-(-(k * nn_ * 2) // ee) * 1.25)) if name == "path" else 60
+            choice_exp, _, keep, _ = _routing(idx.to(dev), ee, cap)
+            e_loc, slot = _descriptors(choice_exp, keep, e0, el)
+            r_ = min(cap, k * nn_)
+            src = torch.from_numpy(gen.standard_normal((nn_, dd)).astype(np.float32)).to(dev, dtype)
+            g = torch.from_numpy(gen.standard_normal((nn_, dd)).astype(np.float32)).to(dev, dtype)
+            w = torch.from_numpy(gen.random(nn_ * k).astype(np.float32)).to(dev)
+            empty = torch.zeros((el, r_, dd), dtype=dtype, device=dev)
+            buf = moe_dispatch(src, empty.clone(), e_loc, slot)
+            want_buf = moe_dispatch_reference(src, empty.clone(), e_loc, slot)
+            scaled = moe_dispatch(g, empty.clone(), e_loc, slot, scale=w)
+            want_scaled = moe_dispatch_reference(g, empty.clone(), e_loc, slot, scale=w)
+            comb, want_comb = (moe_combine(buf, w, e_loc, slot, nn_),
+                               moe_combine_reference(buf, w, e_loc, slot, nn_))
+            dg, want_dg = (moe_gate_grad(g, buf, e_loc, slot),
+                           moe_gate_grad_reference(g, buf, e_loc, slot))
+            torch.cuda.synchronize()
+            check(torch.equal(buf, want_buf) and torch.equal(scaled, want_scaled),
+                  f"K9a {name} e0={e0}: not bit-equal to the plain version")
+            check(torch.equal(comb, want_comb), f"K9b {name} e0={e0}: not bit-equal")
+            e9c = float((dg - want_dg).abs().max())
+            check(e9c <= 1e-5 * max(1.0, float(want_dg.abs().max())),
+                  f"K9c {name} e0={e0}: {e9c:.3g} from the plain version")
+            err["moe_gate_grad"] = max(err["moe_gate_grad"], e9c)
+            log(f"  MoE kernels {name} ({nn_} tokens, D {dd}, {str(dtype).removeprefix('torch.')}, "
+                f"experts {e0}..{e0 + el - 1} of {ee}, {int((e_loc >= 0).sum())} of {k * nn_} "
+                f"slots held here, {r_} rows an expert): K9a and K9b bit-equal to their plain "
+                f"versions, K9c within {e9c:.3g}")
+    # timed at the path's shape, experts 4..7
+    gen = np.random.default_rng(25)
+    idx = torch.from_numpy(np.argsort(gen.random((n, e)), -1)[:, :k].astype(np.int32)).to(dev)
+    choice_exp, _, keep, _ = _routing(idx, e, capacity)
+    e_loc, slot = _descriptors(choice_exp, keep, e_local, e_local)
+    src = torch.from_numpy(gen.standard_normal((n, d)).astype(np.float32)).to(dev, torch.bfloat16)
+    g = torch.from_numpy(gen.standard_normal((n, d)).astype(np.float32)).to(dev, torch.bfloat16)
+    w = torch.from_numpy(gen.random(n * k).astype(np.float32)).to(dev)
+    buf = moe_dispatch(src, torch.zeros((e_local, rows, d), dtype=torch.bfloat16, device=dev),
+                       e_loc, slot)
+    sel = (e_loc >= 0).nonzero()[:, 0]
+    put_idx, put_src = (e_loc[sel].long(), slot[sel].long()), src[sel % n]
+    held = int(sel.numel())
+    dst = torch.zeros_like(buf)
+    arms = {
+        "moe_dispatch": (lambda: moe_dispatch(src, dst, e_loc, slot),
+                         lambda: moe_dispatch_reference(src, dst, e_loc, slot),
+                         lambda: dst.index_put_(put_idx, put_src)),
+        "moe_combine": (lambda: moe_combine(buf, w, e_loc, slot, n),
+                        lambda: moe_combine_reference(buf, w, e_loc, slot, n), None),
+        "moe_gate_grad": (lambda: moe_gate_grad(g, buf, e_loc, slot),
+                          lambda: moe_gate_grad_reference(g, buf, e_loc, slot), None),
+    }
+    row_b, desc_b = 2 * d, 8 * k * n  # a bf16 row; e_loc and slot (int32) of every slot
+    moved = {"moe_dispatch": 2 * held * row_b + desc_b,  # the held rows read and written
+             "moe_combine": held * row_b + 4 * k * n + desc_b + n * row_b,
+             "moe_gate_grad": 2 * held * row_b + desc_b + 4 * k * n}
+    flops = {"moe_dispatch": held * d, "moe_combine": 2 * held * d,
+             "moe_gate_grad": 2 * held * d}
+    times = {}
+    for which, (kernel, plain, library) in arms.items():
+        kernel_ms = [time_ms(kernel, flush)]
+        plain_ms = [time_ms(plain, flush, iters=30)]
+        library_ms = [time_ms(library, flush), time_ms(library, flush)] if library else []
+        plain_ms.append(time_ms(plain, flush, iters=30))
+        kernel_ms.append(time_ms(kernel, flush))
+        bound_ms, bound_by = bound(moved[which], flops[which])
+        times[which] = {"ms": min(kernel_ms), "plain_ms": min(plain_ms),
+                        "library_ms": min(library_ms) if library_ms else None,
+                        "bound_ms": bound_ms, "bound_by": bound_by, "bytes_moved": moved[which]}
+        t = times[which]
+        log(f"  {which} {n} tokens x {d} bf16, {held} slots held: kernel {t['ms'] * 1e3:.2f} us, "
+            f"plain {t['plain_ms'] * 1e3:.2f} us"
+            + (f", index_put_ {t['library_ms'] * 1e3:.2f} us" if library else "")
+            + f", bound {bound_ms * 1e3:.2f} us ({moved[which] / 1e6:.2f} MB at 3.35 TB/s), "
+            f"floor {floor_ms * 1e3:.2f} us on the card")
+    # K6's float32 partials at the ring's tile
+    b_, l_, h_, d_ = LONG_BATCH, LONG_LM["max_len"] // SP_SEQ, LONG_LM["num_heads"], \
+        LONG_LM["head_dim"]
+    gen = torch.Generator(device=dev).manual_seed(23)
+    q, kk, v, gg = (torch.randn((b_, l_, h_, d_), generator=gen, device=dev).to(torch.bfloat16)
+                    for _ in range(4))
+    for causal in (True, False):
+        out, lse = blockwise_attention_fwd(q, kk, v, causal=causal)
+        out32, lse32 = blockwise_attention_fwd(q, kk, v, causal=causal, out_dtype=torch.float32)
+        dq, delta = blockwise_attention_bwd_dq(q, kk, v, out, lse, gg, causal=causal)
+        dq32, _ = blockwise_attention_bwd_dq(q, kk, v, out, lse, gg, causal=causal,
+                                             out_dtype=torch.float32)
+        dk, dv = blockwise_attention_bwd_dkv(q, kk, v, lse, delta, gg, causal=causal)
+        dk32, dv32 = blockwise_attention_bwd_dkv(q, kk, v, lse, delta, gg, causal=causal,
+                                                 out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        same = all(a.dtype == torch.float32 and torch.equal(a.to(torch.bfloat16), b)
+                   for a, b in ((out32, out), (dq32, dq), (dk32, dk), (dv32, dv)))
+        check(same and torch.equal(lse32, lse), f"K6 float32 partials (causal={causal}): "
+              "rounded to bf16 they are not the default launch's bits")
+        log(f"  K6a-K6c float32 partials at ({b_}, {l_}, {h_}, {d_}) bf16 causal={causal}: "
+            "rounded to bf16, bit-equal to the default launches (out, dq, dk, dv; lse equal)")
+    lines = {"moe_dispatch": (137, "K9a"), "moe_combine": (143, "K9b"),
+             "moe_gate_grad": (143, "K9c")}
+    rows_out = []
+    for which in K9_NAMES:
+        t = times[which]
+        rows_out.append({
+            "name": which, "route": "cuda", "source": "tpuframe_torch/csrc/moe_gating.cu",
+            "replaces": f"tpuframe/ops/moe_gating.py:{lines[which][0]}", "launches": None,
+            "max_abs_err": err[which],
+            **{key: t[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "shape": f"{n} tokens x {d} bf16, top {k}, experts {e_local}..{2 * e_local - 1} of "
+                     f"{e}, {rows} rows an expert, {held} slots held",
+            "bytes_moved": t["bytes_moved"], "id": lines[which][1]})
+    del flush
+    return rows_out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -5944,7 +6583,7 @@ def main(argv=None) -> int:
     ddp = ddp_phase(card)
     k6_early = [fn.launches for fn in k6_counters]
     log(f"  K6 launches over phases 4 to 10 in this process: {k6_early} (each rank of phase 10: "
-        f"{[ddp['launches'][n] for n in ('blockwise_attention_fwd', 'blockwise_attention_bwd_dq', 'blockwise_attention_bwd_dkv')]})")
+        f"{[ddp['launches'][n] for n in K6_NAMES]})")
     check(k6_early == [0, 0, 0], f"K6 launched {k6_early} times in phases 4 to 10")
     torch.cuda.empty_cache()
 
@@ -6018,8 +6657,23 @@ def main(argv=None) -> int:
             k["launches_example07_tp2"] = tp["example07"]["launches"][name]
     torch.cuda.empty_cache()
 
-    log("== phase 18: result")
-    kernels = [k1, k2a, k2b, k3a, k3b, k4, k5a, k5b, k5c, k6a, k6b, k6c]
+    log("== phase 18: sequence parallelism and MoE on one card")
+    sp = sp_phase(card)
+    ex06 = sp.get("example06", {})
+    for k, name in zip((k6a, k6b, k6c), K6_NAMES):
+        k["launches_ring"] = [r[name] for r in sp["launches_ring"]]
+        k["launches_ulysses"] = [r[name] for r in sp["launches_ulysses"]]
+        k["launches_example06"] = {run: v["launches"][name] for run, v in ex06.items()}
+    torch.cuda.empty_cache()
+    k9a, k9b, k9c = moe_kernel_phase(floor_ms)
+    for k in (k9a, k9b, k9c):
+        k["launches"] = sp["launches_moe"][0][k["name"]]  # rank 0 of the MoE LM's bf16 steps
+        k["launches_moe"] = [r[k["name"]] for r in sp["launches_moe"]]
+        k["launches_example06"] = {run: v["launches"][k["name"]] for run, v in ex06.items()}
+    torch.cuda.empty_cache()
+
+    log("== phase 19: result")
+    kernels = [k1, k2a, k2b, k3a, k3b, k4, k5a, k5b, k5c, k6a, k6b, k6c, k9a, k9b, k9c]
     for k in kernels:
         k["floor_ms"] = floor_ms  # beside bound_ms, which stays the byte or operation bound
     print(json.dumps({"kernels": kernels}))

@@ -116,8 +116,11 @@ def test_plan_validates_pp_fields():
         ParallelPlan(mesh=mesh, pp_microbatches=0)
     with pytest.raises(ValueError, match="pp_schedule"):
         ParallelPlan(mesh=mesh, pp_schedule="gpipe")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        compose(sp=2, devices=8)
+    # sequence parallelism is ported (Queue 1 item 8); beside tensor
+    # parallelism it is the rest of item 7
+    assert compose(sp=2, devices=8).signature() == jax_compose(sp=2).signature()
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        compose(sp=2, tp=2, devices=8)
 
 
 def test_spec_json_round_trips_as_jax():

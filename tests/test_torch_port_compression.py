@@ -386,8 +386,12 @@ def test_what_is_not_ported_raises(port_ranks):
     with pytest.raises(ValueError, match="zero_stage"):
         ParallelPlan(mesh=mesh2, zero_stage=4)
     assert MeshSpec(data=2, model=2).build(4).shape["model"] == 2  # the TP axis is ported
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MeshSpec(data=2, seq=2).build(4)
+    sp = ParallelPlan(mesh=MeshSpec(data=2, seq=2).build(4))  # and the seq axis
+    assert sp.token_size == 4
+    with pytest.raises(NotImplementedError, match="ROADMAP"):  # but not the wire beside it
+        make_train_step(plan=sp, grad_compression="int8")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):  # nor seq beside model
+        MeshSpec(seq=2, model=2).build(4)
     assert MeshSpec(data=1, fsdp=2).build(2).shape["fsdp"] == 2
     assert MeshSpec().build(3).shape["data"] == 3
     # the fused transport, where it engages (world >= 2), is ported: the same

@@ -1669,3 +1669,192 @@ def test_tensor_and_pipeline_parallel_on_gloo_ranks_of_the_card(card, tmp_path):
                                        atol=1e-5 * float(np.abs(v).max()), err_msg=k)
         for k in ("y", "g"):
             np.testing.assert_allclose(r["pipe_cuda:0"][k], r["pipe_cpu"][k], rtol=0, atol=1e-5)
+
+
+# -- sequence parallelism and MoE: K6's float32 partials, the ring (K7), Ulysses
+# (K8) and the MoE row copies (K9a-K9c) ------------------------------------------------
+
+K6_PARTIAL_CASES = [("2x1000x3x64_causal", 2, 1000, 3, 64, True),
+                    ("1x300x2x128", 1, 300, 2, 128, False),
+                    ("2x13x3x16_causal", 2, 13, 3, 16, True),
+                    ("1x2048x2x64_causal", 1, 2048, 2, 64, True)]
+
+
+@pytest.mark.parametrize("case", K6_PARTIAL_CASES, ids=[c[0] for c in K6_PARTIAL_CASES])
+def test_blockwise_attention_float32_partials(card, case):
+    """``out_dtype=torch.float32`` on bf16 inputs stores the accumulators as
+    they are: rounded to bf16 they are the default launch's bits (and lse
+    and delta are equal); against the plain schedule's float32 partials on
+    float32 copies of the inputs, no further than twice the plain schedule
+    run on the bf16 inputs.  One launch a call."""
+    _, b, l, h, d, causal = case
+    q, k, v, g = _k6_inputs(b, l, h, d, torch.bfloat16, card)
+    f32 = torch.float32
+    counters = (blockwise_attention_fwd, blockwise_attention_bwd_dq, blockwise_attention_bwd_dkv)
+    before = [c.launches for c in counters]
+    out, lse = blockwise_attention_fwd(q, k, v, causal=causal)
+    out32, lse32 = blockwise_attention_fwd(q, k, v, causal=causal, out_dtype=f32)
+    dq, delta = blockwise_attention_bwd_dq(q, k, v, out, lse, g, causal=causal)
+    dq32, delta32 = blockwise_attention_bwd_dq(q, k, v, out, lse, g, causal=causal, out_dtype=f32)
+    dk, dv = blockwise_attention_bwd_dkv(q, k, v, lse, delta, g, causal=causal)
+    dk32, dv32 = blockwise_attention_bwd_dkv(q, k, v, lse, delta, g, causal=causal,
+                                             out_dtype=f32)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == [2, 2, 2]
+    got = (out32, dq32, dk32, dv32)
+    assert all(t.dtype == f32 for t in got)
+    for a, b16 in zip(got, (out, dq, dk, dv)):
+        assert torch.equal(a.to(torch.bfloat16), b16)
+    assert torch.equal(lse32, lse) and torch.equal(delta32, delta)
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    want_out, want_lse = blockwise_attention_reference(qf, kf, vf, causal=causal)
+    want = (want_out, *blockwise_attention_bwd_reference(qf, kf, vf, want_out, want_lse, gf,
+                                                         causal=causal))
+    p_out, p_lse = blockwise_attention_reference(q, k, v, causal=causal, out_dtype=f32)
+    plain = (p_out, *blockwise_attention_bwd_reference(q, k, v, out, p_lse, g, causal=causal))
+    for i, (a, w, p) in enumerate(zip(got, want, plain)):
+        err, ref = float((a - w).abs().max()), float((p.float() - w).abs().max())
+        assert err <= 2 * ref, (i, err, ref)
+
+
+def _moe_slots(n, e, k, capacity, e0, e_local, seed):
+    """A routing of n tokens' k distinct random choices among e experts:
+    the (e_loc, slot) descriptors of experts e0 .. e0 + e_local - 1."""
+    from tpuframe_torch.ops.moe_gating import _descriptors, _routing
+
+    rng = np.random.default_rng(seed)
+    idx = torch.from_numpy(np.argsort(rng.random((n, e)), -1)[:, :k].astype(np.int32))
+    choice_exp, _, keep, _ = _routing(idx, e, capacity)
+    return _descriptors(choice_exp, keep, e0, e_local)
+
+
+#: (id, dtype, N, D, E, k, capacity, first local expert, local experts)
+MOE_CASES = [("f32_all", torch.float32, 64, 48, 4, 2, 40, 0, 4),
+             ("f32_tight_half", torch.float32, 64, 48, 4, 2, 5, 2, 2),
+             ("bf16_path", torch.bfloat16, 4096, 768, 8, 2, 1280, 4, 4),
+             ("bf16_ragged", torch.bfloat16, 333, 100, 6, 3, 170, 0, 6)]
+
+
+@pytest.mark.parametrize("case", MOE_CASES, ids=[c[0] for c in MOE_CASES])
+def test_moe_kernels_match_plain_versions(card, case):
+    """K9a (dispatch, scale 1 and the gate weights), K9b (combine) and K9c
+    (the gate gradient) against their plain versions on CPU copies of the
+    same inputs: K9a and K9b bit-equal (each product and sum rounded as the
+    plain version rounds it), K9c within 1e-5 of the largest dot (a float32
+    dot in another order).  One launch a call; a rerun gives the same
+    bits."""
+    from tpuframe_torch.ops.moe_gating import moe_combine, moe_dispatch, moe_gate_grad
+
+    _, dtype, n, d, e, k, capacity, e0, e_local = case
+    e_loc, slot = _moe_slots(n, e, k, capacity, e0, e_local, seed=3)
+    rows = min(capacity, n * k)
+    rng = np.random.default_rng(4)
+    src = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(dtype)
+    w = torch.from_numpy(rng.random(n * k).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(dtype)
+    counters = (moe_dispatch, moe_combine, moe_gate_grad)
+    got = {}
+    for dev in ("cpu", card):
+        before = [c.launches for c in counters]
+        a = [t.to(dev) for t in (src, w, g, e_loc, slot)]
+        buf = moe_dispatch(a[0], torch.zeros((e_local, rows, d), dtype=dtype, device=dev),
+                           a[3], a[4])
+        scaled = moe_dispatch(a[2], torch.zeros_like(buf), a[3], a[4], scale=a[1])
+        out = moe_combine(buf, a[1], a[3], a[4], n)
+        dgate = moe_gate_grad(a[2], buf, a[3], a[4])
+        got[str(dev)] = [t.cpu() for t in (buf, scaled, out, dgate)]
+        if dev == card:
+            torch.cuda.synchronize()
+            assert [c.launches - b for c, b in zip(counters, before)] == [2, 1, 1]
+            again = moe_combine(buf, a[1], a[3], a[4], n)
+            assert torch.equal(again.cpu(), got[str(dev)][2])
+    cpu, gpu = got["cpu"], got[str(card)]
+    for i in range(3):
+        assert torch.equal(gpu[i], cpu[i]), i
+    assert float((gpu[3] - cpu[3]).abs().max()) <= 1e-5 * max(1.0, float(cpu[3].abs().max()))
+    assert int((e_loc >= 0).sum()) > 0 and int((e_loc < 0).sum()) > 0 or e_local == e
+
+
+def _sp_card_rank(rank: int, world: int, what: str) -> dict:
+    """Two gloo ranks on the one card: (``what="seq"``) the ring and
+    Ulysses over ``seq`` (f32, causal) on CUDA tensors against the same
+    ranks' CPU tensors, with K6's launches; (``"expert"``) a small MoE LM
+    step at ``expert=2`` on the card and on the CPU, with K9's launches."""
+    from tpuframe_torch.core import initialize
+    from tpuframe_torch.ops import ring_attention, ulysses_attention
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    rt = initialize({"data": 1, what: world}, device="cuda:0", backend="gloo")
+    if what == "expert":
+        return _moe_card_step(rt)
+    out = {}
+    rng = np.random.default_rng(8)
+    q, k, v, g = (rng.standard_normal((2, 128 * world, 4, 32)).astype(np.float32)
+                  for _ in range(4))
+    run = slice(rank * 128, (rank + 1) * 128)
+    k6 = (blockwise_attention_fwd, blockwise_attention_bwd_dq, blockwise_attention_bwd_dkv)
+    for impl, fn in (("ring", ring_attention), ("ulysses", ulysses_attention)):
+        for dev in ("cpu", "cuda:0"):
+            before = [c.launches for c in k6]
+            x = [torch.from_numpy(a[:, run].copy()).to(dev).requires_grad_(True)
+                 for a in (q, k, v)]
+            o = fn(*x, rt.mesh, causal=True)
+            (o * torch.from_numpy(g[:, run].copy()).to(dev)).sum().backward()
+            out[f"{impl}_{dev}"] = {"o": o.detach().cpu().numpy(),
+                                    "grads": [t.grad.cpu().numpy() for t in x],
+                                    "launches": [c.launches - b for c, b in zip(k6, before)]}
+    return out
+
+
+def _moe_card_step(rt) -> dict:
+    """A small MoE LM step at ``expert=2`` on the card and on the CPU."""
+    from tpuframe_torch.models import moe_rules
+    from tpuframe_torch.ops.moe_gating import moe_combine, moe_dispatch, moe_gate_grad
+    from tpuframe_torch.parallel import ParallelPlan, full_precision
+    from tpuframe_torch.parallel.tensor import full_tensor
+
+    out = {}
+    cfg = dict(vocab_size=256, num_layers=2, num_heads=4, head_dim=16, max_len=64)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (4, 65)))
+    k9 = (moe_dispatch, moe_combine, moe_gate_grad)
+    for dev in ("cpu", "cuda:0"):
+        model = TransformerLM(**cfg, attn_impl="full", moe_experts=4, device="cpu",
+                              seed=0).to(dev)
+        plan = ParallelPlan(mesh=rt.mesh, rules=moe_rules())
+        state = create_train_state(model, fused_adamw(1e-3, eps=1e-3), plan=plan)
+        before = [c.launches for c in k9]
+        batch = {"input": toks[:, :-1].to(dev), "label": toks[:, 1:].to(dev)}
+        state, m = make_train_step(full_precision(), plan=plan)(state, batch)
+        torch.cuda.synchronize()
+        grads = {n: full_tensor(p.grad, model.tp_layout[n], model.tp_mesh).cpu().numpy()
+                 if n in model.tp_layout else p.grad.cpu().numpy()
+                 for n, p in model.named_parameters()}
+        out[f"moe_{dev}"] = {"loss": float(m["loss_sum"] / m["count"]), "grads": grads,
+                             "launches": [c.launches - b for c, b in zip(k9, before)]}
+    return out
+
+
+def test_sequence_and_expert_parallel_on_gloo_ranks_of_the_card(card, tmp_path):
+    """The ring and Ulysses on CUDA tensors (K6 tiles; the ring's float32
+    partials) against the same ranks' CPU tensors within 1e-5 (out) and
+    1e-4 (gradients), rank r of the causal ring launching r + 1 tiles of
+    each kernel and Ulysses one; a MoE LM step at ``expert=2`` on the card
+    against the CPU within 1e-5 relative (loss) and 1e-5 of each gradient's
+    largest element, K9a and K9b twice and K9c once a MoE layer."""
+    from torch_ranks import run_ranks
+
+    seq = run_ranks(_sp_card_rank, 2, tmp_path / "seq", "seq", timeout=300)
+    expert = run_ranks(_sp_card_rank, 2, tmp_path / "expert", "expert", timeout=300)
+    for rank, (r, e) in enumerate(zip(seq, expert)):
+        for impl, want_launches in (("ring", [rank + 1] * 3), ("ulysses", [1, 1, 1])):
+            cpu, gpu = r[f"{impl}_cpu"], r[f"{impl}_cuda:0"]
+            assert gpu["launches"] == want_launches and cpu["launches"] == [0, 0, 0], impl
+            np.testing.assert_allclose(gpu["o"], cpu["o"], rtol=0, atol=1e-5, err_msg=impl)
+            for a, b in zip(gpu["grads"], cpu["grads"]):
+                np.testing.assert_allclose(a, b, rtol=0, atol=1e-4, err_msg=impl)
+        cpu, gpu = e["moe_cpu"], e["moe_cuda:0"]
+        assert gpu["launches"] == [4, 4, 2] and cpu["launches"] == [0, 0, 0]
+        assert abs(gpu["loss"] / cpu["loss"] - 1) <= 1e-5
+        for k, v in cpu["grads"].items():
+            np.testing.assert_allclose(gpu["grads"][k], v, rtol=0,
+                                       atol=1e-5 * float(np.abs(v).max()), err_msg=k)

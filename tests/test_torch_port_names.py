@@ -59,9 +59,6 @@ SUBPACKAGES = ("core", "data", "train", "models", "ops", "parallel", "ckpt", "se
 #: JAX modules (or whole packages) the port does not have yet, with the
 #: ROADMAP Queue 1 item that brings each
 QUEUE1_MODULES = {
-    "tpuframe.models.moe": 8,
-    "tpuframe.ops.ulysses": 8,
-    "tpuframe.ops.moe_gating": 8,
     "tpuframe.ops.ledger": 9,
     "tpuframe.fault.chaos": 9,
     "tpuframe.fault.preempt": 9,
@@ -84,8 +81,6 @@ LATER = {
     ("fault", "recovery_directive"): (9, "the supervisor"),
     ("fault", "reset_recovery"): (9, "the supervisor"),
     ("track", "start_metrics_server"): (9, "the HTTP store"),
-    ("ops", "ring_attention"): (8, "the ring (K7)"),
-    ("ops", "ring_attention_local"): (8, "the ring (K7)"),
     ("compile", "abstract_state"): (9, "torch.compile and CUDA graphs"),
     ("compile", "loader_batch_template"): (9, "torch.compile and CUDA graphs"),
     ("compile", "precompile_call"): (9, "torch.compile and CUDA graphs"),

@@ -125,14 +125,20 @@ def test_compute_dtype_follows_the_policy():
     (dict(remat=True), "remat"),
     (dict(dropout=0.1), "dropout"),
 ])
-def test_unported_options_name_their_slice(kw, match):
-    """``ring``, ``ulysses`` and MoE still raise, naming their slice.  The
-    long-context slice's options (blockwise attention, ``remat``, dropout)
-    are ported: they build, and a train-mode forward and backward runs (the
-    dropout one with a generator)."""
-    if match in ("sequence-parallel", "MoE"):
-        with pytest.raises(NotImplementedError, match=match):
-            TransformerLM(**SMALL, device="cpu", **kw)
+def test_unported_options_name_their_slice(kw, match, monkeypatch):
+    """Every option here is ported now.  ``ring`` and ``ulysses`` build, and
+    without a runtime mesh their forward raises JAX's ``ValueError``, naming
+    the sequence-parallel mesh they need.  MoE blocks and the long-context
+    slice's options (blockwise attention, ``remat``, dropout) build, and a
+    train-mode forward and backward runs (the dropout one with a generator;
+    MoE's leaves its aux loss in the blocks)."""
+    from tpuframe_torch.core import runtime
+
+    if match == "sequence-parallel":
+        monkeypatch.setattr(runtime, "_CURRENT", None)
+        tm = TransformerLM(**SMALL, device="cpu", **kw)
+        with pytest.raises(ValueError, match=f"{match}.*runtime mesh"):
+            tm(torch.from_numpy(_tokens()).long())
         return
     tm = TransformerLM(**SMALL, device="cpu", **kw).train()
     tm.dropout_generator = torch.Generator().manual_seed(0)
@@ -140,6 +146,9 @@ def test_unported_options_name_their_slice(kw, match):
     logits.sum().backward()
     assert logits.shape == (2, 16, 128)
     assert all(p.grad is not None and bool(torch.isfinite(p.grad).all()) for p in tm.parameters())
+    if match == "MoE":
+        assert all(torch.isfinite(getattr(tm, f"block{i}").moe.aux_loss)
+                   for i in range(SMALL["num_layers"]))
 
 
 def test_auto_attention_refuses_long_context_and_unknown_impls(monkeypatch):

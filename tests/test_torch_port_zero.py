@@ -107,10 +107,11 @@ def test_mesh_lays_ranks_out_in_jax_device_order():
         for rank in range(n):
             assert tm.coords(rank)["fsdp"] == rank % mesh["fsdp"]
             assert tm.coords(rank)["data"] == rank // mesh["fsdp"]
-    # the model axis is ported (tensor parallelism); seq still raises
+    # the model and seq axes are ported; seq beside model still raises
     assert MeshSpec(fsdp=2, model=2).build(4).shape["model"] == 2
+    assert MeshSpec(fsdp=2, seq=2).build(4).shape["seq"] == 2
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MeshSpec(fsdp=2, seq=2).build(4)
+        MeshSpec(seq=2, model=2).build(4)
 
 
 class ConvAndLinear(nn.Module):

@@ -15,13 +15,17 @@ the CPU.  ``TPUFRAME_COORDINATOR`` may also be an ``init_method`` URL
 never gives way to gloo.
 
 The mesh names the layout over the processes: the ``data`` and ``fsdp``
-axes (ZeRO shards over ``fsdp``), ``pipe`` (pipeline stages) and
-``model`` (tensor parallelism); ``seq`` or ``expert`` above 1 raises
-(ROADMAP.md, Queue 1 item 8).  Ranks follow the JAX package's device order,
-the grid reshaped in :data:`AXIS_ORDER`, so a rank's coordinates are those
-of the JAX device with the same id in the same ``MeshSpec``.
-:func:`initialize` builds each axis's process groups once
-(``Runtime.groups``).
+axes (ZeRO shards over ``fsdp``), ``pipe`` (pipeline stages), ``seq``
+(sequence parallelism: a rank holds its run of L / n positions), ``expert``
+(expert parallelism: a rank holds E / n experts) and ``model`` (tensor
+parallelism).  ``seq`` or ``expert`` above 1 beside ``pipe`` or ``model``
+above 1 raises (ROADMAP.md, Queue 1 item 7).  Ranks follow the JAX
+package's device order, the grid reshaped in :data:`AXIS_ORDER`, so a
+rank's coordinates are those of the JAX device with the same id in the
+same ``MeshSpec``.  :func:`initialize` builds each axis's process groups
+once (``Runtime.groups``), and those of the data plane (``"dp"``: ``data``
+x ``fsdp``) and of the token group (``"tok"``: ``data`` x ``fsdp`` x
+``seq``, the ranks that hold different tokens).
 
 ``TPUFRAME_SIMULATE_DEVICES`` is the one request for the CPU besides an
 explicit ``device="cpu"``: the launcher sets it in its workers for
@@ -166,8 +170,8 @@ class Mesh:
 class MeshSpec:
     """Logical mesh shape; ``-1`` on at most one axis means "all remaining".
 
-    The six axes of the JAX package; ``seq`` and ``expert`` may not exceed
-    1 in the port (they come with the sequence-parallel slice)."""
+    The six axes of the JAX package; ``seq`` or ``expert`` above 1 may not
+    stand beside ``pipe`` or ``model`` above 1 in the port."""
 
     pipe: int = 1
     data: int = -1
@@ -201,15 +205,18 @@ class MeshSpec:
     def build(self, n_devices: int) -> Mesh:
         """The :class:`Mesh` over ``n_devices`` processes (one device each);
         ``n_devices`` may be a sequence (its length counts).  Raises
-        ``NotImplementedError`` for ``seq`` or ``expert`` above 1."""
+        ``NotImplementedError`` for ``seq`` or ``expert`` above 1 beside
+        ``pipe`` or ``model`` above 1."""
         if not isinstance(n_devices, int):
             n_devices = len(n_devices)
         sizes = self.resolve(n_devices)
-        beyond = {n: s for n, s in sizes.items() if n in (SEQUENCE_AXIS, EXPERT_AXIS) and s > 1}
-        if beyond:
+        sp_ep = {n: s for n, s in sizes.items() if n in (SEQUENCE_AXIS, EXPERT_AXIS) and s > 1}
+        tp_pp = {n: s for n, s in sizes.items() if n in (PIPELINE_AXIS, MODEL_AXIS) and s > 1}
+        if sp_ep and tp_pp:
             raise NotImplementedError(
-                f"mesh axes {beyond}: the sequence and expert axes are not ported; they come "
-                "with sequence parallelism and MoE (ROADMAP.md, Queue 1 item 8)")
+                f"mesh axes {sp_ep} beside {tp_pp}: sequence and expert parallelism beside "
+                "tensor and pipeline parallelism are not ported; they come with the rest of "
+                "ROADMAP.md, Queue 1 item 7")
         return Mesh(sizes)
 
     @classmethod
@@ -242,8 +249,8 @@ class Runtime:
     @property
     def data_index(self) -> int:
         """This process's data shard: its index over the ``data`` and
-        ``fsdp`` axes (the batch's split); the ranks along ``pipe`` and
-        ``model`` share it."""
+        ``fsdp`` axes (the batch's split); the ranks along ``pipe``,
+        ``seq``, ``expert`` and ``model`` share it."""
         c = self.mesh.coords(self.process_index)
         return c[DATA_AXIS] * int(self.mesh.shape.get(FSDP_AXIS, 1)) + c[FSDP_AXIS]
 
@@ -336,32 +343,39 @@ def initialize(mesh: MeshSpec | Mapping[str, int] | None = None, *,
     return _CURRENT
 
 
+#: the planes with a group of their own beside the axes: key -> axes
+PLANES = {"dp": (DATA_AXIS, FSDP_AXIS), "tok": (DATA_AXIS, FSDP_AXIS, SEQUENCE_AXIS)}
+
+
 def _axis_groups(mesh: Mesh, rank: int, world: int) -> dict[str, object]:
-    """This rank's process group along each axis above 1, and along the
-    data plane (``data`` x ``fsdp``, key ``"dp"``: the ranks a gradient
-    is averaged over) where it is not one axis; every line's group built
-    by every rank in one order (``dist.new_group`` is collective); a line
-    over the whole world takes the default group."""
+    """This rank's process group along each axis above 1, along the data
+    plane (``data`` x ``fsdp``, key ``"dp"``) and along the token group
+    (``data`` x ``fsdp`` x ``seq``, key ``"tok"``: the ranks that hold
+    different tokens, which a gradient is averaged over) where a plane is
+    not one axis or another plane already; every line's group built by
+    every rank in one order (``dist.new_group`` is collective); a line over
+    the whole world takes the default group."""
     groups: dict[str, object] = {}
     if not dist.is_initialized():
         return groups
-    plane = (DATA_AXIS, FSDP_AXIS)
-    for axis in AXIS_ORDER + (plane,):
-        axes = axis if isinstance(axis, tuple) else (axis,)
+    by_axes: dict[tuple, str] = {}
+    for axis in AXIS_ORDER + tuple(PLANES):
+        axes = PLANES.get(axis, (axis,))
         size = math.prod(int(mesh.shape.get(a, 1)) for a in axes)
-        key = "dp" if isinstance(axis, tuple) else axis
         if size <= 1:
             continue
-        if key == "dp" and size in (int(mesh.shape[DATA_AXIS]), int(mesh.shape[FSDP_AXIS])):
-            groups["dp"] = groups[DATA_AXIS if mesh.shape[DATA_AXIS] > 1 else FSDP_AXIS]
+        above = tuple(a for a in axes if int(mesh.shape.get(a, 1)) > 1)
+        if above in by_axes:  # the same ranks as a group built already
+            groups[axis] = groups[by_axes[above]]
             continue
+        by_axes[above] = axis
         if size == world:
-            groups[key] = None
+            groups[axis] = None
             continue
         for line in mesh.lines(axes):
             group = dist.new_group(line)
             if rank in line:
-                groups[key] = group
+                groups[axis] = group
     return groups
 
 
@@ -438,7 +452,8 @@ def process_index() -> int:
 
 def data_shard() -> tuple[int, int]:
     """``(index, count)`` of this process's share of the batch: the
-    runtime's data shard (ranks along ``pipe`` and ``model`` share one),
+    runtime's data shard (ranks along ``pipe``, ``seq``, ``expert`` and
+    ``model`` share one),
     else the process group's rank and size, else ``(0, 1)``."""
     if _CURRENT is not None:
         return _CURRENT.data_index, _CURRENT.data_count

@@ -14,6 +14,10 @@
 //   K6c  _blockwise_padded_bwd pass 2: dK and dV, the K/V tile outer and
 //        the Q tiles inner
 // Tiles above the causal diagonal are skipped; keys >= L are masked.
+// out_f32 stores out, dq, dk and dv as float32 where the input is bf16 (the
+// accumulators as they are, not rounded): the ring (ops/ring_attention.py)
+// sums one partial a visiting block and casts once, as JAX keeps its ring's
+// o, dq, dk and dv in float32 across hops.
 //
 // Numerics, as JAX: products of storage-dtype values accumulated in float32
 // (a bf16 value widens to float32 exactly and a product of two fits in
@@ -680,19 +684,25 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[4][4], const float (&x)[8][4]
 
 // A warp's 16 rows row0.. of acc into (B, L, H, D) at (b, h); rows past L
 // skipped
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[D / 8][4], int b, int h,
+// (O: bf16, or float for the float32 partials a ring sums)
+template <int D, typename O>
+__device__ __forceinline__ void store_rows(O* dst, const float (&acc)[D / 8][4], int b, int h,
                                            int row0, int L, int H, int lane) {
   const int gr = lane >> 2, tq = lane & 3;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int l = row0 + gr + 8 * half;
     if (l >= L) continue;
-    bf16* row = dst + row_offset(b, l, h, L, H, D);
+    O* row = dst + row_offset(b, l, h, L, H, D);
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + 2 * tq) =
-          __floats2bfloat162_rn(acc[j][2 * half], acc[j][2 * half + 1]);
+      if constexpr (std::is_same<O, float>::value) {
+        *reinterpret_cast<float2*>(row + 8 * j + 2 * tq) =
+            make_float2(acc[j][2 * half], acc[j][2 * half + 1]);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + 2 * tq) =
+            __floats2bfloat162_rn(acc[j][2 * half], acc[j][2 * half + 1]);
+      }
     }
   }
 }
@@ -728,12 +738,12 @@ __device__ __forceinline__ void dq_ds(float (&s)[8][4], const float (&dp)[8][4],
   }
 }
 
-template <int D>
+template <int D, typename O>
 __global__ void __launch_bounds__(kThreads)
     attn_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const bf16* __restrict__ out,
                    const bf16* __restrict__ g, const float* __restrict__ lse,
-                   bf16* __restrict__ dq, float* __restrict__ delta, int L, int H, int causal,
+                   O* __restrict__ dq, float* __restrict__ delta, int L, int H, int causal,
                    float scale) {
   extern __shared__ float4 smem4[];
   bf16* Qs = reinterpret_cast<bf16*>(smem4);
@@ -816,7 +826,7 @@ __global__ void __launch_bounds__(kThreads)
     accumulate<D>(acc, a, Ks, lane);
     __syncthreads();  // every warp is done with this buffer before it is refilled
   }
-  store_rows<D>(dq, acc, b, h, qt * kTile + 16 * warp, L, H, lane);
+  store_rows<D, O>(dq, acc, b, h, qt * kTile + 16 * warp, L, H, lane);
 }
 
 // ---- K6c --------------------------------------------------------------------
@@ -858,12 +868,12 @@ __device__ __forceinline__ void dkv_p_ds(float (&st)[8][4], float (&dpt)[8][4],
   }
 }
 
-template <int D>
+template <int D, typename O>
 __global__ void __launch_bounds__(kThreads)
     attn_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ g,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dk, bf16* __restrict__ dv, int L, int H, int causal,
+                    O* __restrict__ dk, O* __restrict__ dv, int L, int H, int causal,
                     float scale) {
   extern __shared__ float4 smem4[];
   bf16* Ks = reinterpret_cast<bf16*>(smem4);
@@ -924,8 +934,8 @@ __global__ void __launch_bounds__(kThreads)
     accumulate<D>(acc_k, a, Qs, lane);
     __syncthreads();  // every warp is done with this buffer before it is refilled
   }
-  store_rows<D>(dk, acc_k, b, h, kt * kTile + 16 * warp, L, H, lane);
-  store_rows<D>(dv, acc_v, b, h, kt * kTile + 16 * warp, L, H, lane);
+  store_rows<D, O>(dk, acc_k, b, h, kt * kTile + 16 * warp, L, H, lane);
+  store_rows<D, O>(dv, acc_v, b, h, kt * kTile + 16 * warp, L, H, lane);
 }
 
 // ---- K6a --------------------------------------------------------------------
@@ -1008,10 +1018,10 @@ __device__ __forceinline__ void fwd_softmax(float (&s)[8][4], float (&mr)[2], fl
   }
 }
 
-template <int D>
+template <int D, typename O>
 __global__ void __launch_bounds__(kThreads)
     attn_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ lse,
+                const bf16* __restrict__ v, O* __restrict__ out, float* __restrict__ lse,
                 int L, int H, int causal, float scale) {
   extern __shared__ float4 smem4[];
   bf16* Qs = reinterpret_cast<bf16*>(smem4);
@@ -1082,7 +1092,7 @@ __global__ void __launch_bounds__(kThreads)
     const int qi = qt * kTile + 16 * warp + (lane >> 2) + 8 * i;
     if ((lane & 3) == 0 && qi < L) lse[row_bh + qi] = mr[i] * scale + logf(lsum);
   }
-  store_rows<D>(out, o, b, h, qt * kTile + 16 * warp, L, H, lane);
+  store_rows<D, O>(out, o, b, h, qt * kTile + 16 * warp, L, H, lane);
 }
 
 }  // namespace tc
@@ -1097,16 +1107,16 @@ int prepare(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
 }
 
-template <typename T, int D>
+template <typename T, int D, typename O>
 int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int B, int L,
                int H, int causal, float scale, cudaStream_t s) {
   const dim3 grid(B * H, (L + kTile - 1) / kTile);
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {  // the tensor cores
     constexpr size_t smem = tc::fwd_smem<D>();
-    if (int rc = prepare(tc::attn_fwd_tc<D>, smem)) return rc;
-    tc::attn_fwd_tc<D><<<grid, tc::kThreads, smem, s>>>(
+    if (int rc = prepare(tc::attn_fwd_tc<D, O>, smem)) return rc;
+    tc::attn_fwd_tc<D, O><<<grid, tc::kThreads, smem, s>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(out), static_cast<float*>(lse), L, H, causal, scale);
+        static_cast<O*>(out), static_cast<float*>(lse), L, H, causal, scale);
   } else {
     constexpr size_t smem = fwd_smem<T, D>();
     if (int rc = prepare(attn_fwd_kernel<T, D>, smem)) return rc;
@@ -1117,18 +1127,18 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <typename T, int D, typename O>
 int launch_dq(const void* q, const void* k, const void* v, const void* out, const void* g,
               const void* lse, void* dq, void* delta, int B, int L, int H, int causal,
               float scale, cudaStream_t s) {
   const dim3 grid(B * H, (L + kTile - 1) / kTile);
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {  // the tensor cores
     constexpr size_t smem = tc::dq_smem<D>();
-    if (int rc = prepare(tc::attn_bwd_dq_tc<D>, smem)) return rc;
-    tc::attn_bwd_dq_tc<D><<<grid, tc::kThreads, smem, s>>>(
+    if (int rc = prepare(tc::attn_bwd_dq_tc<D, O>, smem)) return rc;
+    tc::attn_bwd_dq_tc<D, O><<<grid, tc::kThreads, smem, s>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const T*>(out), static_cast<const T*>(g), static_cast<const float*>(lse),
-        static_cast<T*>(dq), static_cast<float*>(delta), L, H, causal, scale);
+        static_cast<O*>(dq), static_cast<float*>(delta), L, H, causal, scale);
   } else {
     constexpr size_t smem = dq_smem<T, D>();
     if (int rc = prepare(attn_bwd_dq_kernel<T, D>, smem)) return rc;
@@ -1140,18 +1150,18 @@ int launch_dq(const void* q, const void* k, const void* v, const void* out, cons
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <typename T, int D, typename O>
 int launch_dkv(const void* q, const void* k, const void* v, const void* g, const void* lse,
                const void* delta, void* dk, void* dv, int B, int L, int H, int causal,
                float scale, cudaStream_t s) {
   const dim3 grid(B * H, (L + kTile - 1) / kTile);
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {  // the tensor cores
     constexpr size_t smem = tc::dkv_smem<D>();
-    if (int rc = prepare(tc::attn_bwd_dkv_tc<D>, smem)) return rc;
-    tc::attn_bwd_dkv_tc<D><<<grid, tc::kThreads, smem, s>>>(
+    if (int rc = prepare(tc::attn_bwd_dkv_tc<D, O>, smem)) return rc;
+    tc::attn_bwd_dkv_tc<D, O><<<grid, tc::kThreads, smem, s>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const T*>(g), static_cast<const float*>(lse),
-        static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), L, H,
+        static_cast<const float*>(delta), static_cast<O*>(dk), static_cast<O*>(dv), L, H,
         causal, scale);
   } else {
     constexpr size_t smem = dkv_smem<T, D>();
@@ -1172,51 +1182,56 @@ bool valid_shape(int B, int L, int H, int D) {
 
 }  // namespace
 
-// Dispatch on dtype (0 float32, 1 bfloat16) and head dim D in {16, 32, 64,
-// 128}, anything else cudaErrorInvalidValue.
+// Dispatch on dtype (0 float32, 1 bfloat16), the output dtype out_f32 (0:
+// the input's, 1: float32; a float32 input stores float32 either way) and
+// head dim D in {16, 32, 64, 128}, anything else cudaErrorInvalidValue.
+#define TF_DISPATCH_D(LAUNCH, T, O, ...)                                   \
+  switch (D) {                                                            \
+    case 16: return LAUNCH<T, 16, O>(__VA_ARGS__, s);                      \
+    case 32: return LAUNCH<T, 32, O>(__VA_ARGS__, s);                      \
+    case 64: return LAUNCH<T, 64, O>(__VA_ARGS__, s);                      \
+    case 128: return LAUNCH<T, 128, O>(__VA_ARGS__, s);                    \
+  }
+
 #define TF_DISPATCH(LAUNCH, ...)                                            \
   do {                                                                      \
     if (!valid_shape(B, L, H, D)) return (int)cudaErrorInvalidValue;        \
     cudaStream_t s = static_cast<cudaStream_t>(stream);                     \
     if (dtype == 0) {                                                       \
-      switch (D) {                                                          \
-        case 16: return LAUNCH<float, 16>(__VA_ARGS__, s);                  \
-        case 32: return LAUNCH<float, 32>(__VA_ARGS__, s);                  \
-        case 64: return LAUNCH<float, 64>(__VA_ARGS__, s);                  \
-        case 128: return LAUNCH<float, 128>(__VA_ARGS__, s);                \
-      }                                                                     \
+      TF_DISPATCH_D(LAUNCH, float, float, __VA_ARGS__)                      \
+    } else if (dtype == 1 && out_f32) {                                     \
+      TF_DISPATCH_D(LAUNCH, __nv_bfloat16, float, __VA_ARGS__)              \
     } else if (dtype == 1) {                                                \
-      switch (D) {                                                          \
-        case 16: return LAUNCH<__nv_bfloat16, 16>(__VA_ARGS__, s);          \
-        case 32: return LAUNCH<__nv_bfloat16, 32>(__VA_ARGS__, s);          \
-        case 64: return LAUNCH<__nv_bfloat16, 64>(__VA_ARGS__, s);          \
-        case 128: return LAUNCH<__nv_bfloat16, 128>(__VA_ARGS__, s);        \
-      }                                                                     \
+      TF_DISPATCH_D(LAUNCH, __nv_bfloat16, __nv_bfloat16, __VA_ARGS__)      \
     }                                                                       \
     return (int)cudaErrorInvalidValue;                                      \
   } while (0)
 
-// q, k, v, out: (B, L, H, D) contiguous, 16-byte aligned, in the dtype;
-// lse: (B, H, L) float32.  scale is 1 / sqrt(D).
+// q, k, v: (B, L, H, D) contiguous, 16-byte aligned, in the dtype; out
+// likewise, in float32 when out_f32; lse: (B, H, L) float32.  scale is
+// 1 / sqrt(D).
 extern "C" int tf_blockwise_attention_fwd(const void* q, const void* k, const void* v, void* out,
                                           void* lse, int B, int L, int H, int D, int causal,
-                                          float scale, int dtype, void* stream) {
+                                          float scale, int dtype, int out_f32, void* stream) {
   TF_DISPATCH(launch_fwd, q, k, v, out, lse, B, L, H, causal, scale);
 }
 
-// As the forward; g (the upstream gradient, dO) and dq like q; lse from the
-// forward; delta: (B, H, L) float32, written.
+// As the forward; g (the upstream gradient, dO) like q; lse from the
+// forward; dq like out; delta: (B, H, L) float32, written.
 extern "C" int tf_blockwise_attention_bwd_dq(const void* q, const void* k, const void* v,
                                              const void* out, const void* g, const void* lse,
                                              void* dq, void* delta, int B, int L, int H, int D,
-                                             int causal, float scale, int dtype, void* stream) {
+                                             int causal, float scale, int dtype, int out_f32,
+                                             void* stream) {
   TF_DISPATCH(launch_dq, q, k, v, out, g, lse, dq, delta, B, L, H, causal, scale);
 }
 
-// As the forward; delta from tf_blockwise_attention_bwd_dq; dk and dv like k.
+// As the forward; delta from tf_blockwise_attention_bwd_dq; dk and dv like
+// out.
 extern "C" int tf_blockwise_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                               const void* g, const void* lse, const void* delta,
                                               void* dk, void* dv, int B, int L, int H, int D,
-                                              int causal, float scale, int dtype, void* stream) {
+                                              int causal, float scale, int dtype, int out_f32,
+                                              void* stream) {
   TF_DISPATCH(launch_dkv, q, k, v, g, lse, delta, dk, dv, B, L, H, causal, scale);
 }

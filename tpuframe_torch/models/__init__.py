@@ -1,5 +1,5 @@
-"""Models: the ResNet family, the transformer LM, ViT, the MNIST CNN, the
-frozen-backbone wrapper, and their weight interop."""
+"""Models: the ResNet family, the transformer LM and its MoE MLP, ViT, the
+MNIST CNN, the frozen-backbone wrapper, and their weight interop."""
 
 from tpuframe_torch.models.cnn import MnistNet
 from tpuframe_torch.models.interop import (
@@ -10,6 +10,7 @@ from tpuframe_torch.models.interop import (
     import_torch_resnet,
     import_torch_transformer,
 )
+from tpuframe_torch.models.moe import MoEMLP, moe_rules
 from tpuframe_torch.models.norm import ReplicaGroupedBatchNorm
 from tpuframe_torch.models.resnet import (
     BasicBlock,
@@ -36,6 +37,7 @@ __all__ = [
     "Bottleneck",
     "Dropout",
     "MnistNet",
+    "MoEMLP",
     "ReplicaGroupedBatchNorm",
     "ResNet",
     "ResNet18",
@@ -56,6 +58,7 @@ __all__ = [
     "from_jax_variables",
     "import_torch_resnet",
     "import_torch_transformer",
+    "moe_rules",
     "transformer_tp_rules",
     "vit_tp_rules",
 ]

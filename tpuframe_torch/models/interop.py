@@ -19,6 +19,11 @@ Layout conversions:
   keep their names
 - ViT: ``patch_embed`` kernel HWIO <-> weight OIHW; ``pos_embed`` and
   ``cls_token`` (parameters of the model itself) as they are
+- MoE (``block{i}/moe``): the ``router`` Dense kernel (D, E) <-> the
+  router's (E, D) weight; ``w_in`` (E, D, H) and ``w_out`` (E, H, D) keep
+  the flax layout in the port, so they carry across as they are and
+  ``parallel.sharding.flax_orders`` lists no order for them (a plan's
+  ``moe_rules`` spec names their dims directly)
 - MnistNet: flax flattens the (4, 4, 20) maps NHWC before ``fc1``, the
   port NCHW (the reference ``Net``'s ``view(-1, 320)``), so ``fc1``'s 320
   input rows are permuted from (h, w, c) to (c, h, w) order

@@ -16,11 +16,26 @@ logits are cast to float32 at the end.
 Attention (``attn_impl``): ``"full"`` is ``ops.ring_attention.
 attention_reference``, which scales, masks and softmaxes in the compute
 dtype; ``"blockwise"`` is ``ops.blockwise_attention`` (kernels K6a-K6c on
-the card), memory linear in L; ``"auto"`` takes blockwise at
-``_BLOCKWISE_AUTO_LEN`` (4096) tokens or more and full below.  JAX's
-``auto`` first asks its kernel ledger for a measured verdict and falls back
-to this static rule without one; the port has no ledger yet, so it always
-takes the rule.
+the card), memory linear in L; ``"ring"`` is ``ops.ring_attention``'s ring
+over the ``seq`` axis and ``"ulysses"`` ``ops.ulysses``'s all-to-all form,
+both K6 tiles on the card; ``"auto"`` takes the ring when the runtime's mesh
+splits ``seq``, else blockwise at ``_BLOCKWISE_AUTO_LEN`` (4096) tokens or
+more and full below.  JAX's ``auto`` first asks its kernel ledger for a
+measured verdict and falls back to this static rule without one; the port
+has no ledger yet, so it always takes the rule.
+
+**Sequence parallelism.**  Under a mesh that splits ``seq`` over n ranks a
+rank holds its run of L / n positions (the train steps cut it from the
+batch): the positional embedding takes the global positions ``seq_index ·
+L_local + arange(L_local)``, and attention must be ``"ring"`` or
+``"ulysses"`` (or ``"auto"``).  ``"full"`` and ``"blockwise"`` would attend
+within the run alone, so they raise there; JAX's gather the sequence
+(ROADMAP.md, Queue 3).
+
+**MoE** (``moe_experts > 0``): every block's MLP is ``models.moe.MoEMLP``
+under the flax name ``moe``; each forward leaves its load-balancing loss in
+the MoE modules' ``aux_loss``, which the train step adds to the objective
+(JAX's ``aux_loss`` collection).
 
 ``dropout`` (flax ``nn.Dropout``) drops after attention and after the MLP
 in train mode (``module.training``) with probability ``rate`` and scales
@@ -45,8 +60,6 @@ deviations, scaled by 1 / 0.8796 so the variance is 1 / fan_in), biases
 zero, ``Embed`` tables normal with variance 1 / features, LayerNorm scale
 one and bias zero.
 
-Not ported yet, each raising ``NotImplementedError`` that names its slice:
-``attn_impl`` ``"ring"`` and ``"ulysses"`` and ``moe_experts > 0``.
 """
 
 from __future__ import annotations
@@ -59,11 +72,13 @@ from torch import nn
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
-from tpuframe_torch.core.runtime import MODEL_AXIS, resolve_device
+from tpuframe_torch.core.runtime import MODEL_AXIS, SEQUENCE_AXIS, current_runtime, resolve_device
+from tpuframe_torch.models.moe import MoEMLP
 from tpuframe_torch.models.resnet import Linear
 from tpuframe_torch.ops.blockwise_attention import blockwise_attention
 from tpuframe_torch.ops.layer_norm import FusedLayerNorm
-from tpuframe_torch.ops.ring_attention import attention_reference
+from tpuframe_torch.ops.ring_attention import _ring, attention_reference, mesh_axis
+from tpuframe_torch.ops.ulysses import _ulysses
 
 __all__ = ["Block", "Dropout", "SelfAttention", "TransformerLM", "remat_call",
            "transformer_tp_rules"]
@@ -90,9 +105,14 @@ def transformer_tp_rules():
     )
 
 
-def _later(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet; it comes with {where} (ROADMAP.md, Queue 1)")
+def _seq_split():
+    """The runtime mesh's ``seq`` axis for this rank where it is above 1,
+    else None (no runtime, or no split)."""
+    try:
+        mesh = current_runtime(auto_init=False).mesh
+    except RuntimeError:
+        return None
+    return mesh_axis(SEQUENCE_AXIS, mesh) if int(mesh.shape.get(SEQUENCE_AXIS, 1)) > 1 else None
 
 
 class Embed(nn.Embedding):
@@ -145,10 +165,10 @@ class Dropout(nn.Module):
 
 
 class SelfAttention(nn.Module):
-    """Multi-head self-attention, full or blockwise on one card; under a
-    plan that splits ``query``/``key``/``value`` by columns and
-    ``attn_out`` by rows (``tp_heads``, the ``model`` axis), over this
-    rank's heads."""
+    """Multi-head self-attention: full or blockwise on one card, the ring or
+    Ulysses over the ``seq`` axis; under a plan that splits
+    ``query``/``key``/``value`` by columns and ``attn_out`` by rows
+    (``tp_heads``, the ``model`` axis), over this rank's heads."""
 
     #: the model axis the heads are split over, or None
     tp_heads = None
@@ -158,9 +178,7 @@ class SelfAttention(nn.Module):
     def __init__(self, features: int, num_heads: int, head_dim: int, *, causal: bool = True,
                  attn_impl: str = "auto", dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
-        if attn_impl in ("ring", "ulysses"):
-            raise _later(f"attn_impl={attn_impl!r}", "the sequence-parallel slice")
-        if attn_impl not in ("auto", "full", "blockwise"):
+        if attn_impl not in ("auto", "full", "ring", "ulysses", "blockwise"):
             raise ValueError(
                 f"unknown attn_impl {attn_impl!r}; known: auto, full, ring, ulysses, blockwise")
         self.num_heads, self.head_dim = num_heads, head_dim
@@ -173,9 +191,16 @@ class SelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, l, _ = x.shape
-        impl = self.attn_impl
+        impl, seq = self.attn_impl, _seq_split()
         if impl == "auto":
-            impl = "blockwise" if l >= _BLOCKWISE_AUTO_LEN else "full"
+            impl = "ring" if seq is not None else (
+                "blockwise" if l >= _BLOCKWISE_AUTO_LEN else "full")
+        if impl in ("ring", "ulysses") and seq is None:
+            seq = mesh_axis(SEQUENCE_AXIS)  # raises without a runtime mesh
+        elif seq is not None and impl not in ("ring", "ulysses"):
+            raise ValueError(
+                f"attn_impl={impl!r} under a seq split of {seq.size} would attend within this "
+                "rank's run of positions alone; take 'ring', 'ulysses' or 'auto'")
         n_heads = self.num_heads
         if self.tp_heads is not None:  # one all-reduce of the cotangent for q, k and v
             n_heads //= self.tp_heads.size
@@ -184,7 +209,11 @@ class SelfAttention(nn.Module):
         q = self.query(x).reshape(heads)
         k = self.key(x).reshape(heads)
         v = self.value(x).reshape(heads)
-        if impl == "blockwise":
+        if impl == "ring":
+            out = _ring(q, k, v, seq, self.causal)
+        elif impl == "ulysses":
+            out = _ulysses(q, k, v, seq, self.causal)
+        elif impl == "blockwise":
             out = blockwise_attention(q, k, v, causal=self.causal)
         else:
             out = attention_reference(q, k, v, causal=self.causal)
@@ -203,28 +232,39 @@ class SelfAttention(nn.Module):
 
 class Block(nn.Module):
     """Pre-norm block: LN -> attention -> dropout -> +residual, LN -> MLP ->
-    dropout -> +residual."""
+    dropout -> +residual; ``moe_experts > 0`` makes the MLP a top-k gated
+    ``MoEMLP`` (named ``moe``, as in JAX)."""
 
     #: the MLP's column- and row-parallel products, paired under a plan
     tp_pairs = ((("mlp_in",), "mlp_out"),)
 
     def __init__(self, features: int, num_heads: int, head_dim: int, *, mlp_ratio: int = 4,
                  dropout: float = 0.0, causal: bool = True, attn_impl: str = "auto",
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, moe_experts: int = 0, moe_top_k: int = 2,
+                 device=None):
         super().__init__()
         self.ln1 = FusedLayerNorm(features, dtype=dtype, device=device)
         self.attn = SelfAttention(features, num_heads, head_dim, causal=causal,
                                   attn_impl=attn_impl, dtype=dtype, device=device)
         self.attn_dropout = Dropout(dropout)
         self.ln2 = FusedLayerNorm(features, dtype=dtype, device=device)
-        self.mlp_in = Linear(features, features * mlp_ratio, compute_dtype=dtype, device=device)
-        self.mlp_out = Linear(features * mlp_ratio, features, compute_dtype=dtype, device=device)
+        if moe_experts:
+            self.moe = MoEMLP(features, num_experts=moe_experts, mlp_ratio=mlp_ratio,
+                              top_k=moe_top_k, dtype=dtype, device=device)
+        else:
+            self.mlp_in = Linear(features, features * mlp_ratio, compute_dtype=dtype,
+                                 device=device)
+            self.mlp_out = Linear(features * mlp_ratio, features, compute_dtype=dtype,
+                                  device=device)
         self.mlp_dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         x = x + self.attn_dropout(self.attn(self.ln1(x)), generator)
-        y = F.gelu(self.mlp_in(self.ln2(x)), approximate="tanh")
-        return x + self.mlp_dropout(self.mlp_out(y), generator)
+        if hasattr(self, "moe"):
+            y = self.moe(self.ln2(x))
+        else:
+            y = self.mlp_out(F.gelu(self.mlp_in(self.ln2(x)), approximate="tanh"))
+        return x + self.mlp_dropout(y, generator)
 
 
 def remat_call(block: nn.Module, x: torch.Tensor,
@@ -285,10 +325,10 @@ class TransformerLM(nn.Module):
     Args (the JAX model's, plus ``device`` and ``seed``):
       vocab_size, num_layers, num_heads, head_dim, max_len, mlp_ratio.
       dropout, remat: module docstring.
-      moe_experts, moe_top_k: only ``moe_experts=0`` runs here; others
-        raise ``NotImplementedError``.
-      attn_impl: ``"auto"``, ``"full"`` or ``"blockwise"`` (module
-        docstring).
+      moe_experts, moe_top_k: above 0, every block's MLP is a top-k gated
+        MoE (module docstring).
+      attn_impl: ``"auto"``, ``"full"``, ``"ring"``, ``"ulysses"`` or
+        ``"blockwise"`` (module docstring).
       dtype: compute dtype; parameters stay float32.
       device: where the parameters live; None means ``cuda``, which raises
         without CUDA.
@@ -305,8 +345,6 @@ class TransformerLM(nn.Module):
                  dtype: torch.dtype = torch.float32, remat: bool = False,
                  moe_experts: int = 0, moe_top_k: int = 2, *, device=None, seed: int = 0):
         super().__init__()
-        if moe_experts > 0:
-            raise _later(f"moe_experts={moe_experts}", "the MoE part of slice 4")
         device = resolve_device(device)
         d = num_heads * head_dim
         self.compute_dtype = dtype
@@ -319,6 +357,7 @@ class TransformerLM(nn.Module):
         for i in range(num_layers):
             self.add_module(f"block{i}", Block(d, num_heads, head_dim, mlp_ratio=mlp_ratio,
                                                dropout=dropout, attn_impl=attn_impl, dtype=dtype,
+                                               moe_experts=moe_experts, moe_top_k=moe_top_k,
                                                device=device))
         self.ln_f = FusedLayerNorm(d, dtype=dtype, device=device)
         self.lm_head = Linear(d, vocab_size, bias=False, compute_dtype=dtype, device=device)
@@ -335,18 +374,24 @@ class TransformerLM(nn.Module):
                     m.bias.zero_()
             elif isinstance(m, Embed):
                 m.weight.normal_(0.0, math.sqrt(1.0 / m.embedding_dim), generator=gen)
+            elif isinstance(m, MoEMLP):
+                m.init_weights(gen, _TRUNC_STD)
 
     def set_compute_dtype(self, dtype: torch.dtype) -> None:
-        """Run every product, gather and LayerNorm output in ``dtype``."""
+        """Run every product, gather and LayerNorm output in ``dtype``; a MoE
+        router stays float32, as in JAX."""
         self.compute_dtype = dtype
+        routers = {id(m.router) for m in self.modules() if isinstance(m, MoEMLP)}
         for m in self.modules():
-            if isinstance(m, (Linear, Embed)):
+            if isinstance(m, (Linear, Embed, MoEMLP)) and id(m) not in routers:
                 m.compute_dtype = dtype
             elif isinstance(m, FusedLayerNorm):
                 m.dtype = dtype
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        l, seq = tokens.shape[1], _seq_split()
+        start = 0 if seq is None else seq.index * l  # this rank's run of the sequence
+        positions = torch.arange(start, start + l, device=tokens.device)
         x = self.embed(tokens) + self.pos_embed(positions)[None]
         x = run_blocks(self, x)
         return self.lm_head(self.ln_f(x)).to(torch.float32)

@@ -85,7 +85,8 @@ class ViT(nn.Module):
         // num_heads); mlp_ratio, dropout.
       pool: ``"mean"`` or ``"cls"``.
       attn_impl: ``"auto"``, ``"full"`` or ``"blockwise"``; ``"ring"`` and
-        ``"ulysses"`` raise ``NotImplementedError``.
+        ``"ulysses"`` raise ``NotImplementedError``: the port splits an LM's
+        positions over ``seq`` in the train step, not a ViT's patch tokens.
       dtype: compute dtype; parameters stay float32.
       remat: recompute each block in the backward.
       image_size, in_channels: the input this model takes (224, 3).
@@ -107,6 +108,11 @@ class ViT(nn.Module):
         if pool not in ("mean", "cls"):
             raise ValueError(f"unknown pool {pool!r}; 'mean' or 'cls'")
         _check_image(image_size, image_size, patch_size)
+        if attn_impl in ("ring", "ulysses"):
+            raise NotImplementedError(
+                f"ViT with attn_impl={attn_impl!r} (sequence-parallel attention over the patch "
+                "tokens) is not ported: the train step cuts an LM's positions over the seq "
+                "axis, not a ViT's tokens (ROADMAP.md, Queue 1 item 8, left waiting)")
         device = resolve_device(device)
         self.num_classes, self.patch_size, self.pool = num_classes, patch_size, pool
         self.image_size, self.num_layers = image_size, num_layers

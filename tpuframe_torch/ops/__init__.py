@@ -34,6 +34,7 @@ from tpuframe_torch.ops.layer_norm import (
     layer_norm_fwd,
     layer_norm_reference,
 )
+from tpuframe_torch.ops.moe_gating import moe_dispatch_combine, moe_dispatch_combine_reference
 from tpuframe_torch.ops.normalize import normalize_images, normalize_images_reference
 from tpuframe_torch.ops.quant_wire import (
     bucket_abs_max,
@@ -43,7 +44,12 @@ from tpuframe_torch.ops.quant_wire import (
     quant_encode,
     quant_encode_reference,
 )
-from tpuframe_torch.ops.ring_attention import attention_reference
+from tpuframe_torch.ops.ring_attention import (
+    attention_reference,
+    ring_attention,
+    ring_attention_local,
+)
+from tpuframe_torch.ops.ulysses import ulysses_attention, ulysses_attention_local
 
 __all__ = [
     "FusedAdamW",
@@ -74,11 +80,17 @@ __all__ = [
     "layer_norm_bwd_reference",
     "layer_norm_fwd",
     "layer_norm_reference",
+    "moe_dispatch_combine",
+    "moe_dispatch_combine_reference",
     "normalize_images",
     "normalize_images_reference",
     "quant_decode",
     "quant_decode_reference",
     "quant_encode",
     "quant_encode_reference",
+    "ring_attention",
+    "ring_attention_local",
+    "ulysses_attention",
+    "ulysses_attention_local",
     "use_kernel",
 ]

@@ -29,6 +29,13 @@ tensor cores (``mma.sync`` bf16 products with float32 accumulators, P and
 dS kept in registers); every float32 kernel takes float32 FMAs (the
 source's header comment has the design).
 
+``out_dtype=torch.float32`` (on :func:`blockwise_attention_fwd`,
+:func:`blockwise_attention_bwd_dq` and :func:`blockwise_attention_bwd_dkv`)
+returns out, dq, dk and dv as float32, the accumulators not rounded to the
+input's dtype: the ring (``ops/ring_attention.py``) sums such partials, one
+a visiting block, and casts once at the end.  The default is the input's
+dtype.
+
 Numerics, on both paths as in JAX: products in the storage dtype with
 float32 accumulation; P rounded to v's dtype before P·V; in the backward
 dO = g in q's dtype, delta from g in float32, dS rounded to k's dtype for
@@ -70,7 +77,8 @@ def _library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     lib = build.load("blockwise_attention")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    shape = [i32, i32, i32, i32, i32, ctypes.c_float, i32, ptr]  # B L H D causal scale dtype stream
+    # B L H D causal scale dtype out_f32 stream
+    shape = [i32, i32, i32, i32, i32, ctypes.c_float, i32, i32, ptr]
     lib.tf_blockwise_attention_fwd.argtypes = [ptr] * 5 + shape
     lib.tf_blockwise_attention_bwd_dq.argtypes = [ptr] * 8 + shape
     lib.tf_blockwise_attention_bwd_dkv.argtypes = [ptr] * 8 + shape
@@ -112,11 +120,13 @@ def _blocks(l: int, block_size: int | None) -> tuple[int, int, int]:
 
 
 def blockwise_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                                  causal: bool = False, block_size: int | None = None):
-    """Plain forward: ``(out, lse)``, out (B, L, H, D) in q's dtype, lse
-    (B, H, L) float32 (JAX's ``_blockwise_padded_fwd`` over the padded
-    sequence, then sliced)."""
+                                  causal: bool = False, block_size: int | None = None,
+                                  out_dtype: torch.dtype | None = None):
+    """Plain forward: ``(out, lse)``, out (B, L, H, D) in ``out_dtype``
+    (default q's), lse (B, H, L) float32 (JAX's ``_blockwise_padded_fwd``
+    over the padded sequence, then sliced)."""
     b, l, h, d = _shape(q, k, v)
+    out_dtype = q.dtype if out_dtype is None else out_dtype
     block, n, l_pad = _blocks(l, block_size)
     q, k, v = (_padded(a, l_pad) for a in (q, k, v))
     scale = 1.0 / math.sqrt(d)
@@ -136,7 +146,7 @@ def blockwise_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
         o, lsum, m = carry
         lsum = lsum.clamp_min(1e-30)  # fully masked (padded or causal) rows
         lses.append(m + torch.log(lsum))  # -inf rows stay -inf
-        outs.append((o / lsum.transpose(1, 2)[..., None]).to(q.dtype))
+        outs.append((o / lsum.transpose(1, 2)[..., None]).to(out_dtype))
     return torch.cat(outs, 1)[:, :l], torch.cat(lses, -1)[..., :l]
 
 
@@ -160,8 +170,11 @@ def _bwd_setup(q, k, v, lse, g, causal, block_size):
     return q, k, v, do, lse, (b, l, h, d, block, n, 1.0 / math.sqrt(d), pos)
 
 
-def _bwd_dq_reference(q, k, v, lse, delta, g, causal, block_size) -> torch.Tensor:
-    """Pass 1 (JAX ``:150-178``): dQ over the K/V blocks, in q's dtype."""
+def _bwd_dq_reference(q, k, v, lse, delta, g, causal, block_size,
+                     out_dtype=None) -> torch.Tensor:
+    """Pass 1 (JAX ``:150-178``): dQ over the K/V blocks, in ``out_dtype``
+    (default q's)."""
+    out_dtype = q.dtype if out_dtype is None else out_dtype
     q, k, v, do, lse, (b, l, h, d, block, n, scale, pos) = _bwd_setup(
         q, k, v, lse, g, causal, block_size)
     delta = _padded(delta, q.shape[1])
@@ -179,12 +192,12 @@ def _bwd_dq_reference(q, k, v, lse, delta, g, causal, block_size) -> torch.Tenso
             sk = slice(ki * block, (ki + 1) * block)
             dq = _causal_skip((ki <= qi) if causal else None, lambda c: update(c, sk), dq)
         dqs.append(dq)
-    return torch.cat(dqs, 1)[:, :l].to(q.dtype)
+    return torch.cat(dqs, 1)[:, :l].to(out_dtype)
 
 
-def _bwd_dkv_reference(q, k, v, lse, delta, g, causal, block_size):
+def _bwd_dkv_reference(q, k, v, lse, delta, g, causal, block_size, out_dtype=None):
     """Pass 2 (JAX ``:180-216``): dK and dV over the Q blocks, in k's and
-    v's dtypes."""
+    v's dtypes, or both in ``out_dtype``."""
     q, k, v, do, lse, (b, l, h, d, block, n, scale, pos) = _bwd_setup(
         q, k, v, lse, g, causal, block_size)
     delta = _padded(delta, q.shape[1])
@@ -207,7 +220,8 @@ def _bwd_dkv_reference(q, k, v, lse, delta, g, causal, block_size):
             carry = _causal_skip((qi >= ki) if causal else None, lambda c: update(c, sq), carry)
         dks.append(carry[0])
         dvs.append(carry[1])
-    return torch.cat(dks, 1)[:, :l].to(k.dtype), torch.cat(dvs, 1)[:, :l].to(v.dtype)
+    return (torch.cat(dks, 1)[:, :l].to(out_dtype or k.dtype),
+            torch.cat(dvs, 1)[:, :l].to(out_dtype or v.dtype))
 
 
 def blockwise_attention_bwd_reference(q, k, v, out, lse, g, *, causal: bool = False,
@@ -244,32 +258,47 @@ def _kernel_args(q, *others) -> tuple:
     return tuple(_aligned(t) for t in (q, *others)), (b, l, h, d)
 
 
-def _launch(fn, name: str, ptrs, dims, causal: bool, dtype, device) -> None:
+def _out_dtype(q: torch.Tensor, out_dtype: torch.dtype | None) -> torch.dtype:
+    """What the kernels store: q's dtype, or float32."""
+    if out_dtype is None or out_dtype == q.dtype:
+        return q.dtype
+    if out_dtype != torch.float32:
+        raise TypeError(f"out_dtype must be q's dtype or float32, got {out_dtype}")
+    return out_dtype
+
+
+def _launch(fn, name: str, ptrs, dims, causal: bool, dtype, device,
+            out_dtype: torch.dtype) -> None:
     b, l, h, d = dims
     with torch.cuda.device(device):
         rc = fn(*(t.data_ptr() for t in ptrs), b, l, h, d, int(bool(causal)),
-                1.0 / math.sqrt(d), _CODES[dtype], torch.cuda.current_stream(device).cuda_stream)
+                1.0 / math.sqrt(d), _CODES[dtype], int(out_dtype == torch.float32),
+                torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"blockwise attention {name} kernel launch failed: CUDA error {rc}")
 
 
 def blockwise_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                            causal: bool = False, block_size: int | None = None):
-    """``(out, lse)`` of attention over (B, L, H, D): out in q's dtype, lse
-    (B, H, L) float32.  A CUDA tensor launches K6a (``block_size`` is not
-    read); a CPU tensor takes :func:`blockwise_attention_reference`.
+                            causal: bool = False, block_size: int | None = None,
+                            out_dtype: torch.dtype | None = None):
+    """``(out, lse)`` of attention over (B, L, H, D): out in ``out_dtype``
+    (q's, or float32), lse (B, H, L) float32.  A CUDA tensor launches K6a
+    (``block_size`` is not read); a CPU tensor takes
+    :func:`blockwise_attention_reference`.
     ``blockwise_attention_fwd.launches`` counts kernel launches."""
+    out_dtype = _out_dtype(q, out_dtype)
     if not use_kernel(q):
-        return blockwise_attention_reference(q, k, v, causal=causal, block_size=block_size)
+        return blockwise_attention_reference(q, k, v, causal=causal, block_size=block_size,
+                                             out_dtype=out_dtype)
     _shape(q, k, v)
     if not q.dtype == k.dtype == v.dtype:
         raise TypeError(f"q/k/v dtypes must match for the kernel, got {q.dtype}/{k.dtype}/{v.dtype}")
     (q, k, v), dims = _kernel_args(q, k, v)
     b, l, h, _ = dims
-    out = torch.empty_like(q)
+    out = torch.empty_like(q, dtype=out_dtype)
     lse = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
     _launch(_library().tf_blockwise_attention_fwd, "forward", (q, k, v, out, lse), dims, causal,
-            q.dtype, q.device)
+            q.dtype, q.device, out_dtype)
     blockwise_attention_fwd.launches += 1
     return out, lse
 
@@ -288,42 +317,48 @@ def _bwd_check(q, k, v, lse, *rest) -> torch.Tensor:
 
 
 def blockwise_attention_bwd_dq(q, k, v, out, lse, g, *, causal: bool = False,
-                               block_size: int | None = None):
-    """Pass 1 of the backward: ``(dq, delta)``, dq in q's dtype and delta =
-    rowsum(dO * O) (B, H, L) float32 from ``g`` in float32 (dO is ``g`` in
-    q's dtype).  A CUDA tensor launches K6b; a CPU tensor takes the plain
-    pass.  ``blockwise_attention_bwd_dq.launches`` counts kernel launches."""
+                               block_size: int | None = None,
+                               out_dtype: torch.dtype | None = None):
+    """Pass 1 of the backward: ``(dq, delta)``, dq in ``out_dtype`` (q's, or
+    float32) and delta = rowsum(dO * O) (B, H, L) float32 from ``g`` in
+    float32 (dO is ``g`` in q's dtype).  A CUDA tensor launches K6b; a CPU
+    tensor takes the plain pass.  ``blockwise_attention_bwd_dq.launches``
+    counts kernel launches."""
     lse = _bwd_check(q, k, v, lse, out, g)
+    out_dtype = _out_dtype(q, out_dtype)
     if not use_kernel(q):
         delta = _delta(out, g)
-        return _bwd_dq_reference(q, k, v, lse, delta, g, causal, block_size), delta
+        return _bwd_dq_reference(q, k, v, lse, delta, g, causal, block_size, out_dtype), delta
     g = g.to(q.dtype)  # dO; autograd hands g in out's dtype, which is q's
     (q, k, v, out, lse, g), dims = _kernel_args(q, k, v, out.to(q.dtype), lse, g)
     b, l, h, _ = dims
-    dq = torch.empty_like(q)
+    dq = torch.empty_like(q, dtype=out_dtype)
     delta = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
     _launch(_library().tf_blockwise_attention_bwd_dq, "backward dq",
-            (q, k, v, out, g, lse, dq, delta), dims, causal, q.dtype, q.device)
+            (q, k, v, out, g, lse, dq, delta), dims, causal, q.dtype, q.device, out_dtype)
     blockwise_attention_bwd_dq.launches += 1
     return dq, delta
 
 
 def blockwise_attention_bwd_dkv(q, k, v, lse, delta, g, *, causal: bool = False,
-                                block_size: int | None = None):
-    """Pass 2 of the backward: ``(dk, dv)`` in k's and v's dtypes, from the
-    saved ``lse`` and pass 1's ``delta``.  A CUDA tensor launches K6c; a CPU
-    tensor takes the plain pass.  ``blockwise_attention_bwd_dkv.launches``
-    counts kernel launches."""
+                                block_size: int | None = None,
+                                out_dtype: torch.dtype | None = None):
+    """Pass 2 of the backward: ``(dk, dv)`` in k's and v's dtypes (or both
+    float32, ``out_dtype``), from the saved ``lse`` and pass 1's ``delta``.
+    A CUDA tensor launches K6c; a CPU tensor takes the plain pass.
+    ``blockwise_attention_bwd_dkv.launches`` counts kernel launches."""
     lse = _bwd_check(q, k, v, lse, g)
+    out_dtype = _out_dtype(q, out_dtype)
     if tuple(delta.shape) != tuple(lse.shape):
         raise ValueError(f"delta must be shaped like lse {tuple(lse.shape)}, got {tuple(delta.shape)}")
     if not use_kernel(q):
-        return _bwd_dkv_reference(q, k, v, lse, delta.float(), g, causal, block_size)
+        return _bwd_dkv_reference(q, k, v, lse, delta.float(), g, causal, block_size,
+                                  None if out_dtype == q.dtype else out_dtype)
     g = g.to(q.dtype)
     (q, k, v, g, lse, delta), dims = _kernel_args(q, k, v, g, lse, delta.float())
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dk, dv = torch.empty_like(k, dtype=out_dtype), torch.empty_like(v, dtype=out_dtype)
     _launch(_library().tf_blockwise_attention_bwd_dkv, "backward dk/dv",
-            (q, k, v, g, lse, delta, dk, dv), dims, causal, q.dtype, q.device)
+            (q, k, v, g, lse, delta, dk, dv), dims, causal, q.dtype, q.device, out_dtype)
     blockwise_attention_bwd_dkv.launches += 1
     return dk, dv
 

@@ -1,13 +1,12 @@
-"""Full attention in the (B, L, H, D) layout, and the online-softmax tiles
-that the blockwise schedule is built from.
+"""Full attention in the (B, L, H, D) layout, the online-softmax tiles that
+the blockwise schedule is built from, and ring attention over the ``seq``
+axis (K7).
 
-Port of ``attention_reference``, ``_block_update``, ``_tile_grads`` and
-``_causal_skip`` from ``tpuframe/ops/ring_attention.py``.
-``attention_reference`` is what the JAX ``SelfAttention`` runs for
-``attn_impl="full"``: plain tensor code in both packages (XLA there, ATen
-here), not a kernel.  Its scores are formed, scaled, masked and softmaxed
-in the input dtype, as in JAX; ``scaled_dot_product_attention`` would round
-elsewhere.
+Port of ``tpuframe/ops/ring_attention.py``.  ``attention_reference`` is
+what the JAX ``SelfAttention`` runs for ``attn_impl="full"``: plain tensor
+code in both packages (XLA there, ATen here), not a kernel.  Its scores are
+formed, scaled, masked and softmaxed in the input dtype, as in JAX;
+``scaled_dot_product_attention`` would round elsewhere.
 
 The three tile functions are the plain version of kernel K6
 (``ops/blockwise_attention.py``): one (Q block, K/V block) tile of the
@@ -16,8 +15,43 @@ Products take the storage dtype with float32 accumulation (JAX's
 ``preferred_element_type=jnp.float32``): the operands are widened to
 float32 first, which multiplies bf16 values exactly, so the sums are those
 of a bf16 product that accumulates in float32.  The softmax state stays
-float32.  The ring and Ulysses schedules come with the sequence-parallel
-slice (ROADMAP.md).
+float32.
+
+**The ring** (:func:`ring_attention_local`, JAX's ``_ring_fused`` with its
+hand-written backward).  A rank of the ``seq`` group holds its run of
+L / n positions of q, k and v, (B, L / n, H, D); the global sequence is the
+runs in ``seq`` rank order.  K and V travel the ring n times while every
+rank attends its queries to the block it holds:
+
+- **Each tile is K6.**  The block that started at ring position ``src``
+  is a full tile (``causal=False``) where ``src < my``, the rank's own block
+  the causal diagonal (``causal=True``, the positions' offsets being equal);
+  under a causal mask a block from ``src > my`` is skipped and launches
+  nothing.  So rank r runs r + 1 tiles of each kernel and rank n - 1 runs n,
+  the imbalance of JAX's ring.
+- **The forward** asks K6a for each tile's float32 output and logsumexp
+  and merges them by their logsumexps as they come: ``lse = logaddexp(lse,
+  lse_i)``, ``o = o·exp(lse_old − lse) + o_i·exp(lse_i − lse)``, in float32
+  (JAX keeps its unnormalized o, l and m across hops; the merge is the same
+  sum).  The output is cast once at the end.
+- **The backward** is one more sweep, a :class:`torch.autograd.Function`
+  whose backward is that sweep (the hops are not differentiated): K6b gives
+  each visiting block's float32 dq partial from the *global* output and
+  logsumexp (so its delta = rowsum(dO · O) is the global one), K6c the dk
+  and dv partials, and the dk and dv accumulators travel with their blocks,
+  landing home after n rotations, as in JAX.
+- **The hop** sends every buffer to ``(rank + 1) % n`` and receives from
+  ``(rank − 1) % n`` as one ``dist.all_to_all_single`` over the ``seq``
+  group whose splits are zero but those two, the buffers packed as bytes
+  (gloo carries no point-to-point send of a CUDA tensor, ROADMAP.md).
+  Every rank calls every hop, also where it skips the tile.  The forward's
+  hop of the next K and V is issued before the tile's kernel and waited for
+  after it; the backward's hop carries K, V, dK and dV together (dK and dV
+  alone on the last rotation).
+
+The functions take the rank's own shards and find the ``seq`` group in the
+runtime's mesh (or the ``mesh`` given): JAX's take global arrays under
+``shard_map``.
 """
 
 from __future__ import annotations
@@ -25,8 +59,11 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 
-__all__ = ["attention_reference"]
+from tpuframe_torch.core.runtime import DATA_AXIS, FSDP_AXIS, SEQUENCE_AXIS
+
+__all__ = ["attention_reference", "ring_attention", "ring_attention_local"]
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -107,3 +144,157 @@ def _causal_skip(pred: bool | None, update, carry):
     if pred is None or pred:
         return update(carry)
     return carry
+
+
+# -- the ring (K7): a schedule of K6 tiles over the seq axis ----------------------
+
+
+def mesh_axis(axis_name: str = SEQUENCE_AXIS, mesh=None):
+    """``mesh``'s (default: the runtime's) ``axis_name`` axis for this rank,
+    a ``parallel.tensor.Axis``; without a runtime, ValueError."""
+    from tpuframe_torch.core.runtime import current_runtime
+    from tpuframe_torch.parallel.tensor import axis
+
+    if mesh is None:
+        try:
+            mesh = current_runtime(auto_init=False).mesh
+        except RuntimeError:
+            raise ValueError(f"sequence-parallel attention over the {axis_name!r} axis needs "
+                             "an initialized runtime mesh (core.initialize) or a mesh") from None
+    return axis(axis_name, mesh)
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(-1).view(torch.uint8)
+
+
+class _RingHop:
+    """One rotation of ``tensors`` (sent to ``(index + 1) % n``, received from
+    ``(index - 1) % n``) as one ``all_to_all_single`` of their bytes; the
+    wider dtypes first, so every unpacked view is aligned.  ``wait()``
+    returns the received tensors, views of one fresh buffer."""
+
+    def __init__(self, tensors: list[torch.Tensor], ax, async_op: bool = False):
+        order = sorted(range(len(tensors)), key=lambda i: -tensors[i].element_size())
+        self._meta = [(i, tensors[i].shape, tensors[i].dtype, tensors[i].numel()
+                       * tensors[i].element_size()) for i in order]
+        flat = torch.cat([_bytes(tensors[i]) for i in order])
+        self._got = torch.empty_like(flat)
+        n, me = ax.size, ax.index
+        send, recv = [0] * n, [0] * n
+        send[(me + 1) % n] = recv[(me - 1) % n] = flat.numel()
+        self._work = dist.all_to_all_single(self._got, flat, recv, send, group=ax.group,
+                                            async_op=async_op)
+
+    def wait(self) -> list[torch.Tensor]:
+        if self._work is not None:
+            self._work.wait()
+        out: list = [None] * len(self._meta)
+        at = 0
+        for i, shape, dtype, nbytes in self._meta:
+            out[i] = self._got[at:at + nbytes].view(dtype).view(shape)
+            at += nbytes
+        return out
+
+
+def _hop(tensors: list[torch.Tensor], ax) -> list[torch.Tensor]:
+    return _RingHop(tensors, ax).wait()
+
+
+def _merge(o, lse, o_i, lse_i):
+    """Two normalized float32 partials merged by their logsumexps; a row
+    that no block reached keeps lse = −inf and o = 0."""
+    new = torch.logaddexp(lse, lse_i)
+    safe = torch.where(torch.isneginf(new), 0.0, new)
+    w_old = torch.exp(lse - safe).transpose(1, 2)[..., None]
+    w_new = torch.exp(lse_i - safe).transpose(1, 2)[..., None]
+    return o * w_old + o_i * w_new, new
+
+
+class _Ring(torch.autograd.Function):
+    """The ring's forward sweep; its backward is the second sweep (module
+    docstring).  Saves q, the rank's own k and v, the output and the float32
+    logsumexp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, ax, causal):
+        from tpuframe_torch.ops.blockwise_attention import blockwise_attention_fwd
+
+        n, me = ax.size, ax.index
+        b, lq, h, d = q.shape
+        o = torch.zeros((b, lq, h, d), dtype=torch.float32, device=q.device)
+        lse = torch.full((b, h, lq), -math.inf, dtype=torch.float32, device=q.device)
+        kv = [k, v]
+        for step in range(n):
+            src = (me - step) % n
+            hop = _RingHop(kv, ax, async_op=True) if step + 1 < n else None
+            if not causal or src <= me:
+                o_i, lse_i = blockwise_attention_fwd(q, *kv, causal=causal and src == me,
+                                                     out_dtype=torch.float32)
+                o, lse = _merge(o, lse, o_i, lse_i)
+            if hop is not None:
+                kv = hop.wait()
+        out = o.to(q.dtype)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.ax, ctx.causal = ax, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        from tpuframe_torch.ops.blockwise_attention import (
+            blockwise_attention_bwd_dkv,
+            blockwise_attention_bwd_dq,
+        )
+
+        q, k, v, out, lse = ctx.saved_tensors
+        ax, causal = ctx.ax, ctx.causal
+        n, me = ax.size, ax.index
+        g = g.to(q.dtype).contiguous()
+        f32 = dict(dtype=torch.float32, device=q.device)
+        dq = torch.zeros(q.shape, **f32)
+        dk, dv = torch.zeros(k.shape, **f32), torch.zeros(v.shape, **f32)
+        kv = [k, v]
+        for step in range(n):
+            src = (me - step) % n
+            if not causal or src <= me:
+                kw = dict(causal=causal and src == me, out_dtype=torch.float32)
+                dq_i, delta = blockwise_attention_bwd_dq(q, *kv, out, lse, g, **kw)
+                dk_i, dv_i = blockwise_attention_bwd_dkv(q, *kv, lse, delta, g, **kw)
+                dq += dq_i
+                dk += dk_i
+                dv += dv_i
+            if n > 1:  # the accumulators ride with their blocks; k and v die after the last tile
+                got = _hop([dk, dv] + (kv if step + 1 < n else []), ax)
+                dk, dv, kv = got[0], got[1], got[2:] or kv
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+
+
+def _ring(q, k, v, ax, causal: bool) -> torch.Tensor:
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q/k/v shards must match, got {tuple(q.shape)}/{tuple(k.shape)}/"
+                         f"{tuple(v.shape)}")
+    return _Ring.apply(q, k, v, ax, bool(causal))
+
+
+def ring_attention_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         axis_name: str = SEQUENCE_AXIS, causal: bool = False) -> torch.Tensor:
+    """Ring attention over this rank's shards (B, L_local, H, D) of the
+    ``axis_name`` axis of the runtime's mesh; the same layout out.  Exact:
+    full attention over the global sequence, differentiable in q, k and v
+    (module docstring).  Every rank of the axis calls it together."""
+    return _ring(q, k, v, mesh_axis(axis_name), causal)
+
+
+def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh=None, *,
+                   causal: bool = False, seq_axis: str = SEQUENCE_AXIS,
+                   batch_axes=(DATA_AXIS, FSDP_AXIS), head_axis: str | None = None
+                   ) -> torch.Tensor:
+    """:func:`ring_attention_local` over ``mesh`` (default: the runtime's).
+
+    JAX's takes global (B, L, H, D) arrays and splits them under
+    ``shard_map``: batch over ``batch_axes``, sequence over ``seq_axis``,
+    heads over ``head_axis``.  The port's takes this rank's shard of each,
+    which already is that split, so ``batch_axes`` and ``head_axis`` only
+    name it."""
+    del batch_axes, head_axis
+    return _ring(q, k, v, mesh_axis(seq_axis, mesh), causal)

@@ -12,10 +12,10 @@ declaration.  One ``parallel/compose`` event carries the resolved sizes and
 the signature.
 
 What the port does not run yet raises at the step that would run it: a
-``seq`` axis above 1 (``MeshSpec.build``, Queue 1 item 8), and ZeRO, the
-compressed wire or offload beside ``model`` or ``pipe`` above 1
-(``train.state.create_train_state`` and the train step, a later part of
-Queue 1 item 7).
+``seq`` axis above 1 beside ``model`` or ``pipe`` above 1
+(``MeshSpec.build``), and ZeRO, the compressed wire or offload beside
+``model``, ``pipe`` or ``seq`` above 1 (``train.state.create_train_state``
+and the train step): the rest of Queue 1 item 7.
 """
 
 from __future__ import annotations

@@ -3,9 +3,15 @@
 Port of ``tpuframe/parallel/sharding.py``'s ``ParallelPlan``.  Every
 process trains on its own share of the global batch and the gradients are
 averaged across the processes, either exactly or through the compressed
-wire (``parallel.compression``).  The data axes are the default process
-group: a plan's ``dp_size`` must equal its world size
-(:meth:`ParallelPlan.check_world`).
+wire (``parallel.compression``).  A plan's mesh must span the default
+process group (:meth:`ParallelPlan.check_world`).
+
+The **token group** is the ranks that hold different tokens: ``data`` x
+``fsdp`` x ``seq`` among the ranks that share this rank's ``expert``,
+``pipe`` and ``model`` coordinates (``Runtime.groups["tok"]``).  The
+exact mean averages every gradient over it; nothing is averaged over
+``expert`` (a replicated parameter is equal on every expert rank by
+construction, an expert-split one differs there by design).
 
 ``zero_stage`` is DeepSpeed's ladder, as in the JAX package:
 
@@ -322,15 +328,21 @@ class ParallelPlan:
         return math.prod(self.axis_size(a) for a in self.data_axes)
 
     @property
+    def token_size(self) -> int:
+        """The ranks a gradient is averaged over: the token group's size
+        (``dp_size`` times ``seq``)."""
+        return self.dp_size * self.axis_size("seq")
+
+    @property
     def split_axes(self) -> tuple[str, ...]:
         """The axes above 1 that split the model rather than the batch:
         ``pipe`` and ``model``."""
         return tuple(a for a in ("pipe", "model") if self.axis_size(a) > 1)
 
     def check_world(self) -> int:
-        """This plan's ``dp_size`` (the ranks a gradient is averaged over);
-        ``ValueError`` when the default process group's world size (1
-        without one) is not the mesh's size."""
+        """This plan's ``token_size`` (the ranks a gradient is averaged
+        over); ``ValueError`` when the default process group's world size
+        (1 without one) is not the mesh's size."""
         world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
         size = int(self.mesh.devices.size)
         if world != size:
@@ -338,7 +350,7 @@ class ParallelPlan:
                 f"the plan's dp_size is {self.dp_size} (its mesh spans {size} ranks) but the "
                 f"process group's world size is {world}: build the plan over the runtime's mesh "
                 "(ParallelPlan(mesh=initialize().mesh)) in every process of the group")
-        return self.dp_size
+        return self.token_size
 
     # -- batch -------------------------------------------------------------
     def batch_spec(self) -> Spec:

@@ -70,6 +70,7 @@ __all__ = [
     "copy_to_group",
     "gather_from_group",
     "gathered_params",
+    "plane",
     "reduce_from_group",
     "shard_model",
     "split_argmax",
@@ -103,6 +104,24 @@ def axis(name: str, mesh: Any = None) -> Axis:
     size = int(mesh.shape.get(name, 1))
     index = mesh.coords(process_index())[name]
     return Axis(name, groups_for(mesh).get(name), size, index)
+
+
+def plane(key: str, mesh: Any = None) -> Axis:
+    """``mesh``'s (default: the runtime's) plane ``key`` of
+    ``core.runtime.PLANES`` for this rank (``"dp"``: ``data`` x ``fsdp``;
+    ``"tok"``: ``data`` x ``fsdp`` x ``seq``, the token group) as one
+    :class:`Axis`: its group, its size and this rank's index over the
+    plane's axes in grid order."""
+    from tpuframe_torch.core.runtime import PLANES, current_runtime, groups_for, process_index
+
+    if mesh is None:
+        mesh = current_runtime(auto_init=False).mesh
+    at = mesh.coords(process_index())
+    size, index = 1, 0
+    for name in PLANES[key]:
+        n = int(mesh.shape.get(name, 1))
+        index, size = index * n + at[name], size * n
+    return Axis(key, groups_for(mesh).get(key) if size > 1 else None, size, index)
 
 
 # -- the conjugate functions -----------------------------------------------------
@@ -286,7 +305,7 @@ def _splits(spec: tuple, mesh: Any) -> list[tuple[int, str]]:
 
 def shard_model(model: nn.Module, plan: Any) -> dict[str, list[tuple[int, str]]]:
     """Replace each of ``model``'s parameters that ``plan``'s rules split
-    (over ``pipe`` or ``model``, above 1) by this rank's shard, give the
+    (over ``pipe``, ``expert`` or ``model``, above 1) by this rank's shard, give the
     modules their split forms (module docstring), and return the layout
     ``{parameter name: [(torch dim, axis), ...]}``, kept as
     ``model.tp_layout`` (and the plan's mesh as ``model.tp_mesh``).  Every
@@ -373,9 +392,17 @@ def shard_model(model: nn.Module, plan: Any) -> dict[str, list[tuple[int, str]]]
         mod = model.get_submodule(mod_name)
         if getattr(mod, "tp_alone", False) or mod_name in keep:
             mod.tp = form
+    # a split a module runs itself (MoE's experts over the expert axis)
+    owned = set()
+    for name, splits in layout.items():
+        *mods, attr = name.split(".")
+        mod = model.get_submodule(".".join(mods)) if mods else model
+        take = getattr(mod, "tp_take_split", None)
+        if take is not None and take(attr, [(dim, axis(a, mesh)) for dim, a in splits]):
+            owned.add(name)
     # every other split parameter is gathered on use
     for name, splits in layout.items():
-        if stacked and name.startswith(stacked):
+        if (stacked and name.startswith(stacked)) or name in owned:
             continue
         mod_name = name.rsplit(".", 1)[0] if "." in name else ""
         form = getattr(model.get_submodule(mod_name), "tp", None) if mod_name else None

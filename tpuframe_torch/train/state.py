@@ -24,8 +24,9 @@ the clip takes the plan-global norm, the new slices are gathered into the
 parameters after each update, and a save holds every optimizer leaf at its
 parameter's full shape (gathered), which a restore slices again.
 
-Under a plan whose rules split parameters over ``model`` or ``pipe``
-(tensor and pipeline parallelism) each rank's model holds its shards
+Under a plan whose rules split parameters over ``model``, ``pipe`` or
+``expert`` (tensor, pipeline and expert parallelism) each rank's model
+holds its shards
 (``parallel.tensor.shard_model``) and the optimizer steps them; the clip
 takes the global norm, and a save holds every parameter, optimizer leaf
 and moving average whole, the same keys and shapes under every plan,
@@ -262,6 +263,7 @@ def create_train_state(model: nn.Module, spec: OptimizerSpec, *, seed: int = 0,
     first (torch builds them so)."""
     device = next(model.parameters()).device
     zero = None
+    sp_ep = () if plan is None else tuple(a for a in ("seq", "expert") if plan.axis_size(a) > 1)
     if plan is not None and plan.split_axes:
         what = [w for w, on in (("zero_stage >= 1", plan.zero_stage >= 1),
                                 ("offload_optimizer", plan.offload_optimizer),
@@ -271,6 +273,18 @@ def create_train_state(model: nn.Module, spec: OptimizerSpec, *, seed: int = 0,
                 f"{', '.join(what)} with the {'/'.join(plan.split_axes)} axis above 1 is not "
                 "ported: ZeRO, offload and the compressed wire beside tensor and pipeline "
                 "parallelism come with a later part of ROADMAP.md, Queue 1 item 7")
+    if sp_ep:
+        what = [w for w, on in (
+            ("an active ZeRO stage (zero_stage >= 1 with fsdp above 1)",
+             plan.zero_stage >= 1 and plan.axis_size(plan.fsdp_axis) > 1),
+            ("offload_optimizer", plan.offload_optimizer),
+            ("grad_compression", grad_compression is not None)) if on]
+        if what:
+            raise NotImplementedError(
+                f"{', '.join(what)} with the {'/'.join(sp_ep)} axis above 1 is not ported: "
+                "ZeRO, offload and the compressed wire beside sequence and expert parallelism "
+                "come with the rest of ROADMAP.md, Queue 1 item 7")
+    if plan is not None and (plan.split_axes or "expert" in sp_ep):
         shard_model(model, plan)
     if plan is not None and getattr(plan, "zero_stage", 0) >= 1:
         from tpuframe_torch.parallel.zero import ZeroShards

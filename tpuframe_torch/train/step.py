@@ -100,6 +100,17 @@ TrainState` that it updates in place, with the JAX step's semantics:
   clip and the health verdict take the global norm
   (``parallel.tensor.grad_sq``).  Dropout draws by data shard, so the
   ranks of one shard draw the same masks.
+- **Sequence and expert parallelism** (a mesh that splits ``seq`` or
+  ``expert``).  Every rank of a data shard is handed the same rows; under
+  a ``seq`` split the step cuts the rank's run of positions from
+  ``input`` and ``label`` (``L / n`` of them, in ``seq`` order).  The
+  gradients are averaged, and the metrics summed, over the token group
+  (``data`` x ``fsdp`` x ``seq``, ``Runtime.groups["tok"]``), never over
+  ``expert``.  A model's auxiliary losses (MoE's load balance, left in its
+  modules' ``aux_loss``) join the train objective, ``mean(losses) + aux``,
+  while ``loss_sum`` reports the data loss alone, as JAX's step does.
+  Dropout draws by token shard, so the ranks along ``expert``, ``model``
+  and ``pipe`` draw the same masks.
 - **The hooks** are ``register_post_accumulate_grad_hook``s on the
   trainable parameters, armed at a train step's start (in the grad-accum
   step, for the last microbatch, where the hook also divides by the
@@ -208,11 +219,12 @@ def step_generator(state: TrainState, device: torch.device, stream: str | None =
     compressed wire's stochastic-rounding stream."""
     rank = dist.get_rank() if _wired() else 0
     plan = state.plan
-    if stream is not None and plan is not None and plan.split_axes:
-        # the ranks along model and pipe hold one data shard and draw one
-        # mask, as JAX folds in the data-axis index
+    if stream is not None and plan is not None and plan.token_size < plan.mesh.devices.size:
+        # the ranks along model, pipe and expert hold one token shard and
+        # draw one mask, as JAX folds in the data-axis index
         c = plan.mesh.coords(rank)
-        rank = c["data"] * plan.axis_size("fsdp") + c["fsdp"]
+        rank = ((c["data"] * plan.axis_size("fsdp") + c["fsdp"]) * plan.axis_size("seq")
+                + c["seq"])
     seed = ((state.generator.initial_seed() * 1_000_003 + state.step) * 8191 + rank) % 2**63
     if stream is not None:
         seed = (seed * 1_000_033 + zlib.crc32(stream.encode())) % 2**63
@@ -242,28 +254,69 @@ def _dropout_stream(state: TrainState, index: int | None = None) -> Iterator[Non
         model.dropout_generator = None
 
 
+def _seq_local(batch: Mapping[str, torch.Tensor], plan: Any) -> dict:
+    """``batch`` with this rank's run of positions (dim 1) of ``input`` (or
+    ``image``) and ``label`` under a plan that splits ``seq`` (every rank of
+    a data shard was handed the same rows); as it is otherwise."""
+    if plan is None or plan.axis_size("seq") <= 1:
+        return batch
+    n = plan.axis_size("seq")
+    index = plan.mesh.coords(dist.get_rank() if _wired() else 0)["seq"]
+    out = dict(batch)
+    for key in ("input", "image", "label"):
+        t = out.get(key)
+        if t is not None and t.ndim > 1:
+            if t.shape[1] % n:
+                raise ValueError(f"batch[{key!r}] has {t.shape[1]} positions, which the seq "
+                                 f"axis of {n} does not split evenly")
+            run = t.shape[1] // n
+            out[key] = t.narrow(1, index * run, run)
+    return out
+
+
+def _pop_aux(model: nn.Module) -> torch.Tensor | None:
+    """The auxiliary losses a forward left in ``model``'s modules
+    (``aux_loss``, MoE's load balance), summed and cleared; None without
+    any."""
+    parts = []
+    for m in model.modules():
+        aux = getattr(m, "aux_loss", None)
+        if aux is not None:
+            parts.append(aux)
+            m.aux_loss = None
+    return sum(parts) if parts else None
+
+
 def _forward(model: nn.Module, batch: Mapping[str, torch.Tensor], policy: Policy,
              train: bool, loss_fn: LossFn,
-             params: Mapping[str, torch.Tensor] | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """(per-example losses, logits).  Parameters (the model's, or
-    ``params`` by name) are cast inside the graph; buffers are the module's
-    own (training BatchNorm updates them)."""
+             params: Mapping[str, torch.Tensor] | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """(per-example losses, logits, auxiliary loss or None).  Parameters
+    (the model's, or ``params`` by name) are cast inside the graph; buffers
+    are the module's own (training BatchNorm updates them)."""
     params = policy.cast_params_for_compute(
         dict(model.named_parameters()) if params is None else dict(params))
     params = gathered_params(model, params)
     x = batch["input"] if "input" in batch else batch["image"]
     with _mode(model, train):
         logits = functional_call(model, params, (policy.cast_batch(x),), strict=False)
+    aux = _pop_aux(model)
     logits = policy.cast_outputs(logits)
     labels = batch["label"]
     ax = getattr(model, "tp_logits", None)
     if ax is None:
-        return loss_fn(logits, labels), logits
+        return loss_fn(logits, labels), logits, aux
     if loss_fn is cross_entropy and labels.ndim == logits.ndim - 1:
         flat = vocab_parallel_cross_entropy(logits.reshape(-1, logits.shape[-1]),
                                             labels.reshape(-1), ax)
-        return flat.reshape(labels.shape), logits
-    return loss_fn(gather_from_group(logits, -1, ax), labels), logits
+        return flat.reshape(labels.shape), logits, aux
+    return loss_fn(gather_from_group(logits, -1, ax), labels), logits, aux
+
+
+def _objective(loss: torch.Tensor, aux: torch.Tensor | None) -> torch.Tensor:
+    """What a train step differentiates: the mean data loss plus the
+    auxiliary losses (JAX's ``data_loss + aux``)."""
+    return loss if aux is None else loss + aux.to(loss.dtype)
 
 
 def _argmax(model: nn.Module, logits: torch.Tensor) -> torch.Tensor:
@@ -453,6 +506,7 @@ def make_train_step(
         sync = _stage_for(built, state, plan, grad_compression, 1)
         if batch_transform is not None:
             batch = batch_transform(dict(batch))
+        batch = _seq_local(batch, plan if plan is not None else state.plan)
         if health is not None:
             snap.take(state)  # before the forward: BatchNorm moves its buffers
         state.optimizer.zero_grad(set_to_none=True)
@@ -460,9 +514,9 @@ def make_train_step(
             if sync is not None:
                 sync.arm(state)
             with _statistics(sync, state.model), _dropout_stream(state):
-                losses, logits = _forward(state.model, batch, policy, True, loss_fn)
+                losses, logits, aux = _forward(state.model, batch, policy, True, loss_fn)
             loss = losses.mean()
-            loss.backward()
+            _objective(loss, aux).backward()
             metrics = _train_metrics(loss, logits, batch["label"], state.model)
             return _finish(step, state, loss.detach(), metrics, health, snap, sync)
 
@@ -491,8 +545,9 @@ def make_eval_step(
         the_plan = plan if plan is not None else state.plan
         if batch_transform is not None:
             batch = batch_transform(dict(batch))
+        batch = _seq_local(batch, the_plan)
         with state.zero.gathered() if state.zero is not None else contextlib.nullcontext():
-            losses, logits = _forward(state.model, batch, policy, False, loss_fn, params)
+            losses, logits, _ = _forward(state.model, batch, policy, False, loss_fn, params)
         labels = batch["label"]
         hard = labels.argmax(-1) if labels.ndim == logits.ndim else labels
         weight = batch.get("weight")
@@ -504,7 +559,7 @@ def make_eval_step(
             "correct": ((_argmax(state.model, logits) == hard).float() * weight).sum(),
             "count": weight.sum(),
         }
-        if the_plan is None or not _wired() or the_plan.dp_size == 1:
+        if the_plan is None or not _wired() or the_plan.token_size == 1:
             return metrics
         return _sum_across_ranks(metrics, _dp_group(the_plan))
 
@@ -571,7 +626,7 @@ def make_grad_accum_step(
         state.optimizer.zero_grad(set_to_none=True)
         with _zero_step(state), _disarmed_after(sync):
             metrics = _accumulate(state, batch, n_microbatches, policy, loss_fn,
-                                  batch_transform, sync)
+                                  batch_transform, sync, plan if plan is not None else state.plan)
             mean_loss = metrics["loss_sum"] / metrics["count"].clamp_min(1.0)
             return _finish(step, state, mean_loss, metrics, health, snap, sync)
 
@@ -580,7 +635,8 @@ def make_grad_accum_step(
 
 
 def _accumulate(state: TrainState, batch: Mapping[str, torch.Tensor], n_microbatches: int,
-                policy: Policy, loss_fn: LossFn, batch_transform, sync: "_Stage | None") -> dict:
+                policy: Policy, loss_fn: LossFn, batch_transform, sync: "_Stage | None",
+                plan: Any = None) -> dict:
     """Forward and backward over the microbatches: the summed metrics, and
     the mean gradient in ``.grad``."""
     metrics = None
@@ -588,12 +644,13 @@ def _accumulate(state: TrainState, batch: Mapping[str, torch.Tensor], n_microbat
         mb = {k: v[i] for k, v in batch.items()}
         if batch_transform is not None:
             mb = batch_transform(mb)
+        mb = _seq_local(mb, plan)
         if sync is not None and i == n_microbatches - 1:
             sync.arm(state, n_microbatches)  # the last backward fires the buckets
         with _statistics(sync, state.model), _dropout_stream(state, i):
-            losses, logits = _forward(state.model, mb, policy, True, loss_fn)
+            losses, logits, aux = _forward(state.model, mb, policy, True, loss_fn)
         loss = losses.mean()
-        loss.backward()
+        _objective(loss, aux).backward()
         m = _train_metrics(loss, logits, mb["label"], state.model)
         metrics = m if metrics is None else {k: metrics[k] + m[k] for k in m}
     # what the hooks did not divide (a gradient of an earlier microbatch only)
@@ -608,12 +665,13 @@ def _accumulate(state: TrainState, batch: Mapping[str, torch.Tensor], n_microbat
 
 
 def _dp_group(plan: Any):
-    """The process group of the data plane (``data`` x ``fsdp``) this rank
-    averages its gradients over: the default group where the plan splits
-    nothing over ``model`` or ``pipe``."""
-    if not plan.split_axes:
+    """The process group of the token group (``data`` x ``fsdp`` x
+    ``seq``) this rank averages its gradients over: the default group where
+    it spans the world (nothing split over ``model``, ``pipe`` or
+    ``expert``)."""
+    if plan.token_size == int(plan.mesh.devices.size):
         return None
-    return groups_for(plan.mesh).get("dp")
+    return groups_for(plan.mesh).get("tok")
 
 
 @torch.no_grad()
@@ -664,13 +722,15 @@ def _wire_stage(plan: Any, grad_compression, n_microbatches: int) -> "_Stage | N
     update: the compressed wire's sync, the exact mean over a plan of
     several ranks, or None (one rank, or no plan)."""
     if grad_compression is not None:
-        if plan is not None and plan.split_axes:
+        beside = () if plan is None else plan.split_axes + tuple(
+            a for a in ("seq", "expert") if plan.axis_size(a) > 1)
+        if beside:
             raise NotImplementedError(
-                "grad_compression with the model or pipe axis above 1 is not ported; the "
-                "compressed wire beside tensor and pipeline parallelism comes with a later "
-                "part of ROADMAP.md, Queue 1 item 7")
+                f"grad_compression with the {'/'.join(beside)} axis above 1 is not ported; "
+                "the compressed wire beside tensor, pipeline, sequence and expert parallelism "
+                "comes with the rest of ROADMAP.md, Queue 1 item 7")
         return _WireSync(plan, grad_compression, n_microbatches)
-    if plan is not None and plan.dp_size > 1:
+    if plan is not None and plan.token_size > 1:
         return _MeanSync(plan)
     return None
 
@@ -773,8 +833,8 @@ def _remove_all(handles: list) -> None:
 class _MeanSync(_FiredStage):
     """Uncompressed data parallelism around the backward (module
     docstring): ``(state, loss, metrics) -> (global loss, summed metrics)``
-    with the mean gradient in the ``.grad``s.  Checks at build that the
-    plan's ``dp_size`` is the process group's world size; cuts the model's
+    with the mean gradient over the token group in the ``.grad``s.  Checks
+    at build that the plan's mesh spans the process group; cuts the model's
     trainable parameters into buckets when it first meets the model."""
 
     #: what the Trainer meters on the wire: nothing (exact all-reduce)
