@@ -14,9 +14,12 @@ Phases, each of which fails the script (nonzero exit, no result line):
    ``tpuframe_torch/csrc`` with ``nvcc`` for ``sm_90a``, one ``nvcc`` per
    source, all started together, and beside them the K2 baseline
    (``tests/csrc/cross_entropy_baseline.cu``, the design before saved row
-   statistics) and the K6 baseline (``tests/csrc/
-   blockwise_attention_baseline.cu``, every product a float32 FMA), for
-   timing only; each kernel's registers and spills from ``ptxas``.
+   statistics), the K6 baseline (``tests/csrc/
+   blockwise_attention_baseline.cu``, every product a float32 FMA), the
+   K9 baseline (``tests/csrc/moe_gating_baseline.cu``, K9a and K9b
+   before their redesign) and K9b's generic loop at any top-k
+   (``tests/csrc/moe_combine_any_k.cu``), for timing only; each kernel's
+   registers and spills from ``ptxas``.
 3. Kernels: first the launch floor, the time of an empty kernel
    (``csrc/launch_floor.cu``) launched through ``ctypes`` as every kernel
    is, printed on its own line and given as ``floor_ms`` beside each
@@ -252,9 +255,16 @@ Phases, each of which fails the script (nonzero exit, no result line):
    workers three ways (Ulysses on seq 2; the ring with MoE on seq 2; full
    attention with MoE on expert 2), rank 0's K6 and K9 launches held
    exact; (e) K9a-K9c against their plain versions (K9a and K9b bit-equal,
-   K9c within 1e-5) at the MoE path's shape and small, timed beside the
-   plain versions and ``index_put_``, and K6's float32 partials at the
-   ring's tile, rounded to bf16 bit-equal to the default launches.
+   K9c within 1e-5) at the MoE path's shape, small and at Mixtral-8x7B's
+   width (8,192 tokens x 4,096 bf16, 8 experts, top 2), K9a writing
+   NaN-filled buffers whole; a profiled ``_Dispatch`` launching K9a alone;
+   K9a and K9b timed at the path's and the wide shape beside the plain
+   versions, the library calls (``index_put_``, ``F.embedding_bag``) and
+   the baseline kernels (K9a as ``zero_()`` plus its kernel), K9b also
+   beside its generic loop and a ``copy_`` of as many bytes, in turns,
+   with the aims hit or missed; and K6's float32
+   partials at the ring's tile, rounded to bf16 bit-equal to the default
+   launches.
 19. Result: a ``kernels`` JSON line (each kernel with ``floor_ms``; K1 and
    K2 also with ``launches_ddp``, phase 10's count on each rank, and
    ``launches_streaming``, phase 14's TFS fit; K2a/K2b, K3a/K3b and K4
@@ -267,7 +277,10 @@ Phases, each of which fails the script (nonzero exit, no result line):
    tensor-core kernel at each head dim, and ``launches_ring``,
    ``launches_ulysses`` and ``launches_example06``, phase 18's counts;
    K9a-K9c with ``launches_moe`` on each rank of phase 18's MoE LM and
-   ``launches_example06``), the ``nvidia-smi`` line, then
+   ``launches_example06``; K9a and K9b also with ``baseline_ms``,
+   ``bound_share``, ``x_floor``, ``turns_ms``, ``wide`` (the same at
+   Mixtral's width), ``aims`` and ``ptxas``; K9b with ``any_k_ms`` and
+   ``copy_ms``), the ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 One phase of 3 alone, for a short run on the card (the kernels it needs
@@ -608,19 +621,32 @@ BASELINE_CE = Path(__file__).resolve().parent / "tests" / "csrc" / "cross_entrop
 #: K6 before its bf16 backward moved to the tensor cores (every product a
 #: float32 FMA), its entry points renamed tf_blockwise_attention_baseline_*
 BASELINE_K6 = Path(__file__).resolve().parent / "tests" / "csrc" / "blockwise_attention_baseline.cu"
+#: K9a and K9b before their redesign (a warp a slot or a token, scalar
+#: loads; K9a after a separate zero fill), renamed tf_moe_*_baseline
+BASELINE_K9 = Path(__file__).resolve().parent / "tests" / "csrc" / "moe_gating_baseline.cu"
+#: K9b's generic loop over the top-k at any K (the port's own source,
+#: included), tf_moe_combine_any_k: the yardstick of its top-k instances
+ANY_K_K9B = Path(__file__).resolve().parent / "tests" / "csrc" / "moe_combine_any_k.cu"
 
 
 def start_baseline_build(source: Path = BASELINE_CE):
     """Start ``nvcc`` on a baseline kernel source (the K2 design before
-    saved row statistics, ``BASELINE_CE``, or K6's FMA design,
-    ``BASELINE_K6``) with the port's flags, beside :func:`build.build`'s;
-    :func:`baseline_library` waits for it.  Returns ``(source, process or
-    None, temporary output, library path)``."""
+    saved row statistics, ``BASELINE_CE``, K6's FMA design,
+    ``BASELINE_K6``, K9a and K9b before their redesign, ``BASELINE_K9``, or
+    K9b's generic loop, ``ANY_K_K9B``) with the port's flags, beside
+    :func:`build.build`'s; :func:`baseline_library` waits for it.  The
+    library's name hashes the source, the files it includes by a relative
+    ``#include "..."`` and the flags.  Returns ``(source, process or None,
+    temporary output, library path)``."""
     import hashlib
 
     from tpuframe_torch.ops import build
 
-    digest = hashlib.sha256(source.read_bytes() + " ".join(build.NVCC_FLAGS).encode())
+    text = source.read_bytes()
+    included = re.findall(rb'^#include "([^"]+)"', text, flags=re.M)
+    digest = hashlib.sha256(b"".join([text] + [(source.parent / inc.decode()).read_bytes()
+                                               for inc in included])
+                            + " ".join(build.NVCC_FLAGS).encode())
     out = build.BUILD_DIR / f"lib{source.stem}-{digest.hexdigest()[:16]}.so"
     if out.exists():
         return source, None, None, out
@@ -634,7 +660,9 @@ def start_baseline_build(source: Path = BASELINE_CE):
 
 def baseline_library(handle, timeout_s: float = 600.0):
     """The built baseline library, its C signatures declared (K2's: the ones
-    without statistics; K6's: those of ``ops/blockwise_attention.py``).
+    without statistics; K6's: those of ``ops/blockwise_attention.py``;
+    K9's: dispatch and combine as ``ops/moe_gating.py`` declared them
+    before the dispatch took ``count``; K9b's generic loop: the combine's).
     The ``ptxas`` lines of its build, if it was built here, are in
     ``lib.build_log``."""
     import ctypes
@@ -658,6 +686,15 @@ def baseline_library(handle, timeout_s: float = 600.0):
                    lib.tf_blockwise_attention_baseline_bwd_dq,
                    lib.tf_blockwise_attention_baseline_bwd_dkv):
             fn.restype = i32
+        return lib
+    if source == BASELINE_K9:
+        for fn in (lib.tf_moe_dispatch_baseline, lib.tf_moe_combine_baseline):
+            fn.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]  # N K D capacity dtype stream
+            fn.restype = i32
+        return lib
+    if source == ANY_K_K9B:
+        lib.tf_moe_combine_any_k.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]  # as tf_moe_combine
+        lib.tf_moe_combine_any_k.restype = i32
         return lib
     lib.tf_cross_entropy_fwd.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
     lib.tf_cross_entropy_bwd.argtypes = [ptr] * 3 + [ctypes.c_longlong, ptr] + [i32] * 4 + [ptr]
@@ -1607,7 +1644,8 @@ def kernel_name(key: str) -> str:
 def kernel_split(fn, calls: int = 20) -> dict:
     """Device µs that one call of ``fn`` spends in each CUDA kernel, by
     kernel name (``torch.profiler`` over ``calls`` calls after a warm one;
-    no L2 flush between them)."""
+    no L2 flush between them).  Fails where the profiler saw no device
+    event: an empty split would pass every check on it."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     fn()
@@ -1621,6 +1659,7 @@ def kernel_split(fn, calls: int = 20) -> dict:
         if str(e.device_type).endswith("CUDA"):
             name = kernel_name(e.key)
             split[name] = split.get(name, 0.0) + dev_us(e) / calls
+    check(bool(split), "torch.profiler saw no device events")
     return split
 
 
@@ -1628,7 +1667,8 @@ def profile(fn, what: str, top: int = 12, also: tuple = ()) -> dict:
     """Where one call of ``fn`` spends its time: host wall time of the call
     (after one warm call), device time summed over its kernels
     (``torch.profiler``), the kernels with the most device time, and every
-    kernel whose name holds one of ``also`` (returned by name)."""
+    kernel whose name holds one of ``also`` (returned by name).  Fails
+    where the profiler saw no device event."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     fn()
@@ -1642,6 +1682,7 @@ def profile(fn, what: str, top: int = 12, also: tuple = ()) -> dict:
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if str(e.device_type).endswith("CUDA")]
+    check(bool(kernels), f"torch.profiler saw no device events in {what}")
     total_ms = sum(dev_us(e) for e in kernels) / 1e3
     launches = sum(e.count for e in kernels)
     log(f"  profile, {what}: wall {wall_ms:.2f} ms, device "
@@ -6327,23 +6368,81 @@ def sp_phase(card: str, timeout_s: float = 900.0, device: str = "cuda:0", cfg: d
     return out
 
 
-def moe_kernel_phase(floor_ms: float) -> list[dict]:
+#: Mixtral-8x7B's MoE width (its published config.json: hidden_size 4096,
+#: num_local_experts 8, num_experts_per_tok 2), all 8 experts on one card,
+#: capacity factor 1.25: where K9a's and K9b's byte bounds (~90 and ~60
+#: us) lie far above the launch floor
+MOE_WIDE = dict(tokens=8192, d=4096, experts=8, top_k=2, capacity_factor=1.25)
+
+
+def _moe_case(dev, dtype, n, d, e, k, capacity, e0, e_local, seed):
+    """Random routing (k distinct experts a token) and rows for K9: the
+    descriptors ``(e_loc, slot, count)`` of experts ``e0 ..`` and the
+    tokens, a cotangent and gate weights."""
+    from tpuframe_torch.ops.moe_gating import _descriptors, _routing
+
+    gen = np.random.default_rng(seed)
+    idx = torch.from_numpy(np.argsort(gen.random((n, e)), -1)[:, :k].astype(np.int32))
+    choice_exp, _, keep, _ = _routing(idx.to(dev), e, capacity)
+    e_loc, slot, count = _descriptors(choice_exp, keep, e0, e_local)
+    src, g = (torch.from_numpy(gen.standard_normal((n, d)).astype(np.float32)).to(dev, dtype)
+              for _ in range(2))
+    w = torch.from_numpy(gen.random(n * k).astype(np.float32)).to(dev)
+    return e_loc, slot, count, src, g, w
+
+
+def dispatch_profile() -> dict:
+    """The device operations of one ``_Dispatch.apply`` at the MoE path's
+    shape (a rank's 4,096 tokens x 768 bf16, experts 4..7 of 8, top 2) by
+    ``torch.profiler``: ``{kernel name: launches}``."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from tpuframe_torch.ops.moe_gating import _Dispatch
+
+    dev = torch.device("cuda")
+    n, d, e, k, e_local = MOE_BATCH // 2 * LM["max_len"], LM["num_heads"] * LM["head_dim"], 8, 2, 4
+    capacity = max(1, int(-(-(k * n * 2) // e) * 1.25))
+    e_loc, slot, count, src, _, _ = _moe_case(dev, torch.bfloat16, n, d, e, k, capacity, e_local,
+                                              e_local, seed=25)
+    rows = min(capacity, k * n)
+    _Dispatch.apply(src, e_loc, slot, count, e_local, rows)
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _Dispatch.apply(src, e_loc, slot, count, e_local, rows)
+        torch.cuda.synchronize()
+    return {kernel_name(ev.key): ev.count for ev in prof.key_averages()
+            if str(ev.device_type).endswith("CUDA")}
+
+
+def moe_kernel_phase(floor_ms: float, baseline, any_k) -> list[dict]:
     """(e) K9a-K9c against their plain versions on random inputs: at the
     MoE path's shape (a rank's 4,096 tokens, D 768, bf16, 8 experts of which
-    4 are held, top 2, capacity 2,560) and small in f32, at both expert
-    offsets; K9a and K9b bit-equal, K9c within 1e-5 of the largest dot.
-    Timed at the path's shape beside the plain versions and, for K9a,
-    ``index_put_`` (the library call that writes the same rows).  Then K6's
-    float32 partials at the ring's (2, 2048, 12, 64) bf16, causal and not:
-    rounded to bf16 they are the default launch's bits."""
+    4 are held, top 2, capacity 2,560), small in f32, at both expert
+    offsets, and at Mixtral's width (``MOE_WIDE``); K9a and K9b bit-equal,
+    K9c within 1e-5 of the largest dot.  K9a writes a NaN-filled buffer
+    whole: the plain version's zero-filled result.  The kernels before
+    the redesign (``baseline``, ``BASELINE_K9``) and K9b's generic loop at
+    top 2 (``any_k``, ``ANY_K_K9B``) give the same bits.  A profiled
+    ``_Dispatch`` launches K9a alone (no zero fill; :func:`dispatch_profile`
+    in a fresh process).  Timed at the path's
+    shape and at the wide one, in turns, beside the plain versions, the
+    baseline kernels (K9a as the whole dispatch it was: ``zero_()`` of the buffer,
+    then its kernel), the library calls (K9a: ``index_put_``, which writes
+    the held rows; K9b: ``F.embedding_bag`` in sum mode with the weights
+    in bf16, as it requires) and, for K9b, its generic loop and a
+    ``copy_`` of an (N, D) tensor (as many bytes as K9b moves, or more:
+    what a bare copy takes at that size).  Then K6's float32 partials at
+    the ring's (2, 2048, 12, 64) bf16, causal and not: rounded to bf16
+    they are the default launch's bits."""
+    import torch.nn.functional as F
+
     from tpuframe_torch.ops.blockwise_attention import (
         blockwise_attention_bwd_dkv,
         blockwise_attention_bwd_dq,
         blockwise_attention_fwd,
     )
     from tpuframe_torch.ops.moe_gating import (
-        _descriptors,
-        _routing,
+        _CODES,
         moe_combine,
         moe_combine_reference,
         moe_dispatch,
@@ -6354,89 +6453,234 @@ def moe_kernel_phase(floor_ms: float) -> list[dict]:
 
     dev = torch.device("cuda")
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    bf16, nan = torch.bfloat16, float("nan")
     n, d, e, k, e_local = MOE_BATCH // 2 * LM["max_len"], LM["num_heads"] * LM["head_dim"], 8, 2, 4
     capacity = max(1, int(-(-(k * n * 2) // e) * 1.25))  # the path's global tokens
     rows = min(capacity, k * n)
+    nw, dw, ew, kw = (MOE_WIDE[key] for key in ("tokens", "d", "experts", "top_k"))
+    cap_w = int(-(-(kw * nw) // ew) * MOE_WIDE["capacity_factor"])
+
+    def stream():
+        return torch.cuda.current_stream(dev).cuda_stream
+
+    def old_dispatch(src, buf, e_loc, slot):  # the zero fill, then the baseline K9a
+        buf.zero_()
+        rc = baseline.tf_moe_dispatch_baseline(
+            src.data_ptr(), buf.data_ptr(), e_loc.data_ptr(), slot.data_ptr(), 0, src.shape[0],
+            e_loc.numel() // src.shape[0], src.shape[1], buf.shape[1], _CODES[src.dtype],
+            stream())
+        check(rc == 0, f"baseline K9a launch failed: CUDA error {rc}")
+        return buf
+
+    def old_combine(buf, w, e_loc, slot, out):
+        n_ = out.shape[0]
+        rc = baseline.tf_moe_combine_baseline(
+            buf.data_ptr(), w.data_ptr(), e_loc.data_ptr(), slot.data_ptr(), out.data_ptr(), n_,
+            e_loc.numel() // n_, buf.shape[2], buf.shape[1], _CODES[buf.dtype], stream())
+        check(rc == 0, f"baseline K9b launch failed: CUDA error {rc}")
+        return out
+
+    def any_k_combine(buf, w, e_loc, slot, out):  # K9b's generic loop at any top-k
+        n_ = out.shape[0]
+        rc = any_k.tf_moe_combine_any_k(
+            buf.data_ptr(), w.data_ptr(), e_loc.data_ptr(), slot.data_ptr(), out.data_ptr(), n_,
+            e_loc.numel() // n_, buf.shape[2], buf.shape[1], _CODES[buf.dtype], stream())
+        check(rc == 0, f"K9b's generic loop failed to launch: CUDA error {rc}")
+        return out
+
+    t_start = time.perf_counter()
+    # the _Dispatch profile runs in a fresh process, beside the checks below:
+    # after the earlier phases this process's profiler saw no device events
+    profiler = subprocess.Popen(
+        [sys.executable, "-c", "import json, chip_smoke as cs; "
+         "print(json.dumps(cs.dispatch_profile()))"],
+        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
     err = {name: 0.0 for name in K9_NAMES}
-    cases = [("path", torch.bfloat16, n, d, e, e_local), ("small", torch.float32, 300, 96, 6, 3)]
-    for name, dtype, nn_, dd, ee, el in cases:
-        for e0 in (0, el):
-            gen = np.random.default_rng(21 + e0)
-            idx = torch.from_numpy(np.argsort(gen.random((nn_, ee)), -1)[:, :k].astype(np.int32))
-            cap = max(1, int(-(-(k * nn_ * 2) // ee) * 1.25)) if name == "path" else 60
-            choice_exp, _, keep, _ = _routing(idx.to(dev), ee, cap)
-            e_loc, slot = _descriptors(choice_exp, keep, e0, el)
-            r_ = min(cap, k * nn_)
-            src = torch.from_numpy(gen.standard_normal((nn_, dd)).astype(np.float32)).to(dev, dtype)
-            g = torch.from_numpy(gen.standard_normal((nn_, dd)).astype(np.float32)).to(dev, dtype)
-            w = torch.from_numpy(gen.random(nn_ * k).astype(np.float32)).to(dev)
-            empty = torch.zeros((el, r_, dd), dtype=dtype, device=dev)
-            buf = moe_dispatch(src, empty.clone(), e_loc, slot)
-            want_buf = moe_dispatch_reference(src, empty.clone(), e_loc, slot)
-            scaled = moe_dispatch(g, empty.clone(), e_loc, slot, scale=w)
-            want_scaled = moe_dispatch_reference(g, empty.clone(), e_loc, slot, scale=w)
-            comb, want_comb = (moe_combine(buf, w, e_loc, slot, nn_),
-                               moe_combine_reference(buf, w, e_loc, slot, nn_))
-            dg, want_dg = (moe_gate_grad(g, buf, e_loc, slot),
-                           moe_gate_grad_reference(g, buf, e_loc, slot))
-            torch.cuda.synchronize()
-            check(torch.equal(buf, want_buf) and torch.equal(scaled, want_scaled),
-                  f"K9a {name} e0={e0}: not bit-equal to the plain version")
-            check(torch.equal(comb, want_comb), f"K9b {name} e0={e0}: not bit-equal")
-            e9c = float((dg - want_dg).abs().max())
-            check(e9c <= 1e-5 * max(1.0, float(want_dg.abs().max())),
-                  f"K9c {name} e0={e0}: {e9c:.3g} from the plain version")
-            err["moe_gate_grad"] = max(err["moe_gate_grad"], e9c)
-            log(f"  MoE kernels {name} ({nn_} tokens, D {dd}, {str(dtype).removeprefix('torch.')}, "
-                f"experts {e0}..{e0 + el - 1} of {ee}, {int((e_loc >= 0).sum())} of {k * nn_} "
-                f"slots held here, {r_} rows an expert): K9a and K9b bit-equal to their plain "
-                f"versions, K9c within {e9c:.3g}")
-    # timed at the path's shape, experts 4..7
-    gen = np.random.default_rng(25)
-    idx = torch.from_numpy(np.argsort(gen.random((n, e)), -1)[:, :k].astype(np.int32)).to(dev)
-    choice_exp, _, keep, _ = _routing(idx, e, capacity)
-    e_loc, slot = _descriptors(choice_exp, keep, e_local, e_local)
-    src = torch.from_numpy(gen.standard_normal((n, d)).astype(np.float32)).to(dev, torch.bfloat16)
-    g = torch.from_numpy(gen.standard_normal((n, d)).astype(np.float32)).to(dev, torch.bfloat16)
-    w = torch.from_numpy(gen.random(n * k).astype(np.float32)).to(dev)
-    buf = moe_dispatch(src, torch.zeros((e_local, rows, d), dtype=torch.bfloat16, device=dev),
-                       e_loc, slot)
-    sel = (e_loc >= 0).nonzero()[:, 0]
-    put_idx, put_src = (e_loc[sel].long(), slot[sel].long()), src[sel % n]
-    held = int(sel.numel())
-    dst = torch.zeros_like(buf)
-    arms = {
-        "moe_dispatch": (lambda: moe_dispatch(src, dst, e_loc, slot),
-                         lambda: moe_dispatch_reference(src, dst, e_loc, slot),
-                         lambda: dst.index_put_(put_idx, put_src)),
-        "moe_combine": (lambda: moe_combine(buf, w, e_loc, slot, n),
-                        lambda: moe_combine_reference(buf, w, e_loc, slot, n), None),
-        "moe_gate_grad": (lambda: moe_gate_grad(g, buf, e_loc, slot),
-                          lambda: moe_gate_grad_reference(g, buf, e_loc, slot), None),
-    }
-    row_b, desc_b = 2 * d, 8 * k * n  # a bf16 row; e_loc and slot (int32) of every slot
-    moved = {"moe_dispatch": 2 * held * row_b + desc_b,  # the held rows read and written
-             "moe_combine": held * row_b + 4 * k * n + desc_b + n * row_b,
-             "moe_gate_grad": 2 * held * row_b + desc_b + 4 * k * n}
-    flops = {"moe_dispatch": held * d, "moe_combine": 2 * held * d,
-             "moe_gate_grad": 2 * held * d}
-    times = {}
-    for which, (kernel, plain, library) in arms.items():
-        kernel_ms = [time_ms(kernel, flush)]
-        plain_ms = [time_ms(plain, flush, iters=30)]
-        library_ms = [time_ms(library, flush), time_ms(library, flush)] if library else []
-        plain_ms.append(time_ms(plain, flush, iters=30))
-        kernel_ms.append(time_ms(kernel, flush))
-        bound_ms, bound_by = bound(moved[which], flops[which])
-        times[which] = {"ms": min(kernel_ms), "plain_ms": min(plain_ms),
-                        "library_ms": min(library_ms) if library_ms else None,
-                        "bound_ms": bound_ms, "bound_by": bound_by, "bytes_moved": moved[which]}
-        t = times[which]
-        log(f"  {which} {n} tokens x {d} bf16, {held} slots held: kernel {t['ms'] * 1e3:.2f} us, "
-            f"plain {t['plain_ms'] * 1e3:.2f} us"
-            + (f", index_put_ {t['library_ms'] * 1e3:.2f} us" if library else "")
-            + f", bound {bound_ms * 1e3:.2f} us ({moved[which] / 1e6:.2f} MB at 3.35 TB/s), "
-            f"floor {floor_ms * 1e3:.2f} us on the card")
+
+    def check_all():
+        """K9a-K9c against the plain versions and the baseline at each shape."""
+        cases = [("path", bf16, n, d, e, e_local, capacity, (0, e_local)),
+                 ("small", torch.float32, 300, 96, 6, 3, 60, (0, 3)),
+                 ("wide", bf16, nw, dw, ew, ew, cap_w, (0,))]
+        for name, dtype, nn_, dd, ee, el, cap, offsets in cases:
+            for e0 in offsets:
+                e_loc, slot, count, src, g, w = _moe_case(dev, dtype, nn_, dd, ee, k, cap, e0,
+                                                          el, seed=21 + e0)
+                shape = (el, min(cap, k * nn_), dd)
+
+                def nan_buf():
+                    return torch.empty(shape, dtype=dtype, device=dev).fill_(nan)
+
+                buf = moe_dispatch(src, nan_buf(), e_loc, slot, count=count)
+                want_buf = moe_dispatch_reference(
+                    src, torch.zeros(shape, dtype=dtype, device=dev), e_loc, slot, count=count)
+                plain_nan = moe_dispatch_reference(src, nan_buf(), e_loc, slot, count=count)
+                scaled = moe_dispatch(g, nan_buf(), e_loc, slot, scale=w, count=count)
+                want_scaled = moe_dispatch_reference(g, nan_buf(), e_loc, slot, scale=w,
+                                                     count=count)
+                old_buf = old_dispatch(src, nan_buf(), e_loc, slot)
+                comb, want_comb = (moe_combine(buf, w, e_loc, slot, nn_),
+                                   moe_combine_reference(buf, w, e_loc, slot, nn_))
+                old_comb = old_combine(buf, w, e_loc, slot, torch.empty_like(comb))
+                any_comb = any_k_combine(buf, w, e_loc, slot, torch.empty_like(comb))
+                dg, want_dg = (moe_gate_grad(g, buf, e_loc, slot),
+                               moe_gate_grad_reference(g, buf, e_loc, slot))
+                torch.cuda.synchronize()
+                check(torch.equal(plain_nan, want_buf), f"plain K9a {name} e0={e0}: a "
+                      "NaN-filled buffer does not give the zero-filled result")
+                check(torch.equal(buf, want_buf) and torch.equal(scaled, want_scaled),
+                      f"K9a {name} e0={e0}: not bit-equal to the plain version")
+                check(torch.equal(comb, want_comb), f"K9b {name} e0={e0}: not bit-equal")
+                check(torch.equal(any_comb, want_comb),
+                      f"K9b's generic loop {name} e0={e0}: not bit-equal")
+                check(torch.equal(old_buf, want_buf) and torch.equal(old_comb, want_comb),
+                      f"baseline K9a/K9b {name} e0={e0}: not the plain versions' bits")
+                e9c = float((dg - want_dg).abs().max())
+                check(e9c <= 1e-5 * max(1.0, float(want_dg.abs().max())),
+                      f"K9c {name} e0={e0}: {e9c:.3g} from the plain version")
+                err["moe_gate_grad"] = max(err["moe_gate_grad"], e9c)
+                log(f"  MoE kernels {name} ({nn_} tokens, D {dd}, "
+                    f"{str(dtype).removeprefix('torch.')}, experts {e0}..{e0 + el - 1} of {ee}, "
+                    f"{int((e_loc >= 0).sum())} of {k * nn_} slots held here, {shape[1]} rows an "
+                    f"expert): K9a (into NaN-filled buffers) and K9b bit-equal to their plain "
+                    f"versions and to the baseline's (K9b also through its generic loop), "
+                    f"K9c within {e9c:.3g}")
+                del buf, want_buf, plain_nan, scaled, want_scaled, old_buf
+        torch.cuda.empty_cache()
+
+    try:
+        check_all()
+        out_text, err_text = profiler.communicate(timeout=300)
+    finally:
+        if profiler.poll() is None:
+            profiler.kill()
+            profiler.wait()
+    # one _Dispatch launches K9a alone: no zero fill beside it
+    check(profiler.returncode == 0, f"the _Dispatch profile failed:\n{out_text}\n{err_text}")
+    device_ops = json.loads(out_text.strip().splitlines()[-1])
+    log(f"  profile of one _Dispatch.apply at the path's shape: device operations {device_ops}")
+    check(device_ops == {"dispatch_kernel": 1},
+          f"one _Dispatch launched {device_ops}, not K9a alone")
+    t_checked = time.perf_counter()
+
+    def timed(label, dtype, nn_, dd, ee, el, cap, e0, seed, gate_grad):
+        """K9a-K9b (and K9c) at one shape: each arm's time, in turns, the
+        better of two medians kept."""
+        e_loc, slot, count, src, g, w = _moe_case(dev, dtype, nn_, dd, ee, k, cap, e0, el, seed)
+        shape = (el, min(cap, k * nn_), dd)
+        buf = moe_dispatch(src, torch.empty(shape, dtype=dtype, device=dev), e_loc, slot,
+                           count=count)
+        dst, dst_old = (torch.empty(shape, dtype=dtype, device=dev) for _ in range(2))
+        out_old, out_any, copy_dst = (torch.empty((nn_, dd), dtype=dtype, device=dev)
+                                      for _ in range(3))
+        sel = (e_loc >= 0).nonzero()[:, 0]
+        put_idx, put_src = (e_loc[sel].long(), slot[sel].long()), src[sel % nn_]
+        held = int(sel.numel())
+        # embedding_bag: token n's bag is its k rows of the flattened buffer,
+        # a slot not held here row 0 at weight 0 (the buffer is finite)
+        bag_idx = (e_loc.clamp(min=0).long() * shape[1] + slot.long()).view(k, nn_).t()
+        bag_w = torch.where(e_loc >= 0, w, 0.0).view(k, nn_).t().to(dtype)
+        bag_weight = buf.view(-1, dd)
+
+        def bag():
+            return F.embedding_bag(bag_idx, bag_weight, mode="sum", per_sample_weights=bag_w)
+
+        want = moe_combine_reference(buf, w, e_loc, slot, nn_)
+        bag_err = float((bag().float() - want.float()).abs().max())
+        check(bag_err <= 2e-2 * float(want.float().abs().max()),
+              f"embedding_bag at the {label} shape: {bag_err:.3g} from K9b's plain version")
+        del want
+        iters_plain = 30 if label == "path" else 10
+        arms = {
+            "moe_dispatch": {
+                "kernel": lambda: moe_dispatch(src, dst, e_loc, slot, count=count),
+                "baseline": lambda: old_dispatch(src, dst_old, e_loc, slot),
+                "plain": lambda: moe_dispatch_reference(src, dst, e_loc, slot, count=count),
+                "library": lambda: dst.index_put_(put_idx, put_src)},
+            "moe_combine": {
+                "kernel": lambda: moe_combine(buf, w, e_loc, slot, nn_),
+                "baseline": lambda: old_combine(buf, w, e_loc, slot, out_old),
+                "any_k": lambda: any_k_combine(buf, w, e_loc, slot, out_any),
+                "copy": lambda: copy_dst.copy_(src),
+                "plain": lambda: moe_combine_reference(buf, w, e_loc, slot, nn_),
+                "library": bag},
+        }
+        if gate_grad:
+            arms["moe_gate_grad"] = {
+                "kernel": lambda: moe_gate_grad(g, buf, e_loc, slot),
+                "plain": lambda: moe_gate_grad_reference(g, buf, e_loc, slot)}
+        row_b, desc_b = dd * src.element_size(), 8 * k * nn_  # a row; e_loc and slot
+        buf_b = shape[0] * shape[1] * row_b
+        # K9a reads the held rows and the counts and writes the whole buffer
+        moved = {"moe_dispatch": held * row_b + buf_b + desc_b + 4 * el,
+                 "moe_combine": held * row_b + 4 * k * nn_ + desc_b + nn_ * row_b,
+                 "moe_gate_grad": 2 * held * row_b + desc_b + 4 * k * nn_}
+        flops = {"moe_dispatch": 0, "moe_combine": 2 * held * dd, "moe_gate_grad": 2 * held * dd}
+        old_moved = buf_b + 2 * held * row_b + desc_b  # the baseline's zero fill, then its K9a
+        library = {"moe_dispatch": "index_put_",
+                   "moe_combine": f"embedding_bag (bf16 weights, {bag_err:.3g} off)"}
+        out = {}
+        for which, fns in arms.items():
+            order = list(fns) + list(fns)[::-1]
+            ms = {arm: [] for arm in fns}
+            for arm in order:
+                ms[arm].append(time_ms(fns[arm], flush,
+                                       iters=iters_plain if arm == "plain" else 100))
+            best = {arm: min(v) for arm, v in ms.items()}
+            bound_ms, bound_by = bound(moved[which], flops[which])
+            t = {"ms": best["kernel"], "plain_ms": best["plain"],
+                 "library_ms": best.get("library"), "baseline_ms": best.get("baseline"),
+                 "turns_ms": ms,
+                 "bound_ms": bound_ms, "bound_by": bound_by, "bytes_moved": moved[which],
+                 "bound_share": bound_ms / best["kernel"], "x_floor": best["kernel"] / floor_ms,
+                 "held": held}
+            if which == "moe_combine":
+                t.update(any_k_ms=best["any_k"], copy_ms=best["copy"],
+                         copy_bytes_moved=2 * nn_ * row_b, library_bf16_weights_err=bag_err)
+            if which == "moe_dispatch":
+                t["baseline_bytes_moved"] = old_moved
+                t["baseline_bound_ms"] = old_moved / HBM_BYTES_PER_S * 1e3
+                t["baseline_kernel_bytes_moved"] = 2 * held * row_b + desc_b
+            out[which] = t
+            log(f"  {which} at the {label} shape ({nn_} tokens x {dd} "
+                f"{str(dtype).removeprefix('torch.')}, {held} slots held, buffer "
+                f"{buf_b / 1e6:.1f} MB): kernel {t['ms'] * 1e3:.2f} us "
+                f"({t['bound_share']:.0%} of its bound {bound_ms * 1e3:.2f} us, "
+                f"{moved[which] / 1e6:.2f} MB at 3.35 TB/s; {t['x_floor']:.2f}x the floor "
+                f"{floor_ms * 1e3:.2f} us)"
+                + (f", baseline {'zero fill + K9a' if which == 'moe_dispatch' else 'K9b'} "
+                   f"{t['baseline_ms'] * 1e3:.2f} us ({t['baseline_ms'] / t['ms']:.2f}x)"
+                   if t["baseline_ms"] else "")
+                + (f" [its bytes {old_moved / 1e6:.2f} MB, bound "
+                   f"{t['baseline_bound_ms'] * 1e3:.2f} us; the baseline K9a alone "
+                   f"{t['baseline_kernel_bytes_moved'] / 1e6:.2f} MB]" if which == "moe_dispatch"
+                   else "")
+                + (f", its generic loop {t['any_k_ms'] * 1e3:.2f} us (turns "
+                   + " / ".join(f"{a} {v[0] * 1e3:.2f}, {v[1] * 1e3:.2f} us"
+                                for a, v in ms.items() if a in ("kernel", "any_k"))
+                   + f"), copy_ of {t['copy_bytes_moved'] / 1e6:.2f} MB "
+                   f"{t['copy_ms'] * 1e3:.2f} us" if which == "moe_combine" else "")
+                + f", plain {t['plain_ms'] * 1e3:.2f} us"
+                + (f", {library[which]} {t['library_ms'] * 1e3:.2f} us"
+                   if t["library_ms"] else ""))
+        return out
+
+    times = timed("path", bf16, n, d, e, e_local, capacity, e_local, 25, True)
+    torch.cuda.empty_cache()
+    wide = timed("wide", bf16, nw, dw, ew, ew, cap_w, 0, 26, False)
+    torch.cuda.empty_cache()
+    aims = {"K9b within 1.5x the floor at the path": times["moe_combine"]["x_floor"] <= 1.5,
+            "K9a at least 50 % of its bound at the path":
+                times["moe_dispatch"]["bound_share"] >= 0.5,
+            "K9a at least 50 % of its bound at the wide shape":
+                wide["moe_dispatch"]["bound_share"] >= 0.5,
+            "K9b at least 50 % of its bound at the wide shape":
+                wide["moe_combine"]["bound_share"] >= 0.5}
+    for aim, hit in aims.items():
+        log(f"  aim: {aim}: {'hit' if hit else 'missed'}")
+    log(f"  (e) K9 checked and profiled in {t_checked - t_start:.1f} s, timed in "
+        f"{time.perf_counter() - t_checked:.1f} s")
     # K6's float32 partials at the ring's tile
     b_, l_, h_, d_ = LONG_BATCH, LONG_LM["max_len"] // SP_SEQ, LONG_LM["num_heads"], \
         LONG_LM["head_dim"]
@@ -6461,17 +6705,26 @@ def moe_kernel_phase(floor_ms: float) -> list[dict]:
             "rounded to bf16, bit-equal to the default launches (out, dq, dk, dv; lse equal)")
     lines = {"moe_dispatch": (137, "K9a"), "moe_combine": (143, "K9b"),
              "moe_gate_grad": (143, "K9c")}
+    extra = ("baseline_ms", "bound_share", "x_floor", "baseline_bytes_moved",
+             "baseline_bound_ms", "baseline_kernel_bytes_moved", "any_k_ms", "copy_ms",
+             "copy_bytes_moved", "library_bf16_weights_err", "turns_ms")
     rows_out = []
     for which in K9_NAMES:
         t = times[which]
-        rows_out.append({
+        row = {
             "name": which, "route": "cuda", "source": "tpuframe_torch/csrc/moe_gating.cu",
             "replaces": f"tpuframe/ops/moe_gating.py:{lines[which][0]}", "launches": None,
             "max_abs_err": err[which],
             **{key: t[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "shape": f"{n} tokens x {d} bf16, top {k}, experts {e_local}..{2 * e_local - 1} of "
-                     f"{e}, {rows} rows an expert, {held} slots held",
-            "bytes_moved": t["bytes_moved"], "id": lines[which][1]})
+                     f"{e}, {rows} rows an expert, {t['held']} slots held",
+            "bytes_moved": t["bytes_moved"], "id": lines[which][1],
+            **{key: t[key] for key in extra if key in t}}
+        if which in wide:
+            row["wide"] = dict(wide[which], shape=f"{nw} tokens x {dw} bf16, top {kw}, all "
+                               f"{ew} experts, {cap_w} rows an expert (Mixtral-8x7B's width)")
+        rows_out.append(row)
+    rows_out[0]["aims"] = rows_out[1]["aims"] = aims
     del flush
     return rows_out
 
@@ -6511,15 +6764,18 @@ def main(argv=None) -> int:
     from tpuframe_torch.ops import build
 
     t0 = time.perf_counter()
-    # the K2 and K6 baselines' nvcc run beside the port's
-    baseline, baseline_k6 = start_baseline_build(), start_baseline_build(BASELINE_K6)
+    # the K2, K6 and K9 baselines' and K9b's generic loop's nvcc run beside the port's
+    baseline, baseline_k6, baseline_k9, any_k = (start_baseline_build(src) for src in (
+        BASELINE_CE, BASELINE_K6, BASELINE_K9, ANY_K_K9B))
     report = build.build()
-    baseline, baseline_k6 = baseline_library(baseline), baseline_library(baseline_k6)
-    log(f"  built {sorted(report)} and the K2 and K6 baselines in "
+    baseline, baseline_k6, baseline_k9, any_k = (baseline_library(h) for h in (
+        baseline, baseline_k6, baseline_k9, any_k))
+    log(f"  built {sorted(report)}, the K2, K6 and K9 baselines and K9b's generic loop in "
         f"{time.perf_counter() - t0:.2f} s")
     regs = {}
     for name, text in [(n, r["log"]) for n, r in report.items()] + [
-            (BASELINE_K6.stem, baseline_k6.build_log)]:
+            (BASELINE_K6.stem, baseline_k6.build_log),
+            (BASELINE_K9.stem, baseline_k9.build_log)]:
         regs[name] = ptxas_table(text)
         for fn, t in regs[name].items():
             log(f"  {name}: {fn} {t['registers']} registers, spill stores/loads "
@@ -6665,7 +6921,9 @@ def main(argv=None) -> int:
         k["launches_ulysses"] = [r[name] for r in sp["launches_ulysses"]]
         k["launches_example06"] = {run: v["launches"][name] for run, v in ex06.items()}
     torch.cuda.empty_cache()
-    k9a, k9b, k9c = moe_kernel_phase(floor_ms)
+    k9a, k9b, k9c = moe_kernel_phase(floor_ms, baseline_k9, any_k)
+    for k, fn in ((k9a, "dispatch_kernel"), (k9b, "combine_kernel")):
+        k["ptxas"] = {f: t for f, t in regs["moe_gating"].items() if f.startswith(fn)}
     for k in (k9a, k9b, k9c):
         k["launches"] = sp["launches_moe"][0][k["name"]]  # rank 0 of the MoE LM's bf16 steps
         k["launches_moe"] = [r[k["name"]] for r in sp["launches_moe"]]

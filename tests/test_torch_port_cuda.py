@@ -1719,7 +1719,7 @@ def test_blockwise_attention_float32_partials(card, case):
 
 def _moe_slots(n, e, k, capacity, e0, e_local, seed):
     """A routing of n tokens' k distinct random choices among e experts:
-    the (e_loc, slot) descriptors of experts e0 .. e0 + e_local - 1."""
+    the (e_loc, slot, count) descriptors of experts e0 .. e0 + e_local - 1."""
     from tpuframe_torch.ops.moe_gating import _descriptors, _routing
 
     rng = np.random.default_rng(seed)
@@ -1728,11 +1728,33 @@ def _moe_slots(n, e, k, capacity, e0, e_local, seed):
     return _descriptors(choice_exp, keep, e0, e_local)
 
 
-#: (id, dtype, N, D, E, k, capacity, first local expert, local experts)
-MOE_CASES = [("f32_all", torch.float32, 64, 48, 4, 2, 40, 0, 4),
-             ("f32_tight_half", torch.float32, 64, 48, 4, 2, 5, 2, 2),
-             ("bf16_path", torch.bfloat16, 4096, 768, 8, 2, 1280, 4, 4),
-             ("bf16_ragged", torch.bfloat16, 333, 100, 6, 3, 170, 0, 6)]
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s values in a contiguous tensor whose base lies one element
+    past an allocation's start (so not on 16 bytes)."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _nan_buffer(shape, dtype, device) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device=device).fill_(float("nan"))
+
+
+#: (id, dtype, N, D, E, k, capacity, first local expert, local experts,
+#: rows and buffer on a misaligned base)
+MOE_CASES = [("f32_all", torch.float32, 64, 48, 4, 2, 40, 0, 4, False),
+             ("f32_tight_half", torch.float32, 64, 48, 4, 2, 5, 2, 2, False),
+             ("bf16_path", torch.bfloat16, 4096, 768, 8, 2, 1280, 4, 4, False),
+             ("bf16_ragged", torch.bfloat16, 333, 100, 6, 3, 170, 0, 6, False),
+             ("f32_top1", torch.float32, 256, 64, 4, 1, 70, 0, 4, False),
+             ("bf16_top4", torch.bfloat16, 512, 768, 8, 4, 300, 2, 4, False),
+             ("bf16_top8", torch.bfloat16, 256, 512, 8, 8, 280, 0, 8, False),
+             ("bf16_top10_generic", torch.bfloat16, 128, 256, 12, 10, 110, 3, 6, False),
+             ("bf16_d97", torch.bfloat16, 300, 97, 6, 2, 120, 0, 3, False),
+             ("bf16_misaligned", torch.bfloat16, 1024, 768, 8, 2, 300, 4, 4, True),
+             ("f32_misaligned", torch.float32, 200, 96, 4, 2, 120, 0, 2, True),
+             ("bf16_mixtral_width", torch.bfloat16, 8192, 4096, 8, 2, 2560, 0, 8, False)]
 
 
 @pytest.mark.parametrize("case", MOE_CASES, ids=[c[0] for c in MOE_CASES])
@@ -1741,12 +1763,15 @@ def test_moe_kernels_match_plain_versions(card, case):
     (the gate gradient) against their plain versions on CPU copies of the
     same inputs: K9a and K9b bit-equal (each product and sum rounded as the
     plain version rounds it), K9c within 1e-5 of the largest dot (a float32
-    dot in another order).  One launch a call; a rerun gives the same
-    bits."""
+    dot in another order).  K9a writes a NaN-filled ``torch.empty`` buffer
+    whole: the zero-filled result, no NaN left.  Top 1 to 8 (K9b's
+    instances) and 10 (its generic loop), rows of 16-byte accesses and of
+    elements (D = 97 and 100 bf16; a misaligned base), Mixtral's width.
+    One launch a call; a rerun gives the same bits."""
     from tpuframe_torch.ops.moe_gating import moe_combine, moe_dispatch, moe_gate_grad
 
-    _, dtype, n, d, e, k, capacity, e0, e_local = case
-    e_loc, slot = _moe_slots(n, e, k, capacity, e0, e_local, seed=3)
+    _, dtype, n, d, e, k, capacity, e0, e_local, misaligned = case
+    e_loc, slot, count = _moe_slots(n, e, k, capacity, e0, e_local, seed=3)
     rows = min(capacity, n * k)
     rng = np.random.default_rng(4)
     src = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(dtype)
@@ -1756,23 +1781,36 @@ def test_moe_kernels_match_plain_versions(card, case):
     got = {}
     for dev in ("cpu", card):
         before = [c.launches for c in counters]
-        a = [t.to(dev) for t in (src, w, g, e_loc, slot)]
-        buf = moe_dispatch(a[0], torch.zeros((e_local, rows, d), dtype=dtype, device=dev),
-                           a[3], a[4])
-        scaled = moe_dispatch(a[2], torch.zeros_like(buf), a[3], a[4], scale=a[1])
-        out = moe_combine(buf, a[1], a[3], a[4], n)
+        a = [t.to(dev) for t in (src, w, g, e_loc, slot, count)]
+        if misaligned and dev == card:
+            a[0], a[2] = _misaligned(a[0]), _misaligned(a[2])
+            assert a[0].data_ptr() % 16 and a[2].data_ptr() % 16
+        shape = (e_local, rows, d)
+        buf = moe_dispatch(a[0], _nan_buffer(shape, dtype, dev), a[3], a[4], count=a[5])
+        scaled = moe_dispatch(a[2], _nan_buffer(shape, dtype, dev), a[3], a[4], scale=a[1],
+                              count=a[5])
+        comb_buf = _misaligned(buf) if misaligned and dev == card else buf
+        out = moe_combine(comb_buf, a[1], a[3], a[4], n)
         dgate = moe_gate_grad(a[2], buf, a[3], a[4])
         got[str(dev)] = [t.cpu() for t in (buf, scaled, out, dgate)]
         if dev == card:
             torch.cuda.synchronize()
             assert [c.launches - b for c, b in zip(counters, before)] == [2, 1, 1]
-            again = moe_combine(buf, a[1], a[3], a[4], n)
+            again = moe_dispatch(a[0], _nan_buffer(shape, dtype, dev), a[3], a[4], count=a[5])
+            assert torch.equal(again.cpu(), got[str(dev)][0])
+            again = moe_combine(comb_buf, a[1], a[3], a[4], n)
             assert torch.equal(again.cpu(), got[str(dev)][2])
     cpu, gpu = got["cpu"], got[str(card)]
+    held = e_loc >= 0
+    zeroed = torch.zeros((e_local, rows, d), dtype=dtype)
+    zeroed[e_loc[held].long(), slot[held].long()] = src[held.nonzero()[:, 0] % n]
+    assert torch.equal(cpu[0], zeroed)  # the plain version's rows: the zero-filled result
     for i in range(3):
+        assert not gpu[i].isnan().any(), i
         assert torch.equal(gpu[i], cpu[i]), i
     assert float((gpu[3] - cpu[3]).abs().max()) <= 1e-5 * max(1.0, float(cpu[3].abs().max()))
-    assert int((e_loc >= 0).sum()) > 0 and int((e_loc < 0).sum()) > 0 or e_local == e
+    assert int(held.sum()) > 0 and int((~held).sum()) > 0 or e_local == e
+    assert int(count.sum()) == int(held.sum())
 
 
 def _sp_card_rank(rank: int, world: int, what: str) -> dict:

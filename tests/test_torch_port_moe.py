@@ -5,8 +5,13 @@ with the same numpy-seeded inputs and weights.
 - ``moe_dispatch_combine``: the port's row copies (``fused`` None) against
   JAX's fused path and the port's dense form (``fused=False``) against
   JAX's reference, at ``tests/test_moe.py``'s shapes, its tight capacity
-  1 included; the gradients of tokens, gate values, ``w_in`` and ``w_out``
-  against ``jax.grad``.  Float32 within 1e-5.
+  1 included, and at top 1, 4 (D = 100) and 8; the gradients of tokens,
+  gate values, ``w_in`` and ``w_out`` against ``jax.grad``.  Float32
+  within 1e-5.
+- The dispatch's folded zero fill: the plain K9a into a NaN-filled buffer
+  is the zero-filled result bit for bit, and ``_descriptors`` gives each
+  expert's held slots its rows ``0 .. count_e - 1`` under a local routing,
+  every expert split and the global routing.
 - ``MoEMLP`` on JAX's weights: the output and the aux loss within 1e-5;
   with tied router columns, the experts ``lax.top_k`` picks (the lower
   index first).
@@ -48,7 +53,9 @@ def _case(n=64, d=8, e=4, k=2, h=16, seed=0, capacity=None):
 
 
 OP_CASES = {"seed0": dict(seed=0), "seed1": dict(seed=1), "seed2": dict(seed=2),
-            "tight": dict(n=32, e=2, k=2, seed=7, capacity=1)}
+            "tight": dict(n=32, e=2, k=2, seed=7, capacity=1),
+            "k1": dict(k=1, seed=3), "k4_d100": dict(d=100, e=6, k=4, seed=4),
+            "k8_e8": dict(e=8, k=8, seed=5)}
 
 
 def _moe_params(seed: int = 3, tied: bool = False) -> dict:
@@ -193,7 +200,7 @@ def test_dispatch_combine_matches_jax(case, fused):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("case", ["seed0", "tight"])
+@pytest.mark.parametrize("case", ["seed0", "tight", "k1", "k4_d100", "k8_e8"])
 @pytest.mark.parametrize("fused", [None, False], ids=["rows", "dense"])
 def test_dispatch_combine_gradients_match_jax(case, fused):
     import jax
@@ -217,6 +224,100 @@ def test_dispatch_combine_gradients_match_jax(case, fused):
     for name, got, w in zip(("tokens", "gate_vals", "w_in", "w_out"), leaves, want):
         np.testing.assert_allclose(got.grad.numpy(), np.asarray(w), atol=1e-5, rtol=1e-5,
                                    err_msg=name)
+
+
+def _slots(n, e, k, capacity, seed):
+    """``(choice_exp, keep)`` of n tokens' k distinct random choices among e
+    experts, routed at ``capacity`` (which may drop slots)."""
+    from tpuframe_torch.ops.moe_gating import _routing
+
+    rng = np.random.default_rng(seed)
+    idx = torch.from_numpy(np.argsort(rng.random((n, e)), -1)[:, :k].astype(np.int32))
+    choice_exp, _, keep, _ = _routing(idx, e, capacity)
+    return choice_exp, keep
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("scaled", [False, True], ids=["scale1", "weights"])
+def test_plain_dispatch_into_a_nan_buffer_is_the_zero_filled_result(dtype, scaled):
+    """The plain K9a writes every row of the buffer it is given: into a
+    NaN-filled ``torch.empty`` it gives, bit for bit, the rows of an
+    ``index_put_`` into a zeroed buffer (the folded zero fill)."""
+    from tpuframe_torch.ops.moe_gating import _descriptors, moe_dispatch
+
+    n, d, e, k, cap, e0, e_local = 40, 12, 6, 2, 16, 3, 3
+    choice_exp, keep = _slots(n, e, k, cap, seed=11)
+    e_loc, slot, count = _descriptors(choice_exp, keep, e0, e_local)
+    # slots drop, and rows past the counts remain for the zero fill
+    assert int(count.sum()) < e_local * cap and int((~keep).sum()) > 0
+    rng = np.random.default_rng(12)
+    src = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(dtype)
+    w = torch.from_numpy(rng.random(n * k).astype(np.float32)) if scaled else None
+    got = moe_dispatch(src, torch.empty((e_local, cap, d), dtype=dtype).fill_(float("nan")),
+                       e_loc, slot, w, count=count)
+    want = torch.zeros((e_local, cap, d), dtype=dtype)
+    sel = (e_loc >= 0).nonzero()[:, 0]
+    rows = src[sel % n] if w is None else (w[sel, None] * src[sel % n].float()).to(dtype)
+    want.index_put_((e_loc[sel].long(), slot[sel].long()), rows)
+    assert not got.isnan().any()
+    assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                       want.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+
+
+def _assert_compact(e_loc, slot, count, e_local, rows):
+    """Each local expert's held slots, in slot (choice-major) order, are its
+    rows ``0 .. count_e - 1``, and ``count_e`` fits the buffer."""
+    assert count.dtype == torch.int32 and tuple(count.shape) == (e_local,)
+    for ex in range(e_local):
+        got = slot[e_loc == ex]
+        assert torch.equal(got, torch.arange(int(count[ex]), dtype=torch.int32)), ex
+        assert int(count[ex]) <= rows
+    assert int(count.sum()) == int((e_loc >= 0).sum())
+
+
+@pytest.mark.parametrize("cap", [6, 40], ids=["drops", "fits"])
+def test_descriptors_give_each_expert_rows_zero_to_its_count(cap):
+    """The property K9a's folded zero fill rests on: under a local routing,
+    for every expert split (one process, halves, quarters), each expert's
+    held slots take rows ``0 .. count_e - 1``."""
+    from tpuframe_torch.ops.moe_gating import _descriptors
+
+    n, e, k = 48, 8, 2
+    choice_exp, keep = _slots(n, e, k, cap, seed=13)
+    for parts in (1, 2, 4):
+        e_local = e // parts
+        for r in range(parts):
+            e_loc, slot, count = _descriptors(choice_exp, keep, r * e_local, e_local)
+            _assert_compact(e_loc, slot, count, e_local, min(cap, k * n))
+
+
+def test_descriptors_under_the_global_routing_compact_each_ranks_rows():
+    """``models.moe``'s global routing (``routed=``) over ``data=2 x seq=2``
+    at a capacity that drops slots: each rank's descriptors, for each
+    rank's experts under an ``expert=2`` split, keep the property."""
+    from types import SimpleNamespace
+    from unittest import mock
+
+    from tpuframe_torch.models.moe import _global_routing
+    from tpuframe_torch.ops.moe_gating import _descriptors
+
+    b, l, k, e, world, seq = 2, 6, 2, 4, 4, 2
+    rng = np.random.default_rng(14)
+    idx = [torch.from_numpy(np.argsort(rng.random((b, l, e)), -1)[..., :k].astype(np.int32))
+           for _ in range(world)]
+    cap = 5  # below the global 2 * k * (world * b * l) / e = 24 a expert: slots drop
+    gathered = torch.stack(idx)
+    dropped = 0
+    for rank in range(world):
+        ax = SimpleNamespace(size=world, index=rank)
+        with mock.patch("tpuframe_torch.parallel.tensor._all_gather",
+                        lambda x, dim, axis: gathered):
+            choice_exp, _, keep = _global_routing(idx[rank], e, cap, ax, seq)
+        dropped += int((~keep).sum())
+        for r in range(2):
+            e_loc, slot, count = _descriptors(choice_exp, keep, r * (e // 2), e // 2)
+            _assert_compact(e_loc, slot, count, e // 2, min(cap, k * b * l))
+    assert dropped > 0
 
 
 # -- the module ---------------------------------------------------------------------------

@@ -16,10 +16,11 @@ scatter-add and a gather; its scatter-add has no deterministic one-call
 form on CUDA (``index_add_`` sums with atomics), so the port writes the row
 copies by hand:
 
-- **K9a** :func:`moe_dispatch`: ``buf[e_f, slot_f, :] = scale_f ·
-  src[f mod N, :]`` over the kept slots of the experts held here.  The
-  forward dispatches the tokens (scale 1); the combine's backward the
-  cotangent, scaled by the gate weights.
+- **K9a** :func:`moe_dispatch`: the whole ``(E_local, C, D)`` buffer in
+  one launch: ``buf[e_f, slot_f, :] = scale_f · src[f mod N, :]`` over the
+  kept slots of the experts held here, every other row zero.  The forward
+  dispatches the tokens (scale 1); the combine's backward the cotangent,
+  scaled by the gate weights.
 - **K9b** :func:`moe_combine`: ``out[n, :] = Σ_{j<k} w[j·N + n] ·
   buf[e, slot, :]``, j in order.  The forward combines with ``w`` = gate ·
   keep; the dispatch's backward with ``w`` = keep.
@@ -27,15 +28,18 @@ copies by hand:
   slot_f]⟩``, a float32 dot a slot.
 
 They take float32 or bfloat16 rows and float32 weights, and compute in
-float32.  The plain versions do the same three steps: ``index_put_`` at
-the (distinct) destinations, the (k, N, D) rows summed over k in order, a
-float32 dot; deterministic too.  The expert products between them are
+float32.  The plain versions do the same three steps: the rows past each
+expert's count zeroed and an ``index_put_`` at the (distinct)
+destinations, the (k, N, D) rows summed over k in order, a float32 dot;
+deterministic too.  The expert products between them are
 ``torch.bmm`` (JAX computes them outside any kernel).
 
 **Slots.**  The routing's ``(kN,)`` frame becomes two int32 descriptors:
 ``e_loc``, the slot's expert among those held here (−1 where it is dropped
-or held by another rank), and ``slot``, its row in that expert's buffer.
-The rows are compacted per expert in choice-major order, so one process
+or held by another rank), and ``slot``, its row in that expert's buffer;
+``count`` holds each local expert's number of held slots.  The rows are
+compacted per expert in choice-major order (expert e's held slots are its
+rows ``0 .. count_e − 1``, the rest are zero), so one process
 holding every expert gets JAX's positions exactly, and a rank that holds
 only its own tokens (``routed=``, the global routing of ``models.moe``)
 fills a buffer of ``min(capacity, kN)`` rows with no other rank's rows.
@@ -75,7 +79,8 @@ def _library() -> ctypes.CDLL:
     lib = build.load("moe_gating")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     tail = [i32, i32, i32, i32, i32, ptr]  # N K D capacity dtype stream
-    lib.tf_moe_dispatch.argtypes = [ptr] * 5 + tail
+    # N K D capacity E_local dtype stream
+    lib.tf_moe_dispatch.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
     lib.tf_moe_combine.argtypes = [ptr] * 5 + tail
     lib.tf_moe_gate_grad.argtypes = [ptr] * 5 + tail
     for fn in (lib.tf_moe_dispatch, lib.tf_moe_combine, lib.tf_moe_gate_grad):
@@ -102,15 +107,18 @@ def _routing(gate_idx: torch.Tensor, e: int, capacity: int):
 
 
 def _descriptors(choice_exp, keep, e0: int, e_local: int):
-    """``(e_loc, slot)`` int32 of the slots (module docstring): the kept
-    slots of experts ``e0 .. e0 + e_local - 1``, each given the next row of
-    its expert in choice-major order; −1 elsewhere."""
+    """``(e_loc, slot, count)`` int32 of the slots (module docstring): the
+    kept slots of experts ``e0 .. e0 + e_local - 1``, each given the next
+    row of its expert in choice-major order, −1 elsewhere; and each local
+    expert's number of held slots, (e_local,)."""
     held = keep & (choice_exp >= e0) & (choice_exp < e0 + e_local)
     e_loc = torch.where(held, choice_exp - e0, torch.full_like(choice_exp, e_local))
     onehot = F.one_hot(e_loc, e_local + 1)[:, :e_local].to(torch.int32)
-    slot = ((torch.cumsum(onehot, 0) - onehot) * onehot).sum(-1)
+    ahead = torch.cumsum(onehot, 0)
+    slot = ((ahead - onehot) * onehot).sum(-1)
     e_loc = torch.where(held, e_loc, torch.full_like(e_loc, -1))
-    return e_loc.to(torch.int32).contiguous(), slot.to(torch.int32).contiguous()
+    return (e_loc.to(torch.int32).contiguous(), slot.to(torch.int32).contiguous(),
+            ahead[-1].to(torch.int32).contiguous())
 
 
 # -- the kernels and their plain versions -------------------------------------------
@@ -126,10 +134,10 @@ def _check_rows(*tensors: torch.Tensor) -> None:
                              f"{t.device} and {dtype} on {tensors[0].device}")
 
 
-def _launch(fn, name: str, ptrs, n: int, k: int, d: int, capacity: int, dtype, device) -> None:
+def _launch(fn, name: str, ptrs, sizes: tuple, dtype, device) -> None:
     with torch.cuda.device(device):
-        rc = fn(*(0 if t is None else t.data_ptr() for t in ptrs), n, k, d, capacity,
-                _CODES[dtype], torch.cuda.current_stream(device).cuda_stream)
+        rc = fn(*(0 if t is None else t.data_ptr() for t in ptrs), *sizes, _CODES[dtype],
+                torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"MoE {name} kernel launch failed: CUDA error {rc}")
 
@@ -143,11 +151,15 @@ def _rows(buf: torch.Tensor, e_loc: torch.Tensor, slot: torch.Tensor) -> torch.T
 
 
 def moe_dispatch_reference(src: torch.Tensor, buf: torch.Tensor, e_loc: torch.Tensor,
-                           slot: torch.Tensor, scale: torch.Tensor | None = None
-                           ) -> torch.Tensor:
-    """Plain K9a: ``index_put_`` of the held slots' rows (each scaled in
-    float32 and rounded once) at their distinct destinations."""
+                           slot: torch.Tensor, scale: torch.Tensor | None = None, *,
+                           count: torch.Tensor) -> torch.Tensor:
+    """Plain K9a: the rows of expert e from ``count[e]`` on zeroed, then
+    ``index_put_`` of the held slots' rows (each scaled in float32 and
+    rounded once) at their distinct destinations, rows ``0 .. count[e] −
+    1``: the zero-filled result whatever ``buf`` held."""
     n = src.shape[0]
+    row = torch.arange(buf.shape[1], device=buf.device)
+    buf.masked_fill_((row[None, :] >= count.long()[:, None])[..., None], 0)
     sel = (e_loc >= 0).nonzero()[:, 0]
     rows = src[sel % n]
     if scale is not None:
@@ -181,21 +193,28 @@ def moe_gate_grad_reference(g: torch.Tensor, buf: torch.Tensor, e_loc: torch.Ten
 
 
 def moe_dispatch(src: torch.Tensor, buf: torch.Tensor, e_loc: torch.Tensor,
-                 slot: torch.Tensor, scale: torch.Tensor | None = None) -> torch.Tensor:
+                 slot: torch.Tensor, scale: torch.Tensor | None = None, *,
+                 count: torch.Tensor) -> torch.Tensor:
     """K9a: ``buf[e_loc[f], slot[f]] = scale[f] · src[f mod N]`` for every
-    slot with ``e_loc[f] >= 0``, in place (``buf`` (E_local, C, D), zeroed by
-    the caller; ``src`` (N, D); ``scale`` (kN,) float32 or None for 1).
-    Returns ``buf``.  ``moe_dispatch.launches`` counts kernel launches."""
+    slot with ``e_loc[f] >= 0`` and every other row of ``buf`` zero, in
+    place, whatever ``buf`` held (``buf`` (E_local, C, D), contiguous;
+    ``src`` (N, D); ``scale`` (kN,) float32 or None for 1; ``count``
+    (E_local,) int32, each expert's held slots, which ``_descriptors`` gives
+    rows ``0 .. count[e] − 1``).  Returns ``buf``.
+    ``moe_dispatch.launches`` counts kernel launches."""
     _check_rows(src, buf)
     n, d = src.shape
     k = e_loc.numel() // n
     if not use_kernel(src):
-        return moe_dispatch_reference(src, buf, e_loc, slot, scale)
+        return moe_dispatch_reference(src, buf, e_loc, slot, scale, count=count)
+    if not buf.is_contiguous() or count.numel() != buf.shape[0]:
+        raise ValueError(f"moe_dispatch writes a contiguous (E_local, C, D) buffer with a count "
+                         f"an expert; got {tuple(buf.shape)} and {count.numel()} counts")
     src = src.contiguous()
     args = (src, buf, e_loc.int().contiguous(), slot.int().contiguous(),
-            None if scale is None else scale.float().contiguous())
-    _launch(_library().tf_moe_dispatch, "dispatch", args, n, k, d, buf.shape[1], src.dtype,
-            src.device)
+            None if scale is None else scale.float().contiguous(), count.int().contiguous())
+    _launch(_library().tf_moe_dispatch, "dispatch", args, (n, k, d, buf.shape[1], buf.shape[0]),
+            src.dtype, src.device)
     moe_dispatch.launches += 1
     return buf
 
@@ -214,7 +233,7 @@ def moe_combine(buf: torch.Tensor, w: torch.Tensor, e_loc: torch.Tensor, slot: t
     out = torch.empty((n, d), dtype=buf.dtype, device=buf.device)
     args = (buf.contiguous(), w.float().contiguous(), e_loc.int().contiguous(),
             slot.int().contiguous(), out)
-    _launch(_library().tf_moe_combine, "combine", args, n, k, d, buf.shape[1], buf.dtype,
+    _launch(_library().tf_moe_combine, "combine", args, (n, k, d, buf.shape[1]), buf.dtype,
             buf.device)
     moe_combine.launches += 1
     return out
@@ -233,7 +252,7 @@ def moe_gate_grad(g: torch.Tensor, buf: torch.Tensor, e_loc: torch.Tensor,
     out = torch.empty(e_loc.numel(), dtype=torch.float32, device=g.device)
     args = (g.contiguous(), buf.contiguous(), e_loc.int().contiguous(),
             slot.int().contiguous(), out)
-    _launch(_library().tf_moe_gate_grad, "gate gradient", args, n, k, d, buf.shape[1],
+    _launch(_library().tf_moe_gate_grad, "gate gradient", args, (n, k, d, buf.shape[1]),
             g.dtype, g.device)
     moe_gate_grad.launches += 1
     return out
@@ -245,13 +264,14 @@ moe_gate_grad.launches = 0
 
 
 class _Dispatch(torch.autograd.Function):
-    """K9a forward (tokens into the zeroed expert buffers); K9b backward
-    (the buffers' cotangent back to the tokens, ``w`` = keep)."""
+    """K9a forward (tokens into the expert buffers, which it writes whole);
+    K9b backward (the buffers' cotangent back to the tokens, ``w`` =
+    keep)."""
 
     @staticmethod
-    def forward(ctx, src, e_loc, slot, e_local, capacity):
-        buf = torch.zeros((e_local, capacity, src.shape[1]), dtype=src.dtype, device=src.device)
-        moe_dispatch(src, buf, e_loc, slot)
+    def forward(ctx, src, e_loc, slot, count, e_local, capacity):
+        buf = torch.empty((e_local, capacity, src.shape[1]), dtype=src.dtype, device=src.device)
+        moe_dispatch(src, buf, e_loc, slot, count=count)
         ctx.save_for_backward(e_loc, slot)
         ctx.n = src.shape[0]
         return buf
@@ -260,7 +280,7 @@ class _Dispatch(torch.autograd.Function):
     def backward(ctx, g):
         e_loc, slot = ctx.saved_tensors
         keep = (e_loc >= 0).float()
-        return moe_combine(g.contiguous(), keep, e_loc, slot, ctx.n), None, None, None, None
+        return moe_combine(g.contiguous(), keep, e_loc, slot, ctx.n), None, None, None, None, None
 
 
 class _Combine(torch.autograd.Function):
@@ -269,17 +289,18 @@ class _Combine(torch.autograd.Function):
     weights' gradient) backward."""
 
     @staticmethod
-    def forward(ctx, buf, w, e_loc, slot, n):
-        ctx.save_for_backward(buf, w, e_loc, slot)
+    def forward(ctx, buf, w, e_loc, slot, count, n):
+        ctx.save_for_backward(buf, w, e_loc, slot, count)
         return moe_combine(buf, w, e_loc, slot, n)
 
     @staticmethod
     def backward(ctx, g):
-        buf, w, e_loc, slot = ctx.saved_tensors
+        buf, w, e_loc, slot, count = ctx.saved_tensors
         g = g.to(buf.dtype).contiguous()
-        dbuf = moe_dispatch(g, torch.zeros_like(buf), e_loc, slot, scale=w)
+        dbuf = moe_dispatch(g, torch.empty(buf.shape, dtype=buf.dtype, device=buf.device),
+                            e_loc, slot, scale=w, count=count)
         dw = moe_gate_grad(g, buf, e_loc, slot)
-        return dbuf, dw, None, None, None
+        return dbuf, dw, None, None, None, None
 
 
 # -- the public functions ------------------------------------------------------------
@@ -356,14 +377,14 @@ def moe_dispatch_combine(tokens: torch.Tensor, gate_vals: torch.Tensor, gate_idx
         routed = _routing(gate_idx, e, capacity)[:3]
     choice_exp, _, keep = routed
     e0 = expert_axis.index * e_local if split else 0
-    e_loc, slot = _descriptors(choice_exp, keep, e0, e_local)
+    e_loc, slot, count = _descriptors(choice_exp, keep, e0, e_local)
     if split:  # the cotangents of the replicated inputs are summed over the experts
         tokens, gate_vals = expert_axis.copy_to_group(tokens), expert_axis.copy_to_group(gate_vals)
     rows = min(capacity, e_loc.numel())
-    expert_in = _Dispatch.apply(tokens.to(w_in.dtype), e_loc, slot, e_local, rows)
+    expert_in = _Dispatch.apply(tokens.to(w_in.dtype), e_loc, slot, count, e_local, rows)
     expert_out = _expert_products(expert_in, w_in, w_out, act)
     weight = gate_vals.t().reshape(-1).float() * keep.float()
-    out = _Combine.apply(expert_out, weight, e_loc, slot, n)
+    out = _Combine.apply(expert_out, weight, e_loc, slot, count, n)
     if split:
         from tpuframe_torch.parallel.tensor import reduce_from_group
 
