@@ -17,9 +17,11 @@ Phases, each of which fails the script (nonzero exit, no result line):
    statistics), the K6 baseline (``tests/csrc/
    blockwise_attention_baseline.cu``, every product a float32 FMA), the
    K9 baseline (``tests/csrc/moe_gating_baseline.cu``, K9a and K9b
-   before their redesign) and K9b's generic loop at any top-k
-   (``tests/csrc/moe_combine_any_k.cu``), for timing only; each kernel's
-   registers and spills from ``ptxas``.
+   before their redesign), K9b's generic loop at any top-k
+   (``tests/csrc/moe_combine_any_k.cu``) and the K9c baseline
+   (``tests/csrc/moe_gate_grad_baseline.cu``, the combine's backward as
+   the two launches it was), for timing only; each kernel's registers and
+   spills from ``ptxas``, none allowed in ``moe_gating.cu``.
 3. Kernels: first the launch floor, the time of an empty kernel
    (``csrc/launch_floor.cu``) launched through ``ctypes`` as every kernel
    is, printed on its own line and given as ``floor_ms`` beside each
@@ -250,19 +252,23 @@ Phases, each of which fails the script (nonzero exit, no result line):
    (c) ``gpt_small``'s widths with 8 experts, top 2, 8 sequences on data 2
    x expert 2 under ``moe_rules``: the f32 checks at 2 layers at the
    default capacity and at one that drops tokens, 3 bf16 steps at 12
-   layers with K9a 24, K9b 24 and K9c 12 a step on each rank, and each
+   layers with K9a 12, K9b 24 and K9c 12 a step on each rank, and each
    rank's CUDA tensors beside ``plan_memory``; (d) example 06 through its
    workers three ways (Ulysses on seq 2; the ring with MoE on seq 2; full
    attention with MoE on expert 2), rank 0's K6 and K9 launches held
-   exact; (e) K9a-K9c against their plain versions (K9a and K9b bit-equal,
-   K9c within 1e-5) at the MoE path's shape, small and at Mixtral-8x7B's
-   width (8,192 tokens x 4,096 bf16, 8 experts, top 2), K9a writing
-   NaN-filled buffers whole; a profiled ``_Dispatch`` launching K9a alone;
-   K9a and K9b timed at the path's and the wide shape beside the plain
-   versions, the library calls (``index_put_``, ``F.embedding_bag``) and
-   the baseline kernels (K9a as ``zero_()`` plus its kernel), K9b also
-   beside its generic loop and a ``copy_`` of as many bytes, in turns,
-   with the aims hit or missed; and K6's float32
+   exact; (e) K9a-K9c against their plain versions (K9a, K9b and K9c's
+   dbuf bit-equal, K9c's dgate within 1e-5, +0.0 where a slot is not held,
+   bit-equal on a rerun and for a row pair moved to another block) at the
+   MoE path's shape, small and at Mixtral-8x7B's width (8,192 tokens x
+   4,096 bf16, 8 experts, top 2), K9a and K9c writing NaN-filled outputs
+   whole; a profiled ``_Dispatch`` launching K9a alone and a profiled
+   ``_Combine`` backward K9c alone; K9a-K9c timed at the path's and the
+   wide shape beside the plain versions, the library calls
+   (``index_put_``, ``F.embedding_bag``) and the baseline kernels (K9a as
+   ``zero_()`` plus its kernel, K9c as the scaled K9a and the gate
+   gradient it replaces), K9b also beside its generic loop and a
+   ``copy_`` of as many bytes, in turns, with the aims hit or missed; and
+   K6's float32
    partials at the ring's tile, rounded to bf16 bit-equal to the default
    launches.
 19. Result: a ``kernels`` JSON line (each kernel with ``floor_ms``; K1 and
@@ -277,11 +283,15 @@ Phases, each of which fails the script (nonzero exit, no result line):
    tensor-core kernel at each head dim, and ``launches_ring``,
    ``launches_ulysses`` and ``launches_example06``, phase 18's counts;
    K9a-K9c with ``launches_moe`` on each rank of phase 18's MoE LM and
-   ``launches_example06``; K9a and K9b also with ``baseline_ms``,
-   ``bound_share``, ``x_floor``, ``turns_ms``, ``wide`` (the same at
-   Mixtral's width), ``aims`` and ``ptxas``; K9b with ``any_k_ms`` and
-   ``copy_ms``), the ``nvidia-smi`` line, then
+   ``launches_example06``, ``baseline_ms``, ``bound_share``, ``x_floor``,
+   ``turns_ms``, ``wide`` (the same at Mixtral's width), ``aims`` and
+   ``ptxas``; K9b with ``any_k_ms`` and ``copy_ms``; K9c with
+   ``baseline_saved_floors``), the ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
+
+Each phase's wall seconds are printed on a line of their own as it ends
+(``phase N: ... s``), and at the start of phase 19 those of the phases
+on gloo ranks (10, 15-18) and of all phases together.
 
 One phase of 3 alone, for a short run on the card (the kernels it needs
 are built at first use)::
@@ -431,8 +441,8 @@ def random_jax_variables(template: dict, seed: int) -> dict:
 
 def demangled(mangled: str) -> str:
     """A kernel's mangled name as ``name<template arguments>``: the last
-    length-prefixed name, then its type (``f32``, ``bf16``) and integer
-    arguments."""
+    length-prefixed name, then its type (``f32``, ``bf16``) and integer and
+    bool (0, 1) arguments."""
     if not mangled.startswith("_Z"):
         return mangled
     i, name = (3 if mangled.startswith("_ZN") else 2), mangled
@@ -446,7 +456,7 @@ def demangled(mangled: str) -> str:
         return name
     targs = rest[1:rest.index("EE") + 1]
     args = [t for t, pat in (("f32", r"^f"), ("bf16", r"^13__nv_bfloat16")) if re.match(pat, targs)]
-    return f"{name}<{','.join(args + re.findall(r'Li(\d+)E', targs))}>"
+    return f"{name}<{','.join(args + re.findall(r'L[ib](\d+)E', targs))}>"
 
 
 def ptxas_table(text: str) -> dict:
@@ -627,13 +637,17 @@ BASELINE_K9 = Path(__file__).resolve().parent / "tests" / "csrc" / "moe_gating_b
 #: K9b's generic loop over the top-k at any K (the port's own source,
 #: included), tf_moe_combine_any_k: the yardstick of its top-k instances
 ANY_K_K9B = Path(__file__).resolve().parent / "tests" / "csrc" / "moe_combine_any_k.cu"
+#: the combine's backward before K9c was folded into it: the scaled
+#: dispatch, then the gate gradient, tf_moe_{dispatch_scaled,gate_grad}_baseline
+BASELINE_K9C = Path(__file__).resolve().parent / "tests" / "csrc" / "moe_gate_grad_baseline.cu"
 
 
 def start_baseline_build(source: Path = BASELINE_CE):
     """Start ``nvcc`` on a baseline kernel source (the K2 design before
     saved row statistics, ``BASELINE_CE``, K6's FMA design,
-    ``BASELINE_K6``, K9a and K9b before their redesign, ``BASELINE_K9``, or
-    K9b's generic loop, ``ANY_K_K9B``) with the port's flags, beside
+    ``BASELINE_K6``, K9a and K9b before their redesign, ``BASELINE_K9``,
+    K9b's generic loop, ``ANY_K_K9B``, or the combine's backward as two
+    launches, ``BASELINE_K9C``) with the port's flags, beside
     :func:`build.build`'s; :func:`baseline_library` waits for it.  The
     library's name hashes the source, the files it includes by a relative
     ``#include "..."`` and the flags.  Returns ``(source, process or None,
@@ -662,7 +676,9 @@ def baseline_library(handle, timeout_s: float = 600.0):
     """The built baseline library, its C signatures declared (K2's: the ones
     without statistics; K6's: those of ``ops/blockwise_attention.py``;
     K9's: dispatch and combine as ``ops/moe_gating.py`` declared them
-    before the dispatch took ``count``; K9b's generic loop: the combine's).
+    before the dispatch took ``count``; K9b's generic loop: the combine's;
+    K9c's pair: the scaled dispatch and the gate gradient as
+    ``ops/moe_gating.py`` declared them before K9c was folded).
     The ``ptxas`` lines of its build, if it was built here, are in
     ``lib.build_log``."""
     import ctypes
@@ -695,6 +711,13 @@ def baseline_library(handle, timeout_s: float = 600.0):
     if source == ANY_K_K9B:
         lib.tf_moe_combine_any_k.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]  # as tf_moe_combine
         lib.tf_moe_combine_any_k.restype = i32
+        return lib
+    if source == BASELINE_K9C:
+        # N K D capacity (E_local) dtype stream
+        lib.tf_moe_dispatch_scaled_baseline.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
+        lib.tf_moe_gate_grad_baseline.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
+        lib.tf_moe_dispatch_scaled_baseline.restype = i32
+        lib.tf_moe_gate_grad_baseline.restype = i32
         return lib
     lib.tf_cross_entropy_fwd.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
     lib.tf_cross_entropy_bwd.argtypes = [ptr] * 3 + [ctypes.c_longlong, ptr] + [i32] * 4 + [ptr]
@@ -3295,6 +3318,8 @@ def _spawn(target, world: int, args: tuple, timeout_s: float, what: str,
                 p.kill()
                 p.join()
     check(not hung, f"{what}: ranks {hung} hung past {timeout_s} s")
+    log(f"  ({what}: {world} spawned ranks, {time.perf_counter() - t0:.1f} s from their start "
+        "to their end)")
     res = []
     for r in range(world):
         f = Path(tmp, f"rank{r}.json")
@@ -5929,7 +5954,7 @@ EX06_ARGV = ["--epochs", "1", "--train-samples", "64", "--batch-size", "16"]
 EX06_LAYERS = 2  # example 06's default --layers
 K6_NAMES = ("blockwise_attention_fwd", "blockwise_attention_bwd_dq",
             "blockwise_attention_bwd_dkv")
-K9_NAMES = ("moe_dispatch", "moe_combine", "moe_gate_grad")
+K9_NAMES = ("moe_dispatch", "moe_combine", "moe_combine_backward")
 
 
 def _sp_counters():
@@ -5940,13 +5965,13 @@ def _sp_counters():
         blockwise_attention_bwd_dq,
         blockwise_attention_fwd,
     )
-    from tpuframe_torch.ops.moe_gating import moe_combine, moe_dispatch, moe_gate_grad
+    from tpuframe_torch.ops.moe_gating import moe_combine, moe_combine_backward, moe_dispatch
 
     return {**_tp_counters(), "blockwise_attention_fwd": blockwise_attention_fwd,
             "blockwise_attention_bwd_dq": blockwise_attention_bwd_dq,
             "blockwise_attention_bwd_dkv": blockwise_attention_bwd_dkv,
             "moe_dispatch": moe_dispatch, "moe_combine": moe_combine,
-            "moe_gate_grad": moe_gate_grad}
+            "moe_combine_backward": moe_combine_backward}
 
 
 def _sp_batch(cfg: dict, batch: int, dev: torch.device, seed: int) -> dict:
@@ -6222,14 +6247,15 @@ def sp_examples(card: str, workdir: Path) -> dict:
         c = counts[0] if counts else {}
         check(math.isfinite(metrics["train_loss"]), f"example 06 {name}: {metrics}")
         # rank 0 of each run: K6 once a layer (Ulysses; the ring's first rank
-        # holds the diagonal tile alone), K9 per MoE layer: dispatch and
-        # combine twice, the gate gradient once
+        # holds the diagonal tile alone), K9 per MoE layer: the dispatch
+        # once, the combine twice (its forward, the dispatch's backward),
+        # the combine's backward once
         ring_or_ulysses = "full" not in name
         moe = "moe" in name
         per = EX06_LAYERS * steps
         want = {n: per if ring_or_ulysses else 0 for n in K6_NAMES}
-        want.update({"moe_dispatch": 2 * per if moe else 0, "moe_combine": 2 * per if moe else 0,
-                     "moe_gate_grad": per if moe else 0})
+        want.update({"moe_dispatch": per if moe else 0, "moe_combine": 2 * per if moe else 0,
+                     "moe_combine_backward": per if moe else 0})
         got = {n: c.get(n) for n in want}
         check(got == want or not torch.cuda.is_available(),
               f"example 06 {name}: rank 0's launches {got} != {want}")
@@ -6338,8 +6364,8 @@ def sp_phase(card: str, timeout_s: float = 900.0, device: str = "cuda:0", cfg: d
     want = {"cross_entropy_fwd": 0, "cross_entropy_bwd": 0,
             "layer_norm_fwd": (2 * moe_layers + 1) * steps,
             "layer_norm_bwd": (2 * moe_layers + 1) * steps, "fused_adamw": steps,
-            **{n: 0 for n in K6_NAMES}, "moe_dispatch": 2 * moe_layers * steps,
-            "moe_combine": 2 * moe_layers * steps, "moe_gate_grad": moe_layers * steps}
+            **{n: 0 for n in K6_NAMES}, "moe_dispatch": moe_layers * steps,
+            "moe_combine": 2 * moe_layers * steps, "moe_combine_backward": moe_layers * steps}
     for r, o in enumerate(resm):
         check(o["launches"] == want or not cuda, f"(c) rank {r}: launches {o['launches']} != "
               f"{want}")
@@ -6392,48 +6418,67 @@ def _moe_case(dev, dtype, n, d, e, k, capacity, e0, e_local, seed):
 
 
 def dispatch_profile() -> dict:
-    """The device operations of one ``_Dispatch.apply`` at the MoE path's
-    shape (a rank's 4,096 tokens x 768 bf16, experts 4..7 of 8, top 2) by
-    ``torch.profiler``: ``{kernel name: launches}``."""
+    """The device operations of one ``_Dispatch.apply`` and of one
+    ``_Combine`` backward (``torch.autograd.grad`` of its output) at the MoE
+    path's shape (a rank's 4,096 tokens x 768 bf16, experts 4..7 of 8, top
+    2) by ``torch.profiler``: ``{"dispatch": {kernel: launches},
+    "combine_backward": {...}}``, each kernel by the profiler's demangled
+    name (its template arguments included)."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
-    from tpuframe_torch.ops.moe_gating import _Dispatch
+    from tpuframe_torch.ops.moe_gating import _Combine, _Dispatch
 
     dev = torch.device("cuda")
     n, d, e, k, e_local = MOE_BATCH // 2 * LM["max_len"], LM["num_heads"] * LM["head_dim"], 8, 2, 4
     capacity = max(1, int(-(-(k * n * 2) // e) * 1.25))
-    e_loc, slot, count, src, _, _ = _moe_case(dev, torch.bfloat16, n, d, e, k, capacity, e_local,
-                                              e_local, seed=25)
+    e_loc, slot, count, src, g, w = _moe_case(dev, torch.bfloat16, n, d, e, k, capacity,
+                                              e_local, e_local, seed=25)
     rows = min(capacity, k * n)
-    _Dispatch.apply(src, e_loc, slot, count, e_local, rows)
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _Dispatch.apply(src, e_loc, slot, count, e_local, rows)
+    buf = _Dispatch.apply(src, e_loc, slot, count, e_local, rows).detach().requires_grad_(True)
+    w = w.requires_grad_(True)
+    out = _Combine.apply(buf, w, e_loc, slot, count, n)
+
+    def device_ops(fn) -> dict:
+        fn()
         torch.cuda.synchronize()
-    return {kernel_name(ev.key): ev.count for ev in prof.key_averages()
-            if str(ev.device_type).endswith("CUDA")}
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return {ev.key: ev.count for ev in prof.key_averages()
+                if str(ev.device_type).endswith("CUDA")}
+
+    return {"dispatch": device_ops(lambda: _Dispatch.apply(src, e_loc, slot, count, e_local,
+                                                           rows)),
+            "combine_backward": device_ops(lambda: torch.autograd.grad(
+                out, (buf, w), g, retain_graph=True))}
 
 
-def moe_kernel_phase(floor_ms: float, baseline, any_k) -> list[dict]:
+def moe_kernel_phase(floor_ms: float, baseline, any_k, baseline_k9c) -> list[dict]:
     """(e) K9a-K9c against their plain versions on random inputs: at the
     MoE path's shape (a rank's 4,096 tokens, D 768, bf16, 8 experts of which
     4 are held, top 2, capacity 2,560), small in f32, at both expert
-    offsets, and at Mixtral's width (``MOE_WIDE``); K9a and K9b bit-equal,
-    K9c within 1e-5 of the largest dot.  K9a writes a NaN-filled buffer
-    whole: the plain version's zero-filled result.  The kernels before
-    the redesign (``baseline``, ``BASELINE_K9``) and K9b's generic loop at
-    top 2 (``any_k``, ``ANY_K_K9B``) give the same bits.  A profiled
-    ``_Dispatch`` launches K9a alone (no zero fill; :func:`dispatch_profile`
-    in a fresh process).  Timed at the path's
+    offsets, and at Mixtral's width (``MOE_WIDE``); K9a, K9b and K9c's
+    ``dbuf`` bit-equal, K9c's ``dgate`` within 1e-5 of the largest dot and
+    +0.0 bit for bit where a slot is not held, bit-equal on a rerun and for
+    the same (g, buf) row pair at two slots of other blocks.  K9a writes a
+    NaN-filled buffer whole, and K9c NaN-filled outputs: the
+    plain versions' zero-filled results.  The kernels
+    before the redesign (``baseline``, ``BASELINE_K9``; ``baseline_k9c``,
+    ``BASELINE_K9C``, the scaled dispatch then the gate gradient) and K9b's
+    generic loop at top 2 (``any_k``, ``ANY_K_K9B``) give the same bits
+    (the old gate gradient within 1e-5).  A profiled ``_Dispatch`` launches
+    K9a alone (no zero fill) and a profiled ``_Combine`` backward K9c alone
+    (:func:`dispatch_profile` in a fresh process).  Timed at the path's
     shape and at the wide one, in turns, beside the plain versions, the
-    baseline kernels (K9a as the whole dispatch it was: ``zero_()`` of the buffer,
-    then its kernel), the library calls (K9a: ``index_put_``, which writes
-    the held rows; K9b: ``F.embedding_bag`` in sum mode with the weights
-    in bf16, as it requires) and, for K9b, its generic loop and a
-    ``copy_`` of an (N, D) tensor (as many bytes as K9b moves, or more:
-    what a bare copy takes at that size).  Then K6's float32 partials at
-    the ring's (2, 2048, 12, 64) bf16, causal and not: rounded to bf16
-    they are the default launch's bits."""
+    baseline kernels (K9a as the whole dispatch it was: ``zero_()`` of the
+    buffer, then its kernel; K9c as the pair it replaces), the library
+    calls (K9a: ``index_put_``, which writes the held rows; K9b:
+    ``F.embedding_bag`` in sum mode with the weights in bf16, as it
+    requires) and, for K9b, its generic loop and a ``copy_`` of an (N, D)
+    tensor (as many bytes as K9b moves, or more: what a bare copy takes at
+    that size).  Then K6's float32 partials at the ring's (2, 2048, 12, 64)
+    bf16, causal and not: rounded to bf16 they are the default launch's
+    bits."""
     import torch.nn.functional as F
 
     from tpuframe_torch.ops.blockwise_attention import (
@@ -6444,10 +6489,10 @@ def moe_kernel_phase(floor_ms: float, baseline, any_k) -> list[dict]:
     from tpuframe_torch.ops.moe_gating import (
         _CODES,
         moe_combine,
+        moe_combine_backward,
         moe_combine_reference,
         moe_dispatch,
         moe_dispatch_reference,
-        moe_gate_grad,
         moe_gate_grad_reference,
     )
 
@@ -6488,9 +6533,23 @@ def moe_kernel_phase(floor_ms: float, baseline, any_k) -> list[dict]:
         check(rc == 0, f"K9b's generic loop failed to launch: CUDA error {rc}")
         return out
 
+    def old_backward(g, buf, w, e_loc, slot, count, dbuf, dgate):
+        """The pair K9c replaces: the scaled dispatch into dbuf, then the
+        gate gradient into dgate."""
+        n_, args = g.shape[0], (e_loc.numel() // g.shape[0], g.shape[1], buf.shape[1])
+        rc = baseline_k9c.tf_moe_dispatch_scaled_baseline(
+            g.data_ptr(), dbuf.data_ptr(), e_loc.data_ptr(), slot.data_ptr(), w.data_ptr(),
+            count.data_ptr(), n_, *args, buf.shape[0], _CODES[g.dtype], stream())
+        check(rc == 0, f"baseline scaled K9a launch failed: CUDA error {rc}")
+        rc = baseline_k9c.tf_moe_gate_grad_baseline(
+            g.data_ptr(), buf.data_ptr(), e_loc.data_ptr(), slot.data_ptr(), dgate.data_ptr(),
+            n_, *args, _CODES[g.dtype], stream())
+        check(rc == 0, f"baseline K9c launch failed: CUDA error {rc}")
+        return dbuf, dgate
+
     t_start = time.perf_counter()
-    # the _Dispatch profile runs in a fresh process, beside the checks below:
-    # after the earlier phases this process's profiler saw no device events
+    # the profiles run in a fresh process, beside the checks below: after
+    # the earlier phases this process's profiler saw no device events
     profiler = subprocess.Popen(
         [sys.executable, "-c", "import json, chip_smoke as cs; "
          "print(json.dumps(cs.dispatch_profile()))"],
@@ -6499,7 +6558,7 @@ def moe_kernel_phase(floor_ms: float, baseline, any_k) -> list[dict]:
     err = {name: 0.0 for name in K9_NAMES}
 
     def check_all():
-        """K9a-K9c against the plain versions and the baseline at each shape."""
+        """K9a-K9c against the plain versions and the baselines at each shape."""
         cases = [("path", bf16, n, d, e, e_local, capacity, (0, e_local)),
                  ("small", torch.float32, 300, 96, 6, 3, 60, (0, 3)),
                  ("wide", bf16, nw, dw, ew, ew, cap_w, (0,))]
@@ -6516,37 +6575,70 @@ def moe_kernel_phase(floor_ms: float, baseline, any_k) -> list[dict]:
                 want_buf = moe_dispatch_reference(
                     src, torch.zeros(shape, dtype=dtype, device=dev), e_loc, slot, count=count)
                 plain_nan = moe_dispatch_reference(src, nan_buf(), e_loc, slot, count=count)
-                scaled = moe_dispatch(g, nan_buf(), e_loc, slot, scale=w, count=count)
-                want_scaled = moe_dispatch_reference(g, nan_buf(), e_loc, slot, scale=w,
-                                                     count=count)
                 old_buf = old_dispatch(src, nan_buf(), e_loc, slot)
                 comb, want_comb = (moe_combine(buf, w, e_loc, slot, nn_),
                                    moe_combine_reference(buf, w, e_loc, slot, nn_))
                 old_comb = old_combine(buf, w, e_loc, slot, torch.empty_like(comb))
                 any_comb = any_k_combine(buf, w, e_loc, slot, torch.empty_like(comb))
-                dg, want_dg = (moe_gate_grad(g, buf, e_loc, slot),
-                               moe_gate_grad_reference(g, buf, e_loc, slot))
+                # K9c into NaN-filled outputs, then again; the plain pair into
+                # a NaN-filled buffer; the baseline pair
+                dbuf, dg = moe_combine_backward(g, buf, w, e_loc, slot, count, nan_buf(),
+                                                torch.empty(k * nn_, device=dev).fill_(nan))
+                dbuf2, dg2 = moe_combine_backward(g, buf, w, e_loc, slot, count,
+                                                  torch.empty_like(dbuf), torch.empty_like(dg))
+                want_dbuf = moe_dispatch_reference(g, nan_buf(), e_loc, slot, w, count=count)
+                want_dg = moe_gate_grad_reference(g, buf, e_loc, slot)
+                old_dbuf, old_dg = old_backward(g, buf, w, e_loc, slot, count, nan_buf(),
+                                                torch.empty_like(want_dg).fill_(nan))
+                # the same (g, buf) row pair at the first and the last held slot
+                held_f = (e_loc >= 0).nonzero()[:, 0]
+                f1, f2 = int(held_f[0]), int(held_f[-1])
+                g_pair, buf_pair = g.clone(), buf.clone()
+                g_pair[f2 % nn_] = g_pair[f1 % nn_]
+                buf_pair[int(e_loc[f2]), int(slot[f2])] = buf_pair[int(e_loc[f1]), int(slot[f1])]
+                _, dg_pair = moe_combine_backward(g_pair, buf_pair, w, e_loc, slot, count,
+                                                  torch.empty_like(dbuf), torch.empty_like(dg))
                 torch.cuda.synchronize()
                 check(torch.equal(plain_nan, want_buf), f"plain K9a {name} e0={e0}: a "
                       "NaN-filled buffer does not give the zero-filled result")
-                check(torch.equal(buf, want_buf) and torch.equal(scaled, want_scaled),
-                      f"K9a {name} e0={e0}: not bit-equal to the plain version")
+                check(torch.equal(buf, want_buf), f"K9a {name} e0={e0}: not bit-equal to the "
+                      "plain version")
                 check(torch.equal(comb, want_comb), f"K9b {name} e0={e0}: not bit-equal")
                 check(torch.equal(any_comb, want_comb),
                       f"K9b's generic loop {name} e0={e0}: not bit-equal")
                 check(torch.equal(old_buf, want_buf) and torch.equal(old_comb, want_comb),
                       f"baseline K9a/K9b {name} e0={e0}: not the plain versions' bits")
+                check(not dbuf.isnan().any() and not dg.isnan().any()
+                      and torch.equal(dbuf, want_dbuf),
+                      f"K9c {name} e0={e0}: dbuf not bit-equal to the plain version")
+                check(torch.equal(dbuf2, dbuf) and torch.equal(dg2.view(torch.int32),
+                                                               dg.view(torch.int32)),
+                      f"K9c {name} e0={e0}: a rerun gave other bits")
+                not_held = e_loc < 0
+                check(not bool(dg[not_held].view(torch.int32).any()),
+                      f"K9c {name} e0={e0}: dgate not +0.0 where a slot is not held")
+                pair = dg_pair[[f1, f2]].view(torch.int32)
+                check(f1 // 16 != f2 // 16 and int(pair[0]) == int(pair[1]),
+                      f"K9c {name} e0={e0}: the same row pair at slots {f1} and {f2} gave "
+                      f"{dg_pair[[f1, f2]].tolist()}")
+                check(torch.equal(old_dbuf, want_dbuf),
+                      f"baseline scaled K9a {name} e0={e0}: not the plain version's bits")
+                tol = 1e-5 * max(1.0, float(want_dg.abs().max()))
                 e9c = float((dg - want_dg).abs().max())
-                check(e9c <= 1e-5 * max(1.0, float(want_dg.abs().max())),
-                      f"K9c {name} e0={e0}: {e9c:.3g} from the plain version")
-                err["moe_gate_grad"] = max(err["moe_gate_grad"], e9c)
+                e9c_old = float((old_dg - want_dg).abs().max())
+                check(e9c <= tol, f"K9c {name} e0={e0}: dgate {e9c:.3g} from the plain version")
+                check(e9c_old <= tol, f"baseline K9c {name} e0={e0}: {e9c_old:.3g} from the "
+                      "plain version")
+                err["moe_combine_backward"] = max(err["moe_combine_backward"], e9c)
                 log(f"  MoE kernels {name} ({nn_} tokens, D {dd}, "
                     f"{str(dtype).removeprefix('torch.')}, experts {e0}..{e0 + el - 1} of {ee}, "
                     f"{int((e_loc >= 0).sum())} of {k * nn_} slots held here, {shape[1]} rows an "
-                    f"expert): K9a (into NaN-filled buffers) and K9b bit-equal to their plain "
-                    f"versions and to the baseline's (K9b also through its generic loop), "
-                    f"K9c within {e9c:.3g}")
-                del buf, want_buf, plain_nan, scaled, want_scaled, old_buf
+                    f"expert): K9a (into NaN-filled buffers), K9b and K9c's dbuf bit-equal to "
+                    f"their plain versions and to the baselines' (K9b also through its generic "
+                    f"loop); K9c's dgate within {e9c:.3g} (the baseline's {e9c_old:.3g}), +0.0 "
+                    f"at the slots not held, a rerun and the row pair at slots {f1} and {f2} "
+                    f"bit-equal")
+                del buf, want_buf, plain_nan, old_buf, dbuf, dbuf2, want_dbuf, old_dbuf, buf_pair
         torch.cuda.empty_cache()
 
     try:
@@ -6556,27 +6648,35 @@ def moe_kernel_phase(floor_ms: float, baseline, any_k) -> list[dict]:
         if profiler.poll() is None:
             profiler.kill()
             profiler.wait()
-    # one _Dispatch launches K9a alone: no zero fill beside it
-    check(profiler.returncode == 0, f"the _Dispatch profile failed:\n{out_text}\n{err_text}")
-    device_ops = json.loads(out_text.strip().splitlines()[-1])
-    log(f"  profile of one _Dispatch.apply at the path's shape: device operations {device_ops}")
-    check(device_ops == {"dispatch_kernel": 1},
-          f"one _Dispatch launched {device_ops}, not K9a alone")
+    # one _Dispatch launches K9a alone (no zero fill beside it), one
+    # _Combine backward K9c alone (the backward instance of its template)
+    check(profiler.returncode == 0, f"the MoE profiles failed:\n{out_text}\n{err_text}")
+    prof = json.loads(out_text.strip().splitlines()[-1])
+    log(f"  profile at the path's shape: one _Dispatch.apply {prof['dispatch']}; one _Combine "
+        f"backward {prof['combine_backward']}")
+    for which, backward in (("dispatch", False), ("combine_backward", True)):
+        names = {kernel_name(key): c for key, c in prof[which].items()}
+        check(names == {"dispatch_kernel": 1}
+              and all(("true>" in key) == backward for key in prof[which]),
+              f"one {which} launched {prof[which]}, not {'K9c' if backward else 'K9a'} alone")
     t_checked = time.perf_counter()
 
-    def timed(label, dtype, nn_, dd, ee, el, cap, e0, seed, gate_grad):
-        """K9a-K9b (and K9c) at one shape: each arm's time, in turns, the
-        better of two medians kept."""
+    def timed(label, dtype, nn_, dd, ee, el, cap, e0, seed):
+        """K9a-K9c at one shape: each arm's time, in turns, the better of
+        two medians kept."""
         e_loc, slot, count, src, g, w = _moe_case(dev, dtype, nn_, dd, ee, k, cap, e0, el, seed)
         shape = (el, min(cap, k * nn_), dd)
         buf = moe_dispatch(src, torch.empty(shape, dtype=dtype, device=dev), e_loc, slot,
                            count=count)
-        dst, dst_old = (torch.empty(shape, dtype=dtype, device=dev) for _ in range(2))
+        dst, dst_old, dbuf_old = (torch.empty(shape, dtype=dtype, device=dev) for _ in range(3))
+        dgate_old, dgate_new = (torch.empty(k * nn_, dtype=torch.float32, device=dev)
+                                for _ in range(2))
         out_old, out_any, copy_dst = (torch.empty((nn_, dd), dtype=dtype, device=dev)
                                       for _ in range(3))
         sel = (e_loc >= 0).nonzero()[:, 0]
         put_idx, put_src = (e_loc[sel].long(), slot[sel].long()), src[sel % nn_]
         held = int(sel.numel())
+        held_tok = int((e_loc.view(k, nn_) >= 0).any(0).sum())  # tokens with a held slot
         # embedding_bag: token n's bag is its k rows of the flattened buffer,
         # a slot not held here row 0 at weight 0 (the buffer is finite)
         bag_idx = (e_loc.clamp(min=0).long() * shape[1] + slot.long()).view(k, nn_).t()
@@ -6605,18 +6705,27 @@ def moe_kernel_phase(floor_ms: float, baseline, any_k) -> list[dict]:
                 "copy": lambda: copy_dst.copy_(src),
                 "plain": lambda: moe_combine_reference(buf, w, e_loc, slot, nn_),
                 "library": bag},
+            "moe_combine_backward": {
+                "kernel": lambda: moe_combine_backward(g, buf, w, e_loc, slot, count, dst,
+                                                       dgate_new),
+                "baseline": lambda: old_backward(g, buf, w, e_loc, slot, count, dbuf_old,
+                                                 dgate_old),
+                "plain": lambda: (moe_dispatch_reference(g, dst, e_loc, slot, w, count=count),
+                                  moe_gate_grad_reference(g, buf, e_loc, slot))},
         }
-        if gate_grad:
-            arms["moe_gate_grad"] = {
-                "kernel": lambda: moe_gate_grad(g, buf, e_loc, slot),
-                "plain": lambda: moe_gate_grad_reference(g, buf, e_loc, slot)}
         row_b, desc_b = dd * src.element_size(), 8 * k * nn_  # a row; e_loc and slot
         buf_b = shape[0] * shape[1] * row_b
-        # K9a reads the held rows and the counts and writes the whole buffer
+        # K9a reads the held rows and the counts and writes the whole buffer;
+        # K9c reads g's rows of the tokens with a held slot (once, though
+        # the kernel reads a token's row for each of its held slots), buf's
+        # held rows, the weights and the counts, and writes the whole dbuf
+        # and dgate
         moved = {"moe_dispatch": held * row_b + buf_b + desc_b + 4 * el,
                  "moe_combine": held * row_b + 4 * k * nn_ + desc_b + nn_ * row_b,
-                 "moe_gate_grad": 2 * held * row_b + desc_b + 4 * k * nn_}
-        flops = {"moe_dispatch": 0, "moe_combine": 2 * held * dd, "moe_gate_grad": 2 * held * dd}
+                 "moe_combine_backward": (held_tok + held) * row_b + buf_b + desc_b + 4 * el
+                 + 2 * 4 * k * nn_}
+        flops = {"moe_dispatch": 0, "moe_combine": 2 * held * dd,
+                 "moe_combine_backward": 3 * held * dd}
         old_moved = buf_b + 2 * held * row_b + desc_b  # the baseline's zero fill, then its K9a
         library = {"moe_dispatch": "index_put_",
                    "moe_combine": f"embedding_bag (bf16 weights, {bag_err:.3g} off)"}
@@ -6634,7 +6743,7 @@ def moe_kernel_phase(floor_ms: float, baseline, any_k) -> list[dict]:
                  "turns_ms": ms,
                  "bound_ms": bound_ms, "bound_by": bound_by, "bytes_moved": moved[which],
                  "bound_share": bound_ms / best["kernel"], "x_floor": best["kernel"] / floor_ms,
-                 "held": held}
+                 "held": held, "held_tokens": held_tok}
             if which == "moe_combine":
                 t.update(any_k_ms=best["any_k"], copy_ms=best["copy"],
                          copy_bytes_moved=2 * nn_ * row_b, library_bf16_weights_err=bag_err)
@@ -6642,20 +6751,26 @@ def moe_kernel_phase(floor_ms: float, baseline, any_k) -> list[dict]:
                 t["baseline_bytes_moved"] = old_moved
                 t["baseline_bound_ms"] = old_moved / HBM_BYTES_PER_S * 1e3
                 t["baseline_kernel_bytes_moved"] = 2 * held * row_b + desc_b
+            if which == "moe_combine_backward":
+                t["baseline_saved_floors"] = (best["baseline"] - best["kernel"]) / floor_ms
             out[which] = t
+            base_name = {"moe_dispatch": "zero fill + K9a", "moe_combine": "K9b",
+                         "moe_combine_backward": "pair (scaled K9a, then K9c)"}[which]
             log(f"  {which} at the {label} shape ({nn_} tokens x {dd} "
-                f"{str(dtype).removeprefix('torch.')}, {held} slots held, buffer "
-                f"{buf_b / 1e6:.1f} MB): kernel {t['ms'] * 1e3:.2f} us "
+                f"{str(dtype).removeprefix('torch.')}, {held} slots of {held_tok} tokens held, "
+                f"buffer {buf_b / 1e6:.1f} MB): kernel {t['ms'] * 1e3:.2f} us "
                 f"({t['bound_share']:.0%} of its bound {bound_ms * 1e3:.2f} us, "
                 f"{moved[which] / 1e6:.2f} MB at 3.35 TB/s; {t['x_floor']:.2f}x the floor "
-                f"{floor_ms * 1e3:.2f} us)"
-                + (f", baseline {'zero fill + K9a' if which == 'moe_dispatch' else 'K9b'} "
-                   f"{t['baseline_ms'] * 1e3:.2f} us ({t['baseline_ms'] / t['ms']:.2f}x)"
-                   if t["baseline_ms"] else "")
+                f"{floor_ms * 1e3:.2f} us), baseline {base_name} "
+                f"{t['baseline_ms'] * 1e3:.2f} us ({t['baseline_ms'] / t['ms']:.2f}x)"
                 + (f" [its bytes {old_moved / 1e6:.2f} MB, bound "
                    f"{t['baseline_bound_ms'] * 1e3:.2f} us; the baseline K9a alone "
                    f"{t['baseline_kernel_bytes_moved'] / 1e6:.2f} MB]" if which == "moe_dispatch"
                    else "")
+                + (f" [{t['baseline_saved_floors']:.2f} floors saved; turns "
+                   + " / ".join(f"{a} {v[0] * 1e3:.2f}, {v[1] * 1e3:.2f} us"
+                                for a, v in ms.items() if a in ("kernel", "baseline")) + "]"
+                   if which == "moe_combine_backward" else "")
                 + (f", its generic loop {t['any_k_ms'] * 1e3:.2f} us (turns "
                    + " / ".join(f"{a} {v[0] * 1e3:.2f}, {v[1] * 1e3:.2f} us"
                                 for a, v in ms.items() if a in ("kernel", "any_k"))
@@ -6666,9 +6781,9 @@ def moe_kernel_phase(floor_ms: float, baseline, any_k) -> list[dict]:
                    if t["library_ms"] else ""))
         return out
 
-    times = timed("path", bf16, n, d, e, e_local, capacity, e_local, 25, True)
+    times = timed("path", bf16, n, d, e, e_local, capacity, e_local, 25)
     torch.cuda.empty_cache()
-    wide = timed("wide", bf16, nw, dw, ew, ew, cap_w, 0, 26, False)
+    wide = timed("wide", bf16, nw, dw, ew, ew, cap_w, 0, 26)
     torch.cuda.empty_cache()
     aims = {"K9b within 1.5x the floor at the path": times["moe_combine"]["x_floor"] <= 1.5,
             "K9a at least 50 % of its bound at the path":
@@ -6676,7 +6791,13 @@ def moe_kernel_phase(floor_ms: float, baseline, any_k) -> list[dict]:
             "K9a at least 50 % of its bound at the wide shape":
                 wide["moe_dispatch"]["bound_share"] >= 0.5,
             "K9b at least 50 % of its bound at the wide shape":
-                wide["moe_combine"]["bound_share"] >= 0.5}
+                wide["moe_combine"]["bound_share"] >= 0.5,
+            "K9c at least 50 % of its bound at the path":
+                times["moe_combine_backward"]["bound_share"] >= 0.5,
+            "K9c faster than the baseline pair by at least one launch floor at the path":
+                times["moe_combine_backward"]["baseline_saved_floors"] >= 1.0,
+            "K9c at least 70 % of its bound at the wide shape":
+                wide["moe_combine_backward"]["bound_share"] >= 0.7}
     for aim, hit in aims.items():
         log(f"  aim: {aim}: {'hit' if hit else 'missed'}")
     log(f"  (e) K9 checked and profiled in {t_checked - t_start:.1f} s, timed in "
@@ -6704,10 +6825,11 @@ def moe_kernel_phase(floor_ms: float, baseline, any_k) -> list[dict]:
         log(f"  K6a-K6c float32 partials at ({b_}, {l_}, {h_}, {d_}) bf16 causal={causal}: "
             "rounded to bf16, bit-equal to the default launches (out, dq, dk, dv; lse equal)")
     lines = {"moe_dispatch": (137, "K9a"), "moe_combine": (143, "K9b"),
-             "moe_gate_grad": (143, "K9c")}
+             "moe_combine_backward": (143, "K9c")}
     extra = ("baseline_ms", "bound_share", "x_floor", "baseline_bytes_moved",
              "baseline_bound_ms", "baseline_kernel_bytes_moved", "any_k_ms", "copy_ms",
-             "copy_bytes_moved", "library_bf16_weights_err", "turns_ms")
+             "copy_bytes_moved", "library_bf16_weights_err", "baseline_saved_floors",
+             "turns_ms", "held_tokens")
     rows_out = []
     for which in K9_NAMES:
         t = times[which]
@@ -6724,9 +6846,36 @@ def moe_kernel_phase(floor_ms: float, baseline, any_k) -> list[dict]:
             row["wide"] = dict(wide[which], shape=f"{nw} tokens x {dw} bf16, top {kw}, all "
                                f"{ew} experts, {cap_w} rows an expert (Mixtral-8x7B's width)")
         rows_out.append(row)
-    rows_out[0]["aims"] = rows_out[1]["aims"] = aims
+    for row in rows_out:
+        row["aims"] = aims
     del flush
     return rows_out
+
+
+#: the phases whose ranks are gloo processes on the one card: the script's
+#: time varies most there, with the host
+GLOO_PHASES = ("10", "15", "16", "17", "18")
+
+
+class PhaseClock:
+    """Each phase's wall seconds, from its ``== phase`` line to the next."""
+
+    def __init__(self):
+        self.seconds: dict[str, float] = {}
+        self.current, self.since = None, time.perf_counter()
+
+    def start(self, title: str) -> None:
+        self.stop()
+        self.current = title
+        log(f"== phase {title}")
+
+    def stop(self) -> None:
+        """Ends the current phase, printing its seconds on a line of its own."""
+        now = time.perf_counter()
+        if self.current is not None:
+            self.seconds[self.current] = now - self.since
+            log(f"  phase {self.current}: {self.seconds[self.current]:.1f} s")
+        self.current, self.since = None, now
 
 
 def main(argv=None) -> int:
@@ -6736,7 +6885,8 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of phase 14's synthetic image volume")
     args = parser.parse_args(argv)
-    log("== phase 1: device")
+    clock = PhaseClock()
+    clock.start("1: device")
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
         return 2
@@ -6747,6 +6897,16 @@ def main(argv=None) -> int:
         print(f"chip_smoke: {SIMULATE_ENV}={os.environ[SIMULATE_ENV]!r} is set (the request "
               "for CPU workers); unset it to run on the card", file=sys.stderr)
         return 2
+    # Python compiles each module it imports anew where it can neither read
+    # nor write bytecode beside the source: on the card's host every process
+    # compiled all of torch's sources (PERF.md §6), and this script starts
+    # dozens (spawned ranks, the launcher's workers, loader workers).
+    # This process (for what it imports from here on) and the ones it starts
+    # keep their bytecode under build/ instead.
+    pycache = str(Path(__file__).resolve().parent / "build" / "tpuframe_torch" / "pycache")
+    os.environ["PYTHONPYCACHEPREFIX"] = sys.pycache_prefix = pycache
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    sys.dont_write_bytecode = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
@@ -6760,28 +6920,35 @@ def main(argv=None) -> int:
     log(f"  cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
         f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
 
-    log("== phase 2: build")
+    clock.start("2: build")
     from tpuframe_torch.ops import build
 
     t0 = time.perf_counter()
-    # the K2, K6 and K9 baselines' and K9b's generic loop's nvcc run beside the port's
-    baseline, baseline_k6, baseline_k9, any_k = (start_baseline_build(src) for src in (
-        BASELINE_CE, BASELINE_K6, BASELINE_K9, ANY_K_K9B))
+    # the K2, K6, K9 and K9c baselines' and K9b's generic loop's nvcc run
+    # beside the port's
+    baseline, baseline_k6, baseline_k9, any_k, baseline_k9c = (
+        start_baseline_build(src) for src in (BASELINE_CE, BASELINE_K6, BASELINE_K9, ANY_K_K9B,
+                                              BASELINE_K9C))
     report = build.build()
-    baseline, baseline_k6, baseline_k9, any_k = (baseline_library(h) for h in (
-        baseline, baseline_k6, baseline_k9, any_k))
-    log(f"  built {sorted(report)}, the K2, K6 and K9 baselines and K9b's generic loop in "
+    baseline, baseline_k6, baseline_k9, any_k, baseline_k9c = (baseline_library(h) for h in (
+        baseline, baseline_k6, baseline_k9, any_k, baseline_k9c))
+    log(f"  built {sorted(report)}, the K2, K6, K9 and K9c baselines and K9b's generic loop in "
         f"{time.perf_counter() - t0:.2f} s")
     regs = {}
     for name, text in [(n, r["log"]) for n, r in report.items()] + [
             (BASELINE_K6.stem, baseline_k6.build_log),
-            (BASELINE_K9.stem, baseline_k9.build_log)]:
+            (BASELINE_K9.stem, baseline_k9.build_log),
+            (BASELINE_K9C.stem, baseline_k9c.build_log)]:
         regs[name] = ptxas_table(text)
         for fn, t in regs[name].items():
             log(f"  {name}: {fn} {t['registers']} registers, spill stores/loads "
                 f"{t['spill_stores']}/{t['spill_loads']} bytes")
+    if not report["moe_gating"]["cached"]:  # built here: ptxas spoke
+        spills = {fn: t for fn, t in regs["moe_gating"].items()
+                  if t["spill_stores"] or t["spill_loads"]}
+        check(regs["moe_gating"] and not spills, f"moe_gating.cu spills: {spills}")
 
-    log("== phase 3: kernels")
+    clock.start("3: kernels")
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")  # > 50 MB L2
     floor_ms = floor_phase(flush)
     log(f"  launch floor: {floor_ms * 1e3:.2f} us (the empty kernel, CUDA events after the "
@@ -6813,29 +6980,29 @@ def main(argv=None) -> int:
     for fn in k6_counters:  # phases 4 to 10 run no long context: K6 must stay at 0
         fn.launches = 0
 
-    log("== phase 4: serve")
+    clock.start("4: serve")
     serve_launches = slice_phase(card)["launches"]["normalize"]
 
-    log("== phase 5: train")
+    clock.start("5: train")
     train_launches, _ = train_phase(card)
     torch.cuda.empty_cache()
 
-    log("== phase 6: LM train")
+    clock.start("6: LM train")
     lm_launches, _ = lm_phase(card)
     torch.cuda.empty_cache()
 
-    log("== phase 7: checkpoint and resume")
+    clock.start("7: checkpoint and resume")
     checkpoint_phase(card)
     torch.cuda.empty_cache()
 
-    log("== phase 8: compressed data-parallel train")
+    clock.start("8: compressed data-parallel train")
     dp_launches, _ = dp_phase(card)
     torch.cuda.empty_cache()
 
-    log("== phase 9: two ranks on one card")
+    clock.start("9: two ranks on one card")
     two_rank_phase(card)
 
-    log("== phase 10: uncompressed data parallelism on one card")
+    clock.start("10: uncompressed data parallelism on one card")
     ddp = ddp_phase(card)
     k6_early = [fn.launches for fn in k6_counters]
     log(f"  K6 launches over phases 4 to 10 in this process: {k6_early} (each rank of phase 10: "
@@ -6843,11 +7010,11 @@ def main(argv=None) -> int:
     check(k6_early == [0, 0, 0], f"K6 launched {k6_early} times in phases 4 to 10")
     torch.cuda.empty_cache()
 
-    log("== phase 11: ViT serve")
+    clock.start("11: ViT serve")
     vit = vit_serve_phase(card)
     torch.cuda.empty_cache()
 
-    log("== phase 12: long-context LM train")
+    clock.start("12: long-context LM train")
     long_launches, long = long_context_phase(card)
     torch.cuda.empty_cache()
 
@@ -6880,30 +7047,30 @@ def main(argv=None) -> int:
     k3a["launches_vit_serve"] = vit["launches"]["layer_norm_fwd"]
     k3a["launches_long_ctx"] = long_launches["long_ctx"]["layer_norm_fwd"]
 
-    log("== phase 13: launcher")
+    clock.start("13: launcher")
     launcher_phase(card)
     torch.cuda.empty_cache()
 
-    log("== phase 14: streaming")
+    clock.start("14: streaming")
     stream_launches, _ = streaming_phase(card, seed=args.seed)
     for k, name in ((k1, "normalize"), (k2a, "cross_entropy_fwd"), (k2b, "cross_entropy_bwd")):
         k["launches_streaming"] = stream_launches[name]
     torch.cuda.empty_cache()
 
-    log("== phase 15: overlapped and fused data parallelism on one card")
+    clock.start("15: overlapped and fused data parallelism on one card")
     overlap = overlap_phase(card)
     for k, name in ((k5a, "bucket_abs_max"), (k5b, "quant_encode"), (k5c, "quant_decode")):
         k["launches_grouped"] = overlap["launches"][name]
     torch.cuda.empty_cache()
 
-    log("== phase 16: ZeRO on one card")
+    clock.start("16: ZeRO on one card")
     zero = zero_phase(card)
     k4["launches_zero"] = {n: v["fused_adamw"] for n, v in zero["launches"].items()}
     for k, name in ((k5a, "bucket_abs_max"), (k5b, "quant_encode"), (k5c, "quant_decode")):
         k["launches_zero_int8"] = zero["launches"]["zero_2_int8"][name]
     torch.cuda.empty_cache()
 
-    log("== phase 17: tensor and pipeline parallelism on one card")
+    clock.start("17: tensor and pipeline parallelism on one card")
     tp = tp_phase(card)
     for k, name in ((k2a, "cross_entropy_fwd"), (k2b, "cross_entropy_bwd"),
                     (k3a, "layer_norm_fwd"), (k3b, "layer_norm_bwd"), (k4, "fused_adamw")):
@@ -6913,7 +7080,7 @@ def main(argv=None) -> int:
             k["launches_example07_tp2"] = tp["example07"]["launches"][name]
     torch.cuda.empty_cache()
 
-    log("== phase 18: sequence parallelism and MoE on one card")
+    clock.start("18: sequence parallelism and MoE on one card")
     sp = sp_phase(card)
     ex06 = sp.get("example06", {})
     for k, name in zip((k6a, k6b, k6c), K6_NAMES):
@@ -6921,16 +7088,22 @@ def main(argv=None) -> int:
         k["launches_ulysses"] = [r[name] for r in sp["launches_ulysses"]]
         k["launches_example06"] = {run: v["launches"][name] for run, v in ex06.items()}
     torch.cuda.empty_cache()
-    k9a, k9b, k9c = moe_kernel_phase(floor_ms, baseline_k9, any_k)
-    for k, fn in ((k9a, "dispatch_kernel"), (k9b, "combine_kernel")):
-        k["ptxas"] = {f: t for f, t in regs["moe_gating"].items() if f.startswith(fn)}
+    t18e = time.perf_counter()
+    k9a, k9b, k9c = moe_kernel_phase(floor_ms, baseline_k9, any_k, baseline_k9c)
+    log(f"  (e) in {time.perf_counter() - t18e:.1f} s")
+    for k, fn in ((k9a, "dispatch_kernel<"), (k9b, "combine_kernel"), (k9c, "dispatch_kernel<")):
+        k["ptxas"] = {f: t for f, t in regs["moe_gating"].items() if f.startswith(fn)
+                      and (fn != "dispatch_kernel<" or f.endswith(",1>") == (k is k9c))}
     for k in (k9a, k9b, k9c):
         k["launches"] = sp["launches_moe"][0][k["name"]]  # rank 0 of the MoE LM's bf16 steps
         k["launches_moe"] = [r[k["name"]] for r in sp["launches_moe"]]
         k["launches_example06"] = {run: v["launches"][k["name"]] for run, v in ex06.items()}
     torch.cuda.empty_cache()
 
-    log("== phase 19: result")
+    clock.start("19: result")
+    gloo = sum(v for t, v in clock.seconds.items() if t.split(":")[0] in GLOO_PHASES)
+    log(f"  phases {', '.join(GLOO_PHASES)} (gloo ranks on the card): {gloo:.1f} s; all "
+        f"phases: {sum(clock.seconds.values()):.1f} s")
     kernels = [k1, k2a, k2b, k3a, k3b, k4, k5a, k5b, k5c, k6a, k6b, k6c, k9a, k9b, k9c]
     for k in kernels:
         k["floor_ms"] = floor_ms  # beside bound_ms, which stays the byte or operation bound

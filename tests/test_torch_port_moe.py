@@ -8,8 +8,10 @@ with the same numpy-seeded inputs and weights.
   1 included, and at top 1, 4 (D = 100) and 8; the gradients of tokens,
   gate values, ``w_in`` and ``w_out`` against ``jax.grad``.  Float32
   within 1e-5.
-- The dispatch's folded zero fill: the plain K9a into a NaN-filled buffer
-  is the zero-filled result bit for bit, and ``_descriptors`` gives each
+- The dispatch's folded zero fill: the plain K9a into a NaN-filled buffer,
+  and the plain K9c's ``dbuf``, are the zero-filled result bit for bit;
+  K9c's plain path is the two plain versions (the scaled dispatch, the gate
+  gradient) called apart; and ``_descriptors`` gives each
   expert's held slots its rows ``0 .. count_e - 1`` under a local routing,
   every expert split and the global routing.
 - ``MoEMLP`` on JAX's weights: the output and the aux loss within 1e-5;
@@ -237,13 +239,25 @@ def _slots(n, e, k, capacity, seed):
     return choice_exp, keep
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("scaled", [False, True], ids=["scale1", "weights"])
 def test_plain_dispatch_into_a_nan_buffer_is_the_zero_filled_result(dtype, scaled):
     """The plain K9a writes every row of the buffer it is given: into a
     NaN-filled ``torch.empty`` it gives, bit for bit, the rows of an
-    ``index_put_`` into a zeroed buffer (the folded zero fill)."""
-    from tpuframe_torch.ops.moe_gating import _descriptors, moe_dispatch
+    ``index_put_`` into a zeroed buffer (the folded zero fill).  With the
+    gate weights, the plain K9c (``moe_combine_backward`` into NaN-filled
+    outputs) gives the scaled rows the same way, and its ``dgate`` is the
+    plain gate gradient."""
+    from tpuframe_torch.ops.moe_gating import (
+        _descriptors,
+        moe_combine_backward,
+        moe_dispatch,
+        moe_gate_grad_reference,
+    )
 
     n, d, e, k, cap, e0, e_local = 40, 12, 6, 2, 16, 3, 3
     choice_exp, keep = _slots(n, e, k, cap, seed=11)
@@ -253,15 +267,61 @@ def test_plain_dispatch_into_a_nan_buffer_is_the_zero_filled_result(dtype, scale
     rng = np.random.default_rng(12)
     src = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(dtype)
     w = torch.from_numpy(rng.random(n * k).astype(np.float32)) if scaled else None
-    got = moe_dispatch(src, torch.empty((e_local, cap, d), dtype=dtype).fill_(float("nan")),
-                       e_loc, slot, w, count=count)
+    if scaled:
+        fwd = torch.from_numpy(rng.standard_normal((e_local, cap, d)).astype(np.float32)).to(dtype)
+        nan_out = (torch.empty((e_local, cap, d), dtype=dtype).fill_(float("nan")),
+                   torch.empty(n * k).fill_(float("nan")))
+        got, dgate = moe_combine_backward(src, fwd, w, e_loc, slot, count, *nan_out)
+        assert got is nan_out[0] and dgate is nan_out[1]
+        assert torch.equal(_bits(dgate), _bits(moe_gate_grad_reference(src, fwd, e_loc, slot)))
+    else:
+        got = moe_dispatch(src, torch.empty((e_local, cap, d), dtype=dtype).fill_(float("nan")),
+                           e_loc, slot, count=count)
     want = torch.zeros((e_local, cap, d), dtype=dtype)
     sel = (e_loc >= 0).nonzero()[:, 0]
     rows = src[sel % n] if w is None else (w[sel, None] * src[sel % n].float()).to(dtype)
     want.index_put_((e_loc[sel].long(), slot[sel].long()), rows)
     assert not got.isnan().any()
-    assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
-                       want.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("cap", [6, 40], ids=["drops", "fits"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_plain_combine_backward_is_the_two_plain_versions(dtype, cap):
+    """K9c's plain path (a CPU tensor) is, bit for bit, the two plain
+    versions called apart: the scaled dispatch of the cotangent into a
+    zeroed buffer and the gate gradient; and ``_Combine``'s backward
+    returns just these."""
+    from tpuframe_torch.ops.moe_gating import (
+        _Combine,
+        _descriptors,
+        moe_combine_backward,
+        moe_dispatch_reference,
+        moe_gate_grad_reference,
+    )
+
+    n, d, e, k, e0, e_local = 48, 24, 8, 2, 4, 4
+    choice_exp, keep = _slots(n, e, k, cap, seed=14)
+    e_loc, slot, count = _descriptors(choice_exp, keep, e0, e_local)
+    rows = min(cap, k * n)
+    assert (int((~keep).sum()) > 0) == (cap == 6)
+    rng = np.random.default_rng(15)
+    g, w = (torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(dtype),
+            torch.from_numpy(rng.random(n * k).astype(np.float32)))
+    buf = torch.from_numpy(rng.standard_normal((e_local, rows, d)).astype(np.float32)).to(dtype)
+    dbuf, dgate = moe_combine_backward(g, buf, w, e_loc, slot, count, torch.empty_like(buf),
+                                       torch.empty(n * k))
+    want_dbuf = moe_dispatch_reference(g, torch.zeros_like(buf), e_loc, slot, w, count=count)
+    want_dgate = moe_gate_grad_reference(g, buf, e_loc, slot)
+    assert dbuf.dtype == dtype and dgate.dtype == torch.float32
+    assert torch.equal(_bits(dbuf), _bits(want_dbuf))
+    assert torch.equal(_bits(dgate), _bits(want_dgate))
+    assert torch.equal(_bits(dgate[e_loc < 0]), torch.zeros(int((e_loc < 0).sum()),
+                                                            dtype=torch.int32))
+    leaf, wl = buf.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    _Combine.apply(leaf, wl, e_loc, slot, count, n).backward(g)
+    assert torch.equal(_bits(leaf.grad), _bits(want_dbuf))
+    assert torch.equal(_bits(wl.grad), _bits(want_dgate))
 
 
 def _assert_compact(e_loc, slot, count, e_local, rows):

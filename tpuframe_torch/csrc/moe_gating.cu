@@ -7,36 +7,39 @@
 // (kernel_enabled("moe_gating")) but writes as plain XLA: a scatter-add of
 // the kept token rows into the zero-initialised (E, C, D) expert buffers
 // and a gather back.
-//   K9a  dispatch: every row of the (E_local, C, D) buffer.  Row slot_f of
-//        expert e_f is scale_f * src[f % N, :] for every slot f of the
+//   K9a  dispatch (the forward): every row of the (E_local, C, D) buffer.
+//        Row slot_f of expert e_f is src[f % N, :] for every slot f of the
 //        (k * N,) choice-major frame whose expert is held here (e_f >= 0);
-//        every other row is +0.  scale is 1 in the forward (src the tokens)
-//        and the gate weights in the backward of the combine (src its
-//        cotangent).  Every destination row is distinct: no atomics.
+//        every other row is +0.  Every destination row is distinct: no
+//        atomics.
 //   K9b  combine: out[n, :] = sum_{j < k} w[j * N + n] * buf[e, slot, :]
 //        over the slots of token n held here, j in order, each product and
 //        each sum rounded to float32 (no FMA contraction: JAX's multiply,
 //        then its scatter-add); w is gate * keep in the forward and keep
 //        in the backward of the dispatch.
-//   K9c  gate gradient: dgate_f = <g[f % N, :], buf[e_f, slot_f, :]>, a
-//        float32 dot a slot (0 where the slot is not held here).
+//   K9c  the combine's backward, one launch: dbuf, every row of an
+//        (E_local, C, D) buffer, w_f * g[f % N, :] (rounded once) at the
+//        held slots' rows and +0 elsewhere, as K9a lays out the forward;
+//        and dgate_f = <g[f % N, :], buf[e_f, slot_f, :]>, a float32 dot
+//        a slot (+0 where the slot is not held here).
 //
 // The slot descriptors come from the routing (ops/moe_gating.py): e_f the
 // local expert of slot f (its expert minus this rank's first; -1 where the
 // slot was dropped, its expert is held elsewhere or it is not this rank's
 // token) and slot_f its row in that expert's buffer, both int32; count_e
 // the held slots of expert e.  The routing gives expert e's held slots the
-// rows 0 .. count_e - 1 in choice-major order, so K9a knows without a
-// search that rows count_e .. C - 1 are the ones to zero.
+// rows 0 .. count_e - 1 in choice-major order, so K9a and K9c know without
+// a search that rows count_e .. C - 1 are the ones to zero.
 //
 // Bound: bytes, each read and written once (chip_smoke.py counts this
 // run's held slots).  At the MoE path's 4,096 tokens a rank, D = 768 in
 // bf16, top 2, 4 of 8 experts held (~4,000 held slots, a 15.7 MB buffer):
 // K9a reads the held rows and writes the whole buffer (21.8 MB, 6.5 us at
 // 3.35 TB/s); K9b reads the held rows and writes (N, D) (12.3 MB); K9c
-// reads the held rows of g and of the buffer.  At Mixtral's width (8,192
-// tokens, D = 4,096, all 8 experts held, C = 2,560) K9a moves 302 MB and
-// K9b 201 MB: 90 and 60 us.
+// reads the held rows of g and of the buffer and writes the whole dbuf and
+// dgate (28.1 MB, 8.4 us).  At Mixtral's width (8,192 tokens, D = 4,096,
+// all 8 experts held, C = 2,560) K9a moves 302 MB, K9b 201 MB and K9c 436
+// MB: 90, 60 and 130 us.
 //
 // Design.  At the path's shape the bytes take less time than a launch, so
 // the time is the chain of trips to memory, and the kernels keep it to two:
@@ -56,16 +59,29 @@
 //   (4 warps a block, 2 or 4 tokens a warp, twice the round depth and
 //   __ldg descriptors measured no faster on the card: the time there is
 //   the launch plus the bytes.)
-// - K9a: a block takes 16 slots and compacts the held ones into shared
-//   memory (a ballot), so a slot not held here costs no warp; its 8 warps
-//   copy them, each issuing up to 8 accesses a lane before its stores.
-//   Then every warp of the grid writes zero rows: the zero rows of all
-//   experts are numbered in order (a prefix over C - count_e, in shared
-//   memory), and warp i takes rows i, i + warps, ...  One launch writes the
-//   buffer; nothing zero-fills it first.
-// K9c: one warp a slot; its lanes sum their columns in order and the warp
-// adds the 32 partials by butterfly shuffles, an order fixed by D: a rerun
-// gives the same bits.
+// - K9a and K9c are one template (dispatch_kernel<T, V, Backward>): a
+//   block takes 16 slots and compacts the held ones into shared memory (a
+//   ballot), so a slot not held here costs no warp; its 8 warps copy them,
+//   each issuing up to 8 accesses a lane before its stores.  Then every
+//   warp of the grid writes zero rows: the zero rows of all experts are
+//   numbered in order (a prefix over C - count_e, in shared memory), and
+//   warp i takes rows i, i + warps, ...  One launch writes the buffer;
+//   nothing zero-fills it first.
+// - K9c is that template's backward instance: the g row it scales is the
+//   row its dot needs, and the dbuf row it writes sits at the index of the
+//   buf row of the dot, so one launch reads each held g row once (the two
+//   launches before it read g twice).  A round issues both rows' accesses,
+//   4 of each a lane, before any arithmetic: 64 registers, so 4 blocks an
+//   SM (8 of each took 126 registers, 2 blocks an SM, and ran slower at the
+//   path's shape on an H100, PERF.md §6).  The
+//   compaction's warp writes dgate = +0 for the block's slots not held
+//   here, so every dgate entry is written exactly once.  The dot's order is
+//   fixed by D and the access width alone: each lane sums its own columns
+//   of one slot in column order (float32 products, __fmul_rn then
+//   __fadd_rn; bf16 x bf16 is exact in float32), carried across rounds,
+//   and the warp adds the 32 partials by butterfly shuffles once the slot's
+//   last columns are in.  So a rerun, or the same rows at another slot,
+//   gives the same bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,9 +95,10 @@ constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxK = 8;              // top-k up to which K9b is unrolled over k
-constexpr int kSlotsPerBlock = 16;    // K9a: slots a block compacts (<= 32: one ballot)
+constexpr int kSlotsPerBlock = 16;    // K9a/K9c: slots a block compacts (<= 32: one ballot)
 constexpr int kDispatchRound = 8;     // K9a: accesses a lane issues before its stores
-constexpr int kMaxExperts = 8192;     // K9a's zero-row prefix in 32 KB of shared memory
+constexpr int kBackwardRound = 4;     // K9c: accesses of each of its two rows a round
+constexpr int kMaxExperts = 8192;     // the zero-row prefix in 32 KB of shared memory
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -138,18 +155,22 @@ struct Access<__nv_bfloat16, 8> {  // element 2i in the low half of word i
 template <typename T>
 constexpr int kVec = 16 / sizeof(T);
 
-// ---- K9a: dispatch ----------------------------------------------------------
+// ---- K9a and K9c: dispatch and the combine's backward ------------------------
 
-template <typename T, int V, bool Scaled>
+// Backward false, K9a: buf = the tokens src at the held slots' rows.
+// Backward true, K9c: buf = dbuf, src = g scaled by the gate weights
+// scale, and dgate[f] = <src row, fwd row> with fwd the forward's buffer.
+template <typename T, int V, bool Backward>
 __global__ void __launch_bounds__(kThreads)
     dispatch_kernel(const T* __restrict__ src, T* __restrict__ buf,
                     const int32_t* __restrict__ e_loc, const int32_t* __restrict__ slot,
-                    const float* __restrict__ scale, const int32_t* __restrict__ count, int N,
-                    int KN, int D, int capacity, int e_local) {
+                    const float* __restrict__ scale, const int32_t* __restrict__ count,
+                    const T* __restrict__ fwd, float* __restrict__ dgate, int N, int KN, int D,
+                    int capacity, int e_local) {
   using A = Access<T, V>;
   using Raw = typename A::Raw;
   extern __shared__ int zero_before[];  // [e_local + 1]: zero rows of the experts before e
-  __shared__ int held_src[kSlotsPerBlock], held_dst[kSlotsPerBlock];
+  __shared__ int held_src[kSlotsPerBlock], held_dst[kSlotsPerBlock], held_f[kSlotsPerBlock];
   __shared__ float held_scale[kSlotsPerBlock];
   __shared__ int n_held;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -160,13 +181,16 @@ __global__ void __launch_bounds__(kThreads)
     const bool mine = lane < kSlotsPerBlock && f < KN;
     const int e = mine ? e_loc[f] : -1;
     const int s = mine ? slot[f] : 0;
-    const float sc = Scaled && mine ? scale[f] : 1.f;
+    const float sc = Backward && mine ? scale[f] : 1.f;
     const unsigned held = __ballot_sync(kFull, e >= 0);
     if (e >= 0) {
       const int i = __popc(held & ((1u << lane) - 1u));
       held_src[i] = f % N;
       held_dst[i] = e * capacity + s;
       held_scale[i] = sc;
+      if (Backward) held_f[i] = f;
+    } else if (Backward && mine) {
+      dgate[f] = 0.f;  // a slot not held here: its one write
     }
     if (lane == 0) n_held = __popc(held);
   } else if (warp == 1) {  // inclusive warp scans of C - count_e, carried over chunks of 32
@@ -187,32 +211,50 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   // the held rows: warp w copies entries w, w + 8, ...; a lane's accesses
-  // over its entries in order, kDispatchRound loaded before they are stored
+  // over its entries in order (task t: entry t / per_row, columns
+  // lane + 32 (t mod per_row)), R of each row loaded before any arithmetic
+  // or store.  Entry, chunk and the round's end are the same for every lane
+  // of the warp.
+  constexpr int R = Backward ? kBackwardRound : kDispatchRound;
   const int per_row = (nv + 31) / 32;
   const int mine = n_held > warp ? (n_held - warp + kWarps - 1) / kWarps : 0;
   const int tasks = mine * per_row;
-  for (int t0 = 0; t0 < tasks; t0 += kDispatchRound) {
-    Raw x[kDispatchRound];
+  float part = 0.f;  // K9c: this lane's sum over its columns of the current entry
+  for (int t0 = 0; t0 < tasks; t0 += R) {
+    Raw x[R], y[R];
 #pragma unroll
-    for (int r = 0; r < kDispatchRound; ++r) {
-      const int t = t0 + r, q = t / per_row, c = lane + 32 * (t - q * per_row);
-      if (t < tasks && c < nv) {
-        x[r] = reinterpret_cast<const Raw*>(
-            src + static_cast<size_t>(held_src[warp + kWarps * q]) * D)[c];
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kDispatchRound; ++r) {
+    for (int r = 0; r < R; ++r) {
       const int t = t0 + r, q = t / per_row, c = lane + 32 * (t - q * per_row);
       if (t < tasks && c < nv) {
         const int i = warp + kWarps * q;
-        Raw y = x[r];
-        if (Scaled) {
+        x[r] = reinterpret_cast<const Raw*>(src + static_cast<size_t>(held_src[i]) * D)[c];
+        if (Backward) {
+          y[r] = reinterpret_cast<const Raw*>(fwd + static_cast<size_t>(held_dst[i]) * D)[c];
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int t = t0 + r, q = t / per_row, j = t - q * per_row, c = lane + 32 * j;
+      const int i = warp + kWarps * q;
+      if (t < tasks && c < nv) {
+        Raw z = x[r];
+        if (Backward) {
           const float sc = held_scale[i];
 #pragma unroll
-          for (int v = 0; v < V; ++v) A::set(y, v, __fmul_rn(sc, A::get(x[r], v)));
+          for (int v = 0; v < V; ++v) {
+            const float gv = A::get(x[r], v);
+            A::set(z, v, __fmul_rn(sc, gv));
+            part = __fadd_rn(part, __fmul_rn(gv, A::get(y[r], v)));
+          }
         }
-        reinterpret_cast<Raw*>(buf + static_cast<size_t>(held_dst[i]) * D)[c] = y;
+        reinterpret_cast<Raw*>(buf + static_cast<size_t>(held_dst[i]) * D)[c] = z;
+      }
+      if (Backward && t < tasks && j == per_row - 1) {  // the entry's last columns are in
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) part = __fadd_rn(part, __shfl_xor_sync(kFull, part, o));
+        if (lane == 0) dgate[held_f[i]] = part;
+        part = 0.f;
       }
     }
   }
@@ -347,27 +389,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ---- K9c: gate gradient -----------------------------------------------------
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    gate_grad_kernel(const T* __restrict__ g, const T* __restrict__ buf,
-                     const int32_t* __restrict__ e_loc, const int32_t* __restrict__ slot,
-                     float* __restrict__ dgate, int N, int KN, int D, int capacity) {
-  const int f = blockIdx.x * kWarps + threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (f >= KN) return;
-  const int e = e_loc[f];
-  float part = 0.f;
-  if (e >= 0) {
-    const T* a = g + static_cast<size_t>(f % N) * D;
-    const T* b = buf + buf_row(e, slot[f], capacity, D);
-    for (int c = lane; c < D; c += 32) part = fmaf(to_f(a[c]), to_f(b[c]), part);
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(kFull, part, o);
-  if (lane == 0) dgate[f] = part;
-}
-
 inline unsigned blocks(long long rows, int per_block) {
   return static_cast<unsigned>((rows + per_block - 1) / per_block);
 }
@@ -377,29 +398,26 @@ bool valid(int N, int K, int D, int capacity) {
          static_cast<long long>(N) * K <= 0x7fffffffLL;
 }
 
-// 16-byte accesses where every row of every tensor starts on 16 bytes
+// 16-byte accesses where every row of every tensor starts on 16 bytes (c
+// null where a launch has two row tensors)
 template <typename T>
-bool vectors_fit(int D, const void* a, const void* b) {
-  return (static_cast<size_t>(D) * sizeof(T)) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(a) % 16 == 0 && reinterpret_cast<uintptr_t>(b) % 16 == 0;
+bool vectors_fit(int D, const void* a, const void* b, const void* c = nullptr) {
+  auto on16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  return (static_cast<size_t>(D) * sizeof(T)) % 16 == 0 && on16(a) && on16(b) && on16(c);
 }
 
-template <typename T, int V>
+// K9a (fwd and dgate null) or K9c
+template <typename T, int V, bool Backward>
 int launch_dispatch(const T* src, T* buf, const int32_t* e, const int32_t* sl, const float* sc,
-                    const int32_t* cnt, int N, int K, int D, int capacity, int e_local,
-                    cudaStream_t s) {
+                    const int32_t* cnt, const T* fwd, float* dgate, int N, int K, int D,
+                    int capacity, int e_local, cudaStream_t s) {
   const long long KN = static_cast<long long>(N) * K;
   // enough warps for the copies (a block a 16 slots), and at most 4 zero rows a warp
   const unsigned grid = std::max(blocks(KN, kSlotsPerBlock),
                             blocks(static_cast<long long>(e_local) * capacity, 4 * kWarps));
   const size_t smem = sizeof(int) * (e_local + 1);
-  if (sc == nullptr) {
-    dispatch_kernel<T, V, false><<<grid, kThreads, smem, s>>>(src, buf, e, sl, sc, cnt, N,
-                                                              (int)KN, D, capacity, e_local);
-  } else {
-    dispatch_kernel<T, V, true><<<grid, kThreads, smem, s>>>(src, buf, e, sl, sc, cnt, N,
-                                                             (int)KN, D, capacity, e_local);
-  }
+  dispatch_kernel<T, V, Backward><<<grid, kThreads, smem, s>>>(
+      src, buf, e, sl, sc, cnt, fwd, dgate, N, (int)KN, D, capacity, e_local);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -427,18 +445,23 @@ int launch_combine(const T* buf, const float* w, const int32_t* e, const int32_t
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool Backward>
 int dispatch_as(const void* src, void* buf, const void* e, const void* sl, const void* sc,
-                const void* cnt, int N, int K, int D, int capacity, int e_local, cudaStream_t s) {
+                const void* cnt, const void* fwd, void* dgate, int N, int K, int D, int capacity,
+                int e_local, cudaStream_t s) {
   auto* x = static_cast<const T*>(src);
   auto* b = static_cast<T*>(buf);
   auto* ei = static_cast<const int32_t*>(e);
   auto* si = static_cast<const int32_t*>(sl);
   auto* f = static_cast<const float*>(sc);
   auto* c = static_cast<const int32_t*>(cnt);
-  return vectors_fit<T>(D, src, buf)
-             ? launch_dispatch<T, kVec<T>>(x, b, ei, si, f, c, N, K, D, capacity, e_local, s)
-             : launch_dispatch<T, 1>(x, b, ei, si, f, c, N, K, D, capacity, e_local, s);
+  auto* y = static_cast<const T*>(fwd);
+  auto* dg = static_cast<float*>(dgate);
+  return vectors_fit<T>(D, src, buf, fwd)
+             ? launch_dispatch<T, kVec<T>, Backward>(x, b, ei, si, f, c, y, dg, N, K, D,
+                                                     capacity, e_local, s)
+             : launch_dispatch<T, 1, Backward>(x, b, ei, si, f, c, y, dg, N, K, D, capacity,
+                                               e_local, s);
 }
 
 template <typename T>
@@ -454,27 +477,30 @@ int combine_as(const void* buf, const void* w, const void* e, const void* sl, vo
              : launch_combine<T, 1>(b, wf, ei, si, o, N, K, D, capacity, s);
 }
 
+bool valid_buffer(int N, int K, int D, int capacity, int e_local) {
+  return valid(N, K, D, capacity) && e_local >= 1 && e_local <= kMaxExperts &&
+         static_cast<long long>(e_local) * capacity <= 0x7fffffffLL;
+}
+
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16 (src, buf, out, g); anything else, or a
-// shape out of range, cudaErrorInvalidValue.  Index and weight arrays are
-// (K * N,) choice-major: int32 e_loc and slot, float32 scale, w and dgate;
-// count is (e_local,) int32.
+// dtype: 0 float32, 1 bfloat16 (src, g, buf, dbuf, out); anything else, or
+// a shape out of range, cudaErrorInvalidValue.  Index and weight arrays are
+// (K * N,) choice-major: int32 e_loc and slot, float32 w and dgate; count
+// is (e_local,) int32.
 
 extern "C" int tf_moe_dispatch(const void* src, void* buf, const void* e_loc, const void* slot,
-                               const void* scale, const void* count, int N, int K, int D,
-                               int capacity, int e_local, int dtype, void* stream) {
-  if (!valid(N, K, D, capacity) || e_local < 1 || e_local > kMaxExperts ||
-      static_cast<long long>(e_local) * capacity > 0x7fffffffLL) {
-    return (int)cudaErrorInvalidValue;
-  }
+                               const void* count, int N, int K, int D, int capacity, int e_local,
+                               int dtype, void* stream) {
+  if (!valid_buffer(N, K, D, capacity, e_local)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return dispatch_as<float>(src, buf, e_loc, slot, scale, count, N, K, D, capacity, e_local, s);
+    return dispatch_as<float, false>(src, buf, e_loc, slot, nullptr, count, nullptr, nullptr, N,
+                                     K, D, capacity, e_local, s);
   }
   if (dtype == 1) {
-    return dispatch_as<__nv_bfloat16>(src, buf, e_loc, slot, scale, count, N, K, D, capacity,
-                                      e_local, s);
+    return dispatch_as<__nv_bfloat16, false>(src, buf, e_loc, slot, nullptr, count, nullptr,
+                                             nullptr, N, K, D, capacity, e_local, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -489,25 +515,22 @@ extern "C" int tf_moe_combine(const void* buf, const void* w, const void* e_loc,
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int tf_moe_gate_grad(const void* g, const void* buf, const void* e_loc,
-                                const void* slot, void* dgate, int N, int K, int D,
-                                int capacity, int dtype, void* stream) {
-  if (!valid(N, K, D, capacity)) return (int)cudaErrorInvalidValue;
+// K9c: g (N, D) the combine's cotangent, buf (E_local, C, D) its forward
+// input, w (K * N,) its weights; writes every row of dbuf (E_local, C, D)
+// and every entry of dgate (K * N,).
+extern "C" int tf_moe_combine_backward(const void* g, const void* buf, const void* w,
+                                       const void* e_loc, const void* slot, const void* count,
+                                       void* dbuf, void* dgate, int N, int K, int D,
+                                       int capacity, int e_local, int dtype, void* stream) {
+  if (!valid_buffer(N, K, D, capacity, e_local)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int KN = N * K;
-  const auto* e = static_cast<const int32_t*>(e_loc);
-  const auto* sl = static_cast<const int32_t*>(slot);
-  auto* dg = static_cast<float*>(dgate);
   if (dtype == 0) {
-    gate_grad_kernel<float><<<blocks(KN, kWarps), kThreads, 0, s>>>(
-        static_cast<const float*>(g), static_cast<const float*>(buf), e, sl, dg, N, KN, D,
-        capacity);
-  } else if (dtype == 1) {
-    gate_grad_kernel<__nv_bfloat16><<<blocks(KN, kWarps), kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(g), static_cast<const __nv_bfloat16*>(buf), e, sl, dg,
-        N, KN, D, capacity);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    return dispatch_as<float, true>(g, dbuf, e_loc, slot, w, count, buf, dgate, N, K, D, capacity,
+                                    e_local, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 1) {
+    return dispatch_as<__nv_bfloat16, true>(g, dbuf, e_loc, slot, w, count, buf, dgate, N, K, D,
+                                            capacity, e_local, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -16,21 +16,24 @@ scatter-add and a gather; its scatter-add has no deterministic one-call
 form on CUDA (``index_add_`` sums with atomics), so the port writes the row
 copies by hand:
 
-- **K9a** :func:`moe_dispatch`: the whole ``(E_local, C, D)`` buffer in
-  one launch: ``buf[e_f, slot_f, :] = scale_f · src[f mod N, :]`` over the
-  kept slots of the experts held here, every other row zero.  The forward
-  dispatches the tokens (scale 1); the combine's backward the cotangent,
-  scaled by the gate weights.
+- **K9a** :func:`moe_dispatch`, the forward dispatch: the whole ``(E_local,
+  C, D)`` buffer in one launch: ``buf[e_f, slot_f, :] = src[f mod N, :]``
+  over the kept slots of the experts held here, every other row zero.
 - **K9b** :func:`moe_combine`: ``out[n, :] = Σ_{j<k} w[j·N + n] ·
   buf[e, slot, :]``, j in order.  The forward combines with ``w`` = gate ·
   keep; the dispatch's backward with ``w`` = keep.
-- **K9c** :func:`moe_gate_grad`: ``dgate_f = ⟨g[f mod N], buf[e_f,
-  slot_f]⟩``, a float32 dot a slot.
+- **K9c** :func:`moe_combine_backward`, the combine's backward in one
+  launch: ``dbuf`` laid out as K9a lays out the forward, with the
+  cotangent row scaled by the gate weight (``dbuf[e_f, slot_f, :] = w_f ·
+  g[f mod N, :]``, zero rows elsewhere), and ``dgate_f = ⟨g[f mod N],
+  buf[e_f, slot_f]⟩``, a float32 dot a slot (zero where it is not held
+  here), from one read of each held ``g`` row.
 
 They take float32 or bfloat16 rows and float32 weights, and compute in
-float32.  The plain versions do the same three steps: the rows past each
+float32.  The plain versions do the same steps: the rows past each
 expert's count zeroed and an ``index_put_`` at the (distinct)
-destinations, the (k, N, D) rows summed over k in order, a float32 dot;
+destinations (each row scaled in float32 and rounded once in the
+backward), the (k, N, D) rows summed over k in order, a float32 dot;
 deterministic too.  The expert products between them are
 ``torch.bmm`` (JAX computes them outside any kernel).
 
@@ -78,12 +81,11 @@ def _library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     lib = build.load("moe_gating")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    tail = [i32, i32, i32, i32, i32, ptr]  # N K D capacity dtype stream
-    # N K D capacity E_local dtype stream
-    lib.tf_moe_dispatch.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
-    lib.tf_moe_combine.argtypes = [ptr] * 5 + tail
-    lib.tf_moe_gate_grad.argtypes = [ptr] * 5 + tail
-    for fn in (lib.tf_moe_dispatch, lib.tf_moe_combine, lib.tf_moe_gate_grad):
+    # N K D capacity dtype stream; the buffers' also E_local before dtype
+    lib.tf_moe_dispatch.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
+    lib.tf_moe_combine.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
+    lib.tf_moe_combine_backward.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
+    for fn in (lib.tf_moe_dispatch, lib.tf_moe_combine, lib.tf_moe_combine_backward):
         fn.restype = ctypes.c_int
     return lib
 
@@ -142,6 +144,12 @@ def _launch(fn, name: str, ptrs, sizes: tuple, dtype, device) -> None:
         raise RuntimeError(f"MoE {name} kernel launch failed: CUDA error {rc}")
 
 
+def _check_buffer(buf: torch.Tensor, count: torch.Tensor, d: int, name: str) -> None:
+    if buf.dim() != 3 or buf.shape[2] != d or count.numel() != buf.shape[0]:
+        raise ValueError(f"{name} takes an (E_local, C, {d}) buffer with a count an expert; got "
+                         f"{tuple(buf.shape)} and {count.numel()} counts")
+
+
 def _rows(buf: torch.Tensor, e_loc: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
     """The buffer rows the slots point at (row 0 of expert 0 where a slot
     points nowhere), (kN, D)."""
@@ -153,7 +161,8 @@ def _rows(buf: torch.Tensor, e_loc: torch.Tensor, slot: torch.Tensor) -> torch.T
 def moe_dispatch_reference(src: torch.Tensor, buf: torch.Tensor, e_loc: torch.Tensor,
                            slot: torch.Tensor, scale: torch.Tensor | None = None, *,
                            count: torch.Tensor) -> torch.Tensor:
-    """Plain K9a: the rows of expert e from ``count[e]`` on zeroed, then
+    """Plain K9a (``scale`` None) and K9c's ``dbuf`` (``scale`` the gate
+    weights): the rows of expert e from ``count[e]`` on zeroed, then
     ``index_put_`` of the held slots' rows (each scaled in float32 and
     rounded once) at their distinct destinations, rows ``0 .. count[e] −
     1``: the zero-filled result whatever ``buf`` held."""
@@ -184,8 +193,8 @@ def moe_combine_reference(buf: torch.Tensor, w: torch.Tensor, e_loc: torch.Tenso
 
 def moe_gate_grad_reference(g: torch.Tensor, buf: torch.Tensor, e_loc: torch.Tensor,
                             slot: torch.Tensor) -> torch.Tensor:
-    """Plain K9c: the float32 dot of each held slot's cotangent row and
-    buffer row."""
+    """Plain K9c's ``dgate``: the float32 dot of each held slot's cotangent
+    row and buffer row, 0 where the slot is not held."""
     n = g.shape[0]
     tok = torch.arange(n, device=g.device).repeat(e_loc.numel() // n)
     dots = (g[tok].float() * _rows(buf, e_loc, slot).float()).sum(-1)
@@ -193,26 +202,23 @@ def moe_gate_grad_reference(g: torch.Tensor, buf: torch.Tensor, e_loc: torch.Ten
 
 
 def moe_dispatch(src: torch.Tensor, buf: torch.Tensor, e_loc: torch.Tensor,
-                 slot: torch.Tensor, scale: torch.Tensor | None = None, *,
-                 count: torch.Tensor) -> torch.Tensor:
-    """K9a: ``buf[e_loc[f], slot[f]] = scale[f] · src[f mod N]`` for every
-    slot with ``e_loc[f] >= 0`` and every other row of ``buf`` zero, in
-    place, whatever ``buf`` held (``buf`` (E_local, C, D), contiguous;
-    ``src`` (N, D); ``scale`` (kN,) float32 or None for 1; ``count``
-    (E_local,) int32, each expert's held slots, which ``_descriptors`` gives
-    rows ``0 .. count[e] − 1``).  Returns ``buf``.
+                 slot: torch.Tensor, *, count: torch.Tensor) -> torch.Tensor:
+    """K9a: ``buf[e_loc[f], slot[f]] = src[f mod N]`` for every slot with
+    ``e_loc[f] >= 0`` and every other row of ``buf`` zero, in place,
+    whatever ``buf`` held (``buf`` (E_local, C, D), contiguous; ``src`` (N,
+    D); ``count`` (E_local,) int32, each expert's held slots, which
+    ``_descriptors`` gives rows ``0 .. count[e] − 1``).  Returns ``buf``.
     ``moe_dispatch.launches`` counts kernel launches."""
     _check_rows(src, buf)
     n, d = src.shape
     k = e_loc.numel() // n
     if not use_kernel(src):
-        return moe_dispatch_reference(src, buf, e_loc, slot, scale, count=count)
-    if not buf.is_contiguous() or count.numel() != buf.shape[0]:
-        raise ValueError(f"moe_dispatch writes a contiguous (E_local, C, D) buffer with a count "
-                         f"an expert; got {tuple(buf.shape)} and {count.numel()} counts")
+        return moe_dispatch_reference(src, buf, e_loc, slot, count=count)
+    _check_buffer(buf, count, d, "moe_dispatch")
+    if not buf.is_contiguous():
+        raise ValueError(f"moe_dispatch writes a contiguous buffer; got strides {buf.stride()}")
     src = src.contiguous()
-    args = (src, buf, e_loc.int().contiguous(), slot.int().contiguous(),
-            None if scale is None else scale.float().contiguous(), count.int().contiguous())
+    args = (src, buf, e_loc.int().contiguous(), slot.int().contiguous(), count.int().contiguous())
     _launch(_library().tf_moe_dispatch, "dispatch", args, (n, k, d, buf.shape[1], buf.shape[0]),
             src.dtype, src.device)
     moe_dispatch.launches += 1
@@ -239,28 +245,45 @@ def moe_combine(buf: torch.Tensor, w: torch.Tensor, e_loc: torch.Tensor, slot: t
     return out
 
 
-def moe_gate_grad(g: torch.Tensor, buf: torch.Tensor, e_loc: torch.Tensor,
-                  slot: torch.Tensor) -> torch.Tensor:
-    """K9c: ``dgate[f] = ⟨g[f mod N], buf[e_loc[f], slot[f]]⟩`` in float32,
-    0 where ``e_loc[f] < 0``; (kN,) float32.  ``moe_gate_grad.launches``
-    counts kernel launches."""
+def moe_combine_backward(g: torch.Tensor, buf: torch.Tensor, w: torch.Tensor,
+                         e_loc: torch.Tensor, slot: torch.Tensor, count: torch.Tensor,
+                         dbuf: torch.Tensor, dgate: torch.Tensor,
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K9c, the backward of :func:`moe_combine` in one launch: writes
+    ``dbuf`` and ``dgate`` whole, whatever they held, and returns them.
+    ``dbuf`` (E_local, C, D) in ``buf``'s dtype, contiguous, gets ``w[f] ·
+    g[f mod N]`` (float32, rounded once) at row ``slot[f]`` of expert
+    ``e_loc[f]`` for every slot with ``e_loc[f] >= 0``, zero rows elsewhere;
+    ``dgate`` (kN,) float32, contiguous, gets ``⟨g[f mod N], buf[e_loc[f],
+    slot[f]]⟩``, 0 where ``e_loc[f] < 0``.  ``g`` (N, D) is the cotangent of
+    the combine's output, ``buf`` its input, ``w`` its (kN,) weights,
+    ``count`` (E_local,) each expert's held slots.
+    ``moe_combine_backward.launches`` counts kernel launches."""
     _check_rows(g, buf)
     n, d = g.shape
     k = e_loc.numel() // n
     if not use_kernel(g):
-        return moe_gate_grad_reference(g, buf, e_loc, slot)
-    out = torch.empty(e_loc.numel(), dtype=torch.float32, device=g.device)
-    args = (g.contiguous(), buf.contiguous(), e_loc.int().contiguous(),
-            slot.int().contiguous(), out)
-    _launch(_library().tf_moe_gate_grad, "gate gradient", args, (n, k, d, buf.shape[1]),
-            g.dtype, g.device)
-    moe_gate_grad.launches += 1
-    return out
+        moe_dispatch_reference(g, dbuf, e_loc, slot, w, count=count)
+        return dbuf, dgate.copy_(moe_gate_grad_reference(g, buf, e_loc, slot))
+    _check_buffer(buf, count, d, "moe_combine_backward")
+    if (dbuf.shape != buf.shape or dbuf.dtype != buf.dtype or not dbuf.is_contiguous()
+            or dgate.shape != (e_loc.numel(),) or dgate.dtype != torch.float32
+            or not dgate.is_contiguous()):
+        raise ValueError(f"moe_combine_backward writes a contiguous {tuple(buf.shape)} "
+                         f"{buf.dtype} dbuf and a ({e_loc.numel()},) float32 dgate; got "
+                         f"{tuple(dbuf.shape)} {dbuf.dtype} and {tuple(dgate.shape)} "
+                         f"{dgate.dtype}")
+    args = (g.contiguous(), buf.contiguous(), w.float().contiguous(), e_loc.int().contiguous(),
+            slot.int().contiguous(), count.int().contiguous(), dbuf, dgate)
+    _launch(_library().tf_moe_combine_backward, "combine backward", args,
+            (n, k, d, buf.shape[1], buf.shape[0]), g.dtype, g.device)
+    moe_combine_backward.launches += 1
+    return dbuf, dgate
 
 
 moe_dispatch.launches = 0
 moe_combine.launches = 0
-moe_gate_grad.launches = 0
+moe_combine_backward.launches = 0
 
 
 class _Dispatch(torch.autograd.Function):
@@ -284,9 +307,9 @@ class _Dispatch(torch.autograd.Function):
 
 
 class _Combine(torch.autograd.Function):
-    """K9b forward (the expert outputs back to the tokens, weighted); K9a
-    (the cotangent into the buffers, scaled by the weights) and K9c (the
-    weights' gradient) backward."""
+    """K9b forward (the expert outputs back to the tokens, weighted); K9c
+    backward (the cotangent into the buffers, scaled by the weights, and the
+    weights' gradient, in one launch)."""
 
     @staticmethod
     def forward(ctx, buf, w, e_loc, slot, count, n):
@@ -296,10 +319,10 @@ class _Combine(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         buf, w, e_loc, slot, count = ctx.saved_tensors
-        g = g.to(buf.dtype).contiguous()
-        dbuf = moe_dispatch(g, torch.empty(buf.shape, dtype=buf.dtype, device=buf.device),
-                            e_loc, slot, scale=w, count=count)
-        dw = moe_gate_grad(g, buf, e_loc, slot)
+        dbuf, dw = moe_combine_backward(
+            g.to(buf.dtype).contiguous(), buf, w, e_loc, slot, count,
+            torch.empty(buf.shape, dtype=buf.dtype, device=buf.device),
+            torch.empty(e_loc.numel(), dtype=torch.float32, device=buf.device))
         return dbuf, dw, None, None, None, None
 
 
