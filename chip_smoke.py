@@ -271,7 +271,42 @@ Phases, each of which fails the script (nonzero exit, no result line):
    K6's float32
    partials at the ring's tile, rounded to bf16 bit-equal to the default
    launches.
-19. Result: a ``kernels`` JSON line (each kernel with ``floor_ms``; K1 and
+19. Fault tolerance on one card (``fault_phase``), every part a gate, each
+   part's main path counted exactly: (a) phase 6's LM fit (8 steps,
+   snapshots every 2) under the ``Supervisor`` with a ``PreemptNotice``
+   during step 3: one ``fault/preempted``, one synchronous last-chance
+   snapshot, a restart from the preemption budget with 0 s delay, with
+   the seconds from the notice to ``Preempted`` (the save of the state
+   apart) and from the restart to the first resumed step; (b) in the
+   same supervised fit, its snapshot of step 6 torn (``TornCheckpoint``)
+   and a ``ChaosError`` at the next step: one ``fault/quarantine``, a
+   RETRYABLE restart resumed from the committed step 4; the fit of three
+   attempts bit-equal (parameters and optimizer state) to an
+   uninterrupted one;
+   (c) example 01 (MNIST) through the ``Distributor`` and
+   ``run_with_restarts`` on two gloo ranks, rank 1 SIGKILLed
+   (``KillWorker``) before step 7: one RETRYABLE restart, ``"finished"``,
+   resumed from the epoch-1 checkpoint, with the seconds to detect the
+   loss and from the relaunch to the result; a worker whose fn raises
+   ``Preempted`` exits 143; (d) ResNet50-1K on f32 host batches with NaN
+   in three batches against ``max_bad=2``: skipped steps,
+   ``Divergence``, the rollback to step 4 (``fault/rollback``), the next
+   attempt at ``lr_scale`` 0.5 to the end with every parameter finite;
+   (e) ResNet50-1K under ZeRO-1 with AdamW over ``fsdp`` on two gloo
+   ranks under ``run_elastic(min_world_size=1)``, ``LoseRank(1)`` before
+   step 6: worlds [2, 1], one ``fault/world_resized``, a
+   ``fault/reshard``, no quarantine, the state restored at world 1 (from
+   the epoch-end step 4) bit-equal to that checkpoint read back at two
+   ranks, all 8 steps, with the reshard-restore seconds; (f) ResNet50-1K served (f32 requests): a
+   ``QueueFlood`` sheds with the clients' p99 within the SLO tracker's
+   target, a ``PoisonRequest`` is rejected and its batchmates are
+   bit-equal to a clean run, a ``SlowConsumer`` is reported by the serve
+   watchdog, and a watcher's notice through ``run_forever`` drains with
+   no in-flight request dropped.  (c) and (e), whose time is mostly their
+   launchers' workers starting on the host's cores, run from threads
+   beside (a, b), (d) and (f); each part reads only its own events and
+   counters.
+20. Result: a ``kernels`` JSON line (each kernel with ``floor_ms``; K1 and
    K2 also with ``launches_ddp``, phase 10's count on each rank, and
    ``launches_streaming``, phase 14's TFS fit; K2a/K2b, K3a/K3b and K4
    with ``launches_tp`` and ``launches_tp_pp``, phase 17's counts on each
@@ -286,12 +321,13 @@ Phases, each of which fails the script (nonzero exit, no result line):
    ``launches_example06``, ``baseline_ms``, ``bound_share``, ``x_floor``,
    ``turns_ms``, ``wide`` (the same at Mixtral's width), ``aims`` and
    ``ptxas``; K9b with ``any_k_ms`` and ``copy_ms``; K9c with
-   ``baseline_saved_floors``), the ``nvidia-smi`` line, then
+   ``baseline_saved_floors``; K1-K4 with ``launches_fault``, phase 19's
+   counts by part), the ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Each phase's wall seconds are printed on a line of their own as it ends
-(``phase N: ... s``), and at the start of phase 19 those of the phases
-on gloo ranks (10, 15-18) and of all phases together.
+(``phase N: ... s``), and at the start of phase 20 those of the phases
+on gloo ranks (10, 15-19) and of all phases together.
 
 One phase of 3 alone, for a short run on the card (the kernels it needs
 are built at first use)::
@@ -6854,7 +6890,694 @@ def moe_kernel_phase(floor_ms: float, baseline, any_k, baseline_k9c) -> list[dic
 
 #: the phases whose ranks are gloo processes on the one card: the script's
 #: time varies most there, with the host
-GLOO_PHASES = ("10", "15", "16", "17", "18")
+# -- phase 19: fault tolerance on one card ---------------------------------------
+
+FAULT_STEPS = 8  # (a)/(b): the LM fit, two epochs of four batches
+FAULT_EPOCH = 4
+FAULT_EVERY = 2  # their checkpoint_interval_batches
+FAULT_NOTICE = 2  # (a): PreemptNotice at the step site of index 2, during step 3
+FAULT_TORN = 6  # (b): the snapshot of step 6 torn, RaiseAt at the next step's site
+RES_FAULT_BATCH = 32  # (d) and (e): ResNet50-1K's global batch, four a epoch
+RES_FAULT_LR = 0.01
+MNIST_CFG = dict(epochs=2, batch_size=64, train_samples=256, eval_samples=128, lr=0.01, seed=42)
+MNIST_KILL_STEP = 6  # (c): rank 1 killed before step 7 (epoch 2)
+#: (e): LoseRank(1) before step 6, mid-epoch 2; the resume is from the epoch
+#: boundary (step 4): a mid-epoch snapshot's loader position is refused at
+#: another process count, in both packages (the loader's fingerprint)
+ELASTIC_LOSE_STEP = 5
+SERVE_FLOOD = 256  # (f): synthetic requests of the QueueFlood
+
+
+def _fault_counters():
+    """K1, K2a/K2b, K3a/K3b and K4 (one launch a step over every tensor)."""
+    from tpuframe_torch.ops.fused_adamw import fused_adamw_multi_update_
+    from tpuframe_torch.ops.layer_norm import layer_norm_bwd, layer_norm_fwd
+
+    return {**_k12(), "layer_norm_fwd": layer_norm_fwd, "layer_norm_bwd": layer_norm_bwd,
+            "fused_adamw": fused_adamw_multi_update_}
+
+
+def _zeroed(counters: dict) -> dict:
+    for c in counters.values():
+        c.launches = 0
+    return counters
+
+
+def _counts(counters: dict) -> dict:
+    return {n: c.launches for n, c in counters.items()}
+
+
+def _state_digest(state) -> str:
+    """sha256 over every tensor of a ``TrainState``'s saveable dict (whole
+    tensors: every rank calls it)."""
+    import hashlib
+
+    h = hashlib.sha256()
+
+    def walk(tree, prefix=""):
+        for k in sorted(tree):
+            v = tree[k]
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}/")
+            elif torch.is_tensor(v):
+                h.update(f"{prefix}{k}".encode())
+                h.update(v.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+                         .numpy().tobytes())
+    walk(state.state_dict())
+    return h.hexdigest()
+
+
+def fault_lm_parts(card: str, root: Path, dev: torch.device, cfg: dict, batch_size: int,
+                   workers: int = 4) -> dict:
+    """Phase 19 (a) and (b), one supervised fit of ``cfg`` (phase 6's
+    GPT-2-small LM on the card) that meets both faults: the preemption
+    notice during step 3 (attempt 1), then the torn snapshot of step 6 and
+    a ``ChaosError`` at the next step (attempt 2), resumed by attempt 3 from
+    the committed step 4.  Held bit-equal to an uninterrupted fit.  Returns
+    their numbers."""
+    from tpuframe_torch.ckpt import Checkpointer
+    from tpuframe_torch.data import DataLoader
+    from tpuframe_torch.fault import (
+        ChaosPlan,
+        PreemptNotice,
+        RaiseAt,
+        RestartPolicy,
+        Supervisor,
+        TornCheckpoint,
+    )
+    from tpuframe_torch.fault import preempt
+    from tpuframe_torch.models import TransformerLM
+    from tpuframe_torch.ops import fused_adamw
+    from tpuframe_torch.track.telemetry import get_telemetry
+    from tpuframe_torch.train import Callback, Trainer
+
+    seq, vocab = cfg["max_len"], cfg["vocab_size"]
+    # the LM's loss takes no K2 at this vocabulary (phase 6 holds it at 0)
+    per_step = {"normalize": 0, "cross_entropy_fwd": 0, "cross_entropy_bwd": 0,
+                "layer_norm_fwd": 2 * cfg["num_layers"] + 1,
+                "layer_norm_bwd": 2 * cfg["num_layers"] + 1, "fused_adamw": 1}
+    tele = get_telemetry()
+
+    class Probe(Callback):
+        """The step each attempt starts from, and when its first step starts."""
+
+        def __init__(self):
+            self.resumed, self.first_step_mono = [], []
+
+        def on_fit_start(self, trainer):
+            self.resumed.append(trainer.state.step)
+
+        def on_step_start(self, trainer):
+            if len(self.first_step_mono) < len(self.resumed):
+                self.first_step_mono.append(time.monotonic())
+
+    def make(directory=None, callbacks=()):
+        model = TransformerLM(**cfg, device=dev, seed=0)
+        data = NextTokenDataset(batch_size * FAULT_EPOCH, seq, vocab, seed=1)
+        return Trainer(model, tx=fused_adamw(3e-4, weight_decay=1e-4),
+                       train_dataloader=DataLoader(data, batch_size, shuffle=True, seed=0,
+                                                   num_workers=workers),
+                       precision="bf16", max_duration=f"{FAULT_STEPS}ba", log_interval=0,
+                       callbacks=list(callbacks),
+                       checkpointer=None if directory is None else Checkpointer(directory),
+                       checkpoint_interval_batches=FAULT_EVERY if directory else None)
+
+    straight = make()
+    t0 = time.perf_counter()
+    straight.fit()
+    sync(dev)
+    out = {"card": card, "uninterrupted_fit_s": time.perf_counter() - t0}
+
+    directory = str(root / "lm")
+    probe, restarts = Probe(), []
+
+    def attempt():
+        tr = make(directory, [probe])
+        return tr, tr.fit()
+
+    sup = Supervisor(RestartPolicy(max_restarts=1, max_preemptions=2, backoff_base_s=0.0),
+                     checkpoint_dir=directory,
+                     on_restart=lambda n, e: restarts.append(time.monotonic()))
+    plan = ChaosPlan([PreemptNotice("step", step=FAULT_NOTICE),
+                      TornCheckpoint(step=FAULT_TORN), RaiseAt("step", step=FAULT_TORN)])
+    counters = _zeroed(_fault_counters())
+    token = _mark(tele)
+    t0 = time.perf_counter()
+    try:
+        with plan.active():
+            tr, res = sup.run(attempt)
+        sync(dev)
+    finally:
+        preempt.uninstall()  # the notice installed the process-wide watcher
+    wall = time.perf_counter() - t0
+    # this thread's events: (c) runs its launcher from another thread meanwhile
+    me = threading.current_thread().name
+    launches = _counts(counters)
+    events = [e for e in _since(tele, token) if e.get("thread") == me]
+    exit_step = FAULT_NOTICE + 1
+    # attempt 1 to the exit, attempt 2 from it to the torn step, attempt 3
+    # from the epoch-end step 4 to the end
+    steps = exit_step + (FAULT_TORN - exit_step) + (FAULT_STEPS - FAULT_EPOCH)
+    expected = {n: v * steps for n, v in per_step.items()}
+
+    def named(name):
+        return [e for e in events if e.get("name") == name]
+
+    preempted, saves = named("fault/preempted"), named("fault/preempt_checkpoint")
+    restart_ev, quarantined = named("fault/restart"), named("fault/quarantine")
+    check(sup.preemptions == 1 and sup.retries == 1
+          and probe.resumed == [0, exit_step, FAULT_EPOCH]
+          and tr.state.step == FAULT_STEPS and res.error is None,
+          f"(a, b) preemptions {sup.preemptions}, retries {sup.retries}, attempts from "
+          f"{probe.resumed}, ended at step {tr.state.step}")
+    check(len(preempted) == 1 and len(saves) == 1
+          and preempted[0]["checkpoint"] == f"{directory}_intra/{exit_step}"
+          and [e["failure_class"] for e in restart_ev] == ["preemption", "retryable"]
+          and restart_ev[0]["delay_s"] == 0.0 and restart_ev[0]["budget"] == 2,
+          f"(a) {len(preempted)} fault/preempted ({preempted}), {len(saves)} last-chance "
+          f"snapshots, restarts {restart_ev}")
+    check(len(quarantined) == 1 and quarantined[0]["step"] == FAULT_TORN,
+          f"(b) quarantines {quarantined}")
+    check(launches == expected, f"(a, b) launches {launches}, expected {expected}")
+    equal, diff = _same_state(tr.state, straight.state)
+    check(equal, f"(a, b) the preempted, torn and resumed fit is not bit-equal to the "
+          f"uninterrupted one (max |diff| {diff:.3g})")
+    (notice,) = named("fault/preempt_notice")
+    notice_to_exit = float(preempted[0]["mono"]) - float(notice["mono"])
+    save_s = float(saves[0]["dur_s"])
+    first = [t - r for t, r in zip(probe.first_step_mono[1:], restarts)]
+    nbytes = sum(t.numel() * t.element_size() for t in _state_tensors(tr.state))
+    out["a"] = {"notice_to_preempted_s": notice_to_exit, "last_chance_save_s": save_s,
+                "rest_s": notice_to_exit - save_s, "restart_to_first_step_s": first[0],
+                "state_gb": nbytes / 1e9}
+    out["b"] = {"restart_to_first_step_s": first[1]}
+    out.update(supervised_s=wall, launches=launches)
+    log(f"  (a) PreemptNotice during step {exit_step}: Preempted at its boundary "
+        f"{notice_to_exit:.3f} s after the notice ({save_s:.3f} s the synchronous save of "
+        f"{nbytes / 1e9:.3f} GB, {notice_to_exit - save_s:.3f} s the rest); restart (0 s "
+        f"delay, preemption budget) to the first resumed step {first[0]:.3f} s, from step "
+        f"{exit_step}")
+    log(f"  (b) the snapshot of step {FAULT_TORN} torn, a ChaosError at the next step: one "
+        f"fault/quarantine (step {quarantined[0]['step']}), a RETRYABLE restart to the first "
+        f"step resumed from the committed step {FAULT_EPOCH} {first[1]:.3f} s; the fit of "
+        f"three attempts ({wall:.2f} s) bit-equal to the uninterrupted {FAULT_STEPS}-step fit "
+        f"(parameters and optimizer state); launches {launches} on {card}")
+    return out
+
+
+def _stamped_kill(stamp: str, step: int):
+    """A ``KillWorker(SIGKILL)`` at ``step`` that first writes the wall time
+    of its kill into ``stamp`` (the launching process times the loss's
+    detection from it)."""
+    import signal
+
+    from tpuframe_torch.fault import KillWorker
+
+    class StampedKill(KillWorker):
+        def fire(self, ctx):
+            Path(stamp).write_text(repr(time.time()))
+            super().fire(ctx)
+
+    return StampedKill("step", step, sig=signal.SIGKILL)
+
+
+def mnist_killed_once(cfg: dict, flag: str, stamp: str):
+    """Worker side of (c): example 01's ``train_mnist`` with K2 counted, on
+    the first attempt rank 1 under ``KillWorker(SIGKILL)``.  Returns its
+    value, the epoch its checkpoint held when it started, the counts and
+    the eval batches a rank."""
+    from tpuframe_torch.ckpt.meta import _read_meta_doc, latest_step
+    from tpuframe_torch.data import DataLoader, SyntheticImageDataset
+    from tpuframe_torch.fault import ChaosPlan
+
+    held = latest_step(cfg["ckpt_dir"])
+    resume_epoch = _read_meta_doc(cfg["ckpt_dir"], held)["meta"]["epoch"] if held else 0
+    plan = ChaosPlan()
+    if os.environ["RANK"] == "1" and not os.path.exists(flag):
+        Path(flag).write_text("armed")
+        plan = ChaosPlan([_stamped_kill(stamp, MNIST_KILL_STEP)])
+    with plan.active():
+        value, counts = counted_call(_k12, "01_distributor_mnist", "train_mnist", cfg)
+    evl = DataLoader(SyntheticImageDataset(n=cfg["eval_samples"], image_size=28, channels=1,
+                                           num_classes=10, seed=cfg["seed"] + 1),
+                     cfg["batch_size"], drop_last=False)
+    return value, resume_epoch, counts, len(evl)
+
+
+def _raise_preempted():
+    from tpuframe_torch.fault import Preempted
+
+    raise Preempted("spot reclaim", step=7)
+
+
+def fault_mnist_part(card: str, root: Path, simulate: int | None = None) -> dict:
+    """Phase 19 (c): example 01 (MNIST) through the ``Distributor`` and
+    ``run_with_restarts`` on two gloo ranks of the card, rank 1 killed;
+    then one worker whose fn raises ``Preempted`` exits 143."""
+    import pickle
+
+    import cloudpickle
+
+    from tpuframe_torch.fault import PREEMPTED_EXIT, Preempted
+    from tpuframe_torch.launch import Distributor, DistributorError, run_with_restarts
+
+    cfg = {**MNIST_CFG, "tracking_uri": str(root / "mnist" / "mlruns"),
+           "ckpt_dir": str(root / "mnist" / "ckpt")}
+    flag, stamp = str(root / "mnist_killed"), str(root / "mnist_kill_time")
+    # a worker whose fn raises Preempted exits 143, its typed frame written;
+    # started first, it runs beside the launches below
+    payload, result = str(root / "preempted.pkl"), str(root / "preempted_out.pkl")
+    with open(payload, "wb") as f:
+        cloudpickle.dump((_raise_preempted, (), {}), f)
+    proc = subprocess.Popen([sys.executable, "-m", "tpuframe_torch.launch._worker", payload,
+                             result], stderr=subprocess.PIPE,
+                            env={**os.environ, "PYTHONPATH": os.pathsep.join(
+                                p for p in sys.path if p)})
+    restarts = []
+    dist = Distributor(num_processes=2, simulate_devices=simulate, timeout_s=600.0)
+    t0 = time.time()
+    value, resume_epoch, counts, n_eval = run_with_restarts(
+        lambda: dist.run(mnist_killed_once, cfg, flag, stamp), max_restarts=1, backoff_s=0.0,
+        on_restart=lambda n, e: restarts.append((time.time(), e)))
+    t_result = time.time()
+    steps_epoch = MNIST_CFG["train_samples"] // MNIST_CFG["batch_size"]
+    check(value == "finished" and len(restarts) == 1 and os.path.exists(stamp),
+          f"(c) result {value!r}, restarts {[repr(e) for _, e in restarts]}")
+    err = restarts[0][1]
+    check(isinstance(err, DistributorError) and err.returncode == -9 and err.rank == 1,
+          f"(c) the restart's error {err!r}: not rank 1's SIGKILL")
+    check(resume_epoch == 1, f"(c) the relaunch resumed at epoch {resume_epoch}, not 1")
+    want = {"normalize": 0, "cross_entropy_fwd": steps_epoch + n_eval,
+            "cross_entropy_bwd": steps_epoch}
+    check(counts == want, f"(c) rank 0's launches {counts}, expected {want}")
+    detect_s = restarts[0][0] - float(Path(stamp).read_text())
+    relaunch_s = t_result - restarts[0][0]
+
+    _, err_tail = proc.communicate(timeout=300)
+    with open(result, "rb") as f:
+        outcome = pickle.load(f)
+    check(proc.returncode == PREEMPTED_EXIT and isinstance(outcome["error"], Preempted)
+          and outcome["error"].step == 7,
+          f"(c) the preempted worker exited {proc.returncode}: {err_tail[-500:]!r}")
+    log(f"  (c) example 01 on 2 gloo ranks, rank 1 SIGKILLed before step "
+        f"{MNIST_KILL_STEP + 1}: detected {detect_s:.2f} s after the kill (exit -9), one "
+        f"RETRYABLE restart, relaunch to the result {relaunch_s:.2f} s (resumed from the "
+        f"epoch-1 checkpoint), {t_result - t0:.2f} s in all; rank 0's launches {counts}; a "
+        f"worker raising Preempted exits {proc.returncode} on {card}")
+    return {"detect_s": detect_s, "relaunch_to_result_s": relaunch_s,
+            "total_s": t_result - t0, "launches": counts, "preempted_exit": proc.returncode}
+
+
+def fault_divergence_part(card: str, root: Path, dev: torch.device, image_size: int = 224,
+                          batch_size: int = RES_FAULT_BATCH, workers: int = 8) -> dict:
+    """Phase 19 (d): ResNet50-1K fit on f32 host batches, a NaN window of
+    three batches against ``max_bad=2``: skipped steps, ``Divergence``, the
+    rollback to the last healthy step, the next attempt at lr_scale 0.5."""
+    from tpuframe_torch.ckpt import Checkpointer
+    from tpuframe_torch.data import DataLoader, SyntheticImageDataset
+    from tpuframe_torch.fault import (
+        ChaosPlan,
+        HealthPolicy,
+        NaNAt,
+        RestartPolicy,
+        Supervisor,
+        recovery_directive,
+    )
+    from tpuframe_torch.models import ResNet50
+    from tpuframe_torch.track.telemetry import get_telemetry
+    from tpuframe_torch.train import Callback, Trainer
+
+    directory = str(root / "resnet_d")
+    seen = {"resumed": [], "scale": []}
+
+    class Probe(Callback):
+        def on_fit_start(self, trainer):
+            seen["resumed"].append(trainer.state.step)
+            seen["scale"].append(recovery_directive().lr_scale)
+
+    def attempt():
+        model = ResNet50(num_classes=1000, norm_dtype=torch.bfloat16, device=dev, seed=0)
+        # float32 host batches: NaNAt poisons them before the copy (uint8 cannot)
+        loader = DataLoader(SyntheticImageDataset(n=batch_size * 4, image_size=image_size,
+                                                  num_classes=1000, seed=1),
+                            batch_size, shuffle=True, seed=0, transfer_dtype="float32",
+                            num_workers=workers)
+        tr = Trainer(model, train_dataloader=loader, optimizer="sgd", lr=RES_FAULT_LR,
+                     precision="bf16", normalize=(MEAN, STD), max_duration="2ep",
+                     log_interval=0, eval_interval=0, checkpointer=Checkpointer(directory),
+                     checkpoint_interval_batches=2, callbacks=[Probe()],
+                     health=HealthPolicy(window=4, max_bad=2, warmup_steps=2, lr_backoff=0.5))
+        return tr, tr.fit()
+
+    tele = get_telemetry()
+    plan = ChaosPlan([NaNAt(step=5, times=3)])  # the batches of steps 6, 7 and 8
+    sup = Supervisor(RestartPolicy(max_restarts=0, max_divergences=1, backoff_base_s=0.0),
+                     checkpoint_dir=directory)
+    counters = _zeroed(_k12())
+    token = _mark(tele)
+    t0 = time.perf_counter()
+    with plan.active():
+        tr, res = sup.run(attempt)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = _counts(counters)
+    me = threading.current_thread().name  # (c) and (e) run beside this part
+    events = [e for e in _since(tele, token) if e.get("thread") == me]
+    names = [e.get("name") for e in events]
+    rollbacks = [e for e in events if e.get("name") == "fault/rollback"]
+    steps = 8 + 4  # attempt 1 to its divergence at step 8, attempt 2 from step 4
+    expected = {n: steps for n in launches}
+    finite = all(bool(torch.isfinite(p).all()) for p in tr.model.parameters())
+    check(sup.divergences == 1 and seen["resumed"] == [0, 4] and seen["scale"] == [1.0, 0.5]
+          and tr.state.step == 8 and res.error is None and finite,
+          f"(d) divergences {sup.divergences}, attempts from {seen['resumed']} at lr_scale "
+          f"{seen['scale']}, ended at step {tr.state.step}, parameters finite {finite}")
+    check("health/bad_step" in names and "health/divergence" in names
+          and len(rollbacks) == 1 and rollbacks[0]["quarantined"] == [6],
+          f"(d) events {sorted(set(names))}, rollbacks {rollbacks}")
+    check(launches == expected, f"(d) launches {launches}, expected {expected}")
+    log(f"  (d) ResNet50-1K, batch {batch_size} f32 host batches, NaN in the batches of "
+        f"steps 6-8: skipped, Divergence at step 8, rolled back to step 4 (the snapshot of "
+        f"step 6 quarantined), re-entered at lr_scale 0.5 and completed {tr.state.step} "
+        f"steps with finite parameters in {wall:.2f} s; launches {launches} on {card}")
+    return {"supervised_s": wall, "launches": launches}
+
+
+def elastic_worker(plan, ckpt_dir: str, out_dir: str, lose: bool, image_size: int,
+                   batch_size: int):
+    """Worker side of (e): ResNet50-1K under ZeRO-1 with AdamW over
+    ``plan``, counted; on the first attempt the epoch-end checkpoint of step
+    4 read back at this world and digested, and ``LoseRank(1)`` before step
+    6.  Rank 0 writes its counts (and the digest) under ``out_dir``."""
+    from tpuframe_torch.ckpt import Checkpointer
+    from tpuframe_torch.core import initialize
+    from tpuframe_torch.core.runtime import MeshSpec
+    from tpuframe_torch.data import DataLoader, SyntheticImageDataset
+    from tpuframe_torch.fault import ChaosPlan, LoseRank
+    from tpuframe_torch.models import ResNet50
+    from tpuframe_torch.ops import fused_adamw
+    from tpuframe_torch.track.telemetry import get_telemetry
+    from tpuframe_torch.train import Callback, Trainer, create_train_state
+
+    rt = initialize(MeshSpec.from_mesh(plan.mesh))
+    world, seen = rt.process_count, {}
+
+    def model(seed):
+        return ResNet50(num_classes=1000, norm_dtype=torch.bfloat16, device=rt.device,
+                        seed=seed)
+
+    class Rec(Callback):
+        def on_fit_start(self, trainer):
+            seen["resume_step"] = trainer.state.step
+            seen["digest"] = _state_digest(trainer.state)
+
+        def on_epoch_start(self, trainer, epoch):
+            if lose and epoch == 1:  # after the epoch-end save of step 4
+                template = create_train_state(model(9), fused_adamw(1e-3), plan=plan, seed=9)
+                Checkpointer(ckpt_dir).restore(template, step=4, plan=plan)
+                ref = _state_digest(template)
+                if rt.is_main:
+                    Path(out_dir, "boundary.json").write_text(json.dumps(
+                        {"digest": ref, "world": world}))
+
+    loader = DataLoader(SyntheticImageDataset(n=batch_size * 4, image_size=image_size,
+                                              num_classes=1000, seed=1),
+                        batch_size, shuffle=True, seed=0, transfer_dtype="uint8")
+    tr = Trainer(model(0), tx=fused_adamw(1e-3), train_dataloader=loader, plan=plan,
+                 precision="bf16", normalize=(MEAN, STD), max_duration="2ep", log_interval=0,
+                 eval_interval=0, checkpointer=Checkpointer(ckpt_dir), callbacks=[Rec()])
+    tele = get_telemetry()
+    token = _mark(tele)
+    counters = _zeroed(_fault_counters())
+    try:
+        with ChaosPlan([LoseRank(1, ELASTIC_LOSE_STEP)] if lose else []).active():
+            tr.fit()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    finally:
+        if rt.is_main:
+            Path(out_dir, f"world{world}.json").write_text(json.dumps(_counts(counters)))
+    restores = _since(tele, token, "ckpt/restore")
+    return {"resume_step": seen["resume_step"], "digest": seen["digest"],
+            "step": tr.state.step, "world": world,
+            "reshards": len(_since(tele, token, "fault/reshard")),
+            "restore_s": float(restores[0]["dur_s"]) if restores else None,
+            "finite": all(bool(torch.isfinite(p).all()) for p in tr.model.parameters())}
+
+
+def fault_elastic_part(card: str, root: Path, simulate: int | None = None,
+                       image_size: int = 224, batch_size: int = RES_FAULT_BATCH) -> dict:
+    """Phase 19 (e): ``run_elastic(min_world_size=1)`` over two gloo ranks of
+    the card, ZeRO-1 over ``fsdp``, rank 1 lost mid-epoch: worlds [2, 1]."""
+    from tpuframe_torch.core.runtime import MeshSpec
+    from tpuframe_torch.fault import RestartPolicy
+    from tpuframe_torch.launch import Distributor, run_elastic
+    from tpuframe_torch.parallel import ParallelPlan
+    from tpuframe_torch.track.telemetry import get_telemetry
+
+    ckpt_dir, out_dir = str(root / "elastic"), root / "elastic_out"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    plan2 = ParallelPlan(mesh=MeshSpec(data=1, fsdp=2).build(2), zero_stage=1)
+    worlds, spawn_s = [], []
+
+    def train(ctx):
+        worlds.append(ctx.world_size)
+        t0 = time.perf_counter()
+        try:
+            return Distributor(num_processes=ctx.world_size, simulate_devices=simulate,
+                               timeout_s=600.0).run(
+                elastic_worker, ctx.plan, ckpt_dir, str(out_dir), ctx.attempt == 1,
+                image_size, batch_size)
+        finally:
+            spawn_s.append(time.perf_counter() - t0)
+
+    # counters and the directory, not the event window: (a, b), (d) and (f)
+    # fill that window from the main thread meanwhile; only this part
+    # resizes a world
+    resizes = get_telemetry().registry.counter("fault/world_resizes")
+    resizes0 = resizes.value
+    t0 = time.perf_counter()
+    got = run_elastic(train, plan=plan2, elastic_axis="fsdp", checkpoint_dir=ckpt_dir,
+                      policy=RestartPolicy(max_restarts=1, backoff_base_s=0.0),
+                      min_world_size=1)
+    wall = time.perf_counter() - t0
+    resized = int(resizes.value - resizes0)
+    quarantined = [d for d in (ckpt_dir, ckpt_dir + "_intra")
+                   if os.path.isdir(os.path.join(d, "_quarantine"))]
+    boundary = json.loads((out_dir / "boundary.json").read_text())
+    counts = {w: json.loads((out_dir / f"world{w}.json").read_text()) for w in (2, 1)}
+    check(worlds == [2, 1] and resized == 1 and not quarantined,
+          f"(e) worlds {worlds}, {resized} resizes, quarantines under {quarantined}")
+    check(got["world"] == 1 and got["resume_step"] == 4 and got["step"] == 8
+          and got["reshards"] >= 1 and got["finite"],
+          f"(e) the world-1 attempt: {got}")
+    check(boundary["world"] == 2 and got["digest"] == boundary["digest"],
+          "(e) the state restored at world 1 differs from the snapshot read back at two ranks")
+    want = {2: ELASTIC_LOSE_STEP, 1: 8 - 4}
+    for w, n in want.items():
+        expected = {"normalize": n, "cross_entropy_fwd": n, "cross_entropy_bwd": n,
+                    "layer_norm_fwd": 0, "layer_norm_bwd": 0, "fused_adamw": n}
+        check(counts[w] == expected, f"(e) world {w} rank 0's launches {counts[w]}, "
+              f"expected {expected}")
+    log(f"  (e) ResNet50-1K, ZeRO-1 over fsdp, AdamW (K4 on the owned slices), global batch "
+        f"{batch_size}: rank 1 lost before step {ELASTIC_LOSE_STEP + 1}, worlds {worlds}, one "
+        f"fault/world_resized, {got['reshards']} fault/reshard, no quarantine; the restore at "
+        f"world 1 ({got['restore_s']:.3f} s) bit-equal to the snapshot read back at two ranks; "
+        f"{got['step']} steps; attempts {[round(s, 2) for s in spawn_s]} s from launch to end, "
+        f"{wall:.2f} s in all; rank 0's launches {counts} on {card}")
+    return {"reshard_restore_s": got["restore_s"], "attempt_s": spawn_s, "total_s": wall,
+            "launches": counts}
+
+
+def fault_serve_part(card: str, dev: torch.device, model=None, image_size: int = 224) -> dict:
+    """Phase 19 (f): ResNet50-1K behind ``ServeEngine`` (bf16, K1, float32
+    requests) under a QueueFlood, a PoisonRequest, a SlowConsumer under the
+    serve watchdog, and a drain through ``run_forever``."""
+    from tpuframe_torch.fault import ChaosPlan, PoisonRequest, QueueFlood, SlowConsumer
+    from tpuframe_torch.fault import preempt
+    from tpuframe_torch.models import ResNet50, from_jax_variables, import_torch_resnet
+    from tpuframe_torch.ops.normalize import normalize_images
+    from tpuframe_torch.parallel import align_model_dtype, bf16_compute
+    from tpuframe_torch.serve import (
+        InvalidRequest,
+        RequestRejected,
+        RequestShed,
+        ServeEngine,
+        ServeKnobs,
+        ServingServer,
+    )
+    from tpuframe_torch.track.telemetry import get_telemetry
+    from tpuframe_torch.track.watchdog import Watchdog
+    from tpuframe_torch.train import make_predict_fn
+
+    if model is None:
+        model = ResNet50(num_classes=1000, device=dev)
+        model.load_state_dict(from_jax_variables(
+            random_jax_variables(import_torch_resnet(model.state_dict()), seed=0)))
+    policy = bf16_compute()
+    align_model_dtype(model, policy)
+    predict = make_predict_fn(policy, functools.partial(
+        normalize_images, mean=MEAN, std=STD, out_dtype=policy.compute_dtype))
+    engine = ServeEngine(functools.partial(predict, model),
+                         knobs=ServeKnobs(buckets=BUCKETS, slo_ms=500.0, queue_cap=64,
+                                          shed_policy="shed-oldest", batch_wait_ms=20.0,
+                                          watchdog_s=0.25),
+                         item_shape=(image_size, image_size, 3), dtype="float32", device=dev)
+    tele = get_telemetry()
+    reg = tele.registry
+    rng = np.random.default_rng(5)
+
+    def request():
+        return rng.uniform(0, 255, (image_size, image_size, 3)).astype(np.float32)
+
+    watcher = preempt.install(signals=())  # run_forever's; no signal trapped here
+    engine.start()
+    counters = _zeroed({"normalize": normalize_images})
+    batches0, shed0 = reg.counter("serve/batches").value, reg.counter("serve/shed").value
+    out: dict = {"card": card}
+    try:
+        # QueueFlood: sheds fire, the admitted p99 within the SLO tracker's target
+        target_ms = engine._slo.objectives.p99_ms
+        plan = ChaosPlan([QueueFlood(SERVE_FLOOD, step=3)])
+        lats = []
+        with plan.active():
+            for _ in range(40):
+                try:
+                    f = engine.submit(request())
+                    f.result(timeout=120)
+                except (RequestRejected, RequestShed):
+                    continue
+                lats.append(f.latency_s)
+        lats.sort()
+        p99 = lats[min(len(lats) - 1, int(0.99 * len(lats)))] * 1e3 if lats else float("inf")
+        shed = reg.counter("serve/shed").value - shed0
+        check(plan.fired_count() == 1 and shed > 0 and len(lats) > 0 and p99 <= target_ms,
+              f"(f) flood: fired {plan.fired_count()}, {shed} shed, {len(lats)} of 40 served, "
+              f"p99 {p99:.1f} ms against {target_ms} ms")
+        out["flood"] = {"shed": shed, "served": len(lats), "p99_ms": p99,
+                        "target_ms": target_ms}
+
+        # PoisonRequest (the first submit under the plan): rejected at the
+        # door, its seven batchmates bit-equal to a clean run of the seven
+        xs = [request() for _ in range(8)]
+        clean_xs = [x.copy() for x in xs[1:]]
+        with ChaosPlan([PoisonRequest()]).active():
+            futs, rejected = {}, []
+            for i, x in enumerate(xs):
+                try:
+                    futs[i] = engine.submit(x)
+                except InvalidRequest:
+                    rejected.append(i)
+            poisoned = {i: f.result(timeout=120) for i, f in futs.items()}
+        clean = [f.result(timeout=120) for f in [engine.submit(x) for x in clean_xs]]
+        same = all(torch.equal(a, b) for a, b in zip(poisoned.values(), clean))
+        check(rejected == [0] and same and all(bool(torch.isfinite(v).all())
+                                               for v in poisoned.values()),
+              f"(f) poison: rejected {rejected}, batchmates bit-equal to the clean run {same}")
+
+        # SlowConsumer past the serve/infer lease: the watchdog reports it
+        wd = tele.attach_watchdog(Watchdog(deadlines={"serve/infer": 0.25},
+                                           poll_interval_s=0.05))
+        try:
+            with ChaosPlan([SlowConsumer(stall_s=1.0)]).active():
+                engine.submit(request()).result(timeout=120)
+            stalls = [r for r in wd.reports if r["name"] == "serve/infer"]
+        finally:
+            wd.stop()
+            tele.watchdog = None
+        check(len(stalls) >= 1, f"(f) slow consumer: watchdog reports {list(wd.reports)}")
+
+        # a watcher's notice through run_forever: zero dropped in-flight requests
+        server = ServingServer(engine)
+        runner = threading.Thread(target=server.run_forever, kwargs={"poll_s": 0.05},
+                                  daemon=True)
+        inflight = [engine.submit(request()) for _ in range(24)]
+        runner.start()
+        watcher.request("drain")
+        runner.join(timeout=300)
+        verdicts = [f.verdict for f in inflight]
+        check(not runner.is_alive() and engine.draining and verdicts == ["ok"] * 24,
+              f"(f) drain: run_forever returned {not runner.is_alive()}, verdicts {verdicts}")
+    finally:
+        engine.stop()
+        preempt.uninstall()
+    batches = int(reg.counter("serve/batches").value - batches0)
+    launches = _counts(counters)
+    check(launches == {"normalize": batches},
+          f"(f) launches {launches} for {batches} served batches")
+    out.update(launches=launches, batches=batches)
+    log(f"  (f) ResNet50-1K serve, f32 requests: a flood of {SERVE_FLOOD} shed {shed:.0f}, "
+        f"the clients' p99 {p99:.1f} ms within the SLO's {target_ms:.0f} ms; the poisoned "
+        f"request rejected, its 7 batchmates bit-equal to a clean run; a 1 s slow consumer "
+        f"reported by the serve watchdog ({len(stalls)} report); run_forever drained 24 "
+        f"in-flight requests, none dropped; {batches} batches, launches {launches} on {card}")
+    return out
+
+
+def fault_phase(card: str, dev: torch.device = torch.device("cuda"), cfg: dict = LM,
+                batch_size: int = LM_BATCH, image_size: int = 224,
+                res_batch: int = RES_FAULT_BATCH, simulate: int | None = None,
+                workers: int = 4, serve_model=None) -> dict:
+    """Phase 19: fault tolerance on one card (module docstring).  Scratch
+    under ``build/tpuframe_torch/fault_smoke/``, removed at the end.  The
+    device and sizes are arguments so the phase can be rehearsed small on
+    the CPU (``simulate=1`` puts the launcher's workers there)."""
+    from tpuframe_torch.ops.build import BUILD_DIR
+
+    root = BUILD_DIR / "fault_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    seconds, out = {}, {"card": card}
+
+    def timed(part, fn):
+        t0 = time.perf_counter()
+        out[part] = fn()
+        seconds[part] = time.perf_counter() - t0
+        log(f"  ({part}) in {seconds[part]:.1f} s")
+
+    try:
+        # (c) and (e) are their launchers' workers, which spend most of their
+        # time starting on the host's cores: they run from threads beside
+        # (a, b), (d) and (f), which wait on the card and the disk
+        failed: list[BaseException] = []
+
+        def beside(part, fn):
+            try:
+                timed(part, fn)
+            except BaseException as e:  # re-raised on this thread below
+                failed.append(e)
+
+        threads = [threading.Thread(target=beside, name=f"fault-phase-{part}", args=(part, fn))
+                   for part, fn in (("c", lambda: fault_mnist_part(card, root, simulate)),
+                                    ("e", lambda: fault_elastic_part(card, root, simulate,
+                                                                     image_size, res_batch)))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        try:
+            for part, fn in (("a, b", lambda: fault_lm_parts(card, root, dev, cfg, batch_size,
+                                                              workers)),
+                             ("d", lambda: fault_divergence_part(card, root, dev, image_size,
+                                                                 res_batch, 2 * workers)),
+                             ("f", lambda: fault_serve_part(card, dev, serve_model,
+                                                            image_size))):
+                timed(part, fn)
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+        finally:
+            for t in threads:
+                t.join()
+        seconds["all parts"] = time.perf_counter() - t0
+        if failed:
+            raise failed[0]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = seconds
+    log("  fault_json " + json.dumps(out, default=str))
+    return out
+
+
+GLOO_PHASES = ("10", "15", "16", "17", "18", "19")
 
 
 class PhaseClock:
@@ -7100,7 +7823,20 @@ def main(argv=None) -> int:
         k["launches_example06"] = {run: v["launches"][k["name"]] for run, v in ex06.items()}
     torch.cuda.empty_cache()
 
-    clock.start("19: result")
+    clock.start("19: fault tolerance on one card")
+    fault = fault_phase(card)
+    # each kernel's launches on the parts of phase 19 that run it
+    parts = {"a, b": fault["a, b"]["launches"], "c": fault["c"]["launches"],
+             "d": fault["d"]["launches"], "e": fault["e"]["launches"],
+             "f": fault["f"]["launches"]}
+    for k, name in ((k1, "normalize"), (k2a, "cross_entropy_fwd"), (k2b, "cross_entropy_bwd"),
+                    (k3a, "layer_norm_fwd"), (k3b, "layer_norm_bwd"), (k4, "fused_adamw")):
+        k["launches_fault"] = {p: (c.get(name) if p != "e" else {w: v.get(name)
+                                                                 for w, v in c.items()})
+                               for p, c in parts.items()}
+    torch.cuda.empty_cache()
+
+    clock.start("20: result")
     gloo = sum(v for t, v in clock.seconds.items() if t.split(":")[0] in GLOO_PHASES)
     log(f"  phases {', '.join(GLOO_PHASES)} (gloo ranks on the card): {gloo:.1f} s; all "
         f"phases: {sum(clock.seconds.values()):.1f} s")

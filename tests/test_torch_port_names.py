@@ -11,7 +11,11 @@ translate line for line.
    so the tables stay true.
 2. Every ``from tpuframe.X import ...`` line of ``examples/*.py``, mapped
    to ``tpuframe_torch``, resolves, or names a module still to port.
-3. Behaviour against JAX for the names this slice added: ``param_count``,
+3. The chaos-site registry: every literal ``maybe_fire``/``site`` call
+   under ``tpuframe_torch/`` names a site of ``fault.chaos.CHAOS_SITES``,
+   and every site there has a call (the port does not port the JAX
+   package's linter, which holds the same invariant).
+4. Behaviour against JAX for the names this slice added: ``param_count``,
    ``is_main_process``, ``reset_runtime``, ``Timer``, ``schedule_from_config``
    (on ``tests/test_schedules.py``'s config dicts), ``hfds_download`` (with
    a stand-in ``datasets`` module: nothing is downloaded),
@@ -60,9 +64,6 @@ SUBPACKAGES = ("core", "data", "train", "models", "ops", "parallel", "ckpt", "se
 #: ROADMAP Queue 1 item that brings each
 QUEUE1_MODULES = {
     "tpuframe.ops.ledger": 9,
-    "tpuframe.fault.chaos": 9,
-    "tpuframe.fault.preempt": 9,
-    "tpuframe.fault.supervisor": 9,
     "tpuframe.autotune": 9,
     "tpuframe.compile.cache": 9,
     "tpuframe.track.profiler": 9,
@@ -78,8 +79,6 @@ QUEUE1_MODULES = {
 #: names of ported modules that wait for a later slice's code: (subpackage,
 #: name) -> (Queue 1 item, what they wait for)
 LATER = {
-    ("fault", "recovery_directive"): (9, "the supervisor"),
-    ("fault", "reset_recovery"): (9, "the supervisor"),
     ("track", "start_metrics_server"): (9, "the HTTP store"),
     ("compile", "abstract_state"): (9, "torch.compile and CUDA graphs"),
     ("compile", "loader_batch_template"): (9, "torch.compile and CUDA graphs"),
@@ -89,11 +88,6 @@ LATER = {
     ("launch", "RemoteLaunchError"): (9, "the remote launcher"),
     ("launch", "ssh_connect"): (9, "the remote launcher"),
     ("launch", "all_env_vars"): (9, "the remote launcher"),
-    ("launch", "run_with_restarts"): (9, "the supervisor"),
-    ("launch", "run_elastic"): (9, "the supervisor"),
-    ("launch", "ElasticContext"): (9, "the supervisor"),
-    ("launch", "rederive_batch_split"): (9, "the supervisor"),
-    ("launch", "simulated_survivor_probe"): (9, "the supervisor"),
     ("track", "HttpModelRegistry"): (9, "the HTTP store"),
 }
 
@@ -115,7 +109,8 @@ SLICE_MODULES = ("core.config", "core.workspace", "core.native", "models.cnn", "
                  "launch.trainer_api", "data.transforms", "data.streaming", "data.mds",
                  "track.tensorboard", "track.system_metrics", "track.telemetry",
                  "parallel.zero", "parallel.memory", "parallel.sharding", "parallel.compose",
-                 "parallel.pipeline")
+                 "parallel.pipeline", "fault.chaos", "fault.preempt", "fault.supervisor",
+                 "fault.health", "launch.elastic")
 
 #: the JAX package's kernel switches: the port dispatches by device alone
 DROPPED = {"use_pallas", "kernel_enabled", "kernels_mode"}
@@ -191,6 +186,37 @@ def test_slice_module_names_match_jax_but_for_the_listed_gaps(module):
     assert not missing, f"tpuframe_torch.{module} lacks {missing}"
     assert not stale, f"tpuframe_torch.{module} has {stale} now: take them out of the table"
     assert set(getattr(port, "__all__", port_names)) <= port_names
+
+
+def _chaos_site_calls() -> dict[str, list[str]]:
+    """site -> the ``file:line`` of each literal ``maybe_fire``/``site`` call
+    under ``tpuframe_torch/``."""
+    calls: dict[str, list[str]] = {}
+    for path in sorted((REPO / "tpuframe_torch").rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if not isinstance(node, ast.Call) or not node.args:
+                continue
+            f = node.func
+            name = f.id if isinstance(f, ast.Name) else (
+                f.attr if isinstance(f, ast.Attribute) and isinstance(f.value, ast.Name)
+                and f.value.id == "chaos" else None)
+            arg = node.args[0]
+            if name in ("maybe_fire", "site") and isinstance(arg, ast.Constant) \
+                    and isinstance(arg.value, str):
+                calls.setdefault(arg.value, []).append(
+                    f"{path.relative_to(REPO)}:{node.lineno}")
+    return calls
+
+
+def test_chaos_sites_registry_matches_the_instrumented_calls():
+    from tpuframe.fault.chaos import CHAOS_SITES as JAX_SITES
+    from tpuframe_torch.fault.chaos import CHAOS_SITES
+
+    calls = _chaos_site_calls()
+    assert set(calls) == set(CHAOS_SITES), (sorted(calls), sorted(CHAOS_SITES))
+    # the JAX package's sites, but for the serving fleet's (not ported)
+    assert set(CHAOS_SITES) == {s for s in JAX_SITES if not s.startswith("fleet/")}
+    assert len(calls["step"]) >= 2 and len(calls["ckpt/saved"]) == 1
 
 
 def _example_imports():

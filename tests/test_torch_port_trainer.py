@@ -103,9 +103,10 @@ def test_prefetcher_on_the_cpu_copies_before_it_recycles():
 def test_trainer_refuses_what_is_not_ported():
     model = ResNet18(num_classes=10, num_filters=4, stem="cifar", device="cpu")
     mesh2 = MeshSpec(data=2).build(2)  # two ranks: no process group is needed to refuse
-    for kw in ({"preemption": True}, {"straggler_sync_steps": 4}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(model, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Trainer(model, straggler_sync_steps=4)
+    # preemption is ported (test_torch_port_preempt.py): it builds
+    assert Trainer(model, preemption=True).preemption is True
     # tensor-parallel rules are ported: a plan with rules builds, and a
     # Trainer takes it (two ranks train ViT through it in
     # test_torch_port_tensor_parallel.py and example 07 with --tp 2); ZeRO

@@ -51,7 +51,6 @@ from __future__ import annotations
 
 import json
 import os
-import random
 import shutil
 import threading
 import time
@@ -78,7 +77,9 @@ from tpuframe_torch.ckpt.meta import (  # noqa: F401  (re-exports, as the JAX mo
     rollback_to_last_healthy,
     valid_steps,
 )
+from tpuframe_torch.fault import chaos
 from tpuframe_torch.fault.health import _env_int
+from tpuframe_torch.fault.supervisor import backoff_delay
 from tpuframe_torch.track.telemetry import get_telemetry
 
 __all__ = [
@@ -95,16 +96,6 @@ _STAGING = ".orbax-checkpoint-tmp-0"
 # a world of one passes no_dist itself; DCP warns on every such call
 warnings.filterwarnings("ignore", message="torch.distributed is disabled, unavailable or "
                         "uninitialized", category=UserWarning)
-
-
-def _backoff_delay(attempt: int, *, base_s: float = 1.0, max_s: float = 60.0) -> float:
-    """Full-jitter exponential backoff (attempt counts from 1):
-    ``uniform(0, min(max_s, base_s * 2^(attempt-1)))``.  The port's copy of
-    ``tpuframe/fault/supervisor.py`` ``backoff_delay``; the supervisor
-    itself comes with the fault plane."""
-    if attempt < 1:
-        raise ValueError(f"attempt counts from 1, got {attempt}")
-    return random.uniform(0.0, min(float(max_s), float(base_s) * (2.0 ** (attempt - 1))))
 
 
 def _wired() -> bool:
@@ -364,17 +355,24 @@ class Checkpointer:
         with tele.span("ckpt/save", step=step), tele.guard("ckpt/save"):
             for attempt in range(retries + 1):
                 try:
+                    # inside the retry window: an injected ChaosError (an
+                    # OSError) is the storage flake the retry absorbs
+                    chaos.maybe_fire("ckpt/save", step=step, directory=self.directory)
                     self._write(data, step, doc, force=force or attempt > 0)
                     break
                 except OSError as e:
                     if attempt >= retries:
                         raise
-                    delay = _backoff_delay(attempt + 1, base_s=0.25, max_s=4.0)
+                    delay = backoff_delay(attempt + 1, base_s=0.25, max_s=4.0)
                     tele.registry.counter("ckpt/save_retries").inc()
                     tele.event("ckpt/save_retry", step=step, attempt=attempt + 1,
                                retries=retries, delay_s=round(delay, 3), error=repr(e)[:300])
                     time.sleep(delay)
-        return os.path.join(self.directory, str(step))
+        path = os.path.join(self.directory, str(step))
+        # after the commit: TornCheckpoint tears the marker here, as a kill
+        # between the data write and the commit would leave the step
+        chaos.maybe_fire("ckpt/saved", step=step, path=path, directory=self.directory)
+        return path
 
     def _write(self, data: dict, step: int, doc: dict, *, force: bool) -> None:
         """One attempt: stage, write the tensors, then commit (in the

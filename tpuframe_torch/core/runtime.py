@@ -227,6 +227,33 @@ class MeshSpec:
             raise ValueError(f"unknown mesh axes {sorted(unknown)}; known: {sorted(known)}")
         return cls(**{k: int(v) for k, v in cfg.items()})
 
+    @classmethod
+    def from_mesh(cls, mesh: Mesh) -> "MeshSpec":
+        """The concrete spec of a built mesh (every axis fixed): the start
+        of a spec over another world size (:meth:`shrink_to`)."""
+        return cls.from_config({name: int(size) for name, size in mesh.shape.items()})
+
+    def shrink_to(self, n_devices: int, *, elastic_axis: str = DATA_AXIS) -> "MeshSpec":
+        """The spec for a smaller or larger world: ``elastic_axis`` (default
+        ``data``) absorbs the change and every other axis keeps its size.
+        Raises ``ValueError`` when the fixed axes no longer fit (a lost rank
+        out of a TP or PP group cannot be absorbed by data parallelism)."""
+        sizes = dict(self.sizes())
+        wildcard = [n for n, s in sizes.items() if s == -1 and n != elastic_axis]
+        if wildcard:
+            raise ValueError(
+                f"shrink_to needs a fully-resolved spec (use MeshSpec.from_mesh on the built "
+                f"mesh); axis {wildcard} is still a wildcard")
+        sizes[elastic_axis] = -1
+        fixed = math.prod(s for n, s in sizes.items() if n != elastic_axis)
+        if n_devices < 1 or n_devices % fixed:
+            raise ValueError(
+                f"cannot rebuild mesh for {n_devices} device(s): the fixed axes "
+                f"{({n: s for n, s in sizes.items() if n != elastic_axis and s > 1})} need a "
+                f"multiple of {fixed} — shrink in units of whole {elastic_axis}-groups or "
+                "lower min_world_size no further")
+        return MeshSpec.from_config(sizes)
+
 
 @dataclasses.dataclass(frozen=True)
 class Runtime:

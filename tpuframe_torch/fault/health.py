@@ -19,9 +19,12 @@ path uses, with the same knobs, field order and semantics:
    checkpoint carries beside its topology manifest, which rollback
    (``ckpt.meta.rollback_to_last_healthy``) selects on.
 
-The supervisor side (``RecoveryDirective``, ``escalate_recovery``,
-``consume_skip_batches``) comes with the fault plane.  The module imports torch only inside the device-side
-helpers.
+5. **Recover.**  :func:`escalate_recovery` (the supervisor, once a
+   divergence) compounds the LR backoff and arms the data-order skip in
+   the process-wide :class:`RecoveryDirective`; the next Trainer reads
+   :func:`recovery_directive` and :func:`consume_skip_batches`.
+
+The module imports torch only inside the device-side helpers.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+import threading
 from typing import Any, Mapping, Sequence
 
 __all__ = [
@@ -36,10 +40,15 @@ __all__ = [
     "HEALTH_ENV_VARS",
     "HEALTH_STATS_FIELDS",
     "HealthPolicy",
+    "RecoveryDirective",
+    "consume_skip_batches",
     "enabled_by_env",
+    "escalate_recovery",
     "health_stamp",
     "health_verdict",
     "init_health_state",
+    "recovery_directive",
+    "reset_recovery",
     "resolve_policy",
     "unpack_health_stats",
 ]
@@ -271,3 +280,67 @@ def health_stamp(hstate: Mapping[str, Any], step: int, policy: HealthPolicy) -> 
         "last_bad_step": int(last_bad),
         "window": policy.window,
     }
+
+
+# -- divergence recovery directive (process-wide) -----------------------------
+
+
+@dataclasses.dataclass
+class RecoveryDirective:
+    """What the next supervised attempt applies after a divergence rollback:
+    ``lr_scale`` multiplies the LR schedule (``lr_backoff ** n``),
+    ``skip_batches`` advances the restored loader position past the poison
+    window, ``divergences`` counts escalations since :func:`reset_recovery`."""
+
+    lr_scale: float = 1.0
+    skip_batches: int = 0
+    divergences: int = 0
+
+
+_DIRECTIVE = RecoveryDirective()
+_DIRECTIVE_LOCK = threading.Lock()
+
+
+def recovery_directive() -> RecoveryDirective:
+    """The current directive (a copy)."""
+    with _DIRECTIVE_LOCK:
+        return dataclasses.replace(_DIRECTIVE)
+
+
+def reset_recovery() -> None:
+    """Clear the directive (the supervisor does this when a run starts)."""
+    global _DIRECTIVE
+    with _DIRECTIVE_LOCK:
+        _DIRECTIVE = RecoveryDirective()
+
+
+def consume_skip_batches() -> int:
+    """One-shot read of the data-order skip, cleared on a non-zero read:
+    only the first fit after a rollback skips the poison window.
+    ``lr_scale`` stays for the rest of the run."""
+    global _DIRECTIVE
+    with _DIRECTIVE_LOCK:
+        n = _DIRECTIVE.skip_batches
+        if n:
+            _DIRECTIVE = dataclasses.replace(_DIRECTIVE, skip_batches=0)
+        return n
+
+
+def escalate_recovery(policy: HealthPolicy | None = None) -> RecoveryDirective:
+    """One divergence happened: compound the LR backoff and (re)arm the skip
+    per ``policy`` (default: the env knobs); one
+    ``health/recovery_directive`` event."""
+    policy = policy or HealthPolicy.from_env()
+    global _DIRECTIVE
+    with _DIRECTIVE_LOCK:
+        _DIRECTIVE = RecoveryDirective(
+            lr_scale=_DIRECTIVE.lr_scale * policy.lr_backoff,
+            skip_batches=policy.skip_batches,
+            divergences=_DIRECTIVE.divergences + 1,
+        )
+        out = dataclasses.replace(_DIRECTIVE)
+    from tpuframe_torch.track.telemetry import get_telemetry
+
+    get_telemetry().event("health/recovery_directive", lr_scale=round(out.lr_scale, 6),
+                          skip_batches=out.skip_batches, divergences=out.divergences)
+    return out

@@ -10,10 +10,13 @@ Port of ``tpuframe/launch``:
   train fn its ``zero_config=``.
 - Ray Train's ``TorchTrainer(train_func, ScalingConfig, RunConfig)`` with
   ``Result``/``report``/``get_context`` -> :class:`TPUTrainer`.
+- Recovery: :func:`run_with_restarts` (the supervised restart loop) and
+  :func:`run_elastic` (shrink-to-survivors), on ``tpuframe_torch.fault``.
+  Workers install the preemption watcher at bootstrap
+  (``TPUFRAME_PREEMPT_SIGNALS=0`` opts out) and exit 143 when preempted.
 
-Not yet (ROADMAP.md, Queue 1): ``RemoteDistributor``, ``ssh_connect``,
-``all_env_vars`` and the restart loops (``run_with_restarts``,
-``run_elastic``) come with the platform planes (item 9).
+``RemoteDistributor``, ``ssh_connect`` and ``all_env_vars`` (remote hosts)
+wait for a later slice (ROADMAP.md, Queue 1 item 9).
 """
 
 from tpuframe_torch.launch.distributor import (
@@ -22,6 +25,13 @@ from tpuframe_torch.launch.distributor import (
     WorkerLostError,
     ZeroDistributor,
     await_and_root_cause,
+)
+from tpuframe_torch.launch.elastic import (
+    ElasticContext,
+    rederive_batch_split,
+    run_elastic,
+    run_with_restarts,
+    simulated_survivor_probe,
 )
 from tpuframe_torch.launch.trainer_api import (
     Checkpoint,
@@ -38,6 +48,7 @@ __all__ = [
     "Checkpoint",
     "Distributor",
     "DistributorError",
+    "ElasticContext",
     "Result",
     "RunConfig",
     "ScalingConfig",
@@ -46,5 +57,9 @@ __all__ = [
     "WorkerLostError",
     "ZeroDistributor",
     "get_context",
+    "rederive_batch_split",
     "report",
+    "run_elastic",
+    "run_with_restarts",
+    "simulated_survivor_probe",
 ]

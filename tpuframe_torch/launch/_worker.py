@@ -7,19 +7,20 @@ so the exit code stays nonzero (the driver shows the stderr tail either
 way).
 
 Spans: ``launch/worker_bootstrap`` (with a watchdog lease when
-``TPUFRAME_WATCHDOG_S`` is on) around the beacon's start and the payload's
-load, ``launch/worker_run`` around the call.
+``TPUFRAME_WATCHDOG_S`` is on) around the watcher's install, the beacon's
+start and the payload's load, ``launch/worker_run`` around the call.
 
-One difference from the JAX worker: it installs no preemption watcher
-(``tpuframe.fault.preempt`` is not ported) and does not read
-``TPUFRAME_PREEMPT_SIGNALS``.  Every failure is an exception re-raised as
-it is, so the process exits 1 (a ``SystemExit`` with its own code); a
-SIGTERM ends the worker as the signal does, where the JAX worker turns
-it into ``Preempted`` and exits 143.
+The bootstrap installs the preemption watcher (SIGTERM) unless
+``TPUFRAME_PREEMPT_SIGNALS=0``, so a SIGTERM becomes a flag the Trainer
+turns into a last-chance snapshot and :class:`~tpuframe_torch.fault.
+Preempted`.  A failed run's outcome frame is written first, then
+``fault.preempt.reraise_for_exit``: ``Preempted`` exits
+``PREEMPTED_EXIT`` (143), anything else re-raises (exit 1).
 """
 
 from __future__ import annotations
 
+import os
 import pickle
 import sys
 
@@ -31,6 +32,12 @@ def main(payload_path: str, result_path: str) -> None:
 
     tele = get_telemetry()
     with tele.span("launch/worker_bootstrap"), tele.guard("launch/worker_bootstrap"):
+        # the watcher before the user fn: a SIGTERM during the run becomes a
+        # last-chance snapshot and Preempted instead of an instant end
+        if os.environ.get("TPUFRAME_PREEMPT_SIGNALS", "1") != "0":
+            from tpuframe_torch.fault import preempt
+
+            preempt.install()
         # the beacon before anything heavy: the driver should see this rank
         # alive while torch imports; its thread beats until the process ends
         from tpuframe_torch.core.native import maybe_start_beacon
@@ -50,7 +57,11 @@ def main(payload_path: str, result_path: str) -> None:
         except Exception:
             outcome = {"ok": False, "error": RuntimeError(repr(e))}
         _write(result_path, outcome)
-        raise
+        # a distinguishable exit for policies that see only the process:
+        # 143 when the platform took the machine, 1 when the code broke
+        from tpuframe_torch.fault.preempt import reraise_for_exit
+
+        reraise_for_exit(e)
     _write(result_path, outcome)
 
 

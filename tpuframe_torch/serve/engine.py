@@ -25,6 +25,14 @@ to the model) into a bounded-latency server component:
   watchdog guard.
 - **Isolation.**  A backend error fails only the requests of that batch
   (``serve/errors``); the loop keeps serving.
+- **Preemption auto-drain.**  With ``preemption=True`` (the default) the
+  batcher reads the process-wide :class:`~tpuframe_torch.fault.preempt.
+  PreemptionWatcher` at each batch boundary and drains on a notice.
+- **Chaos sites** (``fault.chaos``): ``serve/submit`` (PoisonRequest
+  corrupts the payload before validation), ``serve/enqueue`` (QueueFlood
+  floods the queue through :meth:`ServeEngine.flood`), ``serve/batch``,
+  and ``serve/infer`` (SlowConsumer wedges the backend under the
+  watchdog lease).
 
 Telemetry names are the JAX engine's: ``serve/latency`` and
 ``serve/batch_occupancy`` histograms, ``serve/queue_depth`` and
@@ -35,9 +43,8 @@ Telemetry names are the JAX engine's: ``serve/latency`` and
 traced requests.  Every outcome feeds a :class:`~tpuframe_torch.serve.slo.
 SloTracker`.
 
-Not in the port yet: the chaos sites (``serve/submit``, ``serve/enqueue``,
-``serve/batch``, ``serve/infer``) and ``flood``, the preemption auto-drain,
-OOM forensics, and the autotune hooks.
+OOM forensics and the autotune hooks wait for the port's memory and
+autotune planes.
 """
 
 from __future__ import annotations
@@ -54,6 +61,7 @@ import torch
 from tpuframe_torch.compile.precompile import ShapeGuard, batch_signature
 from tpuframe_torch.core.runtime import resolve_device
 from tpuframe_torch.data.loader import BatchBufferPool
+from tpuframe_torch.fault import chaos, preempt
 from tpuframe_torch.serve.admission import (
     AdmissionController,
     InvalidRequest,
@@ -109,14 +117,15 @@ class ServeResult:
 
 
 class _Request:
-    __slots__ = ("payload", "res", "t_submit", "deadline", "trace")
+    __slots__ = ("payload", "res", "t_submit", "deadline", "synthetic", "trace")
 
-    def __init__(self, payload, res: ServeResult, t_submit: float,
-                 deadline: float, trace: str | None = None):
+    def __init__(self, payload, res: ServeResult | None, t_submit: float,
+                 deadline: float, synthetic: bool = False, trace: str | None = None):
         self.payload = payload
-        self.res = res
+        self.res = res  # None for a flood's synthetic request
         self.t_submit = t_submit
         self.deadline = deadline
+        self.synthetic = synthetic
         # request-path trace id; None means untraced — the hot path emits
         # nothing extra
         self.trace = trace
@@ -153,6 +162,8 @@ class ServeEngine:
         dtype); requests are numpy arrays of exactly this signature.
       device: where batches run; None means ``cuda``, which raises without
         CUDA.
+      preemption: read the process-wide preemption watcher at batch
+        boundaries and drain on a notice (default True).
       replica: fleet identity tagged on every ``serve/request`` event.
 
     Lifecycle: ``start()`` warms every bucket and starts the batcher
@@ -171,6 +182,7 @@ class ServeEngine:
         item_shape: tuple | None = None,
         dtype: Any = None,
         device=None,
+        preemption: bool = True,
         replica: int | str | None = None,
     ):
         if item_shape is None or dtype is None:
@@ -180,6 +192,7 @@ class ServeEngine:
             )
         self.device = resolve_device(device)
         self.knobs = knobs or ServeKnobs.from_env()
+        self.preemption = preemption
         self.replica = replica
         self.item_shape = tuple(int(s) for s in item_shape)
         self.dtype = np.dtype(dtype)
@@ -205,7 +218,8 @@ class ServeEngine:
             cap=self.knobs.queue_cap, policy=self.knobs.shed_policy
         )
         self._rid = itertools.count()
-        self._batches = 0
+        self._submitted = 0  # the door's chaos-site step
+        self._batches = 0  # the batcher's chaos-site step
         self._stop = threading.Event()
         self._drained = threading.Event()
         self._thread: threading.Thread | None = None
@@ -297,7 +311,11 @@ class ServeEngine:
         """
         if not self._started:
             raise RuntimeError("ServeEngine.start() first")
+        step = self._submitted
+        self._submitted += 1
         tele = get_telemetry()
+        # upstream of validation, where a corrupt client payload enters
+        chaos.maybe_fire("serve/submit", step, payload=x, engine=self)
         door = (tele.span("serve/door", trace=trace)
                 if trace is not None else contextlib.nullcontext())
         try:
@@ -313,6 +331,7 @@ class ServeEngine:
                 tele, "serve/rejected", verdict="invalid", error=str(e)[:300]
             )
             raise
+        chaos.maybe_fire("serve/enqueue", step, engine=self)
         now = time.monotonic()
         slo_s = (self.knobs.slo_ms if deadline_ms is None
                  else float(deadline_ms)) / 1e3
@@ -332,6 +351,30 @@ class ServeEngine:
             )
         self._c_admitted.inc()
         return res
+
+    def flood(self, n: int, *, deadline_ms: float | None = None) -> int:
+        """Enqueue ``n`` synthetic zero requests straight through admission
+        (:class:`~tpuframe_torch.fault.chaos.QueueFlood`'s hook: overload
+        without ``n`` client threads).  Returns how many were admitted;
+        their results are discarded."""
+        tele = get_telemetry()
+        now = time.monotonic()
+        slo_s = (self.knobs.slo_ms if deadline_ms is None else float(deadline_ms)) / 1e3
+        payload = np.zeros(self.item_shape, self.dtype)
+        admitted = 0
+        for _ in range(int(n)):
+            req = _Request(payload, None, now, now + slo_s, synthetic=True)
+            verdict, shed = self._admission.offer(req)
+            if shed is not None:
+                self._shed(shed, "shed-oldest")
+            if verdict == "admitted":
+                admitted += 1
+                self._c_admitted.inc()
+            else:
+                self._c_rejected.inc()
+                self._limited.emit(tele, "serve/rejected", verdict=verdict, flood=True)
+        tele.event("serve/flood", n=int(n), admitted=admitted)
+        return admitted
 
     # -- drain / stop --------------------------------------------------------
     def drain(self, timeout: float | None = 30.0, *,
@@ -400,9 +443,22 @@ class ServeEngine:
         self._c_shed.inc()
         self._slo.observe(ok=False)
         self._limited.emit(get_telemetry(), "serve/shed", verdict=verdict)
-        req.res._fail(
-            RequestShed(f"request shed: {verdict}", verdict=verdict), verdict
-        )
+        if req.res is not None:
+            req.res._fail(
+                RequestShed(f"request shed: {verdict}", verdict=verdict), verdict
+            )
+
+    def _maybe_auto_drain(self) -> None:
+        """Start the drain on a preemption notice (one ``serve/drain``
+        event with the notice's reason)."""
+        if not self.preemption or self._admission.draining:
+            return
+        w = preempt.active_watcher()
+        if w is not None and w.requested:
+            get_telemetry().event("serve/drain", reason=f"preempt:{w.reason}",
+                                  queue_depth=self._admission.depth())
+            self._g_draining.set(1.0)
+            self._admission.start_drain()
 
     def _gather(self) -> list[_Request] | None:
         """One batch's worth of live requests (deadline-expired ones shed on
@@ -436,6 +492,7 @@ class ServeEngine:
         while True:
             if self._stop.is_set():
                 break  # hard stop: stop() sheds the queued remainder
+            self._maybe_auto_drain()
             batch = self._gather()
             if batch is None:
                 if self._admission.draining and self._admission.depth() == 0:
@@ -460,6 +517,7 @@ class ServeEngine:
                             trace=r.trace, batch=bidx,
                         )
             try:
+                chaos.maybe_fire("serve/batch", bidx, n=n, bucket=bucket, engine=self)
                 asm = (tele.span("serve/assemble", batch=bidx, n=n,
                                  traces=traces)
                        if traces else contextlib.nullcontext())
@@ -481,6 +539,7 @@ class ServeEngine:
                 with tele.span("serve/infer", batch=bidx, bucket=bucket, n=n,
                                **({"traces": traces} if traces else {})), \
                         wd:
+                    chaos.maybe_fire("serve/infer", bidx, engine=self)
                     out, copied = self._run(lease.images)
                     pool.release(lease, copy_done=copied)
                     out = out.cpu()
@@ -490,7 +549,8 @@ class ServeEngine:
                            error=f"{type(e).__name__}: {e}"[:300])
                 for r in batch:
                     self._slo.observe(ok=False)
-                    r.res._fail(e, "error")
+                    if r.res is not None:
+                        r.res._fail(e, "error")
                 continue
             done = time.monotonic()
             self._h_occupancy.observe(n / bucket)
@@ -505,8 +565,10 @@ class ServeEngine:
                            **({"replica": self.replica}
                               if self.replica is not None else {}),
                            **({"trace": r.trace}
-                              if r.trace is not None else {}))
-                r.res._complete(out[i], "ok", lat)
+                              if r.trace is not None else {}),
+                           **({"synthetic": True} if r.synthetic else {}))
+                if r.res is not None:
+                    r.res._complete(out[i], "ok", lat)
         self._drained.set()
 
 

@@ -16,8 +16,9 @@ ServeEngine`.  Endpoints:
   "queue_depth": N}``.
 - ``GET /metrics`` — Prometheus text from the process registry.
 
-The preemption watcher behind ``run_forever`` waits for the port's fault
-plane; call :meth:`ServingServer.close` after draining the engine.
+:meth:`ServingServer.run_forever` blocks until a preemption notice
+(SIGTERM, or a request on the process-wide watcher), then drains the
+engine and closes the server.
 """
 
 from __future__ import annotations
@@ -177,6 +178,18 @@ class ServingServer:
         batches = math.ceil(max(1, eng.queue_depth()) / max(eng.buckets))
         wait_s = batches * (eng.knobs.batch_wait_ms / 1e3)
         return {"Retry-After": str(max(1, min(30, math.ceil(wait_s))))}
+
+    def run_forever(self, poll_s: float = 0.25) -> None:
+        """Block until a preemption notice, then drain gracefully: the
+        engine rejects new requests and finishes the in-flight ones, and the
+        HTTP server shuts down.  Installs the process-wide watcher."""
+        from tpuframe_torch.fault import preempt
+
+        watcher = preempt.install()
+        while not watcher.wait(poll_s):
+            pass
+        self.engine.drain(reason=f"preempt:{watcher.reason}")
+        self.close()
 
     def close(self) -> None:
         self._server.shutdown()

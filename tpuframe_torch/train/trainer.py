@@ -37,13 +37,20 @@ Checkpoints go through ``ckpt.Checkpointer``: an epoch-end save every
 (with the loader's position), and auto-resume at ``fit()`` from the newer
 of the two, as the JAX Trainer does.
 
+Faults (``tpuframe_torch.fault``): the chaos sites ``loader``, ``batch``
+(the host image array before its copy to the device) and ``step``; the
+preemption exit at each step boundary (a last-chance snapshot into
+``<dir>_intra``, then :class:`~tpuframe_torch.fault.Preempted`); and the
+supervisor's recovery directive after a divergence rollback: the LR
+schedule scaled by its ``lr_scale``, the restored loader position moved
+past ``skip_batches``.
+
 EMA: ``ema_decay`` wraps the optimizer with ``train.ema.with_ema``, and
 evaluate and predict read the average (the JAX ``_serving_state``).
 
 What this reduced Trainer does not do yet, each raising
-``NotImplementedError`` that names the slice which ports it:
-preemption handling (``preemption=True``), straggler detection
-(``straggler_sync_steps``, ``straggler_factor``).  ``tx`` takes
+``NotImplementedError`` that names the slice which ports it: straggler
+detection (``straggler_sync_steps``, ``straggler_factor``).  ``tx`` takes
 an ``OptimizerSpec`` in place of an optax transform (``ops.fused_adamw``
 returns one).  ``precompile`` is accepted and does nothing: eager PyTorch
 has no ahead-of-time compile step (``torch.compile`` comes with the
@@ -55,7 +62,9 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import os
 import time
+import warnings
 from typing import Any, Callable, Mapping, Sequence
 
 import numpy as np
@@ -63,8 +72,11 @@ import torch
 
 from tpuframe_torch.core.runtime import current_runtime
 from tpuframe_torch.data.loader import DataLoader, DevicePrefetcher
+from tpuframe_torch.fault import chaos
 from tpuframe_torch.fault import health as _health
+from tpuframe_torch.fault import preempt as _preempt
 from tpuframe_torch.fault.health import Divergence
+from tpuframe_torch.fault.preempt import Preempted
 from tpuframe_torch.ops.normalize import normalize_images
 from tpuframe_torch.parallel.compression import CommsConfig, init_comms_state
 from tpuframe_torch.parallel.precision import Policy, align_model_dtype, get_policy
@@ -158,6 +170,15 @@ class Trainer:
         ``TPUFRAME_HEALTH`` (on unless falsy), False disables, a
         ``HealthPolicy`` sets thresholds.  A bad step applies no update;
         ``max_bad`` bad steps in a window raise ``Divergence``.
+      preemption: None uses the process-wide watcher when one is installed
+        (launcher workers install it); True installs it at ``fit()``; False
+        disables; a ``PreemptionWatcher`` is installed at ``fit()`` and
+        used.  On notice the Trainer finishes the step, writes a
+        synchronous snapshot (state and loader position) into the
+        ``_intra`` sibling and raises ``Preempted``.
+      preempt_sync_steps: with more than one rank, the step cadence of the
+        flag's agreement (one ``all_reduce``), so every rank saves the same
+        step; one rank checks its flag every step.
       precompile: accepted, no effect (see the module docstring).
     """
 
@@ -191,6 +212,7 @@ class Trainer:
         normalize: tuple | None = None,
         ema_decay: float | None = None,
         preemption: Any = None,
+        preempt_sync_steps: int = 16,
         straggler_sync_steps: int | None = None,
         straggler_factor: float | None = None,
         precompile: bool | None = None,
@@ -202,8 +224,15 @@ class Trainer:
         ):
             if value is not None:
                 raise _later(arg, where)
-        if preemption not in (None, False):
-            raise _later("preemption", "the platform planes (fault)")
+        if preempt_sync_steps < 1:
+            raise ValueError(f"preempt_sync_steps must be >= 1, got {preempt_sync_steps}")
+        if (preemption is not None and not isinstance(preemption, bool)
+                and not hasattr(preemption, "requested")):
+            raise ValueError(
+                "preemption must be None (auto), True (install the process-wide watcher), "
+                f"False (disable), or a PreemptionWatcher; got {type(preemption).__name__}")
+        self.preemption = preemption
+        self.preempt_sync_steps = preempt_sync_steps
         if precision is None:
             self.policy = Policy(compute_dtype=getattr(model, "compute_dtype", torch.float32))
             self.model = model
@@ -313,9 +342,19 @@ class Trainer:
     # -- wiring ------------------------------------------------------------
     def _resolve_lr(self, lr):
         """A float, a schedule, or a DeepSpeed-shaped scheduler dict;
-        ``total_num_steps: "auto"`` resolves against ``max_duration``."""
-        return resolve_schedule(
+        ``total_num_steps: "auto"`` resolves against ``max_duration``.  A
+        divergence recovery directive scales the schedule by its LR backoff
+        (one ``health/lr_backoff`` event); the optimizer's state keeps its
+        layout, so the rolled-back checkpoint restores into it."""
+        schedule = resolve_schedule(
             lr, total_steps=_planned_total_steps(self.max_duration, self.train_dataloader))
+        scale = _health.recovery_directive().lr_scale
+        if scale == 1.0:
+            return schedule
+        get_telemetry().event("health/lr_backoff", lr_scale=round(scale, 6))
+        if callable(schedule):
+            return lambda step: schedule(step) * scale
+        return schedule * scale
 
     @property
     def is_main(self) -> bool:
@@ -329,18 +368,20 @@ class Trainer:
         for cb in self.callbacks:
             getattr(cb, hook)(self, *args)
 
-    def _intra_checkpointer(self):
+    def _intra_checkpointer(self, create: bool = False):
         """The sibling checkpointer of the mid-epoch snapshots,
         ``<dir>_intra`` with ``max_to_keep=1``: apart from the epoch-end
         steps, so frequent snapshots neither evict them nor collide with
-        their step numbers.  Made when snapshots are on, or when an earlier
-        run left one (auto-resume must see it even with the feature off)."""
+        their step numbers.  Made when snapshots are on, when an earlier
+        run left one (auto-resume must see it even with the feature off),
+        or on ``create`` (the preemption snapshot needs a home)."""
         if self._intra_ck is None and self.checkpointer is not None:
             from tpuframe_torch.ckpt import Checkpointer
             from tpuframe_torch.ckpt.meta import latest_step
 
             intra_dir = str(self.checkpointer.directory) + "_intra"
-            if self.checkpoint_interval_batches or latest_step(intra_dir) is not None:
+            if (create or self.checkpoint_interval_batches
+                    or latest_step(intra_dir) is not None):
                 self._intra_ck = Checkpointer(intra_dir, max_to_keep=1)
         return self._intra_ck
 
@@ -416,6 +457,97 @@ class Trainer:
             if saved is not None and stale is not None and stale <= saved:
                 intra.delete(stale)
         return str(path)
+
+    # -- preemption ----------------------------------------------------------
+    def _preempt_watcher(self):
+        if self.preemption is False:
+            return None
+        if self.preemption is None:
+            return _preempt.active_watcher()
+        return self.preemption
+
+    def _maybe_preempt_exit(self) -> None:
+        """The step-boundary preemption exit.  One rank reads its flag every
+        step; several agree on it every ``preempt_sync_steps`` steps (one
+        ``all_reduce``), so all save the same step.  On notice: one
+        synchronous snapshot (the state and the loader position) into the
+        ``_intra`` sibling, the ``fault/preempted`` event, the watcher's
+        flag consumed, and :class:`Preempted` with the snapshot's path."""
+        watcher = self._preempt_watcher()
+        multi = current_runtime(device=self.device).process_count > 1
+        if watcher is None and not multi:
+            return
+        local = watcher is not None and watcher.requested
+        if multi:
+            if self.batches_seen % self.preempt_sync_steps:
+                return
+            flagged = _preempt.agree(local)
+        else:
+            flagged = local
+        if not flagged:
+            return
+        reason = watcher.reason if watcher is not None and watcher.reason else "peer-host"
+        tele = get_telemetry()
+        path = None
+        if self.checkpointer is not None:
+            intra = self._intra_checkpointer(create=True)
+            if intra.latest_step() == self.state.step:
+                # an interval snapshot already holds this very step
+                path = os.path.join(intra.directory, str(self.state.step))
+            else:
+                meta = {**self._save_meta(self.epoch), "preempted": True}
+                if self._train_prefetcher is not None and hasattr(self.train_dataloader,
+                                                                  "state_dict"):
+                    meta["loader_state"] = self._train_prefetcher.state_dict()
+                elif self._train_prefetcher is not None:
+                    # the snapshot still beats losing the steps; resume
+                    # replays this epoch from its first batch
+                    warnings.warn(
+                        "preemption snapshot taken mid-epoch but the train_dataloader "
+                        f"({type(self.train_dataloader).__name__}) has no state_dict(): "
+                        "resume will replay this epoch's already-trained batches",
+                        stacklevel=2)
+                    meta["loader_state_missing"] = True
+                with tele.span("fault/preempt_checkpoint", step=self.batches_seen), \
+                        tele.guard("ckpt/save"):
+                    path = intra.save(self.state, meta=meta, plan=self.plan,
+                                      health=self._health_stamp())
+                    intra.wait()  # synchronous: the machine is going away
+        # counted at the watcher (notices) and the supervisor (restarts)
+        tele.event("fault/preempted", reason=reason, batch=self.batches_seen,
+                   checkpoint=path)
+        self._stop_reason = f"preempted: {reason}"
+        if watcher is not None:
+            # consumed on the watcher that was read: an in-process restart
+            # with the same watcher must not re-preempt at its first step
+            watcher.clear()
+        raise Preempted(reason, step=self.batches_seen, checkpoint=path)
+
+    def _skip_batches(self) -> None:
+        """After a divergence rollback the directive may move this attempt
+        past the poison window: ``skip_batches`` added to the restored
+        loader position (or to the epoch's start), once
+        (``health/skip_batches``)."""
+        if self.health is None or not hasattr(self.train_dataloader, "load_state_dict"):
+            return
+        skip = _health.consume_skip_batches()
+        if not skip:
+            return
+        ls = self._pending_loader_state
+        if ls is None:
+            ls = self.train_dataloader.state_dict()
+            ls["epoch"] = self.epoch
+            ls["batches_yielded"] = 0
+        ls = dict(ls)
+        try:
+            epoch_len = len(self.train_dataloader)
+        except TypeError:
+            epoch_len = int(ls["batches_yielded"]) + skip
+        ls["batches_yielded"] = min(int(ls["batches_yielded"]) + skip, epoch_len)
+        self._pending_loader_state = ls
+        get_telemetry().event("health/skip_batches", skip=skip,
+                              batches_yielded=ls["batches_yielded"],
+                              epoch=int(ls.get("epoch", self.epoch)))
 
     def _health_step(self, metrics: Mapping[str, Any]) -> None:
         """Buffer the step's on-device health vector; check per window."""
@@ -527,10 +659,17 @@ class Trainer:
             return x.reshape((accum, x.shape[0] // accum) + x.shape[1:])
 
         def host_iter():
-            for batch in loader:
+            # the prefetcher runs this ahead of training, but batch i of the
+            # epoch is consumed at step base + i: chaos scheduled by step
+            # fires on the batch that step eats
+            base = self.batches_seen
+            for pos, batch in enumerate(loader):
                 images, labels = np.asarray(batch[0]), np.asarray(batch[1])
                 if algs:
                     images, labels = apply_algorithms(algs, images, labels, batch_rng())
+                if train:
+                    # the host batch, before its copy to the device
+                    chaos.maybe_fire("batch", step=base + pos, images=images)
                 out = {"image": images, "label": labels}
                 if len(batch) > 2:
                     out["weight"] = np.asarray(batch[2], np.float32)
@@ -563,8 +702,13 @@ class Trainer:
         """Run to ``max_duration``; returns the FitResult."""
         result = FitResult()
         self.init_state()
+        if self.preemption is True:
+            self.preemption = _preempt.install()
+        elif self.preemption not in (None, False):
+            self.preemption.install()  # its handlers and poller live for the fit
         if self.checkpointer is not None:
             self._resume()
+        self._skip_batches()
         self._log_params({
             "max_duration": str(self.max_duration),
             "optimizer": type(self.state.optimizer).__name__,
@@ -648,6 +792,8 @@ class Trainer:
         batches = iter(self._device_batches(self.train_dataloader, train=True))
         try:
             while True:
+                # where a worker-pool or shard-fetch failure surfaces
+                chaos.maybe_fire("loader", step=self.batches_seen)
                 with tele.span("train/data_wait", emit=False) as sp:
                     batch = next(batches, epoch_end)
                 if batch is epoch_end:
@@ -657,6 +803,7 @@ class Trainer:
                 if self._done() or self._stop_reason is not None:
                     break
                 self._emit("on_step_start")
+                chaos.maybe_fire("step", step=self.batches_seen)
                 with tele.span("train/step", batch=self.batches_seen,
                                data_wait_s=round(wait_s, 6)) as sp, tele.guard("train/step"):
                     self.state, metrics = self._train_step(self.state, batch)
@@ -667,6 +814,8 @@ class Trainer:
                 # may raise Divergence before the snapshot would save a doomed state
                 self._health_step(metrics)
                 self._maybe_snapshot()
+                # the step boundary is the preemption exit
+                self._maybe_preempt_exit()
                 window = metrics if window is None else {k: window[k] + v
                                                          for k, v in metrics.items()}
                 self._emit("on_step_end")
