@@ -306,7 +306,33 @@ Phases, each of which fails the script (nonzero exit, no result line):
    launchers' workers starting on the host's cores, run from threads
    beside (a, b), (d) and (f); each part reads only its own events and
    counters.
-20. Result: a ``kernels`` JSON line (each kernel with ``floor_ms``; K1 and
+20. Remote launch on one card (``remote_phase``): the multi-host launcher
+   with two "hosts" on localhost, ``RemoteDistributor(["localhost",
+   "localhost"], connect=lambda h: [])``, one agent (``python -m
+   tpuframe_torch.launch.agent``) a rank, each part a gate: (a) the env
+   contract as each agent sees it (``LOCAL_RANK`` 0 and 1,
+   ``LOCAL_WORLD_SIZE`` 2, gloo on ``cuda:0``, this script's bytecode
+   prefix inherited), a ``ControlPlane`` barrier, ``allgather_bytes`` and
+   ``broadcast_bytes`` across the agents, and ``broadcast_run_id`` of a
+   100-byte id back whole; (b) example 01 (MNIST)'s ``train_mnist`` run
+   remotely and twice through the local ``Distributor`` with the same
+   config and seed: the first loss bit-equal, rank 0's final eval loss
+   and accuracy within the gap of the two local runs, the K2a/K2b
+   launches equal, and each launcher's seconds from spawn to result; (c)
+   rank 1 raises a typed exception, which surfaces as itself with a
+   ``RemoteLaunchError`` (host, rank, exit code, stderr tail) as its
+   cause; (d) an agent whose stdin closes exits 17 within 20 s, and a
+   SIGKILLed agent behind a transport that lingers is found by its silent
+   beacon, with the seconds to find it; (e) a ``Checkpointer.save`` of a
+   small CUDA state whose ``FileSystemWriter.write_data`` fails once
+   retries once, ticks ``ckpt/save_retries`` and commits (ROADMAP Queue 3
+   item 29).  The launches of (a)-(d), mostly their workers starting on
+   the host's cores, run from threads beside phase 19's parts
+   (``remote_launches``); (e) runs once phase 19 has ended, so no other
+   save is in flight in this process, and the phase's gates
+   (``remote_report``) once every launch has returned.  Alone:
+   ``remote_phase(card)``.
+21. Result: a ``kernels`` JSON line (each kernel with ``floor_ms``; K1 and
    K2 also with ``launches_ddp``, phase 10's count on each rank, and
    ``launches_streaming``, phase 14's TFS fit; K2a/K2b, K3a/K3b and K4
    with ``launches_tp`` and ``launches_tp_pp``, phase 17's counts on each
@@ -322,12 +348,13 @@ Phases, each of which fails the script (nonzero exit, no result line):
    ``turns_ms``, ``wide`` (the same at Mixtral's width), ``aims`` and
    ``ptxas``; K9b with ``any_k_ms`` and ``copy_ms``; K9c with
    ``baseline_saved_floors``; K1-K4 with ``launches_fault``, phase 19's
-   counts by part), the ``nvidia-smi`` line, then
+   counts by part; K2a/K2b with ``launches_remote``, phase 20's counts on
+   rank 0 of the remote and the local runs), the ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Each phase's wall seconds are printed on a line of their own as it ends
-(``phase N: ... s``), and at the start of phase 20 those of the phases
-on gloo ranks (10, 15-19) and of all phases together.
+(``phase N: ... s``), and at the start of phase 21 those of the phases
+on gloo ranks (10, 15-20) and of all phases together.
 
 One phase of 3 alone, for a short run on the card (the kernels it needs
 are built at first use)::
@@ -7577,7 +7604,331 @@ def fault_phase(card: str, dev: torch.device = torch.device("cuda"), cfg: dict =
     return out
 
 
-GLOO_PHASES = ("10", "15", "16", "17", "18", "19")
+REMOTE_RUN_ID = ("0123456789abcdef" * 7)[:100]  # (a): past the process group's 64 bytes
+REMOTE_HB_TIMEOUT_S = 3.0  # (d): a silent beacon this long is a lost rank
+#: (d): a transport that lives on for a minute after its agent has exited,
+#: as an ssh client can; the agent runs as its child, stdio inherited
+LINGERING_TRANSPORT = ("import subprocess, sys, time\n"
+                       "rc = subprocess.call(sys.argv[1:])\n"
+                       "time.sleep(60)\n"
+                       "sys.exit(rc)\n")
+
+
+def remote_contract(run_id: str) -> dict:
+    """Worker side of 20(a): the env contract as this agent sees it, its
+    runtime, a gloo all-reduce, then the control plane's barrier,
+    allgather and broadcast and ``broadcast_run_id`` across the agents."""
+    import torch.distributed as dist
+
+    from tpuframe_torch.core import initialize
+    from tpuframe_torch.core.native import control_plane
+    from tpuframe_torch.track import broadcast_run_id
+
+    rt = initialize()
+    x = torch.full((4,), float(rt.process_index + 1), device=rt.device)
+    dist.all_reduce(x)
+    cp = control_plane()
+    cp.barrier()
+    mine = {k: os.environ.get(k) for k in ("RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                                           "WORLD_SIZE", "TPUFRAME_HB_PORT")}
+    mine.update(device=str(rt.device), backend=dist.get_backend(), sum=x.cpu().tolist(),
+                pycache_prefix=sys.pycache_prefix)
+    ranks = [json.loads(b) for b in cp.allgather_bytes(json.dumps(mine).encode())]
+    token = cp.broadcast_bytes(os.urandom(32) if rt.process_index == 0 else None)
+    got = broadcast_run_id(run_id if rt.is_main else None)
+    agree = cp.allgather_bytes(token + got.encode())
+    cp.barrier()
+    return {"ranks": ranks, "agree": len(set(agree)) == 1 and len(token) == 32, "run_id": got}
+
+
+def remote_mnist(cfg: dict) -> dict:
+    """Worker side of 20(b): example 01's ``train_mnist`` with K2 counted,
+    its first step's loss and its final eval summary recorded."""
+    mod = _example("01_distributor_mnist")
+    first, summaries = [], []
+    real_step, real_summarize = mod.make_train_step, mod.summarize_metrics
+
+    def make_train_step(**kw):
+        step = real_step(**kw)
+
+        def recorded(state, batch):
+            state, metrics = step(state, batch)
+            if not first:
+                first.append(float(metrics["loss_sum"]) / float(metrics["count"]))
+            return state, metrics
+
+        return recorded
+
+    def summarize(acc, prefix=""):
+        out = real_summarize(acc, prefix)
+        summaries.append(dict(out))
+        return out
+
+    mod.make_train_step, mod.summarize_metrics = make_train_step, summarize
+    try:
+        value, counts = counted_call(_k12, "01_distributor_mnist", "train_mnist", cfg)
+    finally:
+        mod.make_train_step, mod.summarize_metrics = real_step, real_summarize
+    return {"value": value, "counts": counts, "first_loss": first[0],
+            "test": [s for s in summaries if "test_loss" in s][-1]}
+
+
+def remote_raise():
+    """Worker side of 20(c): rank 1 raises."""
+    if os.environ["RANK"] == "1":
+        print("rank 1 raises on purpose", file=sys.stderr)
+        raise ValueError("planted failure on rank 1")
+    return "ok"
+
+
+def remote_hang(started: str):
+    """Worker side of 20(d): says it has started, then hangs."""
+    Path(started).write_text("hanging")
+    time.sleep(120)
+
+
+def remote_killed(stamp: str):
+    """Worker side of 20(d): rank 1 SIGKILLs itself once its beacon was
+    heard (the kill's time in ``stamp``); rank 0 hangs."""
+    import signal
+
+    if os.environ["RANK"] == "1":
+        time.sleep(2.0)
+        Path(stamp).write_text(repr(time.time()))
+        os.kill(os.getpid(), signal.SIGKILL)
+    time.sleep(120)
+
+
+def remote_checkpoint_part(card: str, root: Path, dev: torch.device) -> dict:
+    """20(e): ROADMAP Queue 3 item 29 on the card: one failed write inside
+    DCP, one retry, the step committed and read back."""
+    from torch.distributed.checkpoint.filesystem import FileSystemWriter
+
+    from tpuframe_torch.ckpt import Checkpointer
+    from tpuframe_torch.track.telemetry import get_telemetry
+
+    real, calls = FileSystemWriter.write_data, []
+
+    def flaky(self, plan, planner):
+        calls.append(1)
+        if len(calls) == 1:
+            raise OSError("planted write failure")
+        return real(self, plan, planner)
+
+    counter = get_telemetry().registry.counter("ckpt/save_retries")
+    before = counter.value
+    state = {"w": torch.arange(1 << 20, dtype=torch.float32, device=dev)}
+    t0 = time.perf_counter()
+    with mock.patch.object(FileSystemWriter, "write_data", flaky), \
+            Checkpointer(str(root / "retry_ck")) as ck:
+        ck.save(state, step=3)
+        steps = ck.all_steps()
+        back, _ = ck.restore({"w": torch.zeros_like(state["w"])})
+    save_s = time.perf_counter() - t0
+    retries = counter.value - before
+    check(retries == 1 and len(calls) == 2 and steps == [3] and torch.equal(back["w"], state["w"]),
+          f"(e) retries {retries}, writes {len(calls)}, steps {steps}")
+    log(f"  (e) a save whose write failed once inside DCP: {retries} retry, committed step "
+        f"{steps}, read back bit-equal, {save_s:.2f} s with the backoff on {card}")
+    return {"retries": retries, "writes": len(calls), "seconds": save_s}
+
+
+@contextlib.contextmanager
+def remote_launches(card: str, simulate: int | None = None):
+    """Phase 20's launches, (a) to (d), each on a thread of its own while
+    the body of the ``with`` runs (phase 19 in the script: the launches
+    spend their time starting processes on the host's cores).  Yields the
+    dict their results land in, with ``root``, the phase's scratch under
+    ``build/tpuframe_torch/remote_smoke/``, removed at the end; a part's
+    failure is raised when the block ends.  ``simulate=1`` puts every
+    worker on the CPU, for a rehearsal."""
+    import cloudpickle
+
+    from tpuframe_torch.launch import (
+        Distributor,
+        RemoteDistributor,
+        RemoteLaunchError,
+        WorkerLostError,
+    )
+    from tpuframe_torch.launch.agent import ORPHANED_EXIT
+    from tpuframe_torch.ops.build import BUILD_DIR
+
+    root = BUILD_DIR / "remote_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    seconds, failed = {}, []
+    out = {"card": card, "root": root, "seconds": seconds}
+    want_dev = "cpu" if simulate else "cuda:0"
+
+    def remote(**kw):
+        kw.setdefault("connect", lambda host: [])
+        return RemoteDistributor(["localhost", "localhost"], remote_python=sys.executable,
+                                 simulate_devices=simulate, timeout_s=300.0, **kw)
+
+    def mnist_cfg(run: str) -> dict:
+        return {**MNIST_CFG, "tracking_uri": str(root / run / "mlruns"),
+                "ckpt_dir": str(root / run / "ckpt")}
+
+    def part_a():
+        r = remote().run(remote_contract, REMOTE_RUN_ID)
+        ranks = r["ranks"]
+        check([(x["RANK"], x["LOCAL_RANK"], x["LOCAL_WORLD_SIZE"]) for x in ranks]
+              == [("0", "0", "2"), ("1", "1", "2")], f"(a) the env contract {ranks}")
+        check(all(x["backend"] == "gloo" and x["device"] == want_dev and x["sum"] == [3.0] * 4
+                  and x["TPUFRAME_HB_PORT"] for x in ranks), f"(a) the runtimes {ranks}")
+        check(all(x["pycache_prefix"] == sys.pycache_prefix for x in ranks),
+              f"(a) the agents' bytecode prefix {[x['pycache_prefix'] for x in ranks]}, not "
+              f"{sys.pycache_prefix}")
+        check(r["agree"] and r["run_id"] == REMOTE_RUN_ID,
+              f"(a) the control plane: agree {r['agree']}, run id {r['run_id']!r}")
+        return {"ranks": ranks}
+
+    def part_b(launcher: str, run: str):
+        cfg = mnist_cfg(run)
+        t0 = time.perf_counter()
+        if launcher == "remote":
+            r = remote().run(remote_mnist, cfg)
+        else:
+            r = Distributor(num_processes=2, simulate_devices=simulate,
+                            timeout_s=300.0).run(remote_mnist, cfg)
+        r["spawn_to_result_s"] = time.perf_counter() - t0
+        check(r["value"] == "finished", f"(b) {run}: {r['value']!r}")
+        return r
+
+    def part_c():
+        t0 = time.perf_counter()
+        try:
+            remote().run(remote_raise)
+        except ValueError as e:
+            cause = e.__cause__
+            check(str(e) == "planted failure on rank 1" and isinstance(cause, RemoteLaunchError)
+                  and cause.host == "localhost" and cause.rank == 1
+                  and "rank 1 raises on purpose" in cause.stderr_tail,
+                  f"(c) the failure {e!r} with cause {cause!r}")
+            return {"seconds": time.perf_counter() - t0, "exit": cause.returncode}
+        raise RuntimeError("chip_smoke check failed: (c) rank 1's exception did not surface")
+
+    def part_d_kill():
+        stamp = root / "killed_at"
+        wrapper = [sys.executable, "-c", LINGERING_TRANSPORT]
+        t0 = time.perf_counter()
+        try:
+            remote(connect=lambda host: list(wrapper),
+                   heartbeat_timeout_s=REMOTE_HB_TIMEOUT_S).run(remote_killed, str(stamp))
+        except WorkerLostError as e:
+            raised = time.time()
+            check(e.rank == 1 and stamp.exists(), f"(d) lost {e!r}, stamp {stamp.exists()}")
+            # found after silent_s of silence; raised once its peers' grace ran out
+            return {"silent_s": e.silent_s, "raised_s": raised - float(stamp.read_text()),
+                    "total_s": time.perf_counter() - t0}
+        raise RuntimeError("chip_smoke check failed: (d) the killed agent was not found")
+
+    def part_d_orphan():
+        started = root / "orphan_started"
+        payload = cloudpickle.dumps((remote_hang, (str(started),), {}))
+        header = json.dumps({"payload_bytes": len(payload), "env": {}}).encode() + b"\n"
+        p = subprocess.Popen([sys.executable, "-u", "-m", "tpuframe_torch.launch.agent"],
+                             stdin=subprocess.PIPE, stdout=subprocess.DEVNULL,
+                             stderr=subprocess.DEVNULL, env={**os.environ, "PYTHONPATH": (
+                                 os.pathsep.join(p for p in sys.path if p))})
+        try:
+            p.stdin.write(header + payload)
+            p.stdin.flush()
+            deadline = time.monotonic() + 120
+            while not started.exists() and p.poll() is None and time.monotonic() < deadline:
+                time.sleep(0.1)  # the fn hangs: the watchdog is armed
+            check(started.exists(), f"(d) the orphan's fn never started (exit {p.poll()})")
+            t0 = time.perf_counter()
+            p.stdin.close()
+            code = p.wait(timeout=20)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        exit_s = time.perf_counter() - t0
+        check(code == ORPHANED_EXIT, f"(d) the orphaned agent exited {code}")
+        return {"exit": code, "exit_s": exit_s}
+
+    def timed(part, fn):
+        t0 = time.perf_counter()
+        try:
+            out[part] = fn()
+        except BaseException as e:  # raised on the main thread when the block ends
+            failed.append(e)
+        seconds[part] = time.perf_counter() - t0
+
+    launches = [("a", part_a), ("b remote", lambda: part_b("remote", "remote")),
+                ("b local 1", lambda: part_b("local", "local1")),
+                ("b local 2", lambda: part_b("local", "local2")), ("c", part_c),
+                ("d kill", part_d_kill), ("d orphan", part_d_orphan)]
+    threads = [threading.Thread(target=timed, args=(part, fn), name=f"remote-phase-{part}")
+               for part, fn in launches]
+    t0 = time.perf_counter()
+    try:
+        for t in threads:
+            t.start()
+        yield out
+    finally:
+        for t in threads:
+            t.join()
+        seconds["all launches"] = time.perf_counter() - t0
+        shutil.rmtree(root, ignore_errors=True)
+    if failed:
+        raise failed[0]
+
+
+def remote_report(card: str, out: dict) -> dict:
+    """Phase 20's gates across its parts (the remote run against the two
+    local ones), and its log lines; returns ``out``."""
+    rb, l1, l2 = out["b remote"], out["b local 1"], out["b local 2"]
+    check(rb["first_loss"] == l1["first_loss"] == l2["first_loss"],
+          f"(b) first losses remote {rb['first_loss']!r}, local {l1['first_loss']!r} and "
+          f"{l2['first_loss']!r}")
+    for key in ("test_loss", "test_accuracy"):
+        lo, hi = sorted((l1["test"][key], l2["test"][key]))
+        gap = hi - lo
+        check(lo - gap <= rb["test"][key] <= hi + gap,
+              f"(b) the remote {key} {rb['test'][key]!r} outside the local runs' "
+              f"[{lo!r}, {hi!r}] widened by their gap {gap!r}")
+    check(rb["counts"] == l1["counts"] == l2["counts"]
+          and rb["counts"]["cross_entropy_fwd"] > 0 and rb["counts"]["cross_entropy_bwd"] > 0,
+          f"(b) K2 launches remote {rb['counts']}, local {l1['counts']} and {l2['counts']}")
+    a, c, d, e = out["a"], out["c"], out["d kill"], out["d orphan"]
+    log(f"  (a) two agents on localhost: LOCAL_RANK 0/1, LOCAL_WORLD_SIZE 2, "
+        f"{a['ranks'][0]['backend']} on {a['ranks'][0]['device']}, the control plane's barrier, "
+        f"allgather and broadcast agree, the 100-byte run id back whole, bytecode under "
+        f"{sys.pycache_prefix}; {out['seconds']['a']:.2f} s on {card}")
+    log(f"  (b) example 01 (MNIST): first loss {rb['first_loss']!r} on all three runs; rank 0's "
+        f"test loss remote {rb['test']['test_loss']!r}, local {l1['test']['test_loss']!r} and "
+        f"{l2['test']['test_loss']!r}; accuracy {rb['test']['test_accuracy']!r}, "
+        f"{l1['test']['test_accuracy']!r}, {l2['test']['test_accuracy']!r}; K2 launches "
+        f"{rb['counts']} on each; spawn to result: remote {rb['spawn_to_result_s']:.2f} s, local "
+        f"{l1['spawn_to_result_s']:.2f} and {l2['spawn_to_result_s']:.2f} s (the three at once) "
+        f"on {card}")
+    log(f"  (c) rank 1's ValueError surfaced as itself, its cause a RemoteLaunchError (host "
+        f"'localhost', rank 1, exit {c['exit']}, its stderr tail) in {c['seconds']:.2f} s")
+    log(f"  (d) an orphaned agent exited {e['exit']} {e['exit_s']:.2f} s after its stdin closed; "
+        f"a SIGKILLed agent behind a lingering transport was found by its silent beacon after "
+        f"{d['silent_s']:.2f} s of silence (heartbeat timeout {REMOTE_HB_TIMEOUT_S} s), the run "
+        f"raised WorkerLostError {d['raised_s']:.2f} s after the kill (its peers' 5 s grace "
+        f"included), {d['total_s']:.2f} s from spawn on {card}")
+    log(f"  phase 20's launches on threads: {json.dumps(out['seconds'], default=str)}")
+    log("  remote_json " + json.dumps(out, default=str))
+    return out
+
+
+def remote_phase(card: str, dev: torch.device = torch.device("cuda"),
+                 simulate: int | None = None) -> dict:
+    """Phase 20 alone (module docstring): the launches, then (e), then the
+    gates."""
+    with remote_launches(card, simulate) as out:
+        t0 = time.perf_counter()
+        out["e"] = remote_checkpoint_part(card, out["root"], dev)
+        out["seconds"]["e"] = time.perf_counter() - t0
+    return remote_report(card, out)
+
+
+GLOO_PHASES = ("10", "15", "16", "17", "18", "19", "20")
 
 
 class PhaseClock:
@@ -7824,19 +8175,35 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     clock.start("19: fault tolerance on one card")
-    fault = fault_phase(card)
-    # each kernel's launches on the parts of phase 19 that run it
-    parts = {"a, b": fault["a, b"]["launches"], "c": fault["c"]["launches"],
-             "d": fault["d"]["launches"], "e": fault["e"]["launches"],
-             "f": fault["f"]["launches"]}
-    for k, name in ((k1, "normalize"), (k2a, "cross_entropy_fwd"), (k2b, "cross_entropy_bwd"),
-                    (k3a, "layer_norm_fwd"), (k3b, "layer_norm_bwd"), (k4, "fused_adamw")):
-        k["launches_fault"] = {p: (c.get(name) if p != "e" else {w: v.get(name)
-                                                                 for w, v in c.items()})
-                               for p, c in parts.items()}
+    # phase 20's launches, mostly their workers starting on the host's cores,
+    # run on threads beside phase 19's parts
+    with remote_launches(card) as remote:
+        fault = fault_phase(card)
+        # each kernel's launches on the parts of phase 19 that run it
+        parts = {"a, b": fault["a, b"]["launches"], "c": fault["c"]["launches"],
+                 "d": fault["d"]["launches"], "e": fault["e"]["launches"],
+                 "f": fault["f"]["launches"]}
+        for k, name in ((k1, "normalize"), (k2a, "cross_entropy_fwd"),
+                        (k2b, "cross_entropy_bwd"), (k3a, "layer_norm_fwd"),
+                        (k3b, "layer_norm_bwd"), (k4, "fused_adamw")):
+            k["launches_fault"] = {p: (c.get(name) if p != "e" else {w: v.get(name)
+                                                                     for w, v in c.items()})
+                                   for p, c in parts.items()}
+        torch.cuda.empty_cache()
+
+        clock.start("20: remote launch on one card")
+        # after phase 19: no other save is in flight in this process while
+        # (e) plants its failed write
+        t0 = time.perf_counter()
+        remote["e"] = remote_checkpoint_part(card, remote["root"], torch.device("cuda"))
+        remote["seconds"]["e"] = time.perf_counter() - t0
+    remote_report(card, remote)
+    for k, name in ((k2a, "cross_entropy_fwd"), (k2b, "cross_entropy_bwd")):
+        k["launches_remote"] = {run: remote[run]["counts"][name]
+                                for run in ("b remote", "b local 1", "b local 2")}
     torch.cuda.empty_cache()
 
-    clock.start("20: result")
+    clock.start("21: result")
     gloo = sum(v for t, v in clock.seconds.items() if t.split(":")[0] in GLOO_PHASES)
     log(f"  phases {', '.join(GLOO_PHASES)} (gloo ranks on the card): {gloo:.1f} s; all "
         f"phases: {sum(clock.seconds.values()):.1f} s")

@@ -16,7 +16,8 @@ the streaming slice: a batch streamed from shards and normalized by
 K1 on the card, and ``device_memory_stats`` against the allocator, and
 ZeRO: K4 over owned slices, two gloo ranks under stages 0, 2 and 3, and
 the compressed wire's sliced leaves through K5a-K5c against the plain
-versions.
+versions; two agents of the remote launcher on localhost sharing the card
+over gloo.
 
 Every test here needs an NVIDIA GPU and ``nvcc`` and skips without them.
 The file imports neither JAX nor the JAX package, so it also runs on a
@@ -1921,3 +1922,33 @@ def test_sequence_and_expert_parallel_on_gloo_ranks_of_the_card(card, tmp_path):
         for k, v in cpu["grads"].items():
             np.testing.assert_allclose(gpu["grads"][k], v, rtol=0,
                                        atol=1e-5 * float(np.abs(v).max()), err_msg=k)
+
+
+def _remote_card_rank() -> dict:
+    """An agent's runtime on the card: its backend, device and a gloo
+    all-reduce of a CUDA tensor."""
+    import os
+
+    import torch.distributed as dist
+
+    from tpuframe_torch.core import initialize
+
+    rt = initialize()
+    x = torch.full((3,), float(rt.process_index + 1), device=rt.device)
+    dist.all_reduce(x)
+    return {"rank": rt.process_index, "local_rank": os.environ["LOCAL_RANK"],
+            "backend": dist.get_backend(), "device": str(x.device), "sum": x.cpu().tolist()}
+
+
+def test_two_localhost_agents_share_the_card_over_gloo(card):
+    """The remote launcher with two "hosts" on localhost: each agent drives
+    the one card (``LOCAL_RANK`` 0 and 1 over one card: gloo, NCCL refuses
+    two ranks on a device), and rank 0's value comes back."""
+    import sys
+
+    from tpuframe_torch.launch import RemoteDistributor
+
+    rd = RemoteDistributor(["localhost", "localhost"], connect=lambda host: [],
+                           remote_python=sys.executable, timeout_s=300.0)
+    assert rd.run(_remote_card_rank) == {"rank": 0, "local_rank": "0", "backend": "gloo",
+                                         "device": "cuda:0", "sum": [3.0, 3.0, 3.0]}

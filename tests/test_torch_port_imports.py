@@ -128,9 +128,10 @@ def test_port_modules_mirror_the_jax_package():
         assert (PORT / module).exists() and (REPO / "tpuframe" / module).exists(), module
     assert (PORT / "csrc" / "normalize.cu").exists()
     assert (PORT / "csrc" / "cross_entropy.cu").exists()
-    # CUDA kernels, and three host-side C++ sources that core/native.py
-    # builds with g++: the launcher's heartbeat, the shard codec and the
-    # JPEG decoder
+    # CUDA kernels, and four host-side C++ sources that core/native.py
+    # builds with g++: the launcher's heartbeat, the host control plane, the
+    # shard codec and the JPEG decoder
     sources = list((PORT / "csrc").iterdir())
     assert {p.name for p in sources if p.suffix != ".cu"} == {"codec.cpp", "heartbeat.cpp",
+                                                              "controlplane.cpp",
                                                               "jpegdec.cpp"}

@@ -138,14 +138,16 @@ def test_distributor_runs_two_cpu_ranks_and_returns_rank_0s_value():
 def test_the_launchers_refusals():
     with pytest.raises(NotImplementedError, match="gloo processes"):
         Distributor(2, simulate_devices=4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        Distributor(2, local_mode=False, hosts=["a", "b"])
+    with pytest.raises(ValueError, match="hosts"):
+        Distributor(2, local_mode=False)
+    with pytest.raises(ValueError, match="one rank per host"):
+        Distributor(3, local_mode=False, hosts=["a", "b"])
+    with pytest.raises(ValueError, match="remote_kwargs"):
+        Distributor(2, remote_kwargs={"cp_port": 1})
     with pytest.raises(ValueError, match="num_processes"):
         Distributor(0)
     with pytest.raises(ValueError, match="simulate_devices=1"):
         ScalingConfig(use_gpu=False)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        ScalingConfig(hosts=["a"])
     report({"loss": 1.0})  # outside a TPUTrainer: nothing happens
     assert get_context().get_world_size() >= 1
 

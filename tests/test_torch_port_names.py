@@ -84,20 +84,12 @@ LATER = {
     ("compile", "loader_batch_template"): (9, "torch.compile and CUDA graphs"),
     ("compile", "precompile_call"): (9, "torch.compile and CUDA graphs"),
     ("compile", "precompile_step"): (9, "torch.compile and CUDA graphs"),
-    ("launch", "RemoteDistributor"): (9, "the remote launcher"),
-    ("launch", "RemoteLaunchError"): (9, "the remote launcher"),
-    ("launch", "ssh_connect"): (9, "the remote launcher"),
-    ("launch", "all_env_vars"): (9, "the remote launcher"),
     ("track", "HttpModelRegistry"): (9, "the HTTP store"),
 }
 
 #: modules ported in the launcher slice: (module under tpuframe, JAX
 #: module's own class or function) -> (Queue 1 item, what it waits for)
 LATER_IN_MODULE = {
-    # the port sends its one host value (the run id) over the process group;
-    # the control plane comes with the multi-host launcher
-    ("core.native", "ControlPlane"): (9, "the multi-host launcher"),
-    ("core.native", "control_plane"): (9, "the multi-host launcher"),
     ("track.registry", "HttpModelRegistry"): (9, "the HTTP store"),
     ("track.telemetry", "start_metrics_server"): (9, "the HTTP store"),
 }
@@ -110,7 +102,7 @@ SLICE_MODULES = ("core.config", "core.workspace", "core.native", "models.cnn", "
                  "track.tensorboard", "track.system_metrics", "track.telemetry",
                  "parallel.zero", "parallel.memory", "parallel.sharding", "parallel.compose",
                  "parallel.pipeline", "fault.chaos", "fault.preempt", "fault.supervisor",
-                 "fault.health", "launch.elastic")
+                 "fault.health", "launch.elastic", "launch.remote", "launch.agent")
 
 #: the JAX package's kernel switches: the port dispatches by device alone
 DROPPED = {"use_pallas", "kernel_enabled", "kernels_mode"}

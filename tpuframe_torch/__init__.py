@@ -21,7 +21,10 @@ launcher path — ``launch.Distributor`` and ``TPUTrainer`` over local
 workers with a heartbeat (``csrc/heartbeat.cpp``), ``core.Config``, the
 MLflow file store and model registry, ``MnistNet``,
 ``TransferClassifier``, EMA and lion/lamb/adafactor, and the examples
-under ``tpuframe_torch/examples``.
+under ``tpuframe_torch/examples``; the multi-host launch plane —
+``launch.RemoteDistributor`` over ``python -m tpuframe_torch.launch.agent``
+and the host control plane (``core.native.ControlPlane``,
+``csrc/controlplane.cpp``).
 """
 
 __version__ = "0.1.0"

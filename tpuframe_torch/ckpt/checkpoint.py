@@ -110,6 +110,19 @@ def _world() -> int:
     return dist.get_world_size() if _wired() else 1
 
 
+def _dcp_failure(e: CheckpointException) -> BaseException:
+    """The first failing rank's own exception inside DCP's wrapper, its
+    ``__cause__`` the wrapper.  DCP gives every rank the same failures, so
+    every rank takes the same branch on it (an ``OSError`` retries, a
+    ``ValueError`` is a bug); a wrapper without failures stays as it is."""
+    failures = e.failures or {}
+    if not failures:
+        return e
+    err = failures[min(failures)][0]
+    err.__cause__ = e
+    return err
+
+
 def _state_data(state: Any) -> dict:
     """The saveable nested dict of a ``TrainState`` (or a mapping, passed
     through)."""
@@ -336,8 +349,12 @@ class Checkpointer:
 
         OSError-class failures of the write are retried
         ``TPUFRAME_CKPT_SAVE_RETRIES`` times (default 2) with full-jitter
-        backoff, each ticking ``ckpt/save_retries``.  With ``async_save`` an
-        OSError surfacing later in ``wait()`` is past this window.
+        backoff, each ticking ``ckpt/save_retries``.  DCP wraps a rank's
+        write failure in ``CheckpointException`` (a ``BaseException``); the
+        first failing rank's own exception is raised in its place, so a
+        storage flake retries on every rank and a bug classifies as itself.
+        With ``async_save`` an OSError surfacing later in ``wait()`` is past
+        this window.
         """
         self.wait()  # one save in flight at a time
         data = _state_data(state)
@@ -388,7 +405,10 @@ class Checkpointer:
             dist.barrier()
         view, no_dist = _dcp_view(data), _world() == 1
         if not self.async_save:
-            dcp.save(view, checkpoint_id=os.path.join(tmp, "state"), no_dist=no_dist)
+            try:
+                dcp.save(view, checkpoint_id=os.path.join(tmp, "state"), no_dist=no_dist)
+            except CheckpointException as e:  # a BaseException: the retry would miss it
+                raise _dcp_failure(e) from e
             self._commit(tmp, final, doc)
             if _world() > 1:
                 dist.barrier()  # every rank sees the step committed
@@ -404,6 +424,8 @@ class Checkpointer:
             try:
                 upload.result()
                 self._commit(tmp, final, doc)
+            except CheckpointException as e:  # re-raised by wait(), unwrapped
+                self._async_error = _dcp_failure(e)
             except BaseException as e:  # re-raised by wait()
                 self._async_error = e
 

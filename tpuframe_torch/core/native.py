@@ -7,6 +7,12 @@ Port of ``tpuframe/core/native.py`` over the port's own sources under
 - the launcher's heartbeat (:class:`HeartbeatMonitor`,
   :class:`HeartbeatBeacon`, :func:`maybe_start_beacon`;
   ``heartbeat.cpp``);
+- :class:`ControlPlane` and the process-wide :func:`control_plane`: a TCP
+  rendezvous, then barrier, broadcast and allgather of host-side byte
+  payloads over a rank-0 hub (``controlplane.cpp``), the c10d/torchrun
+  control surface for values that flow before or outside the process
+  group (the run id).  Its wire format and token handshake are the JAX
+  package's, so a port spoke joins a JAX hub;
 - :class:`ZstdCodec`: the shard codec, batch decompression on a GIL-free
   thread pool (``codec.cpp``, ``-lzstd``, or libzstd's runtime library
   by its soname where the development files are missing);
@@ -22,10 +28,8 @@ headers, :func:`heartbeat_available`, :func:`native_available` and
 ``RuntimeError``, and :data:`build_errors` (and :data:`build_error`, the
 last failure) say why.  The launcher then runs without liveness detection,
 the shards fall back to the ``zstandard`` module and the decoder to PIL,
-as in the JAX package.
-
-The JAX module's ``ControlPlane`` is not here: the port sends its small
-host values (the run id) over the process group.
+as in the JAX package; a control plane of more than one rank raises, and
+``track.broadcast_run_id`` takes the process group instead.
 """
 
 from __future__ import annotations
@@ -38,16 +42,16 @@ import threading
 from pathlib import Path
 from typing import Sequence
 
-__all__ = ["HeartbeatBeacon", "HeartbeatMonitor", "JpegDecoder", "ZstdCodec",
-           "heartbeat_available", "jpeg_native_available", "maybe_start_beacon",
-           "native_available"]
+__all__ = ["ControlPlane", "HeartbeatBeacon", "HeartbeatMonitor", "JpegDecoder", "ZstdCodec",
+           "control_plane", "heartbeat_available", "jpeg_native_available",
+           "maybe_start_beacon", "native_available"]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpuframe_torch"
 _FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL | None] = {}  # library name -> CDLL, None if it failed
-#: library name (``tfhb``, ``tfscodec``, ``tfjpeg``) -> why its build or
+#: library name (``tfhb``, ``tfcp``, ``tfscodec``, ``tfjpeg``) -> why its build or
 #: load failed, None when it did not
 build_errors: dict[str, str | None] = {}
 #: why the last failed build or load failed (None while none has)
@@ -214,6 +218,154 @@ def maybe_start_beacon() -> HeartbeatBeacon | None:
             token=os.environ.get("TPUFRAME_CP_TOKEN", ""))
     except (RuntimeError, OSError, ValueError):
         return None
+
+
+# -- the control plane ----------------------------------------------------------
+
+
+def _declare_controlplane(lib: ctypes.CDLL) -> None:
+    lib.tfcp_hub_create.restype = ctypes.c_void_p
+    lib.tfcp_hub_create.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_uint64]
+    lib.tfcp_spoke_create.restype = ctypes.c_void_p
+    lib.tfcp_spoke_create.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_int, ctypes.c_int, ctypes.c_uint64]
+    lib.tfcp_barrier.argtypes = [ctypes.c_void_p]
+    lib.tfcp_broadcast.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                   ctypes.POINTER(ctypes.c_uint64), ctypes.c_uint64]
+    lib.tfcp_allgather.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_uint64,
+                                   ctypes.c_char_p, ctypes.c_uint64,
+                                   ctypes.POINTER(ctypes.c_uint64)]
+    lib.tfcp_destroy.argtypes = [ctypes.c_void_p]
+
+
+def _cp_lib() -> ctypes.CDLL | None:
+    return _load("tfcp", "controlplane.cpp", [()], _declare_controlplane)
+
+
+class ControlPlane:
+    """Host barrier, broadcast and allgather over the rank-0 hub.
+
+    >>> cp = ControlPlane(rank=r, world=n, address="10.0.0.1", port=29400)
+    >>> cp.barrier()
+    >>> run_id = cp.broadcast_str(run_id if r == 0 else None)
+    >>> all_hosts = cp.allgather_bytes(socket.gethostname().encode())
+
+    Unset arguments come from the launcher's env contract: ``RANK``,
+    ``WORLD_SIZE``, ``MASTER_ADDR``, ``TPUFRAME_CP_PORT`` (29401) and
+    ``TPUFRAME_CP_TOKEN`` (a spoke that does not present the run's token is
+    turned away by the hub); the hub binds ``TPUFRAME_CP_BIND`` (every
+    interface when unset).  A world of one is a no-op and builds nothing;
+    a larger one without a toolchain raises ``RuntimeError``, and a
+    rendezvous that does not complete within ``timeout_ms`` raises
+    ``TimeoutError``.  Every rank must make the same sequence of calls.
+    """
+
+    MAX_PAYLOAD = 1 << 20  # 1 MiB of control data per op
+
+    def __init__(self, rank: int | None = None, world: int | None = None,
+                 address: str | None = None, port: int | None = None,
+                 timeout_ms: int = 60_000, token: str | None = None):
+        rank = int(os.environ.get("RANK", 0)) if rank is None else rank
+        world = int(os.environ.get("WORLD_SIZE", 1)) if world is None else world
+        if address is None:
+            address = os.environ.get("MASTER_ADDR", "127.0.0.1")
+        if port is None:
+            port = int(os.environ.get("TPUFRAME_CP_PORT", "29401"))
+        if token is None:
+            token = os.environ.get("TPUFRAME_CP_TOKEN", "")
+        self.rank, self.world = rank, world
+        self._h = None
+        self._lib = None
+        if world > 1:
+            lib = _cp_lib()
+            if lib is None:
+                raise RuntimeError(f"the control plane needs g++: {build_errors.get('tfcp')}")
+            self._lib = lib
+            if rank == 0:
+                bind = os.environ.get("TPUFRAME_CP_BIND", "")
+                self._h = lib.tfcp_hub_create(bind.encode(), port, world, timeout_ms,
+                                              _token_u64(token))
+            else:
+                self._h = lib.tfcp_spoke_create(address.encode(), port, rank, world, timeout_ms,
+                                                _token_u64(token))
+            if not self._h:
+                raise TimeoutError(f"control-plane rendezvous failed (rank {rank}/{world} "
+                                   f"@ {address}:{port})")
+
+    def barrier(self) -> None:
+        if self.world == 1:
+            return
+        if self._lib.tfcp_barrier(self._h) != 0:
+            raise RuntimeError("control-plane barrier failed")
+
+    def broadcast_bytes(self, payload: bytes | None) -> bytes:
+        """Rank 0's ``payload`` on every rank (pass anything elsewhere)."""
+        if self.world == 1:
+            return payload or b""
+        if payload is not None and len(payload) > self.MAX_PAYLOAD:
+            # refused before anything is sent, so no peer is left waiting
+            raise ValueError(f"control-plane payload {len(payload)} bytes exceeds "
+                             f"MAX_PAYLOAD={self.MAX_PAYLOAD}")
+        buf = ctypes.create_string_buffer(self.MAX_PAYLOAD)
+        size = ctypes.c_uint64(0)
+        if self.rank == 0:
+            payload = payload or b""
+            buf.raw = payload + b"\0" * (self.MAX_PAYLOAD - len(payload))
+            size.value = len(payload)
+        rc = self._lib.tfcp_broadcast(self._h, buf, ctypes.byref(size), self.MAX_PAYLOAD)
+        if rc != 0:
+            raise RuntimeError(f"control-plane broadcast failed ({rc})")
+        return payload if self.rank == 0 else buf.raw[: size.value]
+
+    def broadcast_str(self, value: str | None) -> str:
+        return self.broadcast_bytes(value.encode() if value else None).decode()
+
+    def allgather_bytes(self, payload: bytes) -> list[bytes]:
+        """Every rank's ``payload``, in rank order."""
+        if self.world == 1:
+            return [payload]
+        # a bound a rank alone: sizes may differ across ranks, and the hub
+        # holds the total against MAX_PAYLOAD (rc -2)
+        if len(payload) > self.MAX_PAYLOAD:
+            raise ValueError(f"allgather payload {len(payload)} bytes exceeds "
+                             f"MAX_PAYLOAD={self.MAX_PAYLOAD}")
+        out = ctypes.create_string_buffer(self.MAX_PAYLOAD)
+        sizes = (ctypes.c_uint64 * self.world)()
+        rc = self._lib.tfcp_allgather(self._h, payload, len(payload), out, self.MAX_PAYLOAD,
+                                      sizes)
+        if rc != 0:
+            raise RuntimeError(f"control-plane allgather failed ({rc})")
+        parts, off = [], 0
+        for i in range(self.world):
+            parts.append(out.raw[off: off + sizes[i]])
+            off += sizes[i]
+        return parts
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.tfcp_destroy(self._h)
+            self._h = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+_CONTROL_PLANE: ControlPlane | None = None
+
+
+def control_plane() -> ControlPlane:
+    """The process-wide :class:`ControlPlane` from the launcher's env
+    contract (``RANK``/``WORLD_SIZE``/``MASTER_ADDR`` and
+    ``TPUFRAME_CP_PORT``/``TPUFRAME_CP_TOKEN``), built at first use; every
+    rank must make the same sequence of calls on it."""
+    global _CONTROL_PLANE
+    if _CONTROL_PLANE is None:
+        _CONTROL_PLANE = ControlPlane()
+    return _CONTROL_PLANE
 
 
 # -- the shard codec ------------------------------------------------------------

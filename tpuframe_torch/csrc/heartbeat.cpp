@@ -3,9 +3,8 @@
 //
 // The port's own copy of the heartbeat half of the JAX package's host
 // control plane (tpuframe/_native/controlplane.cpp): the port builds and
-// loads this file alone and never the JAX package's library.  The
-// collective half (barrier, broadcast, allgather) is not here: the port
-// carries its small host values over the torch.distributed process group.
+// loads its own copies, never the JAX package's library.  The collective
+// half (barrier, broadcast, allgather) is controlplane.cpp.
 //
 // The beacon is a background thread that sends one byte per interval over
 // TCP; the monitor records a monotonic last-seen time per rank.  This

@@ -35,9 +35,10 @@ groups, one device a process).  A value above 1 raises
 processes of one device each instead.  Nothing else puts a worker on the
 CPU.
 
-Not yet: ``local_mode=False`` (remote hosts) raises, and waits for a
-later slice (ROADMAP.md, Queue 1 item 9).  :class:`ZeroDistributor` hands
-the train fn its ``zero_config=``.
+``local_mode=False`` needs ``hosts`` and hands the run to
+:class:`~tpuframe_torch.launch.RemoteDistributor` (one agent a rank over
+the ``connect`` exec transport, ssh by default).  :class:`ZeroDistributor`
+hands the train fn its ``zero_config=``.
 """
 
 from __future__ import annotations
@@ -94,6 +95,23 @@ def _stale_rank_check(monitor, timeout_s):
     return check
 
 
+def _start_monitor(timeout_s: float | None, world: int, token: str, port: int = 0):
+    """(the heartbeat monitor of a run of more than one process, its port),
+    or (None, None): disabled, one process, or it could not be built
+    (logged; liveness is best-effort, as in the JAX package)."""
+    if not timeout_s or world <= 1:
+        return None, None
+    from tpuframe_torch.core import native
+
+    port = port or _free_port()
+    try:
+        return native.HeartbeatMonitor(port, world, token=token), port
+    except (RuntimeError, OSError) as e:
+        log.warning("heartbeat monitor not built, the run goes on without liveness "
+                    "detection: %s", e)
+        return None, None
+
+
 def await_and_root_cause(
     workers: Sequence[tuple[int, Any, Any]],
     *,
@@ -102,7 +120,9 @@ def await_and_root_cause(
     make_failure: Callable[[int, int, Any], BaseException],
     kill_all: Callable[[], None],
     describe_timeout: Callable[[int], str],
+    self_inflicted: Sequence[int] = _KILL_CODES,
     health_check: Callable[[set], BaseException | None] | None = None,
+    finished_check: Callable[[set], bool] | None = None,
     poll_interval_s: float = 0.2,
 ) -> None:
     """The launchers' wait loop, as the JAX package's.
@@ -112,13 +132,15 @@ def await_and_root_cause(
     its rank) under the run-wide ``deadline``; once one has failed, hung
     peers get ``_FAILURE_GRACE_S``, not the rest of the deadline.
     ``health_check`` (heartbeat staleness) gets the pending ranks and may
-    return an exception that declares one lost.  At the deadline,
-    ``kill_all()``, then the first crashed peer (not one that ``kill_all``
-    ended) is the root cause: one dead rank with the others hung at a
+    return an exception that declares one lost.  ``finished_check`` may
+    declare the run complete (every pending rank's result already in hand:
+    a wedged transport must not turn a finished run into a timeout); the
+    stragglers are killed and the wait returns.  At the deadline,
+    ``kill_all()``, then the first crashed peer (not one whose code is in
+    ``self_inflicted``: the launcher's own kill, a remote agent's orphan
+    watchdog) is the root cause: one dead rank with the others hung at a
     collective is the usual shape.  Raises the best failure found, or
-    :class:`TimeoutError`; returns when every worker succeeded.  (The JAX
-    function's ``finished_check`` and ``self_inflicted`` serve its remote
-    launcher alone, which the port does not have yet.)
+    :class:`TimeoutError`; returns when every worker succeeded.
     """
     pending: dict[int, tuple[Any, Any]] = {r: (p, e) for r, p, e in workers}
     failure: BaseException | None = None
@@ -137,6 +159,10 @@ def await_and_root_cause(
             if code != 0 and failure is None:
                 failure = make_failure(rank, code, extra)
                 grace_deadline = time.monotonic() + _FAILURE_GRACE_S
+        if pending and failure is None and finished_check is not None:
+            if finished_check(set(pending)):
+                kill_all()  # reap transports that linger after their result
+                return
         if pending and failure is None and health_check is not None:
             lost = health_check(set(pending))
             if lost is not None:
@@ -150,7 +176,7 @@ def await_and_root_cause(
         if failure is None:
             for rank, p, extra in workers:
                 code = p.returncode
-                if code in (None, 0) or code in _KILL_CODES:
+                if code in (None, 0) or code in self_inflicted:
                     continue
                 failure = make_failure(rank, code, extra)
                 break
@@ -193,10 +219,14 @@ class Distributor:
     """Spawn-and-collect launcher (≈ TorchDistributor).
 
     Args:
-      num_processes: worker processes to spawn, one device each.
-      local_mode: only True (local processes) is ported; False raises
-        ``NotImplementedError``.
-      hosts / connect / remote_kwargs: the remote mode's, refused with it.
+      num_processes: worker processes to spawn, one device each (with
+        ``local_mode=False``: 1 or ``len(hosts)``).
+      local_mode: run the workers on this host.  False needs ``hosts`` and
+        delegates to :class:`~tpuframe_torch.launch.RemoteDistributor`.
+      hosts: the remote mode's hosts, one rank each.
+      connect: the remote mode's exec transport (see RemoteDistributor).
+      remote_kwargs: further RemoteDistributor options (``master_addr``,
+        ``cp_port``, ``remote_python``, ...); they win over the ones above.
       simulate_devices: 1 asks for CPU workers (module docstring); None
         (or 0) keeps them on the card; above 1 raises.
       env: extra env vars for every worker.
@@ -225,14 +255,25 @@ class Distributor:
     ):
         if num_processes < 1:
             raise ValueError("num_processes must be >= 1")
-        if not local_mode or hosts:
-            raise NotImplementedError(
-                "Distributor(local_mode=False): remote hosts are not ported yet; they come "
-                "with the platform planes (ROADMAP.md, Queue 1 item 9)")
-        if remote_kwargs or connect is not None:
-            raise ValueError("remote_kwargs and connect only apply with local_mode=False")
         if simulate_devices:
             check_simulated_devices(simulate_devices)
+        self._remote = None
+        if not local_mode:
+            from tpuframe_torch.launch.remote import RemoteDistributor
+
+            if not hosts:
+                raise ValueError("local_mode=False needs hosts=[...] (one rank per host)")
+            if num_processes not in (1, len(hosts)):
+                raise ValueError(f"num_processes ({num_processes}) != len(hosts) "
+                                 f"({len(hosts)}); remote mode runs one rank per host")
+            rk: dict[str, Any] = dict(connect=connect, env=env, master_port=master_port,
+                                      timeout_s=timeout_s, simulate_devices=simulate_devices,
+                                      heartbeat_timeout_s=heartbeat_timeout_s)
+            rk.update(remote_kwargs or {})  # explicit options win
+            self._remote = RemoteDistributor(hosts, **rk)
+            num_processes = len(hosts)
+        elif remote_kwargs:
+            raise ValueError("remote_kwargs only applies with local_mode=False")
         self.num_processes = num_processes
         self.simulate_devices = simulate_devices
         self.extra_env = dict(env or {})
@@ -279,27 +320,12 @@ class Distributor:
 
     _free_port = staticmethod(_free_port)
 
-    def _start_monitor(self):
-        """The heartbeat monitor of a run of more than one process, or
-        None (disabled, one process, or it could not be built: logged)."""
-        if not self.heartbeat_timeout_s or self.num_processes <= 1:
-            return None
-        from tpuframe_torch.core import native
-
-        try:
-            self._hb_port = self._free_port()
-            return native.HeartbeatMonitor(self._hb_port, self.num_processes,
-                                           token=self._cp_token)
-        except (RuntimeError, OSError) as e:
-            log.warning("heartbeat monitor not built, the run goes on without liveness "
-                        "detection: %s", e)
-            self._hb_port = None
-            return None
-
     # -- run -----------------------------------------------------------------
     def run(self, fn: Callable, *args: Any, **kwargs: Any) -> Any:
         """Run ``fn(*args, **kwargs)`` on every worker; return rank 0's
         result (it must be picklable)."""
+        if self._remote is not None:
+            return self._remote.run(fn, *args, **kwargs)
         import cloudpickle
 
         port = self.master_port or self._free_port()
@@ -312,7 +338,8 @@ class Distributor:
                 cloudpickle.dump((fn, args, kwargs), f)
 
             # made just before the try whose finally closes it
-            monitor = self._start_monitor()
+            monitor, self._hb_port = _start_monitor(self.heartbeat_timeout_s,
+                                                    self.num_processes, self._cp_token)
             self.heartbeat_active = monitor is not None
             procs: list[tuple[int, subprocess.Popen, str]] = []
             stderr_files = []

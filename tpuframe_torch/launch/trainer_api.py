@@ -5,7 +5,8 @@ Port of ``tpuframe/launch/trainer_api.py`` over the port's
 files, ``metrics_dataframe`` and checkpoint bundles copied into run
 storage.  ``ScalingConfig.use_gpu`` (Ray's name; the JAX package's
 ``use_tpu``) must stay True: CPU workers are ``simulate_devices=1``.
-Remote hosts (``ScalingConfig.hosts``) wait for the remote launcher.
+``ScalingConfig.hosts`` places one rank a host through the
+:class:`~tpuframe_torch.launch.RemoteDistributor`.
 
 Capability parity with the reference's Ray family
 (`05_ray/01_fashion_mnist_pytorch_ray.ipynb`):
@@ -50,8 +51,11 @@ class ScalingConfig:
     """≈ ``ray.train.ScalingConfig(num_workers, use_gpu)`` (cell-7).
 
     ``use_gpu=False`` raises: ask for CPU workers with
-    ``simulate_devices=1``.  ``hosts`` and ``remote_kwargs`` (the JAX
-    package's remote placement) raise ``NotImplementedError``."""
+    ``simulate_devices=1``.  ``hosts`` switches placement from local
+    processes to one rank a host through the
+    :class:`~tpuframe_torch.launch.RemoteDistributor` (Ray's
+    ``setup_ray_cluster(max_worker_nodes=...)`` role); ``remote_kwargs``
+    passes transport options (``connect``, ports, ``remote_python``)."""
 
     num_workers: int = 1
     use_gpu: bool = True
@@ -63,10 +67,6 @@ class ScalingConfig:
         if not self.use_gpu:
             raise ValueError("ScalingConfig(use_gpu=False): CPU workers are "
                              "ScalingConfig(simulate_devices=1)")
-        if self.hosts or self.remote_kwargs:
-            raise NotImplementedError(
-                "ScalingConfig(hosts=...): remote placement is not ported yet; it comes with "
-                "the platform planes (ROADMAP.md, Queue 1 item 9)")
 
 
 @dataclasses.dataclass
@@ -278,6 +278,13 @@ class TPUTrainer:
             simulate_devices=self.scaling.simulate_devices,
             env={_RESULT_DIR_ENV: result_dir},
         )
+        if self.scaling.hosts:
+            # one rank a host; report() reads the result dir, so storage_path
+            # must be a filesystem every host shares (Ray's /dbfs contract)
+            rk = dict(self.scaling.remote_kwargs or {})
+            # the result dir survives a user's env= (it merges in)
+            rk["env"] = {**kw.pop("env"), **rk.get("env", {}), _RESULT_DIR_ENV: result_dir}
+            kw.update(local_mode=False, hosts=list(self.scaling.hosts), remote_kwargs=rk)
         dist = Distributor(**kw)
         error: BaseException | None = None
         try:

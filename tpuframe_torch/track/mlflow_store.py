@@ -12,9 +12,9 @@ reads runs of both packages.  Three differences:
   ``format`` says ``torch-save``.  The tree is ``{"params": {name:
   tensor}, "batch_stats": {name: buffer}}`` for a ``TrainState`` or a
   module, by parameter name, as ``ckpt.load_pytree`` reads it back.
-- :func:`broadcast_run_id` sends rank 0's id over the ``torch.distributed``
-  process group (gloo or NCCL), where the JAX package uses its host
-  control plane.
+- :func:`broadcast_run_id` sends rank 0's id over the host control plane
+  in a launched run, as the JAX package does, else over the
+  ``torch.distributed`` process group (gloo or NCCL), 64 bytes at most.
 - Only the file store is here: an ``http(s)://`` tracking URI raises
   ``NotImplementedError`` (the HTTP store comes with a later slice).
   ``MLflowLogger(system_metrics=True)`` starts a
@@ -38,7 +38,7 @@ Reference behaviors reproduced:
   (`04_accelerate/01_cifar_accelerate.ipynb:cell-18`);
 - run-id propagation to non-zero ranks — the reference broadcasts the run-id
   as a char tensor over NCCL (`cell-18`), as :func:`broadcast_run_id` does
-  here over the process group.
+  here over the control plane or the process group.
 """
 
 from __future__ import annotations
@@ -467,14 +467,27 @@ def broadcast_run_id(run_id: str | None, max_len: int = 64) -> str:
     """Rank 0's run id on every process.
 
     The reference's char-tensor NCCL broadcast
-    (`04_accelerate/01_cifar_accelerate.ipynb:cell-18`): the id's bytes,
-    zero-padded to ``max_len``, in a uint8 tensor broadcast from rank 0
-    over the default process group (on the current CUDA device under
-    NCCL, on the CPU under gloo).  Call it on every process; pass the id on
-    rank 0 and anything (e.g. None) elsewhere.  Without a group, or at
-    world 1, it returns ``run_id`` (or "")."""
+    (`04_accelerate/01_cifar_accelerate.ipynb:cell-18`).  Primary route, as
+    the JAX package's: the host control plane (``core.native.
+    control_plane``), when ``WORLD_SIZE`` is the runtime's process count and
+    the launcher's plane env (``TPUFRAME_CP_PORT``) is there; the id comes
+    back whole.  Otherwise, or when the plane cannot be built, the id's
+    bytes, zero-padded to ``max_len``, in a uint8 tensor broadcast from
+    rank 0 over the default process group (on the current CUDA device under
+    NCCL, on the CPU under gloo); an id longer than ``max_len`` comes back
+    cut.  Call it on every process; pass the id on rank 0 and anything
+    (e.g. None) elsewhere.  Without a group, or at world 1, it returns
+    ``run_id`` (or "")."""
     if rt.process_count() == 1:
         return run_id or ""
+    if (int(os.environ.get("WORLD_SIZE", "1")) == rt.process_count()
+            and os.environ.get("TPUFRAME_CP_PORT")):
+        from tpuframe_torch.core.native import control_plane
+
+        try:
+            return control_plane().broadcast_str(run_id if rt.is_main_process() else None)
+        except (RuntimeError, OSError, ValueError):
+            pass  # no toolchain, or the env contract does not hold: the group's route
     import torch
     import torch.distributed as dist
 

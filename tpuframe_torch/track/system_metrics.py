@@ -70,6 +70,10 @@ def device_memory_stats() -> dict[str, float]:
 
 _FALSY = ("0", "false", "no", "off", "disabled")
 _SAMPLE_S_DEFAULT = 10.0
+
+#: the two memory-plane knobs read here (``launch.all_env_vars`` ships
+#: them), until ``track/memory.py`` and its ``MEMORY_ENV_VARS`` land
+MEMORY_ENV_VARS = ("TPUFRAME_MEMORY_SAMPLE_S", "TPUFRAME_MEMORY_LIVE")
 _PEAK_LOCK = threading.Lock()
 _PEAKS = {"hbm_peak_mb": 0.0, "host_peak_mb": 0.0}
 

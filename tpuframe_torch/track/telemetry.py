@@ -56,6 +56,17 @@ __all__ = [
 #: the JSONL record shape, shared with the JAX package
 SCHEMA_VERSION = 1
 
+#: the observability and fault knobs the port reads, shipped by the remote
+#: launcher to every host (``launch.all_env_vars``): the JAX package's list
+#: less the straggler and serving-fleet knobs, which nothing in the port
+#: reads yet
+OBSERVABILITY_ENV_VARS = (
+    "TPUFRAME_TELEMETRY_DIR",
+    "TPUFRAME_WATCHDOG_S",
+    "TPUFRAME_WATCHDOG_DEADLINES",
+    "TPUFRAME_PREEMPT_SIGNALS",
+)
+
 
 def _env_rank() -> int:
     """Process rank from the launch env."""
