@@ -1952,3 +1952,117 @@ def test_two_localhost_agents_share_the_card_over_gloo(card):
                            remote_python=sys.executable, timeout_s=300.0)
     assert rd.run(_remote_card_rank) == {"rank": 0, "local_rank": "0", "backend": "gloo",
                                          "device": "cuda:0", "sum": [3.0, 3.0, 3.0]}
+
+
+def test_fused_adamw_with_the_device_lr_is_bit_equal_to_the_host_lr(card):
+    """K4 reads its lr from a float32 device scalar: a schedule's table
+    entry gives the bits the float of the same schedule gives (the host
+    form), over a list of mixed shapes in f32 and bf16."""
+    from tpuframe_torch.train.schedules import warmup_cosine
+
+    sched = warmup_cosine(3e-4, 4, 40)
+    table = torch.tensor([float(sched(i)) for i in range(40)], dtype=torch.float32,
+                         device=card)
+    gen = torch.Generator(device=card).manual_seed(0)
+    for dtype in (torch.float32, torch.bfloat16):
+        shapes = [(768, 2304), (768,), (7, 13), (50304, 768)]
+        ps = [torch.randn(s, generator=gen, device=card).to(dtype) for s in shapes]
+        gs = [torch.randn(s, generator=gen, device=card).to(dtype) * 1e-2 for s in shapes]
+        for k in (0, 3, 17):
+            outs = []
+            for lr in (float(sched(k)), table[torch.tensor(k, device=card)]):
+                p = [t.clone() for t in ps]
+                m = [torch.full_like(t, 0.1, dtype=torch.float32) for t in ps]
+                v = [torch.full_like(t, 0.01, dtype=torch.float32) for t in ps]
+                c = [torch.full((), k + 1, dtype=torch.int32, device=card) for _ in ps]
+                fused_adamw_multi_update_(p, gs, m, v, c, lr=lr, weight_decay=1e-4)
+                outs.append(p + m + v)
+            assert all(torch.equal(a, b) for a, b in zip(*outs)), (dtype, k)
+
+
+def test_a_graphed_train_step_launches_what_the_eager_step_launches(card):
+    """A precompiled train step captured as a CUDA graph: after N replays
+    the kernel counters read what N eager steps read (K1, K2a, K2b on a
+    small ResNet18; K3a, K3b, K4 on a small LM under a schedule), the
+    warm-up's launches reported apart, and the capture itself counts
+    nothing."""
+    from tpuframe_torch.compile.precompile import TensorSpec, precompile_step
+    from tpuframe_torch.train.schedules import warmup_cosine
+
+    tf = functools.partial(normalize_images, mean=MEAN, std=STD, out_dtype=torch.float32)
+    res = (ResNet18(num_classes=10, num_filters=8, stem="cifar", device=card, seed=1),
+           make_optimizer("sgd", 0.05),
+           lambda: make_train_step(batch_transform=lambda b: {**b, "image": tf(b["image"])}),
+           {"image": _uint8((8, 32, 32, 3)).to(card),
+            "label": torch.arange(8, device=card) % 10},
+           (normalize_images, cross_entropy_fwd, cross_entropy_bwd))
+    lm = (TransformerLM(vocab_size=256, num_layers=2, num_heads=2, head_dim=32, max_len=32,
+                        device=card, seed=1),
+          fused_adamw(warmup_cosine(1e-3, 2, 20)), lambda: make_train_step(),
+          {"image": torch.randint(0, 256, (4, 32), device=card),
+           "label": torch.randint(0, 256, (4, 32), device=card)},
+          (layer_norm_fwd, layer_norm_bwd, fused_adamw_multi_update_))
+    for model, spec, make_step, batch, wrappers in (res, lm):
+        state = create_train_state(model, spec)
+        step = make_step()
+        template = {k: TensorSpec(tuple(v.shape), v.dtype, v.device) for k, v in batch.items()}
+        for w in wrappers:
+            w.launches = 0
+        exe = precompile_step(step, state, template, label="test", planned_steps=8)
+        # the warm-up's launches, and nothing of the capture's
+        assert exe.graphed
+        assert sum(w.launches for w in wrappers) == sum(exe.warmup_launches.values()) > 0
+        for w in wrappers:
+            w.launches = 0
+        for _ in range(3):
+            state, _ = exe(state, batch)
+        torch.cuda.synchronize()
+        graphed = [w.launches for w in wrappers]
+        eager_state = create_train_state(model, spec)
+        for w in wrappers:
+            w.launches = 0
+        for _ in range(3):
+            eager_state, _ = step(eager_state, batch)
+        torch.cuda.synchronize()
+        assert graphed == [w.launches for w in wrappers] and all(graphed), graphed
+        assert state.step == 3
+
+
+def test_a_precompiled_lm_fit_dispatches_train_and_eval_to_their_graphs(card):
+    """``Trainer(precompile=True)`` on a small LM under a schedule: both
+    steps graphed, no fallback, and the launches less the warm-up's what
+    the eager fit launches (K3a 5 a forward, K3b 5 and K4 1 a step)."""
+    from tpuframe_torch.track.telemetry import get_telemetry
+    from tpuframe_torch.train.schedules import warmup_cosine
+
+    class Tokens:
+        def __len__(self):
+            return 40
+
+        def __getitem__(self, i):
+            toks = (np.arange(33) * (i % 5 + 1) + i) % 256
+            return toks[:-1].astype(np.int32), toks[1:].astype(np.int32)
+
+    model = TransformerLM(vocab_size=256, num_layers=2, num_heads=2, head_dim=32, max_len=32,
+                          device=card, seed=1)
+    trainer = Trainer(model, tx=fused_adamw(warmup_cosine(1e-3, 2, 20)),
+                      train_dataloader=DataLoader(Tokens(), 8, shuffle=True),
+                      eval_dataloader=DataLoader(Tokens(), 8, drop_last=False),
+                      max_duration="6ba", log_interval=2, precompile=True)
+    wrappers = {"layer_norm_fwd": layer_norm_fwd, "layer_norm_bwd": layer_norm_bwd,
+                "fused_adamw": fused_adamw_multi_update_}
+    for w in wrappers.values():
+        w.launches = 0
+    events = len(get_telemetry().recent_events(10**6))
+    result = trainer.fit()
+    torch.cuda.synchronize()
+    rep = trainer._precompile_report
+    assert [s["kind"] for s in rep["steps"]] == ["train", "eval"]
+    assert all(s["dispatchable"] and s["graphed"] for s in rep["steps"]), rep
+    warm = {n: sum(s["warmup_launches"].get(n, 0) for s in rep["steps"]) for n in wrappers}
+    got = {n: w.launches - warm[n] for n, w in wrappers.items()}
+    n_eval = 5 * len(result.history)  # 5 batches at each epoch's end
+    assert got == {"layer_norm_fwd": 5 * (6 + n_eval), "layer_norm_bwd": 5 * 6, "fused_adamw": 6}
+    new = get_telemetry().recent_events(10**6)[events:]
+    assert not [e for e in new if e.get("name") in ("compile/aot_fallback",
+                                                     "compile/recompile")]

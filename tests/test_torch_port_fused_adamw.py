@@ -304,9 +304,17 @@ def test_multi_update_refuses_lists_of_other_lengths():
 
 
 def test_refuses_what_it_does_not_take():
+    """A tensor lr is K4's device scalar (a schedule's table entry): one
+    element steps as the float does, to the bit; more than one is refused."""
+    ref = FusedAdamW([torch.nn.Parameter(torch.ones(3))], lr=1e-3)
+    ref.param_groups[0]["params"][0].grad = torch.ones(3)
+    ref.step()
     opt = FusedAdamW([torch.nn.Parameter(torch.ones(3))], lr=1e-3)
     opt.param_groups[0]["lr"] = torch.tensor(1e-3)
     opt.param_groups[0]["params"][0].grad = torch.ones(3)
+    opt.step()
+    assert torch.equal(opt.param_groups[0]["params"][0], ref.param_groups[0]["params"][0])
+    opt.param_groups[0]["lr"] = torch.tensor([1e-3, 2e-3])
     with pytest.raises(TypeError, match="float lr"):
         opt.step()
     with pytest.raises(ValueError, match="closure"):

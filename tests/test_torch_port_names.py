@@ -65,7 +65,6 @@ SUBPACKAGES = ("core", "data", "train", "models", "ops", "parallel", "ckpt", "se
 QUEUE1_MODULES = {
     "tpuframe.ops.ledger": 9,
     "tpuframe.autotune": 9,
-    "tpuframe.compile.cache": 9,
     "tpuframe.track.profiler": 9,
     "tpuframe.track.memory": 9,
     "tpuframe.track.device_time": 9,
@@ -80,10 +79,6 @@ QUEUE1_MODULES = {
 #: name) -> (Queue 1 item, what they wait for)
 LATER = {
     ("track", "start_metrics_server"): (9, "the HTTP store"),
-    ("compile", "abstract_state"): (9, "torch.compile and CUDA graphs"),
-    ("compile", "loader_batch_template"): (9, "torch.compile and CUDA graphs"),
-    ("compile", "precompile_call"): (9, "torch.compile and CUDA graphs"),
-    ("compile", "precompile_step"): (9, "torch.compile and CUDA graphs"),
     ("track", "HttpModelRegistry"): (9, "the HTTP store"),
 }
 

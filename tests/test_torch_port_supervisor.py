@@ -208,12 +208,33 @@ def test_prevalidation_quarantines_torn_steps_before_each_attempt(tmp_path):
     assert [e["step"] for e in _since(tele, token) if e["name"] == "fault/quarantine"] == [2]
 
 
-def test_restart_event_carries_a_null_compile_cache():
+def test_restart_event_carries_a_null_compile_cache(monkeypatch):
+    """With the cache disabled the restart carries null."""
+    monkeypatch.setenv("TPUFRAME_COMPILE_CACHE", "0")
     tele = get_telemetry()
     token = _mark(tele)
     Supervisor(RestartPolicy(backoff_base_s=0.0)).run(_scripted([OSError("x"), None]))
     (restart,) = [e for e in _since(tele, token) if e["name"] == "fault/restart"]
     assert "compile_cache" in restart and restart["compile_cache"] is None
+
+
+def test_restart_event_carries_the_compile_cache_dir(monkeypatch, tmp_path):
+    """The supervisor enables the persistent compile cache before the
+    first attempt (JAX's ``_ensure_compile_cache``): the restart carries
+    its directory."""
+    from tpuframe_torch.compile import cache
+
+    prev = cache.enabled_dir()
+    d = str(tmp_path / "cc")
+    monkeypatch.setenv("TPUFRAME_COMPILE_CACHE", d)
+    tele = get_telemetry()
+    token = _mark(tele)
+    try:
+        Supervisor(RestartPolicy(backoff_base_s=0.0)).run(_scripted([OSError("x"), None]))
+    finally:
+        cache.enable(prev) if prev else cache.disable()
+    (restart,) = [e for e in _since(tele, token) if e["name"] == "fault/restart"]
+    assert restart["compile_cache"] == d and os.path.isdir(d)
 
 
 def test_run_with_restarts_classifies_preemption_separately_and_takes_an_override():

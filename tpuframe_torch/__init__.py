@@ -24,7 +24,10 @@ MLflow file store and model registry, ``MnistNet``,
 under ``tpuframe_torch/examples``; the multi-host launch plane —
 ``launch.RemoteDistributor`` over ``python -m tpuframe_torch.launch.agent``
 and the host control plane (``core.native.ControlPlane``,
-``csrc/controlplane.cpp``).
+``csrc/controlplane.cpp``); the compile plane (``compile``): the
+persistent cache on Inductor's, precompile with the steps' model regions
+compiled by Inductor and captured as CUDA graphs, the kernels K1-K4 as
+``tpuframe::`` custom ops.
 """
 
 __version__ = "0.1.0"

@@ -328,6 +328,12 @@ def initialize(mesh: MeshSpec | Mapping[str, int] | None = None, *,
     refuses them).  A world above 1 without a rendezvous, rank or size
     raises, as in the JAX package."""
     global _CURRENT, _OWNS_GROUP
+    # the persistent compile cache before any other work (off with
+    # TPUFRAME_COMPILE_CACHE=0): every process that initializes a runtime
+    # compiles against the same host-shared cache
+    from tpuframe_torch.compile import cache as _compile_cache
+
+    _compile_cache.enable_from_env()
     local = _env_int("LOCAL_RANK")
     if device is None and local is not None and not simulated_devices():
         cards = torch.cuda.device_count() if torch.cuda.is_available() else 0

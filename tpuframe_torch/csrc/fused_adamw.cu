@@ -9,8 +9,10 @@
 // float32 or bfloat16 (one dtype in a launch), m and v float32.  Each
 // tensor's step count t is read from device memory (its own int32, the
 // count after its increment), as the TPU kernel reads it from SMEM, so the
-// host never waits for the card.  lr, b1, b2, eps and weight decay are
-// arguments, shared by the launch.
+// host never waits for the card.  The learning rate is read from device
+// memory too (one float32, a schedule's value at the update count), so a
+// captured CUDA graph replays the schedule; b1, b2, eps and weight decay
+// are arguments, shared by the launch.
 //
 // The update is in place: p, m and v are read and overwritten (the JAX
 // kernel writes new arrays; torch keeps the optimizer state in place).
@@ -66,7 +68,8 @@ struct Table {
 };
 
 struct Hyper {
-  float lr, b1, b2, c1, c2, log_b1, log_b2, eps, wd;  // c1 = 1 - b1, c2 = 1 - b2
+  const float* lr;                                // one float32 in device memory
+  float b1, b2, c1, c2, log_b1, log_b2, eps, wd;  // c1 = 1 - b1, c2 = 1 - b2
 };
 
 struct Step {
@@ -139,7 +142,7 @@ __global__ void __launch_bounds__(kThreads)
   const long long n = e.n;
 
   const float t = (float)*e.count;
-  Step h{hp.lr, hp.b1, hp.b2, hp.c1, hp.c2, hp.eps, hp.wd, 0.f, 0.f};
+  Step h{*hp.lr, hp.b1, hp.b2, hp.c1, hp.c2, hp.eps, hp.wd, 0.f, 0.f};
   h.inv1 = 1.f - (hp.b1 > 0.f ? expf(t * hp.log_b1) : 0.f);
   h.inv2 = 1.f - (hp.b2 > 0.f ? expf(t * hp.log_b2) : 0.f);
 
@@ -184,7 +187,8 @@ extern "C" int tf_fused_adamw_capacity() { return kCapacity; }
 // One AdamW step of up to tf_fused_adamw_capacity() tensors, in place, in
 // one launch.  table is host memory of n_tensors rows of six int64: the
 // device addresses of p, g, m, v and of the tensor's step count (one int32:
-// the 1-based step t), then its element count.  dtype: 0 = float32, 1 =
+// the 1-based step t), then its element count.  lr is the device address of
+// the learning rate (one float32 on the same device).  dtype: 0 = float32, 1 =
 // bfloat16 p and g (all rows alike); m and v float32.  c1 = 1 - b1, c2 =
 // 1 - b2, log_b1 = log(b1), log_b2 = log(b2) (ignored where b is 0), all
 // computed by the caller in double and rounded to float.  The table is
@@ -193,10 +197,10 @@ extern "C" int tf_fused_adamw_capacity() { return kCapacity; }
 // pointer and the stream.  Returns cudaGetLastError() after the launch (0
 // on success), or cudaErrorInvalidValue for arguments the kernel does not
 // take.
-extern "C" int tf_fused_adamw(const long long* table, int n_tensors, int dtype, float lr,
+extern "C" int tf_fused_adamw(const long long* table, int n_tensors, int dtype, const float* lr,
                               float b1, float b2, float c1, float c2, float log_b1,
                               float log_b2, float eps, float wd, void* stream) {
-  if (n_tensors < 0 || n_tensors > kCapacity || (dtype != 0 && dtype != 1))
+  if (n_tensors < 0 || n_tensors > kCapacity || (dtype != 0 && dtype != 1) || lr == nullptr)
     return (int)cudaErrorInvalidValue;
   Table tab;
   long long chunks = 0;

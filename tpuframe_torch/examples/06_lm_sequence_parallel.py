@@ -26,7 +26,8 @@ train step cuts its run of positions.
 ``--composed`` (the composed N-D story: TP x PP x ZeRO chaos-killed and
 resumed under another plan) raises ``NotImplementedError``: it needs the
 rest of ROADMAP.md Queue 1 item 7 (ZeRO and the wire beside ``model`` and
-``pipe``) and item 9 (the chaos plan and AOT precompile).
+``pipe``) and precompile under plans of more than one rank (item 9: the
+compile plane captures one rank's step; NCCL capture waits).
 
 Run:  python 06_lm_sequence_parallel.py --attn ulysses --seq-len 512 \\
           --seq-shards 2 --simulate-devices 1
@@ -168,8 +169,8 @@ def main(argv=None):
     if args.composed:
         raise NotImplementedError(
             "--composed is not ported: it needs the rest of ROADMAP.md Queue 1 item 7 (ZeRO "
-            "and the compressed wire beside tensor and pipeline parallelism) and item 9 (the "
-            "chaos plan and AOT precompile)")
+            "and the compressed wire beside tensor and pipeline parallelism) and precompile "
+            "under plans of more than one rank (item 9; NCCL capture)")
     workers = args.num_processes or args.seq_shards * (
         args.expert_shards if args.moe_experts else 1)
     if workers > 1:

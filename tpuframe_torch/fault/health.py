@@ -212,7 +212,8 @@ def health_verdict(loss, grads: Sequence, hstate: Mapping[str, Any], step: int,
 
     ``loss`` is the scalar step loss, ``grads`` the gradient tensors;
     ``grad_sq`` (their summed squares, the plan-global value under ZeRO)
-    stands in for them when given.
+    stands in for them when given.  ``step`` is an int, or a device scalar
+    while a CUDA graph captures the step.
     Returns ``(bad, new_hstate, metrics)``: ``bad`` a 0-d bool tensor,
     ``new_hstate`` the advanced sentinel state (EWMA moved on good steps
     only), and ``metrics`` ``{"health_stats": vector}`` in
@@ -244,7 +245,8 @@ def health_verdict(loss, grads: Sequence, hstate: Mapping[str, Any], step: int,
         "good_steps": hstate["good_steps"] + good.to(f32),
         "bad_steps": hstate["bad_steps"] + bad.to(f32),
         "last_bad_step": torch.where(
-            bad, torch.full_like(hstate["last_bad_step"], float(step)),
+            bad, (step.to(f32) if torch.is_tensor(step)
+                  else torch.full_like(hstate["last_bad_step"], float(step))),
             hstate["last_bad_step"]),
         "grad_norm": grad_norm,
     }

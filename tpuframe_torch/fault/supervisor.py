@@ -19,8 +19,9 @@ Port of ``tpuframe/fault/supervisor.py``, name for name:
    up (:class:`WorldTooSmall`).
 
 Events and counters are the JAX package's: ``fault/restart`` (failure
-class, attempt, budget, delay, and ``compile_cache``, null until the
-port's compile cache lands), ``fault/giveup``, ``fault/world_resized``;
+class, attempt, budget, delay, and ``compile_cache``: the persistent
+compile cache's directory, enabled before the first attempt, so a restart
+reads its compiles from disk), ``fault/giveup``, ``fault/world_resized``;
 ``fault/restarts``, ``fault/preemptions``, ``fault/divergences``.
 
 Stdlib only.
@@ -187,9 +188,21 @@ class Supervisor:
 
     # -- compile warm-start --------------------------------------------------
     def _ensure_compile_cache(self) -> str | None:
-        """The persistent compile cache's directory: None until the port's
-        compile cache lands (eager PyTorch compiles nothing ahead)."""
-        return None
+        """Enable the persistent compile cache before the first attempt, so
+        a restart reads from disk what it would recompile; its directory,
+        or None (disabled, or torch not loaded: the supervisor itself
+        imports no torch, and ``core.runtime.initialize`` enables the cache
+        when the attempt loads it)."""
+        import sys
+
+        if "torch" not in sys.modules:
+            return None
+        try:
+            from tpuframe_torch.compile import cache as compile_cache
+
+            return compile_cache.enable_from_env()
+        except Exception:
+            return None  # a broken cache must not block recovery
 
     # -- elastic capacity ----------------------------------------------------
     def _probe_world(self) -> None:

@@ -10,6 +10,13 @@ statistics and writes ``(softmax - onehot) * g`` in the logits dtype.  The
 kernels are ``csrc/cross_entropy.cu``.  Without statistics K2b takes each
 row's max and sum itself, to the same bits.
 
+The launch sites are the custom ops ``tpuframe::cross_entropy_fwd`` and
+``tpuframe::cross_entropy_bwd`` (CUDA: the kernel; CPU: the plain
+version).  :class:`_FusedCrossEntropy` calls them while TorchDynamo
+traces, so ``torch.compile`` keeps each as an opaque node of its forward
+and backward graphs, and their implementations directly in an eager call
+(``dispatch.launch_site``).
+
 Integer labels only; ``tpuframe_torch.train.step.cross_entropy`` sends soft
 labels to a plain soft cross entropy instead.
 """
@@ -22,7 +29,7 @@ import functools
 import torch
 
 from tpuframe_torch.ops import build
-from tpuframe_torch.ops.dispatch import use_kernel
+from tpuframe_torch.ops.dispatch import count_launch, launch_site
 
 __all__ = [
     "cross_entropy_bwd",
@@ -118,23 +125,8 @@ def cross_entropy_fwd(logits: torch.Tensor, labels: torch.Tensor, *,
     A CUDA tensor launches K2a on the current stream; a CPU tensor takes
     :func:`cross_entropy_reference` (and :func:`cross_entropy_stats_reference`).
     ``cross_entropy_fwd.launches`` counts kernel launches."""
-    if not use_kernel(logits):
-        loss = cross_entropy_reference(logits, labels)
-        return (loss, cross_entropy_stats_reference(logits)) if with_stats else loss
-    b, k = _check(logits, labels)
-    loss = torch.empty(b, dtype=torch.float32, device=logits.device)
-    stats = torch.empty((b, 2), dtype=torch.float32, device=logits.device) if with_stats else None
-    lib = _library()
-    with torch.cuda.device(logits.device):
-        rc = lib.tf_cross_entropy_fwd(
-            logits.data_ptr(), labels.data_ptr(), loss.data_ptr(),
-            None if stats is None else stats.data_ptr(), b, k,
-            _LOGIT_CODES[logits.dtype], _LABEL_CODES[labels.dtype],
-            torch.cuda.current_stream(logits.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"cross entropy forward kernel launch failed: CUDA error {rc}")
-    cross_entropy_fwd.launches += 1
+    run = launch_site(torch.ops.tpuframe.cross_entropy_fwd, _fwd_cuda, _fwd_cpu, logits)
+    loss, stats = run(logits, labels, with_stats)
     return (loss, stats) if with_stats else loss
 
 
@@ -150,8 +142,51 @@ def cross_entropy_bwd(logits: torch.Tensor, labels: torch.Tensor, g: torch.Tenso
     tensor launches K2b; a CPU tensor takes
     :func:`cross_entropy_bwd_reference`.  ``cross_entropy_bwd.launches``
     counts kernel launches."""
-    if not use_kernel(logits):
-        return cross_entropy_bwd_reference(logits, labels, g, stats)
+    run = launch_site(torch.ops.tpuframe.cross_entropy_bwd, _bwd_cuda, _bwd_cpu, logits)
+    return run(logits, labels, g, stats)
+
+
+cross_entropy_fwd.launches = 0
+cross_entropy_bwd.launches = 0
+
+
+def _fwd_cuda(logits: torch.Tensor, labels: torch.Tensor,
+              with_stats: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2a's launch site: ``(losses, stats)``, ``stats`` (0, 2) without
+    ``with_stats``."""
+    b, k = _check(logits, labels)
+    loss = torch.empty(b, dtype=torch.float32, device=logits.device)
+    stats = torch.empty((b if with_stats else 0, 2), dtype=torch.float32, device=logits.device)
+    lib = _library()
+    with torch.cuda.device(logits.device):
+        rc = lib.tf_cross_entropy_fwd(
+            logits.data_ptr(), labels.data_ptr(), loss.data_ptr(),
+            stats.data_ptr() if with_stats else None, b, k,
+            _LOGIT_CODES[logits.dtype], _LABEL_CODES[labels.dtype],
+            torch.cuda.current_stream(logits.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"cross entropy forward kernel launch failed: CUDA error {rc}")
+    count_launch(cross_entropy_fwd)
+    return loss, stats
+
+
+def _fwd_cpu(logits, labels, with_stats):
+    loss = cross_entropy_reference(logits, labels)
+    stats = (cross_entropy_stats_reference(logits) if with_stats
+             else logits.new_empty((0, 2), dtype=torch.float32))
+    return loss, stats
+
+
+def _fwd_fake(logits, labels, with_stats):
+    b = logits.shape[0]
+    return (logits.new_empty((b,), dtype=torch.float32),
+            logits.new_empty((b if with_stats else 0, 2), dtype=torch.float32))
+
+
+def _bwd_cuda(logits: torch.Tensor, labels: torch.Tensor, g: torch.Tensor,
+              stats: torch.Tensor | None) -> torch.Tensor:
+    """K2b's launch site."""
     b, k = _check(logits, labels)
     if g.dtype != torch.float32 or g.shape != (b,) or g.device != logits.device:
         raise ValueError(
@@ -174,17 +209,31 @@ def cross_entropy_bwd(logits: torch.Tensor, labels: torch.Tensor, g: torch.Tenso
         )
     if rc != 0:
         raise RuntimeError(f"cross entropy backward kernel launch failed: CUDA error {rc}")
-    cross_entropy_bwd.launches += 1
+    count_launch(cross_entropy_bwd)
     return grad
 
 
-cross_entropy_fwd.launches = 0
-cross_entropy_bwd.launches = 0
+def _bwd_cpu(logits, labels, g, stats):
+    return cross_entropy_bwd_reference(logits, labels, g, stats)
+
+
+def _bwd_fake(logits, labels, g, stats):
+    return logits.new_empty(logits.shape)
+
+
+_fwd_op = torch.library.custom_op("tpuframe::cross_entropy_fwd", _fwd_cuda, mutates_args=(),
+                                  device_types="cuda")
+_fwd_op.register_kernel("cpu")(_fwd_cpu)
+_fwd_op.register_fake(_fwd_fake)
+_bwd_op = torch.library.custom_op("tpuframe::cross_entropy_bwd", _bwd_cuda, mutates_args=(),
+                                  device_types="cuda")
+_bwd_op.register_kernel("cpu")(_bwd_cpu)
+_bwd_op.register_fake(_bwd_fake)
 
 
 class _FusedCrossEntropy(torch.autograd.Function):
-    """K2a forward, K2b recompute backward; saves logits, labels and, when
-    the logits need a gradient, K2a's row statistics."""
+    """The eager pair: K2a forward (its row statistics saved when the
+    logits need a gradient), K2b recompute backward."""
 
     @staticmethod
     def forward(ctx, logits, labels):
@@ -203,7 +252,8 @@ class _FusedCrossEntropy(torch.autograd.Function):
 def fused_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Per-example softmax cross entropy, (B, K) logits + (B,) int labels ->
     (B,) float32 losses; differentiable in ``logits`` through the
-    recompute backward."""
+    recompute backward (K2a saves its row statistics for K2b when the
+    logits need a gradient)."""
     if labels.ndim != 1:
         raise ValueError("fused_cross_entropy takes integer labels of shape (B,)")
     return _FusedCrossEntropy.apply(logits, labels)

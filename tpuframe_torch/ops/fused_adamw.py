@@ -19,7 +19,13 @@ Port of ``tpuframe/ops/fused_adamw.py``.  Exposed four ways:
 
 Parameters keep their dtype; the moments are float32.  ``count`` is one
 int32 device scalar per parameter, raised with one fused add per step and
-read by the kernel from device memory, so a step never waits for the host.
+read by the kernel from device memory, and so is the learning rate (a
+float32 device scalar: a schedule's table entry at the update count), so a
+step never waits for the host and a captured CUDA graph replays the
+schedule.  K4 is also the mutating custom op ``tpuframe::fused_adamw_``
+(CUDA: K4; CPU: the plain version), which ``torch.compile`` traces as one
+node of an update; an eager call launches K4 directly (the dispatcher's
+round trip over 745 tensor arguments cost ~1 ms on the card's host).
 Every element is computed by the same expression whatever the list, so a
 tensor updated in a list gets the bits it gets alone.
 """
@@ -34,7 +40,7 @@ import numpy as np
 import torch
 
 from tpuframe_torch.ops import build
-from tpuframe_torch.ops.dispatch import use_kernel
+from tpuframe_torch.ops.dispatch import count_launch, use_kernel
 from tpuframe_torch.train.optim import OptimizerSpec
 
 __all__ = [
@@ -59,8 +65,8 @@ def _library() -> ctypes.CDLL:
     """The built kernel library with its C signature declared."""
     lib = build.load("fused_adamw")
     lib.tf_fused_adamw.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        *([ctypes.c_float] * 9),
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        *([ctypes.c_float] * 8),
         ctypes.c_void_p,
     ]
     lib.tf_fused_adamw.restype = ctypes.c_int
@@ -177,15 +183,16 @@ class AdamWTable:
         return gs
 
 
-def _launch(rows: np.ndarray, dtype: torch.dtype, device: torch.device, hp: dict) -> None:
+def _launch(rows: np.ndarray, dtype: torch.dtype, device: torch.device, lr: torch.Tensor,
+            hp: dict) -> None:
     """One K4 launch over ``rows`` (at most TABLE_CAPACITY rows of a table,
-    C-contiguous int64) on the current stream; raises if the launch
-    fails."""
+    C-contiguous int64) on the current stream, the lr read from the float32
+    device scalar ``lr``; raises if the launch fails."""
     b1, b2 = hp["b1"], hp["b2"]
     with torch.cuda.device(device):
         rc = _library().tf_fused_adamw(
-            rows.ctypes.data, len(rows), _P_CODES[dtype],
-            hp["lr"], b1, b2, 1.0 - b1, 1.0 - b2,
+            rows.ctypes.data, len(rows), _P_CODES[dtype], lr.data_ptr(),
+            b1, b2, 1.0 - b1, 1.0 - b2,
             math.log(b1) if b1 > 0.0 else 0.0, math.log(b2) if b2 > 0.0 else 0.0,
             hp["eps"], hp["weight_decay"],
             torch.cuda.current_stream(device).cuda_stream)
@@ -202,13 +209,83 @@ def _plain_(ps, gs, ms, vs, counts, hp: dict) -> None:
         v.copy_(vn)
 
 
+#: float32 device scalars of float learning rates, by (device, value)
+_LR_SCALARS: dict = {}
+
+
+def _lr_scalar(lr, device: torch.device) -> torch.Tensor:
+    """``lr`` as the float32 scalar K4 reads: a tensor as it is (cast to
+    float32 on ``device`` when it is not), a float as a kept device scalar
+    holding its float32 rounding, the value the kernel's float argument
+    held before."""
+    if torch.is_tensor(lr):
+        if lr.numel() != 1 or not lr.is_floating_point():
+            raise TypeError(f"K4 takes a float lr or a one-element float tensor, got "
+                            f"{lr.dtype} {tuple(lr.shape)}")
+        return lr if lr.dtype == torch.float32 and lr.device == device else lr.to(
+            device, torch.float32)
+    key = (device, float(lr))
+    t = _LR_SCALARS.get(key)
+    if t is None:
+        t = torch.full((), float(lr), dtype=torch.float32, device=device)
+        # a scalar made inside a capture lives in the graph's pool and is
+        # written only by its replays: never kept for eager calls
+        if device.type != "cuda" or not torch.cuda.is_current_stream_capturing():
+            if len(_LR_SCALARS) > 256:
+                _LR_SCALARS.clear()
+            _LR_SCALARS[key] = t
+    return t
+
+
+def _run(table: AdamWTable, gs, counts, lr: torch.Tensor, hp: dict, bump: bool) -> None:
+    """K4 over ``table`` with the gradients ``gs``, one launch for every
+    :data:`TABLE_CAPACITY` rows; ``bump`` raises ``counts`` by one first."""
+    if bump:
+        torch._foreach_add_(counts, 1)
+    keep = table.fill(gs)  # noqa: F841  (the gradients the table points at)
+    for lo in range(0, len(table.shapes), TABLE_CAPACITY):
+        _launch(table.rows[lo:lo + TABLE_CAPACITY], table.dtype, table.device, lr, hp)
+        count_launch(fused_adamw_multi_update_)
+
+
+def _adamw_cuda(ps: list[torch.Tensor], gs: list[torch.Tensor], ms: list[torch.Tensor],
+                vs: list[torch.Tensor], counts: list[torch.Tensor], lr: torch.Tensor, b1: float,
+                b2: float, eps: float, weight_decay: float, bump: bool) -> None:
+    """The op's CUDA implementation: K4 over a table of these tensors."""
+    _run(AdamWTable(ps, ms, vs, counts), gs, counts, lr,
+         dict(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay), bump)
+
+
+def _adamw_cpu(ps, gs, ms, vs, counts, lr, b1, b2, eps, weight_decay, bump):
+    if bump:
+        torch._foreach_add_(counts, 1)
+    hp = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+    for lo in range(0, len(ps), TABLE_CAPACITY):
+        hi = lo + TABLE_CAPACITY
+        _plain_(ps[lo:hi], gs[lo:hi], ms[lo:hi], vs[lo:hi], counts[lo:hi], hp)
+
+
+def _adamw_fake(ps, gs, ms, vs, counts, lr, b1, b2, eps, weight_decay, bump):
+    return None
+
+
+_op = torch.library.custom_op("tpuframe::fused_adamw_", _adamw_cuda,
+                              mutates_args=("ps", "ms", "vs", "counts"), device_types="cuda")
+_op.register_kernel("cpu")(_adamw_cpu)
+_op.register_fake(_adamw_fake)
+
+
 @torch.no_grad()
-def fused_adamw_multi_update_(ps, gs, ms, vs, counts, *, lr: float, b1: float = 0.9,
+def fused_adamw_multi_update_(ps, gs, ms, vs, counts, *, lr, b1: float = 0.9,
                               b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 0.0,
-                              table: AdamWTable | None = None) -> None:
+                              table: AdamWTable | None = None, bump: bool = False) -> None:
     """One AdamW step of every tensor of a list, in place on each ``p``,
     ``m`` and ``v``; ``counts`` holds each tensor's 1-based step (an int32
-    scalar on the device).  The ``p`` share one dtype.
+    scalar on the device), or, with ``bump``, the step before, which is
+    raised by one first (in place, with one fused add).  The ``p`` share
+    one dtype.  ``lr`` is a float or a float32 scalar tensor on the
+    tensors' device (what a schedule's table gives); K4 reads it from
+    device memory.
 
     On the card one K4 launch updates :data:`TABLE_CAPACITY` tensors, so a
     longer list takes ``ceil(len / TABLE_CAPACITY)`` launches, on the
@@ -216,50 +293,61 @@ def fused_adamw_multi_update_(ps, gs, ms, vs, counts, *, lr: float, b1: float = 
     ``ms``, ``vs`` and ``counts``) spares the checks and address reads of
     everything but the gradients: what :class:`FusedAdamW` keeps between
     steps.  A CPU list takes :func:`fused_adamw_update_reference` tensor by
-    tensor, in the same groups.  ``fused_adamw_multi_update_.launches``
-    counts kernel launches."""
+    tensor, in the same groups.  While TorchDynamo traces, the update is
+    one ``tpuframe::fused_adamw_`` node, which builds its own table.
+    ``fused_adamw_multi_update_.launches`` counts kernel launches."""
     n = len(ps)
     if not len(gs) == len(ms) == len(vs) == len(counts) == n:
         raise ValueError(f"{n} p, {len(gs)} g, {len(ms)} m, {len(vs)} v, {len(counts)} counts")
     if n == 0:
         return
-    hp = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+    hp = dict(b1=float(b1), b2=float(b2), eps=float(eps), weight_decay=float(weight_decay))
+    lr = _lr_scalar(lr, ps[0].device)
+    if torch.compiler.is_compiling():
+        torch.ops.tpuframe.fused_adamw_(list(ps), list(gs), list(ms), list(vs), list(counts), lr,
+                                        hp["b1"], hp["b2"], hp["eps"], hp["weight_decay"], bump)
+        return
     if not use_kernel(ps[0]):
         if any(use_kernel(p) for p in ps):
             raise ValueError("a list of CPU and CUDA tensors: one list lies on one device")
-        for lo in range(0, n, TABLE_CAPACITY):
-            hi = lo + TABLE_CAPACITY
-            _plain_(ps[lo:hi], gs[lo:hi], ms[lo:hi], vs[lo:hi], counts[lo:hi], hp)
+        _adamw_cpu(ps, gs, ms, vs, counts, lr, bump=bump, **hp)
         return
     if table is None:
         table = AdamWTable(ps, ms, vs, counts)
     elif len(table.shapes) != n:
         raise ValueError(f"a table of {len(table.shapes)} tensors for a list of {n}")
-    keep = table.fill(gs)  # noqa: F841  (the gradients the table points at)
-    for lo in range(0, n, TABLE_CAPACITY):
-        _launch(table.rows[lo:lo + TABLE_CAPACITY], table.dtype, table.device, hp)
-        fused_adamw_multi_update_.launches += 1
+    if lr.dtype != torch.float32 or lr.device != table.device:
+        raise ValueError(f"K4 reads its lr from one float32 on {table.device}, got {lr.dtype} "
+                         f"on {lr.device}")
+    _run(table, gs, counts, lr, hp, bump)
 
 
 @torch.no_grad()
 def fused_adamw_update_(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
-                        count: torch.Tensor, *, lr: float, b1: float = 0.9, b2: float = 0.999,
+                        count: torch.Tensor, *, lr, b1: float = 0.9, b2: float = 0.999,
                         eps: float = 1e-8, weight_decay: float = 0.0) -> None:
     """One AdamW step of one tensor, in place on ``p``, ``m`` and ``v``;
-    ``count`` is the 1-based step (an int32 scalar on the device).
+    ``count`` is the 1-based step (an int32 scalar on the device), ``lr`` a
+    float or a float32 device scalar.
 
     A CUDA tensor launches K4 over a one-entry table on the current stream;
     a CPU tensor takes :func:`fused_adamw_update_reference`.
-    ``fused_adamw_update_.launches`` counts kernel launches."""
-    hp = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
-    if not use_kernel(p):
-        _plain_([p], [g], [m], [v], [count], hp)
+    ``fused_adamw_update_.launches`` counts kernel launches.  While
+    TorchDynamo traces, the call is :func:`fused_adamw_multi_update_` of a
+    one-entry list, and its launch counts there."""
+    if torch.compiler.is_compiling() or not use_kernel(p):
+        fused_adamw_multi_update_([p], [g], [m], [v], [count], lr=lr, b1=b1, b2=b2, eps=eps,
+                                  weight_decay=weight_decay)
         return
     _check(p, g, m, v, count)
+    lr = _lr_scalar(lr, p.device)
+    if lr.dtype != torch.float32 or lr.device != p.device:
+        raise ValueError(f"K4 reads its lr from one float32 on {p.device}, got {lr.dtype} "
+                         f"on {lr.device}")
     row = np.array([(p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(), count.data_ptr(),
                      p.numel())], dtype=np.int64)
-    _launch(row, p.dtype, p.device, hp)
-    fused_adamw_update_.launches += 1
+    _launch(row, p.dtype, p.device, lr, dict(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay))
+    count_launch(fused_adamw_update_)
 
 
 fused_adamw_multi_update_.launches = 0
@@ -284,16 +372,13 @@ class FusedAdamW(torch.optim.Optimizer):
     State per parameter: ``count`` (int32 scalar on the parameter's
     device), ``mu`` and ``nu`` (float32 zeros like the parameter), created
     with the optimizer as optax's ``init`` creates them.  ``step()`` raises
-    the counts of the parameters that have a gradient with one fused add,
-    then updates them.  The launch table of a group is built, and its
-    tensors checked, at the first step; it is built anew when the group's
+    the counts of the parameters that have a gradient with one fused add
+    and updates them with the group's ``lr`` (a float, or the float32
+    device scalar ``TrainState`` sets for a schedule).  The launch table of
+    a group is built, and its tensors checked, at the first step; it is built anew when the group's
     parameters with a gradient change, and after ``load_state_dict`` or a
     copy.  Parameters and state are updated in place, so their addresses
     hold."""
-
-    #: the lr is the kernel's float argument: ``TrainState`` reads a
-    #: schedule on the host for it
-    host_lr = True
 
     def __init__(self, params, lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                  weight_decay: float = 0.0):
@@ -324,14 +409,14 @@ class FusedAdamW(torch.optim.Optimizer):
                 self.state[p] = {k: v.to(device=p.device, copy=True)
                                  for k, v in state_dict["state"][i].items()}
 
-    def _plan(self, index: int, params: list) -> tuple:
-        """(counts, parts) of group ``index`` for these ``params``: every
-        count, and per (device, dtype) the parameters, moments, counts and
-        launch table (None on the CPU)."""
+    def _plan(self, index: int, params: list) -> list:
+        """The parts of group ``index`` for these ``params``: per (device,
+        dtype) the parameters, moments, counts and launch table (None on
+        the CPU)."""
         key = tuple(map(id, params))
         plan = self._launch_plans.get(index)
         if plan is not None and plan[0] == key:
-            return plan[1], plan[2]
+            return plan[1]
         states = [self.state[p] for p in params]
         split: dict = {}
         for p, st in zip(params, states):
@@ -341,10 +426,9 @@ class FusedAdamW(torch.optim.Optimizer):
             ps, ms, vs, cs = (list(col) for col in zip(*members))
             table = AdamWTable(ps, ms, vs, cs) if device.type == "cuda" else None
             parts.append((ps, ms, vs, cs, table))
-        counts = [st["count"] for st in states]
         # the plan holds the params, so their ids stay theirs
-        self._launch_plans[index] = (key, counts, parts, params)
-        return counts, parts
+        self._launch_plans[index] = (key, parts, params)
+        return parts
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -354,15 +438,11 @@ class FusedAdamW(torch.optim.Optimizer):
             params = [p for p in group["params"] if p.grad is not None]
             if not params:
                 continue
-            lr = group["lr"]
-            if torch.is_tensor(lr):
-                raise TypeError("FusedAdamW takes a float lr (the kernel's argument)")
-            counts, parts = self._plan(index, params)
-            torch._foreach_add_(counts, 1)
-            for ps, ms, vs, cs, table in parts:
-                fused_adamw_multi_update_(ps, [p.grad for p in ps], ms, vs, cs, lr=float(lr),
+            for ps, ms, vs, cs, table in self._plan(index, params):
+                fused_adamw_multi_update_(ps, [p.grad for p in ps], ms, vs, cs, lr=group["lr"],
                                           b1=group["b1"], b2=group["b2"], eps=group["eps"],
-                                          weight_decay=group["weight_decay"], table=table)
+                                          weight_decay=group["weight_decay"], table=table,
+                                          bump=True)
         return None
 
 
@@ -371,8 +451,8 @@ def fused_adamw(learning_rate, b1: float = 0.9, b2: float = 0.999, eps: float = 
     """The JAX ``fused_adamw`` transform for the port's ``Trainer(tx=...)``:
     an ``OptimizerSpec`` that builds a :class:`FusedAdamW`.
     ``learning_rate`` is a float or a schedule of the update count (read
-    on the host each step); ``max_grad_norm`` chains the global-norm
-    clip."""
+    from ``TrainState``'s device table at the count, no host read);
+    ``max_grad_norm`` chains the global-norm clip."""
     lr = learning_rate if callable(learning_rate) else float(learning_rate)
     lr0 = float(lr(0)) if callable(lr) else lr
     return OptimizerSpec(

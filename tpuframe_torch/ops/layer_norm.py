@@ -12,6 +12,13 @@ Semantics are flax ``LayerNorm``'s: float32 statistics, the fast variance
 1e-5) inside the rsqrt.  Under ``bf16_compute`` the step casts ``scale`` and
 ``bias`` to bf16 with every other parameter; both kernels take either dtype
 for them.
+
+The launch sites are the custom ops ``tpuframe::layer_norm_fwd`` and
+``tpuframe::layer_norm_bwd`` (CUDA: the kernel; CPU: the plain version).
+:class:`_FusedLayerNorm` calls them while TorchDynamo traces, so
+``torch.compile`` keeps each as an opaque node of its forward and backward
+graphs, and their implementations directly in an eager call
+(``dispatch.launch_site``).
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ import torch
 from torch import nn
 
 from tpuframe_torch.ops import build
-from tpuframe_torch.ops.dispatch import use_kernel
+from tpuframe_torch.ops.dispatch import count_launch, launch_site
 
 __all__ = [
     "FusedLayerNorm",
@@ -118,8 +125,29 @@ def layer_norm_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     A CUDA tensor launches K3a on the current stream; a CPU tensor takes
     :func:`layer_norm_reference`.  ``layer_norm_fwd.launches`` counts
     kernel launches."""
-    if not use_kernel(x):
-        return layer_norm_reference(x, scale, bias, eps)
+    run = launch_site(torch.ops.tpuframe.layer_norm_fwd, _fwd_cuda, _fwd_cpu, x)
+    return run(x, scale, bias, float(eps))
+
+
+def layer_norm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, eps: float = 1e-6):
+    """Gradients of :func:`layer_norm_fwd` for the upstream ``g``: ``(dx,
+    dscale, dbias)``.
+
+    ``g`` may have any strides (the backward of a sum hands over an
+    expanded, stride-0 one): it is made contiguous first.  A CUDA tensor
+    launches K3b; a CPU tensor takes :func:`layer_norm_bwd_reference`.
+    ``layer_norm_bwd.launches`` counts kernel launches."""
+    run = launch_site(torch.ops.tpuframe.layer_norm_bwd, _bwd_cuda, _bwd_cpu, x)
+    return tuple(run(x, scale, g, float(eps)))
+
+
+layer_norm_fwd.launches = 0
+layer_norm_bwd.launches = 0
+
+
+def _fwd_cuda(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float) -> torch.Tensor:
+    """K3a's launch site."""
     _check(x, scale, bias)
     x, scale, bias = x.contiguous(), scale.contiguous(), bias.contiguous()
     y = torch.empty_like(x)
@@ -131,20 +159,21 @@ def layer_norm_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"layer norm forward kernel launch failed: CUDA error {rc}")
-    layer_norm_fwd.launches += 1
+    count_launch(layer_norm_fwd)
     return y
 
 
-def layer_norm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, eps: float = 1e-6):
-    """Gradients of :func:`layer_norm_fwd` for the upstream ``g``: ``(dx,
-    dscale, dbias)``.
+def _fwd_cpu(x, scale, bias, eps):
+    return layer_norm_reference(x, scale, bias, eps)
 
-    ``g`` may have any strides (the backward of a sum hands over an
-    expanded, stride-0 one): it is made contiguous first.  A CUDA tensor
-    launches K3b; a CPU tensor takes :func:`layer_norm_bwd_reference`.
-    ``layer_norm_bwd.launches`` counts kernel launches."""
-    if not use_kernel(x):
-        return layer_norm_bwd_reference(x, scale, g, eps)
+
+def _fwd_fake(x, scale, bias, eps):
+    return x.new_empty(x.shape)
+
+
+def _bwd_cuda(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+              eps: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3b's launch site."""
     _check(x, scale)
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
         raise ValueError(
@@ -166,16 +195,31 @@ def layer_norm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, eps: f
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"layer norm backward kernel launch failed: CUDA error {rc}")
-    layer_norm_bwd.launches += 1
+    count_launch(layer_norm_bwd)
     return dx, dscale, dbias
 
 
-layer_norm_fwd.launches = 0
-layer_norm_bwd.launches = 0
+def _bwd_cpu(x, scale, g, eps):
+    return layer_norm_bwd_reference(x, scale, g, eps)
+
+
+def _bwd_fake(x, scale, g, eps):
+    return x.new_empty(x.shape), scale.new_empty(scale.shape), scale.new_empty(scale.shape)
+
+
+_fwd_op = torch.library.custom_op("tpuframe::layer_norm_fwd", _fwd_cuda, mutates_args=(),
+                                  device_types="cuda")
+_fwd_op.register_kernel("cpu")(_fwd_cpu)
+_fwd_op.register_fake(_fwd_fake)
+_bwd_op = torch.library.custom_op("tpuframe::layer_norm_bwd", _bwd_cuda, mutates_args=(),
+                                  device_types="cuda")
+_bwd_op.register_kernel("cpu")(_bwd_cpu)
+_bwd_op.register_fake(_bwd_fake)
 
 
 class _FusedLayerNorm(torch.autograd.Function):
-    """K3a forward, K3b recompute backward; saves x and scale only."""
+    """The eager pair: K3a forward, K3b recompute backward; saves x and
+    scale only."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, eps):
@@ -194,12 +238,13 @@ def fused_layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                      eps: float = 1e-6) -> torch.Tensor:
     """LayerNorm over the last axis of ``(..., D)`` ``x`` with (D,) affine,
     in the ``x`` dtype; differentiable in ``x``, ``scale`` and ``bias``
-    through the recompute backward."""
+    through the recompute backward (K3b recomputes the statistics from the
+    saved ``x`` and ``scale``)."""
     if scale.shape != x.shape[-1:] or bias.shape != x.shape[-1:]:
         raise ValueError(
             f"scale/bias shapes {tuple(scale.shape)}/{tuple(bias.shape)} != (.., {x.shape[-1]})")
     flat = x.reshape(-1, x.shape[-1])
-    return _FusedLayerNorm.apply(flat, scale, bias, eps).reshape(x.shape)
+    return _FusedLayerNorm.apply(flat, scale, bias, float(eps)).reshape(x.shape)
 
 
 class FusedLayerNorm(nn.Module):

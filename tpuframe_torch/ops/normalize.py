@@ -8,6 +8,11 @@ chain of the plain version makes a float32 pass per op.
 For channel ``c`` the transform is ``x * w[c] + b[c]`` with
 ``w = scale / std`` and ``b = -mean / std`` folded on the host, exactly as
 the Pallas kernel folds them.
+
+The kernel's launch site is the custom op ``tpuframe::normalize``: its
+CUDA implementation launches the kernel, its CPU implementation is the
+plain version, and ``torch.compile`` keeps it as one opaque node; an
+eager call runs the implementation directly (``dispatch.launch_site``).
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ from typing import Sequence
 import torch
 
 from tpuframe_torch.ops import build
-from tpuframe_torch.ops.dispatch import use_kernel
+from tpuframe_torch.ops.dispatch import count_launch, launch_site
 
 __all__ = ["MAX_CHANNELS", "normalize_images", "normalize_images_reference"]
 
@@ -78,14 +83,23 @@ def normalize_images(
     launches.
     """
     n_channels = images.shape[-1]
-    mean = tuple(float(m) for m in mean)
-    std = tuple(float(s) for s in std)
+    mean = [float(m) for m in mean]
+    std = [float(s) for s in std]
     if len(mean) != n_channels or len(std) != n_channels:
         raise ValueError(
             f"mean/std length {len(mean)}/{len(std)} != channels {n_channels}"
         )
-    if not use_kernel(images):
-        return normalize_images_reference(images, mean, std, scale, out_dtype)
+    run = launch_site(torch.ops.tpuframe.normalize, _normalize_cuda, _normalize_cpu, images)
+    return run(images, mean, std, float(scale), out_dtype)
+
+
+normalize_images.launches = 0
+
+
+def _normalize_cuda(images: torch.Tensor, mean: list[float], std: list[float], scale: float,
+                    out_dtype: torch.dtype) -> torch.Tensor:
+    """The kernel's launch site (the op's CUDA implementation)."""
+    n_channels = images.shape[-1]
     if images.dtype not in _IN_CODES:
         raise TypeError(f"normalize kernel takes uint8 or float32 input, got {images.dtype}")
     if out_dtype not in _OUT_CODES:
@@ -109,8 +123,19 @@ def normalize_images(
         )
     if rc != 0:
         raise RuntimeError(f"normalize kernel launch failed: CUDA error {rc}")
-    normalize_images.launches += 1
+    count_launch(normalize_images)
     return out
 
 
-normalize_images.launches = 0
+def _normalize_cpu(images, mean, std, scale, out_dtype):
+    return normalize_images_reference(images, mean, std, scale, out_dtype)
+
+
+_op = torch.library.custom_op("tpuframe::normalize", _normalize_cuda, mutates_args=(),
+                              device_types="cuda")
+_op.register_kernel("cpu")(_normalize_cpu)
+
+
+@_op.register_fake
+def _normalize_fake(images, mean, std, scale, out_dtype):
+    return images.new_empty(images.shape, dtype=out_dtype)

@@ -8,7 +8,11 @@ to the model) into a bounded-latency server component:
   of padded bucket shapes (``ServeKnobs.buckets``).  :meth:`start` runs
   every bucket once on the batcher thread (cuDNN picks its algorithms,
   the kernels build) and arms a :class:`~tpuframe_torch.compile.precompile.
-  ShapeGuard`.  Host-side assembly reuses pinned
+  ShapeGuard`.  With ``precompile`` on it instead compiles the callable
+  once with Inductor, its batch dimension dynamic (a bucket of one is
+  specialized apart), and on the card captures one CUDA graph per bucket,
+  each batch then a replay (``compile.precompile.precompile_call``, JAX's
+  per-bucket AOT compile).  Host-side assembly reuses pinned
   :class:`~tpuframe_torch.data.loader.BatchBufferPool` leases, one small
   pool per bucket.
 - **The device path.**  Each batch is copied host-to-device with
@@ -58,7 +62,13 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from tpuframe_torch.compile.precompile import ShapeGuard, batch_signature
+from tpuframe_torch.compile.precompile import (
+    ShapeGuard,
+    TensorSpec,
+    batch_signature,
+    precompile_call,
+    precompile_enabled,
+)
 from tpuframe_torch.core.runtime import resolve_device
 from tpuframe_torch.data.loader import BatchBufferPool
 from tpuframe_torch.fault import chaos, preempt
@@ -165,6 +175,8 @@ class ServeEngine:
       preemption: read the process-wide preemption watcher at batch
         boundaries and drain on a notice (default True).
       replica: fleet identity tagged on every ``serve/request`` event.
+      precompile: compile and capture every bucket at :meth:`start` (module
+        docstring); None reads ``TPUFRAME_PRECOMPILE`` (default off).
 
     Lifecycle: ``start()`` warms every bucket and starts the batcher
     thread; ``submit()`` returns a :class:`ServeResult`; ``drain()``
@@ -184,6 +196,7 @@ class ServeEngine:
         device=None,
         preemption: bool = True,
         replica: int | str | None = None,
+        precompile: bool | None = None,
     ):
         if item_shape is None or dtype is None:
             raise ValueError(
@@ -208,6 +221,8 @@ class ServeEngine:
                 "(TPUFRAME_SERVE_MAX_PIXELS)"
             )
         self._fn = model
+        self.precompile = precompile_enabled(precompile)
+        self._executables: dict[int, Any] = {}
         self._guard = ShapeGuard()
         self.buckets = tuple(sorted(self.knobs.buckets))
         on_cuda = self.device.type == "cuda"
@@ -416,7 +431,11 @@ class ServeEngine:
 
     # -- internals -----------------------------------------------------------
     def _warm_up(self) -> None:
-        """Run every bucket once on zeros and arm the shape guard."""
+        """Run every bucket once on zeros, or precompile it, and arm the
+        shape guard."""
+        if self.precompile:
+            self._precompile_buckets()
+            return
         tele = get_telemetry()
         for b in self.buckets:
             with tele.span("serve/warmup", bucket=b):
@@ -429,15 +448,29 @@ class ServeEngine:
             self._guard.expect(
                 "serve", batch_signature({"image": lease.images}))
 
+    def _precompile_buckets(self) -> None:
+        """One Inductor compile, its batch dim dynamic (largest bucket
+        first), then each bucket warmed and, on the card, captured."""
+        torch_dtype = torch.from_numpy(np.zeros((), self.dtype)).dtype
+        fn = self._fn
+        for b in sorted(self.buckets, reverse=True):
+            spec = TensorSpec((b,) + self.item_shape, torch_dtype, self.device)
+            exe = precompile_call(fn, (spec,), label=f"serve/bucket{b}", dynamic_batch=True)
+            fn = exe.fn  # the compiled function: later buckets compile nothing new
+            self._executables[b] = exe
+            self._guard.expect("serve", batch_signature({"image": spec}))
+
     def _run(self, images: torch.Tensor):
-        """H2D copy and the backend call; returns (output on device, the
-        copy's CUDA event or None)."""
+        """H2D copy and the backend call (the bucket's executable when
+        precompiled); returns (output on device, the copy's CUDA event or
+        None)."""
         x = images.to(self.device, non_blocking=True)
         copied = None
         if self.device.type == "cuda":
             copied = torch.cuda.Event()
             copied.record(torch.cuda.current_stream(self.device))
-        return self._fn(x), copied
+        exe = self._executables.get(int(x.shape[0]))
+        return (exe(x) if exe is not None else self._fn(x)), copied
 
     def _shed(self, req: _Request, verdict: str) -> None:
         self._c_shed.inc()

@@ -118,20 +118,29 @@ class TrainState:
 
     def _lr(self) -> float | torch.Tensor:
         """The learning rate of this update: a float for a constant, else
-        the schedule at ``updates`` as a device scalar (as a float for an
-        optimizer with ``host_lr``, ``FusedAdamW``)."""
+        the schedule at ``updates`` as a float32 device scalar (every
+        optimizer, ``FusedAdamW``'s K4 included, reads it there).  While a
+        CUDA graph captures the step, ``step`` is a device scalar and the
+        table was reserved beforehand (:meth:`reserve_lr`): it must not
+        move, the graph keeps its address."""
         if not callable(self.spec.lr):
             return float(self.spec.lr)
-        if getattr(self.optimizer, "host_lr", False):
-            # a kernel that takes its lr as an argument: the schedule is
-            # read on the host, at the count read back from the device
-            return float(self.spec.lr(int(self.updates)))
         # updates <= step, so the table must reach index step
-        if self._lr_table is None or len(self._lr_table) <= self.step:
-            size = max(64, 2 * (self.step + 1))
+        if not torch.is_tensor(self.step):
+            self.reserve_lr(self.step)
+        # index_select, not [updates]: a 0-d index may be read back as an int
+        return self._lr_table.index_select(0, self.updates.reshape(1)).reshape(())
+
+    def reserve_lr(self, steps: int) -> None:
+        """Make the schedule's table reach index ``steps`` (a fit's planned
+        step count before a graph captures its step); it grows by doubling
+        and is filled on the host."""
+        if not callable(self.spec.lr):
+            return
+        if self._lr_table is None or len(self._lr_table) <= steps:
+            size = max(64, 2 * (int(steps) + 1))
             self._lr_table = torch.tensor([float(self.spec.lr(i)) for i in range(size)],
                                           dtype=torch.float32, device=self.updates.device)
-        return self._lr_table[self.updates]
 
     def state_dict(self) -> dict:
         """What a checkpoint saves: ``step`` (an int), ``updates``, the

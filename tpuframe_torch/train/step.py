@@ -111,6 +111,11 @@ TrainState` that it updates in place, with the JAX step's semantics:
   while ``loss_sum`` reports the data loss alone, as JAX's step does.
   Dropout draws by token shard, so the ranks along ``expert``, ``model``
   and ``pipe`` draw the same masks.
+- **The model region.**  Each step's batch transform, forward and losses
+  are one function, ``step.region``; ``step.with_region(f)`` builds the
+  same step over another one, which is how ``compile.precompile`` puts
+  Inductor's compile of the region (the kernels as ``tpuframe::`` ops)
+  into the step it captures.
 - **The hooks** are ``register_post_accumulate_grad_hook``s on the
   trainable parameters, armed at a train step's start (in the grad-accum
   step, for the last microbatch, where the hook also divides by the
@@ -402,7 +407,8 @@ def _apply_with_health(state: TrainState, loss: torch.Tensor, metrics: dict,
                                                grad_sq=grad_sq)
     state.apply_gradients(grad_sq)
     snap.restore_where(bad)
-    state.health = new_health
+    # in place: a captured CUDA graph reads and writes the same tensors
+    torch._foreach_copy_([state.health[k] for k in new_health], list(new_health.values()))
     metrics = {k: torch.where(bad, torch.zeros_like(v), v) for k, v in metrics.items()}
     metrics.update(hmetrics)
     return state, metrics
@@ -502,25 +508,43 @@ def make_train_step(
     built = [_wire_stage(plan, grad_compression, 1)]
     snap = _Snapshot()
 
-    def step(state: TrainState, batch: Mapping[str, torch.Tensor]):
-        sync = _stage_for(built, state, plan, grad_compression, 1)
+    def forward(model: nn.Module, batch: Mapping[str, torch.Tensor]):
+        """The model region: the batch transform, forward and losses."""
         if batch_transform is not None:
             batch = batch_transform(dict(batch))
-        batch = _seq_local(batch, plan if plan is not None else state.plan)
-        if health is not None:
-            snap.take(state)  # before the forward: BatchNorm moves its buffers
-        state.optimizer.zero_grad(set_to_none=True)
-        with _zero_step(state), _disarmed_after(sync):
-            if sync is not None:
-                sync.arm(state)
-            with _statistics(sync, state.model), _dropout_stream(state):
-                losses, logits, aux = _forward(state.model, batch, policy, True, loss_fn)
-            loss = losses.mean()
-            _objective(loss, aux).backward()
-            metrics = _train_metrics(loss, logits, batch["label"], state.model)
-            return _finish(step, state, loss.detach(), metrics, health, snap, sync)
+        return _forward(model, batch, policy, True, loss_fn)
 
-    step.wire = None  # the compressed wire's plan, from the first call on
+    def build(region: Callable) -> Callable:
+        def step(state: TrainState, batch: Mapping[str, torch.Tensor]):
+            sync = _stage_for(built, state, plan, grad_compression, 1)
+            batch = _seq_local(batch, plan if plan is not None else state.plan)
+            if health is not None:
+                snap.take(state)  # before the forward: BatchNorm moves its buffers
+            state.optimizer.zero_grad(set_to_none=True)
+            with _zero_step(state), _disarmed_after(sync):
+                if sync is not None:
+                    sync.arm(state)
+                with _statistics(sync, state.model), _dropout_stream(state):
+                    losses, logits, aux = region(state.model, batch)
+                loss = losses.mean()
+                _objective(loss, aux).backward()
+                metrics = _train_metrics(loss, logits, batch["label"], state.model)
+                return _finish(step, state, loss.detach(), metrics, health, snap, sync)
+
+        return _regioned(step, forward, build)
+
+    return build(forward)
+
+
+def _regioned(step: Callable, region: Callable, build: Callable) -> Callable:
+    """``step`` with its model region (``step.region``: ``(model, batch) ->
+    (losses, logits, aux)``, what ``torch.compile`` takes) and
+    ``step.with_region(compiled)``, the same step over another region
+    (``compile.precompile``); the wire's plan (``step.wire``) from the
+    first call on."""
+    step.region = region
+    step.with_region = build
+    step.wire = None
     return step
 
 
@@ -539,31 +563,39 @@ def make_eval_step(
     swapping ``state.params``."""
     policy = policy or full_precision()
 
-    @torch.no_grad()
-    def step(state: TrainState, batch: Mapping[str, torch.Tensor],
-             params: Mapping[str, torch.Tensor] | None = None) -> dict:
-        the_plan = plan if plan is not None else state.plan
+    def forward(model: nn.Module, batch: Mapping[str, torch.Tensor],
+                params: Mapping[str, torch.Tensor] | None = None):
+        """The model region: the batch transform, forward and losses."""
         if batch_transform is not None:
             batch = batch_transform(dict(batch))
-        batch = _seq_local(batch, the_plan)
-        with state.zero.gathered() if state.zero is not None else contextlib.nullcontext():
-            losses, logits, _ = _forward(state.model, batch, policy, False, loss_fn, params)
-        labels = batch["label"]
-        hard = labels.argmax(-1) if labels.ndim == logits.ndim else labels
-        weight = batch.get("weight")
-        weight = torch.ones_like(losses) if weight is None else weight.to(torch.float32)
-        if weight.ndim < losses.ndim:  # per-example mask over per-token losses
-            weight = weight.reshape(weight.shape + (1,) * (losses.ndim - weight.ndim))
-        metrics = {
-            "loss_sum": (losses * weight).sum(),
-            "correct": ((_argmax(state.model, logits) == hard).float() * weight).sum(),
-            "count": weight.sum(),
-        }
-        if the_plan is None or not _wired() or the_plan.token_size == 1:
-            return metrics
-        return _sum_across_ranks(metrics, _dp_group(the_plan))
+        return _forward(model, batch, policy, False, loss_fn, params)
 
-    return step
+    def build(region: Callable) -> Callable:
+        @torch.no_grad()
+        def step(state: TrainState, batch: Mapping[str, torch.Tensor],
+                 params: Mapping[str, torch.Tensor] | None = None) -> dict:
+            the_plan = plan if plan is not None else state.plan
+            batch = _seq_local(batch, the_plan)
+            with state.zero.gathered() if state.zero is not None else contextlib.nullcontext():
+                losses, logits, _ = region(state.model, batch, params)
+            labels = batch["label"]
+            hard = labels.argmax(-1) if labels.ndim == logits.ndim else labels
+            weight = batch.get("weight")
+            weight = torch.ones_like(losses) if weight is None else weight.to(torch.float32)
+            if weight.ndim < losses.ndim:  # per-example mask over per-token losses
+                weight = weight.reshape(weight.shape + (1,) * (losses.ndim - weight.ndim))
+            metrics = {
+                "loss_sum": (losses * weight).sum(),
+                "correct": ((_argmax(state.model, logits) == hard).float() * weight).sum(),
+                "count": weight.sum(),
+            }
+            if the_plan is None or not _wired() or the_plan.token_size == 1:
+                return metrics
+            return _sum_across_ranks(metrics, _dp_group(the_plan))
+
+        return _regioned(step, forward, build)
+
+    return build(forward)
 
 
 def make_predict_fn(
@@ -588,7 +620,7 @@ def make_predict_fn(
             x = input_transform(x)
         if params is None:
             params = dict(model.named_parameters())
-        params = policy.cast_params_for_compute({n: p.detach() for n, p in params.items()})
+        params = policy.cast_params_for_compute(dict(params))  # no autograd here
         with _mode(model, False):
             logits = functional_call(model, params, (policy.cast_batch(x),), strict=False)
         return policy.cast_outputs(logits)
@@ -619,36 +651,40 @@ def make_grad_accum_step(
     built = [_wire_stage(plan, grad_compression, n_microbatches)]
     snap = _Snapshot()
 
-    def step(state: TrainState, batch: Mapping[str, torch.Tensor]):
-        sync = _stage_for(built, state, plan, grad_compression, n_microbatches)
-        if health is not None:
-            snap.take(state)
-        state.optimizer.zero_grad(set_to_none=True)
-        with _zero_step(state), _disarmed_after(sync):
-            metrics = _accumulate(state, batch, n_microbatches, policy, loss_fn,
-                                  batch_transform, sync, plan if plan is not None else state.plan)
-            mean_loss = metrics["loss_sum"] / metrics["count"].clamp_min(1.0)
-            return _finish(step, state, mean_loss, metrics, health, snap, sync)
+    def forward(model: nn.Module, batch: Mapping[str, torch.Tensor]):
+        """The model region of one microbatch: transform, forward, losses."""
+        if batch_transform is not None:
+            batch = batch_transform(dict(batch))
+        return _forward(model, batch, policy, True, loss_fn)
 
-    step.wire = None  # the compressed wire's plan, from the first call on
-    return step
+    def build(region: Callable) -> Callable:
+        def step(state: TrainState, batch: Mapping[str, torch.Tensor]):
+            sync = _stage_for(built, state, plan, grad_compression, n_microbatches)
+            if health is not None:
+                snap.take(state)
+            state.optimizer.zero_grad(set_to_none=True)
+            with _zero_step(state), _disarmed_after(sync):
+                metrics = _accumulate(state, batch, n_microbatches, region, sync,
+                                      plan if plan is not None else state.plan)
+                mean_loss = metrics["loss_sum"] / metrics["count"].clamp_min(1.0)
+                return _finish(step, state, mean_loss, metrics, health, snap, sync)
+
+        return _regioned(step, forward, build)
+
+    return build(forward)
 
 
 def _accumulate(state: TrainState, batch: Mapping[str, torch.Tensor], n_microbatches: int,
-                policy: Policy, loss_fn: LossFn, batch_transform, sync: "_Stage | None",
-                plan: Any = None) -> dict:
-    """Forward and backward over the microbatches: the summed metrics, and
-    the mean gradient in ``.grad``."""
+                region: Callable, sync: "_Stage | None", plan: Any = None) -> dict:
+    """Forward and backward over the microbatches through the model
+    ``region``: the summed metrics, and the mean gradient in ``.grad``."""
     metrics = None
     for i in range(n_microbatches):
-        mb = {k: v[i] for k, v in batch.items()}
-        if batch_transform is not None:
-            mb = batch_transform(mb)
-        mb = _seq_local(mb, plan)
+        mb = _seq_local({k: v[i] for k, v in batch.items()}, plan)
         if sync is not None and i == n_microbatches - 1:
             sync.arm(state, n_microbatches)  # the last backward fires the buckets
         with _statistics(sync, state.model), _dropout_stream(state, i):
-            losses, logits, aux = _forward(state.model, mb, policy, True, loss_fn)
+            losses, logits, aux = region(state.model, mb)
         loss = losses.mean()
         _objective(loss, aux).backward()
         m = _train_metrics(loss, logits, mb["label"], state.model)

@@ -52,10 +52,20 @@ What this reduced Trainer does not do yet, each raising
 ``NotImplementedError`` that names the slice which ports it: straggler
 detection (``straggler_sync_steps``, ``straggler_factor``).  ``tx`` takes
 an ``OptimizerSpec`` in place of an optax transform (``ops.fused_adamw``
-returns one).  ``precompile`` is accepted and does nothing: eager PyTorch
-has no ahead-of-time compile step (``torch.compile`` comes with the
-compile slice).  The model arrives initialized, on its device (torch
+returns one).  The model arrives initialized, on its device (torch
 idiom); ``models.from_jax_variables`` carries JAX weights in.
+
+Precompile (``tpuframe_torch.compile``): with ``precompile`` on, ``fit()``
+starts :meth:`Trainer.precompile` on a background thread after the
+restore, overlapping the loader's spin-up: each step's model region is
+compiled by Inductor and, on the card, the whole train and eval steps are
+captured as CUDA graphs over the loader's derived batch signature; the
+first step joins it (span ``compile/wait``); a batch of that signature is
+dispatched to the executable, any other to the eager step under the
+``ShapeGuard``.  The port's default is off (``TPUFRAME_PRECOMPILE`` turns
+it on; ROADMAP Queue 3, difference 31): JAX's path without precompile is
+still its compiled program, the port's is eager, so turning it on changes
+the program that runs and costs a compile in every process.
 """
 
 from __future__ import annotations
@@ -63,6 +73,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import os
+import threading
 import time
 import warnings
 from typing import Any, Callable, Mapping, Sequence
@@ -70,6 +81,16 @@ from typing import Any, Callable, Mapping, Sequence
 import numpy as np
 import torch
 
+from tpuframe_torch.compile.cache import compile_label
+from tpuframe_torch.compile.precompile import (
+    PrecompileSkipped,
+    ShapeGuard,
+    batch_signature,
+    format_signature,
+    loader_batch_template,
+    precompile_enabled,
+    precompile_step,
+)
 from tpuframe_torch.core.runtime import current_runtime
 from tpuframe_torch.data.loader import DataLoader, DevicePrefetcher
 from tpuframe_torch.fault import chaos
@@ -179,7 +200,12 @@ class Trainer:
       preempt_sync_steps: with more than one rank, the step cadence of the
         flag's agreement (one ``all_reduce``), so every rank saves the same
         step; one rank checks its flag every step.
-      precompile: accepted, no effect (see the module docstring).
+      precompile: compile the steps and, on the card, capture them as CUDA
+        graphs before the first step (module docstring); None reads
+        ``TPUFRAME_PRECOMPILE`` (default off).  Plans of more than one
+        rank, ZeRO, offload, the compressed wire, the ``seq``,
+        ``expert``, ``model`` and ``pipe`` axes, dropout and MoE are
+        reported ``skipped`` and run eagerly.
     """
 
     def __init__(
@@ -267,7 +293,11 @@ class Trainer:
         self.eval_interval = eval_interval
         self.log_interval = log_interval
         self.report = report
-        self.precompile_enabled = bool(precompile)
+        self.precompile_enabled = precompile_enabled(precompile)
+        self._precompile_thread: threading.Thread | None = None
+        self._precompile_report: dict | None = None
+        self._compiled: dict[tuple, Any] = {}
+        self._shape_guard = ShapeGuard()
         self.health = _health.resolve_policy(health)
         self._health_flags: list = []
         if tx is None:
@@ -636,6 +666,104 @@ class Trainer:
                     trainable_parameters(self.model), self.plan, self.comms_config)
         return self.state
 
+    # -- compile warm-start ------------------------------------------------
+    def precompile(self, wait: bool = True) -> dict | None:
+        """Precompile the train and eval steps from the loader specs
+        (``tpuframe_torch.compile``): derive each step's batch signature,
+        compile its model region and, on the card, capture the step as a
+        CUDA graph, under ``compile/lower`` and ``compile/backend_compile``
+        spans; arm the shape guard with the expected set and keep the
+        executables for dispatch.
+
+        ``fit()`` calls this with ``wait=False`` when precompile is on, so
+        it overlaps the loader's spin-up; the first step joins.
+        Idempotent; returns the report (signatures, walls, each step's
+        warm-up launches, or why it was skipped)."""
+        if self._precompile_thread is None:
+            self.init_state()  # on the caller's thread
+            t = threading.Thread(target=self._precompile_run, name="tpuframe-precompile",
+                                 daemon=True)
+            self._precompile_thread = t
+            t.start()
+        if wait:
+            self._precompile_thread.join()
+        return self._precompile_report
+
+    def _precompile_run(self) -> None:
+        """Background body: a failed precompile degrades to the eager
+        steps (``compile/precompile_error``), never takes the fit down."""
+        tele = get_telemetry()
+        plan_sig = self.plan.signature()
+        report: dict[str, Any] = {"steps": [], "wall_s": 0.0, "plan_signature": plan_sig}
+        t0 = time.perf_counter()
+        targets = [("train", self._train_step, True)]
+        if self.eval_dataloader is not None:
+            targets.append(("eval", self._eval_step, False))
+        for kind, fn, train in targets:
+            entry: dict[str, Any] = {"kind": kind}
+            try:
+                if not train and self.ema_decay is not None:
+                    raise PrecompileSkipped("the eval reads the moving average")
+                template = loader_batch_template(self, train=train)
+                if template is None:
+                    entry["skipped"] = "no derivable loader signature"
+                    report["steps"].append(entry)
+                    continue
+                sig = batch_signature(template)
+                entry["signature"] = format_signature(sig)
+                self._shape_guard.expect(kind, sig)
+                t1 = time.perf_counter()
+                exe = precompile_step(
+                    fn, self.state, template, label=f"precompile/{kind}@{plan_sig}",
+                    train=train, planned_steps=_planned_total_steps(
+                        self.max_duration, self.train_dataloader))
+                entry["wall_s"] = round(time.perf_counter() - t1, 6)
+                entry["graphed"] = exe.graphed
+                entry["warmup_launches"] = exe.warmup_launches
+                self._compiled[(kind, sig)] = exe
+                entry["dispatchable"] = True
+            except PrecompileSkipped as e:
+                entry["skipped"] = str(e)
+            except Exception as e:
+                entry["error"] = f"{type(e).__name__}: {e}"[:300]
+                tele.event("compile/precompile_error", step_kind=kind, error=entry["error"])
+            report["steps"].append(entry)
+        report["wall_s"] = round(time.perf_counter() - t0, 6)
+        self._precompile_report = report
+        tele.event("compile/precompile", wall_s=report["wall_s"],
+                   compiled=sum(1 for s in report["steps"] if s.get("signature")),
+                   dispatchable=sum(1 for s in report["steps"] if s.get("dispatchable")))
+
+    def _step_call(self, kind: str, fn, state, batch, **kw):
+        """One step through the compile spine: join an in-flight
+        precompile, dispatch to the executable on a signature match, else
+        the eager step with the shape guard watching the signature."""
+        tele = get_telemetry()
+        t = self._precompile_thread
+        if t is not None and t.is_alive():
+            with tele.span("compile/wait"):
+                t.join()
+        sig = batch_signature(batch)
+        exe = self._compiled.get((kind, sig))
+        if exe is not None and not kw:
+            replays = exe.replays
+            try:
+                return exe(state, batch)
+            except Exception as e:
+                # rejected before its launch (another state, a moved
+                # schedule table): drop it, shout once, run eagerly; a
+                # failure after the replay launched is the step's own
+                if exe.replays != replays:
+                    raise
+                self._compiled.pop((kind, sig), None)
+                tele.event("compile/aot_fallback", step_kind=kind,
+                           signature=format_signature(sig),
+                           error=f"{type(e).__name__}: {e}"[:300])
+        elif exe is None:
+            self._shape_guard.check(kind, sig)
+        with compile_label(f"{kind} {format_signature(sig)}"):
+            return fn(state, batch, **kw)
+
     # -- data --------------------------------------------------------------
     def _device_batches(self, loader: DataLoader, train: bool):
         """Host pipeline: algorithms -> dict batches -> prefetched device
@@ -709,6 +837,9 @@ class Trainer:
         if self.checkpointer is not None:
             self._resume()
         self._skip_batches()
+        if self.precompile_enabled:
+            # started after the restore: the executables see its state
+            self.precompile(wait=False)
         self._log_params({
             "max_duration": str(self.max_duration),
             "optimizer": type(self.state.optimizer).__name__,
@@ -806,7 +937,8 @@ class Trainer:
                 chaos.maybe_fire("step", step=self.batches_seen)
                 with tele.span("train/step", batch=self.batches_seen,
                                data_wait_s=round(wait_s, 6)) as sp, tele.guard("train/step"):
-                    self.state, metrics = self._train_step(self.state, batch)
+                    self.state, metrics = self._step_call("train", self._train_step,
+                                                          self.state, batch)
                 dispatch += sp.elapsed
                 self.batches_seen += 1
                 self.samples_seen += self.train_dataloader.global_batch_size
@@ -861,7 +993,8 @@ class Trainer:
         acc = None
         with get_telemetry().span("train/eval", epoch=self.epoch):
             for batch in self._device_batches(self.eval_dataloader, train=False):
-                acc = merge_metrics(acc, self._eval_step(state, batch, **serving))
+                acc = merge_metrics(acc, self._step_call("eval", self._eval_step, state, batch,
+                                                         **serving))
         return summarize_metrics(acc or {}, prefix="eval_")
 
     def _serving_params(self) -> dict | None:
