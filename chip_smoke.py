@@ -69,6 +69,11 @@ Phases, each of which fails the script (nonzero exit, no result line):
    backward and the baseline, in turns, each against its operation bound
    in bf16.
    K6's counters are then zeroed, and phases 4 to 10 must leave them at 0.
+   Last, the card tests of the graphed K6 and K9 steps (``GRAPHED_TESTS``
+   of ``tests/test_torch_port_cuda.py``: a captured K6 step's launches
+   over its replays, a small blockwise and a small MoE LM step graphed
+   against eager) start in a pytest process beside phases 4 on; phase 21
+   joins it and fails on a failure or a skip.
 4. Serve: ResNet50 with 1000 classes under ``bf16_compute`` serves 160
    uint8 224x224 images through ``ServeEngine`` (buckets 1/8/32/64) from 4
    client threads, plus one ``POST /predict`` through ``ServingServer``.
@@ -347,9 +352,9 @@ Phases, each of which fails the script (nonzero exit, no result line):
    relative, update within ROADMAP difference 2's 3e-2 of its norm) and of
    path (C) at 2 layers, its schedule's lr above 0 at the first step (the
    update within 1e-3 of its largest element, which must not be 0); then
-   (c) the GPT-2-small LM under ``fused_adamw`` with a warmup-cosine
-   schedule, cold, fitted precompiled (K3a/K3b/K4, every step a replay of
-   its graph), K4's lr read from the schedule's device table bit-equal to
+   (c) the GPT-2-small LM (4 of its 12 layers, ``COMPILE_LM``) under
+   ``fused_adamw`` with a warmup-cosine schedule, cold, fitted
+   precompiled (K3a/K3b/K4, every step a replay of its graph), K4's lr read from the schedule's device table bit-equal to
    the host float, the graphed step against the eager one in turns
    (tokens/s, MFU, busy); then (e) on the warm cache (cache hits, no backend compile) and (b) its
    fit of 12 steps: the step dispatchable and each a replay, K1/K2a/K2b
@@ -357,8 +362,17 @@ Phases, each of which fails the script (nonzero exit, no result line):
    the eager step in turns (img/s, ``torch.profiler`` busy share); (a) on
    the warm cache and (d) a burst of 160 through it against the eager
    engine (K1 once a served batch, the logits within the bf16 tolerance).
-   The timed parts, (c), (b) and (d), come after every cold compile but
-   (c)'s own.  Alone: ``compile_phase(card)``.
+   Beside (c), (f): ``long_ctx`` (2 x 8192 tokens, blockwise: K6a-K6c;
+   6 of its 12 layers, ``COMPILE_LONG``), then ``long_remat``, each an
+   eager fit then a precompiled graphed fit from the same weights (launches less the warm-up's eager's, the first
+   loss within 2e-2, each fit's peak memory, ``long_remat``'s graphed
+   peak below ``long_ctx``'s), the graphed step against the eager one in
+   turns (tokens/s, MFU, busy, kernels a step), then an f32 pair of the
+   blockwise LM at 2 layers (loss 1e-6, update 1e-3 of its largest
+   element); with (b) and (d), (g): the MoE LM (K9a-K9c, 4 of its 12
+   layers: ``COMPILE_MOE``) the same way, and f32 pairs at capacity
+   factors 1.25 and 0.25.  No graph break in (f) or (g).  The timed
+   parts hold ``card_timing``.  Alone: ``compile_phase(card)``.
 22. Result: a ``kernels`` JSON line (each kernel with ``floor_ms``; K1 and
    K2 also with ``launches_ddp``, phase 10's count on each rank, and
    ``launches_streaming``, phase 14's TFS fit; K2a/K2b, K3a/K3b and K4
@@ -378,7 +392,9 @@ Phases, each of which fails the script (nonzero exit, no result line):
    counts by part; K2a/K2b with ``launches_remote``, phase 20's counts on
    rank 0 of the remote and the local runs; K1-K4 with
    ``launches_graphed``, phase 21's precompiled fits, and K1 with
-   ``launches_graphed_serve``), the ``nvidia-smi`` line, then
+   ``launches_graphed_serve``; K6 and K9 with ``launches_graphed`` and
+   ``launches_graphed_warmup``, (f)'s ``long_ctx`` and (g)'s graphed fits,
+   K6 with ``launches_graphed_remat``), the ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Each phase's wall seconds are printed on a line of their own as it ends
@@ -2374,14 +2390,7 @@ def lm_phase(card: str, dev: torch.device = torch.device("cuda"), cfg: dict = LM
         normalize_images,
     )
     from tpuframe_torch.parallel import full_precision
-    from tpuframe_torch.train import Callback, Trainer, create_train_state, make_train_step
-
-    class StepLosses(Callback):
-        def __init__(self):
-            self.losses = []
-
-        def on_batch_end(self, trainer, metrics):
-            self.losses.append(metrics["loss_sum"] / max(metrics["count"], 1.0))
+    from tpuframe_torch.train import Trainer, create_train_state, make_train_step
 
     seq, vocab, layers = cfg["max_len"], cfg["vocab_size"], cfg["num_layers"]
     model = TransformerLM(**cfg, device=dev, seed=0)
@@ -2392,7 +2401,7 @@ def lm_phase(card: str, dev: torch.device = torch.device("cuda"), cfg: dict = LM
     eval_n = 2 * batch_size + 5  # a ragged last batch
     evl = DataLoader(NextTokenDataset(eval_n, seq, vocab, seed=2), batch_size, drop_last=False,
                      num_workers=4)
-    steps = StepLosses()
+    steps = _step_losses()
     trainer = Trainer(model, tx=fused_adamw(3e-4, weight_decay=1e-4), train_dataloader=train,
                       eval_dataloader=evl, precision="bf16", max_duration=f"{LM_STEPS}ba",
                       log_interval=1, callbacks=[steps])
@@ -2605,14 +2614,7 @@ def long_context_phase(card: str, dev: torch.device = torch.device("cuda"), cfg:
         normalize_images,
     )
     from tpuframe_torch.parallel import full_precision
-    from tpuframe_torch.train import Callback, Trainer, create_train_state, make_train_step
-
-    class StepLosses(Callback):
-        def __init__(self):
-            self.losses = []
-
-        def on_batch_end(self, trainer, metrics):
-            self.losses.append(metrics["loss_sum"] / max(metrics["count"], 1.0))
+    from tpuframe_torch.train import Trainer, create_train_state, make_train_step
 
     seq, vocab, layers = cfg["max_len"], cfg["vocab_size"], cfg["num_layers"]
     counters = {"blockwise_attention_fwd": blockwise_attention_fwd,
@@ -2629,7 +2631,7 @@ def long_context_phase(card: str, dev: torch.device = torch.device("cuda"), cfg:
                            batch_size, shuffle=True, seed=0, num_workers=2)
         evl = (DataLoader(NextTokenDataset(2 * batch_size + 1, seq, vocab, seed=2), batch_size,
                           drop_last=False, num_workers=2) if with_eval else None)
-        losses = StepLosses()
+        losses = _step_losses()
         trainer = Trainer(model, tx=fused_adamw(3e-4, weight_decay=1e-4), train_dataloader=train,
                           eval_dataloader=evl, precision="bf16", max_duration=f"{steps}ba",
                           log_interval=1, callbacks=[losses])
@@ -7976,10 +7978,14 @@ COMPILE_LM_WARMUP = 4  # the warmup-cosine schedule of path (C)
 COMPILE_LM_F32_INIT_LR = 3e-5  # the f32 pair's schedule starts here, not at 0
 #: the parts of phase 21, each in a fresh process with the cache named (a
 #: fresh directory, so its first user is cold); the parts of a stage run at
-#: once, the stages in this order.  The three parts of cold compiles alone
-#: share the host's cores (COMPILE_THREADS each); the timed parts follow
-COMPILE_STAGES = ((("e cold", "train"), ("a cold", "serve"), ("f32", "f32")), (("c", "lm"),),
-                  (("e warm, b", "train"),), (("a warm, d", "serve"),))
+#: once, the stages in this order, sharing the host's cores
+#: (COMPILE_THREADS each): the three parts of cold compiles alone; then
+#: (c) and (f), each a cold compile then its timed steps; then (g)'s cold
+#: compile beside the warm-cache parts (b) and (d).  Timed steps hold
+#: ``card_timing``
+COMPILE_STAGES = ((("e cold", "train"), ("a cold", "serve"), ("f32", "f32")),
+                  (("c", "lm"), ("f", "long")),
+                  (("g", "moe"), ("e warm, b", "train"), ("a warm, d", "serve")))
 COMPILE_THREADS = 4
 #: phase 21's live processes, killed at exit whatever ended the script
 _COMPILE_PROCS: list = []
@@ -8010,17 +8016,6 @@ def card_timing():
             yield
         finally:
             fcntl.flock(f, fcntl.LOCK_UN)
-
-
-def _compile_counters() -> dict:
-    from tpuframe_torch.ops.cross_entropy import cross_entropy_bwd, cross_entropy_fwd
-    from tpuframe_torch.ops.fused_adamw import fused_adamw_multi_update_
-    from tpuframe_torch.ops.layer_norm import layer_norm_bwd, layer_norm_fwd
-    from tpuframe_torch.ops.normalize import normalize_images
-
-    return {"normalize": normalize_images, "cross_entropy_fwd": cross_entropy_fwd,
-            "cross_entropy_bwd": cross_entropy_bwd, "layer_norm_fwd": layer_norm_fwd,
-            "layer_norm_bwd": layer_norm_bwd, "fused_adamw": fused_adamw_multi_update_}
 
 
 def _compile_registry() -> dict:
@@ -8086,7 +8081,9 @@ def _graphed_fit(trainer, dev, expected: dict, what: str, steps: int) -> dict:
     on the card a replay of the train step's graph (its executable still
     dispatched, so no ``compile/aot_fallback``, and no recompile), the
     launches less the warm-up's equal to eager's."""
-    counters = _compile_counters()
+    from tpuframe_torch.compile.precompile import launch_counters
+
+    counters = launch_counters()
     for fn in counters.values():
         fn.launches = 0
     recompiles = _compile_registry()["recompiles"]
@@ -8180,6 +8177,7 @@ def _part_serve(mode: str, dev, card: str, serve_px: int) -> dict:
     every bucket), timed; after the warm one, (d): a burst of 160 through
     the precompiled engine against the eager engine, K1 once a served
     batch, the logits within the bf16 tolerance."""
+    from tpuframe_torch.compile.precompile import launch_counters
     from tpuframe_torch.models import ResNet50
     from tpuframe_torch.ops.normalize import normalize_images
     from tpuframe_torch.parallel import align_model_dtype, bf16_compute
@@ -8194,7 +8192,7 @@ def _part_serve(mode: str, dev, card: str, serve_px: int) -> dict:
         normalize_images, mean=MEAN, std=STD, out_dtype=policy.compute_dtype))
     images = np.random.default_rng(1).integers(0, 256, (N_REQUESTS, serve_px, serve_px, 3),
                                                dtype=np.uint8)
-    counters = _compile_counters()
+    counters = launch_counters()
     reg = get_telemetry().registry
     res: dict = {}
     served = {}
@@ -8255,8 +8253,8 @@ def _part_serve(mode: str, dev, card: str, serve_px: int) -> dict:
 
 
 def _part_lm(dev, card: str, lm_cfg: dict, lm_batch: int, lm_steps: int) -> dict:
-    """(c) path (C): the GPT-2-small LM with ``fused_adamw`` under a
-    warmup-cosine schedule through ``Trainer.fit`` precompiled (cold cache),
+    """(c) path (C): the GPT-2-small LM (``COMPILE_LM``) with ``fused_adamw``
+    under a warmup-cosine schedule through ``Trainer.fit`` precompiled (cold cache),
     K4's device lr against the host float, then the graphed step against
     the eager one in turns (tokens/s, MFU, busy)."""
     from tpuframe_torch.data import DataLoader
@@ -8269,7 +8267,6 @@ def _part_lm(dev, card: str, lm_cfg: dict, lm_batch: int, lm_steps: int) -> dict
     seq, vocab = lm_cfg["max_len"], lm_cfg["vocab_size"]
     sched = warmup_cosine(3e-4, COMPILE_LM_WARMUP, lm_steps + 40)
     model = TransformerLM(**lm_cfg, device=dev, seed=0)
-    n_params = sum(p.numel() for p in model.parameters())
     train = DataLoader(NextTokenDataset(lm_batch * lm_steps, seq, vocab, seed=1), lm_batch,
                        shuffle=True, seed=0, num_workers=4 if dev.type == "cuda" else 0)
     trainer = Trainer(model, tx=fused_adamw(sched, weight_decay=1e-4), train_dataloader=train,
@@ -8316,8 +8313,7 @@ def _part_lm(dev, card: str, lm_cfg: dict, lm_batch: int, lm_steps: int) -> dict
                            for k, fn in (("graphed", lambda: exe(state, xl)),
                                          ("eager", lambda: eager(state, xl)))}
     tokens = lm_batch * seq
-    flops = 6 * n_params * tokens + 3 * 4 * lm_batch * lm_cfg["num_heads"] * seq * seq \
-        * lm_cfg["head_dim"] * lm_cfg["num_layers"]
+    flops = _lm_flops(state.model, lm_cfg, lm_batch)
     res["step_ms"] = ms
     res["mfu"] = {k: flops / (v / 1e3) / BF16_FLOPS for k, v in ms.items()}
     log(f"  (c) LM train step of {lm_batch}x{seq}: graphed {ms['graphed']:.2f} ms = "
@@ -8403,6 +8399,225 @@ def _part_f32(dev, image_size: int, f32_batch: int, lm_f32: dict, lm_f32_batch: 
     return out
 
 
+#: (f) and (g): the graphed and the eager fit's batches, and the synced
+#: steps of each arm in turns
+COMPILE_LONG_STEPS = 4
+COMPILE_LONG_TIMED = 9
+#: a graphed bf16 fit's first loss against the eager fit's (difference 1's
+#: bf16 bound: Inductor fuses and sums the region's bf16 work its own way)
+COMPILE_BF16_LOSS_RTOL = 2e-2
+#: (f): long_ctx and long_remat at 6 of their 12 layers (widths, tokens
+#: and attention as bench_lm.py's): at 12, (f) took 334 s beside phases
+#: 4-20 and the script 1,208 s (PERF.md, PR 23); the 12 layers were
+#: measured alone
+COMPILE_LONG = dict(LONG_LM, num_layers=6)
+#: (f)'s f32 pair: 2 layers of the long-context LM, 2 x 1024 tokens,
+#: blockwise; the loss within 1e-6 relative (K6 is the same kernel in both
+#: arms), the update within COMPILE_LM_UPDATE_RTOL of its largest element
+COMPILE_LONG_F32 = dict(LONG_LM, num_layers=2, max_len=1024, attn_impl="blockwise")
+COMPILE_LONG_F32_BATCH = 2
+COMPILE_LONG_F32_LOSS_RTOL = 1e-6
+#: (c): the GPT-2-small LM at 4 of its 12 layers (PR 22 ran all 12, a 197-293 s
+#: part beside phases 4-20); (f)'s long_ctx graphs the 12 layers at the same
+#: widths and tokens a step
+COMPILE_LM = dict(LM, num_layers=4)
+#: (g): the MoE LM at the path's widths and batch, 4 of its 12 layers: at
+#: 12 its cold compile alone took 270 s of a 386 s part (PERF.md, PR 23),
+#: which phase 21 beside phases 4-20 cannot pay inside the script's limit
+COMPILE_MOE = dict(MOE_LM, num_layers=4)
+#: (g)'s f32 pairs: 2 layers of the MoE LM, 2 x 512 tokens, at each of
+#: MOE_CAPACITIES (0.25 drops slots)
+COMPILE_MOE_F32 = dict(MOE_LM, num_layers=2, max_len=512)
+COMPILE_MOE_F32_BATCH = 2
+
+
+def _step_losses():
+    """A Trainer callback keeping each step's mean loss in ``.losses``."""
+    from tpuframe_torch.train import Callback
+
+    class StepLosses(Callback):
+        def __init__(self):
+            self.losses = []
+
+        def on_batch_end(self, trainer, metrics):
+            self.losses.append(metrics["loss_sum"] / max(metrics["count"], 1.0))
+
+    return StepLosses()
+
+
+def _lm_flops(model, cfg: dict, batch: int) -> float:
+    """A step's FLOPs by phase 6's formula, 6 N T plus attention's 3 x 4 B H
+    L^2 Dh a layer; for a MoE LM N counts each token's k of E experts."""
+    from tpuframe_torch.models import MoEMLP
+
+    n = sum(p.numel() for p in model.parameters())
+    for m in model.modules():
+        if isinstance(m, MoEMLP):
+            n -= (m.w_in.numel() + m.w_out.numel()) * (1 - m.top_k / m.num_experts)
+    seq = cfg["max_len"]
+    return (6 * n * batch * seq + 3 * 4 * batch * cfg["num_heads"] * seq * seq * cfg["head_dim"]
+            * cfg["num_layers"])
+
+
+def _lm_fit_pair(dev, card: str, what: str, cfg: dict, batch: int, steps: int,
+                 expected: dict) -> dict:
+    """(f) and (g): ``cfg``'s LM (bf16, ``fused_adamw`` under warmup-cosine)
+    through ``Trainer.fit``: eagerly, then precompiled (a cold cache) and
+    graphed from the same weights and batches, each fit's peak memory
+    alone; the graphed fit's launches less the warm-up's eager's, its first
+    loss within COMPILE_BF16_LOSS_RTOL of eager's; then the graphed step
+    against the eager one in turns (tokens/s, MFU, busy, launches a step)."""
+    from tpuframe_torch.compile.precompile import launch_counters
+    from tpuframe_torch.data import DataLoader
+    from tpuframe_torch.models import TransformerLM
+    from tpuframe_torch.ops import fused_adamw
+    from tpuframe_torch.train import Trainer
+    from tpuframe_torch.train.schedules import warmup_cosine
+
+    seq, vocab = cfg["max_len"], cfg["vocab_size"]
+    counters = launch_counters()
+    res: dict = {}
+    for arm in ("eager", "graphed"):
+        losses = _step_losses()
+        model = TransformerLM(**cfg, device=dev, seed=0)
+        train = DataLoader(NextTokenDataset(batch * steps, seq, vocab, seed=1), batch,
+                           shuffle=True, seed=0)  # in process: no worker to start
+        trainer = Trainer(model, train_dataloader=train, precision="bf16", log_interval=1,
+                          tx=fused_adamw(warmup_cosine(3e-4, COMPILE_LM_WARMUP, steps + 40),
+                                         weight_decay=1e-4),
+                          max_duration=f"{steps}ba", precompile=arm == "graphed",
+                          callbacks=[losses])
+        trainer.init_state().reserve_lr(steps + 4 * COMPILE_LONG_TIMED)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        if arm == "graphed":
+            res.update(_graphed_fit(trainer, dev, expected, what, steps))
+        else:
+            for fn in counters.values():
+                fn.launches = 0
+            trainer.fit()
+            sync(dev)
+            launches = {k: counters[k].launches for k in expected}
+            check(launches == expected, f"{what} eager fit: launches {launches} != {expected}")
+        res[f"peak_gb_{arm}"] = (torch.cuda.max_memory_allocated(dev) / 1e9
+                                 if dev.type == "cuda" else 0.0)
+        res[f"first_loss_{arm}"] = losses.losses[0]
+        if arm == "eager":
+            del trainer, model, train
+    rel = abs(res["first_loss_graphed"] - res["first_loss_eager"]) / abs(res["first_loss_eager"])
+    res["first_loss_rel"] = rel
+    log(f"  {what}: first loss graphed {res['first_loss_graphed']!r}, eager "
+        f"{res['first_loss_eager']!r} (rel {rel:.3g}, tol {COMPILE_BF16_LOSS_RTOL}); peak memory "
+        f"graphed {res['peak_gb_graphed']:.3f} GB, eager {res['peak_gb_eager']:.3f} GB")
+    check(rel <= COMPILE_BF16_LOSS_RTOL, f"{what}: first loss rel {rel} > {COMPILE_BF16_LOSS_RTOL}")
+    state = trainer.state
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, vocab, (batch, seq + 1))).to(dev)
+    xl = {"image": toks[:, :-1].contiguous(), "label": toks[:, 1:].contiguous()}
+    exe = _train_executable(trainer, xl)
+    eager = trainer._train_step
+    with card_timing():
+        ms = _turns({"graphed": lambda: exe(state, xl), "eager": lambda: eager(state, xl)}, dev,
+                    timed=COMPILE_LONG_TIMED)
+        if dev.type == "cuda":
+            res["busy"] = {k: profile(fn, f"{what} {k} step of {batch}x{seq}")
+                           for k, fn in (("graphed", lambda: exe(state, xl)),
+                                         ("eager", lambda: eager(state, xl)))}
+    flops = _lm_flops(state.model, cfg, batch)
+    tokens = batch * seq
+    res.update(step_ms=ms, tflop=flops / 1e12,
+               mfu={k: flops / (v / 1e3) / BF16_FLOPS for k, v in ms.items()},
+               tokens_per_s={k: tokens / (v / 1e3) for k, v in ms.items()})
+    log(f"  {what} train step of {batch}x{seq}: graphed {ms['graphed']:.2f} ms = "
+        f"{res['tokens_per_s']['graphed']:.0f} tokens/s (MFU {res['mfu']['graphed']:.4f}), eager "
+        f"{ms['eager']:.2f} ms = {res['tokens_per_s']['eager']:.0f} tokens/s (MFU "
+        f"{res['mfu']['eager']:.4f}), {flops / 1e12:.2f} TFLOP a step (median of "
+        f"{COMPILE_LONG_TIMED} synced steps each, in turns) on {card}")
+    del exe, eager, state, trainer
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def _part_long(dev, card: str, sizes: dict) -> dict:
+    """(f): ``long_ctx``, then ``long_remat`` (K6a again in each block's
+    recompute, its graphed peak below ``long_ctx``'s), then the f32 pair of
+    the blockwise LM at 2 layers."""
+    from tpuframe_torch.models import TransformerLM
+    from tpuframe_torch.ops import fused_adamw
+    from tpuframe_torch.parallel import full_precision
+    from tpuframe_torch.train import create_train_state
+    from tpuframe_torch.train.schedules import warmup_cosine
+    from tpuframe_torch.train.step import make_train_step
+
+    cfg, batch, steps = sizes["long_cfg"], sizes["long_batch"], sizes["long_steps"]
+    layers, n_ln = cfg["num_layers"], 2 * cfg["num_layers"] + 1
+    out = {}
+    for name, remat in (("long_ctx", False), ("long_remat", True)):
+        expected = {"blockwise_attention_fwd": layers * steps * (2 if remat else 1),
+                    "blockwise_attention_bwd_dq": layers * steps,
+                    "blockwise_attention_bwd_dkv": layers * steps,
+                    "layer_norm_fwd": n_ln * steps + (2 * layers * steps if remat else 0),
+                    "layer_norm_bwd": n_ln * steps, "fused_adamw": steps,
+                    "cross_entropy_fwd": 0, "moe_dispatch": 0}
+        out[name] = _lm_fit_pair(dev, card, f"(f) {name}", dict(cfg, remat=remat), batch, steps,
+                                 expected)
+    peaks = {k: out[k]["peak_gb_graphed"] for k in ("long_ctx", "long_remat")}
+    log(f"  (f) graphed peak memory: long_remat {peaks['long_remat']:.3f} GB, long_ctx "
+        f"{peaks['long_ctx']:.3f} GB")
+    check(dev.type != "cuda" or peaks["long_remat"] < peaks["long_ctx"],
+          f"(f) long_remat's graphed peak {peaks} is not below long_ctx's")
+    f32, f32_batch = sizes["long_f32"], sizes["long_f32_batch"]
+    t32 = torch.from_numpy(np.random.default_rng(4).integers(
+        0, f32["vocab_size"], (f32_batch, f32["max_len"] + 1))).to(dev)
+    xl = {"image": t32[:, :-1].contiguous(), "label": t32[:, 1:].contiguous()}
+    sched = warmup_cosine(3e-4, COMPILE_LM_WARMUP, 40, init_lr=COMPILE_LM_F32_INIT_LR)
+    out["f32"] = _step_pair_check(
+        lambda: create_train_state(TransformerLM(**f32, device=dev, seed=4),
+                                   fused_adamw(sched, **LM_STEP_ADAMW)),
+        lambda: make_train_step(full_precision()), xl, dev,
+        f"(f) f32 blockwise LM step at {f32['num_layers']} layers",
+        COMPILE_LONG_F32_LOSS_RTOL, COMPILE_LM_UPDATE_RTOL, by_norm=False)
+    return out
+
+
+def _part_moe(dev, card: str, sizes: dict) -> dict:
+    """(g): the one-process MoE LM (K9a-K9c), then its f32 pairs at 2 layers
+    at each of MOE_CAPACITIES (0.25 drops slots)."""
+    from tpuframe_torch.models import TransformerLM
+    from tpuframe_torch.ops import fused_adamw
+    from tpuframe_torch.parallel import full_precision
+    from tpuframe_torch.train import create_train_state
+    from tpuframe_torch.train.schedules import warmup_cosine
+    from tpuframe_torch.train.step import make_train_step
+
+    cfg, batch, steps = sizes["moe_cfg"], sizes["moe_batch"], sizes["moe_steps"]
+    layers, n_ln = cfg["num_layers"], 2 * cfg["num_layers"] + 1
+    expected = {"moe_dispatch": layers * steps, "moe_combine": 2 * layers * steps,
+                "moe_combine_backward": layers * steps, "layer_norm_fwd": n_ln * steps,
+                "layer_norm_bwd": n_ln * steps, "fused_adamw": steps,
+                "blockwise_attention_fwd": 0, "cross_entropy_fwd": 0}
+    out = {"moe": _lm_fit_pair(dev, card, "(g) MoE LM", cfg, batch, steps, expected)}
+    f32, f32_batch = sizes["moe_f32"], sizes["moe_f32_batch"]
+    t32 = torch.from_numpy(np.random.default_rng(5).integers(
+        0, f32["vocab_size"], (f32_batch, f32["max_len"] + 1))).to(dev)
+    xl = {"image": t32[:, :-1].contiguous(), "label": t32[:, 1:].contiguous()}
+    sched = warmup_cosine(3e-4, COMPILE_LM_WARMUP, 40, init_lr=COMPILE_LM_F32_INIT_LR)
+
+    def make(cf):
+        model = TransformerLM(**f32, device=dev, seed=4)
+        _set_capacity(model, cf)
+        return create_train_state(model, fused_adamw(sched, **LM_STEP_ADAMW))
+
+    for cf in MOE_CAPACITIES:
+        out[f"f32_cf{cf}"] = _step_pair_check(
+            lambda: make(cf), lambda: make_train_step(full_precision()), xl, dev,
+            f"(g) f32 MoE LM step at {f32['num_layers']} layers, capacity factor {cf}",
+            COMPILE_LONG_F32_LOSS_RTOL, COMPILE_LM_UPDATE_RTOL, by_norm=False)
+    return out
+
+
 def compile_child(part: str, out: str, card: str, sizes: dict) -> None:
     """One part of phase 21 in this fresh process (``COMPILE_STAGES``), its
     result as JSON in ``out``; the cache directory is the env's
@@ -8432,6 +8647,10 @@ def compile_child(part: str, out: str, card: str, sizes: dict) -> None:
         res = _part_serve(mode, dev, card, sizes["serve_px"])
     elif part == "c":
         res = _part_lm(dev, card, sizes["lm_cfg"], sizes["lm_batch"], sizes["lm_steps"])
+    elif part == "f":
+        res = _part_long(dev, card, sizes)
+    elif part == "g":
+        res = _part_moe(dev, card, sizes)
     else:
         res = _part_f32(dev, sizes["image_size"], sizes["f32_batch"], sizes["lm_f32"],
                         sizes["lm_f32_batch"])
@@ -8442,8 +8661,23 @@ def compile_child(part: str, out: str, card: str, sizes: dict) -> None:
     from torch._dynamo.utils import counters
 
     res["torch_counters"] = {g: dict(counters[g]) for g in ("inductor", "aot_autograd")}
+    res["graph_breaks"] = dict(counters["graph_break"])
     with open(out, "w") as f:
         json.dump(res, f, default=str)
+
+
+def compile_sizes(**cut) -> dict:
+    """Phase 21's sizes, the full ones unless ``cut`` replaces some."""
+    return {"image_size": 224, "batch": TRAIN_BATCH, "steps": TRAIN_STEPS, "serve_px": 224,
+            "lm_cfg": COMPILE_LM, "lm_batch": LM_BATCH, "lm_steps": LM_STEPS,
+            "f32_batch": COMPILE_F32_BATCH, "lm_f32": COMPILE_LM_F32,
+            "lm_f32_batch": COMPILE_LM_F32_BATCH, "long_cfg": COMPILE_LONG,
+            "long_batch": LONG_BATCH,
+            "long_steps": COMPILE_LONG_STEPS, "long_f32": COMPILE_LONG_F32,
+            "long_f32_batch": COMPILE_LONG_F32_BATCH, "moe_cfg": COMPILE_MOE,
+            "moe_batch": MOE_BATCH,
+            "moe_steps": COMPILE_LONG_STEPS, "moe_f32": COMPILE_MOE_F32,
+            "moe_f32_batch": COMPILE_MOE_F32_BATCH, **cut}
 
 
 def compile_phase(card: str, sizes: dict | None = None, say=log) -> dict:
@@ -8451,10 +8685,7 @@ def compile_phase(card: str, sizes: dict | None = None, say=log) -> dict:
     ``COMPILE_STAGES``' order (module docstring); ``say`` takes the lines
     (the parts' own lines come back with their output).  ``sizes`` cuts it
     down for a rehearsal (``device="cpu"`` and small shapes)."""
-    sizes = {"image_size": 224, "batch": TRAIN_BATCH, "steps": TRAIN_STEPS, "serve_px": 224,
-             "lm_cfg": LM, "lm_batch": LM_BATCH, "lm_steps": LM_STEPS,
-             "f32_batch": COMPILE_F32_BATCH, "lm_f32": COMPILE_LM_F32,
-             "lm_f32_batch": COMPILE_LM_F32_BATCH, **(sizes or {})}
+    sizes = compile_sizes(**(sizes or {}))
     shutil.rmtree(COMPILE_DIR, ignore_errors=True)
     COMPILE_DIR.mkdir(parents=True)
     results: dict = {}
@@ -8509,13 +8740,51 @@ def compile_phase(card: str, sizes: dict | None = None, say=log) -> dict:
     say(f"  (a) torch {torch.__version__} cache counters, cold: "
         f"{json.dumps(results['a cold']['torch_counters'])}; warm: "
         f"{json.dumps(results['a warm, d']['torch_counters'])}")
+    for part in ("f", "g"):
+        check(not results[part]["graph_breaks"],
+              f"phase 21 {part}: graph breaks {results[part]['graph_breaks']}")
     summary = {"ttfs_s": ttfs, "serve_precompile_s": serve,
-               "b": results["e warm, b"]["b"], "c": results["c"],
+               "b": results["e warm, b"]["b"], "c": results["c"], "f": results["f"],
+               "g": results["g"],
                "d": {k: results["a warm, d"][k] for k in ("precompiled", "eager", "logits_rel")},
                "f32": results["f32"], "compile": {p: r["compile"] for p, r in results.items()},
                "process_s": {p: r["process_s"] for p, r in results.items()}, "card": card}
     say("  compile_json " + json.dumps(summary, default=str))
     return summary
+
+
+#: phase 3's card tests: a captured blockwise step's K6 counts over its
+#: replays, and the graphed blockwise and MoE LM steps against eager
+GRAPHED_TESTS = ("captured_blockwise_step_counts or graphed_blockwise_lm_step or "
+                 "graphed_moe_lm_step")
+
+
+def start_graphed_tests() -> subprocess.Popen:
+    """``GRAPHED_TESTS`` of ``tests/test_torch_port_cuda.py`` in a pytest
+    process (the kernels built by phase 2 are loaded from ``build/``)."""
+    root = Path(__file__).resolve().parent
+    # its few small compiles in process: a pool of compile workers would
+    # start a torch in each beside phases 4 on
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pytest", str(root / "tests" / "test_torch_port_cuda.py"),
+         "--noconftest", "-q", "-p", "no:cacheprovider", "-k", GRAPHED_TESTS],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, TORCHINDUCTOR_COMPILE_THREADS="1"))
+    _COMPILE_PROCS.append(proc)
+    return proc
+
+
+def join_graphed_tests(proc: subprocess.Popen) -> None:
+    try:
+        out, _ = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+    tail = out.strip().splitlines()[-1] if out.strip() else ""
+    log(f"  phase 3's card tests ({GRAPHED_TESTS}): {tail}")
+    check(proc.returncode == 0 and " passed" in tail and "skipped" not in tail
+          and "deselected" in tail, f"phase 3's card tests exited {proc.returncode}: "
+          f"{out[-3000:]}")
 
 
 GLOO_PHASES = ("10", "15", "16", "17", "18", "19", "20")
@@ -8662,6 +8931,9 @@ def main(argv=None) -> int:
     compile_runner = threading.Thread(target=compile_thread, name="phase-21", daemon=True)
     compile_t0 = time.perf_counter()
     compile_runner.start()
+    # phase 3's card tests of the graphed K6 and K9 steps, a pytest process
+    # beside phases 4 on, joined with phase 21
+    graphed_tests = start_graphed_tests()
 
     clock.start("4: serve")
     serve_launches = slice_phase(card)["launches"]["normalize"]
@@ -8825,12 +9097,20 @@ def main(argv=None) -> int:
     if "error" in compile_out:
         raise compile_out["error"]
     cp = compile_out["result"]
+    join_graphed_tests(graphed_tests)
     for k, name, part in ((k1, "normalize", "b"), (k2a, "cross_entropy_fwd", "b"),
                           (k2b, "cross_entropy_bwd", "b"), (k3a, "layer_norm_fwd", "c"),
                           (k3b, "layer_norm_bwd", "c"), (k4, "fused_adamw", "c")):
         k["launches_graphed"] = cp[part]["graphed"][name]
         k["launches_graphed_warmup"] = cp[part]["warmup_launches"][name]
     k1["launches_graphed_serve"] = cp["d"]["precompiled"]["k1_launches"]
+    # K6 on (f)'s graphed long_ctx fit (long_remat's beside it), K9 on (g)'s
+    for k, name in zip((k6a, k6b, k6c, k9a, k9b, k9c), K6_NAMES + K9_NAMES):
+        part = cp["f"]["long_ctx"] if name in K6_NAMES else cp["g"]["moe"]
+        k["launches_graphed"] = part["graphed"][name]
+        k["launches_graphed_warmup"] = part["warmup_launches"][name]
+        if name in K6_NAMES:
+            k["launches_graphed_remat"] = cp["f"]["long_remat"]["graphed"][name]
 
     clock.start("22: result")
     gloo = sum(v for t, v in clock.seconds.items() if t.split(":")[0] in GLOO_PHASES)

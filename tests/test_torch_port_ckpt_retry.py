@@ -41,9 +41,15 @@ def _fail_writes(monkeypatch, error, times=1, only_rank=None):
     return calls
 
 
-def _retry_events(tele, error):
-    """The ``ckpt/save_retry`` events whose error names ``error``."""
-    return [e for e in tele.recent_events(10_000)
+def _retry_events(tele, error, since=None):
+    """The ``ckpt/save_retry`` events whose error names ``error``, after the
+    ``test/mark`` event whose token is ``since`` (the telemetry is the
+    process's: another test file in this process may have saved before)."""
+    events = tele.recent_events(10_000)
+    if since is not None:
+        at = max(i for i, e in enumerate(events) if e.get("token") == since)
+        events = events[at + 1:]
+    return [e for e in events
             if e.get("name") == "ckpt/save_retry" and error in e.get("error", "")]
 
 
@@ -53,6 +59,8 @@ def test_one_oserror_in_the_write_retries_once_and_commits(tmp_path, monkeypatch
     tele = get_telemetry()
     counter = tele.registry.counter("ckpt/save_retries")
     before = counter.value
+    token = f"ckpt-retry-{id(calls)}"
+    tele.event("test/mark", token=token)
     with Checkpointer(tmp_path / "ck") as ck:
         path = ck.save({"w": torch.arange(4.0)}, step=3)
         assert ck.all_steps() == [3]
@@ -60,7 +68,7 @@ def test_one_oserror_in_the_write_retries_once_and_commits(tmp_path, monkeypatch
     assert path == str(tmp_path / "ck" / "3")
     assert torch.equal(out["w"], torch.arange(4.0))
     assert counter.value == before + 1 and len(calls) == 2
-    events = _retry_events(tele, "disk flake")
+    events = _retry_events(tele, "disk flake", since=token)
     assert len(events) == 1 and events[0]["step"] == 3 and events[0]["attempt"] == 1
 
 

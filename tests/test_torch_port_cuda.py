@@ -17,7 +17,9 @@ K1 on the card, and ``device_memory_stats`` against the allocator, and
 ZeRO: K4 over owned slices, two gloo ranks under stages 0, 2 and 3, and
 the compressed wire's sliced leaves through K5a-K5c against the plain
 versions; two agents of the remote launcher on localhost sharing the card
-over gloo.
+over gloo; the compile plane's graphed steps: a captured K6 step's launch
+counts over its replays, and small blockwise (K6) and MoE (K9) LM steps
+precompiled and graphed against their eager steps.
 
 Every test here needs an NVIDIA GPU and ``nvcc`` and skips without them.
 The file imports neither JAX nor the JAX package, so it also runs on a
@@ -2066,3 +2068,95 @@ def test_a_precompiled_lm_fit_dispatches_train_and_eval_to_their_graphs(card):
     new = get_telemetry().recent_events(10**6)[events:]
     assert not [e for e in new if e.get("name") in ("compile/aot_fallback",
                                                      "compile/recompile")]
+
+
+def test_a_captured_blockwise_step_counts_k6_at_every_replay(card):
+    """K6a's forward and K6b and K6c's backward of a small bf16 causal
+    attention, warmed and captured as a CUDA graph as precompile does
+    (``_warmup``, ``_capture``, an ``Executable``) and replayed five times:
+    the capture counts nothing, and the counters then read what five eager
+    calls read, exactly, with the same outputs."""
+    import tpuframe_torch.compile.precompile as pc
+    from tpuframe_torch.ops.blockwise_attention import blockwise_attention
+
+    gen = torch.Generator(device=card).manual_seed(0)
+    q, k, v = (torch.randn(2, 256, 2, 64, generator=gen, device=card).bfloat16().requires_grad_()
+               for _ in range(3))
+    g = torch.randn(2, 256, 2, 64, generator=gen, device=card).bfloat16()
+
+    def step():
+        out = blockwise_attention(q, k, v, causal=True)
+        return (out, *torch.autograd.grad(out, (q, k, v), g))
+
+    counters = (blockwise_attention_fwd, blockwise_attention_bwd_dq, blockwise_attention_bwd_dkv)
+    pc._warmup(step, True)
+    for c in counters:
+        c.launches = 0
+    graph, tally, static_out = pc._capture(step)
+    assert [c.launches for c in counters] == [0, 0, 0]
+    exe = pc.Executable(step, label="test", graph=graph, static_in=[], static_out=static_out,
+                        tally=tally)
+    got = [exe() for _ in range(5)][-1]
+    torch.cuda.synchronize()
+    graphed = [c.launches for c in counters]
+    for c in counters:
+        c.launches = 0
+    want = [step() for _ in range(5)][-1]
+    torch.cuda.synchronize()
+    assert graphed == [c.launches for c in counters] == [5, 5, 5]
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _graphed_against_eager(card, cfg: dict, wrappers: tuple, want: dict):
+    """One f32 train step of ``cfg``'s LM (SGD, lr 1: the update is minus
+    the gradient) precompiled by Inductor and graphed, against the eager
+    step from the same weights; three replays launch what three eager
+    steps launch."""
+    from tpuframe_torch.compile.precompile import TensorSpec, precompile_step
+
+    torch._dynamo.reset()
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (2, 129))).to(card)
+    batch = {"image": toks[:, :-1].contiguous(), "label": toks[:, 1:].contiguous()}
+    template = {k: TensorSpec(tuple(v.shape), v.dtype, v.device) for k, v in batch.items()}
+    out = {}
+    for graphed in (True, False):
+        model = TransformerLM(**cfg, device=card, seed=0)
+        before = [p.detach().clone() for p in model.parameters()]
+        state = create_train_state(model, make_optimizer("sgd", 1.0))
+        step = make_train_step(full_precision())
+        if graphed:
+            step = precompile_step(step, state, template, label="test", planned_steps=8)
+            assert step.graphed
+        for w in wrappers:
+            w.launches = 0
+        state, m = step(state, batch)
+        loss = float(m["loss_sum"] / m["count"])
+        grads = [b - p.detach() for p, b in zip(model.parameters(), before)]
+        for _ in range(2):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        out[graphed] = loss, grads, [w.launches for w in wrappers]
+    (loss, grads, launches), (ref, ref_grads, ref_launches) = out[True], out[False]
+    assert abs(loss - ref) <= 1e-5 * abs(ref)
+    for g, r in zip(grads, ref_grads):
+        assert float((g - r).norm()) <= 1e-4 * float(r.norm()) + 1e-12
+    assert launches == ref_launches == [3 * want[w.__name__] for w in wrappers], launches
+
+
+def test_a_graphed_blockwise_lm_step_matches_its_eager_step(card):
+    cfg = dict(vocab_size=256, num_layers=2, num_heads=2, head_dim=32, max_len=128,
+               attn_impl="blockwise")
+    wrappers = (blockwise_attention_fwd, blockwise_attention_bwd_dq, blockwise_attention_bwd_dkv,
+                layer_norm_fwd, layer_norm_bwd)
+    _graphed_against_eager(card, cfg, wrappers, {
+        "blockwise_attention_fwd": 2, "blockwise_attention_bwd_dq": 2,
+        "blockwise_attention_bwd_dkv": 2, "layer_norm_fwd": 5, "layer_norm_bwd": 5})
+
+
+def test_a_graphed_moe_lm_step_matches_its_eager_step(card):
+    from tpuframe_torch.ops.moe_gating import moe_combine, moe_combine_backward, moe_dispatch
+
+    cfg = dict(vocab_size=256, num_layers=2, num_heads=2, head_dim=32, max_len=128,
+               moe_experts=4, moe_top_k=2)
+    _graphed_against_eager(card, cfg, (moe_dispatch, moe_combine, moe_combine_backward), {
+        "moe_dispatch": 2, "moe_combine": 4, "moe_combine_backward": 2})

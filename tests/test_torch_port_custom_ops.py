@@ -9,9 +9,12 @@
 - No op has a ``CompositeImplicitAutograd`` kernel (Inductor could then
   decompose it into the plain version); each has a CPU and a CUDA kernel.
 - TorchDynamo traces the model region of a small ResNet step (K1, K2a;
-  K2b in its backward graph) and of a 2-layer, width-32 LM step (K3a; K3b
-  in its backward graph) with zero graph breaks, the ``tpuframe::`` nodes
-  in the graphs; and K4's list update as one node.  The LM's (B, L)
+  K2b in its backward graph) and of 2-layer, width-32 LM steps (K3a; K3b
+  in its backward graph), full, blockwise (K6a; K6b and K6c), blockwise
+  under ``remat`` (the backward graph recomputes K3a and K6a) and MoE
+  (K9a and K9b; K9c and K9b, the MoE routing and aux loss in the graph)
+  with zero graph breaks, the ``tpuframe::`` nodes in the graphs, bit-equal
+  to the eager region; and K4's list update as one node.  The LM's (B, L)
   labels take the plain per-position loss, as JAX's step routes them, so
   K2 is the ResNet path's.
 - The launch tally: with ``torch.cuda.is_current_stream_capturing``
@@ -31,13 +34,16 @@ from tpuframe_torch.models import ResNet18, TransformerLM
 from tpuframe_torch.ops import dispatch
 from tpuframe_torch.ops.cross_entropy import fused_cross_entropy
 from tpuframe_torch.ops.fused_adamw import fused_adamw_multi_update_
+from tpuframe_torch.ops.blockwise_attention import blockwise_attention_reference
 from tpuframe_torch.ops.layer_norm import fused_layer_norm
+from tpuframe_torch.ops.moe_gating import _descriptors, _routing
 from tpuframe_torch.ops.normalize import normalize_images
 from tpuframe_torch.parallel import full_precision
 from tpuframe_torch.train import step as train_step
 
 OPS = ("normalize", "cross_entropy_fwd", "cross_entropy_bwd", "layer_norm_fwd",
-       "layer_norm_bwd", "fused_adamw_")
+       "layer_norm_bwd", "fused_adamw_", "blockwise_attention_fwd", "blockwise_attention_bwd_dq",
+       "blockwise_attention_bwd_dkv", "moe_dispatch", "moe_combine", "moe_combine_backward")
 MEAN, STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
 
 
@@ -83,7 +89,47 @@ def _cases():
     ]
 
 
-CASES = _cases()
+def _k6_cases():
+    """K6 on the inputs its paths give it: causal (the LM) and
+    bidirectional (ViT), float32 and bf16, L = 24 over blocks of 16 (the
+    plain schedule pads to 32), and the ring's float32 ``out_dtype``."""
+    cases = []
+    for dtype, causal, out_dtype in ((torch.float32, True, torch.float32),
+                                     (torch.bfloat16, True, torch.bfloat16),
+                                     (torch.bfloat16, False, torch.float32)):
+        q, k, v, g = (torch.randn(1, 24, 2, 16, generator=_g(i)).to(dtype) for i in range(4))
+        out, lse = blockwise_attention_reference(q, k, v, causal=causal, block_size=16)
+        delta = torch.einsum("bqhd,bqhd->bhq", out.float(), g.float()).contiguous()
+        tag = f"{str(dtype)[6:]}_{'causal' if causal else 'full'}_out_{str(out_dtype)[6:]}"
+        cases += [(f"k6_fwd_{tag}", "blockwise_attention_fwd", (q, k, v, causal, 16, out_dtype)),
+                  (f"k6_dq_{tag}", "blockwise_attention_bwd_dq",
+                   (q, k, v, out, lse, g, causal, 16, out_dtype)),
+                  (f"k6_dkv_{tag}", "blockwise_attention_bwd_dkv",
+                   (q, k, v, lse, delta, g, causal, 16, out_dtype))]
+    return cases
+
+
+def _k9_cases():
+    """K9 at a capacity that drops slots (12 tokens, top 2, 3 experts,
+    capacity 5 of the 8 an even share would take), float32 and bf16."""
+    cases = []
+    gate_idx = torch.stack([torch.arange(12) % 3, (torch.arange(12) + 1) % 3], 1)
+    choice_exp, _, keep, _ = _routing(gate_idx, 3, 5)
+    e_loc, slot, count = _descriptors(choice_exp, keep, 0, 3)
+    assert not bool(keep.all())
+    w = torch.rand(24, generator=_g(5))
+    for dtype in (torch.float32, torch.bfloat16):
+        src = torch.randn(12, 8, generator=_g(6)).to(dtype)
+        buf = torch.randn(3, 5, 8, generator=_g(7)).to(dtype)
+        name = str(dtype)[6:]
+        cases += [(f"k9_dispatch_{name}", "moe_dispatch", (src, e_loc, slot, count, 3, 5)),
+                  (f"k9_combine_{name}", "moe_combine", (buf, w, e_loc, slot, 12)),
+                  (f"k9_combine_backward_{name}", "moe_combine_backward",
+                   (src, buf, w, e_loc, slot, count))]
+    return cases
+
+
+CASES = _cases() + _k6_cases() + _k9_cases()
 
 
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
@@ -136,37 +182,65 @@ def _resnet_region():
     return model, step.region, batch
 
 
-def _lm_region():
+#: the 2-layer, width-32 LMs of the step regions
+LM_KINDS = {"lm": {}, "blockwise": {"attn_impl": "blockwise"},
+            "remat": {"attn_impl": "blockwise", "remat": True},
+            "moe": {"moe_experts": 4, "moe_top_k": 2}}
+
+
+def _lm_region(kind: str = "lm"):
     model = TransformerLM(vocab_size=64, num_layers=2, num_heads=2, head_dim=16, max_len=16,
-                          device="cpu", seed=0)
+                          device="cpu", seed=0, **LM_KINDS[kind])
     step = train_step.make_train_step(full_precision())
     toks = torch.randint(0, 64, (2, 17), generator=_g())
     return model, step.region, {"image": toks[:, :-1], "label": toks[:, 1:]}
 
 
+def _op_names(**counts) -> list[str]:
+    return [f"tpuframe.{name}.default" for name, n in counts.items() for _ in range(n)]
+
+
+_K6 = dict(blockwise_attention_bwd_dq=2, blockwise_attention_bwd_dkv=2)
+
+
 @pytest.mark.parametrize("path, fw_ops, bw_ops", [
-    ("resnet", ["tpuframe.normalize.default", "tpuframe.cross_entropy_fwd.default"],
-     ["tpuframe.cross_entropy_bwd.default"]),
-    ("lm", ["tpuframe.layer_norm_fwd.default"] * 5, ["tpuframe.layer_norm_bwd.default"] * 5),
+    ("resnet", _op_names(normalize=1, cross_entropy_fwd=1), _op_names(cross_entropy_bwd=1)),
+    ("lm", _op_names(layer_norm_fwd=5), _op_names(layer_norm_bwd=5)),
+    ("blockwise", _op_names(layer_norm_fwd=5, blockwise_attention_fwd=2),
+     _op_names(layer_norm_bwd=5, **_K6)),
+    # the backward recomputes each block's forward: its two LayerNorms and K6a
+    ("remat", _op_names(layer_norm_fwd=5, blockwise_attention_fwd=2),
+     _op_names(layer_norm_bwd=5, layer_norm_fwd=4, blockwise_attention_fwd=2, **_K6)),
+    ("moe", _op_names(layer_norm_fwd=5, moe_dispatch=2, moe_combine=2),
+     _op_names(layer_norm_bwd=5, moe_combine_backward=2, moe_combine=2)),
 ])
 def test_dynamo_traces_the_step_region_with_no_break(path, fw_ops, bw_ops):
     torch._dynamo.reset()
-    model, region, batch = (_resnet_region if path == "resnet" else _lm_region)()
+    model, region, batch = _resnet_region() if path == "resnet" else _lm_region(path)
     explained = torch._dynamo.explain(region)(model, batch)
     assert explained.graph_break_count == 0, explained.break_reasons
     assert explained.graph_count == 1
     graphs = _Graphs()
     compiled = torch.compile(region, backend=graphs.backend(), fullgraph=True)
-    losses, logits, _ = compiled(model, batch)
-    losses.mean().backward()
+    losses, logits, aux = compiled(model, batch)
+    assert (aux is not None) == (path == "moe")  # the aux loss leaves the region
+    train_step._objective(losses.mean(), aux).backward()
     assert sorted(graphs.targets(graphs.fw)) == sorted(fw_ops)
     assert sorted(graphs.targets(graphs.bw)) == sorted(bw_ops)
+    if path == "remat":  # each block's kernels marked for recompute, whatever the partitioner
+        from torch.utils.checkpoint import CheckpointPolicy
+
+        policies = [n.meta.get("recompute") for gm in graphs.fw for n in gm.graph.nodes
+                    if str(n.target).startswith("tpuframe.")]
+        assert policies == [CheckpointPolicy.MUST_RECOMPUTE] * 6 + [None], policies
+    assert all(getattr(m, "aux_loss", None) is None for m in model.modules())
     # the same forward and gradients as the eager region, bit for bit
     grads = {n: p.grad.clone() for n, p in model.named_parameters()}
     model.zero_grad(set_to_none=True)
-    ref_losses, ref_logits, _ = region(model, batch)
-    ref_losses.mean().backward()
+    ref_losses, ref_logits, ref_aux = region(model, batch)
+    train_step._objective(ref_losses.mean(), ref_aux).backward()
     assert torch.equal(losses, ref_losses) and torch.equal(logits, ref_logits)
+    assert aux is None or torch.equal(aux, ref_aux)
     assert all(torch.equal(grads[n], p.grad) for n, p in model.named_parameters())
 
 

@@ -35,7 +35,11 @@ graph's device copy of it.  What precompile does not cover yet raises
 :class:`PrecompileSkipped` with the reason (the Trainer reports the step
 ``skipped`` and runs it eagerly): more than one rank, ZeRO, offload, the
 compressed wire, a ``seq``, ``expert``, ``model`` or ``pipe`` axis above 1,
-dropout, MoE, and an EMA's eval.
+dropout, and an EMA's eval.  Every kernel on one card's paths is a
+``tpuframe::`` op (K1-K4, the blockwise attention K6a-K6c and the MoE
+dispatch and combine K9a-K9c), so the long-context LM (with ``remat`` too)
+and the MoE LM on one process trace whole, the MoE routing and aux loss
+inside the region; the compressed wire's K5 is not an op yet.
 """
 
 from __future__ import annotations
@@ -354,23 +358,36 @@ def _is_compiled(fn) -> bool:
     return hasattr(fn, "_torchdynamo_orig_callable") or type(fn).__name__ == "OptimizedModule"
 
 
-def _launch_counters() -> dict[str, Any]:
-    """The kernel wrappers whose launches a warm-up reports, by name."""
+def launch_counters() -> dict[str, Any]:
+    """Every kernel wrapper whose launches a warm-up reports, by name."""
+    from tpuframe_torch.ops.blockwise_attention import (
+        blockwise_attention_bwd_dkv,
+        blockwise_attention_bwd_dq,
+        blockwise_attention_fwd,
+    )
     from tpuframe_torch.ops.cross_entropy import cross_entropy_bwd, cross_entropy_fwd
     from tpuframe_torch.ops.fused_adamw import fused_adamw_multi_update_
     from tpuframe_torch.ops.layer_norm import layer_norm_bwd, layer_norm_fwd
+    from tpuframe_torch.ops.moe_gating import moe_combine, moe_combine_backward, moe_dispatch
     from tpuframe_torch.ops.normalize import normalize_images
+    from tpuframe_torch.ops.quant_wire import bucket_abs_max, quant_decode, quant_encode
 
     return {"normalize": normalize_images, "cross_entropy_fwd": cross_entropy_fwd,
             "cross_entropy_bwd": cross_entropy_bwd, "layer_norm_fwd": layer_norm_fwd,
-            "layer_norm_bwd": layer_norm_bwd, "fused_adamw": fused_adamw_multi_update_}
+            "layer_norm_bwd": layer_norm_bwd, "fused_adamw": fused_adamw_multi_update_,
+            "bucket_abs_max": bucket_abs_max, "quant_encode": quant_encode,
+            "quant_decode": quant_decode, "blockwise_attention_fwd": blockwise_attention_fwd,
+            "blockwise_attention_bwd_dq": blockwise_attention_bwd_dq,
+            "blockwise_attention_bwd_dkv": blockwise_attention_bwd_dkv,
+            "moe_dispatch": moe_dispatch, "moe_combine": moe_combine,
+            "moe_combine_backward": moe_combine_backward}
 
 
 def _warmup(run: Callable, on_cuda: bool) -> dict[str, int]:
     """Run ``run`` eagerly (once on the CPU, :data:`_WARMUP` times on a
     side stream on the card, as a capture wants); the kernel launches it
     made, by wrapper name."""
-    counters = _launch_counters()
+    counters = launch_counters()
     before = {k: w.launches for k, w in counters.items()}
     if on_cuda:
         side = torch.cuda.Stream()
@@ -422,8 +439,6 @@ def _unsupported(fn: Callable, state, train: bool = True) -> str | None:
     model = state.model
     if train and hasattr(model, "dropout_generator") and getattr(model, "dropout", 0.0) > 0.0:
         return "dropout (its generator is not registered for graph capture)"
-    if any(hasattr(m, "aux_loss") for m in model.modules()):
-        return "MoE (the K9 kernels are not registered custom ops)"
     return None
 
 

@@ -87,8 +87,10 @@ def token_group(mesh=None):
     """``(axis, seq)``: this rank's token group (``data`` x ``fsdp`` x ``seq``
     of the runtime's mesh, or ``mesh``) as a ``parallel.tensor.Axis`` and the
     ``seq`` axis's size; ``(None, 1)`` without a runtime or where the group
-    is this rank alone."""
-    from tpuframe_torch.core.runtime import current_runtime
+    is this rank alone.  That case is read from the mesh's axis sizes alone,
+    host ints that a TorchDynamo trace guards on (the rank's coordinates
+    would break the graph)."""
+    from tpuframe_torch.core.runtime import PLANES, current_runtime
     from tpuframe_torch.parallel.tensor import plane
 
     if mesh is None:
@@ -96,10 +98,12 @@ def token_group(mesh=None):
             mesh = current_runtime(auto_init=False).mesh
         except RuntimeError:
             return None, 1
-    ax = plane("tok", mesh)
-    if ax.size <= 1:
+    size = 1
+    for name in PLANES["tok"]:
+        size *= int(mesh.shape.get(name, 1))
+    if size <= 1:
         return None, 1
-    return ax, int(mesh.shape.get(SEQUENCE_AXIS, 1))
+    return plane("tok", mesh), int(mesh.shape.get(SEQUENCE_AXIS, 1))
 
 
 def _global_routing(gate_idx: torch.Tensor, e: int, capacity: int, ax, seq: int):

@@ -64,13 +64,18 @@ one and bias zero.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from tpuframe_torch.core.runtime import MODEL_AXIS, SEQUENCE_AXIS, current_runtime, resolve_device
 from tpuframe_torch.models.moe import MoEMLP
@@ -267,6 +272,19 @@ class Block(nn.Module):
         return x + self.mlp_dropout(y, generator)
 
 
+def _recompute(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """The selective checkpoint's policy of :func:`remat_call` when traced:
+    every operator recomputed, as ``nn.remat`` does."""
+    return CheckpointPolicy.MUST_RECOMPUTE
+
+
+def _set_modes(modes) -> None:
+    """Each ``(module, training)`` flag, set only where it differs."""
+    for m, flag in modes:
+        if m.training != flag:
+            m.training = flag
+
+
 def remat_call(block: nn.Module, x: torch.Tensor,
                generator: torch.Generator | None) -> torch.Tensor:
     """``block(x, generator)`` whose activations are recomputed in the
@@ -278,7 +296,14 @@ def remat_call(block: nn.Module, x: torch.Tensor,
     eval mode of the forward (the step restores the modes before the
     backward), and draws its masks from a generator started at the state
     ``generator`` had before the block, so it saves the same tensors as the
-    forward did.  ``generator`` ends where the forward left it."""
+    forward did.  ``generator`` ends where the forward left it.
+
+    Traced by TorchDynamo (a compiled step), the checkpoint is its
+    activation-checkpoint operator, whose recompute is the traced forward
+    itself: ``run`` then calls the block as it stands (the parameters the
+    trace reads are the forward's) and sets no module flag, as none
+    differs from the forward's (Dynamo refuses a module mutated inside
+    the checkpoint)."""
     names, tensors = zip(*block.named_parameters())
     modes = [(m, m.training) for m in block.modules()]
     start = None if generator is None else generator.get_state()
@@ -291,16 +316,21 @@ def remat_call(block: nn.Module, x: torch.Tensor,
             g.set_state(start)
             drawn.append(g)
         now = [(m, m.training) for m, _ in modes]
-        for m, flag in modes:
-            m.training = flag
+        _set_modes(modes)
         try:
+            if torch.compiler.is_compiling():
+                return block(x, g)
             return functional_call(block, dict(zip(names, params)), (x, g))
         finally:
-            for m, flag in now:
-                m.training = flag
+            _set_modes(now)
 
-    # the masks come from the block's own generator: no global RNG to keep
-    out = checkpoint(run, x, *tensors, use_reentrant=False, preserve_rng_state=False)
+    # the masks come from the block's own generator: no global RNG to keep.
+    # Traced, every operator of the block is marked for recompute: a plain
+    # checkpoint only prefers it, and the partitioner of a compiler may keep
+    # what it bans from recompute (products, custom ops) instead
+    kw = ({"context_fn": functools.partial(create_selective_checkpoint_contexts, _recompute)}
+          if torch.compiler.is_compiling() else {})
+    out = checkpoint(run, x, *tensors, use_reentrant=False, preserve_rng_state=False, **kw)
     if generator is not None:
         generator.set_state(drawn[0].get_state())
     return out

@@ -21,6 +21,15 @@ tile functions of ``ops/ring_attention.py``: L padded up to a multiple of
 the block, padded keys masked with ``kv_len``, padded query rows sliced
 off, the causal tile skip, the softmax state in float32.
 
+The three passes are also the custom ops ``tpuframe::blockwise_attention_
+fwd`` (``(out, lse)``), ``tpuframe::blockwise_attention_bwd_dq`` (``(dq,
+delta)``) and ``tpuframe::blockwise_attention_bwd_dkv`` (``(dk, dv)``),
+their schemas carrying ``causal``, ``block_size`` and ``out_dtype``: the
+kernel on CUDA, the plain pass on the CPU, every output a fresh contiguous
+tensor.  While TorchDynamo traces, the wrappers call the ops (one opaque
+node each, ``ops.dispatch.launch_site``); eagerly they call the
+implementations directly.
+
 ``block_size`` (default 512, JAX's default block; the port does not read
 ``TPUFRAME_KERNEL_ATTN_BLOCK``) shapes only the plain schedule.  The
 kernels take tiles of their own (64 x 64), which changes where the sums
@@ -53,7 +62,7 @@ import torch
 import torch.nn.functional as F
 
 from tpuframe_torch.ops import build
-from tpuframe_torch.ops.dispatch import use_kernel
+from tpuframe_torch.ops.dispatch import count_launch, custom_op, launch_site
 from tpuframe_torch.ops.ring_attention import _block_update, _causal_skip, _mm, _tile_grads
 
 __all__ = [
@@ -258,6 +267,12 @@ def _kernel_args(q, *others) -> tuple:
     return tuple(_aligned(t) for t in (q, *others)), (b, l, h, d)
 
 
+def _same_dtype(q, k, v) -> None:
+    if not q.dtype == k.dtype == v.dtype:
+        raise TypeError(
+            f"q/k/v dtypes must match for the kernel, got {q.dtype}/{k.dtype}/{v.dtype}")
+
+
 def _out_dtype(q: torch.Tensor, out_dtype: torch.dtype | None) -> torch.dtype:
     """What the kernels store: q's dtype, or float32."""
     if out_dtype is None or out_dtype == q.dtype:
@@ -278,42 +293,111 @@ def _launch(fn, name: str, ptrs, dims, causal: bool, dtype, device,
         raise RuntimeError(f"blockwise attention {name} kernel launch failed: CUDA error {rc}")
 
 
+def _fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+              block_size: int | None, out_dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6a's launch site."""
+    _same_dtype(q, k, v)
+    (q, k, v), dims = _kernel_args(q, k, v)
+    b, l, h, _ = dims
+    out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
+    lse = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
+    _launch(_library().tf_blockwise_attention_fwd, "forward", (q, k, v, out, lse), dims, causal,
+            q.dtype, q.device, out_dtype)
+    count_launch(blockwise_attention_fwd)
+    return out, lse
+
+
+def _fwd_cpu(q, k, v, causal, block_size, out_dtype):
+    out, lse = blockwise_attention_reference(q, k, v, causal=causal, block_size=block_size,
+                                             out_dtype=out_dtype)
+    return out.contiguous(), lse.contiguous()
+
+
+def _fwd_fake(q, k, v, causal, block_size, out_dtype):
+    b, l, h, _ = q.shape
+    return q.new_empty(q.shape, dtype=out_dtype), q.new_empty((b, h, l), dtype=torch.float32)
+
+
+def _dq_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+             lse: torch.Tensor, g: torch.Tensor, causal: bool, block_size: int | None,
+             out_dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6b's launch site."""
+    _same_dtype(q, k, v)
+    g = g.to(q.dtype)  # dO; autograd hands g in out's dtype, which is q's
+    (q, k, v, out, lse, g), dims = _kernel_args(q, k, v, out.to(q.dtype), lse.float(), g)
+    b, l, h, _ = dims
+    dq = torch.empty(q.shape, dtype=out_dtype, device=q.device)
+    delta = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
+    _launch(_library().tf_blockwise_attention_bwd_dq, "backward dq",
+            (q, k, v, out, g, lse, dq, delta), dims, causal, q.dtype, q.device, out_dtype)
+    count_launch(blockwise_attention_bwd_dq)
+    return dq, delta
+
+
+def _dq_cpu(q, k, v, out, lse, g, causal, block_size, out_dtype):
+    delta = _delta(out, g).contiguous()
+    dq = _bwd_dq_reference(q, k, v, lse.float(), delta, g, causal, block_size, out_dtype)
+    return dq.contiguous(), delta
+
+
+def _dq_fake(q, k, v, out, lse, g, causal, block_size, out_dtype):
+    return q.new_empty(q.shape, dtype=out_dtype), lse.new_empty(lse.shape, dtype=torch.float32)
+
+
+def _dkv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lse: torch.Tensor,
+              delta: torch.Tensor, g: torch.Tensor, causal: bool, block_size: int | None,
+              out_dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6c's launch site."""
+    _same_dtype(q, k, v)
+    g = g.to(q.dtype)
+    (q, k, v, g, lse, delta), dims = _kernel_args(q, k, v, g, lse.float(), delta.float())
+    dk = torch.empty(k.shape, dtype=out_dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=out_dtype, device=q.device)
+    _launch(_library().tf_blockwise_attention_bwd_dkv, "backward dk/dv",
+            (q, k, v, g, lse, delta, dk, dv), dims, causal, q.dtype, q.device, out_dtype)
+    count_launch(blockwise_attention_bwd_dkv)
+    return dk, dv
+
+
+def _dkv_cpu(q, k, v, lse, delta, g, causal, block_size, out_dtype):
+    dk, dv = _bwd_dkv_reference(q, k, v, lse.float(), delta.float(), g, causal, block_size,
+                                None if out_dtype == q.dtype else out_dtype)
+    return dk.contiguous(), dv.contiguous()
+
+
+def _dkv_fake(q, k, v, lse, delta, g, causal, block_size, out_dtype):
+    same = out_dtype == q.dtype  # the plain pass keeps k's and v's dtypes
+    return (k.new_empty(k.shape, dtype=k.dtype if same else out_dtype),
+            v.new_empty(v.shape, dtype=v.dtype if same else out_dtype))
+
+
+custom_op("blockwise_attention_fwd", _fwd_cuda, _fwd_cpu, _fwd_fake)
+custom_op("blockwise_attention_bwd_dq", _dq_cuda, _dq_cpu, _dq_fake)
+custom_op("blockwise_attention_bwd_dkv", _dkv_cuda, _dkv_cpu, _dkv_fake)
+
+
 def blockwise_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                             causal: bool = False, block_size: int | None = None,
                             out_dtype: torch.dtype | None = None):
     """``(out, lse)`` of attention over (B, L, H, D): out in ``out_dtype``
     (q's, or float32), lse (B, H, L) float32.  A CUDA tensor launches K6a
     (``block_size`` is not read); a CPU tensor takes
-    :func:`blockwise_attention_reference`.
+    :func:`blockwise_attention_reference`; while Dynamo traces, the op
+    ``tpuframe::blockwise_attention_fwd``.
     ``blockwise_attention_fwd.launches`` counts kernel launches."""
-    out_dtype = _out_dtype(q, out_dtype)
-    if not use_kernel(q):
-        return blockwise_attention_reference(q, k, v, causal=causal, block_size=block_size,
-                                             out_dtype=out_dtype)
     _shape(q, k, v)
-    if not q.dtype == k.dtype == v.dtype:
-        raise TypeError(f"q/k/v dtypes must match for the kernel, got {q.dtype}/{k.dtype}/{v.dtype}")
-    (q, k, v), dims = _kernel_args(q, k, v)
-    b, l, h, _ = dims
-    out = torch.empty_like(q, dtype=out_dtype)
-    lse = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
-    _launch(_library().tf_blockwise_attention_fwd, "forward", (q, k, v, out, lse), dims, causal,
-            q.dtype, q.device, out_dtype)
-    blockwise_attention_fwd.launches += 1
-    return out, lse
+    run = launch_site(torch.ops.tpuframe.blockwise_attention_fwd, _fwd_cuda, _fwd_cpu, q)
+    return tuple(run(q, k, v, bool(causal), block_size, _out_dtype(q, out_dtype)))
 
 
-def _bwd_check(q, k, v, lse, *rest) -> torch.Tensor:
-    """The backward's checks; returns ``lse`` as float32."""
+def _bwd_check(q, k, v, lse, *rest) -> None:
+    """The backward's shape checks."""
     b, l, h, _ = _shape(q, k, v)
-    if not q.dtype == k.dtype == v.dtype:
-        raise TypeError(f"q/k/v dtypes must match for the kernel, got {q.dtype}/{k.dtype}/{v.dtype}")
     if tuple(lse.shape) != (b, h, l):
         raise ValueError(f"lse must be (B, H, L) = {(b, h, l)}, got {tuple(lse.shape)}")
     for t in rest:
         if t.shape != q.shape:
             raise ValueError(f"out and g must be shaped like q {tuple(q.shape)}, got {tuple(t.shape)}")
-    return lse.float()
 
 
 def blockwise_attention_bwd_dq(q, k, v, out, lse, g, *, causal: bool = False,
@@ -322,22 +406,12 @@ def blockwise_attention_bwd_dq(q, k, v, out, lse, g, *, causal: bool = False,
     """Pass 1 of the backward: ``(dq, delta)``, dq in ``out_dtype`` (q's, or
     float32) and delta = rowsum(dO * O) (B, H, L) float32 from ``g`` in
     float32 (dO is ``g`` in q's dtype).  A CUDA tensor launches K6b; a CPU
-    tensor takes the plain pass.  ``blockwise_attention_bwd_dq.launches``
-    counts kernel launches."""
-    lse = _bwd_check(q, k, v, lse, out, g)
-    out_dtype = _out_dtype(q, out_dtype)
-    if not use_kernel(q):
-        delta = _delta(out, g)
-        return _bwd_dq_reference(q, k, v, lse, delta, g, causal, block_size, out_dtype), delta
-    g = g.to(q.dtype)  # dO; autograd hands g in out's dtype, which is q's
-    (q, k, v, out, lse, g), dims = _kernel_args(q, k, v, out.to(q.dtype), lse, g)
-    b, l, h, _ = dims
-    dq = torch.empty_like(q, dtype=out_dtype)
-    delta = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
-    _launch(_library().tf_blockwise_attention_bwd_dq, "backward dq",
-            (q, k, v, out, g, lse, dq, delta), dims, causal, q.dtype, q.device, out_dtype)
-    blockwise_attention_bwd_dq.launches += 1
-    return dq, delta
+    tensor takes the plain pass; while Dynamo traces, the op
+    ``tpuframe::blockwise_attention_bwd_dq``.
+    ``blockwise_attention_bwd_dq.launches`` counts kernel launches."""
+    _bwd_check(q, k, v, lse, out, g)
+    run = launch_site(torch.ops.tpuframe.blockwise_attention_bwd_dq, _dq_cuda, _dq_cpu, q)
+    return tuple(run(q, k, v, out, lse, g, bool(causal), block_size, _out_dtype(q, out_dtype)))
 
 
 def blockwise_attention_bwd_dkv(q, k, v, lse, delta, g, *, causal: bool = False,
@@ -345,22 +419,14 @@ def blockwise_attention_bwd_dkv(q, k, v, lse, delta, g, *, causal: bool = False,
                                 out_dtype: torch.dtype | None = None):
     """Pass 2 of the backward: ``(dk, dv)`` in k's and v's dtypes (or both
     float32, ``out_dtype``), from the saved ``lse`` and pass 1's ``delta``.
-    A CUDA tensor launches K6c; a CPU tensor takes the plain pass.
+    A CUDA tensor launches K6c; a CPU tensor takes the plain pass; while
+    Dynamo traces, the op ``tpuframe::blockwise_attention_bwd_dkv``.
     ``blockwise_attention_bwd_dkv.launches`` counts kernel launches."""
-    lse = _bwd_check(q, k, v, lse, g)
-    out_dtype = _out_dtype(q, out_dtype)
+    _bwd_check(q, k, v, lse, g)
     if tuple(delta.shape) != tuple(lse.shape):
         raise ValueError(f"delta must be shaped like lse {tuple(lse.shape)}, got {tuple(delta.shape)}")
-    if not use_kernel(q):
-        return _bwd_dkv_reference(q, k, v, lse, delta.float(), g, causal, block_size,
-                                  None if out_dtype == q.dtype else out_dtype)
-    g = g.to(q.dtype)
-    (q, k, v, g, lse, delta), dims = _kernel_args(q, k, v, g, lse, delta.float())
-    dk, dv = torch.empty_like(k, dtype=out_dtype), torch.empty_like(v, dtype=out_dtype)
-    _launch(_library().tf_blockwise_attention_bwd_dkv, "backward dk/dv",
-            (q, k, v, g, lse, delta, dk, dv), dims, causal, q.dtype, q.device, out_dtype)
-    blockwise_attention_bwd_dkv.launches += 1
-    return dk, dv
+    run = launch_site(torch.ops.tpuframe.blockwise_attention_bwd_dkv, _dkv_cuda, _dkv_cpu, q)
+    return tuple(run(q, k, v, lse, delta, g, bool(causal), block_size, _out_dtype(q, out_dtype)))
 
 
 blockwise_attention_fwd.launches = 0

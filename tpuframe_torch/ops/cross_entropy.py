@@ -29,7 +29,7 @@ import functools
 import torch
 
 from tpuframe_torch.ops import build
-from tpuframe_torch.ops.dispatch import count_launch, launch_site
+from tpuframe_torch.ops.dispatch import count_launch, custom_op, launch_site
 
 __all__ = [
     "cross_entropy_bwd",
@@ -221,14 +221,8 @@ def _bwd_fake(logits, labels, g, stats):
     return logits.new_empty(logits.shape)
 
 
-_fwd_op = torch.library.custom_op("tpuframe::cross_entropy_fwd", _fwd_cuda, mutates_args=(),
-                                  device_types="cuda")
-_fwd_op.register_kernel("cpu")(_fwd_cpu)
-_fwd_op.register_fake(_fwd_fake)
-_bwd_op = torch.library.custom_op("tpuframe::cross_entropy_bwd", _bwd_cuda, mutates_args=(),
-                                  device_types="cuda")
-_bwd_op.register_kernel("cpu")(_bwd_cpu)
-_bwd_op.register_fake(_bwd_fake)
+custom_op("cross_entropy_fwd", _fwd_cuda, _fwd_cpu, _fwd_fake)
+custom_op("cross_entropy_bwd", _bwd_cuda, _bwd_cpu, _bwd_fake)
 
 
 class _FusedCrossEntropy(torch.autograd.Function):

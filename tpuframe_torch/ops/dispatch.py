@@ -26,7 +26,7 @@ from typing import Iterator
 
 import torch
 
-__all__ = ["add_tally", "capture_tally", "count_launch", "launch_site", "use_kernel"]
+__all__ = ["add_tally", "capture_tally", "count_launch", "custom_op", "launch_site", "use_kernel"]
 
 #: the open tallies, by the capturing stream's handle
 _TALLIES: dict[int, dict] = {}
@@ -59,6 +59,18 @@ def launch_site(op, cuda_impl, cpu_impl, x: torch.Tensor):
     if torch.compiler.is_compiling():
         return op
     return cuda_impl if use_kernel(x) else cpu_impl
+
+
+def custom_op(name: str, cuda_impl, cpu_impl, fake):
+    """Register ``tpuframe::name``: ``cuda_impl`` (the kernel's launch site)
+    on CUDA, ``cpu_impl`` (its plain version) on the CPU, ``fake`` for
+    tracing; no composite kernel, no autograd formula (each kernel's
+    ``autograd.Function`` calls its ops)."""
+    op = torch.library.custom_op(f"tpuframe::{name}", cuda_impl, mutates_args=(),
+                                 device_types="cuda")
+    op.register_kernel("cpu")(cpu_impl)
+    op.register_fake(fake)
+    return op
 
 
 def count_launch(wrapper) -> None:

@@ -30,7 +30,7 @@ import torch
 from torch import nn
 
 from tpuframe_torch.ops import build
-from tpuframe_torch.ops.dispatch import count_launch, launch_site
+from tpuframe_torch.ops.dispatch import count_launch, custom_op, launch_site
 
 __all__ = [
     "FusedLayerNorm",
@@ -207,14 +207,8 @@ def _bwd_fake(x, scale, g, eps):
     return x.new_empty(x.shape), scale.new_empty(scale.shape), scale.new_empty(scale.shape)
 
 
-_fwd_op = torch.library.custom_op("tpuframe::layer_norm_fwd", _fwd_cuda, mutates_args=(),
-                                  device_types="cuda")
-_fwd_op.register_kernel("cpu")(_fwd_cpu)
-_fwd_op.register_fake(_fwd_fake)
-_bwd_op = torch.library.custom_op("tpuframe::layer_norm_bwd", _bwd_cuda, mutates_args=(),
-                                  device_types="cuda")
-_bwd_op.register_kernel("cpu")(_bwd_cpu)
-_bwd_op.register_fake(_bwd_fake)
+custom_op("layer_norm_fwd", _fwd_cuda, _fwd_cpu, _fwd_fake)
+custom_op("layer_norm_bwd", _bwd_cuda, _bwd_cpu, _bwd_fake)
 
 
 class _FusedLayerNorm(torch.autograd.Function):

@@ -29,6 +29,16 @@ copies by hand:
   buf[e_f, slot_f]⟩``, a float32 dot a slot (zero where it is not held
   here), from one read of each held ``g`` row.
 
+**The ops.**  ``tpuframe::moe_dispatch`` (K9a into a buffer it allocates:
+the kernel writes all of it), ``tpuframe::moe_combine`` (K9b) and
+``tpuframe::moe_combine_backward`` (K9c, ``(dbuf, dgate)`` from one launch)
+are custom ops, the kernel on CUDA and the plain version on the CPU, whose
+``nonzero`` stays inside the op, opaque to TorchDynamo.  ``_Dispatch`` and
+``_Combine`` call them through ``ops.dispatch.launch_site``: the op while
+Dynamo traces, its implementation directly when eager.
+:func:`moe_dispatch` and :func:`moe_combine_backward` themselves write into
+the buffers they are handed.
+
 They take float32 or bfloat16 rows and float32 weights, and compute in
 float32.  The plain versions do the same steps: the rows past each
 expert's count zeroed and an ``index_put_`` at the (distinct)
@@ -64,7 +74,7 @@ import torch
 import torch.nn.functional as F
 
 from tpuframe_torch.ops import build
-from tpuframe_torch.ops.dispatch import use_kernel
+from tpuframe_torch.ops.dispatch import count_launch, custom_op, launch_site, use_kernel
 
 __all__ = ["moe_dispatch_combine", "moe_dispatch_combine_reference"]
 
@@ -221,8 +231,32 @@ def moe_dispatch(src: torch.Tensor, buf: torch.Tensor, e_loc: torch.Tensor,
     args = (src, buf, e_loc.int().contiguous(), slot.int().contiguous(), count.int().contiguous())
     _launch(_library().tf_moe_dispatch, "dispatch", args, (n, k, d, buf.shape[1], buf.shape[0]),
             src.dtype, src.device)
-    moe_dispatch.launches += 1
+    count_launch(moe_dispatch)
     return buf
+
+
+def _combine_cuda(buf: torch.Tensor, w: torch.Tensor, e_loc: torch.Tensor, slot: torch.Tensor,
+                  n: int) -> torch.Tensor:
+    """K9b's launch site."""
+    _check_rows(buf)
+    d = buf.shape[-1]
+    k = e_loc.numel() // n
+    out = torch.empty((n, d), dtype=buf.dtype, device=buf.device)
+    args = (buf.contiguous(), w.float().contiguous(), e_loc.int().contiguous(),
+            slot.int().contiguous(), out)
+    _launch(_library().tf_moe_combine, "combine", args, (n, k, d, buf.shape[1]), buf.dtype,
+            buf.device)
+    count_launch(moe_combine)
+    return out
+
+
+def _combine_cpu(buf, w, e_loc, slot, n):
+    _check_rows(buf)
+    return moe_combine_reference(buf, w, e_loc, slot, n)
+
+
+def _combine_fake(buf, w, e_loc, slot, n):
+    return buf.new_empty((n, buf.shape[-1]))
 
 
 def moe_combine(buf: torch.Tensor, w: torch.Tensor, e_loc: torch.Tensor, slot: torch.Tensor,
@@ -231,18 +265,8 @@ def moe_combine(buf: torch.Tensor, w: torch.Tensor, e_loc: torch.Tensor, slot: t
     slots of token t with ``e_loc >= 0``, j in order, in float32, rounded
     once to ``buf``'s dtype; (n, D).  ``moe_combine.launches`` counts kernel
     launches."""
-    _check_rows(buf)
-    d = buf.shape[-1]
-    k = e_loc.numel() // n
-    if not use_kernel(buf):
-        return moe_combine_reference(buf, w, e_loc, slot, n)
-    out = torch.empty((n, d), dtype=buf.dtype, device=buf.device)
-    args = (buf.contiguous(), w.float().contiguous(), e_loc.int().contiguous(),
-            slot.int().contiguous(), out)
-    _launch(_library().tf_moe_combine, "combine", args, (n, k, d, buf.shape[1]), buf.dtype,
-            buf.device)
-    moe_combine.launches += 1
-    return out
+    run = launch_site(torch.ops.tpuframe.moe_combine, _combine_cuda, _combine_cpu, buf)
+    return run(buf, w, e_loc, slot, n)
 
 
 def moe_combine_backward(g: torch.Tensor, buf: torch.Tensor, w: torch.Tensor,
@@ -277,13 +301,45 @@ def moe_combine_backward(g: torch.Tensor, buf: torch.Tensor, w: torch.Tensor,
             slot.int().contiguous(), count.int().contiguous(), dbuf, dgate)
     _launch(_library().tf_moe_combine_backward, "combine backward", args,
             (n, k, d, buf.shape[1], buf.shape[0]), g.dtype, g.device)
-    moe_combine_backward.launches += 1
+    count_launch(moe_combine_backward)
     return dbuf, dgate
 
 
 moe_dispatch.launches = 0
 moe_combine.launches = 0
 moe_combine_backward.launches = 0
+
+
+def _dispatch_new(src: torch.Tensor, e_loc: torch.Tensor, slot: torch.Tensor,
+                  count: torch.Tensor, e_local: int, capacity: int) -> torch.Tensor:
+    """``tpuframe::moe_dispatch``: K9a (or its plain version) into a new
+    (e_local, capacity, D) buffer, which it writes whole."""
+    buf = torch.empty((e_local, capacity, src.shape[1]), dtype=src.dtype, device=src.device)
+    return moe_dispatch(src, buf, e_loc, slot, count=count)
+
+
+def _dispatch_fake(src, e_loc, slot, count, e_local, capacity):
+    return src.new_empty((e_local, capacity, src.shape[1]))
+
+
+def _combine_backward_new(g: torch.Tensor, buf: torch.Tensor, w: torch.Tensor,
+                          e_loc: torch.Tensor, slot: torch.Tensor, count: torch.Tensor
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``tpuframe::moe_combine_backward``: K9c (or its plain versions) into
+    a new ``dbuf`` and ``dgate``, which it writes whole."""
+    return moe_combine_backward(
+        g, buf, w, e_loc, slot, count, torch.empty(buf.shape, dtype=buf.dtype, device=buf.device),
+        torch.empty(e_loc.numel(), dtype=torch.float32, device=buf.device))
+
+
+def _combine_backward_fake(g, buf, w, e_loc, slot, count):
+    return buf.new_empty(buf.shape), buf.new_empty((e_loc.numel(),), dtype=torch.float32)
+
+
+custom_op("moe_dispatch", _dispatch_new, _dispatch_new, _dispatch_fake)
+custom_op("moe_combine", _combine_cuda, _combine_cpu, _combine_fake)
+custom_op("moe_combine_backward", _combine_backward_new, _combine_backward_new,
+          _combine_backward_fake)
 
 
 class _Dispatch(torch.autograd.Function):
@@ -293,8 +349,8 @@ class _Dispatch(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, src, e_loc, slot, count, e_local, capacity):
-        buf = torch.empty((e_local, capacity, src.shape[1]), dtype=src.dtype, device=src.device)
-        moe_dispatch(src, buf, e_loc, slot, count=count)
+        run = launch_site(torch.ops.tpuframe.moe_dispatch, _dispatch_new, _dispatch_new, src)
+        buf = run(src, e_loc, slot, count, e_local, capacity)
         ctx.save_for_backward(e_loc, slot)
         ctx.n = src.shape[0]
         return buf
@@ -319,10 +375,9 @@ class _Combine(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         buf, w, e_loc, slot, count = ctx.saved_tensors
-        dbuf, dw = moe_combine_backward(
-            g.to(buf.dtype).contiguous(), buf, w, e_loc, slot, count,
-            torch.empty(buf.shape, dtype=buf.dtype, device=buf.device),
-            torch.empty(e_loc.numel(), dtype=torch.float32, device=buf.device))
+        run = launch_site(torch.ops.tpuframe.moe_combine_backward, _combine_backward_new,
+                          _combine_backward_new, g)
+        dbuf, dw = run(g.to(buf.dtype).contiguous(), buf, w, e_loc, slot, count)
         return dbuf, dw, None, None, None, None
 
 

@@ -24,7 +24,7 @@ from typing import Sequence
 import torch
 
 from tpuframe_torch.ops import build
-from tpuframe_torch.ops.dispatch import count_launch, launch_site
+from tpuframe_torch.ops.dispatch import count_launch, custom_op, launch_site
 
 __all__ = ["MAX_CHANNELS", "normalize_images", "normalize_images_reference"]
 
@@ -131,11 +131,8 @@ def _normalize_cpu(images, mean, std, scale, out_dtype):
     return normalize_images_reference(images, mean, std, scale, out_dtype)
 
 
-_op = torch.library.custom_op("tpuframe::normalize", _normalize_cuda, mutates_args=(),
-                              device_types="cuda")
-_op.register_kernel("cpu")(_normalize_cpu)
-
-
-@_op.register_fake
 def _normalize_fake(images, mean, std, scale, out_dtype):
     return images.new_empty(images.shape, dtype=out_dtype)
+
+
+custom_op("normalize", _normalize_cuda, _normalize_cpu, _normalize_fake)

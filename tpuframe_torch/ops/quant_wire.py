@@ -26,7 +26,7 @@ import functools
 import torch
 
 from tpuframe_torch.ops import build
-from tpuframe_torch.ops.dispatch import use_kernel
+from tpuframe_torch.ops.dispatch import count_launch, use_kernel
 
 __all__ = [
     "bucket_abs_max",
@@ -142,7 +142,7 @@ def bucket_abs_max(v: torch.Tensor) -> torch.Tensor:
         rc = _library().tf_bucket_abs_max(v.data_ptr(), out.data_ptr(), v.shape[0], v.shape[1],
                                           torch.cuda.current_stream(v.device).cuda_stream)
     _launched(rc, "bucket_abs_max")
-    bucket_abs_max.launches += 1
+    count_launch(bucket_abs_max)
     return out
 
 
@@ -175,7 +175,7 @@ def quant_encode(v: torch.Tensor, amax: torch.Tensor, mode: str,
             q.data_ptr(), v.shape[0], v.shape[1], code,
             torch.cuda.current_stream(v.device).cuda_stream)
     _launched(rc, "quant_encode")
-    quant_encode.launches += 1
+    count_launch(quant_encode)
     return q, _denom(amax) / _const(amax, _FP8_MAX if mode == "fp8" else _QMAX)
 
 
@@ -201,7 +201,7 @@ def quant_decode(total: torch.Tensor, amax: torch.Tensor, mode: str, world: int)
             total.data_ptr(), amax.data_ptr(), out.data_ptr(), total.shape[0], total.shape[1],
             int(mode == "fp8"), int(world), torch.cuda.current_stream(total.device).cuda_stream)
     _launched(rc, "quant_decode")
-    quant_decode.launches += 1
+    count_launch(quant_decode)
     return out
 
 
