@@ -90,7 +90,13 @@ Phases, each of which fails the script (nonzero exit, no result line):
    batch (images per second, median of 30 steps, and a ``torch.profiler``
    table of one step), ten steps on one batch that must lower the loss,
    kernel against plain cross entropy in f32 train steps, and an f32 train
-   step on the card against the CPU.
+   step on the card against the CPU.  The track plane: (d) the fit runs
+   the straggler monitor's self-baseline (``straggler_sync_steps=2``,
+   ``straggler_factor=1.5``) with every step from ``STRAGGLER_AFTER`` on
+   ``STRAGGLER_SLEEP_S`` late, and must emit ``train/straggler``; (e) a
+   fresh ResNet50 Trainer under an allocator limit ``OOM_HEADROOM_MB``
+   above its state raises a real ``torch.OutOfMemoryError`` in its first
+   step, narrated by exactly one ``memory/oom`` event.
 6. LM train: ``Trainer(TransformerLM(...), tx=fused_adamw(3e-4,
    weight_decay=1e-4), precision="bf16").fit()`` on the GPT-2-small LM of
    ``benchmarks/bench_lm.py`` (12 layers, 12 heads x 64, vocab 32768, seq
@@ -104,6 +110,13 @@ Phases, each of which fails the script (nonzero exit, no result line):
    of the float32 logits and loss at the step's shapes), ten steps on one
    batch that must lower the loss, kernel against plain LayerNorm and AdamW
    in f32 steps, and a small f32 LM step on the card against the CPU.
+   (a): the fit is armed by ``TPUFRAME_PROFILE_STEPS`` (steps 3 to 6
+   captured by the Trainer's env-armed ``ProfilerCallback``); the
+   capture's ``device_time`` report (compute, transfer, idle seconds, the
+   top 8 ops) is printed, and each of K3a, K3b and K4 must appear in it as
+   often as its wrapper launched in the window.  Neither phase 5 nor 6
+   reports its fit's throughput: 5(d)'s sleeps and 6(a)'s profiler run
+   inside the fit.
 7. Checkpoint and resume: phase 6's LM fit with
    ``checkpoint_interval_batches=2`` stopped by a crash after step 4, a new
    Trainer over the same directory that auto-resumes and runs to step 6
@@ -120,8 +133,11 @@ Phases, each of which fails the script (nonzero exit, no result line):
    ln 1000, a non-zero error-feedback residual, then the compressed step's
    median beside the uncompressed step's (in turns), the sync and the
    buffer average alone, one compressed step under CUDA's sync debug mode
-   (it must never wait for the device) and a profile; then the state with
-   its residual saved, overwritten and restored, bit for bit.
+   (it must never wait for the device) and a profile; (b) three compressed
+   steps captured by ``track.profiler``: the collective class and the
+   exposed comms of the one NCCL rank, and K5a-K5c's kernel events equal
+   to their launches; then the state with its residual saved, overwritten
+   and restored, bit for bit.
 9. Two ranks on one card: two spawned gloo ranks (NCCL refuses two ranks
    on one device) sync a ResNet50-shaped named tree with the kernels; it
    must equal the same ranks' plain run on the CPU bit for bit, give both
@@ -148,6 +164,9 @@ Phases, each of which fails the script (nonzero exit, no result line):
    within ``DDP_UPDATE_RTOL`` (sync also against one process through the
    cross-rank function), beside controls of what rounding alone moves,
    and two planted faults of the sync backward that must exceed it.
+   (c): the ranks write their telemetry (``TPUFRAME_TELEMETRY_DIR``), and
+   ``python -m tpuframe_torch.track analyze`` over it must see both ranks
+   and write a Perfetto trace with a process track each.
 11. ViT serve: phase 4's serve path over ViT-B/16 with 1000 classes
    (random weights from a seed): K1 once a batch, K3a 25 times a forward,
    K6 never (196 tokens take full attention), and the same checks.
@@ -339,7 +358,7 @@ Phases, each of which fails the script (nonzero exit, no result line):
    ``remote_phase(card)``.
 21. Compile plane on one card (``compile_phase``), every part a gate and
    a fresh process, run one stage after another on a thread beside
-   phases 4 to 20 (joined here; its timed parts and phase 18(e)'s
+   phases 4 to 20 at ``SIDE_NICE`` (joined here; its timed parts and phase 18(e)'s
    timing of K9 hold one lock, ``card_timing``, so they never overlap):
    (e) path
    (B)'s time to first step (phase 5's ResNet50-1K Trainer without eval,
@@ -359,7 +378,9 @@ Phases, each of which fails the script (nonzero exit, no result line):
    (tokens/s, MFU, busy); then (e) on the warm cache (cache hits, no backend compile) and (b) its
    fit of 12 steps: the step dispatchable and each a replay, K1/K2a/K2b
    launches less the warm-up's equal to eager's, the graphed step against
-   the eager step in turns (img/s, ``torch.profiler`` busy share); (a) on
+   the eager step in turns (img/s, ``torch.profiler`` busy share), and the
+   memory plane's ``memory/executable`` record of its graphed step (the
+   track plane's (f)) beside ``max_memory_allocated`` over three replays; (a) on
    the warm cache and (d) a burst of 160 through it against the eager
    engine (K1 once a served batch, the logits within the bf16 tolerance).
    Beside (c), (f): ``long_ctx`` (2 x 8192 tokens, blockwise: K6a-K6c;
@@ -1797,11 +1818,16 @@ def kernel_split(fn, calls: int = 20) -> dict:
 
 def profile(fn, what: str, top: int = 12, also: tuple = ()) -> dict:
     """Where one call of ``fn`` spends its time: host wall time of the call
-    (after one warm call), device time summed over its kernels
-    (``torch.profiler``), the kernels with the most device time, and every
-    kernel whose name holds one of ``also`` (returned by name).  Fails
-    where the profiler saw no device event."""
-    from torch.profiler import ProfilerActivity, profile as torch_profile
+    (after one warm call), device time summed over its kernels (one call
+    under ``track.profiler.trace_step_window``, reduced by
+    ``track.device_time``), the kernels with the most device time, and
+    every kernel whose name holds one of ``also`` (returned by name, each
+    summed over its template instances).  Fails where the profiler saw no
+    device event."""
+    import tempfile
+
+    from tpuframe_torch.track.device_time import device_time_report
+    from tpuframe_torch.track.profiler import trace_step_window
 
     fn()
     torch.cuda.synchronize()
@@ -1809,25 +1835,226 @@ def profile(fn, what: str, top: int = 12, also: tuple = ()) -> dict:
     fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")]
-    check(bool(kernels), f"torch.profiler saw no device events in {what}")
-    total_ms = sum(dev_us(e) for e in kernels) / 1e3
-    launches = sum(e.count for e in kernels)
+    with tempfile.TemporaryDirectory(prefix="tpuframe_profile_") as d:
+        trace_step_window(fn, 1, d)
+        rep = device_time_report(d, top_k=10**6)
+    check(rep is not None, f"torch.profiler saw no device events in {what}")
+    ops = rep["top_ops"] if rep else []
+    total_ms = sum(o["total_s"] for o in ops) * 1e3
+    launches = sum(o["count"] for o in ops)
     log(f"  profile, {what}: wall {wall_ms:.2f} ms, device "
         f"{total_ms:.2f} ms over {launches} kernel launches "
         f"(device busy {total_ms / wall_ms:.0%} of wall)")
-    ranked = sorted(kernels, key=dev_us, reverse=True)
     named = {}
-    for i, e in enumerate(ranked):
-        if i < top or any(a in e.key for a in also):
-            log(f"    {dev_us(e) / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:110]}")
-        if any(a in e.key for a in also):
-            named[kernel_name(e.key)] = {"ms": dev_us(e) / 1e3, "count": e.count}
+    for i, o in enumerate(ops):
+        if i < top or any(a in o["name"] for a in also):
+            log(f"    {o['total_s'] * 1e3:8.3f} ms  x{o['count']:<4d} {o['name'][:110]}")
+        if any(a in o["name"] for a in also):
+            named[kernel_name(o["name"])] = {"ms": o["total_s"] * 1e3, "count": o["count"]}
     return {"wall_ms": wall_ms, "device_ms": total_ms, "launches": launches, "named": named}
+
+
+# -- the track plane's parts: captures on fits the script runs -----------------
+
+#: where the track plane's parts write their captures and telemetry
+TRACK_DIR = Path(__file__).resolve().parent / "build" / "tpuframe_torch" / "track_smoke"
+#: the kernel each launch of a wrapper runs once (a K3b launch runs its dx
+#: kernel, then ``ln_bwd_reduce``), as ``track.device_time`` names it
+KERNEL_EVENTS = {"layer_norm_fwd": ("ln_fwd_chunked", "ln_fwd_elementwise"),
+                 "layer_norm_bwd": ("ln_bwd_reduce",), "fused_adamw": ("adamw_multi_kernel",),
+                 "bucket_abs_max": ("amax_kernel",), "quant_encode": ("encode_kernel",),
+                 "quant_decode": ("decode_kernel",)}
+LM_PROFILE_SKIP = 3  # (a): the ProfilerCallback's default skip_steps
+LM_PROFILE_STEPS = 4  # (a): TPUFRAME_PROFILE_STEPS of phase 6's fit
+STRAGGLER_AFTER = 7  # (d): phase 5's fit steps slow from this batch on
+STRAGGLER_SLEEP_S = 0.5  # (d): what each slow step adds
+OOM_HEADROOM_MB = 512  # (e): the allocator's limit above what it holds
+
+
+def window_tally(counters: dict, start: int, n: int):
+    """A Trainer callback holding the launches each wrapper of ``counters``
+    counted over steps ``start`` to ``start + n - 1`` (``tally``): the
+    dispatch side of an env-armed capture's window."""
+    from tpuframe_torch.train import Callback
+
+    class WindowTally(Callback):
+        tally: dict = {}
+
+        def on_step_start(self, trainer):
+            if trainer.batches_seen == start:
+                self.before = {k: fn.launches for k, fn in counters.items()}
+
+        def on_step_end(self, trainer):
+            if trainer.batches_seen == start + n:
+                self.tally = {k: fn.launches - self.before[k] for k, fn in counters.items()}
+
+    return WindowTally()
+
+
+def kernel_events(rep: dict, names) -> dict:
+    """Each wrapper's kernel events in a device-time report's top-op table."""
+    ops = {o["name"]: o["count"] for o in rep["top_ops"]}
+    return {n: sum(ops.get(k, 0) for k in KERNEL_EVENTS[n]) for n in names}
+
+
+def report_device_time(rep: dict, what: str, card: str, top: int = 8) -> dict:
+    """Log a ``device_time`` record: the window, busy and idle seconds, each
+    class's wall and events, exposed comms, and the top ``top`` ops."""
+    c = rep["classes"]
+    log(f"  {what}: {rep['steps']} steps, window {rep['window_s'] * 1e3:.3f} ms, busy "
+        f"{rep['busy_s'] * 1e3:.3f} ms, idle {rep['idle_s'] * 1e3:.3f} ms; compute "
+        f"{c['compute']['wall_s'] * 1e3:.3f} ms ({c['compute']['events']} events), transfer "
+        f"{c['transfer']['wall_s'] * 1e3:.3f} ms ({c['transfer']['events']}), collective "
+        f"{c['collective']['wall_s'] * 1e3:.3f} ms ({c['collective']['events']}); exposed "
+        f"comms {rep['exposed_comms_s'] * 1e3:.3f} ms; on {card}")
+    for o in rep["top_ops"][:top]:
+        log(f"    {o['total_s'] * 1e3:9.3f} ms {o['pct']:6.2f} %  x{o['count']:<5d} "
+            f"{o['class']:10s} {o['name'][:100]}")
+    return {k: rep[k] for k in ("window_s", "busy_s", "idle_s", "exposed_comms_s",
+                                "overlap_efficiency", "device_step_s", "classes")} | {
+        "top_ops": rep["top_ops"][:top]}
+
+
+def gated_report(rep: dict | None, tally: dict, what: str, card: str, note: str) -> dict:
+    """Log a capture's report and hold each wrapper's kernel events in it
+    to ``tally``, its launches in the window."""
+    if rep is None:  # a rehearsal on the CPU (the device-event check logs)
+        return {}
+    out = report_device_time(rep, what, card)
+    events = kernel_events(rep, tally)
+    log(f"  {what}: kernel events {events}, launches in the window {tally}; {note}")
+    check(events == tally and all(tally.values()),
+          f"{what}: kernel events {events} != launches {tally}")
+    return out | {"kernel_events": events, "tally": tally}
+
+
+def capture_window(fn, steps: int, logdir: Path, counters: dict, what: str,
+                   card: str) -> dict:
+    """``steps`` calls of ``fn`` under ``track.profiler.trace_step_window``
+    (one warm call first), reduced by ``track.device_time``: the report
+    logged, and each wrapper's kernel events held to its launches in the
+    window."""
+    from tpuframe_torch.track.device_time import count_device_events, device_time_report
+    from tpuframe_torch.track.profiler import trace_step_window
+
+    shutil.rmtree(logdir, ignore_errors=True)
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    before = {k: c.launches for k, c in counters.items()}
+    trace_step_window(fn, steps, str(logdir))
+    tally = {k: c.launches - before[k] for k, c in counters.items()}
+    n_events = count_device_events(str(logdir))
+    check(n_events > 0, f"{what}: the capture holds no device event")
+    rep = device_time_report(str(logdir), steps=steps, top_k=10**6)
+    return gated_report(rep, tally, what, card, f"{n_events} device events, in "
+                        f"{time.perf_counter() - t0:.1f} s") | {"device_events": n_events}
+
+
+def armed_capture(trainer, window, what: str, card: str) -> dict:
+    """(a): the env-armed ``ProfilerCallback``'s capture of ``trainer``'s fit,
+    reduced by ``track.device_time``; each kernel's events in the window
+    held to ``window``'s dispatch tally."""
+    from tpuframe_torch.track.device_time import device_time_report
+    from tpuframe_torch.track.profiler import ProfilerCallback
+
+    t0 = time.perf_counter()
+    (cb,) = [c for c in trainer.callbacks if isinstance(c, ProfilerCallback)]
+    check(len(cb.captures) == 1 and not cb.captures[0]["partial"], f"{what}: {cb.captures}")
+    cap = cb.captures[0]
+    check(cap["device_events"] > 0, f"{what}: the capture saw no device event: {cap}")
+    rep = device_time_report(cap["dir"], steps=cap["steps"], top_k=10**6)
+    return gated_report(rep, window.tally, what, card,
+                        f"capture {cap['bytes'] / 2**20:.1f} MiB, {cap['device_events']} device "
+                        f"events, reduced in {time.perf_counter() - t0:.1f} s") | {
+        "device_events": cap["device_events"], "bytes": cap["bytes"]}
+
+
+def analyze_part(tele: Path, trace: Path, card: str) -> dict:
+    """(c): ``python -m tpuframe_torch.track analyze`` over phase 10's two
+    ranks' telemetry: both ranks in the skew report, a Perfetto trace
+    written with a process track each."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpuframe_torch.track", "analyze", str(tele), "--trace",
+         str(trace), "--json"], cwd=Path(__file__).resolve().parent, capture_output=True,
+        text=True, timeout=300)
+    check(proc.returncode == 0, f"(c) the analyzer exited {proc.returncode}: {proc.stderr[-2000:]}")
+    report = json.loads(proc.stdout[proc.stdout.index("{"):])["report"]
+    tracks = [e for e in json.loads(trace.read_text())["traceEvents"]
+              if e.get("ph") == "M" and e.get("name") == "process_name"]
+    st = report.get("step_time") or {}
+    log(f"  (c) python -m tpuframe_torch.track analyze over phase 10's telemetry: "
+        f"{report['ranks']} ranks, {report.get('steps')} steps, step p50 "
+        f"{st.get('p50', 0) * 1e3:.1f} ms p95 {st.get('p95', 0) * 1e3:.1f} ms, slowest "
+        f"{report.get('slowest')}, lost to skew {report.get('total_lost_s')} s; "
+        f"Perfetto trace {trace.stat().st_size / 2**10:.0f} KiB with {len(tracks)} rank tracks; "
+        f"{time.perf_counter() - t0:.1f} s on {card}")
+    check(report["ranks"] == 2 and len(tracks) == 2,
+          f"(c) the analyzer saw {report['ranks']} ranks and {len(tracks)} tracks")
+    return {"ranks": report["ranks"], "steps": report.get("steps"), "step_time": st,
+            "slowest": report.get("slowest"), "tracks": len(tracks),
+            "trace_kib": trace.stat().st_size / 2**10, "seconds": time.perf_counter() - t0}
+
+
+def oom_part(card: str, dev: torch.device, image_size: int, batch_size: int) -> dict:
+    """(e): a real ``torch.OutOfMemoryError`` in phase 5's ResNet Trainer:
+    the allocator's limit ``OOM_HEADROOM_MB`` above what it holds after the
+    state is built, so the first step's activations fail; one
+    ``memory/oom`` event (the estimate, the allocator's live figures, the
+    fit ladder), the error re-raised, the limit lifted after."""
+    from tpuframe_torch.data import DataLoader, SyntheticImageDataset
+    from tpuframe_torch.models import ResNet50
+    from tpuframe_torch.track.telemetry import get_telemetry
+    from tpuframe_torch.train import Trainer
+
+    t0 = time.perf_counter()
+    model = ResNet50(num_classes=1000, norm_dtype=torch.bfloat16, device=dev, seed=0)
+    train = DataLoader(SyntheticImageDataset(n=2 * batch_size, image_size=image_size,
+                                             num_classes=1000, seed=1),
+                       batch_size, transfer_dtype="uint8")
+    trainer = Trainer(model, train_dataloader=train, optimizer="sgd", lr=0.1, precision="bf16",
+                      normalize=(MEAN, STD), max_duration="2ba")
+    trainer.init_state()
+    counter = get_telemetry().registry.counter("memory/oom_total")
+    seen = counter.value
+    raised = None
+    index = torch.cuda.current_device() if dev.type == "cuda" else None
+    if index is not None:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        total = torch.cuda.get_device_properties(index).total_memory
+        torch.cuda.set_per_process_memory_fraction(
+            (torch.cuda.memory_reserved(index) + OOM_HEADROOM_MB * 2**20) / total, index)
+    try:
+        trainer.fit()
+    except torch.OutOfMemoryError as e:
+        raised = e
+    finally:
+        if index is not None:
+            torch.cuda.set_per_process_memory_fraction(1.0, index)
+    del trainer, model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    check(raised is not None, "(e) the fit under the lowered limit did not raise an OOM")
+    check(counter.value - seen == 1, f"(e) {counter.value - seen} memory/oom events, not 1")
+    evs = [e for e in get_telemetry().recent_events(512) if e["name"] == "memory/oom"]
+    if not evs:  # a rehearsal on the CPU (the checks above log)
+        return {}
+    ev = evs[-1]
+    live = ev["live"]
+    log(f"  (e) OOM in the ResNet50 Trainer's step {ev['step']} (limit {OOM_HEADROOM_MB} MiB "
+        f"above the allocator's reserve): one memory/oom event, where {ev['where']!r}; estimate "
+        f"{ev['estimate_total_mb']} MB a device, live allocated {live.get('allocated_mb')} MB "
+        f"(peak {live.get('allocated_peak_mb')}), reserved {live.get('reserved_mb')} MB, "
+        f"num_ooms {live.get('num_ooms')}, budget {ev['budget_mb']} MB, fit ladder "
+        f"{json.dumps(ev['fit'])[:300]}; error re-raised: {str(raised)[:120]!r}; "
+        f"{time.perf_counter() - t0:.1f} s on {card}")
+    check(ev["where"] == "step" and ev["step"] == 0 and ev["estimate_total_mb"],
+          f"(e) the memory/oom event: {ev}")
+    return {"where": ev["where"], "step": ev["step"], "estimate_total_mb":
+            ev["estimate_total_mb"], "live": live, "budget_mb": ev["budget_mb"],
+            "seconds": time.perf_counter() - t0}
 
 
 def slice_phase(card: str) -> dict:
@@ -2083,11 +2310,27 @@ def train_phase(card: str, dev: torch.device = torch.device("cuda"), image_size:
                                            num_classes=1000, seed=2),
                      batch_size, drop_last=False, transfer_dtype="uint8", num_workers=8)
     steps = StepLosses()
+
+    class PlantedSlowdown(Callback):
+        """(d): every step from STRAGGLER_AFTER on ends STRAGGLER_SLEEP_S late."""
+
+        def on_step_end(self, trainer):
+            if trainer.batches_seen >= STRAGGLER_AFTER:
+                time.sleep(STRAGGLER_SLEEP_S)
+
+    # (d): the straggler monitor's self-baseline (one process) on this fit,
+    # compared every 2 steps, a rank straggling at 1.5x its own median
     trainer = Trainer(model, train_dataloader=train, eval_dataloader=evl, optimizer="sgd",
                       lr=0.1, precision="bf16", normalize=(MEAN, STD),
-                      max_duration=f"{TRAIN_STEPS}ba", log_interval=1, callbacks=[steps])
+                      max_duration=f"{TRAIN_STEPS}ba", log_interval=1,
+                      callbacks=[steps, PlantedSlowdown()], straggler_sync_steps=2,
+                      straggler_factor=1.5)
     trainer.init_state()
     n_eval = len(evl)
+    from tpuframe_torch.track.telemetry import get_telemetry
+
+    stragglers = get_telemetry().registry.counter("train/stragglers")
+    straggled = stragglers.value
     # -- the main path: counts zeroed just before, read just after ---------
     normalize_images.launches = cross_entropy_fwd.launches = cross_entropy_bwd.launches = 0
     t0 = time.perf_counter()
@@ -2100,8 +2343,20 @@ def train_phase(card: str, dev: torch.device = torch.device("cuda"), image_size:
     expected = {"normalize": TRAIN_STEPS + n_eval, "cross_entropy_fwd": TRAIN_STEPS + n_eval,
                 "cross_entropy_bwd": TRAIN_STEPS}
     log(f"  fit: {TRAIN_STEPS} steps of {batch_size} + eval of {eval_images} images "
-        f"({n_eval} batches) in {fit_s:.2f} s; launches {launches} (expected {expected})")
+        f"({n_eval} batches) in {fit_s:.2f} s (of which (d)'s planted "
+        f"{(TRAIN_STEPS - STRAGGLER_AFTER + 1) * STRAGGLER_SLEEP_S:.1f} s); launches {launches} "
+        f"(expected {expected})")
     check(launches == expected, f"train launches {launches} != {expected}")
+    events = [e for e in get_telemetry().recent_events(512) if e["name"] == "train/straggler"]
+    straggler = {"events": stragglers.value - straggled,
+                 "skew_ratio": get_telemetry().registry.gauge("train/skew_ratio").value,
+                 "last": {k: events[-1][k] for k in ("mode", "step", "ewma_s", "median_s",
+                                                     "ratio")} if events else None}
+    log(f"  (d) straggler self-baseline, steps from {STRAGGLER_AFTER} on {STRAGGLER_SLEEP_S} s "
+        f"late: {straggler['events']} train/straggler events, skew ratio "
+        f"{straggler['skew_ratio']:.3f}, the last {straggler['last']}")
+    check(straggler["events"] >= 1 and events and events[-1]["mode"] == "self",
+          f"(d) the planted slowdown emitted no train/straggler event: {straggler}")
     summary = result.history[-1]
     check(SUMMARY_KEYS <= set(summary), f"epoch summary lacks {SUMMARY_KEYS - set(summary)}")
     losses = steps.losses
@@ -2144,6 +2399,9 @@ def train_phase(card: str, dev: torch.device = torch.device("cuda"), image_size:
         f"peak memory {mem_gb:.2f} GB on {card}")
     prof = profile(lambda: step(state, batch), f"train step of {batch_size} (bf16, health on)")
     del trainer, state, model, batch
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    oom = oom_part(card, dev, image_size, batch_size)
 
     # -- kernel against plain cross entropy: f32 train steps on the card ----
     deterministic = torch.backends.cudnn.deterministic
@@ -2227,10 +2485,10 @@ def train_phase(card: str, dev: torch.device = torch.device("cuda"), image_size:
         "first_loss": losses[0],
         "last_loss": losses[-1],
         "fixed_batch_losses": [fixed[0], fixed[-1]],
-        "fit_s": fit_s,
-        "train_samples_per_sec_fit": summary["train_samples_per_sec"],
         "eval_loss": summary["eval_loss"],
         "profile": prof,
+        "straggler": straggler,
+        "oom": oom,
         "peak_memory_gb": mem_gb,
         "kernel_vs_plain_ce": {"loss_rel": worst_loss, "param_step1": param[0],
                                "param_step2": param[1]},
@@ -2402,17 +2660,25 @@ def lm_phase(card: str, dev: torch.device = torch.device("cuda"), cfg: dict = LM
     evl = DataLoader(NextTokenDataset(eval_n, seq, vocab, seed=2), batch_size, drop_last=False,
                      num_workers=4)
     steps = _step_losses()
-    trainer = Trainer(model, tx=fused_adamw(3e-4, weight_decay=1e-4), train_dataloader=train,
-                      eval_dataloader=evl, precision="bf16", max_duration=f"{LM_STEPS}ba",
-                      log_interval=1, callbacks=[steps])
-    trainer.init_state()
-    n_eval = len(evl)
     counters = {"layer_norm_fwd": layer_norm_fwd, "layer_norm_bwd": layer_norm_bwd,
                 "fused_adamw": fused_adamw_multi_update_, "normalize": normalize_images,
                 "cross_entropy_fwd": cross_entropy_fwd, "cross_entropy_bwd": cross_entropy_bwd,
                 "blockwise_attention_fwd": blockwise_attention_fwd,
                 "blockwise_attention_bwd_dq": blockwise_attention_bwd_dq,
                 "blockwise_attention_bwd_dkv": blockwise_attention_bwd_dkv}
+    # (a): the fit armed by TPUFRAME_PROFILE_* captures steps 3 to 6; the
+    # window's launches are tallied beside it
+    window = window_tally({k: counters[k] for k in ("layer_norm_fwd", "layer_norm_bwd",
+                                                    "fused_adamw")},
+                          LM_PROFILE_SKIP, LM_PROFILE_STEPS)
+    shutil.rmtree(TRACK_DIR / "lm", ignore_errors=True)
+    with mock.patch.dict(os.environ, {"TPUFRAME_PROFILE_STEPS": str(LM_PROFILE_STEPS),
+                                      "TPUFRAME_PROFILE_DIR": str(TRACK_DIR / "lm")}):
+        trainer = Trainer(model, tx=fused_adamw(3e-4, weight_decay=1e-4), train_dataloader=train,
+                          eval_dataloader=evl, precision="bf16", max_duration=f"{LM_STEPS}ba",
+                          log_interval=1, callbacks=[steps, window])
+    trainer.init_state()
+    n_eval = len(evl)
     # -- the main path: counts zeroed just before, read just after ---------
     for fn in counters.values():
         fn.launches = 0
@@ -2428,7 +2694,8 @@ def lm_phase(card: str, dev: torch.device = torch.device("cuda"), cfg: dict = LM
                 "blockwise_attention_bwd_dq": 0, "blockwise_attention_bwd_dkv": 0}
     log(f"  LM fit: {n_params / 1e6:.1f} M parameters in {n_leaves} tensors, {LM_STEPS} steps "
         f"of {batch_size}x{seq} tokens + eval of {eval_n} sequences ({n_eval} batches) in "
-        f"{fit_s:.2f} s; launches {launches} (expected {expected})")
+        f"{fit_s:.2f} s ({LM_PROFILE_STEPS} steps of it under (a)'s profiler, its traces "
+        f"written); launches {launches} (expected {expected})")
     check(launches == expected, f"LM launches {launches} != {expected}")
     summary = result.history[-1]
     check(SUMMARY_KEYS <= set(summary), f"epoch summary lacks {SUMMARY_KEYS - set(summary)}")
@@ -2443,6 +2710,9 @@ def lm_phase(card: str, dev: torch.device = torch.device("cuda"), cfg: dict = LM
     check(math.isfinite(summary["eval_loss"]), f"eval loss {summary['eval_loss']}")
     log(f"  step losses {[round(v, 4) for v in losses]}")
     log("  epoch summary " + json.dumps({k: round(v, 6) for k, v in summary.items()}))
+    captured = armed_capture(trainer, window, f"(a) the LM fit's steps {LM_PROFILE_SKIP} to "
+                             f"{LM_PROFILE_SKIP + LM_PROFILE_STEPS - 1}, env-armed capture", card)
+    shutil.rmtree(TRACK_DIR / "lm", ignore_errors=True)
 
     # -- the train step alone on one device-resident batch ------------------
     rng = np.random.default_rng(3)
@@ -2565,10 +2835,9 @@ def lm_phase(card: str, dev: torch.device = torch.device("cuda"), cfg: dict = LM
         "first_loss": losses[0],
         "last_loss": losses[-1],
         "fixed_batch_losses": [fixed[0], fixed[-1]],
-        "fit_s": fit_s,
-        "train_samples_per_sec_fit": summary["train_samples_per_sec"],
         "eval_loss": summary["eval_loss"],
         "profile": prof,
+        "armed_capture": captured,
         "parts": parts,
         "peak_memory_gb": mem_gb,
         "kernel_vs_plain": {"loss_rel": worst_loss, "update_rel": update_rel},
@@ -3233,10 +3502,27 @@ def dp_phase(card: str, dev: torch.device = torch.device("cuda"), image_size: in
             log("  the compressed step makes no synchronizing call (sync debug mode)")
         prof = profile(run_compressed,
                        f"compressed train step of {batch_size} (bf16, int8 wire, health on)")
+        captured = {}
+        if dev.type == "cuda":
+            # (b): three compressed steps on the one NCCL rank captured; the
+            # collective class and the exposed comms of the capture (NCCL
+            # may launch no kernel for a world-1 collective)
+            captured = capture_window(
+                run_compressed, 3, TRACK_DIR / "dp",
+                {"bucket_abs_max": bucket_abs_max, "quant_encode": quant_encode,
+                 "quant_decode": quant_decode},
+                f"(b) three compressed steps of {batch_size} on one NCCL rank ({backend})", card)
+            log(f"  (b) collective class on one NCCL rank: "
+                f"{captured['classes']['collective']['events']} events, "
+                f"{captured['classes']['collective']['wall_s'] * 1e3:.3f} ms; exposed comms "
+                f"{captured['exposed_comms_s'] * 1e3:.3f} ms, overlap efficiency "
+                f"{captured['overlap_efficiency']}")
+            shutil.rmtree(TRACK_DIR / "dp", ignore_errors=True)
         round_trip = compressed_round_trip(trainer, card)
         out = {"round_trip": round_trip, "step_ms": step_ms, "step_ms_runs": arms, "parts_ms": parts_ms, "fit_s": fit_s,
                "first_loss": losses[0], "last_loss": losses[-1], "residual_max": resid,
-               "wire": wire, "backend": backend, "profile": prof, "card": card}
+               "wire": wire, "backend": backend, "profile": prof, "captured": captured,
+               "card": card}
         log("  dp_json " + json.dumps(out))
         del trainer, state, model, batch
         return launches, out
@@ -3857,8 +4143,12 @@ def ddp_phase(card: str, timeout_s: float = 900.0, device: str = "cuda:0",
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         control = _ddp_reference(torch.device(device), image_size, batch_size, tmp)
-        res = _spawn(_ddp_child, 2, (device, image_size, batch_size), timeout_s, "ddp phase",
-                     tmp)
+        # (c): the ranks write their telemetry, which the analyzer then reads
+        tele = Path(tmp, "telemetry")
+        with mock.patch.dict(os.environ, {"TPUFRAME_TELEMETRY_DIR": str(tele)}):
+            res = _spawn(_ddp_child, 2, (device, image_size, batch_size), timeout_s,
+                         "ddp phase", tmp)
+        fleet = analyze_part(tele, Path(tmp, "fleet_trace.json"), card)
     fits = [o["fit"] for o in res]
     n_eval = fits[0]["n_eval"]
     expected = {"normalize": DDP_STEPS + n_eval, "cross_entropy_fwd": DDP_STEPS + n_eval,
@@ -3950,7 +4240,7 @@ def ddp_phase(card: str, timeout_s: float = 900.0, device: str = "cuda:0",
     out = {"launches": fits[0]["launches"], "step_ms": step_ms, "img_per_s": img_s,
            "grad_sync_ms": grad_sync_ms,
            "step_ms_ranks": [o["step_ms_all"] for o in res], "f32": f32, "profiles": profiles,
-           "fit_s": fits[0]["fit_s"], "losses": fits[0]["losses"], "card": card,
+           "fit_s": fits[0]["fit_s"], "losses": fits[0]["losses"], "fleet": fleet, "card": card,
            "seconds": time.perf_counter() - t0}
     log("  ddp_json " + json.dumps(out))
     return out
@@ -7987,6 +8277,10 @@ COMPILE_STAGES = ((("e cold", "train"), ("a cold", "serve"), ("f32", "f32")),
                   (("c", "lm"), ("f", "long")),
                   (("g", "moe"), ("e warm, b", "train"), ("a warm, d", "serve")))
 COMPILE_THREADS = 4
+#: the niceness of phase 21's processes and of phase 3's card tests, which
+#: run beside the main thread's phases 4 to 20: the host's cores go to the
+#: main thread first, the long pole of the script (PERF.md §6)
+SIDE_NICE = 5
 #: phase 21's live processes, killed at exit whatever ended the script
 _COMPILE_PROCS: list = []
 COMPILE_TIMING_LOCK = COMPILE_DIR.parent / "card_timing.lock"
@@ -8165,11 +8459,43 @@ def _part_train(mode: str, dev, card: str, image_size: int, batch: int, steps: i
                                 for k, fn in (("graphed", lambda: exe(state, xb)),
                                               ("eager", lambda: eager(state, xb)))}
     res["b"]["step_ms"] = ms
+    res["b"]["memory"] = executable_memory_part(trainer, exe, state, xb, dev, card)
     log(f"  (b) ResNet50-1K train step of {batch} (bf16): graphed {ms['graphed']:.2f} ms = "
         f"{batch / ms['graphed'] * 1e3:.0f} img/s, eager {ms['eager']:.2f} ms = "
         f"{batch / ms['eager'] * 1e3:.0f} img/s (median of {COMPILE_TIMED} synced steps "
         f"each, in turns) on {card}")
     return res
+
+
+def executable_memory_part(trainer, exe, state, xb: dict, dev, card: str) -> dict:
+    """(f) of the track plane: the ``memory/executable`` record the
+    Trainer's precompile made of the graphed train step (arguments: the
+    state and the batch template; temporaries: the graph's private pool
+    less the outputs), beside ``max_memory_allocated`` over three replays of it
+    (a replay allocates nothing, so that counts the live tensors and not the
+    pool) and the allocator's reserved bytes (the pool included)."""
+    from tpuframe_torch.track.memory import executable_records
+
+    recs = {k: v for k, v in executable_records().items() if k == exe.label}
+    check(len(recs) == 1, f"(f) no memory/executable record of {exe.label}: "
+          f"{sorted(executable_records())}")
+    (rec,) = recs.values()
+    peak = reserved = 0.0
+    if dev.type == "cuda":
+        sync(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        for _ in range(3):
+            exe(state, xb)
+        sync(dev)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**20
+        reserved = torch.cuda.memory_reserved(dev) / 2**20
+    log(f"  (f) memory/executable of {rec['label']!r}: arguments {rec['argument_mb']} MiB, "
+        f"outputs {rec['output_mb']} MiB, temporaries {rec['temp_mb']} MiB, peak "
+        f"{rec['peak_mb']} MiB ({rec['peak_source']}); three replays' max_memory_allocated "
+        f"{peak:.1f} MiB, reserved {reserved:.1f} MiB on {card}")
+    check(rec["peak_mb"] >= rec["argument_mb"] > 0 and (
+        dev.type != "cuda" or rec["peak_source"] == "graph_pool"), f"(f) the record: {rec}")
+    return {"record": rec, "replay_peak_mb": peak, "reserved_mb": reserved}
 
 
 def _part_serve(mode: str, dev, card: str, serve_px: int) -> dict:
@@ -8696,7 +9022,8 @@ def compile_phase(card: str, sizes: dict | None = None, say=log) -> dict:
             for part, cache in stage:
                 out = COMPILE_DIR / f"{part.replace(' ', '_').replace(',', '')}.json"
                 env = dict(os.environ, TPUFRAME_COMPILE_CACHE=str(COMPILE_DIR / cache))
-                code = (f"import sys; sys.path.insert(0, {root!r}); import chip_smoke as cs; "
+                code = (f"import os, sys; os.nice({SIDE_NICE}); sys.path.insert(0, {root!r}); "
+                        "import chip_smoke as cs; "
                         f"cs.compile_child({part!r}, {str(out)!r}, {card!r}, {sizes!r})")
                 proc = subprocess.Popen([sys.executable, "-c", code], env=env,
                                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
@@ -8766,7 +9093,8 @@ def start_graphed_tests() -> subprocess.Popen:
     # its few small compiles in process: a pool of compile workers would
     # start a torch in each beside phases 4 on
     proc = subprocess.Popen(
-        [sys.executable, "-m", "pytest", str(root / "tests" / "test_torch_port_cuda.py"),
+        [sys.executable, "-c", f"import os, sys; os.nice({SIDE_NICE}); import pytest; "
+         "sys.exit(pytest.main(sys.argv[1:]))", str(root / "tests" / "test_torch_port_cuda.py"),
          "--noconftest", "-q", "-p", "no:cacheprovider", "-k", GRAPHED_TESTS],
         cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         env=dict(os.environ, TORCHINDUCTOR_COMPILE_THREADS="1"))

@@ -19,7 +19,11 @@ the compressed wire's sliced leaves through K5a-K5c against the plain
 versions; two agents of the remote launcher on localhost sharing the card
 over gloo; the compile plane's graphed steps: a captured K6 step's launch
 counts over its replays, and small blockwise (K6) and MoE (K9) LM steps
-precompiled and graphed against their eager steps.
+precompiled and graphed against their eager steps; the track plane:
+eager and graphed LM steps under ``torch.profiler``, whose device-time
+report names K3a, K3b and K4 as often as their wrappers launched them,
+and a real ``torch.OutOfMemoryError`` in a Trainer's step, narrated by
+one ``memory/oom`` event and re-raised.
 
 Every test here needs an NVIDIA GPU and ``nvcc`` and skips without them.
 The file imports neither JAX nor the JAX package, so it also runs on a
@@ -2160,3 +2164,84 @@ def test_a_graphed_moe_lm_step_matches_its_eager_step(card):
                moe_experts=4, moe_top_k=2)
     _graphed_against_eager(card, cfg, (moe_dispatch, moe_combine, moe_combine_backward), {
         "moe_dispatch": 2, "moe_combine": 4, "moe_combine_backward": 2})
+
+
+#: the kernel each launch of a wrapper runs once (a K3b launch runs its
+#: dx kernel, then ``ln_bwd_reduce``), as the device-time report's top-op
+#: table names it
+K34_KERNELS = {"layer_norm_fwd": ("ln_fwd_chunked", "ln_fwd_elementwise"),
+               "layer_norm_bwd": ("ln_bwd_reduce",),
+               "fused_adamw": ("adamw_multi_kernel",)}
+
+
+@pytest.mark.parametrize("graphed", [False, True], ids=["eager", "graphed"])
+def test_a_profiled_lm_step_names_k3_and_k4_at_their_dispatch_tally(card, tmp_path, graphed):
+    """Three LM train steps under ``track.profiler.trace_step_window``:
+    ``device_time_report``'s top-op table counts each of K3a, K3b and K4
+    as often as its wrapper counted launches, eager and replayed from a
+    CUDA graph alike, and the window's device time is all compute."""
+    from tpuframe_torch.compile.precompile import TensorSpec, precompile_step
+    from tpuframe_torch.track.device_time import count_device_events, device_time_report
+    from tpuframe_torch.track.profiler import trace_step_window
+
+    model = TransformerLM(vocab_size=256, num_layers=2, num_heads=2, head_dim=32, max_len=32,
+                          device=card, seed=1)
+    state = create_train_state(model, fused_adamw(1e-3))
+    step = make_train_step()
+    batch = {"image": torch.randint(0, 256, (4, 32), device=card),
+             "label": torch.randint(0, 256, (4, 32), device=card)}
+    if graphed:
+        template = {k: TensorSpec(tuple(v.shape), v.dtype, v.device) for k, v in batch.items()}
+        step = precompile_step(step, state, template, label="test", planned_steps=8)
+        assert step.graphed
+    box = {"state": state}
+
+    def one():
+        box["state"], _ = step(box["state"], batch)
+
+    one()
+    torch.cuda.synchronize()
+    wrappers = {"layer_norm_fwd": layer_norm_fwd, "layer_norm_bwd": layer_norm_bwd,
+                "fused_adamw": fused_adamw_multi_update_}
+    before = {n: w.launches for n, w in wrappers.items()}
+    logdir = trace_step_window(one, 3, str(tmp_path / "prof"))
+    tally = {n: w.launches - before[n] for n, w in wrappers.items()}
+    rep = device_time_report(logdir, steps=3, top_k=10**6)
+    assert rep is not None and count_device_events(logdir) > 0
+    ops = {o["name"]: o["count"] for o in rep["top_ops"]}
+    got = {n: sum(ops.get(k, 0) for k in names) for n, names in K34_KERNELS.items()}
+    assert got == tally == {"layer_norm_fwd": 15, "layer_norm_bwd": 15, "fused_adamw": 3}, ops
+    assert rep["classes"]["compute"]["events"] > 0 and rep["classes"]["collective"]["events"] == 0
+    assert rep["busy_s"] + rep["idle_s"] == pytest.approx(rep["window_s"], abs=3e-6)
+
+
+def test_a_real_out_of_memory_in_a_step_is_narrated_once_and_reraised(card):
+    """The allocator's limit just above what the Trainer's state holds: the
+    first step's activations raise ``torch.OutOfMemoryError``, the Trainer
+    emits one ``memory/oom`` event (where ``step``, the plan's estimate, the
+    allocator's live figures) and the error reaches the caller."""
+    from tpuframe_torch.track.telemetry import get_telemetry
+
+    model = ResNet18(num_classes=10, num_filters=64, stem="cifar", device=card)
+    trainer = Trainer(model, train_dataloader=DataLoader(
+        SyntheticImageDataset(n=64, image_size=64), 32), max_duration="2ba")
+    trainer.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    index = torch.cuda.current_device()
+    total = torch.cuda.get_device_properties(index).total_memory
+    ooms = get_telemetry().registry.counter("memory/oom_total")
+    seen = ooms.value
+    torch.cuda.set_per_process_memory_fraction(
+        (torch.cuda.memory_reserved(index) + 16 * 2**20) / total, index)
+    try:
+        with pytest.raises(torch.OutOfMemoryError):
+            trainer.fit()
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, index)
+        torch.cuda.empty_cache()
+    assert ooms.value - seen == 1
+    ev = [e for e in get_telemetry().recent_events(512) if e["name"] == "memory/oom"][-1]
+    assert ev["where"] == "step" and ev["step"] == 0 and "out of memory" in ev["error"]
+    assert ev["estimate_total_mb"] > 0 and ev["live"]["num_ooms"] >= 1
+    assert ev["live"]["device_total_mb"] == pytest.approx(total / 2**20, abs=1e-3)

@@ -65,11 +65,6 @@ SUBPACKAGES = ("core", "data", "train", "models", "ops", "parallel", "ckpt", "se
 QUEUE1_MODULES = {
     "tpuframe.ops.ledger": 9,
     "tpuframe.autotune": 9,
-    "tpuframe.track.profiler": 9,
-    "tpuframe.track.memory": 9,
-    "tpuframe.track.device_time": 9,
-    "tpuframe.track.analyze": 9,
-    "tpuframe.track.http_store": 9,
     "tpuframe.serve.export": 9,
     "tpuframe.serve.router": 9,
     "tpuframe.serve.fleet": 9,
@@ -77,17 +72,11 @@ QUEUE1_MODULES = {
 
 #: names of ported modules that wait for a later slice's code: (subpackage,
 #: name) -> (Queue 1 item, what they wait for)
-LATER = {
-    ("track", "start_metrics_server"): (9, "the HTTP store"),
-    ("track", "HttpModelRegistry"): (9, "the HTTP store"),
-}
+LATER: dict = {}
 
 #: modules ported in the launcher slice: (module under tpuframe, JAX
 #: module's own class or function) -> (Queue 1 item, what it waits for)
-LATER_IN_MODULE = {
-    ("track.registry", "HttpModelRegistry"): (9, "the HTTP store"),
-    ("track.telemetry", "start_metrics_server"): (9, "the HTTP store"),
-}
+LATER_IN_MODULE: dict = {}
 
 #: the modules of the launcher slice and of the streaming slice, compared
 #: module by module
@@ -97,7 +86,9 @@ SLICE_MODULES = ("core.config", "core.workspace", "core.native", "models.cnn", "
                  "track.tensorboard", "track.system_metrics", "track.telemetry",
                  "parallel.zero", "parallel.memory", "parallel.sharding", "parallel.compose",
                  "parallel.pipeline", "fault.chaos", "fault.preempt", "fault.supervisor",
-                 "fault.health", "launch.elastic", "launch.remote", "launch.agent")
+                 "fault.health", "launch.elastic", "launch.remote", "launch.agent",
+                 "track.device_time", "track.profiler", "track.memory", "track.analyze",
+                 "track.http_store")
 
 #: the JAX package's kernel switches: the port dispatches by device alone
 DROPPED = {"use_pallas", "kernel_enabled", "kernels_mode"}

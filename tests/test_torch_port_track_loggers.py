@@ -185,9 +185,10 @@ def test_system_metrics_sample_as_jax_on_the_cpu(fresh_telemetry, monkeypatch):
     {"TPUFRAME_MEMORY_SAMPLE_S": "soon"}, {"TPUFRAME_MEMORY_LIVE": "off"},
     {"TPUFRAME_MEMORY_LIVE": "yes"}, {"TPUFRAME_MEMORY_LIVE": " FALSE "}])
 def test_the_memory_knobs_read_as_jaxs_memory_plane(env):
-    mine = system_metrics._memory_env(env)
-    theirs = jax_memory.memory_env(env)
-    assert mine == {k: theirs[k] for k in ("TPUFRAME_MEMORY_SAMPLE_S", "TPUFRAME_MEMORY_LIVE")}
+    # the monitor reads the memory plane's knobs (track/memory.py), whole
+    from tpuframe_torch.track import memory as port_memory
+
+    assert port_memory.memory_env(env) == jax_memory.memory_env(env)
 
 
 def test_memory_live_off_skips_the_watermarks(fresh_telemetry, monkeypatch):

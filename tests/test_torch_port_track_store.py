@@ -129,8 +129,16 @@ def test_the_mlruns_tree_is_the_jax_writers(tmp_path):
 
 
 def test_the_port_refuses_what_waits_for_later_slices(tmp_path):
-    with pytest.raises(NotImplementedError, match="HTTP tracking store"):
-        MLflowLogger("e", tracking_uri="http://localhost:5000").run
+    # the HTTP store has landed: an http(s) URI gets the REST client, as in
+    # JAX (test_torch_port_track_http_store.py logs to a fake server)
+    from tpuframe.track.http_store import make_tracker as jax_make_tracker
+    from tpuframe_torch.track.http_store import HttpExperimentTracker
+
+    for uri in ("http://localhost:5000", "https://localhost:5443"):
+        tracker = mlflow_store.make_tracker(uri)
+        assert isinstance(tracker, HttpExperimentTracker) and tracker.tracking_uri == uri
+        assert type(tracker).__name__ == type(jax_make_tracker(uri)).__name__
+    assert isinstance(mlflow_store.make_tracker(str(tmp_path)), mlflow_store.ExperimentTracker)
     # the system-metrics monitor has landed: it is accepted, and starts
     # with the run (test_torch_port_track_loggers.py holds it against JAX)
     logger = MLflowLogger("e", tracking_uri=str(tmp_path), system_metrics=True)

@@ -103,8 +103,10 @@ def test_prefetcher_on_the_cpu_copies_before_it_recycles():
 def test_trainer_refuses_what_is_not_ported():
     model = ResNet18(num_classes=10, num_filters=4, stem="cifar", device="cpu")
     mesh2 = MeshSpec(data=2).build(2)  # two ranks: no process group is needed to refuse
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(model, straggler_sync_steps=4)
+    # straggler detection is ported (test_torch_port_track_analyze.py holds
+    # its events against JAX's): the knobs reach the monitor as JAX's do
+    tr = Trainer(model, straggler_sync_steps=4, straggler_factor=3.0)
+    assert (tr._straggler.sync_steps, tr._straggler.factor) == (4, 3.0)
     # preemption is ported (test_torch_port_preempt.py): it builds
     assert Trainer(model, preemption=True).preemption is True
     # tensor-parallel rules are ported: a plan with rules builds, and a

@@ -266,15 +266,21 @@ class Executable:
 
 class StepExecutable(Executable):
     """A precompiled train or eval step, ``(state, batch) -> ...`` over the
-    one state it was captured on; see :func:`precompile_step`."""
+    one state it was captured on; see :func:`precompile_step`.
+    ``template`` is the batch template it was compiled for, and
+    ``pool_bytes`` the bytes its graph's private memory pool holds after
+    the capture, outputs and temporaries (None on the CPU):
+    ``track.memory.record_executable_memory`` reads both."""
 
     def __init__(self, fn: Callable, state, *, label: str, train: bool, step_dev=None,
-                 lr_table=None, **kw):
+                 lr_table=None, template=None, pool_bytes=None, **kw):
         super().__init__(fn, label=label, **kw)
         self.state = state
         self.train = train
         self.step_dev = step_dev
         self.lr_table = lr_table
+        self.template = template
+        self.pool_bytes = pool_bytes
 
     def __call__(self, state, batch, **kw):
         if kw:
@@ -415,6 +421,16 @@ def _capture(run: Callable):
     return graph, tally, out
 
 
+def _pool_bytes(graph) -> int:
+    """The bytes of ``graph``'s private memory pool: every block its capture
+    allocated, outputs and freed temporaries alike, which a replay reuses.
+    Read from the allocator's segments, so neither the process's peak
+    counters nor another thread's allocations enter it."""
+    pool = tuple(graph.pool())
+    return sum(int(seg["total_size"]) for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == pool)
+
+
 def _unsupported(fn: Callable, state, train: bool = True) -> str | None:
     """Why precompile cannot take this step over this state yet, or None
     (an eval step runs in eval mode: its dropout draws nothing)."""
@@ -488,12 +504,14 @@ def precompile_step(fn: Callable, state, template: Mapping[str, TensorSpec], *, 
                 compile_label(label, span=True):
             warm = _warmup(lambda: cstep(state, batch), on_cuda)
         if not on_cuda:
-            return StepExecutable(cstep, state, label=label, train=train, warmup_launches=warm)
+            return StepExecutable(cstep, state, label=label, train=train, warmup_launches=warm,
+                                  template=dict(template))
         if not train:
             graph, tally, out = _capture(lambda: cstep(state, batch))
             return StepExecutable(cstep, state, label=label, train=False, graph=graph,
                                   static_in=batch, static_out=out, tally=tally,
-                                  warmup_launches=warm)
+                                  warmup_launches=warm, template=dict(template),
+                                  pool_bytes=_pool_bytes(graph))
         state.reserve_lr(state.step)
         step_dev = torch.zeros((), dtype=torch.int64, device=state.updates.device)
         host_step = state.step
@@ -505,7 +523,8 @@ def precompile_step(fn: Callable, state, template: Mapping[str, TensorSpec], *, 
         return StepExecutable(cstep, state, label=label, train=True, graph=graph,
                               static_in=batch, static_out=out, tally=tally,
                               warmup_launches=warm, step_dev=step_dev,
-                              lr_table=state._lr_table)
+                              lr_table=state._lr_table, template=dict(template),
+                              pool_bytes=_pool_bytes(graph))
     finally:
         if restore is not None:
             restore()

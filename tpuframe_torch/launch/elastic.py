@@ -234,6 +234,11 @@ def run_elastic(
 
     def attempt(world: int) -> Any:
         attempts["n"] += 1
+        # a (re)started attempt runs on a (re)built world: re-arm the
+        # fleet-gather ladder a dead peer may have degraded to local-only
+        from tpuframe_torch.track.analyze import reset_fleet_degraded
+
+        reset_fleet_degraded()
         ctx = _survivor_context(plan, int(world), attempts["n"], elastic_axis=axis)
         try:
             return train_fn(ctx)

@@ -130,24 +130,25 @@ def all_env_vars() -> tuple[str, ...]:
     OBSERVABILITY_ENV_VARS``, ``compile.cache.COMPILE_ENV_VARS`` (a module
     that imports no torch), ``fault.health.HEALTH_ENV_VARS``,
     ``serve.admission.SERVE_ENV_VARS``, ``core.workspace.PERF_ENV_VARS``,
-    ``parallel.comms_env.COMMS_ENV_VARS`` and ``track.system_metrics.
-    MEMORY_ENV_VARS``.  It is the JAX package's aggregate less the knobs
-    the port reads nowhere: those of modules it does not have yet (the
-    kernel ledger, autotune, device time, the memory plane's other two,
-    the serving fleet and router, straggler analysis) and the ones its
-    design drops (the Pallas-only ``TPUFRAME_COMMS_ASYNC`` and
-    ``TPUFRAME_COMMS_FUSED_BLOCK``, the telemetry file's rotation).
+    ``parallel.comms_env.COMMS_ENV_VARS``, ``track.device_time.
+    PROFILE_ENV_VARS`` and ``track.memory.MEMORY_ENV_VARS``.  It is the
+    JAX package's aggregate less the knobs the port reads nowhere: those
+    of modules it does not have yet (the kernel ledger, autotune, the
+    serving fleet and router) and the ones its design drops (the
+    Pallas-only ``TPUFRAME_COMMS_ASYNC`` and ``TPUFRAME_COMMS_FUSED_BLOCK``,
+    the telemetry file's rotation).
     """
     from tpuframe_torch.compile.cache import COMPILE_ENV_VARS
     from tpuframe_torch.core.workspace import PERF_ENV_VARS
     from tpuframe_torch.fault.health import HEALTH_ENV_VARS
     from tpuframe_torch.parallel.comms_env import COMMS_ENV_VARS
     from tpuframe_torch.serve.admission import SERVE_ENV_VARS
-    from tpuframe_torch.track.system_metrics import MEMORY_ENV_VARS
+    from tpuframe_torch.track.device_time import PROFILE_ENV_VARS
+    from tpuframe_torch.track.memory import MEMORY_ENV_VARS
     from tpuframe_torch.track.telemetry import OBSERVABILITY_ENV_VARS
 
     return (OBSERVABILITY_ENV_VARS + COMPILE_ENV_VARS + HEALTH_ENV_VARS + SERVE_ENV_VARS
-            + PERF_ENV_VARS + COMMS_ENV_VARS + MEMORY_ENV_VARS)
+            + PERF_ENV_VARS + COMMS_ENV_VARS + PROFILE_ENV_VARS + MEMORY_ENV_VARS)
 
 
 class _Worker:

@@ -577,6 +577,11 @@ class ServeEngine:
                     pool.release(lease, copy_done=copied)
                     out = out.cpu()
             except Exception as e:  # noqa: BLE001 - batch-scoped isolation
+                # OOM forensics first: an allocation failure on the infer
+                # path gets its memory/oom event before the batch_error
+                from tpuframe_torch.track.memory import maybe_oom_event
+
+                maybe_oom_event(e, where="serve/infer", step=bidx)
                 self._c_errors.inc()
                 tele.event("serve/batch_error", batch=bidx,
                            error=f"{type(e).__name__}: {e}"[:300])

@@ -15,8 +15,8 @@ reads runs of both packages.  Three differences:
 - :func:`broadcast_run_id` sends rank 0's id over the host control plane
   in a launched run, as the JAX package does, else over the
   ``torch.distributed`` process group (gloo or NCCL), 64 bytes at most.
-- Only the file store is here: an ``http(s)://`` tracking URI raises
-  ``NotImplementedError`` (the HTTP store comes with a later slice).
+- An ``http(s)://`` tracking URI goes to the REST client of
+  ``track.http_store``, as in JAX.
   ``MLflowLogger(system_metrics=True)`` starts a
   ``track.system_metrics.SystemMetricsMonitor`` on the run, as in JAX.
 
@@ -438,14 +438,12 @@ class MLflowLogger:
 _DEFAULT_TRACKER: ExperimentTracker | None = None
 
 
-def make_tracker(tracking_uri: str) -> ExperimentTracker:
-    """The file store over ``tracking_uri``; an ``http(s)://`` URI (the
-    JAX package's REST client) raises ``NotImplementedError``."""
-    if str(tracking_uri).startswith(("http://", "https://")):
-        raise NotImplementedError(
-            f"tracking URI {tracking_uri!r}: the HTTP tracking store is not ported yet; it "
-            "comes with the platform planes (ROADMAP.md, Queue 1 item 9)")
-    return ExperimentTracker(tracking_uri)
+def make_tracker(tracking_uri: str):
+    """The file store over ``tracking_uri``; an ``http(s)://`` URI gets
+    the REST client (``track.http_store.HttpExperimentTracker``)."""
+    from tpuframe_torch.track.http_store import make_tracker as _make
+
+    return _make(tracking_uri)
 
 
 def set_experiment(name: str, tracking_uri: str = "./mlruns"):

@@ -5,7 +5,8 @@ Port of ``tpuframe/track/registry.py``: the file registry, its layout
 ``aliases.yaml``) and ``models:/`` URIs as the JAX package writes and
 reads them.  :func:`load_model` reads ``model.msgpack`` with the port's
 ``ckpt.load_pytree`` (``torch.save`` bytes, ``track.mlflow_store``).
-``HttpModelRegistry`` waits for the HTTP store.
+:class:`HttpModelRegistry` is the JAX package's REST client of a stock
+MLflow server's registry, over ``track.http_store``.
 
 The reference registers Composer-trained models into Unity Catalog via
 ``MLFlowLogger(model_registry_uri='databricks-uc')`` and reloads them by
@@ -37,7 +38,8 @@ import yaml
 
 from tpuframe_torch.track.mlflow_store import Run, _model_tree, _now_ms, _write_yaml
 
-__all__ = ["ModelRegistry", "ModelVersion", "load_model", "parse_models_uri"]
+__all__ = ["HttpModelRegistry", "ModelRegistry", "ModelVersion", "load_model",
+           "parse_models_uri"]
 
 _MODELS_DIR = "models"
 _VERSION_PREFIX = "version-"
@@ -241,6 +243,88 @@ class ModelRegistry:
             self._require_version(name, int(ref))
             return int(ref)
         raise ValueError(f"unresolvable version reference {ref!r}")
+
+
+class HttpModelRegistry:
+    """The same registry surface against a stock MLflow server (REST 2.0
+    registered-models / model-versions / alias endpoints).
+
+    The server owns version numbering and artifact storage; versions
+    reference the run's artifact (``runs:/<run_id>/<path>``) rather than
+    snapshotting, which is MLflow's own server-side behavior.
+    """
+
+    def __init__(self, base_url: str, timeout_s: float = 30.0):
+        from tpuframe_torch.track.http_store import _Client
+
+        self._client = _Client(base_url, timeout_s=timeout_s)
+
+    def register_model(
+        self, run: Any, name: str, artifact_path: str = "model"
+    ) -> ModelVersion:
+        from tpuframe_torch.track.http_store import HttpError
+
+        try:
+            self._client.call(
+                "POST", "/api/2.0/mlflow/registered-models/create", {"name": name}
+            )
+        except HttpError as e:
+            if e.status != 400:  # RESOURCE_ALREADY_EXISTS comes back as 400
+                raise
+        run_id = getattr(run, "run_id", str(run))
+        source = f"runs:/{run_id}/{artifact_path}"
+        out = self._client.call(
+            "POST",
+            "/api/2.0/mlflow/model-versions/create",
+            {"name": name, "source": source, "run_id": run_id},
+        )["model_version"]
+        return ModelVersion(
+            name=name,
+            version=int(out["version"]),
+            run_id=run_id,
+            source=source,
+            path=source,
+            created_ms=int(out.get("creation_timestamp", 0)),
+        )
+
+    def set_alias(self, name: str, alias: str, version: int) -> None:
+        self._client.call(
+            "POST",
+            "/api/2.0/mlflow/registered-models/alias",
+            {"name": name, "alias": alias, "version": str(version)},
+        )
+
+    def get(self, name: str, ref: int | str = "latest") -> ModelVersion:
+        ref = str(ref)
+        if ref.startswith("@"):
+            out = self._client.call(
+                "GET",
+                "/api/2.0/mlflow/registered-models/alias"
+                f"?name={name}&alias={ref[1:]}",
+            )["model_version"]
+        elif ref == "latest":
+            out = self._client.call(
+                "POST",
+                "/api/2.0/mlflow/registered-models/get-latest-versions",
+                {"name": name},
+            )["model_versions"][0]
+        else:
+            out = self._client.call(
+                "GET",
+                f"/api/2.0/mlflow/model-versions/get?name={name}&version={ref}",
+            )["model_version"]
+        return ModelVersion(
+            name=name,
+            version=int(out["version"]),
+            run_id=out.get("run_id"),
+            source=out.get("source", ""),
+            path=out.get("source", ""),
+            created_ms=int(out.get("creation_timestamp", 0)),
+            aliases=tuple(out.get("aliases", ())),
+        )
+
+    def latest(self, name: str) -> ModelVersion:
+        return self.get(name, "latest")
 
 
 def parse_models_uri(uri: str) -> tuple[str, int | str]:

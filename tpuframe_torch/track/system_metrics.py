@@ -10,15 +10,13 @@ agent.
 
 Every sample is also mirrored into the telemetry registry as gauges
 (``system/cpu_util``, ``system/rss_mb``, ``system/device<i>_mem_used_mb``,
-``system/device<i>_mem_util``), and folded into the process-wide
-watermark gauges ``memory/hbm_peak_mb`` and ``memory/host_peak_mb``.
-``run=None`` runs the monitor registry-only.
-
-The JAX monitor takes its default interval and the watermark switch from
-``track/memory.py``'s ``TPUFRAME_MEMORY_SAMPLE_S`` (default 10 s) and
-``TPUFRAME_MEMORY_LIVE`` (default on).  That memory plane is not ported
-yet; this module keeps private copies of those two knobs' parsing and of
-the two gauges, and leaves out its ``memory/watermark`` event.
+``system/device<i>_mem_util``), and folded into the memory plane's
+process-wide watermarks (``track/memory.py``: the gauges
+``memory/hbm_peak_mb`` and ``memory/host_peak_mb``, and the ratcheted
+``memory/watermark`` event).  ``run=None`` runs the monitor
+registry-only.  The default interval is the memory plane's
+``TPUFRAME_MEMORY_SAMPLE_S`` (10 s), and ``TPUFRAME_MEMORY_LIVE`` (on)
+switches the watermarks.
 """
 
 from __future__ import annotations
@@ -66,51 +64,6 @@ def device_memory_stats() -> dict[str, float]:
     return out
 
 
-# -- the memory plane's knobs and watermark gauges (private copies) -----------
-
-_FALSY = ("0", "false", "no", "off", "disabled")
-_SAMPLE_S_DEFAULT = 10.0
-
-#: the two memory-plane knobs read here (``launch.all_env_vars`` ships
-#: them), until ``track/memory.py`` and its ``MEMORY_ENV_VARS`` land
-MEMORY_ENV_VARS = ("TPUFRAME_MEMORY_SAMPLE_S", "TPUFRAME_MEMORY_LIVE")
-_PEAK_LOCK = threading.Lock()
-_PEAKS = {"hbm_peak_mb": 0.0, "host_peak_mb": 0.0}
-
-
-def _memory_env(environ=None) -> dict:
-    """``TPUFRAME_MEMORY_SAMPLE_S`` (a float >= 0.1, default 10) and
-    ``TPUFRAME_MEMORY_LIVE`` (falsy words turn it off, default on), parsed
-    as ``track/memory.py``'s ``memory_env`` parses them: a malformed value
-    keeps the default."""
-    env = os.environ if environ is None else environ
-    out = {"TPUFRAME_MEMORY_SAMPLE_S": _SAMPLE_S_DEFAULT, "TPUFRAME_MEMORY_LIVE": True}
-    raw = env.get("TPUFRAME_MEMORY_SAMPLE_S", "").strip()
-    if raw:
-        try:
-            if float(raw) >= 0.1:
-                out["TPUFRAME_MEMORY_SAMPLE_S"] = float(raw)
-        except ValueError:
-            pass
-    raw = env.get("TPUFRAME_MEMORY_LIVE", "").strip().lower()
-    if raw:
-        out["TPUFRAME_MEMORY_LIVE"] = raw not in _FALSY
-    return out
-
-
-def _update_watermarks(device_stats: dict[str, float], rss_mb: float, registry) -> dict:
-    """Fold one sample into the process-wide peaks and set the
-    ``memory/hbm_peak_mb`` / ``memory/host_peak_mb`` gauges."""
-    hbm = max((v for k, v in device_stats.items() if k.endswith("_mem_used_mb")), default=0.0)
-    with _PEAK_LOCK:
-        _PEAKS["host_peak_mb"] = max(_PEAKS["host_peak_mb"], rss_mb)
-        _PEAKS["hbm_peak_mb"] = max(_PEAKS["hbm_peak_mb"], hbm)
-        snap = dict(_PEAKS)
-    registry.gauge("memory/hbm_peak_mb").set(snap["hbm_peak_mb"])
-    registry.gauge("memory/host_peak_mb").set(snap["host_peak_mb"])
-    return snap
-
-
 class SystemMetricsMonitor:
     """Daemon thread logging system metrics every ``interval_s``.
 
@@ -127,7 +80,9 @@ class SystemMetricsMonitor:
                  prefix: str = "system/", registry=None):
         self.run = run
         if interval_s is None:
-            interval_s = _memory_env()["TPUFRAME_MEMORY_SAMPLE_S"]
+            from tpuframe_torch.track.memory import memory_env
+
+            interval_s = memory_env()["TPUFRAME_MEMORY_SAMPLE_S"]
         self.interval_s = interval_s
         self.prefix = prefix
         self.registry = registry
@@ -166,8 +121,11 @@ class SystemMetricsMonitor:
         reg.gauge("system/rss_mb").set(rss)
         for k, v in devices.items():
             reg.gauge(f"system/{k}").set(v)
-        if _memory_env()["TPUFRAME_MEMORY_LIVE"]:
-            _update_watermarks(devices, rss, reg)
+        # the memory plane: this sample into the process-wide watermarks
+        from tpuframe_torch.track.memory import memory_env, update_watermarks
+
+        if memory_env()["TPUFRAME_MEMORY_LIVE"]:
+            update_watermarks(devices, rss, registry=reg)
         return metrics
 
     def _publish(self) -> None:

@@ -51,6 +51,7 @@ __all__ = [
     "get_telemetry",
     "publish_to_loggers",
     "reset",
+    "start_metrics_server",
 ]
 
 #: the JSONL record shape, shared with the JAX package
@@ -58,13 +59,15 @@ SCHEMA_VERSION = 1
 
 #: the observability and fault knobs the port reads, shipped by the remote
 #: launcher to every host (``launch.all_env_vars``): the JAX package's list
-#: less the straggler and serving-fleet knobs, which nothing in the port
-#: reads yet
+#: less the telemetry file's rotation, which the port does not do
 OBSERVABILITY_ENV_VARS = (
     "TPUFRAME_TELEMETRY_DIR",
     "TPUFRAME_WATCHDOG_S",
     "TPUFRAME_WATCHDOG_DEADLINES",
+    "TPUFRAME_STRAGGLER_STEPS",
+    "TPUFRAME_STRAGGLER_FACTOR",
     "TPUFRAME_PREEMPT_SIGNALS",
+    "TPUFRAME_FLEET_TIMEOUT_S",
 )
 
 
@@ -579,3 +582,11 @@ class MetricsExportCallback:
         snap = get_telemetry().registry.snapshot(prefix=self.prefix)
         if snap:
             trainer._log_metrics(snap, step=epoch)
+
+
+def start_metrics_server(port: int = 0, registry: MetricsRegistry | None = None):
+    """Serve ``/metrics`` (Prometheus text) from a daemon thread; returns
+    the ``track.http_store.MetricsServer`` (``.port``, ``.url``, ``.close()``)."""
+    from tpuframe_torch.track.http_store import MetricsServer
+
+    return MetricsServer(registry=registry, port=port)

@@ -48,10 +48,14 @@ past ``skip_batches``.
 EMA: ``ema_decay`` wraps the optimizer with ``train.ema.with_ema``, and
 evaluate and predict read the average (the JAX ``_serving_state``).
 
-What this reduced Trainer does not do yet, each raising
-``NotImplementedError`` that names the slice which ports it: straggler
-detection (``straggler_sync_steps``, ``straggler_factor``).  ``tx`` takes
-an ``OptimizerSpec`` in place of an optax transform (``ops.fused_adamw``
+Tracking (``tpuframe_torch.track``), where the JAX Trainer has it: the
+straggler monitor (``straggler_sync_steps``, ``straggler_factor``: a
+step-time EWMA a rank, compared across the fleet, ``train/straggler`` and
+``train/skew_ratio``), an env-armed ``ProfilerCallback``
+(``TPUFRAME_PROFILE_STEPS``), the memory plane's context at fit start, a
+``memory/oom`` event before an allocation failure of a step or of the
+precompile propagates, and a ``memory/executable`` record of each
+precompiled step.  ``tx`` takes an ``OptimizerSpec`` in place of an optax transform (``ops.fused_adamw``
 returns one).  The model arrives initialized, on its device (torch
 idiom); ``models.from_jax_variables`` carries JAX weights in.
 
@@ -102,6 +106,8 @@ from tpuframe_torch.ops.normalize import normalize_images
 from tpuframe_torch.parallel.compression import CommsConfig, init_comms_state
 from tpuframe_torch.parallel.precision import Policy, align_model_dtype, get_policy
 from tpuframe_torch.parallel.sharding import ParallelPlan
+from tpuframe_torch.track import memory as _memory
+from tpuframe_torch.track.analyze import StragglerMonitor
 from tpuframe_torch.track.telemetry import get_telemetry
 from tpuframe_torch.train.algorithms import Algorithm, apply_algorithms, resolve_algorithms
 from tpuframe_torch.train.callbacks import Callback
@@ -137,11 +143,6 @@ class FitResult:
     def __repr__(self):
         return (f"FitResult(metrics={self.metrics}, checkpoint={self.checkpoint!r}, "
                 f"error={self.error!r}, stopped={self.stopped_reason!r})")
-
-
-def _later(arg: str, where: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"Trainer({arg}=...) is not ported yet; it comes with {where} (ROADMAP.md, Queue 1)")
 
 
 class Trainer:
@@ -244,12 +245,6 @@ class Trainer:
         precompile: bool | None = None,
         health: Any = None,
     ):
-        for arg, value, where in (
-            ("straggler_sync_steps", straggler_sync_steps, "the platform planes (track)"),
-            ("straggler_factor", straggler_factor, "the platform planes (track)"),
-        ):
-            if value is not None:
-                raise _later(arg, where)
         if preempt_sync_steps < 1:
             raise ValueError(f"preempt_sync_steps must be >= 1, got {preempt_sync_steps}")
         if (preemption is not None and not isinstance(preemption, bool)
@@ -281,6 +276,17 @@ class Trainer:
         self.eval_dataloader = eval_dataloader
         self.max_duration = Duration.parse(max_duration)
         self.callbacks = list(callbacks)
+        # env-armed sampled profiler capture: a launch that ships
+        # TPUFRAME_PROFILE_* gets bounded device-time evidence with no
+        # code change; an explicitly passed ProfilerCallback keeps
+        # authority over its own cadence
+        if os.environ.get("TPUFRAME_PROFILE_STEPS", "").strip():
+            from tpuframe_torch.track.profiler import ProfilerCallback
+
+            if not any(isinstance(cb, ProfilerCallback) for cb in self.callbacks):
+                env_profiler = ProfilerCallback.from_env()
+                if env_profiler is not None:
+                    self.callbacks.append(env_profiler)
         self.loggers = list(loggers)
         self.loss_fn = loss_fn
         self.seed = seed
@@ -293,6 +299,10 @@ class Trainer:
         self.eval_interval = eval_interval
         self.log_interval = log_interval
         self.report = report
+        # live slow-rank detection: run-scoped (the EWMA and the
+        # self-baseline window persist across epochs)
+        self._straggler = StragglerMonitor(sync_steps=straggler_sync_steps,
+                                           factor=straggler_factor)
         self.precompile_enabled = precompile_enabled(precompile)
         self._precompile_thread: threading.Thread | None = None
         self._precompile_report: dict | None = None
@@ -718,6 +728,8 @@ class Trainer:
                     train=train, planned_steps=_planned_total_steps(
                         self.max_duration, self.train_dataloader))
                 entry["wall_s"] = round(time.perf_counter() - t1, 6)
+                # the memory plane's record of the captured step (never raises)
+                _memory.record_executable_memory(exe)
                 entry["graphed"] = exe.graphed
                 entry["warmup_launches"] = exe.warmup_launches
                 self._compiled[(kind, sig)] = exe
@@ -725,6 +737,9 @@ class Trainer:
             except PrecompileSkipped as e:
                 entry["skipped"] = str(e)
             except Exception as e:
+                # an OOM while compiling or capturing gets the forensics
+                # event; the precompile still degrades to the eager step
+                _memory.maybe_oom_event(e, where="precompile")
                 entry["error"] = f"{type(e).__name__}: {e}"[:300]
                 tele.event("compile/precompile_error", step_kind=kind, error=entry["error"])
             report["steps"].append(entry)
@@ -837,6 +852,7 @@ class Trainer:
         if self.checkpointer is not None:
             self._resume()
         self._skip_batches()
+        self._memory_context()
         if self.precompile_enabled:
             # started after the restore: the executables see its state
             self.precompile(wait=False)
@@ -883,6 +899,32 @@ class Trainer:
                     lg.flush()
         return result
 
+    def _memory_context(self) -> None:
+        """Register the plan and the state's shapes with the memory plane
+        (``track.memory.set_context``), so an OOM anywhere in this fit can
+        attribute bytes and suggest the nearest plan that fits.  The
+        templates are ``(shape, dtype)`` pairs: the process-wide context
+        must not keep a finished fit's tensors alive.  The optimizer's
+        slots are priced as Adam's two a parameter (``plan_memory``'s
+        default) where its state is not built yet."""
+        def spec(tree: Mapping) -> dict:
+            return {str(k): (tuple(v.shape), v.dtype) for k, v in tree.items()
+                    if torch.is_tensor(v)}
+
+        try:
+            batch_template = loader_batch_template(self, train=True)
+        except Exception:
+            batch_template = None
+        opt = getattr(self.state.optimizer, "state", None) or None
+        _memory.set_context(
+            plan=self.plan,
+            model_template=spec(dict(self.model.named_parameters())),
+            batch_spec=batch_template,
+            opt_template={str(i): spec(v) for i, v in enumerate(opt.values())} if opt else None,
+            comms_template=spec(self.state.comms) if self.state.comms else None,
+            microbatches=self.grad_accum,
+        )
+
     def _done(self) -> bool:
         return self.max_duration.reached(
             epoch=self.epoch, batch=self.batches_seen, samples=self.samples_seen)
@@ -921,6 +963,9 @@ class Trainer:
             return out
 
         batches = iter(self._device_batches(self.train_dataloader, train=True))
+        # straggler boundary: the gap back to the previous epoch (eval, the
+        # epoch-end checkpoint) must not read as one slow step
+        self._straggler.mark()
         try:
             while True:
                 # where a worker-pool or shard-fetch failure surfaces
@@ -934,15 +979,26 @@ class Trainer:
                 if self._done() or self._stop_reason is not None:
                     break
                 self._emit("on_step_start")
-                chaos.maybe_fire("step", step=self.batches_seen)
-                with tele.span("train/step", batch=self.batches_seen,
-                               data_wait_s=round(wait_s, 6)) as sp, tele.guard("train/step"):
-                    self.state, metrics = self._step_call("train", self._train_step,
-                                                          self.state, batch)
+                try:
+                    chaos.maybe_fire("step", step=self.batches_seen)
+                    with tele.span("train/step", batch=self.batches_seen,
+                                   data_wait_s=round(wait_s, 6)) as sp, \
+                            tele.guard("train/step"):
+                        self.state, metrics = self._step_call("train", self._train_step,
+                                                              self.state, batch)
+                except Exception as e:
+                    # OOM forensics: an allocation failure (the chaos OomAt
+                    # fires here too) becomes one memory/oom event with the
+                    # attribution table and the fit ladder; it re-raises
+                    _memory.maybe_oom_event(e, where="step", step=self.batches_seen)
+                    raise
                 dispatch += sp.elapsed
                 self.batches_seen += 1
                 self.samples_seen += self.train_dataloader.global_batch_size
                 self._meter_comms(tele)
+                # boundary-to-boundary step time: charges whatever slowed
+                # this rank (wait, dispatch, snapshot, callback)
+                self._straggler.observe()
                 # may raise Divergence before the snapshot would save a doomed state
                 self._health_step(metrics)
                 self._maybe_snapshot()
